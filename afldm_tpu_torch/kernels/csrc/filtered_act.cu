@@ -1,0 +1,223 @@
+// Filtered activation (the alias-free "warped nonlinearity") for Hopper, f32.
+//
+//   out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ      for every (n, c) plane of NCHW x
+//
+// U (2N×N) is the ideal 2x upsampling operator and D (N×2N) the ideal
+// low-pass + decimate operator, both dense circulant, built on the host
+// (afldm_tpu_torch/ops/ideal_lpf.py) and passed in; the W-side operators
+// arrive transposed (U_wᵀ: W×2W, D_wᵀ: 2W×W) so every product below reads
+// row-major operands.
+//
+// Replaces:
+//   filtered_act_plane  <- afldm_tpu/ops/pallas_kernels.py::_forward (K5)
+//   filtered_act_banded <- afldm_tpu/ops/pallas_kernels.py::_forward_spatial (K1)
+//
+// What bounds it on this card: arithmetic. A plane of side S costs
+// 24·S³ FLOP (four products) against 8·S² bytes of input and output, so at
+// 32-128 px it does 100-400 FLOP per byte, far above the f32 ridge of
+// 67 TFLOP/s ÷ 3.35 TB/s ≈ 20. Without tensor cores (exact f32 is the
+// parity default) the ceiling is the f32 FMA rate.
+//
+// What the design does about it: the 2H×2W intermediate never leaves the
+// SM, so device memory sees each input and output once; each thread keeps
+// a 4×4 register tile of its product so one pair of operand loads feeds
+// 16 FMAs. The TPU's lane-multiple-of-128 and 10 MB VMEM rules do not
+// apply here: the limit is the 227 KB of shared memory of a block.
+//   * plane (H, W <= 64): one block holds P whole planes (P·24·H·W bytes:
+//     the input staged inside the 2x intermediate, which it outlives, plus a
+//     2H×W half-resampled buffer). Small planes are packed P to a block so
+//     that 256 threads have work.
+//   * banded (96-512 px): at 128 px the 2x plane alone is 256 KB, over the
+//     limit. The 2H intermediate rows are walked in bands of R rows:
+//       u = U_h[r,:]·x ;  h = act(u·U_wᵀ) ;  t = h·D_wᵀ ;  acc += D_h[:,r]·t
+//     so only R×3W floats of intermediate live in shared memory. The H×W
+//     accumulator stays in shared memory up to 64 KB (128 px); above that it
+//     accumulates in the output plane itself, which only this block touches.
+//     x is read from device memory (L1/L2-resident) once per band.
+// Operators are read through the read-only path from device memory; every
+// block reads the same few KB, which stay in L2 and L1.
+// Making it fast (tensor-core TF32 splits, wgmma, TMA) is later work.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+enum Act { SILU = 0, GELU = 1, RELU = 2, MISH = 3, LEAKY_RELU = 4, TANH = 5,
+           LINEAR = 6, NONE = -1 };
+
+__device__ __forceinline__ float apply_act(float v, int act) {
+  switch (act) {
+    case SILU: return v / (1.0f + expf(-v));
+    case GELU: {  // tanh approximation, as in the JAX package
+      const float c = 0.7978845608028654f;
+      return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
+    }
+    case RELU: return fmaxf(v, 0.0f);
+    case MISH: {
+      float sp = v > 20.0f ? v : log1pf(expf(v));
+      return v * tanhf(sp);
+    }
+    case LEAKY_RELU: return v >= 0.0f ? v : 0.2f * v;
+    case TANH: return tanhf(v);
+    default: return v;
+  }
+}
+
+// C[p] (= or +=) act(A[p] · B[p]) for p < P, all row-major with leading
+// dimensions lda/ldb/ldc and per-plane strides sA/sB/sC (0: shared by all
+// planes). M and N are multiples of 4. Thread t owns the 4×4 tile of rows
+// {tm + i·M/4} and cols {tn + j·N/4}: neighbouring threads read
+// neighbouring B columns (conflict-free, coalesced) and mostly the same A
+// element (a broadcast).
+template <bool ACCUM>
+__device__ __forceinline__ void block_gemm(
+    const float* __restrict__ A, int lda, long long sA,
+    const float* __restrict__ B, int ldb, long long sB,
+    float* __restrict__ C, int ldc, long long sC,
+    int P, int M, int N, int K, int act) {
+  const int tm_n = M >> 2, tn_n = N >> 2;
+  const int tiles = tm_n * tn_n;
+  for (int t = threadIdx.x; t < P * tiles; t += blockDim.x) {
+    const int p = t / tiles;
+    const int r = t - p * tiles;
+    const int tm = r / tn_n, tn = r - tm * tn_n;
+    const float* a = A + p * sA + (long long)tm * lda;
+    const float* b = B + p * sB + tn;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    const long long a_step = (long long)tm_n * lda;
+    for (int k = 0; k < K; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a[i * a_step + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = b[(long long)k * ldb + j * tn_n];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    float* c = C + p * sC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long idx = (long long)(tm + i * tm_n) * ldc + tn + j * tn_n;
+        const float v = act == NONE ? acc[i][j] : apply_act(acc[i][j], act);
+        if (ACCUM) c[idx] += v; else c[idx] = v;
+      }
+    }
+  }
+}
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          const float* __restrict__ uh,
+                          const float* __restrict__ uwT,
+                          const float* __restrict__ dh,
+                          const float* __restrict__ dwT,
+                          int nplanes, int H, int W, int ppb, int act) {
+  extern __shared__ float smem[];
+  const long long HW = (long long)H * W;
+  const long long p0 = (long long)blockIdx.x * ppb;
+  const int P = min((long long)ppb, nplanes - p0);
+  float* hi = smem;               // P × (2H×2W); x is staged here first
+  float* t = smem + ppb * 4 * HW;  // P × (2H×W)
+  const float* xg = x + p0 * HW;
+  for (long long i = threadIdx.x; i < P * HW; i += blockDim.x) hi[i] = xg[i];
+  __syncthreads();
+  // t = U_h · x                      (2H × W)
+  block_gemm<false>(uh, H, 0, hi, W, HW, t, W, 2 * HW, P, 2 * H, W, H, NONE);
+  __syncthreads();
+  // hi = act(t · U_wᵀ)               (2H × 2W); overwrites the staged x
+  block_gemm<false>(t, W, 2 * HW, uwT, 2 * W, 0, hi, 2 * W, 4 * HW, P, 2 * H,
+                    2 * W, W, act);
+  __syncthreads();
+  // t = hi · D_wᵀ                    (2H × W)
+  block_gemm<false>(hi, 2 * W, 4 * HW, dwT, W, 0, t, W, 2 * HW, P, 2 * H, W,
+                    2 * W, NONE);
+  __syncthreads();
+  // out = D_h · t                    (H × W), straight to device memory
+  block_gemm<false>(dh, 2 * H, 0, t, W, 2 * HW, out + p0 * HW, W, HW, P, H, W,
+                    2 * H, NONE);
+}
+
+__global__ void __launch_bounds__(kThreads)
+filtered_act_banded_kernel(const float* __restrict__ x, float* __restrict__ out,
+                           const float* __restrict__ uh,
+                           const float* __restrict__ uwT,
+                           const float* __restrict__ dh,
+                           const float* __restrict__ dwT,
+                           int H, int W, int R, int acc_in_smem, int act) {
+  extern __shared__ float smem[];
+  const long long HW = (long long)H * W;
+  const float* xp = x + blockIdx.x * HW;
+  float* op = out + blockIdx.x * HW;
+  float* u = smem;                  // R × W, reused for t
+  float* hb = smem + R * W;         // R × 2W
+  float* acc = acc_in_smem ? hb + 2 * R * W : op;  // H × W
+  for (long long i = threadIdx.x; i < HW; i += blockDim.x) acc[i] = 0.0f;
+  __syncthreads();
+  for (int r0 = 0; r0 < 2 * H; r0 += R) {
+    // u = U_h[r0:r0+R, :] · x        (R × W)
+    block_gemm<false>(uh + (long long)r0 * H, H, 0, xp, W, 0, u, W, 0, 1, R,
+                      W, H, NONE);
+    __syncthreads();
+    // hb = act(u · U_wᵀ)             (R × 2W)
+    block_gemm<false>(u, W, 0, uwT, 2 * W, 0, hb, 2 * W, 0, 1, R, 2 * W, W,
+                      act);
+    __syncthreads();
+    // u = hb · D_wᵀ                  (R × W)
+    block_gemm<false>(hb, 2 * W, 0, dwT, W, 0, u, W, 0, 1, R, W, 2 * W, NONE);
+    __syncthreads();
+    // acc += D_h[:, r0:r0+R] · u     (H × W)
+    block_gemm<true>(dh + r0, 2 * H, 0, u, W, 0, acc, W, 0, 1, H, W, R, NONE);
+    __syncthreads();
+  }
+  if (acc_in_smem)
+    for (long long i = threadIdx.x; i < HW; i += blockDim.x) op[i] = acc[i];
+}
+
+int set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace
+
+extern "C" int filtered_act_plane_f32(const float* x, float* out,
+                                      const float* uh, const float* uwT,
+                                      const float* dh, const float* dwT,
+                                      int nplanes, int H, int W, int ppb,
+                                      int act, void* stream) {
+  const size_t smem = (size_t)ppb * 6 * H * W * sizeof(float);
+  int err = set_smem((const void*)filtered_act_plane_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (nplanes + ppb - 1) / ppb;
+  filtered_act_plane_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      x, out, uh, uwT, dh, dwT, nplanes, H, W, ppb, act);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int filtered_act_banded_f32(const float* x, float* out,
+                                       const float* uh, const float* uwT,
+                                       const float* dh, const float* dwT,
+                                       int nplanes, int H, int W, int R,
+                                       int acc_in_smem, int act,
+                                       void* stream) {
+  const size_t smem =
+      ((size_t)3 * R * W + (acc_in_smem ? (size_t)H * W : 0)) * sizeof(float);
+  int err = set_smem((const void*)filtered_act_banded_kernel, smem);
+  if (err != cudaSuccess) return err;
+  filtered_act_banded_kernel<<<nplanes, kThreads, smem,
+                               (cudaStream_t)stream>>>(
+      x, out, uh, uwT, dh, dwT, H, W, R, acc_in_smem, act);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,306 @@
+"""Ideal (rect) low-pass filtering, FFT resampling and sub-pixel shifts, NCHW.
+
+PyTorch counterpart of ``afldm_tpu/ops/ideal_lpf.py``: the same rect masks
+(with the N % 4 band-edge rules), the same three resampling chains
+(dense circulant ``matmul``, exact ``spectral`` zero-pad / fold, literal
+``ref`` zero-stuff) and the same fallback rules. Spatial axes are the last
+two. FFTs and circulant products run in float32 and the input dtype is
+restored on the way out.
+
+Precision: ``set_af_precision("highest")`` (the default) keeps every
+float32 product exact on the card by switching TF32 off for both matmuls
+and cuDNN convolutions.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Rect mask construction (numpy, built once per size)
+# ---------------------------------------------------------------------------
+
+
+def _rect_1d(N: int, cutoff: float, edge_value: float) -> np.ndarray:
+    """1D full-FFT rect mask. ``edge_value`` is used at the band-edge bins
+    when ``N % 4 == 0`` (0.0 for the analysis LPF, 0.5 for reconstruction)."""
+    cutoff_low = int((N * cutoff) // 2)
+    cutoff_high = int(N - cutoff_low)
+    rect = np.ones(N, dtype=np.float32)
+    rect[cutoff_low + 1: cutoff_high] = 0.0
+    if N % 4 == 0:
+        rect[cutoff_low] = edge_value
+        rect[cutoff_high % N] = edge_value
+    return rect
+
+
+def create_lpf_rect(N: int, cutoff: float = 0.5) -> np.ndarray:
+    """2D ideal low-pass rect mask (full-FFT layout)."""
+    r = _rect_1d(N, cutoff, edge_value=0.0)
+    return r[:, None] * r[None, :]
+
+
+def create_fixed_lpf_rect(N: int, size: int) -> np.ndarray:
+    """Rect with a fixed passband of ``size`` bins."""
+    rect = np.ones(N, dtype=np.float32)
+    if size < N:
+        cutoff_low = size // 2
+        cutoff_high = int(N - cutoff_low)
+        rect[cutoff_low + 1: cutoff_high] = 0.0
+    return rect[:, None] * rect[None, :]
+
+
+def create_recon_rect(N: int, cutoff: float = 0.5) -> np.ndarray:
+    """Reconstruction rect (band edges 0.5 when N % 4 == 0)."""
+    r = _rect_1d(N, cutoff, edge_value=0.5)
+    return r[:, None] * r[None, :]
+
+
+def _rect_masks_2d(H: int, W: int, cutoff: float, edge: float) -> np.ndarray:
+    """Separable (H, W//2+1) rfft2-layout mask for possibly non-square input."""
+    rh = _rect_1d(H, cutoff, edge)
+    rw = _rect_1d(W, cutoff, edge)[: W // 2 + 1]
+    return rh[:, None] * rw[None, :]
+
+
+def _masked_rfft_filter(x: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
+    H, W = x.shape[-2:]
+    X = torch.fft.rfft2(x.float())
+    X = X * torch.from_numpy(mask).to(x.device)
+    return torch.fft.irfft2(X, s=(H, W)).to(x.dtype)
+
+
+def lpf_rfft(x: torch.Tensor, cutoff: float = 0.5,
+             fixed_size: int | None = None) -> torch.Tensor:
+    """Ideal low-pass via rfft2 over the last two axes; the mask is built
+    per axis so non-square inputs are exact."""
+    H, W = x.shape[-2:]
+    if fixed_size is not None:
+        rh = create_fixed_lpf_rect(H, fixed_size)[:, 0]
+        rw = create_fixed_lpf_rect(W, fixed_size)[0, : W // 2 + 1]
+        mask = rh[:, None] * rw[None, :]
+    else:
+        mask = _rect_masks_2d(H, W, cutoff, edge=0.0)
+    return _masked_rfft_filter(x, mask)
+
+
+def lpf_recon_rfft(x: torch.Tensor, cutoff: float = 0.5) -> torch.Tensor:
+    """Reconstruction low-pass (band edges 0.5)."""
+    H, W = x.shape[-2:]
+    return _masked_rfft_filter(x, _rect_masks_2d(H, W, cutoff, edge=0.5))
+
+
+# ---------------------------------------------------------------------------
+# Spectral zero-pad upsampling and spectral-fold downsampling (exact)
+# ---------------------------------------------------------------------------
+
+# Largest edge served by the dense circulant operators; the FFT chains take
+# over above it (the same rule as the JAX package, so both pick the same
+# arithmetic for every shape).
+_MATMUL_MAX_SIZE = 1024
+
+
+def _spectral_pad(X: torch.Tensor, H: int, W: int, up: int) -> torch.Tensor:
+    """rfft2 spectrum (..., H, W//2+1) -> spectrum of the ``up``x
+    zero-stuffed, reconstruction-filtered, ``up**2``-scaled signal."""
+    Wr = X.shape[-1]
+    H2, W2 = H * up, W * up
+    hh, hw = H // 2, W // 2
+    row_scale = np.full(H, float(up * up), dtype=np.float32)
+    row_scale[hh] *= 0.5
+    col_scale = np.ones(Wr, dtype=np.float32)
+    col_scale[hw] = 0.5
+    Xs = X * torch.from_numpy(row_scale[:, None] * col_scale[None, :]).to(X.device)
+    top = Xs[..., : hh + 1, :]
+    bot = Xs[..., hh:H, :]
+    mid = X.new_zeros(X.shape[:-2] + (H2 - H - 1, Wr))
+    Y = torch.cat([top, mid, bot], dim=-2)
+    return F.pad(Y, (0, W2 // 2 + 1 - Wr))
+
+
+def _spectral_fold(X: torch.Tensor, H: int, W: int, down: int) -> torch.Tensor:
+    """rfft2 spectrum at (H, W) -> spectrum of
+    ``lpf_rfft(y, 1/down)[..., ::down, ::down]``."""
+    Ho, Wo = H // down, W // down
+    hh, hw = Ho // 2, Wo // 2
+    top = X[..., :hh, :]
+    bot = X[..., H - hh + 1: H, :]
+    zero_row = X.new_zeros(X.shape[:-2] + (1, X.shape[-1]))
+    Y = torch.cat([top, zero_row, bot], dim=-2)[..., : hw + 1]
+    col_scale = np.full(hw + 1, 1.0 / (down * down), dtype=np.float32)
+    col_scale[hw] = 0.0
+    return Y * torch.from_numpy(col_scale).to(X.device)
+
+
+def upsample_rfft(x: torch.Tensor, up: int = 2, factor: int = 1,
+                  impl: str = "matmul") -> torch.Tensor:
+    """Ideal (sinc) upsampling by integer ``up`` over the last two axes.
+
+    ``matmul`` applies dense circulant operators, ``spectral`` pads the
+    spectrum, ``ref`` zero-stuffs and filters literally (and alone handles
+    odd sizes and ``factor != 1``)."""
+    if up == 1:
+        return x
+    H, W = x.shape[-2:]
+    even = H % 2 == 0 and W % 2 == 0 and up % 2 == 0
+    if (impl == "matmul" and factor == 1 and even
+            and max(H, W) * up <= _MATMUL_MAX_SIZE):
+        return _apply_sep(x, _op("up", H, up, x.device),
+                          _op("up", W, up, x.device))
+    if impl in ("spectral", "matmul") and factor == 1 and even:
+        X = torch.fft.rfft2(x.float())
+        Y = _spectral_pad(X, H, W, up)
+        return torch.fft.irfft2(Y, s=(H * up, W * up)).to(x.dtype)
+    z = x.new_zeros(x.shape[:-2] + (H, up, W, up))
+    z[..., :, 0, :, 0] = x
+    z = z.reshape(x.shape[:-2] + (H * up, W * up))
+    return lpf_recon_rfft(z, cutoff=factor / up) * (up * up)
+
+
+def downsample_rfft(x: torch.Tensor, down: int = 2,
+                    impl: str = "matmul") -> torch.Tensor:
+    """Ideal low-pass then decimate: ``lpf_rfft(x, 1/down)[..., ::down, ::down]``."""
+    H, W = x.shape[-2:]
+    ok = H % (2 * down) == 0 and W % (2 * down) == 0
+    if impl == "matmul" and ok and max(H, W) <= _MATMUL_MAX_SIZE:
+        return _apply_sep(x, _op("down", H, down, x.device),
+                          _op("down", W, down, x.device))
+    if impl in ("spectral", "matmul") and ok:
+        X = torch.fft.rfft2(x.float())
+        Y = _spectral_fold(X, H, W, down)
+        return torch.fft.irfft2(Y, s=(H // down, W // down)).to(x.dtype)
+    return lpf_rfft(x, cutoff=1.0 / down)[..., ::down, ::down]
+
+
+def subpixel_shift(images: torch.Tensor, up: int = 2, shift_x: int = 1,
+                   shift_y: int = 1) -> torch.Tensor:
+    """Fractional shift by (shift_x/up, shift_y/up) of (H, W): ideal
+    upsample, roll by (-shift_x, -shift_y), decimate."""
+    up_img = upsample_rfft(images, up=up)
+    rolled = torch.roll(up_img, shifts=(-shift_x, -shift_y), dims=(-2, -1))
+    return rolled[..., ::up, ::up]
+
+
+# ---------------------------------------------------------------------------
+# Filtered (warped) nonlinearity: 2x oversample -> act -> LPF -> decimate
+# ---------------------------------------------------------------------------
+
+def _mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+_ACTS = {
+    "silu": F.silu,
+    "swish": F.silu,
+    # the JAX package's gelu is the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "mish": _mish,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.2),
+    "tanh": torch.tanh,
+    "linear": lambda x: x,
+}
+
+
+def filtered_act_matmul(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The sandwich with dense circulant operators on both axes:
+    ``D_h act(U_h x U_w^T) D_w^T``. Needs H, W % 4 == 0."""
+    H, W = x.shape[-2:]
+    dev = x.device
+    hi = _apply_sep(x, _op("up", H, 2, dev), _op("up", W, 2, dev))
+    hi = _ACTS[act](hi)
+    return _apply_sep(hi, _op("down", 2 * H, 2, dev),
+                      _op("down", 2 * W, 2, dev))
+
+
+def filtered_nonlinearity(x: torch.Tensor, act: str = "silu",
+                          impl: str = "matmul") -> torch.Tensor:
+    """2x oversample -> act -> ideal LPF(1/2) -> decimate. Tensors below 4D
+    get the plain activation. Fallback chain: matmul when H, W % 4 == 0 and
+    2*max(H, W) <= 1024, spectral when % 4 == 0, otherwise ref."""
+    act_fn = _ACTS[act]
+    if x.ndim < 4:
+        return act_fn(x)
+    H, W = x.shape[-2:]
+    if (impl == "matmul" and H % 4 == 0 and W % 4 == 0
+            and 2 * max(H, W) <= _MATMUL_MAX_SIZE):
+        return filtered_act_matmul(x, act)
+    if impl in ("spectral", "matmul") and H % 4 == 0 and W % 4 == 0:
+        X = torch.fft.rfft2(x.float())
+        hi = torch.fft.irfft2(_spectral_pad(X, H, W, 2), s=(H * 2, W * 2))
+        hi = act_fn(hi)
+        Z = _spectral_fold(torch.fft.rfft2(hi), H * 2, W * 2, 2)
+        return torch.fft.irfft2(Z, s=(H, W)).to(x.dtype)
+    x = upsample_rfft(x, up=2, impl="ref")
+    x = act_fn(x)
+    x = lpf_rfft(x, cutoff=0.5)
+    return x[..., ::2, ::2]
+
+
+# ---------------------------------------------------------------------------
+# Dense circulant operators, built once per size by applying the exact
+# spectral algorithms to identity signals
+# ---------------------------------------------------------------------------
+
+_NP_OPS = {}
+_DEV_OPS = {}
+
+
+def _upsample_op(N: int, up: int = 2) -> np.ndarray:
+    """(up*N, N) ideal zero-pad upsampling operator (1D)."""
+    key = ("up", N, up)
+    if key not in _NP_OPS:
+        X = np.fft.rfft(np.eye(N, dtype=np.float32), axis=0)
+        hh = N // 2
+        scale = np.full(hh + 1, float(up), np.float32)
+        scale[hh] *= 0.5
+        Xs = X * scale[:, None]
+        Y = np.zeros((up * N // 2 + 1, N), np.complex64)
+        Y[: hh + 1] = Xs
+        _NP_OPS[key] = np.fft.irfft(Y, n=up * N, axis=0).astype(np.float32)
+    return _NP_OPS[key]
+
+
+def _downsample_op(N: int, down: int = 2) -> np.ndarray:
+    """(N//down, N) ideal LPF + decimate operator (1D)."""
+    key = ("down", N, down)
+    if key not in _NP_OPS:
+        X = np.fft.rfft(np.eye(N, dtype=np.float32), axis=0)
+        No = N // down
+        hh = No // 2
+        Y = np.zeros((No // 2 + 1, N), np.complex64)
+        Y[:hh] = X[:hh] / down
+        _NP_OPS[key] = np.fft.irfft(Y, n=No, axis=0).astype(np.float32)
+    return _NP_OPS[key]
+
+
+def _op(kind: str, N: int, factor: int, device) -> torch.Tensor:
+    """The numpy operator as a float32 tensor on ``device``, cached per
+    (kind, N, factor, device)."""
+    key = (kind, N, factor, torch.device(device))
+    if key not in _DEV_OPS:
+        build = _upsample_op if kind == "up" else _downsample_op
+        _DEV_OPS[key] = torch.from_numpy(build(N, factor)).to(device)
+    return _DEV_OPS[key]
+
+
+def _apply_sep(x: torch.Tensor, op_h: torch.Tensor,
+               op_w: torch.Tensor) -> torch.Tensor:
+    """y = op_h @ x @ op_w^T over the last two axes, in float32."""
+    y = torch.matmul(op_h, x.float())
+    return torch.matmul(y, op_w.T).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Precision
+# ---------------------------------------------------------------------------
+
+def set_af_precision(p: str = "highest"):
+    """'highest' (the default and the only level so far): exact float32,
+    i.e. TF32 off for matmuls and for cuDNN convolutions. 'high' and
+    'default' wait for an accuracy check of their own."""
+    if p != "highest":
+        raise ValueError(f"af_precision {p!r} is not supported yet; "
+                         "only 'highest'")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,107 @@
+"""Unconditional latent-diffusion pipeline, NCHW. Counterpart of
+``afldm_tpu/pipelines/ldm.py``: the denoising loop is a Python loop over
+(t, t_prev), and cross-frame attention is an explicit per-step list of the
+maps each attention layer stored (STORE) or reads (LOAD).
+"""
+
+import numpy as np
+import torch
+
+from ..models.unet2d import UNet2DModel
+from ..models.vae import AutoencoderKL, gaussian_sample
+from ..schedulers.ddim import DDIMScheduler
+
+
+class LDMPipeline:
+    """Bundles (vae, unet, scheduler); all methods run under
+    ``torch.inference_mode`` on the device of the UNet's parameters."""
+
+    def __init__(self, vae: AutoencoderKL, unet: UNet2DModel,
+                 scheduler: DDIMScheduler, scaling_factor: float = None):
+        self.vae = vae
+        self.unet = unet
+        self.scheduler = scheduler
+        self.scaling_factor = (scaling_factor if scaling_factor is not None
+                               else vae.config.scaling_factor)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.unet.parameters()).device
+
+    # -- VAE -------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def encode(self, images, generator=None):
+        """image -> scaled latent; samples the posterior when a generator
+        is given, else takes its mean."""
+        mean, logvar = self.vae.encode(images)
+        z = gaussian_sample(mean, logvar, generator) \
+            if generator is not None else mean
+        return z * self.scaling_factor
+
+    @torch.inference_mode()
+    def decode(self, latents):
+        """scaled latent -> image."""
+        return self.vae.decode(latents / self.scaling_factor)
+
+    # -- denoising loops -------------------------------------------------------
+
+    def _schedule(self, num_steps: int):
+        ts = self.scheduler.set_timesteps(num_steps)
+        # fixed here, never derived from scheduler state inside the loop
+        ts_prev = ts - self.scheduler.num_train_timesteps // num_steps
+        return [int(t) for t in ts], [int(t) for t in ts_prev]
+
+    @torch.inference_mode()
+    def denoise(self, latents, num_inference_steps: int = 50, kv_traj=None,
+                collect_kv: bool = False):
+        """Full DDIM denoise. Without ``kv_traj`` (STORE) returns
+        (latents, per-step stored maps if ``collect_kv`` else None); with a
+        trajectory from a STORE pass (LOAD) each step reads its maps and
+        returns (latents, None)."""
+        ts, ts_prev = self._schedule(num_inference_steps)
+        x = latents
+        traj = [] if (collect_kv and kv_traj is None) else None
+        for i, (t, pt) in enumerate(zip(ts, ts_prev)):
+            kv_in = None if kv_traj is None else kv_traj[i]
+            eps, stored = self.unet(x, t, kv_in=kv_in)
+            x, _ = self.scheduler.step(eps, t, x, prev_timestep=pt)
+            if traj is not None:
+                traj.append(stored)
+        return x, traj
+
+    @torch.inference_mode()
+    def ddim_inversion(self, latents, num_inference_steps: int = 50):
+        """Closed-form DDIM inversion, from x_0 up the schedule."""
+        ts, _ = self._schedule(num_inference_steps)
+        ts_up = ts[::-1]
+        ts_prev = [-1] + ts_up[:-1]
+        x = latents
+        for t, t_prev in zip(ts_up, ts_prev):
+            eps, _ = self.unet(x, t)
+            x = self.scheduler.inversion_step(eps, t_prev, t, x)
+        return x
+
+    # -- generation ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def __call__(self, batch_size: int = 1, generator=None, latents=None,
+                 num_inference_steps: int = 50, output_type: str = "np"):
+        """Sample images: "np" gives NHWC numpy in [0, 1], "latent" the
+        latents, anything else the decoded NCHW tensor."""
+        cfg = self.unet.config
+        if latents is None:
+            if generator is None:
+                raise ValueError("pass latents or a generator")
+            latents = torch.randn(
+                (batch_size, cfg.in_channels, cfg.sample_size,
+                 cfg.sample_size), generator=generator, device=self.device)
+        latents = latents * self.scheduler.init_noise_sigma
+        latents, _ = self.denoise(latents, num_inference_steps)
+        if output_type == "latent":
+            return latents
+        image = self.decode(latents)
+        if output_type == "np":
+            img = image.permute(0, 2, 3, 1).float().cpu().numpy()
+            return np.clip(img / 2 + 0.5, 0, 1)
+        return image
