@@ -20,12 +20,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("filtered_act", "flash_fwd")
+SOURCES = ("filtered_act", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"filtered_act_plane": 0, "filtered_act_banded": 0,
-            "flash_fwd": 0}
+            "flash_fwd": 0, "filtered_act_plane_bwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 _LIBS = {}
 
@@ -38,6 +39,10 @@ _SIGNATURES = {
         # x, out, uh, uwT, dh, dwT, nplanes, H, W, planes_per_block, act, stream
         "filtered_act_plane_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _P],
+        # x, g, dx, uh, uwT, dhT, dw, uw, uhT, nplanes, H, W,
+        # planes_per_block, act, stream
+        "filtered_act_plane_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _P],
         # x, out, uh, uwT, dh, dwT, nplanes, H, W, band_rows, acc_in_smem,
         # act, stream
         "filtered_act_banded_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -48,6 +53,16 @@ _SIGNATURES = {
         # q strides (b1, b2, l), k strides, v strides, scale, stream
         "flash_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    },
+    "flash_bwd": {
+        # q, k, v, dO, lse, delta, dq, B1, B2, Lq, Lk, D,
+        # q, k, v, dO strides (b1, b2, l), scale, stream
+        "flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             *[_L] * 12, _F, _P],
+        # q, k, v, dO, lse, delta, dk, dv, B1, B2, Lq, Lk, D,
+        # q, k, v, dO strides (b1, b2, l), scale, stream
+        "flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, *[_L] * 12, _F, _P],
     },
 }
 

@@ -1,13 +1,18 @@
-"""Scaled-dot-product attention: the plain version, the flash kernel (K3 of
-the JAX package, ``attention.py::_flash_kernel``) and the dispatcher.
+"""Scaled-dot-product attention: the plain version, the flash kernels
+(K3, K4a and K4b of the JAX package: ``attention.py::_flash_kernel``,
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), the autograd
+Function that joins them and the dispatcher.
 
 q: (..., Lq, D), k/v: (..., Lk, D). Semantics of the JAX ``sdpa_xla``:
-f32 scores, f32 softmax, p cast to v's dtype for p @ v.
+f32 scores, f32 softmax, p cast to v's dtype for p @ v. The backward is the
+JAX ``_sdpa_bwd``: p recomputed from the forward's logsumexp,
+``delta = rowsum(dO * O)`` in plain torch, ``ds = p * (dp - delta) * scale``.
 """
 
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import kernels
 
@@ -35,6 +40,45 @@ def _as_4d(t):
     if t.ndim == 4:
         return t
     raise ValueError(f"flash_fwd takes 3D or 4D tensors, got {tuple(t.shape)}")
+
+
+def _bwd_probs(q, k, v, do, lse, delta, scale):
+    """p recomputed from lse, and ds = p * (dp - delta) * scale, f32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta) * scale
+
+
+def _bwd_dq_plain(q, k, v, do, lse, delta, scale):
+    """The plain version of ``flash_bwd_dq``."""
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, scale)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def _bwd_dkv_plain(q, k, v, do, lse, delta, scale):
+    """The plain version of ``flash_bwd_dkv``: (dk, dv), dense per leading
+    index."""
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype)
+    dv = torch.matmul(p.to(do.dtype).transpose(-1, -2), do).to(v.dtype)
+    return dk, dv
+
+
+def _delta(do, out):
+    """rowsum(dO * O) in f32, (..., Lq, 1)."""
+    return (do.float() * out.float()).sum(-1, keepdim=True)
+
+
+def _attention_bwd_plain(q, k, v, out, lse, do, scale=None):
+    """The plain version of the flash backward: (dq, dk, dv) from the
+    forward's out and lse and the cotangent do, with the kernels'
+    formulas."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = _delta(do, out)
+    return (_bwd_dq_plain(q, k, v, do, lse, delta, scale),
+            *_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
 
 
 def flash_fwd(q, k, v, scale=None):
@@ -76,11 +120,99 @@ def flash_fwd(q, k, v, scale=None):
     return out.reshape(lead + (Lq, D)), lse.reshape(lead + (Lq, 1))
 
 
+def _bwd_launch_args(q, k, v, do, lse, delta, name):
+    if not all(t.device == q.device and t.device.type == "cuda"
+               for t in (q, k, v, do, lse, delta)):
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device")
+    if not all(t.dtype == torch.float32 for t in (q, k, v, do, lse, delta)):
+        raise TypeError(f"{name}: float32 only")
+    q4, k4, v4, do4 = (_as_4d(t) for t in (q, k, v, do))
+    q4, k4, v4, do4 = (t if t.stride(-1) == 1 else t.contiguous()
+                       for t in (q4, k4, v4, do4))
+    B1, B2, Lq, D = q4.shape
+    Lk = k4.shape[2]
+    if (k4.shape[:2] != (B1, B2) or v4.shape != k4.shape
+            or k4.shape[3] != D or do4.shape != q4.shape
+            or lse.numel() != B1 * B2 * Lq or delta.numel() != B1 * B2 * Lq
+            or D > FLASH_MAX_D or Lk == 0 or Lq == 0):
+        raise ValueError(f"{name}: unsupported shapes {tuple(q.shape)} x "
+                         f"{tuple(k.shape)} x {tuple(v.shape)}")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    strides = [s for t in (q4, k4, v4, do4) for s in t.stride()[:3]]
+    ptrs = [t.data_ptr() for t in (q4, k4, v4, do4, lse, delta)]
+    return ptrs, (B1, B2, Lq, Lk, D), strides
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale=None):
+    """dq of the flash backward (K4a): p recomputed from ``lse`` (the
+    forward's (..., Lq, 1) logsumexp), ``delta = rowsum(dO * O)``
+    (..., Lq, 1). Same layout rules as ``flash_fwd``; dq is dense."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    ptrs, dims, strides = _bwd_launch_args(q, k, v, do, lse, delta,
+                                           "flash_bwd_dq")
+    B1, B2, Lq, Lk, D = dims
+    dq = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    err = kernels.library("flash_bwd").flash_bwd_dq_f32(
+        *ptrs, dq.data_ptr(), *dims, *strides, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "flash_bwd_dq")
+    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    return dq.reshape(q.shape)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None):
+    """(dk, dv) of the flash backward (K4b), dense per leading index: for a
+    K/V batch expanded from 1 each image gets its own rows, and autograd's
+    expand backward sums them."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    ptrs, dims, strides = _bwd_launch_args(q, k, v, do, lse, delta,
+                                           "flash_bwd_dkv")
+    B1, B2, Lq, Lk, D = dims
+    dk, dv = (torch.empty((B1, B2, Lk, D), device=q.device,
+                          dtype=torch.float32) for _ in range(2))
+    err = kernels.library("flash_bwd").flash_bwd_dkv_f32(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *strides, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "flash_bwd_dkv")
+    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk.reshape(k.shape), dv.reshape(v.shape)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_fwd`` forward; ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    backward. Saves q, k, v, out and lse; no score matrix is stored."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_fwd(q, k, v, scale)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = _delta(do, out)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
 def sdpa(q, k, v, scale=None):
-    """Dispatching SDPA for the model's attention blocks: ``flash_fwd`` for
-    every head dim up to 256. The VAE mid-block's single head of D = 512 is
-    outside the JAX flash gate (``attention.py:519-527``) and stays matmul +
-    softmax there, as XLA computes it; so it does here."""
+    """Dispatching SDPA for the model's attention blocks: the flash kernels
+    (forward and backward) for every head dim up to 256. The VAE
+    mid-block's single head of D = 512 is outside the JAX flash gate
+    (``attention.py:519-527``) and stays matmul + softmax there, as XLA
+    computes it; so it does here."""
     if q.shape[-1] > FLASH_MAX_D:
         return sdpa_eager(q, k, v, scale)
-    return flash_fwd(q, k, v, scale)[0]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, scale)

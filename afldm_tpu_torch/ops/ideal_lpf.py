@@ -276,19 +276,24 @@ def _downsample_op(N: int, down: int = 2) -> np.ndarray:
 
 def _op(kind: str, N: int, factor: int, device) -> torch.Tensor:
     """The numpy operator as a float32 tensor on ``device``, cached per
-    (kind, N, factor, device)."""
+    (kind, N, factor, device). Built outside inference mode even when first
+    asked for inside it (sampling), so that training can save it for
+    backward later in the same process."""
     key = (kind, N, factor, torch.device(device))
     if key not in _DEV_OPS:
         build = _upsample_op if kind == "up" else _downsample_op
-        _DEV_OPS[key] = torch.from_numpy(build(N, factor)).to(device)
+        with torch.inference_mode(False):
+            _DEV_OPS[key] = torch.from_numpy(build(N, factor)).to(device)
     return _DEV_OPS[key]
 
 
 def _apply_sep(x: torch.Tensor, op_h: torch.Tensor,
                op_w: torch.Tensor) -> torch.Tensor:
-    """y = op_h @ x @ op_w^T over the last two axes, in float32."""
-    y = torch.matmul(op_h, x.float())
-    return torch.matmul(y, op_w.T).to(x.dtype)
+    """y = op_h @ x @ op_w^T over the last two axes, in float32 (float64
+    for float64 input, so that gradcheck can hold the chain)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    y = torch.matmul(op_h.to(dt), x.to(dt))
+    return torch.matmul(y, op_w.to(dt).T).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

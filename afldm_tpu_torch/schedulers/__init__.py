@@ -1,3 +1,4 @@
 from .ddim import DDIMScheduler
+from .ddpm import DDPMScheduler
 
-__all__ = ["DDIMScheduler"]
+__all__ = ["DDIMScheduler", "DDPMScheduler"]

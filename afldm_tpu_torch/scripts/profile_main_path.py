@@ -1,38 +1,86 @@
-"""Where the main path's device time goes: one full-width
-``shift_equivariance_eval`` (random weights, seed 0) under
-``torch.profiler``, after one untraced warm-up run. Prints the device time
-by kernel name (top 25), the share of the port's own kernels, the
-sum of device time against the traced wall time, and the wall time of the
+"""Where a main path's device time goes, under ``torch.profiler``, after an
+untraced warm-up. ``--path serve``: one full-width
+``shift_equivariance_eval`` (random weights, seed 0). ``--path train``:
+``--train_steps`` steps of the full-width LDM trainer of
+``configs/ldm/train_unet_ffhq.json`` (``ffhq_trainer``). Prints the device
+time by kernel name (top 25), the share of the port's own kernels, the sum
+of device time against the traced wall time, and the wall time of the
 untraced run.
 
   python -m afldm_tpu_torch.scripts.profile_main_path --steps 50
+  python -m afldm_tpu_torch.scripts.profile_main_path --path train
 """
 
 import argparse
 import json
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
+CONFIGS = Path(__file__).resolve().parents[2] / "configs"
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=50)
-    args = ap.parse_args(argv)
 
+def ffhq_trainer(device=None, seed: int = 0):
+    """The LDM trainer of ``configs/ldm/train_unet_ffhq.json`` as it stands,
+    prepared with random weights from ``seed``, and its dataset. The
+    config's vae_path holds no checkpoint in the repository, so the VAE is
+    built from ``configs/vae/model_afvae.json``; without train_data_dir
+    ``make_dataset`` gives SyntheticDataset. Returns (trainer, dataset)."""
+    from .. import train as T
+    cfgs = T.load_training_config(str(CONFIGS / "ldm" /
+                                      "train_unet_ffhq.json"))
+    base, cfg = cfgs["base"], cfgs["ldm"]
+    root = CONFIGS.parent
+    cfg.unet_config = str(root / cfg.unet_config)
+    cfg.scheduler_path = str(root / cfg.scheduler_path)
+    tr = T.create_trainer("ldm", base, cfg, device=device)
+    tr.init_modules(vae_config=json.loads(
+        (CONFIGS / "vae" / "model_afvae.json").read_text()))
+    ds = T.make_dataset(base)
+    tr.init_optimizers(len(ds) // base.train_batch_size * base.num_epochs)
+    tr.prepare_modules(seed=seed)
+    return tr, ds
+
+
+def _serve_run(args):
     from ..pipelines import init_random_pipeline, shift_equivariance_eval
     from .shift_ldm_ffhq import load_configs
-
     pipe = init_random_pipeline(*load_configs(), seed=0)
 
     def run():
         gen = torch.Generator(pipe.device).manual_seed(0)
-        out = shift_equivariance_eval(pipe, generator=gen,
-                                      num_inference_steps=args.steps,
-                                      num_shift_steps=16)
+        shift_equivariance_eval(pipe, generator=gen,
+                                num_inference_steps=args.steps,
+                                num_shift_steps=16)
+    return run
+
+
+def _train_run(args):
+    from ..train import epoch_batches
+    tr, ds = ffhq_trainer()
+    batches = epoch_batches(ds, tr.base_cfg.train_batch_size, seed=0)
+
+    def run():
+        for _ in range(args.train_steps):
+            tr.training_step(tr.step, next(batches))
+    return run
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=["serve", "train"], default="serve")
+    ap.add_argument("--steps", type=int, default=50,
+                    help="DDIM steps of the serving path")
+    ap.add_argument("--train_steps", type=int, default=2,
+                    help="training steps per run (warm-up and traced)")
+    args = ap.parse_args(argv)
+    body = (_serve_run if args.path == "serve" else _train_run)(args)
+
+    def run():
+        body()
         torch.cuda.synchronize()
-        return out
 
     t0 = time.perf_counter()
     run()
@@ -54,17 +102,18 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi)
-    print(f"untraced wall {wall:.3f} s; traced wall {traced_wall:.3f} s; "
-          f"device time {total / 1e3:.3f} s "
+    print(f"path {args.path}: untraced wall {wall:.3f} s; traced wall "
+          f"{traced_wall:.3f} s; device time {total / 1e3:.3f} s "
           f"({100 * total / 1e3 / traced_wall:.1f}% of traced wall)")
     ours = {k: v for k, v in rows.items()
-            if "filtered_act" in k or "flash_fwd" in k}
+            if "filtered_act" in k or "flash_" in k}
     ours_ms = sum(ms for ms, _ in ours.values())
     print(f"port kernels: {ours_ms:.1f} ms ({100 * ours_ms / total:.1f}% of "
           f"device time)")
     for k, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"{ms:10.2f} ms {100 * ms / total:5.1f}% {n:7d}x  {k[:110]}")
-    print(json.dumps({"wall_s": wall, "traced_wall_s": traced_wall,
+    print(json.dumps({"path": args.path, "wall_s": wall,
+                      "traced_wall_s": traced_wall,
                       "device_s": total / 1e3, "port_kernels_ms": ours_ms}))
 
 

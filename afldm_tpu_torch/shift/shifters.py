@@ -1,6 +1,7 @@
-"""Image/latent shifter in its ``ideal_crop`` and ``bilinear`` modes, with
-validity masks, NCHW. Counterpart of ``afldm_tpu/shift/shifters.py``
-(``gen_valid_mask`` and ``ImageShifter``). Offsets are Python numbers.
+"""Image/latent shifter in its ``ideal``, ``ideal_crop`` and ``bilinear``
+modes, with validity masks, NCHW. Counterpart of
+``afldm_tpu/shift/shifters.py`` (``gen_valid_mask`` and ``ImageShifter``).
+Offsets are Python numbers.
 """
 
 import math
@@ -10,7 +11,7 @@ import torch
 from ..ops.ideal_lpf import upsample_rfft
 from .flow import flow_warp
 
-FILTER_CHOICES = ["bilinear", "ideal_crop"]
+FILTER_CHOICES = ["bilinear", "ideal", "ideal_crop"]
 
 
 def gen_valid_mask(shape, ti, tj, device=None):
@@ -28,9 +29,11 @@ def gen_valid_mask(shape, ti, tj, device=None):
 
 
 class ImageShifter:
-    """``ideal_crop``: ideal upsample (cacheable with ``precompute``),
-    integer roll at the upsampled rate, crop the wrapped band, decimate.
-    ``bilinear``: backward bilinear warp with zero padding."""
+    """``ideal``: ideal upsample (cacheable with ``precompute``), integer
+    roll at the upsampled rate, decimate; periodic, so its mask is all ones
+    (the training shift loss's shifter). ``ideal_crop``: the same, with the
+    wrapped band cropped. ``bilinear``: backward bilinear warp with zero
+    padding."""
 
     def __init__(self, filter: str | None = None,
                  upsample_ratio: int | None = None):
@@ -38,26 +41,29 @@ class ImageShifter:
         if filter not in FILTER_CHOICES:
             raise ValueError(f"filter {filter!r} not in {FILTER_CHOICES}")
         self.filter = filter
-        if filter == "ideal_crop":
+        if filter in ("ideal", "ideal_crop"):
             if upsample_ratio is None:
-                raise ValueError("ideal_crop needs upsample_ratio")
+                raise ValueError(f"{filter} needs upsample_ratio")
             self.upsample_ratio = upsample_ratio
 
     def precompute(self, img):
         """The ideal-mode upsample cache (None for bilinear)."""
-        if self.filter != "ideal_crop":
+        if self.filter == "bilinear":
             return None
         return upsample_rfft(img, up=self.upsample_ratio)
 
     def shift(self, img, ti, tj, cache=None):
         """Returns (warped, mask); ti shifts H, tj shifts W."""
         n, _, h, w = img.shape
-        if self.filter == "ideal_crop":
+        if self.filter in ("ideal", "ideal_crop"):
             up = self.upsample_ratio
             if cache is None:
                 cache = self.precompute(img)
             si, sj = round(ti * up), round(tj * up)
             warped = torch.roll(cache, shifts=(si, sj), dims=(2, 3))
+            if self.filter == "ideal":
+                warped = warped[:, :, ::up, ::up]
+                return warped, torch.ones_like(warped)
             warped = warped * gen_valid_mask(warped.shape, si, sj,
                                              img.device)
             warped = warped[:, :, ::up, ::up]

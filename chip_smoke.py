@@ -3,24 +3,35 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 chip_smoke.py            # 50 DDIM steps, 16 shifts
-    python3 chip_smoke.py --steps 10 # fewer steps if time is short
+    python3 chip_smoke.py            # 50 DDIM steps, 16 shifts, 4 steps
+    python3 chip_smoke.py --steps 10 --train_steps 3   # if time is short
 
 Phases, each of which fails the run:
-1. build every CUDA kernel from ``afldm_tpu_torch/kernels/csrc`` (nvcc);
+1. build every CUDA kernel from ``afldm_tpu_torch/kernels/csrc`` (nvcc, one
+   process per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, and time kernel, plain version, the library call
+   main paths' shapes, and time kernel, plain version, the library call
    where one exists, and the bound (the larger of FLOPs / 67 TFLOP/s f32
    and bytes / 3.35 TB/s);
 3. run the tiny pipeline on the card and on the CPU with the same weights
-   and compare (the end-to-end reference check);
-4. the main path at full width (274M UNet, AF-VAE at 256 px, random
-   weights from seed 0): ``shift_equivariance_eval`` with 16 shifts in one
-   LOAD pass, with every launch counter set to 0 just before and read just
-   after; every kernel must have launched and all PSNRs must be finite.
+   and compare (the end-to-end reference check of serving);
+4. the serving path at full width (256.4M-parameter UNet, AF-VAE at
+   256 px, random weights from seed 0): ``shift_equivariance_eval`` with
+   16 shifts in one LOAD pass, with every launch counter set to 0 just
+   before and read just after; every kernel of that path must have launched
+   and all PSNRs must be finite;
+5. one step of the tiny LDM trainer on the card and on the CPU with the
+   same weights and draws: loss and every gradient compared (the
+   end-to-end reference check of training);
+6. the training path at full width: ``configs/ldm/train_unet_ffhq.json`` as
+   it stands (batch 16, 256 px, gradient checkpointing, EMA, eps-MSE +
+   CFA shift loss), synthetic data, random weights from seed 0, counters
+   set to 0 just before the steps and read just after; every loss must be
+   finite, the parameters must have moved and all six kernels launched.
 
-The second-to-last line is the kernels JSON, the last the device JSON.
-Exits non-zero without a GPU or without the package beside it.
+The second-to-last line is the kernels JSON (``launches``: the sum over the
+serving and training runs), the last the device JSON. Exits non-zero
+without a GPU or without the package beside it.
 """
 
 import argparse
@@ -48,11 +59,37 @@ KERNELS = {
         replaces="afldm_tpu/ops/attention.py:59",
         # (images, heads, L, D, K/V images): the LOAD pass at 32 px and 2 px
         shapes=[(16, 8, 1024, 24, 1), (16, 32, 4, 24, 1)]),
+    "filtered_act_plane_bwd": dict(
+        route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
+        replaces="afldm_tpu/ops/pallas_kernels.py:328",
+        # the training step's 32 px and 4 px levels
+        shapes=[(16, 192, 32, 32), (16, 1536, 4, 4)]),
+    "flash_bwd_dq": dict(
+        route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_bwd.cu",
+        replaces="afldm_tpu/ops/attention.py:142",
+        # pass 1 (K/V per image) at 32 px and 2 px; pass 2 (K/V from the
+        # stored maps of the same batch) has the same shapes; one case with
+        # K/V expanded from one image (stride 0)
+        shapes=[(16, 8, 1024, 24, 16), (16, 32, 4, 24, 16),
+                (16, 8, 1024, 24, 1)]),
+    "flash_bwd_dkv": dict(
+        route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_bwd.cu",
+        replaces="afldm_tpu/ops/attention.py:168",
+        shapes=[(16, 8, 1024, 24, 16), (16, 32, 4, 24, 16),
+                (16, 8, 1024, 24, 1)]),
 }
 # a kernel agrees with its plain version when |got - want| <= ATOL + RTOL|want|
-# (f32 sums in another order: ~1e-6 relative)
+# (f32 sums in another order: ~1e-6 relative; the backwards chain six
+# products or sum over up to 1024 rows)
 TOL = {"filtered_act_plane": (3e-5, 1e-4), "filtered_act_banded": (3e-5, 1e-4),
-       "flash_fwd": (2e-5, 1e-4)}
+       "flash_fwd": (2e-5, 1e-4), "filtered_act_plane_bwd": (1e-4, 1e-4),
+       "flash_bwd_dq": (1e-4, 1e-4), "flash_bwd_dkv": (1e-4, 1e-4)}
+# card vs CPU for one tiny training step: the loss within LOSS_RTOL of the
+# CPU's; each gradient within GRAD_RTOL of its tensor's max abs, with that
+# scale floored at GRAD_FLOOR of the largest gradient: the attention's
+# to_k bias has a gradient of zero in exact arithmetic (softmax ignores a
+# shift of every key), so both devices compute rounding noise there
+LOSS_RTOL, GRAD_RTOL, GRAD_FLOOR = 1e-4, 1e-3, 1e-4
 
 
 def log(*a):
@@ -99,10 +136,75 @@ def flash_work(shape):
     return flops, nbytes
 
 
-def check_kernels(torch, report):
+def filtered_act_bwd_work(shape):
+    """FLOPs of the six products per plane (16H²W + 20HW², = 36S³ square)
+    and bytes: x and g read once, dx written once, the six operators read
+    once."""
+    n, c, h, w = shape
+    flops = n * c * (16 * h * h * w + 20 * h * w * w)
+    nbytes = 4 * (3 * n * c * h * w + 6 * h * h + 6 * w * w)
+    return flops, nbytes
+
+
+def flash_bwd_work(name, shape):
+    """dq: q·kᵀ, dO·vᵀ and ds·k (6·B·L²·D); dkv adds dsᵀ·q and pᵀ·dO in
+    place of ds·k (8·B·L²·D). Bytes: q, dO, lse, delta and the unique K/V
+    rows read once; dq, or dk and dv (dense per image), written once."""
+    n, heads, L, d, n_kv = shape
+    rows = n * heads * L
+    reads = 2 * rows * d + 2 * rows + 2 * n_kv * heads * L * d
+    if name == "flash_bwd_dq":
+        return 6 * rows * L * d, 4 * (reads + rows * d)
+    return 8 * rows * L * d, 4 * (reads + 2 * rows * d)
+
+
+def _case(torch, name, shape, dev, g):
+    """Inputs at ``shape`` and, for ``name``: the kernel's call, its plain
+    version, the library call (or None) and the work."""
     import torch.nn.functional as F
     from afldm_tpu_torch.ops import attention as A
     from afldm_tpu_torch.ops import filtered_act as FA
+    if name.startswith("filtered_act"):
+        x = torch.randn(shape, device=dev, generator=g)
+        if name == "filtered_act_plane_bwd":
+            gr = torch.randn(shape, device=dev, generator=g)
+            return (lambda: FA.filtered_act_plane_bwd(x, gr, "silu"),
+                    lambda: FA.filtered_act_plane_bwd_plain(x, gr, "silu"),
+                    None, filtered_act_bwd_work(shape))
+        fn = getattr(FA, name)
+        return (lambda: fn(x, "silu"),
+                lambda: FA.filtered_act_plain(x, "silu"), None,
+                filtered_act_work(shape))
+    n, heads, L, d, n_kv = shape
+    q = torch.randn(n, heads, L, d, device=dev, generator=g)
+    k, v = (torch.randn(n_kv, heads, L, d, device=dev,
+                        generator=g).expand(n, -1, -1, -1)
+            for _ in range(2))
+    if name == "flash_fwd":
+        return (lambda: A.flash_fwd(q, k, v),
+                lambda: A._attention_plain(q, k, v),
+                lambda: F.scaled_dot_product_attention(q, k, v),
+                flash_work(shape))
+    out, lse = A.flash_fwd(q, k, v)
+    do = torch.randn(n, heads, L, d, device=dev, generator=g)
+    delta = A._delta(do, out)
+    scale = 1.0 / d ** 0.5
+    if name == "flash_bwd_dq":
+        return (lambda: A.flash_bwd_dq(q, k, v, do, lse, delta),
+                lambda: A._bwd_dq_plain(q, k, v, do, lse, delta, scale),
+                None, flash_bwd_work(name, shape))
+    # the library yardstick of the K4 pair: autograd through SDPA, the
+    # forward excluded
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+    return (lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: A._bwd_dkv_plain(q, k, v, do, lse, delta, scale),
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                        retain_graph=True),
+            flash_bwd_work(name, shape))
+
+
+def check_kernels(torch, report):
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
     ok = True
@@ -111,34 +213,17 @@ def check_kernels(torch, report):
         atol, rtol = TOL[name]
         row = report[name]
         for shape in spec["shapes"]:
-            if name == "flash_fwd":
-                n, heads, L, d, n_kv = shape
-                q = torch.randn(n, heads, L, d, device=dev, generator=g)
-                k, v = (torch.randn(n_kv, heads, L, d, device=dev,
-                                    generator=g).expand(n, -1, -1, -1)
-                        for _ in range(2))
-                got = A.flash_fwd(q, k, v)
-                want = A._attention_plain(q, k, v)
-                err = max(float((a - b).abs().max())
-                          for a, b in zip(got, want))
-                good = all(torch.allclose(a, b, atol=atol, rtol=rtol)
-                           for a, b in zip(got, want))
-                t = time_ms(lambda: A.flash_fwd(q, k, v))
-                tp = time_ms(lambda: A._attention_plain(q, k, v))
-                tl = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-                work = flash_work(shape)
-            else:
-                x = torch.randn(shape, device=dev, generator=g)
-                fn = getattr(FA, name)
-                got = fn(x, "silu")
-                want = FA.filtered_act_plain(x, "silu")
-                err = float((got - want).abs().max())
-                good = torch.allclose(got, want, atol=atol, rtol=rtol)
-                t = time_ms(lambda: fn(x, "silu"))
-                tp = time_ms(lambda: FA.filtered_act_plain(x, "silu"))
-                tl = None
-                work = filtered_act_work(shape)
-                del x, got, want
+            run, plain, library, work = _case(torch, name, shape, dev, g)
+            got, want = run(), plain()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            good = all(torch.allclose(a, b, atol=atol, rtol=rtol)
+                       for a, b in zip(got, want))
+            del got, want
+            t = time_ms(run)
+            tp = time_ms(plain)
+            tl = None if library is None else time_ms(library)
             b, by = bound_ms(*work)
             log(f"check {name} {shape}: max_abs_err {err:.3e} "
                 f"(atol {atol}, rtol {rtol}) {'ok' if good else 'FAIL'}; "
@@ -154,6 +239,7 @@ def check_kernels(torch, report):
             split[name][by] += b
             if tl is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + tl
+            del run, plain, library
             torch.cuda.empty_cache()
         # the row's bound is a sum over shapes: name what bounds most of it
         row["bound_by"] = max(split[name], key=split[name].get)
@@ -186,6 +272,11 @@ def check_tiny_reference(torch):
         f"{d_psnr:.2e} dB (limit 0.05), max |d image| {d_img:.2e} "
         f"(limit {1e-3 * scale:.2e}) {'ok' if ok else 'FAIL'}")
     return ok
+
+
+# the kernels each full-width path must launch
+SERVING_KERNELS = ("filtered_act_plane", "filtered_act_banded", "flash_fwd")
+TRAINING_KERNELS = tuple(KERNELS)
 
 
 def run_main_path(torch, steps):
@@ -221,16 +312,124 @@ def run_main_path(torch, steps):
           and bool(np.isfinite(res.outputs).all()))
     if not ok:
         log("main path: FAIL (non-finite or misshapen results)")
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in SERVING_KERNELS if counts[k] == 0]
     if missing:
         log(f"main path: FAIL, never launched: {missing}")
     return ok and not missing, counts
 
 
+def _tiny_trainer(device):
+    from afldm_tpu_torch import train as T
+    from afldm_tpu_torch.scripts.shift_ldm_ffhq import load_configs
+    ucfg, vcfg, scfg = load_configs(tiny=True)
+    base = T.BaseTrainingConfig(resolution=64, train_batch_size=2, seed=0,
+                                gradient_checkpointing=True)
+    cfg = T.LDMTrainingConfig(af_models=True, use_shift_loss=True,
+                              use_cross_attn=True, use_ema=True)
+    tr = T.create_trainer("ldm", base, cfg, device=device)
+    tr.init_modules(vae_config=vcfg, unet_config=ucfg, scheduler_config=scfg)
+    tr.init_optimizers(100)
+    tr.prepare_modules(seed=0)
+    return tr
+
+
+def check_tiny_training(torch):
+    """One step of the tiny LDM trainer (64 px, batch 2) with the same
+    weights, images and draws on the card (kernels) and on the CPU (plain
+    versions): the loss and every UNet gradient, within LOSS_RTOL and
+    GRAD_RTOL."""
+    import numpy as np
+    from afldm_tpu_torch import train as T
+    images = next(T.epoch_batches(T.SyntheticDataset(resolution=64,
+                                                     length=2), 2))["input"]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tr = _tiny_trainer(dev)
+        x = torch.from_numpy(images).permute(0, 3, 1, 2).contiguous()
+        loss, logs = tr.loss_fn(x.to(dev), tr.draw(0, 2))
+        loss.backward()
+        res[dev] = ({k: float(v) for k, v in logs.items()},
+                    {n: p.grad.detach().cpu()
+                     for n, p in tr.unet.named_parameters()})
+    (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+    d_loss = max(abs(lc[k] - lp[k]) / abs(lp[k]) for k in lp)
+    largest = max(float(g.abs().max()) for g in gp.values())
+    worst, worst_name = 0.0, None
+    for n, g in gp.items():
+        scale = max(float(g.abs().max()), GRAD_FLOOR * largest)
+        r = float((gc[n] - g).abs().max()) / scale
+        if r > worst:
+            worst, worst_name = r, n
+    ok = (all(np.isfinite(v) for v in lc.values()) and d_loss <= LOSS_RTOL
+          and worst <= GRAD_RTOL)
+    log(f"tiny training reference (card vs CPU, one step): losses "
+        f"{json.dumps(lc)}; max loss rel err {d_loss:.2e} (limit "
+        f"{LOSS_RTOL}), max grad err {worst:.2e} of its tensor's scale at "
+        f"{worst_name} (limit {GRAD_RTOL}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_training(torch, n_steps):
+    """The full-width LDM trainer of configs/ldm/train_unet_ffhq.json as it
+    stands (``profile_main_path.ffhq_trainer``: the VAE from
+    configs/vae/model_afvae.json, since vae_path holds no checkpoint;
+    SyntheticDataset, since train_data_dir is absent; random weights)."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch import train as T
+    from afldm_tpu_torch.scripts.profile_main_path import ffhq_trainer
+    t0 = time.perf_counter()
+    tr, ds = ffhq_trainer(device="cuda", seed=0)
+    base, cfg = tr.base_cfg, tr.cfg
+    p0 = [p.detach().clone() for p in tr.unet.parameters()]
+    batches = T.epoch_batches(ds, base.train_batch_size, seed=0)
+    log(f"training: full-width LDM trainer built in "
+        f"{time.perf_counter() - t0:.1f} s (UNet "
+        f"{sum(p.numel() for p in p0) / 1e6:.1f}M params, batch "
+        f"{base.train_batch_size}, {base.resolution} px, gradient "
+        f"checkpointing {base.gradient_checkpointing} "
+        f"({base.remat_policy}), EMA {cfg.use_ema}, shift loss "
+        f"{cfg.use_shift_loss}, CFA {cfg.use_cross_attn})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for step in range(n_steps):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        logs = tr.training_step(step, batch)  # floats: synchronises
+        times.append(time.perf_counter() - t0)
+        losses.append(logs)
+        log(f"training step {step}: {time.perf_counter() - t0:.3f} s "
+            f"{json.dumps(logs)} (lr of the next update {tr.opt.lr:.3g})")
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = times[1:] or times
+    med = float(np.median(steady))
+    log(f"training: median step {med:.3f} s over steps 1..{n_steps - 1} "
+        f"({base.train_batch_size / med:.2f} images/s), first step "
+        f"{times[0]:.3f} s, peak device memory {peak:.2f} GiB")
+    log(f"training launches: {json.dumps(counts)}")
+    moved = sum(not torch.equal(a, p)
+                for a, p in zip(p0, tr.unet.parameters()))
+    finite = all(np.isfinite(v) for d in losses for v in d.values())
+    log(f"training: {moved} of {len(p0)} parameter tensors moved; losses "
+        f"finite: {finite}")
+    missing = [k for k in TRAINING_KERNELS if counts[k] == 0]
+    if missing:
+        log(f"training: FAIL, never launched: {missing}")
+    ok = finite and moved == len(p0) and not missing
+    if not ok:
+        log("training: FAIL")
+    return ok, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
-                    help="DDIM steps of the main path (default 50)")
+                    help="DDIM steps of the serving path (default 50)")
+    ap.add_argument("--train_steps", type=int, default=4,
+                    help="steps of the full-width training path (default 4)")
     args = ap.parse_args(argv)
 
     if not (REPO / "afldm_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -271,8 +470,12 @@ def main(argv=None):
     ok &= check_tiny_reference(torch)
     main_ok, counts = run_main_path(torch, args.steps)
     ok &= main_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_training(torch)
+    train_ok, train_counts = run_training(torch, args.train_steps)
+    ok &= train_ok
     for k, row in report.items():
-        row["launches"] = counts[k]
+        row["launches"] = counts[k] + train_counts[k]
     log(json.dumps({"kernels": list(report.values())}))
     if not ok:
         log("chip_smoke: FAILED")
