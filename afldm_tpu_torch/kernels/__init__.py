@@ -26,7 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"filtered_act_plane": 0, "filtered_act_banded": 0,
             "flash_fwd": 0, "filtered_act_plane_bwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "filtered_act_banded_bwd": 0}
 
 _LIBS = {}
 
@@ -47,6 +47,10 @@ _SIGNATURES = {
         # act, stream
         "filtered_act_banded_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _P],
+        # x, g, dx, uh, uwT, dhT, dw, uw, uhT, nplanes, H, W, band_rows,
+        # acc_in_smem, act, stream
+        "filtered_act_banded_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_fwd": {
         # q, k, v, out, lse, B1, B2, Lq, Lk, D,

@@ -17,6 +17,7 @@
 //   filtered_act_plane_bwd <- the kernel inside pallas_kernels.py::_bwd_rule
 //                             (K5b)
 //   filtered_act_banded    <- afldm_tpu/ops/pallas_kernels.py::_forward_spatial (K1)
+//   filtered_act_banded_bwd <- afldm_tpu/ops/pallas_kernels.py::_bwd_spatial (K2)
 //
 // What bounds it on this card: arithmetic. A plane of side S costs
 // 24·S³ FLOP (four products) against 8·S² bytes of input and output, so at
@@ -40,7 +41,7 @@
 //     accumulator stays in shared memory up to 64 KB (128 px); above that it
 //     accumulates in the output plane itself, which only this block touches.
 //     x is read from device memory (L1/L2-resident) once per band.
-//   * plane backward (H, W <= 64): six products per plane, 16H²W + 20HW²
+//   * plane backward (H, W <= 64): six products per plane, 12H²W + 24HW²
 //     FLOP (36·S³, 1.5x the forward), again arithmetic-bound. Like the JAX
 //     rule it saves x, not the 4x pre-activation, and recomputes it. One
 //     block holds P planes of 7·H·W floats: the 2H×2W pre-activation (x is
@@ -48,6 +49,16 @@
 //     is formed in the epilogue of the last product of g's chain, in place
 //     over the pre-activation, so the 2x cotangent is never stored: 28 KB a
 //     plane at 32 px, 112 KB at 64 px (one plane a block).
+//   * banded backward (96-512 px): the same six products, 12H²W + 24HW²
+//     FLOP. The TPU kernel holds the 2H×2W pre-activation and cotangent of
+//     a whole plane in VMEM (512 KB at 128 px); here the 2H rows are walked
+//     in bands of R, as in the banded forward:
+//       u = U_h[r,:]·x ;  pre = u·U_wᵀ ;  v = D_hᵀ[r,:]·g ;
+//       m = act′(pre) ⊙ (v·D_w) ;  t = m·U_w ;  dx += U_hᵀ[:,r]·t
+//     u, v and t share one R×W buffer and pre/m one R×2W buffer (m formed
+//     in the epilogue of v·D_w, in place over pre), so a band costs 3·R·W
+//     floats, 48 KB at 128 px with R = 32; the H×W accumulator follows the
+//     forward's rule (shared memory up to 64 KB, else the block's dx plane).
 // Operators are read through the read-only path from device memory; every
 // block reads the same few KB, which stay in L2 and L1.
 // Making it fast (tensor-core TF32 splits, wgmma, TMA) is later work.
@@ -290,6 +301,58 @@ filtered_act_banded_kernel(const float* __restrict__ x, float* __restrict__ out,
     for (long long i = threadIdx.x; i < HW; i += blockDim.x) op[i] = acc[i];
 }
 
+// dx for one 96-512 px plane a block, the 2H rows walked in bands of R.
+// Operators as for filtered_act_plane_bwd_kernel.
+__global__ void __launch_bounds__(kThreads)
+filtered_act_banded_bwd_kernel(const float* __restrict__ x,
+                               const float* __restrict__ g,
+                               float* __restrict__ dx,
+                               const float* __restrict__ uh,
+                               const float* __restrict__ uwT,
+                               const float* __restrict__ dhT,
+                               const float* __restrict__ dw,
+                               const float* __restrict__ uw,
+                               const float* __restrict__ uhT,
+                               int H, int W, int R, int acc_in_smem, int act) {
+  extern __shared__ float smem[];
+  const long long HW = (long long)H * W;
+  const float* xp = x + blockIdx.x * HW;
+  const float* gp = g + blockIdx.x * HW;
+  float* op = dx + blockIdx.x * HW;
+  float* ub = smem;                 // R × W: u, then v, then t
+  float* hb = smem + R * W;         // R × 2W: pre, then m
+  float* acc = acc_in_smem ? hb + 2 * R * W : op;  // H × W
+  for (long long i = threadIdx.x; i < HW; i += blockDim.x) acc[i] = 0.0f;
+  __syncthreads();
+  for (int r0 = 0; r0 < 2 * H; r0 += R) {
+    // ub = U_h[r0:r0+R, :] · x         (R × W)
+    block_gemm<STORE>(uh + (long long)r0 * H, H, 0, xp, W, 0, ub, W, 0, 1, R,
+                      W, H, NONE);
+    __syncthreads();
+    // hb = ub · U_wᵀ = pre             (R × 2W)
+    block_gemm<STORE>(ub, W, 0, uwT, 2 * W, 0, hb, 2 * W, 0, 1, R, 2 * W, W,
+                      NONE);
+    __syncthreads();
+    // ub = D_hᵀ[r0:r0+R, :] · g        (R × W)
+    block_gemm<STORE>(dhT + (long long)r0 * H, H, 0, gp, W, 0, ub, W, 0, 1, R,
+                      W, H, NONE);
+    __syncthreads();
+    // hb = act′(pre) ⊙ (ub · D_w) = m  (R × 2W), in place
+    block_gemm<MUL_DACT>(ub, W, 0, dw, 2 * W, 0, hb, 2 * W, 0, 1, R, 2 * W, W,
+                         act);
+    __syncthreads();
+    // ub = hb · U_w                    (R × W)
+    block_gemm<STORE>(hb, 2 * W, 0, uw, W, 0, ub, W, 0, 1, R, W, 2 * W, NONE);
+    __syncthreads();
+    // acc += U_hᵀ[:, r0:r0+R] · ub     (H × W)
+    block_gemm<ACCUM>(uhT + r0, 2 * H, 0, ub, W, 0, acc, W, 0, 1, H, W, R,
+                      NONE);
+    __syncthreads();
+  }
+  if (acc_in_smem)
+    for (long long i = threadIdx.x; i < HW; i += blockDim.x) op[i] = acc[i];
+}
+
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -340,5 +403,20 @@ extern "C" int filtered_act_banded_f32(const float* x, float* out,
   filtered_act_banded_kernel<<<nplanes, kThreads, smem,
                                (cudaStream_t)stream>>>(
       x, out, uh, uwT, dh, dwT, H, W, R, acc_in_smem, act);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int filtered_act_banded_bwd_f32(
+    const float* x, const float* g, float* dx, const float* uh,
+    const float* uwT, const float* dhT, const float* dw, const float* uw,
+    const float* uhT, int nplanes, int H, int W, int R, int acc_in_smem,
+    int act, void* stream) {
+  const size_t smem =
+      ((size_t)3 * R * W + (acc_in_smem ? (size_t)H * W : 0)) * sizeof(float);
+  int err = set_smem((const void*)filtered_act_banded_bwd_kernel, smem);
+  if (err != cudaSuccess) return err;
+  filtered_act_banded_bwd_kernel<<<nplanes, kThreads, smem,
+                                   (cudaStream_t)stream>>>(
+      x, g, dx, uh, uwT, dhT, dw, uw, uhT, H, W, R, acc_in_smem, act);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,10 @@ Alias-free wiring:
 - decoder up block i: activations filtered when ``up_filtered_act[i]``,
   upsampler alias-free when ``up_rescale[i]``;
 - the final activation and conv_in/conv_out are never wrapped.
+
+``remat=True`` recomputes each down/up-block resnet in the backward pass
+(non-reentrant ``torch.utils.checkpoint``); the parameter names do not
+change, so one state dict serves both.
 """
 
 from dataclasses import asdict, dataclass
@@ -17,6 +21,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (Downsample2D, KVHelper, ResnetBlock2D, Upsample2D,
                      WrappedActivation)
@@ -71,8 +76,10 @@ class _Level(nn.Module):
     """One encoder down block or decoder up block (diffusers names:
     ``resnets.j`` plus ``downsamplers.0`` / ``upsamplers.0``)."""
 
-    def __init__(self, resnets, downsamplers=None, upsamplers=None):
+    def __init__(self, resnets, downsamplers=None, upsamplers=None,
+                 remat=False):
         super().__init__()
+        self.remat = remat
         self.resnets = nn.ModuleList(resnets)
         if downsamplers is not None:
             self.downsamplers = nn.ModuleList(downsamplers)
@@ -81,7 +88,10 @@ class _Level(nn.Module):
 
     def forward(self, x):
         for r in self.resnets:
-            x = r(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(r, x, use_reentrant=False)
+            else:
+                x = r(x)
         for m in getattr(self, "downsamplers", []):
             x = m(x)
         for m in getattr(self, "upsamplers", []):
@@ -90,7 +100,7 @@ class _Level(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: AutoencoderKLConfig):
+    def __init__(self, cfg: AutoencoderKLConfig, remat: bool = False):
         super().__init__()
         ch = list(cfg.block_out_channels)
         g = cfg.norm_num_groups
@@ -109,7 +119,8 @@ class Encoder(nn.Module):
             downs = None if is_final else [
                 Downsample2D(out_ch, out_ch, padding=0,
                              alias_free=af_resample[i])]
-            self.down_blocks.append(_Level(resnets, downsamplers=downs))
+            self.down_blocks.append(_Level(resnets, downsamplers=downs,
+                                           remat=remat))
             prev = out_ch
         self.mid_block = UNetMidBlock2D(
             ch[-1], None, None, g, _EPS, cfg.act_fn,
@@ -129,7 +140,7 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: AutoencoderKLConfig):
+    def __init__(self, cfg: AutoencoderKLConfig, remat: bool = False):
         super().__init__()
         rev = list(reversed(cfg.block_out_channels))
         g = cfg.norm_num_groups
@@ -150,7 +161,8 @@ class Decoder(nn.Module):
                        for j in range(cfg.layers_per_block + 1)]
             ups = None if is_final else [
                 Upsample2D(out_ch, out_ch, alias_free=af_resample[i])]
-            self.up_blocks.append(_Level(resnets, upsamplers=ups))
+            self.up_blocks.append(_Level(resnets, upsamplers=ups,
+                                         remat=remat))
             prev = out_ch
         self.conv_norm_out = nn.GroupNorm(g, rev[-1], eps=_EPS)
         self.conv_act = WrappedActivation(cfg.act_fn, filtered=False)
@@ -165,13 +177,14 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """``encode`` returns (mean, logvar); ``gaussian_sample`` draws from it."""
+    """``encode`` returns (mean, logvar); ``gaussian_sample`` draws from it.
+    ``remat``: per-resnet-block gradient checkpointing."""
 
-    def __init__(self, config: AutoencoderKLConfig):
+    def __init__(self, config: AutoencoderKLConfig, remat: bool = False):
         super().__init__()
         self.config = config
-        self.encoder = Encoder(config)
-        self.decoder = Decoder(config)
+        self.encoder = Encoder(config, remat)
+        self.decoder = Decoder(config, remat)
         lc = config.latent_channels
         self.quant_conv = (nn.Conv2d(2 * lc, 2 * lc, 1)
                            if config.use_quant_conv else None)
@@ -190,9 +203,26 @@ class AutoencoderKL(nn.Module):
             z = self.post_quant_conv(z)
         return self.decoder(z)
 
+    def forward(self, x, sample_posterior: bool = False, generator=None):
+        """(decode(z), mean, logvar): z drawn from the posterior with
+        ``generator`` when ``sample_posterior``, else its mean."""
+        mean, logvar = self.encode(x)
+        z = (gaussian_sample(mean, logvar, generator) if sample_posterior
+             else mean)
+        return self.decode(z), mean, logvar
 
-def gaussian_sample(mean, logvar, generator=None):
-    """mean + exp(logvar / 2) * noise, the noise drawn from ``generator``."""
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                        dtype=mean.dtype)
+
+def gaussian_sample(mean, logvar, generator=None, noise=None):
+    """mean + exp(logvar / 2) * noise, the noise drawn from ``generator``
+    unless given."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
     return mean + torch.exp(0.5 * logvar) * noise
+
+
+def gaussian_kl(mean, logvar):
+    """KL(q || N(0, I)) summed over the non-batch dimensions and averaged
+    over the batch (the posterior's ``kl()`` reduction)."""
+    kl = 0.5 * (mean ** 2 + torch.exp(logvar) - 1.0 - logvar)
+    return kl.sum(dim=tuple(range(1, kl.ndim))).mean()

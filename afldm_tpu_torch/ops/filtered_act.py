@@ -8,12 +8,14 @@ float32 on the card.
   ``pallas_kernels.py::_bwd_rule``), which recomputes the pre-activation
   from the saved x rather than storing the 4x intermediate.
 - ``filtered_act_banded``: the 2x intermediate walked in row bands,
-  96 <= H, W <= 512 (counterpart of ``pallas_kernels.py::_forward_spatial``).
-  Its backward (K2, ``_bwd_spatial``) is not ported: differentiating it
-  raises.
+  96 <= H, W <= 512 (counterpart of ``pallas_kernels.py::_forward_spatial``);
+  differentiable, its backward is ``filtered_act_banded_bwd`` (counterpart
+  of ``pallas_kernels.py::_bwd_spatial``), which walks the same bands and
+  recomputes the pre-activation from the saved x.
 - ``filtered_act_plain``: ``D_h act(U_h x U_w^T) D_w^T`` with
   ``torch.matmul``, the function both forward kernels compute;
-  ``filtered_act_plane_bwd_plain`` the VJP's six products.
+  ``filtered_act_plane_bwd_plain`` the VJP's six products, the plain
+  version of both backward kernels.
 
 A wrapper given a CPU tensor returns the plain version; given a CUDA tensor
 it launches its kernel or raises. There is no fallback between them.
@@ -151,27 +153,33 @@ def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     return out
 
 
+def _bwd_launch_args(x, g, act, lo, hi, name):
+    """Checks x and g, then returns (the kernel's tensor arguments: x, g,
+    dx and the operators U_h, U_wᵀ, D_hᵀ, D_w, U_w, U_hᵀ, contiguous;
+    nplanes; stream)."""
+    _check(x, act, lo, hi, name)
+    if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
+        raise ValueError(f"{name}: g must match x in shape, device and "
+                         "dtype")
+    x, dx, ops, nplanes, stream = _launch_args(x)
+    bwd_ops = _kernel_bwd_ops(*x.shape[-2:], x.device)
+    return (x, g.contiguous(), dx, *ops[:2], *bwd_ops), nplanes, stream
+
+
 def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
                            act: str = "silu") -> torch.Tensor:
     """The VJP of ``filtered_act_plane`` at x for the cotangent g (K5b)."""
     if x.device.type == "cpu":
         return filtered_act_plane_bwd_plain(x, g, act)
-    _check(x, act, 4, PLANE_MAX, "filtered_act_plane_bwd")
-    if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
-        raise ValueError("filtered_act_plane_bwd: g must match x in shape, "
-                         "device and dtype")
-    x, dx, ops, nplanes, stream = _launch_args(x)
-    g = g.contiguous()
+    args, nplanes, stream = _bwd_launch_args(
+        x, g, act, 4, PLANE_MAX, "filtered_act_plane_bwd")
     H, W = x.shape[-2:]
-    uh, uwT = ops[:2]
-    bwd_ops = (uh, uwT, *_kernel_bwd_ops(H, W, x.device))
     err = kernels.library("filtered_act").filtered_act_plane_bwd_f32(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        *(o.data_ptr() for o in bwd_ops), nplanes, H, W,
+        *(t.data_ptr() for t in args), nplanes, H, W,
         _planes_per_block(H, W), ACT_CODES[act], stream)
     kernels.check(err, "filtered_act_plane_bwd")
     kernels.LAUNCHES["filtered_act_plane_bwd"] += 1
-    return dx
+    return args[2]
 
 
 class _FilteredActPlane(torch.autograd.Function):
@@ -217,21 +225,42 @@ def _banded_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     return out
 
 
+def filtered_act_banded_bwd(x: torch.Tensor, g: torch.Tensor,
+                            act: str = "silu") -> torch.Tensor:
+    """The VJP of ``filtered_act_banded`` at x for the cotangent g (K2)."""
+    if x.device.type == "cpu":
+        return filtered_act_plane_bwd_plain(x, g, act)
+    args, nplanes, stream = _bwd_launch_args(
+        x, g, act, BANDED_MIN, BANDED_MAX, "filtered_act_banded_bwd")
+    H, W = x.shape[-2:]
+    acc_in_smem = int(H * W * 4 <= ACC_SMEM_MAX_BYTES)
+    err = kernels.library("filtered_act").filtered_act_banded_bwd_f32(
+        *(t.data_ptr() for t in args), nplanes, H, W, band_rows(H),
+        acc_in_smem, ACT_CODES[act], stream)
+    kernels.check(err, "filtered_act_banded_bwd")
+    kernels.LAUNCHES["filtered_act_banded_bwd"] += 1
+    return args[2]
+
+
 class _FilteredActBanded(torch.autograd.Function):
+    """Saves x, not the 4x pre-activation (as ``_bwd_spatial`` does)."""
 
     @staticmethod
     def forward(ctx, x, act):
+        ctx.act = act
+        ctx.save_for_backward(x)
         return _banded_forward(x, act)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the backward of filtered_act_banded (K2, pallas_kernels.py::"
-            "_bwd_spatial) is not ported yet; it comes with VAE training")
+        (x,) = ctx.saved_tensors
+        return filtered_act_banded_bwd(x, g, ctx.act), None
 
 
 def filtered_act_banded(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Kernel for 96-512 px planes, one block per plane. Forward only."""
+    """Kernel for 96-512 px planes, one block per plane, differentiable
+    through ``filtered_act_banded_bwd``."""
     return _FilteredActBanded.apply(x, act)
 
 

@@ -2,13 +2,16 @@
 untraced warm-up. ``--path serve``: one full-width
 ``shift_equivariance_eval`` (random weights, seed 0). ``--path train``:
 ``--train_steps`` steps of the full-width LDM trainer of
-``configs/ldm/train_unet_ffhq.json`` (``ffhq_trainer``). Prints the device
-time by kernel name (top 25), the share of the port's own kernels, the sum
-of device time against the traced wall time, and the wall time of the
-untraced run.
+``configs/ldm/train_unet_ffhq.json`` (``ffhq_trainer``). ``--path
+vae_train``: ``--train_steps`` micro-steps of the full-width AF-VAE trainer
+of ``configs/vae/train_afvae_imagenet.json`` (``afvae_trainer``). Prints
+the device time by kernel name (top 25) and by group (the port's kernels,
+convolutions, GEMMs, FFTs, ...), the sum of device time against the traced
+wall time, and the wall time of the untraced run.
 
   python -m afldm_tpu_torch.scripts.profile_main_path --steps 50
   python -m afldm_tpu_torch.scripts.profile_main_path --path train
+  python -m afldm_tpu_torch.scripts.profile_main_path --path vae_train
 """
 
 import argparse
@@ -44,6 +47,25 @@ def ffhq_trainer(device=None, seed: int = 0):
     return tr, ds
 
 
+def afvae_trainer(device=None, seed: int = 0):
+    """The VAE trainer of ``configs/vae/train_afvae_imagenet.json`` as it
+    stands (the AF-VAE of ``model_afvae.json`` at 256 px, batch 4, shift
+    loss, no GAN, gradient accumulation 2), prepared with random weights
+    from ``seed``, and its dataset: without its train_data_dir
+    ``make_dataset`` gives SyntheticDataset. Returns (trainer, dataset)."""
+    from .. import train as T
+    cfgs = T.load_training_config(str(CONFIGS / "vae" /
+                                      "train_afvae_imagenet.json"))
+    base, cfg = cfgs["base"], cfgs["vae"]
+    cfg.model_cfg = str(CONFIGS.parent / cfg.model_cfg)
+    tr = T.create_trainer("vae", base, cfg, device=device)
+    tr.init_modules()
+    ds = T.make_dataset(base)
+    tr.init_optimizers(len(ds) // base.train_batch_size * base.num_epochs)
+    tr.prepare_modules(seed=seed)
+    return tr, ds
+
+
 def _serve_run(args):
     from ..pipelines import init_random_pipeline, shift_equivariance_eval
     from .shift_ldm_ffhq import load_configs
@@ -68,15 +90,50 @@ def _train_run(args):
     return run
 
 
+def _vae_train_run(args):
+    from ..train import epoch_batches
+    tr, ds = afvae_trainer()
+    batches = epoch_batches(ds, tr.base_cfg.train_batch_size, seed=0)
+    step = [0]
+
+    def run():
+        for _ in range(args.train_steps):
+            tr.training_step(step[0], next(batches))
+            step[0] += 1
+    return run
+
+
+# kernel-name groups of the breakdown, first match wins. cuDNN runs some
+# f32 convolutions as FFT tiles (r2c, a complex GEMM, c2r), which land in
+# "FFT and complex GEMM" with torch.fft's own kernels
+GROUPS = (("port kernels", ("filtered_act", "flash_")),
+          ("FFT and complex GEMM", ("fft", "cf32")),
+          ("convolution", ("conv", "cudnn", "implicit", "winograd", "wgrad",
+                           "dgrad", "fprop")),
+          ("GEMM", ("gemm", "cutlass", "gemv")),
+          ("norm", ("norm", "welford")),
+          ("reduce", ("reduce",)),
+          ("elementwise", ("elementwise", "vectorized")))
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    return next((g for g, keys in GROUPS if any(k in low for k in keys)),
+                "other")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=["serve", "train"], default="serve")
+    ap.add_argument("--path", choices=["serve", "train", "vae_train"],
+                    default="serve")
     ap.add_argument("--steps", type=int, default=50,
                     help="DDIM steps of the serving path")
     ap.add_argument("--train_steps", type=int, default=2,
-                    help="training steps per run (warm-up and traced)")
+                    help="training (micro-)steps per run (warm-up and "
+                         "traced)")
     args = ap.parse_args(argv)
-    body = (_serve_run if args.path == "serve" else _train_run)(args)
+    body = {"serve": _serve_run, "train": _train_run,
+            "vae_train": _vae_train_run}[args.path](args)
 
     def run():
         body()
@@ -110,11 +167,17 @@ def main(argv=None):
     ours_ms = sum(ms for ms, _ in ours.values())
     print(f"port kernels: {ours_ms:.1f} ms ({100 * ours_ms / total:.1f}% of "
           f"device time)")
+    groups = {}
+    for k, (ms, _) in rows.items():
+        groups[group_of(k)] = groups.get(group_of(k), 0.0) + ms
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"group {g}: {ms:.1f} ms ({100 * ms / total:.1f}%)")
     for k, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"{ms:10.2f} ms {100 * ms / total:5.1f}% {n:7d}x  {k[:110]}")
     print(json.dumps({"path": args.path, "wall_s": wall,
                       "traced_wall_s": traced_wall,
-                      "device_s": total / 1e3, "port_kernels_ms": ours_ms}))
+                      "device_s": total / 1e3, "port_kernels_ms": ours_ms,
+                      "groups_ms": groups}))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Training CLI: one JSON config with a ``base`` key and one trainer key
-(only "ldm" is ported). Runs on the card unless given ``--device cpu``.
+("vae" or "ldm"). Runs on the card unless given ``--device cpu``.
 
+  python -m afldm_tpu_torch.scripts.train configs/vae/train_afvae_imagenet.json
   python -m afldm_tpu_torch.scripts.train configs/ldm/train_unet_ffhq.json
   python -m afldm_tpu_torch.scripts.train tiny.json --device cpu --max_steps 2
 

@@ -205,7 +205,6 @@ class Trainer(abc.ABC):
 
 
 _WAITING = {
-    "vae": "VAE training (ROADMAP Queue 1 item 11)",
     "i2sb": "I2SB super-resolution (ROADMAP Queue 1 item 12)",
     "sd_text": "the SD family (ROADMAP Queue 1 item 14)",
     "norm_controlnet": "the SD family (ROADMAP Queue 1 item 14)",
@@ -213,10 +212,14 @@ _WAITING = {
 
 
 def create_trainer(name: str, base_cfg, cfg, device=None) -> Trainer:
-    """Factory. Only "ldm" is ported; the others raise naming their slice."""
+    """Factory. "vae" and "ldm" are ported; the others raise naming their
+    slice."""
     if name == "ldm":
         from .ldm_trainer import LDMTrainer
         return LDMTrainer(base_cfg, cfg, device=device)
+    if name == "vae":
+        from .vae_trainer import VAETrainer
+        return VAETrainer(base_cfg, cfg, device=device)
     if name in _WAITING:
         raise NotImplementedError(f"trainer {name!r} is not ported yet: it "
                                   f"comes with {_WAITING[name]}")

@@ -3,8 +3,8 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 chip_smoke.py            # 50 DDIM steps, 16 shifts, 4 steps
-    python3 chip_smoke.py --steps 10 --train_steps 3   # if time is short
+    python3 chip_smoke.py            # 50 DDIM steps, 16 shifts, 4 + 8 steps
+    python3 chip_smoke.py --steps 10 --train_steps 3 --vae_steps 8
 
 Phases, each of which fails the run:
 1. build every CUDA kernel from ``afldm_tpu_torch/kernels/csrc`` (nvcc, one
@@ -27,11 +27,24 @@ Phases, each of which fails the run:
    it stands (batch 16, 256 px, gradient checkpointing, EMA, eps-MSE +
    CFA shift loss), synthetic data, random weights from seed 0, counters
    set to 0 just before the steps and read just after; every loss must be
-   finite, the parameters must have moved and all six kernels launched.
+   finite, the parameters must have moved and all six kernels launched;
+7. one step of a tiny AF-VAE trainer (128 px, so that its top level takes
+   the banded kernels) with a discriminator, on the card and on the CPU
+   with the same weights, images and draws: the generator's losses and
+   every VAE gradient, then the discriminator's loss and every
+   discriminator gradient, compared as in 5;
+8. the AF-VAE training path at full width:
+   ``configs/vae/train_afvae_imagenet.json`` as it stands (the AF-VAE of
+   ``model_afvae.json`` at 256 px, batch 4, shift loss, no GAN, gradient
+   accumulation 2), synthetic data, random weights from seed 0,
+   ``--vae_steps`` micro-steps with the counters set to 0 just before and
+   read just after; every loss must be finite, every VAE parameter must
+   have moved and the filtered-activation kernels (K1, K2, K5, K5b) must
+   have launched.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
-serving and training runs), the last the device JSON. Exits non-zero
-without a GPU or without the package beside it.
+serving, LDM-training and VAE-training runs), the last the device JSON.
+Exits non-zero without a GPU or without the package beside it.
 """
 
 import argparse
@@ -77,19 +90,31 @@ KERNELS = {
         replaces="afldm_tpu/ops/attention.py:168",
         shapes=[(16, 8, 1024, 24, 16), (16, 32, 4, 24, 16),
                 (16, 8, 1024, 24, 1)]),
+    "filtered_act_banded_bwd": dict(
+        route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
+        replaces="afldm_tpu/ops/pallas_kernels.py:261",
+        # the AF-VAE's 128 px level at batch 4: the encoder's first resnet
+        # (128 channels), the 256-channel resnets, the decoder's first
+        # resnet after the 512-channel upsampler
+        shapes=[(4, 128, 128, 128), (4, 256, 128, 128), (4, 512, 128, 128)]),
 }
 # a kernel agrees with its plain version when |got - want| <= ATOL + RTOL|want|
 # (f32 sums in another order: ~1e-6 relative; the backwards chain six
 # products or sum over up to 1024 rows)
 TOL = {"filtered_act_plane": (3e-5, 1e-4), "filtered_act_banded": (3e-5, 1e-4),
        "flash_fwd": (2e-5, 1e-4), "filtered_act_plane_bwd": (1e-4, 1e-4),
-       "flash_bwd_dq": (1e-4, 1e-4), "flash_bwd_dkv": (1e-4, 1e-4)}
+       "flash_bwd_dq": (1e-4, 1e-4), "flash_bwd_dkv": (1e-4, 1e-4),
+       "filtered_act_banded_bwd": (1e-4, 1e-4)}
 # card vs CPU for one tiny training step: the loss within LOSS_RTOL of the
 # CPU's; each gradient within GRAD_RTOL of its tensor's max abs, with that
 # scale floored at GRAD_FLOOR of the largest gradient: the attention's
 # to_k bias has a gradient of zero in exact arithmetic (softmax ignores a
 # shift of every key), so both devices compute rounding noise there
 LOSS_RTOL, GRAD_RTOL, GRAD_FLOOR = 1e-4, 1e-3, 1e-4
+# the discriminator's floor: the biases of its convs that an instance norm
+# follows also have a gradient of zero in exact arithmetic (the norm
+# removes each channel's mean)
+DISC_GRAD_FLOOR = 1e-3
 
 
 def log(*a):
@@ -137,11 +162,12 @@ def flash_work(shape):
 
 
 def filtered_act_bwd_work(shape):
-    """FLOPs of the six products per plane (16H²W + 20HW², = 36S³ square)
-    and bytes: x and g read once, dx written once, the six operators read
-    once."""
+    """FLOPs of the six products per plane in both backward kernels' order
+    (U_h·x and D_hᵀ·g: 4H²W each; ·U_wᵀ, ·D_w and ·U_w: 8HW² each; U_hᵀ·t:
+    4H²W; together 12H²W + 24HW², = 36S³ square) and bytes: x and g read
+    once, dx written once, the six operators read once."""
     n, c, h, w = shape
-    flops = n * c * (16 * h * h * w + 20 * h * w * w)
+    flops = n * c * (12 * h * h * w + 24 * h * w * w)
     nbytes = 4 * (3 * n * c * h * w + 6 * h * h + 6 * w * w)
     return flops, nbytes
 
@@ -166,12 +192,12 @@ def _case(torch, name, shape, dev, g):
     from afldm_tpu_torch.ops import filtered_act as FA
     if name.startswith("filtered_act"):
         x = torch.randn(shape, device=dev, generator=g)
-        if name == "filtered_act_plane_bwd":
+        fn = getattr(FA, name)
+        if name.endswith("_bwd"):
             gr = torch.randn(shape, device=dev, generator=g)
-            return (lambda: FA.filtered_act_plane_bwd(x, gr, "silu"),
+            return (lambda: fn(x, gr, "silu"),
                     lambda: FA.filtered_act_plane_bwd_plain(x, gr, "silu"),
                     None, filtered_act_bwd_work(shape))
-        fn = getattr(FA, name)
         return (lambda: fn(x, "silu"),
                 lambda: FA.filtered_act_plain(x, "silu"), None,
                 filtered_act_work(shape))
@@ -276,7 +302,10 @@ def check_tiny_reference(torch):
 
 # the kernels each full-width path must launch
 SERVING_KERNELS = ("filtered_act_plane", "filtered_act_banded", "flash_fwd")
-TRAINING_KERNELS = tuple(KERNELS)
+TRAINING_KERNELS = ("filtered_act_plane", "filtered_act_banded", "flash_fwd",
+                    "filtered_act_plane_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+VAE_TRAINING_KERNELS = ("filtered_act_plane", "filtered_act_banded",
+                        "filtered_act_plane_bwd", "filtered_act_banded_bwd")
 
 
 def run_main_path(torch, steps):
@@ -333,6 +362,20 @@ def _tiny_trainer(device):
     return tr
 
 
+def _grads_close(got: dict, want: dict, floor: float = GRAD_FLOOR):
+    """(worst error over tensors in units of the tensor's scale, its name):
+    the scale is the tensor's max abs, floored at ``floor`` of the largest
+    gradient of all."""
+    largest = max(float(g.abs().max()) for g in want.values())
+    worst, worst_name = 0.0, None
+    for n, g in want.items():
+        scale = max(float(g.abs().max()), floor * largest)
+        r = float((got[n] - g).abs().max()) / scale
+        if r > worst:
+            worst, worst_name = r, n
+    return worst, worst_name
+
+
 def check_tiny_training(torch):
     """One step of the tiny LDM trainer (64 px, batch 2) with the same
     weights, images and draws on the card (kernels) and on the CPU (plain
@@ -353,13 +396,7 @@ def check_tiny_training(torch):
                      for n, p in tr.unet.named_parameters()})
     (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
     d_loss = max(abs(lc[k] - lp[k]) / abs(lp[k]) for k in lp)
-    largest = max(float(g.abs().max()) for g in gp.values())
-    worst, worst_name = 0.0, None
-    for n, g in gp.items():
-        scale = max(float(g.abs().max()), GRAD_FLOOR * largest)
-        r = float((gc[n] - g).abs().max()) / scale
-        if r > worst:
-            worst, worst_name = r, n
+    worst, worst_name = _grads_close(gc, gp)
     ok = (all(np.isfinite(v) for v in lc.values()) and d_loss <= LOSS_RTOL
           and worst <= GRAD_RTOL)
     log(f"tiny training reference (card vs CPU, one step): losses "
@@ -424,12 +461,144 @@ def run_training(torch, n_steps):
     return ok, counts
 
 
+# the tiny AF-VAE of the card-vs-CPU step: every level filtered, so the
+# 128 px level takes K1/K2 and the 64 and 32 px levels K5/K5b
+TINY_VAE = dict(block_out_channels=[16, 16, 16], layers_per_block=1,
+                latent_channels=4, norm_num_groups=8, sample_size=128,
+                alias_free=True, down_filtered_act=[True, True, True],
+                up_filtered_act=[True, True, True], up_rescale=[True, True])
+
+
+def _tiny_vae_trainer(device):
+    from afldm_tpu_torch import train as T
+    base = T.BaseTrainingConfig(resolution=128, train_batch_size=2, seed=0)
+    cfg = T.VAETrainingConfig(use_shift_loss=True, use_disc=True,
+                              use_ema=True)
+    tr = T.create_trainer("vae", base, cfg, device=device)
+    tr.init_modules(vae_config=TINY_VAE,
+                    disc_config={"depth": 3, "hidden_channels": 32})
+    tr.init_optimizers(100)
+    tr.prepare_modules(seed=0)
+    return tr
+
+
+def check_tiny_vae_training(torch):
+    """One generator step (MSE + perceptual + KL + shift + adaptive-weight
+    GAN term) and one discriminator step of the tiny AF-VAE trainer (128
+    px, batch 2) with the same weights, images and draws on the card
+    (kernels) and on the CPU (plain versions): the losses within LOSS_RTOL
+    and every VAE, then every discriminator, gradient within GRAD_RTOL
+    (the discriminator's scales floored at DISC_GRAD_FLOOR)."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch import train as T
+    images = next(T.epoch_batches(T.SyntheticDataset(resolution=128,
+                                                     length=2), 2))["input"]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tr = _tiny_vae_trainer(dev)
+        x = torch.from_numpy(images).permute(0, 3, 1, 2).contiguous().to(dev)
+        draws = tr.draw(0, 2)
+        if dev == "cuda":
+            kernels.reset_launch_counts()
+        logs = tr.generator_backward(x, draws)
+        logs.update(tr.disc_backward(x, draws))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = dict(kernels.LAUNCHES)
+        res[dev] = ({k: float(v) for k, v in logs.items()},
+                    {n: p.grad.detach().cpu()
+                     for n, p in tr.vae.named_parameters()},
+                    {n: p.grad.detach().cpu()
+                     for n, p in tr.disc.named_parameters()})
+    (lc, gc, dc), (lp, gp, dp) = res["cuda"], res["cpu"]
+    # relative to the loss, floored at 1e-2: the GAN term is a mean of
+    # logits of either sign and may sit near 0
+    d_loss = max(abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-2) for k in lp)
+    worst_g, name_g = _grads_close(gc, gp)
+    worst_d, name_d = _grads_close(dc, dp, DISC_GRAD_FLOOR)
+    missing = [k for k in VAE_TRAINING_KERNELS if launched[k] == 0]
+    ok = (all(np.isfinite(v) for v in lc.values()) and d_loss <= LOSS_RTOL
+          and worst_g <= GRAD_RTOL and worst_d <= GRAD_RTOL and not missing)
+    log(f"tiny VAE training reference (card vs CPU, one generator and one "
+        f"discriminator step): losses {json.dumps(lc)}; max loss rel err "
+        f"{d_loss:.2e} (limit {LOSS_RTOL}), max VAE grad err {worst_g:.2e} "
+        f"of its tensor's scale at {name_g}, max discriminator grad err "
+        f"{worst_d:.2e} at {name_d} (limit {GRAD_RTOL}); launches "
+        f"{json.dumps(launched)} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_vae_training(torch, n_steps):
+    """The full-width AF-VAE trainer of configs/vae/train_afvae_imagenet.json
+    as it stands (``profile_main_path.afvae_trainer``: SyntheticDataset,
+    since train_data_dir is absent; random weights)."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch import train as T
+    from afldm_tpu_torch.scripts.profile_main_path import afvae_trainer
+    t0 = time.perf_counter()
+    tr, ds = afvae_trainer(device="cuda", seed=0)
+    base, cfg = tr.base_cfg, tr.cfg
+    p0 = [p.detach().clone() for p in tr.vae.parameters()]
+    batches = T.epoch_batches(ds, base.train_batch_size, seed=0)
+    log(f"VAE training: full-width AF-VAE trainer built in "
+        f"{time.perf_counter() - t0:.1f} s (VAE "
+        f"{sum(p.numel() for p in p0) / 1e6:.1f}M params, batch "
+        f"{base.train_batch_size}, {base.resolution} px, gradient "
+        f"accumulation {cfg.gradient_accumulation_steps}, gradient "
+        f"checkpointing {base.gradient_checkpointing}, shift loss "
+        f"{cfg.use_shift_loss}, GAN {cfg.use_disc}, EMA {cfg.use_ema}, "
+        f"lr {cfg.learning_rate} with {cfg.lr_warmup_steps} warmup updates)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for step in range(n_steps):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        logs = tr.training_step(step, batch)  # floats: synchronises
+        times.append(time.perf_counter() - t0)
+        losses.append(logs)
+        note = ""
+        if tr.opt.micro_step == 0:  # an update was applied
+            moved = sum(not torch.equal(a, p)
+                        for a, p in zip(p0, tr.vae.parameters()))
+            note = f"; {moved} of {len(p0)} tensors moved so far"
+        log(f"VAE training micro-step {step}: {times[-1]:.3f} s "
+            f"{json.dumps(logs)}{note}")
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(times[1:] or times))
+    log(f"VAE training: median micro-step {med:.3f} s over micro-steps "
+        f"1..{n_steps - 1} ({base.train_batch_size / med:.2f} images/s), "
+        f"first {times[0]:.3f} s, peak device memory {peak:.2f} GiB")
+    log(f"VAE training launches: {json.dumps(counts)}")
+    moved = sum(not torch.equal(a, p)
+                for a, p in zip(p0, tr.vae.parameters()))
+    finite = all(np.isfinite(v) for d in losses for v in d.values())
+    log(f"VAE training: {moved} of {len(p0)} parameter tensors moved after "
+        f"{n_steps // cfg.gradient_accumulation_steps} updates; losses "
+        f"finite: {finite}")
+    missing = [k for k in VAE_TRAINING_KERNELS if counts[k] == 0]
+    if missing:
+        log(f"VAE training: FAIL, never launched: {missing}")
+    ok = finite and moved == len(p0) and not missing
+    if not ok:
+        log("VAE training: FAIL")
+    return ok, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
                     help="DDIM steps of the serving path (default 50)")
     ap.add_argument("--train_steps", type=int, default=4,
                     help="steps of the full-width training path (default 4)")
+    ap.add_argument("--vae_steps", type=int, default=8,
+                    help="micro-steps of the full-width VAE training path "
+                         "(default 8: 4 updates, the first ones far into "
+                         "the lr warmup)")
     args = ap.parse_args(argv)
 
     if not (REPO / "afldm_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -474,8 +643,12 @@ def main(argv=None):
     ok &= check_tiny_training(torch)
     train_ok, train_counts = run_training(torch, args.train_steps)
     ok &= train_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_vae_training(torch)
+    vae_ok, vae_counts = run_vae_training(torch, args.vae_steps)
+    ok &= vae_ok
     for k, row in report.items():
-        row["launches"] = counts[k] + train_counts[k]
+        row["launches"] = counts[k] + train_counts[k] + vae_counts[k]
     log(json.dumps({"kernels": list(report.values())}))
     if not ok:
         log("chip_smoke: FAILED")

@@ -1,7 +1,8 @@
 """The port's backward passes against the JAX package: the filtered
 activation's plain backward (``filtered_act_plane_bwd_plain``) against
-``jax.vjp`` of ``filtered_act_pallas(mode="channel")``, which runs the K5b
-Pallas kernel in interpret mode on the CPU, and against torch autograd; the
+``jax.vjp`` of ``filtered_act_pallas`` with ``mode="channel"`` and
+``mode="spatial"``, which run the K5b and K2 Pallas kernels in interpret
+mode on the CPU, and against torch autograd; the
 attention's plain backward (``_attention_bwd_plain``) against ``jax.vjp``
 of ``sdpa_flash``, which runs K4a and K4b in interpret mode; and the
 autograd Functions that route both on the CPU. The CUDA kernels themselves
@@ -105,15 +106,48 @@ def test_fft_ref_chain_grad_matches_jax(rng):
     np.testing.assert_allclose(nhwc(xt.grad), np.asarray(want), atol=1e-5)
 
 
-def test_banded_backward_raises(rng):
-    """K2 is not ported: differentiating the banded kernel raises on the
-    CPU too, rather than taking the plain version."""
-    x = torch.zeros(1, 1, 96, 96, requires_grad=True)
+# -- filtered activation, banded (K2) -----------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 8, 16, 3), (1, 96, 96, 2)])
+@pytest.mark.parametrize("act", ACTS)
+def test_banded_bwd_plain_matches_pallas_spatial_vjp(rng, shape, act):
+    """K2's plain version is the plane backward's: it equals the VJP of the
+    spatial Pallas kernel (``_bwd_spatial``) at any size."""
+    x, g = rand(rng, shape), rand(rng, shape)
+
+    @jax.jit
+    def vjp(x, g):
+        _, pull = jax.vjp(lambda z: filtered_act_pallas(z, act, "spatial"),
+                          x)
+        return pull(g)[0]
+
+    want = vjp(jnp.asarray(x), jnp.asarray(g))
+    got = TF.filtered_act_banded_bwd(nchw(x), nchw(g), act)
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "leaky_relu"])
+def test_banded_function_gradcheck(rng, act):
+    """On the CPU the banded Function takes any size (its plain versions)."""
+    x = torch.from_numpy(rand(rng, (1, 2, 8, 4))).double().requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda t: TF.filtered_act_banded(t, act), (x,))
+
+
+def test_dispatcher_grad_routes_banded_function(rng):
+    """autograd through ``filtered_act_fused`` at 96 px goes through the
+    banded Function (which saves x) and equals the plain backward; nothing
+    launches on the CPU."""
+    x = nchw(rand(rng, (1, 96, 96, 2))).requires_grad_()
+    g = nchw(rand(rng, (1, 96, 96, 2)))
+    before = dict(kernels.LAUNCHES)
     y = TF.filtered_act_fused(x, "silu")
-    with pytest.raises(NotImplementedError, match="K2"):
-        y.sum().backward()
-    with torch.no_grad():  # the forward (the VAE encoder's use) still runs
-        TF.filtered_act_banded(x, "silu")
+    assert type(y.grad_fn).__name__ == "_FilteredActBandedBackward"
+    y.backward(g)
+    assert kernels.LAUNCHES == before
+    torch.testing.assert_close(
+        x.grad, TF.filtered_act_plane_bwd_plain(x.detach(), g, "silu"))
 
 
 # -- attention (K4a, K4b) --------------------------------------------------

@@ -129,8 +129,8 @@ def test_plane_bwd_kernel_matches_plain(cuda, shape, act):
 
 @pytest.mark.cuda
 def test_plane_function_backward_launches_kernel(cuda):
-    """autograd through the dispatcher reaches the backward kernel; the
-    banded Function's backward raises (K2 is not ported)."""
+    """autograd through the dispatcher reaches the plane backward kernel at
+    plane sizes and the banded one (K2) at 96-512 px."""
     x = torch.randn(2, 8, 16, 16, device=cuda, requires_grad=True)
     g = torch.randn(2, 8, 16, 16, device=cuda)
     y = TF.filtered_act_fused(x, "silu")
@@ -138,9 +138,31 @@ def test_plane_function_backward_launches_kernel(cuda):
     torch.testing.assert_close(
         x.grad, TF.filtered_act_plane_bwd_plain(x.detach(), g, "silu"),
         atol=1e-4, rtol=1e-4)
-    xb = torch.randn(1, 1, 128, 128, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        TF.filtered_act_fused(xb, "silu").sum().backward()
+    xb = torch.randn(1, 2, 128, 128, device=cuda, requires_grad=True)
+    gb = torch.randn(1, 2, 128, 128, device=cuda)
+    yb = TF.filtered_act_fused(xb, "silu")
+    _launches("filtered_act_banded_bwd", lambda: yb.backward(gb))
+    torch.testing.assert_close(
+        xb.grad, TF.filtered_act_plane_bwd_plain(xb.detach(), gb, "silu"),
+        atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 128, 128), (1, 2, 96, 128),
+                                   (1, 1, 256, 256), (1, 1, 200, 104),
+                                   (1, 1, 512, 96)])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu", "mish",
+                                 "leaky_relu", "tanh"])
+def test_banded_bwd_kernel_matches_plain(cuda, shape, act):
+    """K2 with its accumulator in shared memory (up to 128x128) and in the
+    block's dx plane (above), bands of 32, 16 and 8 rows."""
+    x = torch.randn(shape, device=cuda)
+    g = torch.randn(shape, device=cuda)
+    got = _launches("filtered_act_banded_bwd",
+                    lambda: TF.filtered_act_banded_bwd(x, g, act))
+    torch.testing.assert_close(
+        got, TF.filtered_act_plane_bwd_plain(x, g, act), atol=1e-4,
+        rtol=1e-4)
 
 
 def _attn_inputs(cuda, B, H, Lq, Lk, D, kv_batch):
@@ -229,6 +251,53 @@ def test_tiny_training_step_on_card_matches_cpu(cuda, policy):
         assert kernels.LAUNCHES[name] > 0, name
     want_loss, want = _tiny_step_grads("cpu", None)
     assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    largest = max(float(g.abs().max()) for g in want.values())
+    for n, g in want.items():
+        scale = max(float(g.abs().max()), 1e-4 * largest)
+        assert float((got[n] - g).abs().max()) <= 1e-3 * scale, n
+
+
+_TINY_VAE = dict(block_out_channels=[16, 16, 16], layers_per_block=1,
+                 latent_channels=4, norm_num_groups=8, sample_size=128,
+                 alias_free=True, down_filtered_act=[True, True, True],
+                 up_filtered_act=[True, True, True], up_rescale=[True, True])
+
+
+def _tiny_vae_step_grads(device, policy):
+    from afldm_tpu_torch import train as T
+    base = T.BaseTrainingConfig(resolution=128, train_batch_size=2, seed=0,
+                                gradient_checkpointing=policy is not None,
+                                remat_policy=policy or "full")
+    cfg = T.VAETrainingConfig(use_shift_loss=True, use_disc=True)
+    tr = T.create_trainer("vae", base, cfg, device=device)
+    tr.init_modules(vae_config=_TINY_VAE,
+                    disc_config={"depth": 3, "hidden_channels": 32})
+    tr.init_optimizers(100)
+    tr.prepare_modules(seed=0)
+    images = next(T.epoch_batches(T.SyntheticDataset(resolution=128,
+                                                     length=2), 2))["input"]
+    x = torch.from_numpy(images).permute(0, 3, 1, 2).contiguous().to(device)
+    logs = tr.generator_backward(x, tr.draw(0, 2))
+    return ({k: float(v) for k, v in logs.items()},
+            {n: p.grad.detach().cpu() for n, p in tr.vae.named_parameters()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "full", "dots"])
+def test_tiny_vae_step_on_card_matches_cpu(cuda, policy):
+    """One generator step of a tiny AF-VAE (128 px top level) with shift
+    loss and the adaptive GAN term: the banded kernels and their backward
+    run under each remat policy, and the losses and gradients match the
+    CPU's (losses relative to max(|loss|, 1e-2): the GAN term is a mean of
+    logits of either sign)."""
+    kernels.reset_launch_counts()
+    got_logs, got = _tiny_vae_step_grads("cuda", policy)
+    for name in ("filtered_act_plane", "filtered_act_plane_bwd",
+                 "filtered_act_banded", "filtered_act_banded_bwd"):
+        assert kernels.LAUNCHES[name] > 0, name
+    want_logs, want = _tiny_vae_step_grads("cpu", None)
+    for k, w in want_logs.items():
+        assert abs(got_logs[k] - w) <= 1e-4 * max(abs(w), 1e-2), k
     largest = max(float(g.abs().max()) for g in want.values())
     for n, g in want.items():
         scale = max(float(g.abs().max()), 1e-4 * largest)

@@ -461,8 +461,7 @@ def test_config_needs_one_trainer_key(tmp_path):
         PT.load_training_config(str(p))
 
 
-@pytest.mark.parametrize("name", ["vae", "i2sb", "sd_text",
-                                  "norm_controlnet"])
+@pytest.mark.parametrize("name", ["i2sb", "sd_text", "norm_controlnet"])
 def test_unported_trainers_raise(name):
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
         PT.create_trainer(name, PT.BaseTrainingConfig(), None, device="cpu")
