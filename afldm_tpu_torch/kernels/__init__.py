@@ -20,13 +20,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("filtered_act", "flash_fwd", "flash_bwd")
+SOURCES = ("filtered_act", "flash_fwd", "flash_bwd", "flash2_fwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"filtered_act_plane": 0, "filtered_act_banded": 0,
             "flash_fwd": 0, "filtered_act_plane_bwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "filtered_act_banded_bwd": 0}
+            "flash_bwd_dkv": 0, "filtered_act_banded_bwd": 0,
+            "flash2_fwd": 0}
 
 _LIBS = {}
 
@@ -67,6 +68,12 @@ _SIGNATURES = {
         # q, k, v, dO strides (b1, b2, l), scale, stream
         "flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, *[_L] * 12, _F, _P],
+    },
+    "flash2_fwd": {
+        # q, k0, v0, k1, v1, alpha, out, B1, B2, Lq, Lk, D,
+        # q, k0, v0, k1, v1 strides (b1, b2, l), scale, stream
+        "flash2_fwd_f32": [*[_P] * 7, _I, _I, _I, _I, _I, *[_L] * 15, _F,
+                           _P],
     },
 }
 

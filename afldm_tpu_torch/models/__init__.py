@@ -6,6 +6,9 @@ from .vae import (AutoencoderKL, AutoencoderKLConfig, gaussian_kl,
                   gaussian_sample)
 from .discriminator import Discriminator, hinge_d_loss, hinge_g_loss
 from .convert import from_flax
+from .attention_blocks import (BasicTransformerBlock, CrossAttention,
+                               FeedForward, Transformer2DModel)
+from .unet2d_condition import UNet2DConditionConfig, UNet2DConditionModel
 
 __all__ = [
     "Attention", "Downsample2D", "KVHelper", "ResnetBlock2D",
@@ -13,5 +16,7 @@ __all__ = [
     "get_timestep_embedding", "UNet2DConfig", "UNet2DModel",
     "UNetMidBlock2D", "AutoencoderKL", "AutoencoderKLConfig",
     "gaussian_kl", "gaussian_sample", "Discriminator", "hinge_d_loss",
-    "hinge_g_loss", "from_flax",
+    "hinge_g_loss", "from_flax", "BasicTransformerBlock", "CrossAttention",
+    "FeedForward", "Transformer2DModel", "UNet2DConditionConfig",
+    "UNet2DConditionModel",
 ]

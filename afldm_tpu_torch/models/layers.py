@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import sdpa
+from ..ops.attention import sdpa, sdpa2
 from ..ops.filtered_act import filtered_act_fused
 from ..ops.ideal_lpf import _ACTS, downsample_rfft, upsample_rfft
 
@@ -102,8 +102,12 @@ class Attention(nn.Module):
     stored from the reference frame (NCHW); group-norm is re-applied to it
     before the K/V projection. A smaller override batch is repeated over
     the frame batch after projection; from batch 1 that is an ``expand``
-    view (no copy), which the flash kernel reads with stride 0. The
-    pre-norm input is always returned as the map a STORE pass keeps."""
+    view (no copy), which the flash kernels read with stride 0.
+    ``kv_override2`` and ``alpha`` (default 0.5; a scalar or one per frame)
+    blend the attention over two stored maps for interpolation, before
+    ``to_out`` (exact: ``to_out`` is affine and the weights sum to 1), in
+    one pass of ``sdpa2``. The pre-norm input is always returned as the map
+    a STORE pass keeps."""
 
     def __init__(self, channels: int, num_heads: int, eps: float = 1e-6,
                  groups: int = 32):
@@ -124,21 +128,33 @@ class Attention(nn.Module):
         return t.reshape(n, L, self.num_heads, C // self.num_heads) \
                 .transpose(1, 2)
 
-    def forward(self, x, kv_override=None):
-        N, C, H, W = x.shape
-        stored = x
-        xn = self._tokens(x)
-        kv = xn if kv_override is None else self._tokens(kv_override)
+    def _kv(self, override, n):
+        """Head-split K/V of a stored map, broadcast over ``n`` frames."""
+        kv = self._tokens(override)
         k, v = self.to_k(kv), self.to_v(kv)
-        if k.shape[0] == 1 and N > 1:
-            k, v = k.expand(N, -1, -1), v.expand(N, -1, -1)
-        elif k.shape[0] < N:
-            reps = N // k.shape[0]
+        if k.shape[0] == 1 and n > 1:
+            k, v = k.expand(n, -1, -1), v.expand(n, -1, -1)
+        elif k.shape[0] < n:
+            reps = n // k.shape[0]
             k = k.repeat_interleave(reps, dim=0)
             v = v.repeat_interleave(reps, dim=0)
-        out = sdpa(self._heads(self.to_q(xn)), self._heads(k), self._heads(v))
+        return self._heads(k), self._heads(v)
+
+    def forward(self, x, kv_override=None, kv_override2=None, alpha=None):
+        N, C, H, W = x.shape
+        xn = self._tokens(x)
+        q = self._heads(self.to_q(xn))
+        if kv_override is None:
+            out = sdpa(q, self._heads(self.to_k(xn)),
+                       self._heads(self.to_v(xn)))
+        elif kv_override2 is None:
+            out = sdpa(q, *self._kv(kv_override, N))
+        else:
+            out = sdpa2(q, *self._kv(kv_override, N),
+                        *self._kv(kv_override2, N),
+                        0.5 if alpha is None else alpha)
         out = self.to_out[0](out.transpose(1, 2).reshape(N, H * W, C))
-        return out.transpose(1, 2).reshape(N, C, H, W) + x, stored
+        return out.transpose(1, 2).reshape(N, C, H, W) + x, x
 
 
 class Downsample2D(nn.Module):
@@ -183,18 +199,22 @@ class Upsample2D(nn.Module):
 
 class KVHelper:
     """Threads cross-frame-attention maps through nested blocks:
-    ``take()`` returns the override for the next attention layer (or None),
-    ``push()`` collects its pre-norm map."""
+    ``take()`` returns the (override, override2) pair for the next
+    attention layer (None where not given), ``alpha`` the interpolation
+    weight, ``push()`` collects its stored map."""
 
-    def __init__(self, kv_in=None):
+    def __init__(self, kv_in=None, kv_in2=None, alpha=None):
         self.kv_in = kv_in
+        self.kv_in2 = kv_in2
+        self.alpha = alpha
         self._i = 0
         self.out = []
 
     def take(self):
         i = self._i
         self._i += 1
-        return None if self.kv_in is None else self.kv_in[i]
+        return (None if self.kv_in is None else self.kv_in[i],
+                None if self.kv_in2 is None else self.kv_in2[i])
 
     def push(self, stored):
         self.out.append(stored)

@@ -86,7 +86,8 @@ class AttnDownBlock2D(nn.Module):
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
             if self.attentions:
-                x, stored = self.attentions[i](x, kv.take())
+                x, stored = self.attentions[i](x, *kv.take(),
+                                               kv.alpha)
                 kv.push(stored)
             skips.append(x)
         for down in self.downsamplers:
@@ -122,7 +123,8 @@ class AttnUpBlock2D(nn.Module):
             x = torch.cat([x, skips.pop()], dim=1)
             x = resnet(x, temb)
             if self.attentions:
-                x, stored = self.attentions[i](x, kv.take())
+                x, stored = self.attentions[i](x, *kv.take(),
+                                               kv.alpha)
                 kv.push(stored)
         for up in self.upsamplers:
             x = up(x)
@@ -149,14 +151,16 @@ class UNetMidBlock2D(nn.Module):
     def forward(self, x, temb, kv: KVHelper):
         x = self.resnets[0](x, temb)
         if self.attentions:
-            x, stored = self.attentions[0](x, kv.take())
+            x, stored = self.attentions[0](x, *kv.take(), kv.alpha)
             kv.push(stored)
         return self.resnets[1](x, temb)
 
 
 class UNet2DModel(nn.Module):
-    """``forward(sample, timesteps, kv_in=None) -> (eps, stored_maps)``;
-    pass ``kv_in`` (the maps of a STORE pass) for cross-frame attention."""
+    """``forward(sample, timesteps, kv_in=None, kv_in2=None, alpha=None)
+    -> (eps, stored_maps)``; pass ``kv_in`` (the maps of a STORE pass) for
+    cross-frame attention, and ``kv_in2`` with ``alpha`` to blend the
+    attention over two STORE passes (interpolation)."""
 
     def __init__(self, config: UNet2DConfig):
         super().__init__()
@@ -206,9 +210,9 @@ class UNet2DModel(nn.Module):
         self.conv_act = WrappedActivation(cfg.act_fn, filtered=False)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, kv_in=None):
+    def forward(self, sample, timesteps, kv_in=None, kv_in2=None, alpha=None):
         cfg = self.config
-        kv = KVHelper(kv_in)
+        kv = KVHelper(kv_in, kv_in2, alpha)
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])

@@ -4,12 +4,13 @@ from .ideal_lpf import (
 )
 from .filtered_act import (filtered_act_banded, filtered_act_fused,
                            filtered_act_plain, filtered_act_plane)
-from .attention import flash_fwd, sdpa, sdpa_eager
+from .attention import (flash2_fwd, flash_fwd, sdpa, sdpa2, sdpa2_eager,
+                        sdpa_eager)
 
 __all__ = [
     "downsample_rfft", "filtered_nonlinearity",
     "lpf_recon_rfft", "lpf_rfft", "set_af_precision", "subpixel_shift",
     "upsample_rfft", "filtered_act_banded", "filtered_act_fused",
-    "filtered_act_plain", "filtered_act_plane", "flash_fwd", "sdpa",
-    "sdpa_eager",
+    "filtered_act_plain", "filtered_act_plane", "flash2_fwd", "flash_fwd",
+    "sdpa", "sdpa2", "sdpa2_eager", "sdpa_eager",
 ]

@@ -1,7 +1,9 @@
 """Scaled-dot-product attention: the plain version, the flash kernels
 (K3, K4a and K4b of the JAX package: ``attention.py::_flash_kernel``,
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), the autograd
-Function that joins them and the dispatcher.
+Function that joins them and the dispatcher; and the two-KV blended
+attention of CFA interpolation (``sdpa2``) with its kernel (K6,
+``_flash2_kernel``).
 
 q: (..., Lq, D), k/v: (..., Lk, D). Semantics of the JAX ``sdpa_xla``:
 f32 scores, f32 softmax, p cast to v's dtype for p @ v. The backward is the
@@ -216,3 +218,113 @@ def sdpa(q, k, v, scale=None):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, scale)
+
+
+# -- two-KV blended attention (CFA interpolation) ----------------------------
+
+def _alpha_per_lead(alpha, lead, device) -> torch.Tensor:
+    """Alpha as one f32 weight per leading index, flattened, as the JAX
+    ``sdpa2_flash`` broadcasts it: trailing size-1 axes beyond the leading
+    rank are dropped, then alpha aligns with the leading dims from the left
+    (a scalar covers all; (N,) and (N,1,1) are per frame and broadcast over
+    heads)."""
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    while a.ndim > len(lead) and a.shape[-1] == 1:
+        a = a[..., 0]
+    a = a.reshape(a.shape + (1,) * (len(lead) - a.ndim))
+    return a.expand(lead).reshape(-1) if lead else a.reshape(1)
+
+
+def _sdpa2_twopass(q, k0, v0, k1, v1, alpha, attn):
+    """(1-alpha)*attn(q,k0,v0) + alpha*attn(q,k1,v1), blended in f32 and
+    returned in q's dtype: the semantics the fused kernel must match."""
+    lead = q.shape[:-2]
+    a = _alpha_per_lead(alpha, lead, q.device).reshape(lead + (1, 1))
+    o0, o1 = attn(q, k0, v0).float(), attn(q, k1, v1).float()
+    return ((1.0 - a) * o0 + a * o1).to(q.dtype)
+
+
+def sdpa2_eager(q, k0, v0, k1, v1, alpha, scale=None):
+    """Plain two-KV blended SDPA: two ``sdpa_eager`` passes and the f32
+    blend (the JAX ``sdpa2_xla``)."""
+    return _sdpa2_twopass(q, k0, v0, k1, v1, alpha,
+                          lambda q, k, v: sdpa_eager(q, k, v, scale))
+
+
+def flash2_fwd(q, k0, v0, k1, v1, alpha, scale=None):
+    """Fused two-KV flash forward (K6): ``(1-a)*attn(q,k0,v0) +
+    a*attn(q,k1,v1)`` with one alpha per leading index. The layout rules
+    are ``flash_fwd``'s: inputs read through their strides (a unit stride
+    along D, else copied), K/V expanded from one image (stride 0) never
+    copied. The four K/V tensors share one shape."""
+    if q.device.type == "cpu":
+        return sdpa2_eager(q, k0, v0, k1, v1, alpha, scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    kvs = (k0, v0, k1, v1)
+    if not all(t.device == q.device and t.device.type == "cuda"
+               for t in (q, *kvs)):
+        raise ValueError("flash2_fwd: q, k0, v0, k1, v1 must lie on one "
+                         "CUDA device")
+    if not all(t.dtype == torch.float32 for t in (q, *kvs)):
+        raise TypeError("flash2_fwd: float32 only")
+    lead = q.shape[:-2]
+    ts = [_as_4d(t) for t in (q, *kvs)]
+    ts = [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+    B1, B2, Lq, D = ts[0].shape
+    Lk = ts[1].shape[2]
+    if (any(t.shape != (B1, B2, Lk, D) for t in ts[1:]) or D > FLASH_MAX_D
+            or Lk == 0 or Lq == 0):
+        raise ValueError(f"flash2_fwd: unsupported shapes {tuple(q.shape)} "
+                         f"x {[tuple(t.shape) for t in kvs]}")
+    a = _alpha_per_lead(alpha, lead, q.device).contiguous()
+    out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    strides = [s for t in ts for s in t.stride()[:3]]
+    err = kernels.library("flash2_fwd").flash2_fwd_f32(
+        *(t.data_ptr() for t in ts), a.data_ptr(), out.data_ptr(), B1, B2,
+        Lq, Lk, D, *strides, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "flash2_fwd")
+    kernels.LAUNCHES["flash2_fwd"] += 1
+    return out.reshape(lead + (Lq, D))
+
+
+class _FlashAttention2(torch.autograd.Function):
+    """``flash2_fwd`` forward. The backward is the VJP of the two-pass blend
+    through ``_FlashAttention`` (K3 recompute, then K4a and K4b for each
+    KV set), as the JAX ``_sdpa2_bwd`` takes it through two ``sdpa_flash``
+    passes; alpha's gradient comes with it."""
+
+    @staticmethod
+    def forward(ctx, q, k0, v0, k1, v1, alpha, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k0, v0, k1, v1, alpha)
+        return flash2_fwd(q, k0, v0, k1, v1, alpha, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        scale = ctx.scale
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, needs)]
+            out = _sdpa2_twopass(
+                *ins, lambda q, k, v: _FlashAttention.apply(q, k, v, scale))
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], g))
+        return (*(next(grads) if n else None for n in needs), None)
+
+
+def sdpa2(q, k0, v0, k1, v1, alpha, scale=None):
+    """Dispatching two-KV blended SDPA (the CFA-interpolation attention of
+    ``layers.Attention``). It chooses by shape only, like the JAX gate
+    (``attention.py:453-480``) without its TPU thresholds: D <= 256 and
+    ``k0.shape == k1.shape`` take the fused kernel, everything else the
+    plain version."""
+    if q.shape[-1] > FLASH_MAX_D or k0.shape != k1.shape:
+        return sdpa2_eager(q, k0, v0, k1, v1, alpha, scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=q.device)
+    return _FlashAttention2.apply(q, k0, v0, k1, v1, alpha, scale)

@@ -46,6 +46,12 @@ class LDMPipeline:
 
     # -- denoising loops -------------------------------------------------------
 
+    def _eps(self, x, t, **kv):
+        """The UNet's (noise prediction, stored maps) at (x, t); ``kv``
+        are its cross-frame-attention inputs. A conditioned pipeline adds
+        its conditioning here."""
+        return self.unet(x, t, **kv)
+
     def _schedule(self, num_steps: int):
         ts = self.scheduler.set_timesteps(num_steps)
         # fixed here, never derived from scheduler state inside the loop
@@ -54,17 +60,24 @@ class LDMPipeline:
 
     @torch.inference_mode()
     def denoise(self, latents, num_inference_steps: int = 50, kv_traj=None,
-                collect_kv: bool = False):
+                kv_traj2=None, alpha=None, collect_kv: bool = False):
         """Full DDIM denoise. Without ``kv_traj`` (STORE) returns
         (latents, per-step stored maps if ``collect_kv`` else None); with a
-        trajectory from a STORE pass (LOAD) each step reads its maps and
-        returns (latents, None)."""
+        trajectory from a STORE pass (LOAD) each step reads its maps; with
+        two (interp) each step blends the attention over both with
+        ``alpha`` (a scalar or one per frame). LOAD and interp return
+        (latents, None)."""
         ts, ts_prev = self._schedule(num_inference_steps)
         x = latents
         traj = [] if (collect_kv and kv_traj is None) else None
+        if alpha is not None:  # moved to the device once, not per layer
+            alpha = torch.as_tensor(alpha, dtype=torch.float32,
+                                    device=x.device)
         for i, (t, pt) in enumerate(zip(ts, ts_prev)):
             kv_in = None if kv_traj is None else kv_traj[i]
-            eps, stored = self.unet(x, t, kv_in=kv_in)
+            kv_in2 = None if kv_traj2 is None else kv_traj2[i]
+            eps, stored = self._eps(x, t, kv_in=kv_in, kv_in2=kv_in2,
+                                    alpha=alpha)
             x, _ = self.scheduler.step(eps, t, x, prev_timestep=pt)
             if traj is not None:
                 traj.append(stored)
@@ -78,7 +91,7 @@ class LDMPipeline:
         ts_prev = [-1] + ts_up[:-1]
         x = latents
         for t, t_prev in zip(ts_up, ts_prev):
-            eps, _ = self.unet(x, t)
+            eps, _ = self._eps(x, t)
             x = self.scheduler.inversion_step(eps, t_prev, t, x)
         return x
 

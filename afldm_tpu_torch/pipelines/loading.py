@@ -8,9 +8,12 @@ import math
 import torch
 
 from ..models.unet2d import UNet2DConfig, UNet2DModel
+from ..models.unet2d_condition import (UNet2DConditionConfig,
+                                       UNet2DConditionModel)
 from ..models.vae import AutoencoderKL, AutoencoderKLConfig
 from ..ops.ideal_lpf import set_af_precision
 from ..schedulers.ddim import DDIMScheduler
+from .interpolation import ImageInterpolationPipeline
 from .ldm import LDMPipeline
 
 
@@ -47,18 +50,36 @@ def init_random_pipeline(unet_config, vae_config, scheduler_config,
     """Configs may be dataclasses or diffusers-style dicts (the UNet dict is
     read as alias-free, like the JAX package's loader). Sets exact float32
     (``set_af_precision("highest")``)."""
+    return LDMPipeline(*_random_modules(UNet2DConfig, UNet2DModel,
+                                        unet_config, vae_config, seed,
+                                        device),
+                       DDIMScheduler.from_config(scheduler_config))
+
+
+def init_random_interp_pipeline(unet_config, vae_config, scheduler_config,
+                                seed: int = 0,
+                                device=None) -> ImageInterpolationPipeline:
+    """The image-interpolation pipeline (SD-family conditioned UNet,
+    AF-VAE) with random weights from ``seed``; the configs as for
+    ``init_random_pipeline``."""
+    vae, unet = _random_modules(UNet2DConditionConfig, UNet2DConditionModel,
+                                unet_config, vae_config, seed, device)
+    return ImageInterpolationPipeline(
+        vae, unet, DDIMScheduler.from_config(scheduler_config))
+
+
+def _random_modules(config_cls, unet_cls, unet_config, vae_config, seed,
+                    device):
+    """(vae, unet) with weights drawn from ``seed``, on ``device``."""
     device = resolve_device(device)
     set_af_precision("highest")
     if isinstance(unet_config, dict):
-        unet_config = UNet2DConfig.from_diffusers(unet_config,
-                                                  alias_free=True)
+        unet_config = config_cls.from_diffusers(unet_config, alias_free=True)
     if isinstance(vae_config, dict):
         vae_config = AutoencoderKLConfig.from_diffusers(vae_config)
     gen = torch.Generator().manual_seed(seed)
-    unet = UNet2DModel(unet_config)
+    unet = unet_cls(unet_config)
     vae = AutoencoderKL(vae_config)
     init_random_weights(unet, gen)
     init_random_weights(vae, gen)
-    unet.to(device).eval()
-    vae.to(device).eval()
-    return LDMPipeline(vae, unet, DDIMScheduler.from_config(scheduler_config))
+    return vae.to(device).eval(), unet.to(device).eval()

@@ -12,6 +12,7 @@ import torch
 
 from ..shift.metrics import mask_psnr
 from ..shift.shifters import ImageShifter
+from ._frames import decode_chunked
 
 
 @dataclass
@@ -77,10 +78,8 @@ def shift_equivariance_eval(pipeline, generator=None,
 
     den_shifted, _ = pipeline.denoise(shifted, num_inference_steps,
                                       kv_traj=kv_traj)
-    lats = den_shifted * lat_masks
-    chunk = decode_chunk or lats.shape[0]
-    outputs = torch.cat([pipeline.decode(lats[i:i + chunk])
-                         for i in range(0, lats.shape[0], chunk)])
+    outputs = decode_chunked(pipeline.decode, den_shifted * lat_masks,
+                             decode_chunk)
 
     # ground truth: pixel-space bilinear shift of the reference decode
     image_shifter = ImageShifter()

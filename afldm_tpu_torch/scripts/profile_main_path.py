@@ -4,7 +4,11 @@ untraced warm-up. ``--path serve``: one full-width
 ``--train_steps`` steps of the full-width LDM trainer of
 ``configs/ldm/train_unet_ffhq.json`` (``ffhq_trainer``). ``--path
 vae_train``: ``--train_steps`` micro-steps of the full-width AF-VAE trainer
-of ``configs/vae/train_afvae_imagenet.json`` (``afvae_trainer``). Prints
+of ``configs/vae/train_afvae_imagenet.json`` (``afvae_trainer``). ``--path
+interp``: the full-width SD image interpolation of the CLI
+(``scripts/image_interpolation.py``: random weights from seed 0, its
+synthetic 512 px pair and Lucas-Kanade flow) of ``--frames`` frames with
+``--steps`` DDIM steps; the flow is estimated once, outside the runs. Prints
 the device time by kernel name (top 25) and by group (the port's kernels,
 convolutions, GEMMs, FFTs, ...), the sum of device time against the traced
 wall time, and the wall time of the untraced run.
@@ -12,6 +16,7 @@ wall time, and the wall time of the untraced run.
   python -m afldm_tpu_torch.scripts.profile_main_path --steps 50
   python -m afldm_tpu_torch.scripts.profile_main_path --path train
   python -m afldm_tpu_torch.scripts.profile_main_path --path vae_train
+  python -m afldm_tpu_torch.scripts.profile_main_path --path interp --steps 10
 """
 
 import argparse
@@ -103,10 +108,27 @@ def _vae_train_run(args):
     return run
 
 
+def _interp_run(args):
+    from ..pipelines import init_random_interp_pipeline
+    from ..shift.simple_flow import predict_flow
+    from .image_interpolation import image_pair, load_configs
+    pipe = init_random_interp_pipeline(*load_configs(), seed=0)
+    res = pipe.unet.config.sample_size * pipe.vae.config.downsample_ratio
+    img0, img1 = (t.to(pipe.device) for t in image_pair(res))
+    flows = predict_flow(img0, img1)
+
+    def run():
+        pipe(img0, img1, num_frames=args.frames,
+             num_inference_steps=args.steps,
+             generator=torch.Generator().manual_seed(1), flows=flows)
+    return run
+
+
 # kernel-name groups of the breakdown, first match wins. cuDNN runs some
 # f32 convolutions as FFT tiles (r2c, a complex GEMM, c2r), which land in
 # "FFT and complex GEMM" with torch.fft's own kernels
-GROUPS = (("port kernels", ("filtered_act", "flash_")),
+PORT_KERNELS = ("filtered_act", "flash_", "flash2_")
+GROUPS = (("port kernels", PORT_KERNELS),
           ("FFT and complex GEMM", ("fft", "cf32")),
           ("convolution", ("conv", "cudnn", "implicit", "winograd", "wgrad",
                            "dgrad", "fprop")),
@@ -124,16 +146,19 @@ def group_of(name: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=["serve", "train", "vae_train"],
-                    default="serve")
+    ap.add_argument("--path", choices=["serve", "train", "vae_train",
+                                       "interp"], default="serve")
     ap.add_argument("--steps", type=int, default=50,
-                    help="DDIM steps of the serving path")
+                    help="DDIM steps of the serving and interp paths")
+    ap.add_argument("--frames", type=int, default=17,
+                    help="frames of the interp path")
     ap.add_argument("--train_steps", type=int, default=2,
                     help="training (micro-)steps per run (warm-up and "
                          "traced)")
     args = ap.parse_args(argv)
     body = {"serve": _serve_run, "train": _train_run,
-            "vae_train": _vae_train_run}[args.path](args)
+            "vae_train": _vae_train_run,
+            "interp": _interp_run}[args.path](args)
 
     def run():
         body()
@@ -163,7 +188,7 @@ def main(argv=None):
           f"{traced_wall:.3f} s; device time {total / 1e3:.3f} s "
           f"({100 * total / 1e3 / traced_wall:.1f}% of traced wall)")
     ours = {k: v for k, v in rows.items()
-            if "filtered_act" in k or "flash_" in k}
+            if any(p in k for p in PORT_KERNELS)}
     ours_ms = sum(ms for ms, _ in ours.values())
     print(f"port kernels: {ours_ms:.1f} ms ({100 * ours_ms / total:.1f}% of "
           f"device time)")

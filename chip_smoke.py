@@ -4,7 +4,8 @@
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py            # 50 DDIM steps, 16 shifts, 4 + 8 steps
-    python3 chip_smoke.py --steps 10 --train_steps 3 --vae_steps 8
+    python3 chip_smoke.py --steps 10 --train_steps 3 --vae_steps 8 \
+        --interp_steps 10 --sd_frames 5 --sd_steps 4
 
 Phases, each of which fails the run:
 1. build every CUDA kernel from ``afldm_tpu_torch/kernels/csrc`` (nvcc, one
@@ -40,11 +41,32 @@ Phases, each of which fails the run:
    ``--vae_steps`` micro-steps with the counters set to 0 just before and
    read just after; every loss must be finite, every VAE parameter must
    have moved and the filtered-activation kernels (K1, K2, K5, K5b) must
-   have launched.
+   have launched;
+9. a tiny FFHQ interp denoise (two DDIM inversions, two STORE passes, one
+   interp pass of 3 frames with one alpha each) on the card and on the CPU
+   with the same weights and latents: latents compared;
+10. the FFHQ interp path at full width (``configs/ldm/model_unet.json``,
+    the AF-VAE at 256 px, random weights from seed 0): invert two
+    latents, STORE both, interp-denoise 17 frames with ``--interp_steps``
+    (default 50) DDIM steps and decode them, counters set to 0 just before
+    and read just after; K6, K3 and K5 must have launched and every output
+    must be finite;
+11. the tiny SD image interpolation (64 px, 3 frames, 4 steps) on the card
+    and on the CPU with the same weights, flows and draws: frames compared;
+12. the SD image interpolation at full width
+    (``UNet2DConditionConfig(alias_free=True)``: SD-1.5 widths, 64x64
+    latents; the AF-VAE of ``model_afvae.json`` at 512 px), random weights
+    from seed 0, the Lucas-Kanade flow of the CLI's synthetic pair, counters
+    set to 0 just before and read just after: ``--sd_frames`` frames
+    (default 17) with ``--sd_steps`` DDIM steps (default 10, not the CLI's
+    50, to keep this script within a few minutes; the 50-step run is the
+    CLI's, ``python -m afldm_tpu_torch.scripts.image_interpolation``);
+    K5, K1 and K3 must have launched and every frame must be finite.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
-serving, LDM-training and VAE-training runs), the last the device JSON.
-Exits non-zero without a GPU or without the package beside it.
+serving, LDM-training, VAE-training, FFHQ-interp and SD-interpolation
+runs), the last the device JSON. Exits non-zero without a GPU or without
+the package beside it.
 """
 
 import argparse
@@ -62,16 +84,25 @@ KERNELS = {
     "filtered_act_plane": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
         replaces="afldm_tpu/ops/pallas_kernels.py:175",
-        shapes=[(16, 192, 32, 32), (16, 1536, 4, 4), (16, 512, 64, 64)]),
+        # the FFHQ UNet at 32 and 4 px, the AF-VAE's 64 px level, the SD
+        # UNet's interp pass at 64 and 8 px
+        shapes=[(16, 192, 32, 32), (16, 1536, 4, 4), (16, 512, 64, 64),
+                (17, 320, 64, 64), (17, 1280, 8, 8)]),
     "filtered_act_banded": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
         replaces="afldm_tpu/ops/pallas_kernels.py:228",
-        shapes=[(16, 256, 128, 128), (16, 512, 128, 128)]),
+        # the AF-VAE at 256 px (128 px level) and at 512 px (256 px level)
+        shapes=[(16, 256, 128, 128), (16, 512, 128, 128),
+                (2, 256, 256, 256)]),
     "flash_fwd": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_fwd.cu",
         replaces="afldm_tpu/ops/attention.py:59",
-        # (images, heads, L, D, K/V images): the LOAD pass at 32 px and 2 px
-        shapes=[(16, 8, 1024, 24, 1), (16, 32, 4, 24, 1)]),
+        # (images, heads, L, D, K/V images[, Lk]): the FFHQ LOAD pass at
+        # 32 px and 2 px; the SD interp pass's self-attention at 64, 32 and
+        # 16 px and its cross-attention over 77 text tokens at 64 px
+        shapes=[(16, 8, 1024, 24, 1), (16, 32, 4, 24, 1),
+                (17, 8, 4096, 40, 1), (17, 8, 1024, 80, 1),
+                (17, 8, 256, 160, 1), (17, 8, 4096, 40, 1, 77)]),
     "filtered_act_plane_bwd": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
         replaces="afldm_tpu/ops/pallas_kernels.py:328",
@@ -97,6 +128,12 @@ KERNELS = {
         # (128 channels), the 256-channel resnets, the decoder's first
         # resnet after the 512-channel upsampler
         shapes=[(4, 128, 128, 128), (4, 256, 128, 128), (4, 512, 128, 128)]),
+    "flash2_fwd": dict(
+        route="cuda", source="afldm_tpu_torch/kernels/csrc/flash2_fwd.cu",
+        replaces="afldm_tpu/ops/attention.py:302",
+        # the FFHQ interp pass of 17 frames at 32 px and 2 px, both K/V sets
+        # expanded from one stored map (stride 0), one alpha per frame
+        shapes=[(17, 8, 1024, 24, 1), (17, 32, 4, 24, 1)]),
 }
 # a kernel agrees with its plain version when |got - want| <= ATOL + RTOL|want|
 # (f32 sums in another order: ~1e-6 relative; the backwards chain six
@@ -104,7 +141,7 @@ KERNELS = {
 TOL = {"filtered_act_plane": (3e-5, 1e-4), "filtered_act_banded": (3e-5, 1e-4),
        "flash_fwd": (2e-5, 1e-4), "filtered_act_plane_bwd": (1e-4, 1e-4),
        "flash_bwd_dq": (1e-4, 1e-4), "flash_bwd_dkv": (1e-4, 1e-4),
-       "filtered_act_banded_bwd": (1e-4, 1e-4)}
+       "filtered_act_banded_bwd": (1e-4, 1e-4), "flash2_fwd": (2e-5, 1e-4)}
 # card vs CPU for one tiny training step: the loss within LOSS_RTOL of the
 # CPU's; each gradient within GRAD_RTOL of its tensor's max abs, with that
 # scale floored at GRAD_FLOOR of the largest gradient: the attention's
@@ -151,13 +188,30 @@ def filtered_act_work(shape):
     return flops, nbytes
 
 
+def _flash_dims(shape):
+    """(images, heads, Lq, Lk, D, K/V images) of a flash shape tuple
+    (images, heads, L, D, K/V images[, Lk]); Lk defaults to L."""
+    n, heads, L, d, n_kv = shape[:5]
+    return n, heads, L, (shape[5] if len(shape) > 5 else L), d, n_kv
+
+
 def flash_work(shape):
-    """FLOPs of q·kᵀ and p·v (4·B·L²·D, D unpadded); bytes: q, the unique
-    K/V rows, out and lse, each once."""
-    n, heads, L, d, n_kv = shape
-    flops = 4 * n * heads * L * L * d
-    nbytes = 4 * (2 * n * heads * L * d + 2 * n_kv * heads * L * d
-                  + n * heads * L)
+    """FLOPs of q·kᵀ and p·v (4·B·Lq·Lk·D, D unpadded); bytes: q, the
+    unique K/V rows, out and lse, each once."""
+    n, heads, Lq, Lk, d, n_kv = _flash_dims(shape)
+    flops = 4 * n * heads * Lq * Lk * d
+    nbytes = 4 * (2 * n * heads * Lq * d + 2 * n_kv * heads * Lk * d
+                  + n * heads * Lq)
+    return flops, nbytes
+
+
+def flash2_work(shape):
+    """FLOPs of both attentions (8·B·L²·D, D unpadded; the blend is
+    negligible); bytes: q, the unique rows of the four K/V tensors, alpha
+    and out, each once."""
+    n, heads, L, _, d, n_kv = _flash_dims(shape)
+    flops = 8 * n * heads * L * L * d
+    nbytes = 4 * (2 * n * heads * L * d + 4 * n_kv * heads * L * d + n)
     return flops, nbytes
 
 
@@ -201,11 +255,24 @@ def _case(torch, name, shape, dev, g):
         return (lambda: fn(x, "silu"),
                 lambda: FA.filtered_act_plain(x, "silu"), None,
                 filtered_act_work(shape))
-    n, heads, L, d, n_kv = shape
+    n, heads, L, Lk, d, n_kv = _flash_dims(shape)
     q = torch.randn(n, heads, L, d, device=dev, generator=g)
-    k, v = (torch.randn(n_kv, heads, L, d, device=dev,
+    k, v = (torch.randn(n_kv, heads, Lk, d, device=dev,
                         generator=g).expand(n, -1, -1, -1)
             for _ in range(2))
+    if name == "flash2_fwd":
+        k1, v1 = (torch.randn(n_kv, heads, Lk, d, device=dev,
+                              generator=g).expand(n, -1, -1, -1)
+                  for _ in range(2))
+        alpha = torch.linspace(0, 1, n, device=dev)[:, None, None]
+        a4 = alpha[:, None]
+
+        def library():  # the yardstick: two SDPA calls and the blend
+            return ((1 - a4) * F.scaled_dot_product_attention(q, k, v)
+                    + a4 * F.scaled_dot_product_attention(q, k1, v1))
+        return (lambda: A.flash2_fwd(q, k, v, k1, v1, alpha),
+                lambda: A.sdpa2_eager(q, k, v, k1, v1, alpha),
+                library, flash2_work(shape))
     if name == "flash_fwd":
         return (lambda: A.flash_fwd(q, k, v),
                 lambda: A._attention_plain(q, k, v),
@@ -589,6 +656,178 @@ def run_vae_training(torch, n_steps):
     return ok, counts
 
 
+# the kernels each full-width interpolation path must launch
+FFHQ_INTERP_KERNELS = ("filtered_act_plane", "flash_fwd", "flash2_fwd")
+SD_INTERP_KERNELS = ("filtered_act_plane", "filtered_act_banded",
+                     "flash_fwd")
+
+
+def _ffhq_interp(torch, pipe, ends, n_frames, steps):
+    """The FFHQ interp path through ``LDMPipeline``: DDIM-invert the two
+    endpoint latents, STORE each, then one interp denoise of ``n_frames``
+    frames (alphas evenly from 0 to 1, start noise slerped between the two
+    inversions) and their decode. Returns (latents, images)."""
+    from afldm_tpu_torch.pipelines import slerp
+    dev = pipe.device
+    inv = [pipe.ddim_inversion(e.to(dev), steps) for e in ends]
+    kv = [pipe.denoise(i, steps, collect_kv=True)[1] for i in inv]
+    a = torch.linspace(0, 1, n_frames, device=dev)
+    noises = slerp(inv[0].expand(n_frames, -1, -1, -1),
+                   inv[1].expand(n_frames, -1, -1, -1), a)
+    lat, _ = pipe.denoise(noises, steps, kv_traj=kv[0], kv_traj2=kv[1],
+                          alpha=a[:, None, None])
+    return lat, pipe.decode(lat)
+
+
+def check_tiny_interp(torch):
+    """The tiny FFHQ interp (3 frames, 4 steps) with the same weights and
+    latents on the card (K6, K3, K5) and on the CPU (plain versions): the
+    latents within 1e-3 of their scale (f32 rounding compounds over 4
+    inversion, 8 STORE and 4 interp UNet passes; cuDNN sums in other
+    orders than the CPU)."""
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_pipeline
+    from afldm_tpu_torch.scripts.shift_ldm_ffhq import load_configs
+    cfgs = load_configs(tiny=True)
+    ends = torch.randn(2, 1, 4, 8, 8,
+                       generator=torch.Generator().manual_seed(3))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pipe = init_random_pipeline(*cfgs, seed=0, device=dev)
+        kernels.reset_launch_counts()
+        lat, img = _ffhq_interp(torch, pipe, ends, 3, 4)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = dict(kernels.LAUNCHES)
+        res[dev] = lat.cpu(), img.cpu()
+    (lc, ic), (lp, ip) = res["cuda"], res["cpu"]
+    d_lat = float((lc - lp).abs().max())
+    d_img = float((ic - ip).abs().max())
+    lim_lat = 1e-3 * float(lp.abs().max())
+    lim_img = 1e-3 * float(ip.abs().max())
+    ok = (bool(torch.isfinite(lc).all()) and d_lat <= lim_lat
+          and d_img <= lim_img and launched["flash2_fwd"] > 0)
+    log(f"tiny FFHQ interp reference (card vs CPU, 3 frames, 4 steps): max "
+        f"|d latent| {d_lat:.2e} (limit {lim_lat:.2e}), max |d image| "
+        f"{d_img:.2e} (limit {lim_img:.2e}); launches "
+        f"{json.dumps(launched)} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_ffhq_interp(torch, steps, n_frames=17):
+    """The FFHQ interp path at full width: the serving path's pipeline
+    (``configs/ldm/model_unet.json``, AF-VAE at 256 px, random weights from
+    seed 0), two endpoint latents from a seeded generator."""
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_pipeline
+    from afldm_tpu_torch.scripts.shift_ldm_ffhq import load_configs
+    pipe = init_random_pipeline(*load_configs(), seed=0, device="cuda")
+    ends = torch.randn(2, 1, 4, 32, 32, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lat, img = _ffhq_interp(torch, pipe, ends, n_frames, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    finite = bool(torch.isfinite(lat).all() and torch.isfinite(img).all())
+    log(f"FFHQ interp: 2 inversions + 2 STORE passes + interp of "
+        f"{n_frames} frames, {steps} steps each, and the decode in "
+        f"{wall:.2f} s wall; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; images "
+        f"{tuple(img.shape)} finite: {finite}")
+    log(f"FFHQ interp launches: {json.dumps(counts)}")
+    missing = [k for k in FFHQ_INTERP_KERNELS if counts[k] == 0]
+    if missing:
+        log(f"FFHQ interp: FAIL, never launched: {missing}")
+    ok = finite and img.shape == (n_frames, 3, 256, 256) and not missing
+    if not ok:
+        log("FFHQ interp: FAIL")
+    return ok, counts
+
+
+def check_tiny_sd_interp(torch):
+    """The tiny SD image interpolation of the CLI (64 px, 3 frames, 4
+    steps) with the same weights, flows and draws on the card and on the
+    CPU: frames on [0, 1] within 1e-3 (rounding compounds over 2
+    encodes, 16 UNet passes and the decode)."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import (init_random_interp_pipeline,
+                                           interp_draws)
+    from afldm_tpu_torch.scripts.image_interpolation import (image_pair,
+                                                              load_configs)
+    from afldm_tpu_torch.shift.simple_flow import predict_flow
+    img0, img1 = image_pair(64)
+    flows = predict_flow(img0, img1)
+    draws = interp_draws(torch.Generator().manual_seed(1), (1, 4, 8, 8), 3)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pipe = init_random_interp_pipeline(*load_configs(tiny=True), seed=0,
+                                           device=dev)
+        kernels.reset_launch_counts()
+        res[dev] = pipe(img0, img1, num_frames=3, num_inference_steps=4,
+                        draws=draws, flows=flows)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = dict(kernels.LAUNCHES)
+    d = float(np.abs(res["cuda"] - res["cpu"]).max())
+    ok = (res["cuda"].shape == (3, 64, 64, 3)
+          and bool(np.isfinite(res["cuda"]).all()) and d <= 1e-3
+          and launched["flash_fwd"] > 0)
+    log(f"tiny SD interpolation reference (card vs CPU, 3 frames, 4 "
+        f"steps): max |d frame| {d:.2e} on [0, 1] (limit 1e-3); launches "
+        f"{json.dumps(launched)} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_sd_interp(torch, n_frames, steps):
+    """The SD image interpolation at full width, as the CLI builds it
+    (``init_random_interp_pipeline`` on its configs, random weights from
+    seed 0, its synthetic 512 px pair and Lucas-Kanade flow, draws from a
+    seeded generator)."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_interp_pipeline
+    from afldm_tpu_torch.scripts.image_interpolation import (image_pair,
+                                                              load_configs)
+    from afldm_tpu_torch.shift.simple_flow import predict_flow
+    t0 = time.perf_counter()
+    pipe = init_random_interp_pipeline(*load_configs(), seed=0,
+                                       device="cuda")
+    res = pipe.unet.config.sample_size * pipe.vae.config.downsample_ratio
+    n_params = sum(p.numel() for p in pipe.unet.parameters())
+    log(f"SD interpolation: full-width pipeline built in "
+        f"{time.perf_counter() - t0:.1f} s (UNet {n_params / 1e6:.1f}M "
+        f"params, VAE at {res} px)")
+    img0, img1 = (t.cuda() for t in image_pair(res))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    flows = predict_flow(img0, img1)
+    frames = pipe(img0, img1, num_frames=n_frames, num_inference_steps=steps,
+                  generator=torch.Generator().manual_seed(1), flows=flows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    finite = bool(np.isfinite(frames).all())
+    log(f"SD interpolation: flow + {n_frames} frames, {steps} steps at "
+        f"{res} px in {wall:.2f} s wall; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; frames "
+        f"{frames.shape} finite: {finite}")
+    log(f"SD interpolation launches: {json.dumps(counts)}")
+    missing = [k for k in SD_INTERP_KERNELS if counts[k] == 0]
+    if missing:
+        log(f"SD interpolation: FAIL, never launched: {missing}")
+    ok = finite and frames.shape == (n_frames, res, res, 3) and not missing
+    if not ok:
+        log("SD interpolation: FAIL")
+    return ok, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -599,6 +838,15 @@ def main(argv=None):
                     help="micro-steps of the full-width VAE training path "
                          "(default 8: 4 updates, the first ones far into "
                          "the lr warmup)")
+    ap.add_argument("--interp_steps", type=int, default=50,
+                    help="DDIM steps of the full-width FFHQ interp path "
+                         "(default 50)")
+    ap.add_argument("--sd_frames", type=int, default=17,
+                    help="frames of the full-width SD interpolation "
+                         "(default 17)")
+    ap.add_argument("--sd_steps", type=int, default=10,
+                    help="DDIM steps of the full-width SD interpolation "
+                         "(default 10)")
     args = ap.parse_args(argv)
 
     if not (REPO / "afldm_tpu_torch" / "kernels" / "csrc").is_dir():
@@ -647,8 +895,17 @@ def main(argv=None):
     ok &= check_tiny_vae_training(torch)
     vae_ok, vae_counts = run_vae_training(torch, args.vae_steps)
     ok &= vae_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_interp(torch)
+    interp_ok, interp_counts = run_ffhq_interp(torch, args.interp_steps)
+    ok &= interp_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_sd_interp(torch)
+    sd_ok, sd_counts = run_sd_interp(torch, args.sd_frames, args.sd_steps)
+    ok &= sd_ok
+    runs = (counts, train_counts, vae_counts, interp_counts, sd_counts)
     for k, row in report.items():
-        row["launches"] = counts[k] + train_counts[k] + vae_counts[k]
+        row["launches"] = sum(c[k] for c in runs)
     log(json.dumps({"kernels": list(report.values())}))
     if not ok:
         log("chip_smoke: FAILED")

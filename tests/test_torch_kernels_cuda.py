@@ -100,6 +100,86 @@ def test_flash_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [  # (B, H, Lq, Lk, D, K/V batch)
+    (2, 8, 4096, 4096, 40, 1), (2, 8, 1024, 1024, 80, 1),
+    (2, 8, 256, 256, 160, 2), (2, 8, 4096, 77, 40, 1),
+    (2, 8, 256, 77, 160, 2)])
+def test_flash_kernel_sd_head_dims(cuda, shape):
+    """K3 at the SD UNet's head dims: self-attention at 64, 32 and 16 px
+    and cross-attention over 77 text tokens."""
+    B, H, Lq, Lk, D, nkv = shape
+    q = torch.randn(B, H, Lq, D, device=cuda)
+    k, v = (torch.randn(nkv, H, Lk, D, device=cuda).expand(B, -1, -1, -1)
+            for _ in range(2))
+    out, lse = _launches("flash_fwd", lambda: TA.flash_fwd(q, k, v))
+    ref, ref_lse = TA._attention_plain(q, k, v)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-4)
+
+
+def _flash2_inputs(cuda, B, H, Lq, Lk, D, kv_batch):
+    q = torch.randn(B, H, Lq, D, device=cuda)
+    kvs = [torch.randn(kv_batch, H, Lk, D, device=cuda).expand(B, -1, -1, -1)
+           for _ in range(4)]
+    return q, kvs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 24, 40, 100, 160, 256])
+@pytest.mark.parametrize("lens,kv_batch", [((64, 64), 1), ((37, 50), 3),
+                                           ((130, 70), 1), ((4, 4), 3)])
+def test_flash2_kernel_matches_plain(cuda, D, lens, kv_batch):
+    """K6 with one alpha per frame, ragged Lq/Lk, K/V per frame or
+    expanded from one image (stride 0)."""
+    (Lq, Lk), B, H = lens, 3, 2
+    q, kvs = _flash2_inputs(cuda, B, H, Lq, Lk, D, kv_batch)
+    alpha = torch.tensor([0.0, 0.3, 1.0], device=cuda)[:, None, None]
+    got = _launches("flash2_fwd", lambda: TA.flash2_fwd(q, *kvs, alpha))
+    want = TA.sdpa2_eager(q, *kvs, alpha)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.25, (0.1, 0.9)])
+def test_flash2_scalar_alpha_and_3d(cuda, alpha):
+    """A scalar alpha, a (N,) alpha broadcast over heads, and 3D inputs."""
+    q, kvs = _flash2_inputs(cuda, 2, 4, 64, 48, 24, 1)
+    got = _launches("flash2_fwd", lambda: TA.flash2_fwd(q, *kvs, alpha))
+    torch.testing.assert_close(got, TA.sdpa2_eager(q, *kvs, alpha),
+                               atol=2e-5, rtol=1e-4)
+    q3, kv3 = q[0], [t[0] for t in kvs]
+    got3 = _launches("flash2_fwd", lambda: TA.flash2_fwd(q3, *kv3, 0.7))
+    torch.testing.assert_close(got3, TA.sdpa2_eager(q3, *kv3, 0.7),
+                               atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sdpa2_function_backward_uses_flash_kernels(cuda):
+    """The dispatcher's forward is K6, its backward the two-pass VJP
+    through K3 recompute and the K4 pair; gradients (alpha's too) match
+    autograd through the plain version."""
+    q0 = torch.randn(3, 2, 64, 24, device=cuda, requires_grad=True)
+    kv0 = [torch.randn(1, 2, 64, 24, device=cuda, requires_grad=True)
+           for _ in range(4)]
+    a0 = torch.tensor([0.2, 0.5, 0.8], device=cuda, requires_grad=True)
+    g = torch.randn(3, 2, 64, 24, device=cuda)
+
+    def run(fn):
+        out = fn(q0, *(t.expand(3, -1, -1, -1) for t in kv0), a0)
+        return torch.autograd.grad(out, (q0, *kv0, a0), g)
+
+    before = dict(kernels.LAUNCHES)
+    got = run(TA.sdpa2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash2_fwd"] == before["flash2_fwd"] + 1
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.LAUNCHES[name] == before[name] + 2, name
+    want = run(TA.sdpa2_eager)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_expanded_and_strided_kv(cuda):
     """K/V expanded from one image (stride 0) and q as a transposed view:
     read through strides, no copies."""

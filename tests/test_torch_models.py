@@ -126,10 +126,12 @@ def test_timestep_embedding_module(rng):
 
 def test_kv_helper():
     h = T.KVHelper(("a", "b"))
-    assert (h.take(), h.take()) == ("a", "b")
+    assert (h.take(), h.take()) == (("a", None), ("b", None))
     h.push(1)
     assert h.collected() == (1,)
-    assert T.KVHelper().take() is None
+    assert T.KVHelper().take() == (None, None)
+    h2 = T.KVHelper(("a",), ("c",), alpha=0.25)
+    assert h2.take() == ("a", "c") and h2.alpha == 0.25
 
 
 # -- reduced UNet (the --tiny config of scripts/shift_ldm_ffhq.py) -----------
