@@ -20,14 +20,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("filtered_act", "flash_fwd", "flash_bwd", "flash2_fwd")
+SOURCES = ("filtered_act", "flash_fwd", "flash_bwd", "flash2_fwd",
+           "flash_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"filtered_act_plane": 0, "filtered_act_banded": 0,
             "flash_fwd": 0, "filtered_act_plane_bwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "filtered_act_banded_bwd": 0,
-            "flash2_fwd": 0}
+            "flash2_fwd": 0, "flash_probe_dots": 0,
+            "flash_probe_stream": 0}
 
 _LIBS = {}
 
@@ -74,6 +76,14 @@ _SIGNATURES = {
         # q, k0, v0, k1, v1 strides (b1, b2, l), scale, stream
         "flash2_fwd_f32": [*[_P] * 7, _I, _I, _I, _I, _I, *[_L] * 15, _F,
                            _P],
+    },
+    "flash_probe": {
+        # q, k, v, out, B1, B2, Lq, Lk, D, q, k, v strides (b1, b2, l),
+        # stream
+        "flash_probe_dots_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 *[_L] * 9, _P],
+        "flash_probe_stream_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   *[_L] * 9, _P],
     },
 }
 

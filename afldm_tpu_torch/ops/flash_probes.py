@@ -1,0 +1,86 @@
+"""Attribution probes of the flash forward (K3): P1 and P2 of the JAX
+package's flash sweep (``scripts/bench_flash_sweep.py::dots_only_kernel``
+and ``::stream_only_kernel``), with K3's grid and loads and cut-down
+arithmetic.
+
+- ``flash_probe_dots``: ``(q·kᵀ)·v``, the softmax replaced by the identity
+  (no scale, no max, no exp): the matmul-plus-memory floor of K3.
+- ``flash_probe_stream``: for each 64-row K/V tile ``acc += q +
+  colsum(k_tile) + colsum(v_tile)``, so ``(Lk/64)·q + Σk + Σv``: the pure
+  memory floor of K3's loads.
+
+q: (..., Lq, D), k/v: (..., Lk, D), float32, Lq and Lk multiples of 64,
+D <= 256. A CPU tensor goes to the plain version; a CUDA tensor launches
+the kernel or raises.
+"""
+
+import torch
+
+from .. import kernels
+from .attention import FLASH_MAX_D, _as_4d
+
+PROBE_TILE = 64  # the kernels' K/V tile (and Q tile) in rows
+
+
+def flash_probe_dots_plain(q, k, v):
+    """The plain version of ``flash_probe_dots``: (q·kᵀ)·v in f32."""
+    return torch.matmul(torch.matmul(q, k.transpose(-1, -2)), v)
+
+
+def flash_probe_stream_plain(q, k, v, block_k: int = PROBE_TILE):
+    """The plain version of ``flash_probe_stream`` at K/V tile ``block_k``:
+    ``(Lk/block_k)·q + Σk + Σv`` (sums over the rows)."""
+    n_tiles = k.shape[-2] // block_k
+    return (n_tiles * q + k.sum(-2, keepdim=True)
+            + v.sum(-2, keepdim=True))
+
+
+def _check(name, q, k, v):
+    Lq, D = q.shape[-2:]
+    Lk = k.shape[-2]
+    if (k.shape[:-2] != q.shape[:-2] or v.shape != k.shape
+            or k.shape[-1] != D or D > FLASH_MAX_D or Lq == 0 or Lk == 0
+            or Lq % PROBE_TILE or Lk % PROBE_TILE):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}: Lq and Lk must be multiples of {PROBE_TILE}, "
+            f"D <= {FLASH_MAX_D}, k and v of one shape")
+    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+        raise TypeError(f"{name}: float32 only")
+
+
+def _launch(name, q, k, v):
+    if not all(t.device == q.device and t.device.type == "cuda"
+               for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must lie on one CUDA device")
+    lead = q.shape[:-2]
+    q4, k4, v4 = (_as_4d(t) for t in (q, k, v))
+    q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
+                  for t in (q4, k4, v4))
+    B1, B2, Lq, D = q4.shape
+    out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    strides = [s for t in (q4, k4, v4) for s in t.stride()[:3]]
+    err = getattr(kernels.library("flash_probe"), f"{name}_f32")(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), B1, B2,
+        Lq, k4.shape[2], D, *strides,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return out.reshape(lead + (Lq, D))
+
+
+def flash_probe_dots(q, k, v):
+    """P1: ``(q·kᵀ)·v`` through K3's tiles. K/V expanded from one image
+    (stride 0) are read without a copy."""
+    _check("flash_probe_dots", q, k, v)
+    if q.device.type == "cpu":
+        return flash_probe_dots_plain(q, k, v)
+    return _launch("flash_probe_dots", q, k, v)
+
+
+def flash_probe_stream(q, k, v):
+    """P2: ``(Lk/64)·q + Σk + Σv`` through K3's loads."""
+    _check("flash_probe_stream", q, k, v)
+    if q.device.type == "cpu":
+        return flash_probe_stream_plain(q, k, v)
+    return _launch("flash_probe_stream", q, k, v)

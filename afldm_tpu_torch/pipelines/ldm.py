@@ -58,6 +58,10 @@ class LDMPipeline:
         ts_prev = ts - self.scheduler.num_train_timesteps // num_steps
         return [int(t) for t in ts], [int(t) for t in ts_prev]
 
+    def _step(self, eps, t: int, t_prev: int, x):
+        """One sampler update x_t -> x_{t_prev} (DDIM here)."""
+        return self.scheduler.step(eps, t, x, prev_timestep=t_prev)[0]
+
     @torch.inference_mode()
     def denoise(self, latents, num_inference_steps: int = 50, kv_traj=None,
                 kv_traj2=None, alpha=None, collect_kv: bool = False):
@@ -78,7 +82,7 @@ class LDMPipeline:
             kv_in2 = None if kv_traj2 is None else kv_traj2[i]
             eps, stored = self._eps(x, t, kv_in=kv_in, kv_in2=kv_in2,
                                     alpha=alpha)
-            x, _ = self.scheduler.step(eps, t, x, prev_timestep=pt)
+            x = self._step(eps, t, pt, x)
             if traj is not None:
                 traj.append(stored)
         return x, traj

@@ -1,9 +1,12 @@
 """Build a pipeline with random weights from a seed (the published
-checkpoints are not in the repository). Weights are drawn on the CPU from
-an explicit ``torch.Generator`` and then moved, so a seed gives the same
+checkpoints are not in the repository), or load one that this port's
+``LDMTrainer.save_pipeline`` wrote. Weights are drawn on the CPU from an
+explicit ``torch.Generator`` and then moved, so a seed gives the same
 weights on every device."""
 
+import json
 import math
+import os
 
 import torch
 
@@ -13,8 +16,17 @@ from ..models.unet2d_condition import (UNet2DConditionConfig,
 from ..models.vae import AutoencoderKL, AutoencoderKLConfig
 from ..ops.ideal_lpf import set_af_precision
 from ..schedulers.ddim import DDIMScheduler
+from ..schedulers.i2sb import I2SBScheduler
+from .i2sb import I2SBLDMPipeline
 from .interpolation import ImageInterpolationPipeline
 from .ldm import LDMPipeline
+
+# the FFHQ pipeline's DDIM, for a pipeline directory without a scheduler
+DEFAULT_SCHEDULER = {
+    "num_train_timesteps": 1000, "beta_schedule": "scaled_linear",
+    "beta_start": 0.0015, "beta_end": 0.0195, "clip_sample": False,
+    "set_alpha_to_one": False, "steps_offset": 1,
+    "timestep_spacing": "leading"}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,14 +58,55 @@ def init_random_weights(module: torch.nn.Module, generator: torch.Generator):
 
 
 def init_random_pipeline(unet_config, vae_config, scheduler_config,
-                         seed: int = 0, device=None) -> LDMPipeline:
+                         seed: int = 0, device=None,
+                         cls=LDMPipeline) -> LDMPipeline:
     """Configs may be dataclasses or diffusers-style dicts (the UNet dict is
-    read as alias-free, like the JAX package's loader). Sets exact float32
+    read as alias-free, like the JAX package's loader). ``cls`` is
+    ``LDMPipeline`` (DDIM) or ``I2SBLDMPipeline`` (``I2SBScheduler``, e.g.
+    from ``configs/sr/i2sb_scheduler.json``). Sets exact float32
     (``set_af_precision("highest")``)."""
-    return LDMPipeline(*_random_modules(UNet2DConfig, UNet2DModel,
-                                        unet_config, vae_config, seed,
-                                        device),
-                       DDIMScheduler.from_config(scheduler_config))
+    sched_cls = I2SBScheduler if cls is I2SBLDMPipeline else DDIMScheduler
+    return cls(*_random_modules(UNet2DConfig, UNet2DModel, unet_config,
+                                vae_config, seed, device),
+               sched_cls.from_config(scheduler_config))
+
+
+def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
+                  scheduler_config=None) -> LDMPipeline:
+    """A pipeline from a directory that this port's
+    ``LDMTrainer.save_pipeline`` wrote: its config JSONs and the newest
+    ``checkpoint-{step}`` (the EMA UNet where it was saved, else the UNet;
+    the VAE). ``scheduler_config`` replaces the directory's
+    ``scheduler_config.json`` (an I2SB pipeline passes its own). Raises
+    when the directory holds no checkpoint or the checkpoint no weights:
+    a wrong path never scores random weights. Orbax directories of the JAX
+    package are not read."""
+    from ..train.checkpoint import latest_checkpoint, restore_checkpoint
+
+    def read(name):
+        with open(os.path.join(pipeline_dir, name)) as f:
+            return json.load(f)
+
+    if scheduler_config is None:
+        has = os.path.exists(os.path.join(pipeline_dir,
+                                          "scheduler_config.json"))
+        scheduler_config = (read("scheduler_config.json") if has
+                            else DEFAULT_SCHEDULER)
+    ckpt = latest_checkpoint(pipeline_dir)
+    if ckpt is None:
+        raise FileNotFoundError(
+            f"no checkpoint-* directory under {pipeline_dir!r}")
+    state = restore_checkpoint(ckpt)
+    unet_state = state.get("unet_ema") or state.get("unet")
+    if not unet_state or not state.get("vae"):
+        raise FileNotFoundError(
+            f"checkpoint {ckpt!r} holds no UNet or no VAE weights")
+    pipe = init_random_pipeline(read("unet_config.json"),
+                                read("vae_config.json"), scheduler_config,
+                                device=device, cls=cls)
+    pipe.unet.load_state_dict(unet_state, strict=True)
+    pipe.vae.load_state_dict(state["vae"], strict=True)
+    return pipe
 
 
 def init_random_interp_pipeline(unet_config, vae_config, scheduler_config,

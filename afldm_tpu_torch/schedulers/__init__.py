@@ -1,4 +1,5 @@
 from .ddim import DDIMScheduler
 from .ddpm import DDPMScheduler
+from .i2sb import I2SBScheduler
 
-__all__ = ["DDIMScheduler", "DDPMScheduler"]
+__all__ = ["DDIMScheduler", "DDPMScheduler", "I2SBScheduler"]

@@ -61,12 +61,33 @@ Phases, each of which fails the run:
     (default 17) with ``--sd_steps`` DDIM steps (default 10, not the CLI's
     50, to keep this script within a few minutes; the 50-step run is the
     CLI's, ``python -m afldm_tpu_torch.scripts.image_interpolation``);
-    K5, K1 and K3 must have launched and every frame must be finite.
+    K5, K1 and K3 must have launched and every frame must be finite;
+13. the flash sweep (``scripts.bench_flash_sweep.main`` at its defaults,
+    ``--sweep_iters`` chained calls): K3 and K6 at the flagship shapes and
+    the attribution probes P1 and P2, counters set to 0 just before and
+    read just after; every row finite, all four kernels launched;
+14. the headline (``scripts.bench.measure``): the full-width FFHQ UNet's
+    50-step DDIM denoise at batch 1, best of 3, steps/s printed, counters
+    set to 0 just before and read just after; K5 and K3 launched;
+15. a tiny ``SamplerService`` on the card and on the CPU with the same
+    weights and seeds (``_draw`` latents): images compared;
+16. the full-width service (the FFHQ pipeline): 4 concurrent single-image
+    requests at ``--serve_steps`` DDIM steps (default 50), counters set to
+    0 just before and read just after; the requests must share passes
+    (fewer batches than requests), every image must be finite and K5, K1
+    and K3 must have launched; each request's latency printed;
+17. the tiny latent-I2SB SR protocol (``scripts.shift_ldm_sr --tiny``) on
+    the card and on the CPU with the same weights: PSNRs compared;
+18. the SR protocol at full width (``configs/ldm/model_unet.json``, the
+    AF-VAE at 256 px, the I2SB scheduler of ``configs/sr``): degrade the
+    synthetic input 4x, encode, ``shift_equivariance_eval`` with
+    ``--sr_steps`` (default 50) and 16 shifts, counters set to 0 just
+    before and read just after; K5, K1 and K3 launched, all PSNRs finite.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
-serving, LDM-training, VAE-training, FFHQ-interp and SD-interpolation
-runs), the last the device JSON. Exits non-zero without a GPU or without
-the package beside it.
+full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16 and 18), the last the
+device JSON. Exits non-zero without a GPU or without the package beside
+it.
 """
 
 import argparse
@@ -134,6 +155,16 @@ KERNELS = {
         # the FFHQ interp pass of 17 frames at 32 px and 2 px, both K/V sets
         # expanded from one stored map (stride 0), one alpha per frame
         shapes=[(17, 8, 1024, 24, 1), (17, 32, 4, 24, 1)]),
+    "flash_probe_dots": dict(
+        route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_probe.cu",
+        replaces="scripts/bench_flash_sweep.py:129",
+        # the sweep's probe shape, and the FFHQ UNet's top attention at
+        # batch 16; K/V per image
+        shapes=[(8, 8, 4096, 80, 8), (16, 8, 1024, 24, 16)]),
+    "flash_probe_stream": dict(
+        route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_probe.cu",
+        replaces="scripts/bench_flash_sweep.py:147",
+        shapes=[(8, 8, 4096, 80, 8), (16, 8, 1024, 24, 16)]),
 }
 # a kernel agrees with its plain version when |got - want| <= ATOL + RTOL|want|
 # (f32 sums in another order: ~1e-6 relative; the backwards chain six
@@ -142,6 +173,10 @@ TOL = {"filtered_act_plane": (3e-5, 1e-4), "filtered_act_banded": (3e-5, 1e-4),
        "flash_fwd": (2e-5, 1e-4), "filtered_act_plane_bwd": (1e-4, 1e-4),
        "flash_bwd_dq": (1e-4, 1e-4), "flash_bwd_dkv": (1e-4, 1e-4),
        "filtered_act_banded_bwd": (1e-4, 1e-4), "flash2_fwd": (2e-5, 1e-4)}
+# the probes agree when max |got - want| <= REL_TOL * max |want|: nothing
+# normalises P1's values, which grow as sqrt(L·D); P2 adds Lk/64 tiles into
+# one accumulator where its plain version multiplies q once
+REL_TOL = {"flash_probe_dots": 2e-5, "flash_probe_stream": 1e-5}
 # card vs CPU for one tiny training step: the loss within LOSS_RTOL of the
 # CPU's; each gradient within GRAD_RTOL of its tensor's max abs, with that
 # scale floored at GRAD_FLOOR of the largest gradient: the attention's
@@ -215,6 +250,17 @@ def flash2_work(shape):
     return flops, nbytes
 
 
+def probe_work(name, shape):
+    """P1: q·kᵀ and s·v (4·B·L²·D, D unpadded); P2: the column sums of k
+    and v and three adds per output (2·B·L·D + 3·B·L·D). Bytes: q, the
+    unique K/V rows and out, each once."""
+    n, heads, L, _, d, n_kv = _flash_dims(shape)
+    nbytes = 4 * (2 * n * heads * L * d + 2 * n_kv * heads * L * d)
+    if name == "flash_probe_dots":
+        return 4 * n * heads * L * L * d, nbytes
+    return 5 * n * heads * L * d, nbytes
+
+
 def filtered_act_bwd_work(shape):
     """FLOPs of the six products per plane in both backward kernels' order
     (U_h·x and D_hᵀ·g: 4H²W each; ·U_wᵀ, ·D_w and ·U_w: 8HW² each; U_hᵀ·t:
@@ -260,6 +306,15 @@ def _case(torch, name, shape, dev, g):
     k, v = (torch.randn(n_kv, heads, Lk, d, device=dev,
                         generator=g).expand(n, -1, -1, -1)
             for _ in range(2))
+    if name.startswith("flash_probe"):
+        from afldm_tpu_torch.ops import flash_probes as P
+        library = None
+        if name == "flash_probe_dots":
+            def library():  # the yardstick, in the probe's order
+                return torch.matmul(torch.matmul(q, k.transpose(-1, -2)), v)
+        return (lambda: getattr(P, name)(q, k, v),
+                lambda: getattr(P, f"{name}_plain")(q, k, v), library,
+                probe_work(name, shape))
     if name == "flash2_fwd":
         k1, v1 = (torch.randn(n_kv, heads, Lk, d, device=dev,
                               generator=g).expand(n, -1, -1, -1)
@@ -303,7 +358,7 @@ def check_kernels(torch, report):
     ok = True
     split = {k: {"operations": 0.0, "bytes": 0.0} for k in KERNELS}
     for name, spec in KERNELS.items():
-        atol, rtol = TOL[name]
+        atol, rtol = TOL.get(name, (None, None))
         row = report[name]
         for shape in spec["shapes"]:
             run, plain, library, work = _case(torch, name, shape, dev, g)
@@ -311,15 +366,21 @@ def check_kernels(torch, report):
             if isinstance(got, torch.Tensor):
                 got, want = (got,), (want,)
             err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-            good = all(torch.allclose(a, b, atol=atol, rtol=rtol)
-                       for a, b in zip(got, want))
+            if name in REL_TOL:
+                scale = max(float(b.abs().max()) for b in want)
+                good = err <= REL_TOL[name] * scale
+                tol = f"limit {REL_TOL[name]} x max |want| {scale:.4g}"
+            else:
+                good = all(torch.allclose(a, b, atol=atol, rtol=rtol)
+                           for a, b in zip(got, want))
+                tol = f"atol {atol}, rtol {rtol}"
             del got, want
             t = time_ms(run)
             tp = time_ms(plain)
             tl = None if library is None else time_ms(library)
             b, by = bound_ms(*work)
             log(f"check {name} {shape}: max_abs_err {err:.3e} "
-                f"(atol {atol}, rtol {rtol}) {'ok' if good else 'FAIL'}; "
+                f"({tol}) {'ok' if good else 'FAIL'}; "
                 f"kernel {t:.4f} ms, plain {tp:.4f} ms, "
                 f"library {'n/a' if tl is None else f'{tl:.4f} ms'}, "
                 f"bound {b:.4f} ms ({by}-bound, {work[0] / 1e9:.3f} GFLOP, "
@@ -828,6 +889,178 @@ def run_sd_interp(torch, n_frames, steps):
     return ok, counts
 
 
+SWEEP_KERNELS = ("flash_fwd", "flash2_fwd", "flash_probe_dots",
+                 "flash_probe_stream")
+HEADLINE_KERNELS = ("filtered_act_plane", "flash_fwd")
+SWEEP_ITERS = 3  # chained calls per timing (the script's default is 20)
+
+
+def _missing(what, counts, needed):
+    missing = [k for k in needed if counts[k] == 0]
+    if missing:
+        log(f"{what}: FAIL, never launched: {missing}")
+    return missing
+
+
+def run_sweep(torch):
+    """The port's flash sweep at its default shapes: K3 at (8, 8, 4096,
+    80), K6 at (17, 8, 4096, 80), P1 and P2 at K3's shape."""
+    import math
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.scripts import bench_flash_sweep
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = bench_flash_sweep.main(["--iters", str(SWEEP_ITERS)])
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    finite = all(math.isfinite(v) for r in rows for v in r.values()
+                 if isinstance(v, float))
+    log(f"flash sweep: {len(rows)} rows in {time.perf_counter() - t0:.1f} s "
+        f"wall, all finite: {finite}; launches {json.dumps(counts)}")
+    missing = _missing("flash sweep", counts, SWEEP_KERNELS)
+    return finite and len(rows) == 3 and not missing, counts
+
+
+def run_headline(torch):
+    """``scripts.bench.measure``: the full-width FFHQ UNet's 50-step DDIM
+    denoise at batch 1, one warm-up and the best of 3."""
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.scripts import bench
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    sps = bench.measure(device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"headline: af_unet_denoise_steps_per_s_ffhq256 = {sps:.3f} steps/s "
+        f"(50-step DDIM denoise, batch 1, best of 3); launches "
+        f"{json.dumps(counts)}")
+    missing = _missing("headline", counts, HEADLINE_KERNELS)
+    return sps > 0 and not missing, counts
+
+
+def check_tiny_service(torch):
+    """The tiny sampler service of ``scripts.serve_ldm --tiny`` on the card
+    and on the CPU with the same weights and seeds (``_draw`` latents come
+    from a CPU generator): images within 1e-3 of their scale (rounding
+    compounds over 4 UNet passes and the decode)."""
+    import numpy as np
+    from afldm_tpu_torch.scripts import serve_ldm
+    from afldm_tpu_torch.serve import SamplerService
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pipe = serve_ldm.build_pipeline(serve_ldm.parse_args(
+            ["--tiny", "--device", dev]))
+        svc = SamplerService(pipe, batch_window_ms=1.0)
+        try:
+            res[dev] = np.concatenate([svc.sample(1, 4, seed=s)["images"]
+                                       for s in (3, 4)])
+        finally:
+            svc.close()
+    d = float(np.abs(res["cuda"] - res["cpu"]).max())
+    lim = 1e-3 * float(np.abs(res["cpu"]).max())
+    ok = bool(np.isfinite(res["cuda"]).all()) and d <= lim
+    log(f"tiny service reference (card vs CPU, 2 requests, 4 steps): max "
+        f"|d image| {d:.2e} (limit {lim:.2e}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_service(torch, steps, n_requests=4):
+    """The sampler service on the full-width FFHQ pipeline (random weights
+    from seed 0): ``n_requests`` concurrent single-image requests."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_pipeline
+    from afldm_tpu_torch.scripts.shift_ldm_ffhq import load_configs
+    from afldm_tpu_torch.serve import SamplerService
+    pipe = init_random_pipeline(*load_configs(), seed=0, device="cuda")
+    svc = SamplerService(pipe, batch_window_ms=50.0, max_batch=8)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=n_requests) as ex:
+            outs = list(ex.map(lambda s: svc.sample(1, steps, seed=s),
+                               range(n_requests)))
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        stats = json.loads(json.dumps(svc.stats))
+    finally:
+        svc.close()
+    finite = all(o["images"].shape == (1, 256, 256, 3)
+                 and bool(np.isfinite(o["images"]).all()) for o in outs)
+    log(f"service: {n_requests} concurrent requests, {steps} steps each, in "
+        f"{wall:.2f} s wall; latencies (s) "
+        + " ".join(f"{o['latency_s']:.3f}" for o in outs)
+        + f"; stats {json.dumps(stats)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; images "
+        f"finite: {finite}")
+    log(f"service launches: {json.dumps(counts)}")
+    batched = stats["batches"] < stats["requests"] == n_requests
+    if not batched:
+        log("service: FAIL, the requests were not batched")
+    missing = _missing("service", counts, SERVING_KERNELS)
+    return finite and batched and not missing, counts
+
+
+def check_tiny_sr(torch):
+    """The tiny SR protocol of ``scripts.shift_ldm_sr --tiny`` (4 steps, 4
+    shifts) on the card and on the CPU with the same weights: PSNRs within
+    0.05 dB and images within 1e-3 of their scale."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.scripts import shift_ldm_sr
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pipe = shift_ldm_sr.build_pipeline(tiny=True, device=dev)
+        kernels.reset_launch_counts()
+        res[dev] = shift_ldm_sr.run(pipe, 4, 4)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = dict(kernels.LAUNCHES)
+    d_psnr = float(np.abs(res["cuda"].psnrs - res["cpu"].psnrs).max())
+    d_img = float(np.abs(res["cuda"].outputs - res["cpu"].outputs).max())
+    lim = 1e-3 * float(np.abs(res["cpu"].outputs).max())
+    ok = (bool(np.isfinite(res["cuda"].psnrs).all()) and d_psnr <= 0.05
+          and d_img <= lim and launched["flash_fwd"] > 0)
+    log(f"tiny SR reference (card vs CPU, 4 steps, 4 shifts): max |dPSNR| "
+        f"{d_psnr:.2e} dB (limit 0.05), max |d image| {d_img:.2e} (limit "
+        f"{lim:.2e}); launches {json.dumps(launched)} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_sr(torch, steps):
+    """``scripts.shift_ldm_sr`` at full width: the FFHQ UNet and the AF-VAE
+    at 256 px (random weights from seed 0), the I2SB scheduler, 16
+    shifts."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.scripts import shift_ldm_sr
+    pipe = shift_ldm_sr.build_pipeline(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = shift_ldm_sr.run(pipe, steps, 16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    log(f"SR protocol: degrade + encode + I2SB {steps} steps (final skipped) "
+        f"x 16 shifts in {wall:.2f} s wall; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("SR protocol PSNRs (dB): " + " ".join(f"{p:.3f}" for p in res.psnrs))
+    log(f"SR protocol launches: {json.dumps(counts)}")
+    ok = (res.psnrs.shape == (16,) and bool(np.isfinite(res.psnrs).all())
+          and res.outputs.shape == (16, 256, 256, 3))
+    if not ok:
+        log("SR protocol: FAIL (non-finite or misshapen results)")
+    missing = _missing("SR protocol", counts, SERVING_KERNELS)
+    return ok and not missing, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -847,7 +1080,14 @@ def main(argv=None):
     ap.add_argument("--sd_steps", type=int, default=10,
                     help="DDIM steps of the full-width SD interpolation "
                          "(default 10)")
+    ap.add_argument("--serve_steps", type=int, default=50,
+                    help="DDIM steps of each full-width service request "
+                         "(default 50)")
+    ap.add_argument("--sr_steps", type=int, default=50,
+                    help="I2SB steps of the full-width SR protocol "
+                         "(default 50)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     if not (REPO / "afldm_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: afldm_tpu_torch is not beside this script",
@@ -903,9 +1143,24 @@ def main(argv=None):
     ok &= check_tiny_sd_interp(torch)
     sd_ok, sd_counts = run_sd_interp(torch, args.sd_frames, args.sd_steps)
     ok &= sd_ok
-    runs = (counts, train_counts, vae_counts, interp_counts, sd_counts)
+    torch.cuda.empty_cache()
+    sweep_ok, sweep_counts = run_sweep(torch)
+    ok &= sweep_ok
+    torch.cuda.empty_cache()
+    head_ok, head_counts = run_headline(torch)
+    ok &= head_ok
+    ok &= check_tiny_service(torch)
+    serve_ok, serve_counts = run_service(torch, args.serve_steps)
+    ok &= serve_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_sr(torch)
+    sr_ok, sr_counts = run_sr(torch, args.sr_steps)
+    ok &= sr_ok
+    runs = (counts, train_counts, vae_counts, interp_counts, sd_counts,
+            sweep_counts, head_counts, serve_counts, sr_counts)
     for k, row in report.items():
         row["launches"] = sum(c[k] for c in runs)
+    log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(report.values())}))
     if not ok:
         log("chip_smoke: FAILED")

@@ -72,6 +72,25 @@ def jax_init(module, *args):
     return jax.jit(module.init)(jax.random.PRNGKey(0), *args)
 
 
+def numpy_init(module, *args, seed=0):
+    """Parameters of the JAX module's shape tree drawn with numpy (biases
+    0, norm scales 1, other weights normal / sqrt(fan in)): no compiled
+    init, which costs seconds per module on the CPU."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+
+    def draw(path, s):
+        name = str(path[-1].key)
+        if name == "bias":
+            return np.zeros(s.shape, np.float32)
+        if name == "scale":
+            return np.ones(s.shape, np.float32)
+        fan_in = int(np.prod(s.shape[:-1])) or 1
+        return (rng.standard_normal(s.shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def jax_apply(module, method=None):
     """The module's apply, jitted (op-by-op JAX is slow on the CPU)."""
     return jax.jit(lambda p, *a, **k: module.apply(p, *a, method=method,

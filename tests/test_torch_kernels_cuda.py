@@ -382,3 +382,43 @@ def test_tiny_vae_step_on_card_matches_cpu(cuda, policy):
     for n, g in want.items():
         scale = max(float(g.abs().max()), 1e-4 * largest)
         assert float((got[n] - g).abs().max()) <= 1e-3 * scale, n
+
+
+# -- the flash attribution probes (P1, P2) ---------------------------------------
+
+def _probe_inputs(device, B, H, Lq, Lk, D, kv_batch):
+    q = torch.randn(B, H, Lq, D, device=device)
+    k, v = (torch.randn(kv_batch, H, Lk, D, device=device)
+            .expand(B, -1, -1, -1) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 24, 32, 40, 80, 128, 160, 256])
+@pytest.mark.parametrize("lens,kv_batch", [((64, 64), 2), ((128, 256), 1),
+                                           ((1024, 1024), 2)])
+def test_flash_probe_kernels_match_plain(cuda, D, lens, kv_batch):
+    """Each within a share of max |want|: P1 2e-5 (nothing normalises its
+    values, which grow as sqrt(Lk·D)); P2 1e-5 (it adds Lk/64 tiles into
+    one accumulator, where the plain version multiplies q once). K/V
+    expanded from one image when kv_batch is 1 (stride 0)."""
+    from afldm_tpu_torch.ops import flash_probes as P
+    q, k, v = _probe_inputs(cuda, 2, 3, *lens, D, kv_batch)
+    for name, plain, rel in (("flash_probe_dots", P.flash_probe_dots_plain,
+                              2e-5),
+                             ("flash_probe_stream",
+                              P.flash_probe_stream_plain, 1e-5)):
+        got = _launches(name, lambda: getattr(P, name)(q, k, v))
+        want = plain(q, k, v)
+        err = float((got - want).abs().max())
+        assert err <= rel * float(want.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [(63, 64), (64, 100), (1, 64)])
+def test_flash_probe_kernels_need_multiples_of_64(cuda, lens):
+    from afldm_tpu_torch.ops import flash_probes as P
+    q, k, v = _probe_inputs(cuda, 1, 1, *lens, 16, 1)
+    for fn in (P.flash_probe_dots, P.flash_probe_stream):
+        with pytest.raises(ValueError, match="multiples of 64"):
+            fn(q, k, v)
