@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library under ``_build/`` (listed in ``.gitignore``)
 at first use, then loaded with ``ctypes``. The library name carries a hash
-of the source, so an edited source is never served by a stale build.
+of the source, of every shared header ``csrc/*.cuh`` and of the flags, so
+an edited source or header is never served by a stale build.
 Nothing here runs at import time: this module is imported on machines
 without ``nvcc`` or a card, where only the plain versions run.
 
@@ -102,9 +103,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict:

@@ -34,8 +34,10 @@
 //     the input staged inside the 2x intermediate, which it outlives, plus a
 //     2H×W half-resampled buffer). Small planes are packed P to a block so
 //     that 256 threads have work.
-//   * banded (96-512 px): at 128 px the 2x plane alone is 256 KB, over the
-//     limit. The 2H intermediate rows are walked in bands of R rows:
+//   * banded (every H, W % 4 == 0 with max(H, W) > 64): at 128 px the 2x
+//     plane alone is 256 KB, over the limit. The 2H intermediate rows are
+//     walked in bands of R rows (the wrapper takes the largest R in
+//     {32, 16, 8, 4} dividing 2H whose block fits in 227 KB):
 //       u = U_h[r,:]·x ;  h = act(u·U_wᵀ) ;  t = h·D_wᵀ ;  acc += D_h[:,r]·t
 //     so only R×3W floats of intermediate live in shared memory. The H×W
 //     accumulator stays in shared memory up to 64 KB (128 px); above that it
@@ -49,7 +51,7 @@
 //     is formed in the epilogue of the last product of g's chain, in place
 //     over the pre-activation, so the 2x cotangent is never stored: 28 KB a
 //     plane at 32 px, 112 KB at 64 px (one plane a block).
-//   * banded backward (96-512 px): the same six products, 12H²W + 24HW²
+//   * banded backward (the forward's sizes): the same six products, 12H²W + 24HW²
 //     FLOP. The TPU kernel holds the 2H×2W pre-activation and cotangent of
 //     a whole plane in VMEM (512 KB at 128 px); here the 2H rows are walked
 //     in bands of R, as in the banded forward:
@@ -301,7 +303,7 @@ filtered_act_banded_kernel(const float* __restrict__ x, float* __restrict__ out,
     for (long long i = threadIdx.x; i < HW; i += blockDim.x) op[i] = acc[i];
 }
 
-// dx for one 96-512 px plane a block, the 2H rows walked in bands of R.
+// dx for one plane above 64 px a block, the 2H rows walked in bands of R.
 // Operators as for filtered_act_plane_bwd_kernel.
 __global__ void __launch_bounds__(kThreads)
 filtered_act_banded_bwd_kernel(const float* __restrict__ x,

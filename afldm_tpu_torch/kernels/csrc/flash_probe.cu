@@ -1,6 +1,6 @@
 // Attribution probes of the flash-attention forward (K3), f32: two kernels
-// with K3's grid and loads whose arithmetic is cut down, so that
-// flash - dots_only is the online softmax's share of K3's time and
+// with K3's grid, staging and tile loop whose arithmetic is cut down, so
+// that flash - dots_only is the online softmax's share of K3's time and
 // stream_only is the share of its loads.
 //
 // Replaces: scripts/bench_flash_sweep.py::dots_only_kernel and
@@ -16,25 +16,22 @@
 // What bounds them on this card: P1 does K3's 4·Lq·Lk·D FLOPs per (b·h)
 // and is bound by the f32 FMA rate like K3. P2 does almost no arithmetic;
 // its bound is the bytes of q, k, v and out read or written once, but like
-// K3 it rereads each K/V tile once per Q tile (Lq/64 times), so it measures
-// what K3's load pattern costs, which is the point of the probe.
+// K3 it restages each K/V tile once per Q tile (Lq/BQ times), so it
+// measures what K3's load pattern costs, which is the point of the probe.
 //
-// What the design does: it is K3's (flash_fwd.cu) grid, block and loads,
-// unchanged: one 256-thread block per (b·h, 64-row Q tile), each 64-row
-// K/V tile staged in shared memory (rows padded to DP+1 floats), D
-// zero-padded to DP in {32, 64, 128, 256}, q/k/v read through (b1, b2, row)
-// strides (stride-0 K/V allowed). Four threads share a Q row and each keeps
-// DP/4 of its accumulator in registers. The wrappers require Lq and Lk to
-// be multiples of 64, so no row is masked.
+// What the design does: K3's own code, from flash_tile.cuh: the same grid,
+// block layout, Q and double-buffered cp.async K/V staging, D padding and
+// (b1, b2, row) strides (stride-0 K/V allowed). P1 runs the score and P·V
+// products with the identity in place of the softmax update; P2 runs the
+// staging alone and sums each staged tile's columns. The wrappers require
+// Lq and Lk to be multiples of 64, so no key is masked (Q rows past Lq in a
+// 128-row tile are computed on zeros and not stored).
 
-#include <cuda_runtime.h>
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;  // 4 per Q row
-constexpr int kPLD = kBK + 1;
+using namespace afldm_flash;
 
 struct Args {
   const float* q;
@@ -43,180 +40,120 @@ struct Args {
   float* out;
   int B2, Lq, Lk, D;
   long long qs1, qs2, qsl, ks1, ks2, ksl, vs1, vs2, vsl;
-  int n_qtiles;
+  int n_qtiles, vec;
 };
 
-// Stages this block's Q tile; returns the (b, q0) it covers and sets the
-// K/V base pointers.
-template <int DP>
-__device__ __forceinline__ void stage_q(const Args& a, float* Qs, int& b,
-                                        int& q0, const float*& kb,
-                                        const float*& vb) {
-  constexpr int LD = DP + 1;
-  b = blockIdx.x / a.n_qtiles;
-  q0 = (blockIdx.x - b * a.n_qtiles) * kBQ;
-  const int b1 = b / a.B2, b2 = b - b1 * a.B2;
-  const float* qb = a.q + b1 * a.qs1 + b2 * a.qs2;
-  kb = a.k + b1 * a.ks1 + b2 * a.ks2;
-  vb = a.v + b1 * a.vs1 + b2 * a.vs2;
-  for (int i = threadIdx.x; i < kBQ * DP; i += kThreads) {
-    const int rr = i / DP, d = i - rr * DP;
-    Qs[rr * LD + d] = d < a.D ? qb[(long long)(q0 + rr) * a.qsl + d] : 0.0f;
+// P1's body: the score product with the identity as its softmax.
+template <class C>
+struct Dots {
+  Lane<C> ln;
+  const float* Qs;
+  float* Ps;
+  float acc[C::TM][C::TD];
+  __device__ __forceinline__ Dots(const float* Qs_, float* Ps_)
+      : Qs(Qs_), Ps(Ps_) {
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int t = 0; t < C::TD; ++t) acc[i][t] = 0.0f;
   }
-}
-
-template <int DP>
-__device__ __forceinline__ void stage_kv(const Args& a, const float* kb,
-                                         const float* vb, int k0, float* Ks,
-                                         float* Vs) {
-  constexpr int LD = DP + 1;
-  for (int i = threadIdx.x; i < kBK * DP; i += kThreads) {
-    const int rr = i / DP, d = i - rr * DP;
-    const bool ok = d < a.D;
-    Ks[rr * LD + d] = ok ? kb[(long long)(k0 + rr) * a.ksl + d] : 0.0f;
-    Vs[rr * LD + d] = ok ? vb[(long long)(k0 + rr) * a.vsl + d] : 0.0f;
+  __device__ __forceinline__ void on_k(const float* Ks, int) {
+    float s[C::TM][C::TN];
+    score_tile<C>(Qs, Ks, ln, s);
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j)
+        Ps[ln.row(i) * C::PLD + ln.key(j)] = s[i][j];
+    __syncwarp();  // a row's P is written and read by one warp's lanes
   }
-}
-
-template <int DP>
-__device__ __forceinline__ void store_out(const Args& a, int b, int q0,
-                                          const float* acc) {
-  const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
-  float* ob = a.out + ((long long)b * a.Lq + q0 + r) * a.D;
-#pragma unroll
-  for (int j = 0; j < DP / 4; ++j) {
-    const int d = c4 + 4 * j;
-    if (d < a.D) ob[d] = acc[j];
+  __device__ __forceinline__ void on_v(const float* Vs, int) {
+    pv_tile<C>(Ps, Vs, ln, acc);
   }
-}
+};
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads) dots_kernel(Args a) {
-  constexpr int LD = DP + 1;
-  constexpr int NACC = DP / 4;
-  extern __shared__ float sm[];
-  float* Qs = sm;                 // kBQ × LD
-  float* Ks = Qs + kBQ * LD;      // kBK × LD
-  float* Vs = Ks + kBK * LD;      // kBK × LD
-  float* Ps = Vs + kBK * LD;      // kBQ × kPLD
-
-  int b, q0;
-  const float *kb, *vb;
-  stage_q<DP>(a, Qs, b, q0, kb, vb);
-  const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
-
-  float acc[NACC];
+// P2's body: the column sums of each staged K and V tile (into the P
+// buffer, 2·DP floats), added to q for this thread's elements.
+template <class C>
+struct Stream {
+  Lane<C> ln;
+  const float* Qs;
+  float* Cs;
+  float acc[C::TM][C::TD];
+  __device__ __forceinline__ Stream(const float* Qs_, float* Cs_)
+      : Qs(Qs_), Cs(Cs_) {
 #pragma unroll
-  for (int j = 0; j < NACC; ++j) acc[j] = 0.0f;
-
-  for (int k0 = 0; k0 < a.Lk; k0 += kBK) {
-    __syncthreads();  // the previous tile's Ks/Vs are no longer read
-    stage_kv<DP>(a, kb, vb, k0, Ks, Vs);
-    __syncthreads();
-
-    float s[kBK / 4];
+    for (int i = 0; i < C::TM; ++i)
 #pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) s[j] = 0.0f;
-    for (int d = 0; d < DP; ++d) {
-      const float qv = Qs[r * LD + d];
-#pragma unroll
-      for (int j = 0; j < kBK / 4; ++j)
-        s[j] = fmaf(qv, Ks[(c4 + 4 * j) * LD + d], s[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) Ps[r * kPLD + c4 + 4 * j] = s[j];
-    __syncwarp();  // a row's P is written and read by the same 4 lanes
-
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float p = Ps[r * kPLD + kk];
-#pragma unroll
-      for (int j = 0; j < NACC; ++j)
-        acc[j] = fmaf(p, Vs[kk * LD + c4 + 4 * j], acc[j]);
-    }
+      for (int t = 0; t < C::TD; ++t) acc[i][t] = 0.0f;
   }
-  store_out<DP>(a, b, q0, acc);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) stream_kernel(Args a) {
-  constexpr int LD = DP + 1;
-  constexpr int NACC = DP / 4;
-  extern __shared__ float sm[];
-  float* Qs = sm;                 // kBQ × LD
-  float* Ks = Qs + kBQ * LD;      // kBK × LD
-  float* Vs = Ks + kBK * LD;      // kBK × LD
-  float* Cs = Vs + kBK * LD;      // 2 × DP: the tile's column sums of k, v
-
-  int b, q0;
-  const float *kb, *vb;
-  stage_q<DP>(a, Qs, b, q0, kb, vb);
-  const int r = threadIdx.x >> 2, c4 = threadIdx.x & 3;
-
-  float acc[NACC];
-#pragma unroll
-  for (int j = 0; j < NACC; ++j) acc[j] = 0.0f;
-
-  for (int k0 = 0; k0 < a.Lk; k0 += kBK) {
-    __syncthreads();  // the previous tile's Ks/Vs/Cs are no longer read
-    stage_kv<DP>(a, kb, vb, k0, Ks, Vs);
-    __syncthreads();
-    // one thread per column of k or of v sums the tile's 64 rows
-    for (int c = threadIdx.x; c < 2 * DP; c += kThreads) {
-      const float* src = c < DP ? Ks + c : Vs + (c - DP);
+  __device__ __forceinline__ void colsum(const float* T, float* dst) {
+    for (int c = threadIdx.x; c < C::DP; c += C::kThreads) {
       float sum = 0.0f;
-      for (int rr = 0; rr < kBK; ++rr) sum += src[rr * LD];
-      Cs[c] = sum;
+      for (int rr = 0; rr < kBK; ++rr) sum += T[rr * C::LD + c];
+      dst[c] = sum;
     }
-    __syncthreads();
+  }
+  __device__ __forceinline__ void on_k(const float* Ks, int) {
+    colsum(Ks, Cs);
+  }
+  __device__ __forceinline__ void on_v(const float* Vs, int) {
+    colsum(Vs, Cs + C::DP);
+    __syncthreads();  // both column sums are written
 #pragma unroll
-    for (int j = 0; j < NACC; ++j) {
-      const int d = c4 + 4 * j;
-      acc[j] += Qs[r * LD + d] + Cs[d] + Cs[DP + d];
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int t = 0; t < C::TD; ++t) {
+        const int d = ln.col(t);
+        acc[i][t] += Qs[ln.row(i) * C::LD + d] + Cs[d] + Cs[C::DP + d];
+      }
+  }
+};
+
+template <class C, template <class> class Body>
+__global__ void __launch_bounds__(C::kThreads) probe_kernel(Args a) {
+  extern __shared__ __align__(16) float sm[];
+  const Smem<C> S(sm);
+  const int b = blockIdx.x / a.n_qtiles;
+  const int q0 = (blockIdx.x - b * a.n_qtiles) * C::BQ;
+  const int b1 = b / a.B2, b2 = b - b1 * a.B2;
+  stage_rows<C, C::BQ>(S.Qs, a.q + b1 * a.qs1 + b2 * a.qs2, a.qsl, q0, a.Lq,
+                       a.D, a.vec);
+  cp_async_commit();
+  Body<C> body(S.Qs, S.Ps);
+  walk_kv<C>(a.k + b1 * a.ks1 + b2 * a.ks2, a.v + b1 * a.vs1 + b2 * a.vs2,
+             a.ksl, a.vsl, a.Lk, a.D, a.vec, S.Ks, S.Vs, body);
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int row = q0 + body.ln.row(i);
+    if (row >= a.Lq) continue;
+    float* ob = a.out + ((long long)b * a.Lq + row) * a.D;
+#pragma unroll
+    for (int t = 0; t < C::TD; ++t) {
+      const int d = body.ln.col(t);
+      if (d < a.D) ob[d] = body.acc[i][t];
     }
   }
-  store_out<DP>(a, b, q0, acc);
 }
 
-template <typename Kernel>
-int go(Kernel kernel, const Args& a, int B1, size_t smem,
-       cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = (long long)B1 * a.B2 * a.n_qtiles;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <int DP, bool kDots>
-int launch(const Args& a, int B1, cudaStream_t stream) {
-  const size_t stage = (size_t)(kBQ + 2 * kBK) * (DP + 1);
-  if constexpr (kDots)
-    return go(dots_kernel<DP>, a, B1,
-              (stage + (size_t)kBQ * kPLD) * sizeof(float), stream);
-  else
-    return go(stream_kernel<DP>, a, B1, (stage + 2 * DP) * sizeof(float),
-              stream);
-}
-
-template <bool kDots>
+template <template <class> class Body>
 int dispatch(const float* q, const float* k, const float* v, float* out,
              int B1, int B2, int Lq, int Lk, int D, long long qs1,
              long long qs2, long long qsl, long long ks1, long long ks2,
              long long ksl, long long vs1, long long vs2, long long vsl,
              void* stream) {
-  if (Lq % kBQ != 0 || Lk % kBK != 0 || Lq == 0 || Lk == 0)
+  if (Lq % kBK != 0 || Lk % kBK != 0 || Lq == 0 || Lk == 0)
     return (int)cudaErrorInvalidValue;
-  const Args a{q,   k,   v,   out, B2,  Lq,  Lk,  D,   qs1,         qs2,
-               qsl, ks1, ks2, ksl, vs1, vs2, vsl, Lq / kBQ};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 32) return launch<32, kDots>(a, B1, s);
-  if (D <= 64) return launch<64, kDots>(a, B1, s);
-  if (D <= 128) return launch<128, kDots>(a, B1, s);
-  if (D <= 256) return launch<256, kDots>(a, B1, s);
-  return (int)cudaErrorInvalidValue;
+  const int vec = vec_ok(q, qs1, qs2, qsl, D) && vec_ok(k, ks1, ks2, ksl, D) &&
+                  vec_ok(v, vs1, vs2, vsl, D);
+  return with_dp(D, [&](auto dp) {
+    using C = FlashCfg<decltype(dp)::value>;
+    const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
+    const Args a{q,   k,   v,   out, B2,  Lq,  Lk,       D,  qs1, qs2,
+                 qsl, ks1, ks2, ksl, vs1, vs2, vsl, n_qtiles, vec};
+    return launch_tiles<C>(probe_kernel<C, Body>, (long long)B1 * B2 * n_qtiles,
+                           (cudaStream_t)stream, a);
+  });
 }
 
 }  // namespace
@@ -231,7 +168,7 @@ extern "C" int flash_probe_dots_f32(const float* q, const float* k,
                                     long long ks2, long long ksl,
                                     long long vs1, long long vs2,
                                     long long vsl, void* stream) {
-  return dispatch<true>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2, qsl, ks1,
+  return dispatch<Dots>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2, qsl, ks1,
                         ks2, ksl, vs1, vs2, vsl, stream);
 }
 
@@ -243,6 +180,6 @@ extern "C" int flash_probe_stream_f32(const float* q, const float* k,
                                       long long ks2, long long ksl,
                                       long long vs1, long long vs2,
                                       long long vsl, void* stream) {
-  return dispatch<false>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2, qsl, ks1,
-                         ks2, ksl, vs1, vs2, vsl, stream);
+  return dispatch<Stream>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2, qsl, ks1,
+                          ks2, ksl, vs1, vs2, vsl, stream);
 }

@@ -1,0 +1,367 @@
+// The register-tiled f32 tile loop shared by the flash-attention forward
+// (flash_fwd.cu, K3), the two-KV forward (flash2_fwd.cu, K6) and the
+// attribution probes (flash_probe.cu, P1 and P2): staging of the Q tile and
+// of the K/V tiles, the score product, the online-softmax update and the
+// P·V product. Each .cu keeps only its kernel's prologue and epilogue.
+//
+// Layout of a block (FlashCfg<DP>): kThreads threads in TR row groups × TC
+// column groups; thread (r, c) owns the TM = 4 query rows {r + TR·i} of the
+// BQ-row Q tile. In the score product it owns the TN keys {c + TC·j} of the
+// 64-key tile, a TM×TN register micro-tile of S; in the P·V product the TD
+// output columns of its column group (chunks of CW columns, interleaved
+// with the other groups' chunks), a TM×TD micro-tile of O. Every value read
+// from shared memory feeds TN (a q value), TM (a k or v value) or TD (a p
+// value) FMAs, all at least 4. The row max and row sum live in the TC lanes
+// of one warp that share a row group and are combined with shuffles.
+//
+// D is zero-padded to DP, the smallest of {24, 32, 40, 64, 80, 128, 160,
+// 256} at least D, so the model's head dims 24, 40, 80 and 160 waste no
+// FMA. Tiles are row-major with rows padded to LD = DP + 4 floats: DP % 8 ==
+// 0 makes LD/4 odd, so the 8 lanes of a float4 phase that read 8 different
+// rows hit 8 different bank quads. K is not staged transposed: cp.async
+// copies 16 contiguous bytes and cannot transpose, and a thread's keys at
+// four consecutive d are one float4 per key instead, the same reuse.
+//
+// Staging: where every row base is 16-byte aligned and D % 4 == 0 (the
+// wrapper checks it), 16-byte cp.async copies, zero-filled past D and past
+// the last row; otherwise a masked scalar copy in the same loop. The chunk
+// index is split by a compile-time constant (a multiply, not a division).
+// K and V of a tile take two buffers: while the score product and softmax
+// of tile j run, V_j is in flight; while its P·V product runs, K_{j+1} is.
+//
+// The arithmetic is exact f32 FMA, in the order of the plain version's
+// sums over d and over keys; no TF32, no tensor cores.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace afldm_flash {
+
+constexpr int kBK = 64;  // keys per K/V tile
+
+template <int DP_, int kThreads_, int TC_, int CW_>
+struct Cfg {
+  static constexpr int DP = DP_;
+  static constexpr int kThreads = kThreads_;
+  static constexpr int TC = TC_;                // column groups
+  static constexpr int TR = kThreads / TC;      // row groups
+  static constexpr int TM = 4;                  // rows a thread
+  static constexpr int BQ = TR * TM;            // Q tile rows
+  static constexpr int TN = kBK / TC;           // keys a thread
+  static constexpr int TD = DP / TC;            // output columns a thread
+  static constexpr int CW = CW_;                // columns a vector read
+  static constexpr int LD = DP + 4;             // padded tile row
+  static constexpr int PLD = kBK + TC;          // padded P row
+  static_assert(DP % 8 == 0 && kBK % TC == 0 && DP % TC == 0, "tiling");
+  static_assert(TD % CW == 0 && (CW == 1 || CW == 2 || CW == 4), "chunks");
+  static_assert(TN >= 4 && TD >= 4, "each shared read feeds >= 4 FMAs");
+  // Q, two K/V buffers, P
+  static constexpr size_t smem_floats =
+      (size_t)BQ * LD + 2 * (size_t)kBK * LD + (size_t)BQ * PLD;
+};
+
+template <int DP> struct FlashCfg;
+template <> struct FlashCfg<24> : Cfg<24, 128, 4, 2> {};
+template <> struct FlashCfg<32> : Cfg<32, 256, 8, 4> {};
+template <> struct FlashCfg<40> : Cfg<40, 256, 8, 1> {};
+template <> struct FlashCfg<64> : Cfg<64, 256, 8, 4> {};
+template <> struct FlashCfg<80> : Cfg<80, 256, 8, 2> {};
+template <> struct FlashCfg<128> : Cfg<128, 256, 8, 4> {};
+template <> struct FlashCfg<160> : Cfg<160, 256, 8, 4> {};
+template <> struct FlashCfg<256> : Cfg<256, 256, 16, 4> {};
+
+// f(std::integral_constant<int, DP>) for the smallest instantiated DP >= D.
+template <class F>
+int with_dp(int D, F&& f) {
+  if (D <= 0) return (int)cudaErrorInvalidValue;
+  if (D <= 24) return f(std::integral_constant<int, 24>{});
+  if (D <= 32) return f(std::integral_constant<int, 32>{});
+  if (D <= 40) return f(std::integral_constant<int, 40>{});
+  if (D <= 64) return f(std::integral_constant<int, 64>{});
+  if (D <= 80) return f(std::integral_constant<int, 80>{});
+  if (D <= 128) return f(std::integral_constant<int, 128>{});
+  if (D <= 160) return f(std::integral_constant<int, 160>{});
+  if (D <= 256) return f(std::integral_constant<int, 256>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// True when a (b1, b2, row)-strided f32 tensor can be staged with 16-byte
+// copies: base and every stride a multiple of 4 floats, and D % 4 == 0.
+inline bool vec_ok(const float* p, long long s1, long long s2, long long sl,
+                   int D) {
+  return ((uintptr_t)p & 15) == 0 && s1 % 4 == 0 && s2 % 4 == 0 &&
+         sl % 4 == 0 && D % 4 == 0;
+}
+
+// Sets the dynamic shared memory of ``kernel`` and launches it on one
+// block per (b, Q tile).
+template <class C, class K, class... Args>
+int launch_tiles(K kernel, long long n_blocks, cudaStream_t stream,
+                 Args... args) {
+  const size_t smem = C::smem_floats * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)n_blocks, C::kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// dst[rr][0:DP] = src rows r0 + rr (rr < ROWS) at row stride ``rs``,
+// zero past D and past row L. Issues cp.async copies (vec) or copies
+// synchronously; the caller commits the group.
+template <class C, int ROWS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long rs, int r0, int L,
+                                           int D, bool vec) {
+  constexpr int CPR = C::DP / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * CPR; i += C::kThreads) {
+    const int rr = i / CPR;
+    const int d = (i - rr * CPR) * 4;
+    const int row = r0 + rr;
+    float* s = dst + rr * C::LD + d;
+    const float* g = src + (long long)row * rs + d;
+    if (vec) {
+      const bool ok = row < L && d < D;
+      cp_async16(s, ok ? g : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[e] = (row < L && d + e < D) ? g[e] : 0.0f;
+    }
+  }
+}
+
+// This thread's place in the block.
+template <class C>
+struct Lane {
+  int r, c;
+  __device__ __forceinline__ Lane()
+      : r(threadIdx.x / C::TC), c(threadIdx.x % C::TC) {}
+  __device__ __forceinline__ int row(int i) const { return r + C::TR * i; }
+  __device__ __forceinline__ int key(int j) const { return c + C::TC * j; }
+  // the output column of this thread's t-th accumulator
+  __device__ __forceinline__ int col(int t) const {
+    return ((t / C::CW) * C::TC + c) * C::CW + t % C::CW;
+  }
+};
+
+// Max or sum over the TC lanes of a row group (one warp).
+template <class C>
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = C::TC / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+template <class C>
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = C::TC / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// s = Q_tile · K_tileᵀ for this thread's TM rows and TN keys, d ascending.
+template <class C>
+__device__ __forceinline__ void score_tile(const float* Qs, const float* Ks,
+                                           const Lane<C>& ln,
+                                           float (&s)[C::TM][C::TN]) {
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+  for (int d = 0; d < C::DP; d += 4) {
+    float4 qa[C::TM], kb[C::TN];
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+      qa[i] = *reinterpret_cast<const float4*>(Qs + ln.row(i) * C::LD + d);
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j)
+      kb[j] = *reinterpret_cast<const float4*>(Ks + ln.key(j) * C::LD + d);
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        float a = s[i][j];
+        a = fmaf(qa[i].x, kb[j].x, a);
+        a = fmaf(qa[i].y, kb[j].y, a);
+        a = fmaf(qa[i].z, kb[j].z, a);
+        s[i][j] = fmaf(qa[i].w, kb[j].w, a);
+      }
+  }
+}
+
+// acc += P_tile · V_tile for this thread's TM rows and TD columns, keys
+// ascending. P rows are read by the lanes of the warp that wrote them.
+template <class C>
+__device__ __forceinline__ void pv_tile(const float* Ps, const float* Vs,
+                                        const Lane<C>& ln,
+                                        float (&acc)[C::TM][C::TD]) {
+#pragma unroll 2
+  for (int k = 0; k < kBK; k += 4) {
+    float4 p[C::TM];
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+      p[i] = *reinterpret_cast<const float4*>(Ps + ln.row(i) * C::PLD + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* vr = Vs + (k + kk) * C::LD;
+      float v[C::TD];
+#pragma unroll
+      for (int g = 0; g < C::TD / C::CW; ++g) {
+        const float* src = vr + (g * C::TC + ln.c) * C::CW;
+        if constexpr (C::CW == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(src);
+          v[4 * g] = t.x; v[4 * g + 1] = t.y;
+          v[4 * g + 2] = t.z; v[4 * g + 3] = t.w;
+        } else if constexpr (C::CW == 2) {
+          const float2 t = *reinterpret_cast<const float2*>(src);
+          v[2 * g] = t.x; v[2 * g + 1] = t.y;
+        } else {
+          v[g] = *src;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < C::TM; ++i) {
+        const float pk = kk == 0 ? p[i].x : kk == 1 ? p[i].y
+                       : kk == 2 ? p[i].z : p[i].w;
+#pragma unroll
+        for (int t = 0; t < C::TD; ++t) acc[i][t] = fmaf(pk, v[t], acc[i][t]);
+      }
+    }
+  }
+}
+
+// Walks the K/V sequence in 64-key tiles through two buffers: body.on_k(Ks,
+// k0) once K's tile is in shared memory, body.on_v(Vs, k0) once V's is.
+// Every thread calls it. The Q tile, if staged just before and committed,
+// has landed by the first on_k.
+template <class C, class Body>
+__device__ __forceinline__ void walk_kv(const float* kb, const float* vb,
+                                        long long ksl, long long vsl, int Lk,
+                                        int D, bool vec, float* Ks, float* Vs,
+                                        Body& body) {
+  stage_rows<C, kBK>(Ks, kb, ksl, 0, Lk, D, vec);
+  cp_async_commit();
+  stage_rows<C, kBK>(Vs, vb, vsl, 0, Lk, D, vec);
+  cp_async_commit();
+  for (int k0 = 0; k0 < Lk; k0 += kBK) {
+    cp_async_wait<1>();  // all but V_j: K_j (and Q) have landed
+    __syncthreads();
+    body.on_k(Ks, k0);
+    __syncthreads();     // K_j is no longer read
+    if (k0 + kBK < Lk) stage_rows<C, kBK>(Ks, kb, ksl, k0 + kBK, Lk, D, vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but K_{j+1}: V_j has landed
+    __syncthreads();
+    body.on_v(Vs, k0);
+    __syncthreads();     // V_j and P are no longer read
+    if (k0 + kBK < Lk) stage_rows<C, kBK>(Vs, vb, vsl, k0 + kBK, Lk, D, vec);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+// The shared-memory carve-up of a block.
+template <class C>
+struct Smem {
+  float* Qs;  // BQ × LD
+  float* Ks;  // kBK × LD
+  float* Vs;  // kBK × LD
+  float* Ps;  // BQ × PLD
+  __device__ __forceinline__ explicit Smem(float* sm)
+      : Qs(sm), Ks(sm + C::BQ * C::LD), Vs(Ks + kBK * C::LD),
+        Ps(Vs + kBK * C::LD) {}
+};
+
+// One online-softmax attention of the staged Q tile over one K/V set:
+// acc holds the unnormalised output, m the row max, l this thread's share
+// of the row sum (row_sum over the row group gives the whole).
+template <class C>
+struct Attend {
+  Lane<C> ln;
+  const float* Qs;
+  float* Ps;
+  float scale;
+  int Lk;
+  float acc[C::TM][C::TD];
+  float m[C::TM], l[C::TM];
+
+  __device__ __forceinline__ Attend(const float* Qs_, float* Ps_, float sc,
+                                    int Lk_)
+      : Qs(Qs_), Ps(Ps_), scale(sc), Lk(Lk_) {
+    reset();
+  }
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.0f;
+#pragma unroll
+      for (int t = 0; t < C::TD; ++t) acc[i][t] = 0.0f;
+    }
+  }
+  // scores, then the online-softmax update: keys past Lk score -inf, the
+  // accumulator is rescaled by exp(m_old - m_new) and p goes to Ps
+  __device__ __forceinline__ void on_k(const float* Ks, int k0) {
+    float s[C::TM][C::TN];
+    score_tile<C>(Qs, Ks, ln, s);
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        s[i][j] = (k0 + ln.key(j) < Lk) ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max<C>(mx));  // finite: a valid key
+      const float corr = expf(m[i] - m_new);             // 0 on the first tile
+      m[i] = m_new;
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        psum += p;
+        Ps[ln.row(i) * C::PLD + ln.key(j)] = p;
+      }
+      l[i] = l[i] * corr + psum;
+#pragma unroll
+      for (int t = 0; t < C::TD; ++t) acc[i][t] *= corr;
+    }
+    __syncwarp();  // a row's P is written and read by one warp's lanes
+  }
+  __device__ __forceinline__ void on_v(const float* Vs, int) {
+    pv_tile<C>(Ps, Vs, ln, acc);
+  }
+  // 1 / (the whole row sum) for row i; every lane of the row group calls it
+  __device__ __forceinline__ float inv_l(int i) const {
+    return 1.0f / row_sum<C>(l[i]);
+  }
+  __device__ __forceinline__ float lse(int i) const {
+    return m[i] + logf(row_sum<C>(l[i]));
+  }
+};
+
+}  // namespace afldm_flash

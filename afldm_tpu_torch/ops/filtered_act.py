@@ -8,7 +8,8 @@ float32 on the card.
   ``pallas_kernels.py::_bwd_rule``), which recomputes the pre-activation
   from the saved x rather than storing the 4x intermediate.
 - ``filtered_act_banded``: the 2x intermediate walked in row bands,
-  96 <= H, W <= 512 (counterpart of ``pallas_kernels.py::_forward_spatial``);
+  every H, W % 4 == 0 with max(H, W) > 64 (counterpart of
+  ``pallas_kernels.py::_forward_spatial``);
   differentiable, its backward is ``filtered_act_banded_bwd`` (counterpart
   of ``pallas_kernels.py::_bwd_spatial``), which walks the same bands and
   recomputes the pre-activation from the saved x.
@@ -31,11 +32,13 @@ from .ideal_lpf import (_ACTS, _downsample_op, _op, _upsample_op,
 ACT_CODES = {"silu": 0, "swish": 0, "gelu": 1, "relu": 2, "mish": 3,
              "leaky_relu": 4, "tanh": 5, "linear": 6}
 
+# the plane kernels take H, W % 4 == 0 up to this; the banded kernels every
+# H, W % 4 == 0 above it, in bands of rows chosen from H and W (band_rows)
 PLANE_MAX = 64
-BANDED_MIN = 96
-BANDED_MAX = 512
 # the banded kernel keeps its H x W accumulator in shared memory up to this
 ACC_SMEM_MAX_BYTES = 64 * 1024
+# the shared memory one block may use on Hopper (227 KB)
+SMEM_MAX_BYTES = 232448
 
 _KERNEL_OPS = {}
 
@@ -109,7 +112,7 @@ def _kernel_bwd_ops(H: int, W: int, device) -> tuple:
     return _KERNEL_OPS[key]
 
 
-def _check(x: torch.Tensor, act: str, lo: int, hi: int, name: str):
+def _check(x: torch.Tensor, act: str, banded: bool, name: str):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: CPU or CUDA tensors only, got {x.device}")
     if x.dtype != torch.float32:
@@ -117,9 +120,10 @@ def _check(x: torch.Tensor, act: str, lo: int, hi: int, name: str):
     if x.ndim != 4:
         raise ValueError(f"{name}: expects NCHW, got shape {tuple(x.shape)}")
     H, W = x.shape[-2:]
-    if H % 4 or W % 4 or not (lo <= H <= hi and lo <= W <= hi):
-        raise ValueError(f"{name}: takes H, W % 4 == 0 in [{lo}, {hi}], "
-                         f"got {H}x{W}")
+    if H % 4 or W % 4 or (max(H, W) > PLANE_MAX) != banded:
+        side = "above" if banded else "up to"
+        raise ValueError(f"{name}: takes H, W % 4 == 0 with max(H, W) "
+                         f"{side} {PLANE_MAX}, got {H}x{W}")
     if act not in ACT_CODES:
         raise ValueError(f"{name}: unknown activation {act!r}")
 
@@ -142,7 +146,7 @@ def _planes_per_block(H: int, W: int) -> int:
 def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     if x.device.type == "cpu":
         return filtered_act_plain(x, act)
-    _check(x, act, 4, PLANE_MAX, "filtered_act_plane")
+    _check(x, act, False, "filtered_act_plane")
     x, out, ops, nplanes, stream = _launch_args(x)
     H, W = x.shape[-2:]
     err = kernels.library("filtered_act").filtered_act_plane_f32(
@@ -153,11 +157,11 @@ def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     return out
 
 
-def _bwd_launch_args(x, g, act, lo, hi, name):
+def _bwd_launch_args(x, g, act, banded, name):
     """Checks x and g, then returns (the kernel's tensor arguments: x, g,
     dx and the operators U_h, U_wᵀ, D_hᵀ, D_w, U_w, U_hᵀ, contiguous;
     nplanes; stream)."""
-    _check(x, act, lo, hi, name)
+    _check(x, act, banded, name)
     if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"{name}: g must match x in shape, device and "
                          "dtype")
@@ -172,7 +176,7 @@ def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
     if x.device.type == "cpu":
         return filtered_act_plane_bwd_plain(x, g, act)
     args, nplanes, stream = _bwd_launch_args(
-        x, g, act, 4, PLANE_MAX, "filtered_act_plane_bwd")
+        x, g, act, False, "filtered_act_plane_bwd")
     H, W = x.shape[-2:]
     err = kernels.library("filtered_act").filtered_act_plane_bwd_f32(
         *(t.data_ptr() for t in args), nplanes, H, W,
@@ -204,22 +208,40 @@ def filtered_act_plane(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return _FilteredActPlane.apply(x, act)
 
 
-def band_rows(H: int) -> int:
-    """Rows of the 2H intermediate per band: the largest of 32, 16, 8 that
-    divides 2H (8 always does when H % 4 == 0)."""
-    return next(r for r in (32, 16, 8) if (2 * H) % r == 0)
+def _acc_in_smem(H: int, W: int) -> bool:
+    return H * W * 4 <= ACC_SMEM_MAX_BYTES
+
+
+def banded_smem_bytes(H: int, W: int, R: int) -> int:
+    """Shared memory of a banded block: 3·R·W floats of band buffers, plus
+    the H x W accumulator when it stays in shared memory."""
+    return 4 * (3 * R * W + (H * W if _acc_in_smem(H, W) else 0))
+
+
+def band_rows(H: int, W: int) -> int:
+    """Rows of the 2H intermediate per band: the largest of 32, 16, 8, 4
+    that divides 2H and keeps the block within SMEM_MAX_BYTES (8 and 4
+    always divide 2H when H % 4 == 0). Raises above the width that 4 rows
+    can hold (W of about 4800 px; no AF model level comes near it)."""
+    for r in (32, 16, 8, 4):
+        if (2 * H) % r == 0 and banded_smem_bytes(H, W, r) <= SMEM_MAX_BYTES:
+            return r
+    raise ValueError(f"filtered_act_banded: a {H}x{W} plane needs more than "
+                     f"{SMEM_MAX_BYTES} bytes of shared memory even in "
+                     "bands of 4 rows")
 
 
 def _banded_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     if x.device.type == "cpu":
-        return filtered_act_plain(x, act)
-    _check(x, act, BANDED_MIN, BANDED_MAX, "filtered_act_banded")
-    x, out, ops, nplanes, stream = _launch_args(x)
+        # the JAX package's chain: matmul up to 512 px, spectral above
+        return filtered_nonlinearity(x, act)
+    _check(x, act, True, "filtered_act_banded")
     H, W = x.shape[-2:]
-    acc_in_smem = int(H * W * 4 <= ACC_SMEM_MAX_BYTES)
+    R = band_rows(H, W)
+    x, out, ops, nplanes, stream = _launch_args(x)
     err = kernels.library("filtered_act").filtered_act_banded_f32(
         x.data_ptr(), out.data_ptr(), *(o.data_ptr() for o in ops),
-        nplanes, H, W, band_rows(H), acc_in_smem, ACT_CODES[act], stream)
+        nplanes, H, W, R, int(_acc_in_smem(H, W)), ACT_CODES[act], stream)
     kernels.check(err, "filtered_act_banded")
     kernels.LAUNCHES["filtered_act_banded"] += 1
     return out
@@ -231,12 +253,12 @@ def filtered_act_banded_bwd(x: torch.Tensor, g: torch.Tensor,
     if x.device.type == "cpu":
         return filtered_act_plane_bwd_plain(x, g, act)
     args, nplanes, stream = _bwd_launch_args(
-        x, g, act, BANDED_MIN, BANDED_MAX, "filtered_act_banded_bwd")
+        x, g, act, True, "filtered_act_banded_bwd")
     H, W = x.shape[-2:]
-    acc_in_smem = int(H * W * 4 <= ACC_SMEM_MAX_BYTES)
+    R = band_rows(H, W)
     err = kernels.library("filtered_act").filtered_act_banded_bwd_f32(
-        *(t.data_ptr() for t in args), nplanes, H, W, band_rows(H),
-        acc_in_smem, ACT_CODES[act], stream)
+        *(t.data_ptr() for t in args), nplanes, H, W, R,
+        int(_acc_in_smem(H, W)), ACT_CODES[act], stream)
     kernels.check(err, "filtered_act_banded_bwd")
     kernels.LAUNCHES["filtered_act_banded_bwd"] += 1
     return args[2]
@@ -259,8 +281,8 @@ class _FilteredActBanded(torch.autograd.Function):
 
 
 def filtered_act_banded(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Kernel for 96-512 px planes, one block per plane, differentiable
-    through ``filtered_act_banded_bwd``."""
+    """Kernel for planes with max(H, W) above 64 px (H, W % 4 == 0), one
+    block per plane, differentiable through ``filtered_act_banded_bwd``."""
     return _FilteredActBanded.apply(x, act)
 
 
@@ -271,7 +293,9 @@ def filtered_act_fused(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     2x2 level): the FFT ref chain, as in the JAX package, where that case
     never reaches a Pallas kernel either; autograd runs through
     ``torch.fft``. Otherwise ``filtered_act_plane`` up to 64 px and
-    ``filtered_act_banded`` for 96-512 px; any other size raises."""
+    ``filtered_act_banded`` above, whose CPU version is the JAX package's
+    chain (matmul up to 512 px, spectral above); on the card the banded
+    kernels raise only above the width that bands of 4 rows can hold."""
     if x.ndim < 4:
         return _ACTS[act](x)
     H, W = x.shape[-2:]
@@ -279,6 +303,4 @@ def filtered_act_fused(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         return filtered_nonlinearity(x, act)
     if max(H, W) <= PLANE_MAX:
         return filtered_act_plane(x, act)
-    if BANDED_MIN <= min(H, W) and max(H, W) <= BANDED_MAX:
-        return filtered_act_banded(x, act)
-    raise ValueError(f"no filtered-activation kernel takes {H}x{W}")
+    return filtered_act_banded(x, act)

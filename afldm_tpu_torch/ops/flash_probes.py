@@ -1,7 +1,7 @@
 """Attribution probes of the flash forward (K3): P1 and P2 of the JAX
 package's flash sweep (``scripts/bench_flash_sweep.py::dots_only_kernel``
-and ``::stream_only_kernel``), with K3's grid and loads and cut-down
-arithmetic.
+and ``::stream_only_kernel``), with K3's grid, staging and tile loop
+(``kernels/csrc/flash_tile.cuh``) and cut-down arithmetic.
 
 - ``flash_probe_dots``: ``(q·kᵀ)·v``, the softmax replaced by the identity
   (no scale, no max, no exp): the matmul-plus-memory floor of K3.
@@ -19,7 +19,13 @@ import torch
 from .. import kernels
 from .attention import FLASH_MAX_D, _as_4d
 
-PROBE_TILE = 64  # the kernels' K/V tile (and Q tile) in rows
+PROBE_TILE = 64  # the kernels' K/V tile in rows
+
+
+def q_tile(D: int) -> int:
+    """Rows of the flash kernels' Q tile at head dim D (``FlashCfg`` in
+    ``kernels/csrc/flash_tile.cuh``): 128, or 64 at D > 160 (DP = 256)."""
+    return 64 if D > 160 else 128
 
 
 def flash_probe_dots_plain(q, k, v):

@@ -6,8 +6,8 @@ identity: the matmul-plus-memory floor) and P2 (``flash_probe_stream``,
 K3's loads with trivial work: the memory floor). ``1 - dots/flash`` is the
 online softmax's share of K3's time, ``stream/flash`` its loads' share.
 
-The kernels have one tile (64×64), so the sweep is one row per op at that
-tile; they are f32 only. Each time is the best of 3 runs of ``--iters``
+The kernels have one tile at a head dim (64 keys; 128 query rows, 64 at
+D > 160), so the sweep is one row per op at that tile; they are f32 only. Each time is the best of 3 runs of ``--iters``
 chained calls (each call's output is the next one's q), from CUDA events.
 Rows are printed as JSON lines and appended to ``--out``.
 
@@ -77,7 +77,7 @@ def measure(f1, x0, xs, iters, device):
 def main(argv=None):
     from ..ops import sdpa, sdpa2, set_af_precision
     from ..ops.flash_probes import (PROBE_TILE, flash_probe_dots,
-                                    flash_probe_stream)
+                                    flash_probe_stream, q_tile)
     from ..pipelines.loading import resolve_device
     from .bench import device_name
     args = parse_args(argv)
@@ -98,7 +98,7 @@ def main(argv=None):
     def timed(f1, x0, xs):
         return measure(f1, x0, xs, args.iters, device)
 
-    tile = dict(bq=PROBE_TILE, bk=PROBE_TILE, dtype=args.dtype)
+    tile = dict(bq=q_tile(D), bk=PROBE_TILE, dtype=args.dtype)
     q1, k1, v1 = rand(args.batch), rand(args.batch), rand(args.batch)
     flash_ms = timed(sdpa, q1, (k1, v1))
     record(kind="sweep", op="sdpa", **tile, shape=[args.batch, H, L, D],

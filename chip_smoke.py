@@ -11,9 +11,10 @@ Phases, each of which fails the run:
 1. build every CUDA kernel from ``afldm_tpu_torch/kernels/csrc`` (nvcc, one
    process per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes, and time kernel, plain version, the library call
-   where one exists, and the bound (the larger of FLOPs / 67 TFLOP/s f32
-   and bytes / 3.35 TB/s);
+   main paths' shapes (and the banded pair at sizes outside the old
+   96-512 px window: 80 px, 32x128 and 1024 px planes), and time kernel,
+   plain version, the library call where one exists, and the bound (the
+   larger of FLOPs / 67 TFLOP/s f32 and bytes / 3.35 TB/s);
 3. run the tiny pipeline on the card and on the CPU with the same weights
    and compare (the end-to-end reference check of serving);
 4. the serving path at full width (256.4M-parameter UNet, AF-VAE at
@@ -112,9 +113,12 @@ KERNELS = {
     "filtered_act_banded": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
         replaces="afldm_tpu/ops/pallas_kernels.py:228",
-        # the AF-VAE at 256 px (128 px level) and at 512 px (256 px level)
+        # the AF-VAE at 256 px (128 px level) and at 512 px (256 px level);
+        # the window beyond 96-512 px: an AF-VAE at 320 px (80 px level), a
+        # mixed 32x128 plane, a 1024 px plane
         shapes=[(16, 256, 128, 128), (16, 512, 128, 128),
-                (2, 256, 256, 256)]),
+                (2, 256, 256, 256), (4, 256, 80, 80), (1, 64, 32, 128),
+                (1, 16, 1024, 1024)]),
     "flash_fwd": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_fwd.cu",
         replaces="afldm_tpu/ops/attention.py:59",
@@ -147,8 +151,10 @@ KERNELS = {
         replaces="afldm_tpu/ops/pallas_kernels.py:261",
         # the AF-VAE's 128 px level at batch 4: the encoder's first resnet
         # (128 channels), the 256-channel resnets, the decoder's first
-        # resnet after the 512-channel upsampler
-        shapes=[(4, 128, 128, 128), (4, 256, 128, 128), (4, 512, 128, 128)]),
+        # resnet after the 512-channel upsampler; an AF-VAE at 320 px (80 px
+        # level, outside the old 96-512 px window)
+        shapes=[(4, 128, 128, 128), (4, 256, 128, 128), (4, 512, 128, 128),
+                (4, 256, 80, 80)]),
     "flash2_fwd": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/flash2_fwd.cu",
         replaces="afldm_tpu/ops/attention.py:302",

@@ -1,0 +1,94 @@
+"""The kernel build's bookkeeping, on the CPU (nothing is compiled here):
+a library's name hashes its source, every shared header and the flags, so
+an edited header rebuilds every kernel; and the flash kernels share one
+tile loop (``flash_tile.cuh``) instead of carrying copies of it."""
+
+import re
+
+import pytest
+
+from afldm_tpu_torch import kernels
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    (tmp_path / "a.cu").write_text('#include "t.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "t.cuh").write_text("// tile loop\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "_build")
+    return tmp_path
+
+
+def test_target_is_stable(csrc):
+    assert kernels._target("a") == kernels._target("a")
+    assert kernels._target("a") != kernels._target("b")
+    assert kernels._target("a").parent == csrc / "_build"
+
+
+@pytest.mark.parametrize("edit", ["t.cuh", "a.cu", "new.cuh"])
+def test_header_or_source_edit_changes_target(csrc, edit):
+    before = {n: kernels._target(n) for n in ("a", "b")}
+    path = csrc / edit
+    path.write_text((path.read_text() if path.exists() else "") + "// x\n")
+    after = {n: kernels._target(n) for n in ("a", "b")}
+    assert after["a"] != before["a"]
+    # a header reaches every target, a source only its own
+    assert (after["b"] != before["b"]) == edit.endswith(".cuh")
+
+
+def test_flags_change_target(csrc, monkeypatch):
+    before = kernels._target("a")
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ["-g"])
+    assert kernels._target("a") != before
+
+
+FLASH_SOURCES = ("flash_fwd", "flash2_fwd", "flash_probe")
+
+
+@pytest.mark.parametrize("name", FLASH_SOURCES)
+def test_flash_kernels_include_the_tile_loop(name):
+    """Each flash forward source includes flash_tile.cuh and keeps no copy
+    of its staging, score, softmax or P·V loop."""
+    src = (kernels.CSRC / f"{name}.cu").read_text()
+    assert '#include "flash_tile.cuh"' in src
+    code = re.sub(r"//[^\n]*", "", src)
+    for copy in ("fmaf(", "expf(", "cp.async", "__shfl_xor_sync"):
+        assert copy not in code, (name, copy)
+
+
+def test_tile_loop_instantiates_padded_head_dims():
+    """DP is D rounded up within {24, 32, 40, 64, 80, 128, 160, 256}."""
+    src = (kernels.CSRC / "flash_tile.cuh").read_text()
+    dps = [int(d) for d in re.findall(r"struct FlashCfg<(\d+)>", src)]
+    assert dps == [24, 32, 40, 64, 80, 128, 160, 256]
+    dispatched = [int(d) for d in re.findall(
+        r"if \(D <= (\d+)\) return f\(", src)]
+    assert dispatched == dps
+
+
+def test_q_tile_matches_the_tile_loop():
+    """``flash_probes.q_tile`` (the sweep's recorded Q tile) is the BQ of
+    each FlashCfg: (threads / column groups) row groups of 4 rows."""
+    from afldm_tpu_torch.ops.flash_probes import q_tile
+    src = (kernels.CSRC / "flash_tile.cuh").read_text()
+    cfgs = re.findall(
+        r"struct FlashCfg<(\d+)> : Cfg<\d+, (\d+), (\d+), \d+>", src)
+    assert len(cfgs) == 8
+    for dp, threads, tc in cfgs:
+        assert q_tile(int(dp)) == int(threads) // int(tc) * 4, dp
+
+
+@pytest.mark.parametrize("where", ["root", "elsewhere"])
+def test_kernel_check_needs_a_checkout_and_a_card(where, tmp_path,
+                                                  monkeypatch, capsys):
+    """kernel_check.py refuses outside a checkout's root and, here, for
+    want of a card: it never times on the CPU."""
+    from afldm_tpu_torch.scripts import kernel_check
+    root = kernels.CSRC.parents[2]
+    monkeypatch.chdir(root if where == "root" else tmp_path)
+    monkeypatch.setattr(kernel_check.sys, "path", list(kernel_check.sys.path))
+    assert kernel_check.main(["flash_fwd"]) == 1
+    err = capsys.readouterr().err
+    assert ("no CUDA device" if where == "root" else "root of a checkout") \
+        in err

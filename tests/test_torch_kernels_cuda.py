@@ -77,8 +77,11 @@ def test_dispatcher_picks_kernels(cuda):
         before["filtered_act_plane"] + 1
     assert kernels.LAUNCHES["filtered_act_banded"] == \
         before["filtered_act_banded"] + 1
-    with pytest.raises(ValueError):
-        TF.filtered_act_fused(torch.randn(1, 1, 80, 80, device=cuda), "silu")
+    TF.filtered_act_fused(torch.randn(1, 1, 80, 80, device=cuda), "silu")
+    assert kernels.LAUNCHES["filtered_act_banded"] == \
+        before["filtered_act_banded"] + 2
+    with pytest.raises(ValueError, match="bands of 4 rows"):
+        TF.filtered_act_fused(torch.randn(1, 1, 4, 4848, device=cuda), "silu")
     with pytest.raises(TypeError):
         TF.filtered_act_plane(x.double(), "silu")
 
@@ -210,7 +213,7 @@ def test_plane_bwd_kernel_matches_plain(cuda, shape, act):
 @pytest.mark.cuda
 def test_plane_function_backward_launches_kernel(cuda):
     """autograd through the dispatcher reaches the plane backward kernel at
-    plane sizes and the banded one (K2) at 96-512 px."""
+    plane sizes and the banded one (K2) above 64 px."""
     x = torch.randn(2, 8, 16, 16, device=cuda, requires_grad=True)
     g = torch.randn(2, 8, 16, 16, device=cuda)
     y = TF.filtered_act_fused(x, "silu")
@@ -422,3 +425,118 @@ def test_flash_probe_kernels_need_multiples_of_64(cuda, lens):
     for fn in (P.flash_probe_dots, P.flash_probe_stream):
         with pytest.raises(ValueError, match="multiples of 64"):
             fn(q, k, v)
+
+
+# -- the widened banded window (K1, K2) ---------------------------------
+
+WIDE_SHAPES = [(2, 3, 80, 80), (1, 2, 68, 92), (1, 2, 32, 128),
+               (1, 1, 640, 640), (1, 1, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_banded_kernels_widened_window(cuda, shape):
+    """K1 and K2 at the sizes between and beyond the old 96-512 px window:
+    68-92 px, mixed 32x128, and planes above 512 px (bands of 16 rows at
+    640 and 1024 px, the accumulator in the output plane)."""
+    x = torch.randn(shape, device=cuda)
+    g = torch.randn(shape, device=cuda)
+    got = _launches("filtered_act_banded",
+                    lambda: TF.filtered_act_fused(x, "silu"))
+    torch.testing.assert_close(got, TF.filtered_act_plain(x, "silu"),
+                               atol=3e-5, rtol=1e-4)
+    dx = _launches("filtered_act_banded_bwd",
+                   lambda: TF.filtered_act_banded_bwd(x, g, "silu"))
+    torch.testing.assert_close(
+        dx, TF.filtered_act_plane_bwd_plain(x, g, "silu"), atol=1e-4,
+        rtol=1e-4)
+
+
+# -- the register-tiled flash forward (K3, K6): head dims, lengths -------
+
+TILE_DIMS = [8, 20, 24, 33, 40, 80, 100, 160, 256]
+TILE_LENS = [(1, 1), (37, 77), (127, 129), (129, 4095), (4095, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", TILE_DIMS)
+@pytest.mark.parametrize("lens", TILE_LENS)
+def test_flash_tile_loop_dims_and_ragged_lengths(cuda, D, lens):
+    """K3 (out and the lse that K4 reads) and K6 at every padded head dim
+    (DP 24 ... 256, D below, at and between them) and ragged Lq/Lk."""
+    Lq, Lk = lens
+    q = torch.randn(2, 2, Lq, D, device=cuda)
+    k, v, k1, v1 = (torch.randn(2, 2, Lk, D, device=cuda) for _ in range(4))
+    out, lse = _launches("flash_fwd", lambda: TA.flash_fwd(q, k, v))
+    ref, ref_lse = TA._attention_plain(q, k, v)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-4)
+    alpha = torch.tensor([0.25, 0.75], device=cuda)[:, None, None]
+    got = _launches("flash2_fwd",
+                    lambda: TA.flash2_fwd(q, k, v, k1, v1, alpha))
+    torch.testing.assert_close(got, TA.sdpa2_eager(q, k, v, k1, v1, alpha),
+                               atol=2e-5, rtol=1e-4)
+
+
+def _views(cuda, B, H, L, D, kind):
+    """(B, H, L, D) inputs laid out as ``kind``: contiguous; a transposed
+    view (row stride H·D); a slice of a wider tensor (row stride D + 3,
+    not a multiple of 4 floats: the scalar copy); expanded from one image
+    (batch stride 0); a base 4 bytes past a 16-byte boundary (the scalar
+    copy)."""
+    if kind == "contiguous":
+        return torch.randn(B, H, L, D, device=cuda)
+    if kind == "transposed":
+        return torch.randn(B, L, H, D, device=cuda).transpose(1, 2)
+    if kind == "sliced":
+        return torch.randn(B, H, L, D + 3, device=cuda)[..., :D]
+    if kind == "expanded":
+        return torch.randn(1, H, L, D, device=cuda).expand(B, -1, -1, -1)
+    flat = torch.randn(B * H * L * D + 1, device=cuda)
+    t = flat[1:].view(B, H, L, D)
+    assert t.data_ptr() % 16 == 4
+    return t
+
+
+LAYOUTS = ["contiguous", "transposed", "sliced", "expanded", "misaligned"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [24, 40, 64])
+@pytest.mark.parametrize("q_kind,kv_kind", [
+    ("transposed", "expanded"), ("sliced", "contiguous"),
+    ("contiguous", "sliced"), ("misaligned", "expanded"),
+    ("contiguous", "misaligned"), ("transposed", "transposed")])
+def test_flash_tile_loop_strides_and_alignment(cuda, D, q_kind, kv_kind):
+    """Strided and stride-0 q, k, v are read through their strides without
+    a copy, and an unaligned base or row stride takes the masked scalar
+    copy in place of cp.async: both give the plain version's values."""
+    B, H, L = 3, 2, 130
+    q = _views(cuda, B, H, L, D, q_kind)
+    k, v, k1, v1 = (_views(cuda, B, H, L, D, kv_kind) for _ in range(4))
+    assert all(t.stride(-1) == 1 for t in (q, k, v))
+    out, lse = _launches("flash_fwd", lambda: TA.flash_fwd(q, k, v))
+    ref, ref_lse = TA._attention_plain(q, k, v)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-4)
+    alpha = torch.tensor([0.0, 0.5, 1.0], device=cuda)
+    got = _launches("flash2_fwd",
+                    lambda: TA.flash2_fwd(q, k, v, k1, v1, alpha))
+    torch.testing.assert_close(got, TA.sdpa2_eager(q, k, v, k1, v1, alpha),
+                               atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sliced", "misaligned", "expanded"])
+def test_flash_probes_scalar_and_strided_staging(cuda, kind):
+    """P1 and P2 through the scalar copy and through stride 0."""
+    from afldm_tpu_torch.ops import flash_probes as P
+    q, k, v = (_views(cuda, 2, 2, 128, 40, kind) for _ in range(3))
+    for name, plain, rel in (("flash_probe_dots", P.flash_probe_dots_plain,
+                              2e-5),
+                             ("flash_probe_stream",
+                              P.flash_probe_stream_plain, 1e-5)):
+        got = _launches(name, lambda: getattr(P, name)(q, k, v))
+        want = plain(q, k, v)
+        err = float((got - want).abs().max())
+        assert err <= rel * float(want.abs().max()), (name, err)

@@ -43,11 +43,13 @@ def test_plain_matches_pallas(rng, shape, mode, act):
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 8, 6), (1, 2, 2, 4),
-                                   (1, 6, 10, 3), (1, 96, 96, 1)])
+                                   (1, 6, 10, 3), (1, 96, 96, 1),
+                                   (1, 80, 80, 1), (1, 32, 128, 1),
+                                   (1, 640, 640, 1)])
 def test_cpu_dispatcher_matches_jax(rng, shape):
-    """The CPU dispatcher takes the plain version for % 4 sizes (plane and
-    banded ranges alike) and the FFT ref chain otherwise, as the JAX
-    package's filtered_nonlinearity does."""
+    """The CPU dispatcher takes the JAX package's filtered_nonlinearity
+    chain at every size: matmul for % 4 sizes up to 512 px (plane and
+    banded ranges alike), spectral above, the FFT ref chain otherwise."""
     from afldm_tpu.ops.ideal_lpf import filtered_nonlinearity
     x = rand(rng, shape)
     want = filtered_nonlinearity(jnp.asarray(x), "silu")
@@ -66,19 +68,40 @@ def test_cpu_wrappers_take_plain_version(rng):
 
 
 def test_dispatcher_below_4d_and_out_of_range(rng):
+    """Below 4D the plain activation; 80x80 and 1024x1024, outside the
+    kernels' old windows, return JAX's filtered_nonlinearity on the CPU."""
+    from afldm_tpu.ops.ideal_lpf import filtered_nonlinearity
     v = torch.from_numpy(rand(rng, (2, 7)))
     assert torch.equal(TF.filtered_act_fused(v, "silu"),
                        torch.nn.functional.silu(v))
-    with pytest.raises(ValueError):
-        TF.filtered_act_fused(torch.zeros(1, 1, 80, 80), "silu")
-    with pytest.raises(ValueError):
-        TF.filtered_act_fused(torch.zeros(1, 1, 1024, 1024), "silu")
+    before = dict(kernels.LAUNCHES)
+    for side in (80, 1024):
+        x = rand(rng, (1, side, side, 1))
+        want = filtered_nonlinearity(jnp.asarray(x), "silu")
+        got = TF.filtered_act_fused(nchw(x), "silu")
+        np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=3e-5,
+                                   rtol=1e-4)
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("H", [4, 8, 12, 64, 96, 128, 256])
-def test_band_rows_divide(H):
-    r = TF.band_rows(H)
+@pytest.mark.parametrize("W", [128, 512, 1024, 2048])
+def test_band_rows_divide(H, W):
+    """The band rows divide 2H and keep a block within the 227 KB of
+    shared memory, accumulator included where it stays there."""
+    r = TF.band_rows(H, W)
     assert (2 * H) % r == 0 and r % 4 == 0
+    assert TF.banded_smem_bytes(H, W, r) <= 232448
+    acc = 4 * H * W if 4 * H * W <= 64 * 1024 else 0
+    assert TF.banded_smem_bytes(H, W, r) == 12 * r * W + acc
+    larger = [p for p in (32, 16, 8) if p > r and (2 * H) % p == 0]
+    assert all(TF.banded_smem_bytes(H, W, p) > 232448 for p in larger)
+
+
+def test_band_rows_raise_beyond_four_rows():
+    assert TF.band_rows(8, 4800) == 4
+    with pytest.raises(ValueError, match="bands of 4 rows"):
+        TF.band_rows(8, 4848)
 
 
 def test_kernel_operators_layout():
