@@ -1,8 +1,10 @@
 // The register-tiled f32 tile loop shared by the flash-attention forward
-// (flash_fwd.cu, K3), the two-KV forward (flash2_fwd.cu, K6) and the
-// attribution probes (flash_probe.cu, P1 and P2): staging of the Q tile and
-// of the K/V tiles, the score product, the online-softmax update and the
-// P·V product. Each .cu keeps only its kernel's prologue and epilogue.
+// (flash_fwd.cu, K3), the two-KV forward (flash2_fwd.cu, K6), the
+// attribution probes (flash_probe.cu, P1 and P2) and the flash backward
+// (flash_bwd.cu, K4a and K4b): staging of the Q tile and of the K/V tiles,
+// the score product, the online-softmax update, the P·V product, and the
+// backward's p/ds step, bodies and walker (at the end of this file). Each
+// .cu keeps only its kernel's prologue and epilogue.
 //
 // Layout of a block (FlashCfg<DP>): kThreads threads in TR row groups × TC
 // column groups; thread (r, c) owns the TM = 4 query rows {r + TR·i} of the
@@ -361,6 +363,236 @@ struct Attend {
   }
   __device__ __forceinline__ float lse(int i) const {
     return m[i] + logf(row_sum<C>(l[i]));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The backward (K4a, K4b). Both kernels recompute p = exp(s·scale − lse)
+// from the forward's lse and form ds = p ⊙ (dp − delta)·scale, and each of
+// their products is one of the two above:
+//
+//   dq  (a block's rows: a Q tile; it walks K/V)
+//       dp = dO·Vᵀ, s = Q·Kᵀ           score_tile
+//       dq += ds·K                     pv_tile
+//   dkv (a block's rows: a K/V tile; it walks Q and dO)
+//       sᵀ = K·Qᵀ, dpᵀ = V·dOᵀ         score_tile
+//       dv += pᵀ·dO, dk += dsᵀ·Q       pv_tile
+//
+// so every shared read feeds at least 4 FMAs, as in the forward. Only one
+// TM×TN score micro-tile is live at a time: p, dp and ds pass through the
+// block's P tile, each element written and read back by the thread that
+// owns it, and a row of P is read by the warp that wrote it.
+//
+// BwdCfg<DP> is the forward's tiling up to DP = 80. At DP = 128 and 160 a
+// block holds a Q tile (dq) or K/V tile (dkv) besides the walked tiles and
+// a second row tile (dO, or V), so 128 rows do not fit 227 KB: 16 column
+// groups of 256 threads make 64-row tiles; at DP = 256, 128 threads make
+// 32-row tiles.
+
+template <int DP> struct BwdCfg;
+template <> struct BwdCfg<24> : Cfg<24, 128, 4, 2> {};
+template <> struct BwdCfg<32> : Cfg<32, 256, 8, 4> {};
+template <> struct BwdCfg<40> : Cfg<40, 256, 8, 1> {};
+template <> struct BwdCfg<64> : Cfg<64, 256, 8, 4> {};
+template <> struct BwdCfg<80> : Cfg<80, 256, 8, 2> {};
+template <> struct BwdCfg<128> : Cfg<128, 256, 16, 4> {};
+template <> struct BwdCfg<160> : Cfg<160, 256, 16, 2> {};
+template <> struct BwdCfg<256> : Cfg<256, 128, 16, 4> {};
+
+constexpr size_t kMaxSmemBytes = 232448;  // a block's shared memory, 227 KB
+
+// dq's shared memory: the Q and dO tiles, walk_kv's two buffers, P.
+template <class B>
+struct DqCfg : B {
+  static constexpr size_t smem_floats =
+      2 * (size_t)B::BQ * B::LD + 2 * (size_t)kBK * B::LD +
+      (size_t)B::BQ * B::PLD;
+  static_assert(smem_floats * sizeof(float) <= kMaxSmemBytes, "dq smem");
+};
+
+// dkv's: the K and V tiles, P, and kStages stages of walk_pair (a Q and a
+// dO tile and their 64 lse and delta values): two where they fit.
+template <class B>
+struct DkvCfg : B {
+  static constexpr size_t stage_floats = 2 * (size_t)kBK * B::LD + 2 * kBK;
+  static constexpr size_t fixed_floats =
+      2 * (size_t)B::BQ * B::LD + (size_t)B::BQ * B::PLD;
+  static constexpr int kStages =
+      (fixed_floats + 2 * stage_floats) * sizeof(float) <= kMaxSmemBytes ? 2
+                                                                         : 1;
+  static constexpr size_t smem_floats = fixed_floats + kStages * stage_floats;
+  static_assert(smem_floats * sizeof(float) <= kMaxSmemBytes, "dkv smem");
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+// dst[0:kBK] = src[r0 : r0 + kBK], zero past L, by 4-byte cp.async copies
+// (a row of lse or delta: any base, no alignment needed).
+template <class C>
+__device__ __forceinline__ void stage_vec(float* dst, const float* src,
+                                          int r0, int L) {
+  for (int i = threadIdx.x; i < kBK; i += C::kThreads) {
+    const bool ok = r0 + i < L;
+    cp_async4(dst + i, ok ? src + r0 + i : src, ok ? 4 : 0);
+  }
+}
+
+// p of one (query, key) pair, 0 where either is past its length.
+__device__ __forceinline__ float bwd_p(float s, float scale, float lse,
+                                       bool valid) {
+  return valid ? expf(s * scale - lse) : 0.0f;
+}
+__device__ __forceinline__ float bwd_ds(float p, float dp, float delta,
+                                        float scale) {
+  return p * (dp - delta) * scale;
+}
+
+// Walks the Q and dO sequences (dkv) in 64-row tiles, with each tile's 64
+// lse and delta values, through S stages: body.on_pair(Qs, Os, xs, r0) once
+// both tiles of step j and xs = [lse | delta] have landed, with step
+// j + S − 1 in flight meanwhile (S = 1: none). Every thread calls it. Row
+// tiles staged and committed just before have landed by the first on_pair.
+template <class C, int S, class Body>
+__device__ __forceinline__ void walk_pair(const float* qb, const float* ob,
+                                          long long qsl, long long osl,
+                                          const float* lse, const float* dl,
+                                          int L, int D, bool vec, float* buf,
+                                          Body& body) {
+  constexpr size_t kStage = 2 * (size_t)kBK * C::LD + 2 * kBK;
+  const int n = (L + kBK - 1) / kBK;
+  auto stage_step = [&](int j) {  // step j into its stage; empty past n
+    if (j < n) {
+      float* s = buf + (j % S) * kStage;
+      stage_rows<C, kBK>(s, qb, qsl, j * kBK, L, D, vec);
+      stage_rows<C, kBK>(s + kBK * C::LD, ob, osl, j * kBK, L, D, vec);
+      stage_vec<C>(s + 2 * kBK * C::LD, lse, j * kBK, L);
+      stage_vec<C>(s + 2 * kBK * C::LD + kBK, dl, j * kBK, L);
+    }
+    cp_async_commit();
+  };
+  for (int j = 0; j < S - 1; ++j) stage_step(j);
+  for (int j = 0; j < n; ++j) {
+    stage_step(j + S - 1);
+    cp_async_wait<S - 1>();  // all but the newest S − 1: step j has landed
+    __syncthreads();
+    const float* s = buf + (j % S) * kStage;
+    body.on_pair(s, s + kBK * C::LD, s + 2 * kBK * C::LD, j * kBK);
+    __syncthreads();         // step j's stage and P are no longer read
+  }
+  cp_async_wait<0>();
+}
+
+// The dq body (K4a) for walk_kv, which is handed V's sequence first and
+// K's second: on_k(V_j) forms dp = dO·V_jᵀ into P; on_v(K_j) forms s =
+// Q·K_jᵀ, p and ds over dp in place, then acc += ds·K_j. Both uses of K_j
+// fall in one call, so walk_kv's two buffers serve unchanged, with one tile
+// in flight while the other is computed on. The rows' lse and delta stay in
+// registers.
+template <class C>
+struct DqBody {
+  Lane<C> ln;
+  const float* Qs;
+  const float* Os;
+  float* Ps;
+  float scale;
+  int Lk;
+  float lse[C::TM], dl[C::TM];
+  float acc[C::TM][C::TD];
+
+  // lse_b, dl_b: this (b1, b2)'s Lq values; q0: the tile's first row
+  __device__ __forceinline__ DqBody(const float* Qs_, const float* Os_,
+                                    float* Ps_, float sc, int Lk_,
+                                    const float* lse_b, const float* dl_b,
+                                    int q0, int Lq)
+      : Qs(Qs_), Os(Os_), Ps(Ps_), scale(sc), Lk(Lk_) {
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      const int row = q0 + ln.row(i);
+      lse[i] = row < Lq ? lse_b[row] : 0.0f;
+      dl[i] = row < Lq ? dl_b[row] : 0.0f;
+#pragma unroll
+      for (int t = 0; t < C::TD; ++t) acc[i][t] = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void on_k(const float* Vs, int) {
+    float dp[C::TM][C::TN];
+    score_tile<C>(Os, Vs, ln, dp);
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j)
+        Ps[ln.row(i) * C::PLD + ln.key(j)] = dp[i][j];
+  }
+  __device__ __forceinline__ void on_v(const float* Ks, int k0) {
+    float s[C::TM][C::TN];
+    score_tile<C>(Qs, Ks, ln, s);
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        float* pp = Ps + ln.row(i) * C::PLD + ln.key(j);
+        const float p = bwd_p(s[i][j], scale, lse[i], k0 + ln.key(j) < Lk);
+        *pp = bwd_ds(p, *pp, dl[i], scale);
+      }
+    __syncwarp();  // a row's ds is written and read by one warp's lanes
+    pv_tile<C>(Ps, Ks, ln, acc);
+  }
+};
+
+// The dkv body (K4b) for walk_pair: the block's K and V tiles are its rows,
+// the walked Q/dO tile's 64 queries its columns. p goes to P for dv +=
+// pᵀ·dO; then dp, and ds over p in place for dk += dsᵀ·Q.
+template <class C>
+struct DkvBody {
+  Lane<C> ln;
+  const float* Ks;
+  const float* Vs;
+  float* Ps;
+  float scale;
+  int Lq;
+  float dk[C::TM][C::TD], dv[C::TM][C::TD];
+
+  __device__ __forceinline__ DkvBody(const float* Ks_, const float* Vs_,
+                                     float* Ps_, float sc, int Lq_)
+      : Ks(Ks_), Vs(Vs_), Ps(Ps_), scale(sc), Lq(Lq_) {
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int t = 0; t < C::TD; ++t) dk[i][t] = dv[i][t] = 0.0f;
+  }
+  // xs: the tile's 64 lse values, then its 64 delta values
+  __device__ __forceinline__ void on_pair(const float* Qs, const float* Os,
+                                          const float* xs, int q0) {
+    float s[C::TM][C::TN];
+    score_tile<C>(Ks, Qs, ln, s);
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j)
+        Ps[ln.row(i) * C::PLD + ln.key(j)] =
+            bwd_p(s[i][j], scale, xs[ln.key(j)], q0 + ln.key(j) < Lq);
+    __syncwarp();
+    pv_tile<C>(Ps, Os, ln, dv);
+    score_tile<C>(Vs, Os, ln, s);  // dpᵀ
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j)
+        s[i][j] = bwd_ds(Ps[ln.row(i) * C::PLD + ln.key(j)], s[i][j],
+                         xs[kBK + ln.key(j)], scale);
+    __syncwarp();  // the row group's lanes have read P for dv
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j)
+        Ps[ln.row(i) * C::PLD + ln.key(j)] = s[i][j];
+    __syncwarp();
+    pv_tile<C>(Ps, Qs, ln, dk);
   }
 };
 

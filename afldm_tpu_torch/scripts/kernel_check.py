@@ -8,17 +8,36 @@ two commits' kernels can be timed in turns within one call on one card:
     cd <other checkout> && python \
         <this checkout>/afldm_tpu_torch/scripts/kernel_check.py flash_fwd
 
-Prints chip_smoke's ``check ...`` line per shape and exits non-zero if a
-kernel disagrees with its plain version.
+``--shapes_from <path of a chip_smoke.py>`` times the named kernels at that
+file's shapes instead of the checkout's own, so that an older checkout's
+kernels are timed at shapes added since.
+
+Prints chip_smoke's ``check ...`` line per shape and each kernel's sums
+over the shapes run, and exits non-zero if a kernel disagrees with its
+plain version.
 """
 
+import argparse
 import importlib
+import importlib.util
 import sys
 from pathlib import Path
 
 
+def _shapes_of(path):
+    spec = importlib.util.spec_from_file_location("_shapes_source", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.KERNELS
+
+
 def main(argv=None):
-    names = list(sys.argv[1:] if argv is None else argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("names", nargs="*", help="kernels to check (all)")
+    ap.add_argument("--shapes_from", default=None,
+                    help="a chip_smoke.py whose shapes to time")
+    args = ap.parse_args(argv)
+    names = args.names
     root = Path.cwd()
     if not (root / "chip_smoke.py").exists():
         print("kernel_check: run from the root of a checkout", file=sys.stderr)
@@ -39,9 +58,23 @@ def main(argv=None):
         return 1
     smoke.KERNELS = {k: v for k, v in smoke.KERNELS.items()
                      if not names or k in names}
+    if args.shapes_from:
+        other = _shapes_of(args.shapes_from)
+        for k, spec in smoke.KERNELS.items():
+            spec.update({key: other[k][key] for key in ("shapes",
+                                                         "base_shapes")
+                         if key in other[k]})
     report = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                       library_ms=None) for k in smoke.KERNELS}
-    return 0 if smoke.check_kernels(torch, report) else 1
+    ok = smoke.check_kernels(torch, report)
+    for k, row in report.items():  # an older chip_smoke logs no sums
+        lib = row["library_ms"]
+        print(f"kernel_check sum {k} over {len(smoke.KERNELS[k]['shapes'])} "
+              f"shapes: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{row['bound_ms']:.4f} ms", flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -12,9 +12,11 @@ Phases, each of which fails the run:
    process per source, all at once);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (and the banded pair at sizes outside the old
-   96-512 px window: 80 px, 32x128 and 1024 px planes), and time kernel,
-   plain version, the library call where one exists, and the bound (the
-   larger of FLOPs / 67 TFLOP/s f32 and bytes / 3.35 TB/s);
+   96-512 px window: 80 px, 32x128 and 1024 px planes; the flash backward
+   at the SD UNet's head dims 40, 80 and 160), and time kernel, plain
+   version, the library call where one exists, and the bound (the larger
+   of FLOPs / 67 TFLOP/s f32 and bytes / 3.35 TB/s); the flash backward's
+   sums are logged over its first three shapes and over all;
 3. run the tiny pipeline on the card and on the CPU with the same weights
    and compare (the end-to-end reference check of serving);
 4. the serving path at full width (256.4M-parameter UNet, AF-VAE at
@@ -102,6 +104,21 @@ REPO = Path(__file__).resolve().parent
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 without tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
+# the K4 pair's shapes (images, heads, L, D, K/V images). The first three
+# are the kernel table's yardstick (``base_shapes``: their sums are logged
+# apart, to compare with commits that timed only them): the training
+# step's pass 1 (K/V per image) at 32 px and 2 px (pass 2, K/V from the
+# stored maps of the same batch, has the same shapes) and one case with
+# K/V expanded from one image (stride 0)
+FLASH_BWD_SHAPES = [
+    (16, 8, 1024, 24, 16), (16, 32, 4, 24, 16), (16, 8, 1024, 24, 1),
+    # the training step's other attention levels, run every step: 16 px
+    # and 8 px with 16 heads, 4 px with 32
+    (16, 16, 256, 24, 16), (16, 16, 64, 24, 16), (16, 32, 16, 24, 16),
+    # one shape at each larger DP, the SD UNet's head dims 40, 80 and 160
+    # at its 64, 32 and 16 px levels (batch 2)
+    (2, 8, 4096, 40, 2), (2, 8, 1024, 80, 2), (2, 8, 256, 160, 2)]
+
 KERNELS = {
     "filtered_act_plane": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
@@ -136,16 +153,11 @@ KERNELS = {
     "flash_bwd_dq": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_bwd.cu",
         replaces="afldm_tpu/ops/attention.py:142",
-        # pass 1 (K/V per image) at 32 px and 2 px; pass 2 (K/V from the
-        # stored maps of the same batch) has the same shapes; one case with
-        # K/V expanded from one image (stride 0)
-        shapes=[(16, 8, 1024, 24, 16), (16, 32, 4, 24, 16),
-                (16, 8, 1024, 24, 1)]),
+        shapes=FLASH_BWD_SHAPES, base_shapes=3),
     "flash_bwd_dkv": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_bwd.cu",
         replaces="afldm_tpu/ops/attention.py:168",
-        shapes=[(16, 8, 1024, 24, 16), (16, 32, 4, 24, 16),
-                (16, 8, 1024, 24, 1)]),
+        shapes=FLASH_BWD_SHAPES, base_shapes=3),
     "filtered_act_banded_bwd": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
         replaces="afldm_tpu/ops/pallas_kernels.py:261",
@@ -366,7 +378,10 @@ def check_kernels(torch, report):
     for name, spec in KERNELS.items():
         atol, rtol = TOL.get(name, (None, None))
         row = report[name]
-        for shape in spec["shapes"]:
+        base = spec.get("base_shapes")
+        for n_shape, shape in enumerate(spec["shapes"]):
+            if n_shape == base:
+                log_sums(name, row, f"the first {base} shapes")
             run, plain, library, work = _case(torch, name, shape, dev, g)
             got, want = run(), plain()
             if isinstance(got, torch.Tensor):
@@ -403,7 +418,17 @@ def check_kernels(torch, report):
             torch.cuda.empty_cache()
         # the row's bound is a sum over shapes: name what bounds most of it
         row["bound_by"] = max(split[name], key=split[name].get)
+        if base is not None:
+            log_sums(name, row, f"all {len(spec['shapes'])} shapes")
     return ok
+
+
+def log_sums(name, row, over):
+    lib = row["library_ms"]
+    log(f"sum {name} over {over}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+        f"{row['bound_ms']:.4f} ms")
 
 
 def check_tiny_reference(torch):

@@ -152,10 +152,14 @@ def test_dispatcher_grad_routes_banded_function(rng):
 
 # -- attention (K4a, K4b) --------------------------------------------------
 
-@pytest.mark.parametrize("L", [4, 16, 64])
+@pytest.mark.parametrize("L,D", [(4, 24), (16, 24), (64, 24), (64, 40),
+                                 (64, 80)],
+                         ids=["4", "16", "64", "64-d40", "64-d80"])
 @pytest.mark.parametrize("kv_batch", [3, 1], ids=["kv3", "kv_expanded"])
-def test_attention_bwd_plain_matches_flash_vjp(rng, L, kv_batch):
-    B, H, D = 3, 2, 24
+def test_attention_bwd_plain_matches_flash_vjp(rng, L, D, kv_batch):
+    """The UNet's head dim 24 at three lengths, and the SD UNet's 40 and 80
+    (the backward's DP = 40 and 80 tilings on the card)."""
+    B, H = 3, 2
     q, do = rand(rng, (B, H, L, D)), rand(rng, (B, H, L, D))
     k, v = rand(rng, (kv_batch, H, L, D)), rand(rng, (kv_batch, H, L, D))
 

@@ -1,7 +1,8 @@
 """The kernel build's bookkeeping, on the CPU (nothing is compiled here):
 a library's name hashes its source, every shared header and the flags, so
-an edited header rebuilds every kernel; and the flash kernels share one
-tile loop (``flash_tile.cuh``) instead of carrying copies of it."""
+an edited header rebuilds every kernel; and the flash kernels, forward and
+backward, share one tile loop (``flash_tile.cuh``) instead of carrying
+copies of it."""
 
 import re
 
@@ -43,13 +44,13 @@ def test_flags_change_target(csrc, monkeypatch):
     assert kernels._target("a") != before
 
 
-FLASH_SOURCES = ("flash_fwd", "flash2_fwd", "flash_probe")
+FLASH_SOURCES = ("flash_fwd", "flash2_fwd", "flash_probe", "flash_bwd")
 
 
 @pytest.mark.parametrize("name", FLASH_SOURCES)
 def test_flash_kernels_include_the_tile_loop(name):
-    """Each flash forward source includes flash_tile.cuh and keeps no copy
-    of its staging, score, softmax or P·V loop."""
+    """Each flash source includes flash_tile.cuh and keeps no copy of its
+    staging, score, softmax, p/ds or P·V loop."""
     src = (kernels.CSRC / f"{name}.cu").read_text()
     assert '#include "flash_tile.cuh"' in src
     code = re.sub(r"//[^\n]*", "", src)
@@ -65,6 +66,23 @@ def test_tile_loop_instantiates_padded_head_dims():
     dispatched = [int(d) for d in re.findall(
         r"if \(D <= (\d+)\) return f\(", src)]
     assert dispatched == dps
+
+
+def test_backward_configures_every_padded_head_dim():
+    """Every DP that ``with_dp`` dispatches has a backward tiling
+    (``BwdCfg``), and both backward kernels dispatch through ``with_dp``
+    onto it."""
+    src = (kernels.CSRC / "flash_tile.cuh").read_text()
+    dispatched = [int(d) for d in re.findall(
+        r"if \(D <= (\d+)\) return f\(", src)]
+    cfgs = [int(d) for d in re.findall(r"struct BwdCfg<(\d+)> : Cfg<", src)]
+    assert cfgs == dispatched
+    bwd = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_bwd.cu").read_text())
+    for cfg in ("DqCfg", "DkvCfg"):
+        assert f"{cfg}<BwdCfg<decltype(dp)::value>>" in bwd, cfg
+    assert bwd.count("with_dp(D,") == 2
+    for absent in ("atomic", "wmma", "mma.sync", "tf32"):
+        assert absent not in bwd.lower(), absent
 
 
 def test_q_tile_matches_the_tile_loop():

@@ -257,12 +257,21 @@ def _attn_inputs(cuda, B, H, Lq, Lk, D, kv_batch):
     return q, k, v, out, lse, do
 
 
+# the tile loop's head dims (DP 24 ... 256: D below, at and between them)
+# and ragged lengths, shared by the forward and backward tests
+TILE_DIMS = [8, 20, 24, 33, 40, 80, 100, 160, 256]
+TILE_LENS = [(1, 1), (37, 77), (127, 129), (129, 4095), (4095, 37)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [  # (B, H, Lq, Lk, D, K/V batch)
     (2, 3, 64, 64, 24, 2), (1, 2, 37, 50, 24, 1), (2, 1, 4, 4, 24, 2),
     (2, 4, 16, 16, 24, 1), (1, 1, 130, 70, 8, 1), (1, 2, 65, 129, 100, 1),
-    (1, 1, 64, 64, 256, 1), (2, 2, 1024, 1024, 24, 1)])
+    (1, 1, 64, 64, 256, 1), (2, 2, 1024, 1024, 24, 1),
+    *[(2, 2, Lq, Lk, D, 2) for D in TILE_DIMS for Lq, Lk in TILE_LENS]])
 def test_flash_bwd_kernels_match_plain(cuda, shape):
+    """K4a and K4b at every BwdCfg (each DP, with D below, at and between
+    them), ragged Lq and Lk, K/V per image and expanded from one."""
     B, H, Lq, Lk, D, nkv = shape
     q, k, v, out, lse, do = _attn_inputs(cuda, B, H, Lq, Lk, D, nkv)
     delta = TA._delta(do, out)
@@ -454,9 +463,6 @@ def test_banded_kernels_widened_window(cuda, shape):
 
 # -- the register-tiled flash forward (K3, K6): head dims, lengths -------
 
-TILE_DIMS = [8, 20, 24, 33, 40, 80, 100, 160, 256]
-TILE_LENS = [(1, 1), (37, 77), (127, 129), (129, 4095), (4095, 37)]
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", TILE_DIMS)
@@ -524,6 +530,37 @@ def test_flash_tile_loop_strides_and_alignment(cuda, D, q_kind, kv_kind):
                     lambda: TA.flash2_fwd(q, k, v, k1, v1, alpha))
     torch.testing.assert_close(got, TA.sdpa2_eager(q, k, v, k1, v1, alpha),
                                atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [24, 40, 80])
+@pytest.mark.parametrize("q_kind,do_kind,kv_kind", [
+    ("transposed", "transposed", "expanded"),
+    ("sliced", "contiguous", "contiguous"),
+    ("contiguous", "sliced", "expanded"),
+    ("contiguous", "contiguous", "sliced"),
+    ("misaligned", "transposed", "expanded"),
+    ("contiguous", "misaligned", "contiguous"),
+    ("transposed", "contiguous", "misaligned")])
+def test_flash_bwd_strides_and_alignment(cuda, D, q_kind, do_kind, kv_kind):
+    """K4a and K4b read strided and stride-0 q, dO, k and v through their
+    strides; an unaligned base or row stride in any of them takes the
+    masked scalar copy in place of cp.async: both give the plain version's
+    gradients."""
+    B, H, L = 3, 2, 130
+    q = _views(cuda, B, H, L, D, q_kind)
+    do = _views(cuda, B, H, L, D, do_kind)
+    k, v = (_views(cuda, B, H, L, D, kv_kind) for _ in range(2))
+    assert all(t.stride(-1) == 1 for t in (q, do, k, v))
+    out, lse = TA.flash_fwd(q, k, v)
+    delta = TA._delta(do, out)
+    dq = _launches("flash_bwd_dq",
+                   lambda: TA.flash_bwd_dq(q, k, v, do, lse, delta))
+    dk, dv = _launches("flash_bwd_dkv",
+                       lambda: TA.flash_bwd_dkv(q, k, v, do, lse, delta))
+    want = TA._attention_bwd_plain(q, k, v, out, lse, do)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
