@@ -40,9 +40,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "filtered_act": {
-        # x, out, uh, uwT, dh, dwT, nplanes, H, W, planes_per_block, act, stream
+        # x, out, uhT, uwT, dwT, dhT, nplanes, H, W, planes_per_block,
+        # tile codes, act, stream
         "filtered_act_plane_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _P],
+                                   _I, _I, _P],
         # x, g, dx, uh, uwT, dhT, dw, uw, uhT, nplanes, H, W,
         # planes_per_block, act, stream
         "filtered_act_plane_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

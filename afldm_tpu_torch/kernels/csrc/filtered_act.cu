@@ -26,14 +26,27 @@
 // parity default) the ceiling is the f32 FMA rate.
 //
 // What the design does about it: the 2H×2W intermediate never leaves the
-// SM, so device memory sees each input and output once; each thread keeps
-// a 4×4 register tile of its product so one pair of operand loads feeds
-// 16 FMAs. The TPU's lane-multiple-of-128 and 10 MB VMEM rules do not
-// apply here: the limit is the 227 KB of shared memory of a block.
-//   * plane (H, W <= 64): one block holds P whole planes (P·24·H·W bytes:
-//     the input staged inside the 2x intermediate, which it outlives, plus a
-//     2H×W half-resampled buffer). Small planes are packed P to a block so
-//     that 256 threads have work.
+// SM, so device memory sees each input and output once. The TPU's
+// lane-multiple-of-128 and 10 MB VMEM rules do not apply here: the limit is
+// the 227 KB of shared memory of a block.
+//   * plane (H, W <= 64, K5): one block holds P whole planes and every
+//     operand of its four products in shared memory: two operator buffers
+//     (the next operator's 16-byte cp.async copy in flight during the
+//     current product) and, per plane, the 2W×2H hiᵀ (x staged inside it,
+//     which it outlives) and a 2H×W buffer. Every operand is stored k-major
+//     so one routine, filtered_tile.cuh::tile_product, does all four
+//     products with float4 reads into 8×8, 4×8, 8×4 or 4×4 register
+//     micro-tiles (8×8: 4 FMAs per float read, the card's balance):
+//       tᵀ  = (U_h · x)ᵀ        (W×2H)   from U_hᵀ and x
+//       hiᵀ = act(t · U_wᵀ)ᵀ    (2W×2H)  from tᵀ and U_wᵀ, act in the epilogue
+//       t   = hi · D_wᵀ         (2H×W)   from hiᵀ and D_wᵀ
+//       out = D_h · t           (H×W)    from D_hᵀ and t, to device memory
+//     P and each product's micro-tile come from the wrapper's launch plan
+//     (ops/filtered_act.py::plane_plan): small planes are packed P to a
+//     block so that every thread holds a full micro-tile, within two blocks
+//     to an SM and a grid of at least one wave.
+//   * K5b, K1 and K2 run block_gemm: each thread keeps a 4×4 register tile
+//     of its product, so one pair of operand loads feeds 16 FMAs.
 //   * banded (every H, W % 4 == 0 with max(H, W) > 64): at 128 px the 2x
 //     plane alone is 256 KB, over the limit. The 2H intermediate rows are
 //     walked in bands of R rows (the wrapper takes the largest R in
@@ -43,7 +56,7 @@
 //     accumulator stays in shared memory up to 64 KB (128 px); above that it
 //     accumulates in the output plane itself, which only this block touches.
 //     x is read from device memory (L1/L2-resident) once per band.
-//   * plane backward (H, W <= 64): six products per plane, 12H²W + 24HW²
+//   * plane backward (H, W <= 64, K5b): six products per plane, 12H²W + 24HW²
 //     FLOP (36·S³, 1.5x the forward), again arithmetic-bound. Like the JAX
 //     rule it saves x, not the 4x pre-activation, and recomputes it. One
 //     block holds P planes of 7·H·W floats: the 2H×2W pre-activation (x is
@@ -61,12 +74,14 @@
 //     in the epilogue of v·D_w, in place over pre), so a band costs 3·R·W
 //     floats, 48 KB at 128 px with R = 32; the H×W accumulator follows the
 //     forward's rule (shared memory up to 64 KB, else the block's dx plane).
-// Operators are read through the read-only path from device memory; every
-// block reads the same few KB, which stay in L2 and L1.
+// K5b, K1 and K2 read their operators through the read-only path from device
+// memory; every block reads the same few KB, which stay in L2 and L1.
 // Making it fast (tensor-core TF32 splits, wgmma, TMA) is later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "filtered_tile.cuh"
 
 namespace {
 
@@ -184,36 +199,95 @@ __device__ __forceinline__ void block_gemm(
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
+// Shared memory of a K5 block, in floats: two operator buffers, each the
+// largest operator (2·max(H, W)²), then for each of the P planes the 2W×2H
+// hiᵀ (x staged at its start, rows row_pad(2H)) and one buffer for tᵀ
+// (W×2H) and then t (2H×W).
+struct PlaneLayout {
+  int op, big, small;
+  __host__ __device__ PlaneLayout(int H, int W)
+      : op(2 * (H > W ? H : W) * (H > W ? H : W)),
+        big(2 * W * afldm_filtered::row_pad(2 * H)),
+        small(W * afldm_filtered::row_pad(2 * H) >
+                      2 * H * afldm_filtered::row_pad(W)
+                  ? W * afldm_filtered::row_pad(2 * H)
+                  : 2 * H * afldm_filtered::row_pad(W)) {}
+  __host__ __device__ size_t floats(int ppb) const {
+    return 2 * (size_t)op + (size_t)ppb * (big + small);
+  }
+};
+
+struct Identity {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+struct Activation {
+  int act;
+  __device__ __forceinline__ float operator()(float v) const {
+    return apply_act(v, act);
+  }
+};
+
+// out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ for P planes a block, every
+// operand in shared memory; ``tiles`` holds the micro-tile code of each
+// product (2 bits each, product 1 lowest; filtered_tile.cuh::product).
+// Operators, row-major as stored: uhT = U_hᵀ (H×2H), uwT = U_wᵀ (W×2W),
+// dwT = D_wᵀ (2W×W), dhT = D_hᵀ (2H×H).
+__global__ void __launch_bounds__(kThreads, 2)
 filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
-                          const float* __restrict__ uh,
+                          const float* __restrict__ uhT,
                           const float* __restrict__ uwT,
-                          const float* __restrict__ dh,
                           const float* __restrict__ dwT,
-                          int nplanes, int H, int W, int ppb, int act) {
-  extern __shared__ float smem[];
-  const long long HW = (long long)H * W;
+                          const float* __restrict__ dhT,
+                          int nplanes, int H, int W, int ppb, int tiles,
+                          int act) {
+  using namespace afldm_filtered;
+  extern __shared__ __align__(16) float plane_smem[];
+  const int HW = H * W;
   const long long p0 = (long long)blockIdx.x * ppb;
-  const int P = min((long long)ppb, nplanes - p0);
-  float* hi = smem;               // P × (2H×2W); x is staged here first
-  float* t = smem + ppb * 4 * HW;  // P × (2H×W)
+  const int P = (int)min((long long)ppb, nplanes - p0);
+  const PlaneLayout lay(H, W);
+  float* op0 = plane_smem;
+  float* op1 = plane_smem + lay.op;
+  float* big = op1 + lay.op;            // P × hiᵀ; x staged here first
+  float* small = big + ppb * lay.big;   // P × tᵀ, then P × t
+  const int ld2h = row_pad(2 * H), ldw = row_pad(W);
+  // x and U_hᵀ, then U_wᵀ, in flight together
   const float* xg = x + p0 * HW;
-  for (long long i = threadIdx.x; i < P * HW; i += blockDim.x) hi[i] = xg[i];
+  const int c4 = HW / 4;
+  for (int i = threadIdx.x; i < P * c4; i += blockDim.x) {
+    const int p = i / c4, c = i - p * c4;
+    cp_async16(big + p * lay.big + 4 * c, xg + (long long)p * HW + 4 * c);
+  }
+  stage(op0, uhT, H * H / 2);
+  cp_async_commit();
+  stage(op1, uwT, W * W / 2);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
-  // t = U_h · x                      (2H × W)
-  block_gemm<STORE>(uh, H, 0, hi, W, HW, t, W, 2 * HW, P, 2 * H, W, H, NONE);
+  // tᵀ = (U_h · x)ᵀ = xᵀ · U_hᵀ            (W × 2H)
+  product(tiles & 3, op0, 2 * H, 0, big, W, lay.big, small, ld2h, lay.small,
+          P, W, 2 * H, H, Identity{});
   __syncthreads();
-  // hi = act(t · U_wᵀ)               (2H × 2W); overwrites the staged x
-  block_gemm<STORE>(t, W, 2 * HW, uwT, 2 * W, 0, hi, 2 * W, 4 * HW, P, 2 * H,
-                    2 * W, W, act);
+  stage(op0, dwT, W * W / 2);  // D_wᵀ in flight during the next product
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
-  // t = hi · D_wᵀ                    (2H × W)
-  block_gemm<STORE>(hi, 2 * W, 4 * HW, dwT, W, 0, t, W, 2 * HW, P, 2 * H, W,
-                    2 * W, NONE);
+  // hiᵀ = act(t · U_wᵀ)ᵀ = act(U_w · tᵀ)  (2W × 2H); overwrites the staged x
+  product((tiles >> 2) & 3, small, ld2h, lay.small, op1, 2 * W, 0, big, ld2h,
+          lay.big, P, 2 * W, 2 * H, W, Activation{act});
   __syncthreads();
-  // out = D_h · t                    (H × W), straight to device memory
-  block_gemm<STORE>(dh, 2 * H, 0, t, W, 2 * HW, out + p0 * HW, W, HW, P, H, W,
-                    2 * H, NONE);
+  stage(op1, dhT, H * H / 2);  // D_hᵀ in flight during the next product
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // t = hi · D_wᵀ = (hiᵀ)ᵀ · D_wᵀ          (2H × W); over tᵀ
+  product((tiles >> 4) & 3, op0, W, 0, big, ld2h, lay.big, small, ldw,
+          lay.small, P, 2 * H, W, 2 * W, Identity{});
+  cp_async_wait<0>();
+  __syncthreads();
+  // out = D_h · t = (D_hᵀ)ᵀ · t            (H × W), straight to device memory
+  product((tiles >> 6) & 3, small, ldw, lay.small, op1, H, 0, out + p0 * HW,
+          W, HW, P, H, W, 2 * H, Identity{});
 }
 
 // dx for P planes a block. Operators, all row-major: uh = U_h (2H×H),
@@ -364,16 +438,23 @@ int set_smem(const void* fn, size_t bytes) {
 }  // namespace
 
 extern "C" int filtered_act_plane_f32(const float* x, float* out,
-                                      const float* uh, const float* uwT,
-                                      const float* dh, const float* dwT,
+                                      const float* uhT, const float* uwT,
+                                      const float* dwT, const float* dhT,
                                       int nplanes, int H, int W, int ppb,
-                                      int act, void* stream) {
-  const size_t smem = (size_t)ppb * 6 * H * W * sizeof(float);
+                                      int tiles, int act, void* stream) {
+  using afldm_filtered::tile_fits;
+  // the products' results: tᵀ (W×2H), hiᵀ (2W×2H), t (2H×W), out (H×W)
+  if (H % 4 || W % 4 || ppb < 1 || !tile_fits(tiles & 3, W, 2 * H) ||
+      !tile_fits((tiles >> 2) & 3, 2 * W, 2 * H) ||
+      !tile_fits((tiles >> 4) & 3, 2 * H, W) ||
+      !tile_fits((tiles >> 6) & 3, H, W))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = PlaneLayout(H, W).floats(ppb) * sizeof(float);
   int err = set_smem((const void*)filtered_act_plane_kernel, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (nplanes + ppb - 1) / ppb;
   filtered_act_plane_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, out, uh, uwT, dh, dwT, nplanes, H, W, ppb, act);
+      x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, tiles, act);
   return (int)cudaGetLastError();
 }
 

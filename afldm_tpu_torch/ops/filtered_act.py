@@ -3,10 +3,12 @@ their plain versions, their autograd Functions and the dispatcher. NCHW;
 float32 on the card.
 
 - ``filtered_act_plane``: whole planes in shared memory, H, W <= 64
-  (counterpart of ``pallas_kernels.py::_forward``); differentiable, its
-  backward is ``filtered_act_plane_bwd`` (counterpart of the kernel inside
-  ``pallas_kernels.py::_bwd_rule``), which recomputes the pre-activation
-  from the saved x rather than storing the 4x intermediate.
+  (counterpart of ``pallas_kernels.py::_forward``), P planes a block and
+  each product's register micro-tile chosen by ``plane_plan``;
+  differentiable, its backward is ``filtered_act_plane_bwd`` (counterpart
+  of the kernel inside ``pallas_kernels.py::_bwd_rule``), which recomputes
+  the pre-activation from the saved x rather than storing the 4x
+  intermediate.
 - ``filtered_act_banded``: the 2x intermediate walked in row bands,
   every H, W % 4 == 0 with max(H, W) > 64 (counterpart of
   ``pallas_kernels.py::_forward_spatial``);
@@ -21,6 +23,9 @@ float32 on the card.
 A wrapper given a CPU tensor returns the plain version; given a CUDA tensor
 it launches its kernel or raises. There is no fallback between them.
 """
+
+import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -100,8 +105,9 @@ def _kernel_ops(H: int, W: int, device) -> tuple:
 
 
 def _kernel_bwd_ops(H: int, W: int, device) -> tuple:
-    """The backward's other operators, (D_h^T, D_w, U_w, U_h^T), contiguous
-    float32 on ``device``."""
+    """(D_h^T, D_w, U_w, U_h^T), contiguous float32 on ``device``: the
+    backward kernels' other operators; the plane forward takes D_h^T and
+    U_h^T, its k-major forms of D_h and U_h."""
     key = ("bwd", H, W, torch.device(device))
     if key not in _KERNEL_OPS:
         ops = (_downsample_op(2 * H, 2).T, _downsample_op(2 * W, 2),
@@ -139,19 +145,110 @@ def _launch_args(x: torch.Tensor):
 
 
 def _planes_per_block(H: int, W: int) -> int:
-    """P planes a block, so that small planes still give 256 threads work."""
+    """P planes a block of the backward kernel (K5b), so that small planes
+    still give 256 threads work."""
     return max(1, 1024 // (H * W))
+
+
+# the plane kernel's (K5) launch: threads a block, SMs, and the shared
+# memory a block may take with two blocks to an SM (228 KB an SM, 1 KB of
+# it reserved for each block)
+K5_THREADS = 256
+NUM_SMS = 132
+SMEM_TWO_BLOCKS_BYTES = 233472 // 2 - 1024
+# the micro-tiles (rows, columns) by the kernel's code
+# (filtered_tile.cuh::product), largest first
+K5_TILES = ((8, 8), (4, 8), (8, 4), (4, 4))
+
+
+class PlanePlan(NamedTuple):
+    """How ``filtered_act_plane``'s kernel is launched: P planes a block,
+    each product's micro-tile (rows, columns), the shared bytes a block."""
+    planes_per_block: int
+    tiles: tuple
+    smem_bytes: int
+
+    @property
+    def tile_codes(self) -> int:
+        """The kernel's ``tiles`` argument: 2 bits a product, product 1
+        lowest."""
+        return sum(K5_TILES.index(t) << (2 * i)
+                   for i, t in enumerate(self.tiles))
+
+
+def plane_products(H: int, W: int) -> tuple:
+    """(rows, columns, depth) of the plane kernel's four results: tᵀ, hiᵀ,
+    t and out."""
+    return ((W, 2 * H, H), (2 * W, 2 * H, W), (2 * H, W, 2 * W),
+            (H, W, 2 * H))
+
+
+def _row_pad(n: int) -> int:  # filtered_tile.cuh::row_pad
+    return n + 4 if n % 8 == 0 else n
+
+
+def plane_smem_bytes(H: int, W: int, ppb: int) -> int:
+    """Shared memory of a plane block (filtered_act.cu::PlaneLayout): two
+    operator buffers of 2·max(H, W)² floats, and per plane the 2W × 2H hiᵀ
+    and one buffer for tᵀ and t, rows padded by ``_row_pad``."""
+    op = 2 * max(H, W) ** 2
+    big = 2 * W * _row_pad(2 * H)
+    small = max(W * _row_pad(2 * H), 2 * H * _row_pad(W))
+    return 4 * (2 * op + ppb * (big + small))
+
+
+def _tile_cost(tile, rows, cols, ppb) -> int:
+    """A product's time in the plan's model, per step of its depth: rounds
+    of K5_THREADS tiles, each the larger of its FMAs and 4 per float read
+    (the card's balance of shared reads to FMAs)."""
+    tr, tc = tile
+    rounds = -(-ppb * (rows // tr) * (cols // tc) // K5_THREADS)
+    return rounds * max(tr * tc, 4 * (tr + tc))
+
+
+@functools.lru_cache(maxsize=None)
+def plane_plan(H: int, W: int, nplanes: int) -> PlanePlan:
+    """The plane kernel's launch plan. P is the least of: the planes that
+    give every thread a full 4×4 tile of the smallest product (out); the
+    most that keep the grid at one wave of NUM_SMS blocks or more; the most
+    whose block fits two to an SM (else one, within SMEM_MAX_BYTES); and
+    the plane count. Each product then takes the micro-tile dividing its
+    result that is quickest in ``_tile_cost``, the larger on a tie."""
+    prods = plane_products(H, W)
+    fill = -(-K5_THREADS * 16 // (H * W))
+    grid = max(1, nplanes // NUM_SMS)
+    per_plane = plane_smem_bytes(H, W, 1) - plane_smem_bytes(H, W, 0)
+    fixed = plane_smem_bytes(H, W, 0)
+    limit = SMEM_TWO_BLOCKS_BYTES
+    if fixed + per_plane > limit:
+        limit = SMEM_MAX_BYTES
+    fits = max(1, (limit - fixed) // per_plane)
+    ppb = max(1, min(fill, grid, fits, nplanes))
+    tiles = tuple(
+        min((t for t in K5_TILES if rows % t[0] == 0 and cols % t[1] == 0),
+            key=lambda t: (_tile_cost(t, rows, cols, ppb), -t[0] * t[1]))
+        for rows, cols, _ in prods)
+    return PlanePlan(ppb, tiles, plane_smem_bytes(H, W, ppb))
 
 
 def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     if x.device.type == "cpu":
         return filtered_act_plain(x, act)
     _check(x, act, False, "filtered_act_plane")
-    x, out, ops, nplanes, stream = _launch_args(x)
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel stages x with 16-byte copies
+        x = x.clone()
+    out = torch.empty_like(x)
     H, W = x.shape[-2:]
+    _, uwT, _, dwT = _kernel_ops(H, W, x.device)
+    dhT, _, _, uhT = _kernel_bwd_ops(H, W, x.device)
+    nplanes = x.shape[0] * x.shape[1]
+    plan = plane_plan(H, W, nplanes)
     err = kernels.library("filtered_act").filtered_act_plane_f32(
-        x.data_ptr(), out.data_ptr(), *(o.data_ptr() for o in ops),
-        nplanes, H, W, _planes_per_block(H, W), ACT_CODES[act], stream)
+        x.data_ptr(), out.data_ptr(), uhT.data_ptr(), uwT.data_ptr(),
+        dwT.data_ptr(), dhT.data_ptr(), nplanes, H, W,
+        plan.planes_per_block, plan.tile_codes, ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "filtered_act_plane")
     kernels.LAUNCHES["filtered_act_plane"] += 1
     return out

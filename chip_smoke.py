@@ -16,7 +16,9 @@ Phases, each of which fails the run:
    at the SD UNet's head dims 40, 80 and 160), and time kernel, plain
    version, the library call where one exists, and the bound (the larger
    of FLOPs / 67 TFLOP/s f32 and bytes / 3.35 TB/s); the flash backward's
-   sums are logged over its first three shapes and over all;
+   sums are logged over its first three shapes and over all, the plane
+   kernel's over its first five and over all, with its launch plan (planes
+   a block, micro-tiles, shared bytes) at each shape;
 3. run the tiny pipeline on the card and on the CPU with the same weights
    and compare (the end-to-end reference check of serving);
 4. the serving path at full width (256.4M-parameter UNet, AF-VAE at
@@ -124,9 +126,17 @@ KERNELS = {
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
         replaces="afldm_tpu/ops/pallas_kernels.py:175",
         # the FFHQ UNet at 32 and 4 px, the AF-VAE's 64 px level, the SD
-        # UNet's interp pass at 64 and 8 px
+        # UNet's interp pass at 64 and 8 px (``base_shapes``: their sums
+        # are logged apart, to compare with commits that timed only them)
         shapes=[(16, 192, 32, 32), (16, 1536, 4, 4), (16, 512, 64, 64),
-                (17, 320, 64, 64), (17, 1280, 8, 8)]),
+                (17, 320, 64, 64), (17, 1280, 8, 8),
+                # the FFHQ UNet's 16 px level in the protocol's batch of 16
+                # shifts
+                (16, 384, 16, 16),
+                # the headline's batch-1 32 px level: 192 planes, a grid
+                # short of a wave if planes were packed
+                (1, 192, 32, 32)],
+        base_shapes=5),
     "filtered_act_banded": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
         replaces="afldm_tpu/ops/pallas_kernels.py:228",
@@ -405,7 +415,7 @@ def check_kernels(torch, report):
                 f"kernel {t:.4f} ms, plain {tp:.4f} ms, "
                 f"library {'n/a' if tl is None else f'{tl:.4f} ms'}, "
                 f"bound {b:.4f} ms ({by}-bound, {work[0] / 1e9:.3f} GFLOP, "
-                f"{work[1] / 1e6:.3f} MB)")
+                f"{work[1] / 1e6:.3f} MB){launch_plan(name, shape)}")
             ok &= bool(good)
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["ms"] += t
@@ -421,6 +431,20 @@ def check_kernels(torch, report):
         if base is not None:
             log_sums(name, row, f"all {len(spec['shapes'])} shapes")
     return ok
+
+
+def launch_plan(name, shape):
+    """The plane kernel's launch plan at ``shape`` (planes a block, each
+    product's micro-tile, shared bytes a block) as a log suffix; '' for
+    the other kernels."""
+    if name != "filtered_act_plane":
+        return ""
+    from afldm_tpu_torch.ops.filtered_act import plane_plan
+    n, c, h, w = shape
+    plan = plane_plan(h, w, n * c)
+    tiles = " ".join(f"{r}x{c}" for r, c in plan.tiles)
+    return (f"; plan P {plan.planes_per_block}, tiles {tiles}, "
+            f"smem {plan.smem_bytes} B")
 
 
 def log_sums(name, row, over):

@@ -110,3 +110,45 @@ def test_kernel_check_needs_a_checkout_and_a_card(where, tmp_path,
     err = capsys.readouterr().err
     assert ("no CUDA device" if where == "root" else "root of a checkout") \
         in err
+
+
+def _kernel_body(src, name):
+    """The text of ``__global__`` kernel ``name`` up to the next kernel or
+    entry point, comments removed."""
+    code = re.sub(r"//[^\n]*", "", src)
+    start = code.index(f"{name}(")
+    end = min(i for i in (code.find("__global__", start),
+                          code.find('extern "C"', start)) if i > 0)
+    return code[start:end]
+
+
+def test_plane_kernel_on_the_filtered_tile():
+    """K5 runs its four products through filtered_tile.cuh (every operand
+    staged in shared memory with 16-byte cp.async), not block_gemm, which
+    the K5b, K1 and K2 kernels keep."""
+    src = (kernels.CSRC / "filtered_act.cu").read_text()
+    assert '#include "filtered_tile.cuh"' in src
+    k5 = _kernel_body(src, "filtered_act_plane_kernel")
+    assert "block_gemm" not in k5
+    assert k5.count("product(") == 4 and "stage(" in k5
+    assert "cp_async16(" in k5
+    for name in ("filtered_act_plane_bwd_kernel", "filtered_act_banded_kernel",
+                 "filtered_act_banded_bwd_kernel"):
+        assert "block_gemm" in _kernel_body(src, name), name
+    tile = re.sub(r"//[^\n]*", "",
+                  (kernels.CSRC / "filtered_tile.cuh").read_text())
+    assert "cp.async.cg.shared.global" in tile and "float4" in tile
+    for absent in ("wmma", "mma.sync", "tf32"):
+        assert absent not in (tile + k5).lower(), absent
+
+
+def test_filtered_tile_edit_rebuilds_filtered_act(tmp_path, monkeypatch):
+    """filtered_tile.cuh is one of the headers hashed into every library
+    name: editing it rebuilds filtered_act."""
+    for f in kernels.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = kernels._target("filtered_act")
+    with open(tmp_path / "filtered_tile.cuh", "a") as f:
+        f.write("// edit\n")
+    assert kernels._target("filtered_act") != before

@@ -43,15 +43,44 @@ def _launches(name, fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 16, 32, 32), (2, 64, 4, 4),
-                                   (1, 8, 64, 64), (1, 4, 12, 20),
-                                   (3, 5, 8, 8)])
-@pytest.mark.parametrize("act", ["silu", "gelu", "mish"])
+@pytest.mark.parametrize("shape", [
+    (2, 16, 32, 32), (2, 64, 4, 4), (1, 8, 64, 64), (1, 4, 12, 20),
+    (3, 5, 8, 8),
+    # a grid short of a wave (192 planes, one a block), plane counts that
+    # P does not divide, sides of 4 mod 8, and 4 px against 64 px
+    (1, 192, 32, 32), (1, 3, 64, 64), (2, 5, 12, 20), (1, 7, 4, 64),
+    (1, 1, 64, 4)])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu", "mish",
+                                 "leaky_relu", "tanh", "linear"])
 def test_plane_kernel_matches_plain(cuda, shape, act):
     x = torch.randn(shape, device=cuda)
     got = _launches("filtered_act_plane",
                     lambda: TF.filtered_act_plane(x, act))
     torch.testing.assert_close(got, TF.filtered_act_plain(x, act),
+                               atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_plane_kernel_channel_slice(cuda):
+    """A non-contiguous input (a slice of the channels) runs the kernel on
+    its contiguous copy."""
+    x = torch.randn(2, 24, 16, 16, device=cuda)[:, 5:17]
+    assert not x.is_contiguous()
+    got = _launches("filtered_act_plane",
+                    lambda: TF.filtered_act_plane(x, "silu"))
+    torch.testing.assert_close(got, TF.filtered_act_plain(x, "silu"),
+                               atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_plane_kernel_unaligned_base(cuda):
+    """A contiguous view 4 bytes past an allocation's start: the wrapper
+    copies it so that the kernel's 16-byte copies stay aligned."""
+    x = torch.randn(1 + 3 * 32 * 32, device=cuda)[1:].view(1, 3, 32, 32)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got = _launches("filtered_act_plane",
+                    lambda: TF.filtered_act_plane(x, "silu"))
+    torch.testing.assert_close(got, TF.filtered_act_plain(x, "silu"),
                                atol=3e-5, rtol=1e-4)
 
 

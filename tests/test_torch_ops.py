@@ -31,7 +31,8 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("shape,mode", [
     ((2, 8, 8, 16), "channel"), ((1, 4, 4, 8), "channel"),
     ((1, 16, 12, 8), "channel"), ((1, 32, 32, 4), "spatial"),
-    ((1, 16, 24, 3), "spatial")])
+    ((1, 16, 24, 3), "spatial"), ((1, 64, 64, 2), "channel"),
+    ((1, 12, 20, 2), "channel")])
 @pytest.mark.parametrize("act", ["silu", "gelu", "leaky_relu"])
 def test_plain_matches_pallas(rng, shape, mode, act):
     x = rand(rng, shape)
@@ -109,6 +110,40 @@ def test_kernel_operators_layout():
     assert tuple(uh.shape) == (16, 8) and tuple(uwT.shape) == (12, 24)
     assert tuple(dh.shape) == (8, 16) and tuple(dwT.shape) == (24, 12)
     assert all(o.is_contiguous() for o in (uh, uwT, dh, dwT))
+    # the plane forward's k-major operators: U_h^T (H x 2H), D_h^T (2H x H)
+    dhT, _, _, uhT = TF._kernel_bwd_ops(8, 12, "cpu")
+    assert tuple(uhT.shape) == (8, 16) and tuple(dhT.shape) == (16, 8)
+    assert uhT.is_contiguous() and dhT.is_contiguous()
+    assert torch.equal(uhT, uh.T) and torch.equal(dhT, dh.T)
+
+
+PLAN_SIDES = [(4, 4), (8, 8), (12, 12), (20, 20), (32, 32), (64, 64),
+              (12, 20), (4, 64), (64, 4), (8, 32), (20, 64)]
+
+
+@pytest.mark.parametrize("hw", PLAN_SIDES)
+@pytest.mark.parametrize("nplanes", [1, 3, 192, 3072, 24576])
+def test_plane_plan(hw, nplanes):
+    """The plane kernel's launch plan: the block within the 227 KB of
+    shared memory (two to an SM where they fit), at least one plane a
+    block, a grid of at least min(132, planes) blocks, and micro-tiles that
+    divide every product's result."""
+    H, W = hw
+    plan = TF.plane_plan(H, W, nplanes)
+    P = plan.planes_per_block
+    assert P >= 1
+    assert plan.smem_bytes == TF.plane_smem_bytes(H, W, P) <= 232448
+    if TF.plane_smem_bytes(H, W, 1) <= 115712:
+        assert plan.smem_bytes <= 115712
+    assert -(-nplanes // P) >= min(132, nplanes)
+    assert len(plan.tiles) == 4
+    for (rows, cols, depth), (tr, tc) in zip(TF.plane_products(H, W),
+                                             plan.tiles):
+        assert (tr, tc) in TF.K5_TILES
+        assert rows % tr == 0 and cols % tc == 0 and depth % 4 == 0
+    codes = plan.tile_codes
+    assert [TF.K5_TILES[(codes >> 2 * i) & 3] for i in range(4)] == \
+        list(plan.tiles)
 
 
 # -- attention ---------------------------------------------------------------
