@@ -41,9 +41,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "filtered_act": {
         # x, out, uhT, uwT, dwT, dhT, nplanes, H, W, planes_per_block,
-        # tile codes, act, stream
+        # tile codes, threads, act, stream
         "filtered_act_plane_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _P],
+                                   _I, _I, _I, _P],
         # x, g, dx, uh, uwT, dhT, dw, uw, uhT, nplanes, H, W,
         # planes_per_block, act, stream
         "filtered_act_plane_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

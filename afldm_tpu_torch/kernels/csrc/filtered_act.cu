@@ -227,12 +227,14 @@ struct Activation {
   }
 };
 
-// out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ for P planes a block, every
-// operand in shared memory; ``tiles`` holds the micro-tile code of each
-// product (2 bits each, product 1 lowest; filtered_tile.cuh::product).
+// out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ for P planes a block of THREADS
+// threads (256: two blocks an SM where shared memory allows; 512: one),
+// every operand in shared memory; ``tiles`` holds the micro-tile code of
+// each product (2 bits each, product 1 lowest; filtered_tile.cuh::product).
 // Operators, row-major as stored: uhT = U_hᵀ (H×2H), uwT = U_wᵀ (W×2W),
 // dwT = D_wᵀ (2W×W), dhT = D_hᵀ (2H×H).
-__global__ void __launch_bounds__(kThreads, 2)
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == 256 ? 2 : 1)
 filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
                           const float* __restrict__ uhT,
                           const float* __restrict__ uwT,
@@ -435,13 +437,29 @@ int set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
+
+template <int THREADS>
+int launch_plane(const float* x, float* out, const float* uhT,
+                 const float* uwT, const float* dwT, const float* dhT,
+                 int nplanes, int H, int W, int ppb, int tiles, int act,
+                 cudaStream_t stream) {
+  const size_t smem = PlaneLayout(H, W).floats(ppb) * sizeof(float);
+  int err = set_smem((const void*)filtered_act_plane_kernel<THREADS>, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (nplanes + ppb - 1) / ppb;
+  filtered_act_plane_kernel<THREADS><<<blocks, THREADS, smem, stream>>>(
+      x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, tiles, act);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int filtered_act_plane_f32(const float* x, float* out,
                                       const float* uhT, const float* uwT,
                                       const float* dwT, const float* dhT,
                                       int nplanes, int H, int W, int ppb,
-                                      int tiles, int act, void* stream) {
+                                      int tiles, int threads, int act,
+                                      void* stream) {
   using afldm_filtered::tile_fits;
   // the products' results: tᵀ (W×2H), hiᵀ (2W×2H), t (2H×W), out (H×W)
   if (H % 4 || W % 4 || ppb < 1 || !tile_fits(tiles & 3, W, 2 * H) ||
@@ -449,13 +467,13 @@ extern "C" int filtered_act_plane_f32(const float* x, float* out,
       !tile_fits((tiles >> 4) & 3, 2 * H, W) ||
       !tile_fits((tiles >> 6) & 3, H, W))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = PlaneLayout(H, W).floats(ppb) * sizeof(float);
-  int err = set_smem((const void*)filtered_act_plane_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (nplanes + ppb - 1) / ppb;
-  filtered_act_plane_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, tiles, act);
-  return (int)cudaGetLastError();
+  if (threads == 256)
+    return launch_plane<256>(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb,
+                             tiles, act, (cudaStream_t)stream);
+  if (threads == 512)
+    return launch_plane<512>(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb,
+                             tiles, act, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int filtered_act_plane_bwd_f32(

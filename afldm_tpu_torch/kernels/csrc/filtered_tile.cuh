@@ -10,20 +10,25 @@
 // so each step k reads a contiguous piece of row k of X and of Y. Thread
 // (tr, tc) owns the TR × TC micro-tile of rows {4(tr + NR·a) + i} and
 // columns {4(tc + NC·j) + i} (NR = R / TR, NC = C / TC threads along each
-// side): it reads TC/4 float4 of X and TR/4 float4 of Y at each k and does
-// TR·TC FMAs, 4 per float read at 8×8, the card's balance of 128 FMAs to
-// 128 shared bytes a clock. Consecutive threads take consecutive tc, so the
-// 8 lanes of a float4 phase read 8 different 16-byte chunks of one X row
-// (128 bytes, conflict-free) and one chunk of Y (a same-address read), and
-// store 8 chunks of one C row. Only where NC < 8 does a phase reach several
-// C rows, 4 rows apart; a row stride of 4 mod 8 floats puts two such rows
-// on different bank halves (row_pad).
+// side): at each k it reads TC/4 float4 of X and TR/4 float4 of Y and does
+// TR·TC FMAs. Consecutive threads take consecutive tc, so the 8 lanes of a
+// float4 phase read 8 different 16-byte chunks of one X row (128 bytes,
+// conflict-free), read one chunk of Y (a same-address read, which costs
+// the shared-memory pipe far less) and store 8 chunks of one C row. Only
+// where NC < 8 does a phase reach several C rows, 4 rows apart; a row
+// stride of 4 mod 8 floats puts two such rows on different bank halves
+// (row_pad).
+//
+// The micro-tiles are 8×4, 4×8 and 4×4, one picked per product by the
+// wrapper's launch plan (ops/filtered_act.py::plane_plan). 8×4 reads two
+// same-address Y chunks to one X chunk for 32 FMAs; on an H100 it beat
+// 8×8 (2 + 2 chunks for 64 FMAs, 64 accumulators) by 1.3× at the 64 px
+// hiᵀ product, and 4×4 is quicker where a product is too small to give
+// every thread a larger tile. 4×8 stands in for 8×4 where a result has
+// 4 mod 8 rows and columns a multiple of 8 (tᵀ of a 12×20 plane).
 //
 // The block walks P planes' tiles (plane strides sX, sY, sC; 0 for an
 // operand shared by the planes); a thread takes tiles t, t + blockDim.x, …
-// The micro-tile is a template parameter; filtered_act.cu picks one of
-// 8×8, 4×8, 8×4 and 4×4 per product from the launch plan, so that sides of
-// 4 mod 8 (12×20) and small planes keep every thread busy.
 //
 // The arithmetic is exact f32 FMA, k ascending; no TF32, no tensor cores.
 
@@ -125,16 +130,16 @@ __device__ __forceinline__ void tile_product(
   }
 }
 
-// Whether the micro-tile of ``code`` (see product) divides an R × C result.
+// The micro-tiles a launch plan names, by code: 0: 8×4, 1: 4×8, 2: 4×4
+// (rows × columns).
 __host__ __device__ __forceinline__ bool tile_fits(int code, int R, int Cn) {
-  if (code < 0 || code > 3) return false;
-  const int tr = code == 0 || code == 2 ? 8 : 4;
-  const int tc = code <= 1 ? 8 : 4;
+  if (code < 0 || code > 2) return false;
+  const int tr = code == 0 ? 8 : 4;
+  const int tc = code == 1 ? 8 : 4;
   return R % tr == 0 && Cn % tc == 0;
 }
 
-// tile_product with the micro-tile of ``code`` (0: 8×8, 1: 4×8, 2: 8×4,
-// 3: 4×4, rows × columns).
+// tile_product with the micro-tile of ``code``.
 template <class Epi>
 __device__ __forceinline__ void product(
     int code, const float* X, int ldx, int sX, const float* Y, int ldy,
@@ -142,13 +147,10 @@ __device__ __forceinline__ void product(
     Epi epi) {
   switch (code) {
     case 0:
-      tile_product<8, 8>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
+      tile_product<8, 4>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
       break;
     case 1:
       tile_product<4, 8>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
-      break;
-    case 2:
-      tile_product<8, 4>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
       break;
     default:
       tile_product<4, 4>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);

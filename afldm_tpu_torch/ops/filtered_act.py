@@ -150,22 +150,28 @@ def _planes_per_block(H: int, W: int) -> int:
     return max(1, 1024 // (H * W))
 
 
-# the plane kernel's (K5) launch: threads a block, SMs, and the shared
-# memory a block may take with two blocks to an SM (228 KB an SM, 1 KB of
-# it reserved for each block)
-K5_THREADS = 256
+# the plane kernel's (K5) launch: the threads a block it is built for (256
+# runs two blocks an SM where shared memory allows, 512 one), the SMs, and
+# the shared memory a block may take with two blocks an SM (228 KB an SM,
+# 1 KB of it reserved for each block)
+K5_THREADS = (256, 512)
 NUM_SMS = 132
 SMEM_TWO_BLOCKS_BYTES = 233472 // 2 - 1024
 # the micro-tiles (rows, columns) by the kernel's code
-# (filtered_tile.cuh::product), largest first
-K5_TILES = ((8, 8), (4, 8), (8, 4), (4, 4))
+# (filtered_tile.cuh::product), in the plan's order of preference
+K5_TILES = ((8, 4), (4, 8), (4, 4))
+# a product at least this deep takes a larger micro-tile with a quarter of
+# the block's threads busy; a shallower one only with all of them
+K5_DEEP = 128
 
 
 class PlanePlan(NamedTuple):
     """How ``filtered_act_plane``'s kernel is launched: P planes a block,
-    each product's micro-tile (rows, columns), the shared bytes a block."""
+    each product's micro-tile (rows, columns), the threads a block and the
+    shared bytes a block."""
     planes_per_block: int
     tiles: tuple
+    threads: int
     smem_bytes: int
 
     @property
@@ -197,38 +203,53 @@ def plane_smem_bytes(H: int, W: int, ppb: int) -> int:
     return 4 * (2 * op + ppb * (big + small))
 
 
-def _tile_cost(tile, rows, cols, ppb) -> int:
-    """A product's time in the plan's model, per step of its depth: rounds
-    of K5_THREADS tiles, each the larger of its FMAs and 4 per float read
-    (the card's balance of shared reads to FMAs)."""
-    tr, tc = tile
-    rounds = -(-ppb * (rows // tr) * (cols // tc) // K5_THREADS)
-    return rounds * max(tr * tc, 4 * (tr + tc))
+def _plane_cost(H: int, W: int, nplanes: int, ppb: int, threads: int):
+    """The plan's model of a launch's time: waves of blocks (NUM_SMS a wave,
+    two a block-SM at 256 threads where they fit) times a block's rounds of
+    4×4 tiles over its threads, each round weighted by its product's depth.
+    None where the block exceeds SMEM_MAX_BYTES."""
+    smem = plane_smem_bytes(H, W, ppb)
+    if smem > SMEM_MAX_BYTES:
+        return None
+    per_sm = 2 if threads == 256 and smem <= SMEM_TWO_BLOCKS_BYTES else 1
+    waves = -(-(-(-nplanes // ppb)) // (NUM_SMS * per_sm))
+    rounds = sum(k * -(-ppb * (r * c // 16) // threads)
+                 for r, c, k in plane_products(H, W))
+    return waves * rounds
 
 
 @functools.lru_cache(maxsize=None)
 def plane_plan(H: int, W: int, nplanes: int) -> PlanePlan:
-    """The plane kernel's launch plan. P is the least of: the planes that
-    give every thread a full 4×4 tile of the smallest product (out); the
-    most that keep the grid at one wave of NUM_SMS blocks or more; the most
-    whose block fits two to an SM (else one, within SMEM_MAX_BYTES); and
-    the plane count. Each product then takes the micro-tile dividing its
-    result that is quickest in ``_tile_cost``, the larger on a tie."""
-    prods = plane_products(H, W)
-    fill = -(-K5_THREADS * 16 // (H * W))
-    grid = max(1, nplanes // NUM_SMS)
-    per_plane = plane_smem_bytes(H, W, 1) - plane_smem_bytes(H, W, 0)
-    fixed = plane_smem_bytes(H, W, 0)
-    limit = SMEM_TWO_BLOCKS_BYTES
-    if fixed + per_plane > limit:
-        limit = SMEM_MAX_BYTES
-    fits = max(1, (limit - fixed) // per_plane)
-    ppb = max(1, min(fill, grid, fits, nplanes))
-    tiles = tuple(
-        min((t for t in K5_TILES if rows % t[0] == 0 and cols % t[1] == 0),
-            key=lambda t: (_tile_cost(t, rows, cols, ppb), -t[0] * t[1]))
-        for rows, cols, _ in prods)
-    return PlanePlan(ppb, tiles, plane_smem_bytes(H, W, ppb))
+    """The plane kernel's launch plan. P and the threads a block minimise
+    ``_plane_cost`` (on a tie the smaller P, then 512 threads), with P at
+    most the plane count, the block within SMEM_MAX_BYTES, and the grid at
+    least one wave of NUM_SMS blocks where the planes allow it. Each
+    product then takes the first of K5_TILES that divides its result and
+    keeps the block's threads busy (a quarter of them for a product
+    K5_DEEP deep or more), else 4×4. The rules and K5_DEEP come from timing
+    every P and micro-tile at the model's plane sizes on an H100
+    (PERF.md §6, PR 9)."""
+    grid = max(1, -(-nplanes // (NUM_SMS - 1)) - 1)  # ceil(n / P) >= 132
+    best = None
+    for threads in K5_THREADS:
+        for ppb in range(1, min(grid, nplanes) + 1):
+            cost = _plane_cost(H, W, nplanes, ppb, threads)
+            if cost is None:
+                break
+            if best is None or cost < best[0] or (cost == best[0]
+                                                  and threads > best[2]):
+                best = (cost, ppb, threads)
+    _, ppb, threads = best
+    tiles = []
+    for rows, cols, depth in plane_products(H, W):
+        need = threads // 4 if depth >= K5_DEEP else threads
+        tiles.append(next(
+            ((tr, tc) for tr, tc in K5_TILES[:-1]
+             if rows % tr == 0 and cols % tc == 0
+             and ppb * (rows // tr) * (cols // tc) >= need),
+            K5_TILES[-1]))
+    return PlanePlan(ppb, tuple(tiles), threads,
+                     plane_smem_bytes(H, W, ppb))
 
 
 def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -247,7 +268,7 @@ def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     err = kernels.library("filtered_act").filtered_act_plane_f32(
         x.data_ptr(), out.data_ptr(), uhT.data_ptr(), uwT.data_ptr(),
         dwT.data_ptr(), dhT.data_ptr(), nplanes, H, W,
-        plan.planes_per_block, plan.tile_codes, ACT_CODES[act],
+        plan.planes_per_block, plan.tile_codes, plan.threads, ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "filtered_act_plane")
     kernels.LAUNCHES["filtered_act_plane"] += 1

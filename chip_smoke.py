@@ -18,7 +18,7 @@ Phases, each of which fails the run:
    of FLOPs / 67 TFLOP/s f32 and bytes / 3.35 TB/s); the flash backward's
    sums are logged over its first three shapes and over all, the plane
    kernel's over its first five and over all, with its launch plan (planes
-   a block, micro-tiles, shared bytes) at each shape;
+   a block, micro-tiles, threads and shared bytes a block) at each shape;
 3. run the tiny pipeline on the card and on the CPU with the same weights
    and compare (the end-to-end reference check of serving);
 4. the serving path at full width (256.4M-parameter UNet, AF-VAE at
@@ -435,8 +435,8 @@ def check_kernels(torch, report):
 
 def launch_plan(name, shape):
     """The plane kernel's launch plan at ``shape`` (planes a block, each
-    product's micro-tile, shared bytes a block) as a log suffix; '' for
-    the other kernels."""
+    product's micro-tile, threads and shared bytes a block) as a log
+    suffix; '' for the other kernels."""
     if name != "filtered_act_plane":
         return ""
     from afldm_tpu_torch.ops.filtered_act import plane_plan
@@ -444,7 +444,7 @@ def launch_plan(name, shape):
     plan = plane_plan(h, w, n * c)
     tiles = " ".join(f"{r}x{c}" for r, c in plan.tiles)
     return (f"; plan P {plan.planes_per_block}, tiles {tiles}, "
-            f"smem {plan.smem_bytes} B")
+            f"{plan.threads} threads, smem {plan.smem_bytes} B")
 
 
 def log_sums(name, row, over):

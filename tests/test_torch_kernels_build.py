@@ -98,6 +98,21 @@ def test_q_tile_matches_the_tile_loop():
 
 
 @pytest.mark.parametrize("where", ["root", "elsewhere"])
+def test_phase_check_needs_a_checkout_and_a_card(where, tmp_path,
+                                                 monkeypatch, capsys):
+    """phase_check.py, like kernel_check.py, refuses outside a checkout's
+    root and, here, for want of a card."""
+    from afldm_tpu_torch.scripts import phase_check
+    root = kernels.CSRC.parents[2]
+    monkeypatch.chdir(root if where == "root" else tmp_path)
+    monkeypatch.setattr(phase_check.sys, "path", list(phase_check.sys.path))
+    assert phase_check.main(["main_path"]) == 1
+    err = capsys.readouterr().err
+    assert ("no CUDA device" if where == "root" else "root of a checkout") \
+        in err
+
+
+@pytest.mark.parametrize("where", ["root", "elsewhere"])
 def test_kernel_check_needs_a_checkout_and_a_card(where, tmp_path,
                                                   monkeypatch, capsys):
     """kernel_check.py refuses outside a checkout's root and, here, for
