@@ -35,8 +35,7 @@
 //     current product) and, per plane, the 2W×2H hiᵀ (x staged inside it,
 //     which it outlives) and a 2H×W buffer. Every operand is stored k-major
 //     so one routine, filtered_tile.cuh::tile_product, does all four
-//     products with float4 reads into 8×8, 4×8, 8×4 or 4×4 register
-//     micro-tiles (8×8: 4 FMAs per float read, the card's balance):
+//     products with float4 reads into 8×4 or 4×4 register micro-tiles:
 //       tᵀ  = (U_h · x)ᵀ        (W×2H)   from U_hᵀ and x
 //       hiᵀ = act(t · U_wᵀ)ᵀ    (2W×2H)  from tᵀ and U_wᵀ, act in the epilogue
 //       t   = hi · D_wᵀ         (2H×W)   from hiᵀ and D_wᵀ
@@ -229,8 +228,8 @@ struct Activation {
 
 // out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ for P planes a block of THREADS
 // threads (256: two blocks an SM where shared memory allows; 512: one),
-// every operand in shared memory; ``tiles`` holds the micro-tile code of
-// each product (2 bits each, product 1 lowest; filtered_tile.cuh::product).
+// every operand in shared memory; bit i of ``tiles`` set gives product i + 1
+// 4×4 micro-tiles in place of 8×4 (filtered_tile.cuh::product).
 // Operators, row-major as stored: uhT = U_hᵀ (H×2H), uwT = U_wᵀ (W×2W),
 // dwT = D_wᵀ (2W×W), dhT = D_hᵀ (2H×H).
 template <int THREADS>
@@ -267,7 +266,7 @@ filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
   cp_async_wait<1>();
   __syncthreads();
   // tᵀ = (U_h · x)ᵀ = xᵀ · U_hᵀ            (W × 2H)
-  product(tiles & 3, op0, 2 * H, 0, big, W, lay.big, small, ld2h, lay.small,
+  product(tiles & 1, op0, 2 * H, 0, big, W, lay.big, small, ld2h, lay.small,
           P, W, 2 * H, H, Identity{});
   __syncthreads();
   stage(op0, dwT, W * W / 2);  // D_wᵀ in flight during the next product
@@ -275,7 +274,7 @@ filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
   cp_async_wait<1>();
   __syncthreads();
   // hiᵀ = act(t · U_wᵀ)ᵀ = act(U_w · tᵀ)  (2W × 2H); overwrites the staged x
-  product((tiles >> 2) & 3, small, ld2h, lay.small, op1, 2 * W, 0, big, ld2h,
+  product((tiles >> 1) & 1, small, ld2h, lay.small, op1, 2 * W, 0, big, ld2h,
           lay.big, P, 2 * W, 2 * H, W, Activation{act});
   __syncthreads();
   stage(op1, dhT, H * H / 2);  // D_hᵀ in flight during the next product
@@ -283,12 +282,12 @@ filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
   cp_async_wait<1>();
   __syncthreads();
   // t = hi · D_wᵀ = (hiᵀ)ᵀ · D_wᵀ          (2H × W); over tᵀ
-  product((tiles >> 4) & 3, op0, W, 0, big, ld2h, lay.big, small, ldw,
+  product((tiles >> 2) & 1, op0, W, 0, big, ld2h, lay.big, small, ldw,
           lay.small, P, 2 * H, W, 2 * W, Identity{});
   cp_async_wait<0>();
   __syncthreads();
   // out = D_h · t = (D_hᵀ)ᵀ · t            (H × W), straight to device memory
-  product((tiles >> 6) & 3, small, ldw, lay.small, op1, H, 0, out + p0 * HW,
+  product((tiles >> 3) & 1, small, ldw, lay.small, op1, H, 0, out + p0 * HW,
           W, HW, P, H, W, 2 * H, Identity{});
 }
 
@@ -437,7 +436,6 @@ int set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
-
 template <int THREADS>
 int launch_plane(const float* x, float* out, const float* uhT,
                  const float* uwT, const float* dwT, const float* dhT,
@@ -460,13 +458,12 @@ extern "C" int filtered_act_plane_f32(const float* x, float* out,
                                       int nplanes, int H, int W, int ppb,
                                       int tiles, int threads, int act,
                                       void* stream) {
-  using afldm_filtered::tile_fits;
-  // the products' results: tᵀ (W×2H), hiᵀ (2W×2H), t (2H×W), out (H×W)
-  if (H % 4 || W % 4 || ppb < 1 || !tile_fits(tiles & 3, W, 2 * H) ||
-      !tile_fits((tiles >> 2) & 3, 2 * W, 2 * H) ||
-      !tile_fits((tiles >> 4) & 3, 2 * H, W) ||
-      !tile_fits((tiles >> 6) & 3, H, W))
-    return (int)cudaErrorInvalidValue;
+  // the rows of the products' results tᵀ, hiᵀ, t and out: 8×4 tiles need
+  // them % 8 == 0
+  const int rows[4] = {W, 2 * W, 2 * H, H};
+  if (H % 4 || W % 4 || ppb < 1) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (!((tiles >> i) & 1) && rows[i] % 8) return (int)cudaErrorInvalidValue;
   if (threads == 256)
     return launch_plane<256>(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb,
                              tiles, act, (cudaStream_t)stream);

@@ -19,13 +19,13 @@
 // stride of 4 mod 8 floats puts two such rows on different bank halves
 // (row_pad).
 //
-// The micro-tiles are 8×4, 4×8 and 4×4, one picked per product by the
-// wrapper's launch plan (ops/filtered_act.py::plane_plan). 8×4 reads two
-// same-address Y chunks to one X chunk for 32 FMAs; on an H100 it beat
-// 8×8 (2 + 2 chunks for 64 FMAs, 64 accumulators) by 1.3× at the 64 px
-// hiᵀ product, and 4×4 is quicker where a product is too small to give
-// every thread a larger tile. 4×8 stands in for 8×4 where a result has
-// 4 mod 8 rows and columns a multiple of 8 (tᵀ of a 12×20 plane).
+// The micro-tile is 8×4 or 4×4, picked per product by the wrapper's launch
+// plan (ops/filtered_act.py::plane_plan). 8×4 reads two same-address Y
+// chunks to one X chunk for 32 FMAs; on an H100 it was quicker than 8×8
+// (2 + 2 chunks for 64 FMAs, 64 accumulators) at the 64 px hiᵀ product and
+// matched or beat 4×8 (2 X chunks to 1 Y) elsewhere. 4×4 is quicker where
+// a product is too small to give every thread a larger tile, and serves
+// results with 4 mod 8 rows (tᵀ of a 12×20 plane).
 //
 // The block walks P planes' tiles (plane strides sX, sY, sC; 0 for an
 // operand shared by the planes); a thread takes tiles t, t + blockDim.x, …
@@ -130,31 +130,17 @@ __device__ __forceinline__ void tile_product(
   }
 }
 
-// The micro-tiles a launch plan names, by code: 0: 8×4, 1: 4×8, 2: 4×4
-// (rows × columns).
-__host__ __device__ __forceinline__ bool tile_fits(int code, int R, int Cn) {
-  if (code < 0 || code > 2) return false;
-  const int tr = code == 0 ? 8 : 4;
-  const int tc = code == 1 ? 8 : 4;
-  return R % tr == 0 && Cn % tc == 0;
-}
-
-// tile_product with the micro-tile of ``code``.
+// tile_product with the 8×4 micro-tile, or 4×4 where ``small``; an 8×4
+// tile needs R % 8 == 0.
 template <class Epi>
 __device__ __forceinline__ void product(
-    int code, const float* X, int ldx, int sX, const float* Y, int ldy,
+    bool small, const float* X, int ldx, int sX, const float* Y, int ldy,
     int sY, float* C, int ldc, long long sC, int P, int R, int Cn, int K,
     Epi epi) {
-  switch (code) {
-    case 0:
-      tile_product<8, 4>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
-      break;
-    case 1:
-      tile_product<4, 8>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
-      break;
-    default:
-      tile_product<4, 4>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
-  }
+  if (small)
+    tile_product<4, 4>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
+  else
+    tile_product<8, 4>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);
 }
 
 }  // namespace afldm_filtered

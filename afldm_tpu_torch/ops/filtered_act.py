@@ -157,12 +157,15 @@ def _planes_per_block(H: int, W: int) -> int:
 K5_THREADS = (256, 512)
 NUM_SMS = 132
 SMEM_TWO_BLOCKS_BYTES = 233472 // 2 - 1024
-# the micro-tiles (rows, columns) by the kernel's code
-# (filtered_tile.cuh::product), in the plan's order of preference
-K5_TILES = ((8, 4), (4, 8), (4, 4))
-# a product at least this deep takes a larger micro-tile with a quarter of
-# the block's threads busy; a shallower one only with all of them
-K5_DEEP = 128
+# the micro-tiles (rows, columns), by the kernel's bit for a product
+# (filtered_tile.cuh::product)
+K5_TILES = ((8, 4), (4, 4))
+# a product at least this deep takes 8×4 micro-tiles with half of the
+# block's threads busy; a shallower one only with all of them
+K5_DEEP = 64
+# two 256-thread blocks on an SM overlap each other's barriers and copies,
+# which the plan's rounds do not count: their waves are weighted by this
+K5_TWO_BLOCKS = 0.9
 
 
 class PlanePlan(NamedTuple):
@@ -176,10 +179,9 @@ class PlanePlan(NamedTuple):
 
     @property
     def tile_codes(self) -> int:
-        """The kernel's ``tiles`` argument: 2 bits a product, product 1
-        lowest."""
-        return sum(K5_TILES.index(t) << (2 * i)
-                   for i, t in enumerate(self.tiles))
+        """The kernel's ``tiles`` argument: bit i set gives product i + 1
+        4×4 tiles."""
+        return sum(K5_TILES.index(t) << i for i, t in enumerate(self.tiles))
 
 
 def plane_products(H: int, W: int) -> tuple:
@@ -204,18 +206,20 @@ def plane_smem_bytes(H: int, W: int, ppb: int) -> int:
 
 
 def _plane_cost(H: int, W: int, nplanes: int, ppb: int, threads: int):
-    """The plan's model of a launch's time: waves of blocks (NUM_SMS a wave,
-    two a block-SM at 256 threads where they fit) times a block's rounds of
-    4×4 tiles over its threads, each round weighted by its product's depth.
-    None where the block exceeds SMEM_MAX_BYTES."""
+    """The plan's model of a launch's time: waves of blocks (a wave is one
+    block an SM, or two at 256 threads where they fit, weighted by
+    K5_TWO_BLOCKS) times a block's rounds of 4×4 tiles over its threads,
+    each round weighted by its product's depth. None where the block
+    exceeds SMEM_MAX_BYTES."""
     smem = plane_smem_bytes(H, W, ppb)
     if smem > SMEM_MAX_BYTES:
         return None
     per_sm = 2 if threads == 256 and smem <= SMEM_TWO_BLOCKS_BYTES else 1
-    waves = -(-(-(-nplanes // ppb)) // (NUM_SMS * per_sm))
+    blocks = -(-nplanes // ppb)
+    waves = -(-blocks // (NUM_SMS * per_sm))
     rounds = sum(k * -(-ppb * (r * c // 16) // threads)
                  for r, c, k in plane_products(H, W))
-    return waves * rounds
+    return waves * rounds * (K5_TWO_BLOCKS if per_sm == 2 else 1.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,12 +228,13 @@ def plane_plan(H: int, W: int, nplanes: int) -> PlanePlan:
     ``_plane_cost`` (on a tie the smaller P, then 512 threads), with P at
     most the plane count, the block within SMEM_MAX_BYTES, and the grid at
     least one wave of NUM_SMS blocks where the planes allow it. Each
-    product then takes the first of K5_TILES that divides its result and
-    keeps the block's threads busy (a quarter of them for a product
-    K5_DEEP deep or more), else 4×4. The rules and K5_DEEP come from timing
-    every P and micro-tile at the model's plane sizes on an H100
-    (PERF.md §6, PR 9)."""
-    grid = max(1, -(-nplanes // (NUM_SMS - 1)) - 1)  # ceil(n / P) >= 132
+    product then takes 8×4 tiles where they divide its result and keep the
+    block's threads busy (half of them for a product K5_DEEP deep or more),
+    else 4×4. The model, the rule and both constants were fitted to timings
+    of every block size, P and micro-tile at the models' plane sizes on an
+    H100 (``scripts/plane_sweep.py``; PERF.md §6, PR 9)."""
+    # the largest P with ceil(nplanes / P) >= NUM_SMS, or 1
+    grid = max(1, -(-nplanes // (NUM_SMS - 1)) - 1)
     best = None
     for threads in K5_THREADS:
         for ppb in range(1, min(grid, nplanes) + 1):
@@ -242,12 +247,9 @@ def plane_plan(H: int, W: int, nplanes: int) -> PlanePlan:
     _, ppb, threads = best
     tiles = []
     for rows, cols, depth in plane_products(H, W):
-        need = threads // 4 if depth >= K5_DEEP else threads
-        tiles.append(next(
-            ((tr, tc) for tr, tc in K5_TILES[:-1]
-             if rows % tr == 0 and cols % tc == 0
-             and ppb * (rows // tr) * (cols // tc) >= need),
-            K5_TILES[-1]))
+        need = threads // 2 if depth >= K5_DEEP else threads
+        wide = rows % 8 == 0 and ppb * (rows // 8) * (cols // 4) >= need
+        tiles.append(K5_TILES[0] if wide else K5_TILES[1])
     return PlanePlan(ppb, tuple(tiles), threads,
                      plane_smem_bytes(H, W, ppb))
 

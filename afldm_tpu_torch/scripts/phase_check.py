@@ -9,8 +9,9 @@ card:
     cd <other checkout> && python \\
         <this checkout>/afldm_tpu_torch/scripts/phase_check.py main_path
 
-Prints chip_smoke's own lines for each phase and exits non-zero if a phase
-fails.
+Prints chip_smoke's own lines for each run of a phase (``--repeat`` runs
+each several times in one process, the first including the cold start)
+and exits non-zero if a run fails.
 """
 
 import argparse
@@ -28,6 +29,9 @@ def main(argv=None):
                     help="DDIM steps of the serving protocol (default 50)")
     ap.add_argument("--sd_frames", type=int, default=17)
     ap.add_argument("--sd_steps", type=int, default=10)
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="runs of each phase in this process; the first "
+                         "includes the cold start (default 1)")
     args = ap.parse_args(argv)
     root = Path.cwd()
     if not (root / "chip_smoke.py").exists():
@@ -42,7 +46,7 @@ def main(argv=None):
     importlib.import_module("afldm_tpu_torch.kernels").build_all()
     importlib.import_module("afldm_tpu_torch.ops").set_af_precision("highest")
     ok = True
-    for phase in args.phases:
+    for phase in [p for p in args.phases for _ in range(args.repeat)]:
         if phase == "main_path":
             good, _ = smoke.run_main_path(torch, args.steps)
         else:

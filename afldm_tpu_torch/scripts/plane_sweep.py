@@ -1,0 +1,113 @@
+"""Time the plane kernel (K5, ``filtered_act_plane``) at every block size,
+planes-per-block P and micro-tile choice against the launch plan's pick:
+the data ``ops/filtered_act.py::plane_plan`` is fitted to. Run from the
+root of a checkout on a machine with a card:
+
+    python afldm_tpu_torch/scripts/plane_sweep.py [--out sweep.jsonl]
+
+Shapes: ``chip_smoke.KERNELS["filtered_act_plane"]["shapes"]``. P runs over
+powers of two and their halfway points up to the plane count, plus the
+plan's own P and the largest P that keeps one wave of blocks; every launch
+is held against the plain version first (atol 3e-5, rtol 1e-4). Prints,
+per shape, the plan's time and the quickest launch found, with and without
+the plan's grid rule; exits non-zero if a launch disagrees.
+"""
+
+import argparse
+import importlib
+import itertools
+import json
+import sys
+from pathlib import Path
+
+
+def _candidates(nplanes: int, plan_p: int, grid_p: int) -> list:
+    ps = {1, plan_p, grid_p}
+    p = 1
+    while p <= nplanes:
+        ps.update((p, p + p // 2))
+        p *= 2
+    return sorted(q for q in ps if 1 <= q <= nplanes)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default=None, help="JSON lines, one a launch")
+    args = ap.parse_args(argv)
+    root = Path.cwd()
+    if not (root / "chip_smoke.py").exists():
+        print("plane_sweep: run from the root of a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
+    import torch
+    if not torch.cuda.is_available():
+        print("plane_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    smoke = importlib.import_module("chip_smoke")
+    kernels = importlib.import_module("afldm_tpu_torch.kernels")
+    FA = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
+    fn = kernels.library("filtered_act").filtered_act_plane_f32
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    out_file = open(args.out, "w") if args.out else None
+    ok = True
+    for shape in smoke.KERNELS["filtered_act_plane"]["shapes"]:
+        n, c, H, W = shape
+        nplanes = n * c
+        x = torch.randn(shape, device=dev, generator=g)
+        want = FA.filtered_act_plain(x, "silu")
+        out = torch.empty_like(x)
+        _, uwT, _, dwT = FA._kernel_ops(H, W, dev)
+        dhT, _, _, uhT = FA._kernel_bwd_ops(H, W, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        plan = FA.plane_plan(H, W, nplanes)
+        grid_p = max(1, -(-nplanes // (FA.NUM_SMS - 1)) - 1)
+        rows = [r for r, _, _ in FA.plane_products(H, W)]
+        times = {}
+        for threads, ppb in itertools.product(
+                FA.K5_THREADS, _candidates(nplanes, plan.planes_per_block,
+                                           grid_p)):
+            if FA.plane_smem_bytes(H, W, ppb) > FA.SMEM_MAX_BYTES:
+                continue
+            for bits in itertools.product((0, 1), repeat=4):
+                if any(b == 0 and r % 8 for b, r in zip(bits, rows)):
+                    continue  # 8×4 tiles need rows % 8 == 0
+                code = sum(b << i for i, b in enumerate(bits))
+
+                def run():
+                    return fn(x.data_ptr(), out.data_ptr(), uhT.data_ptr(),
+                              uwT.data_ptr(), dwT.data_ptr(), dhT.data_ptr(),
+                              nplanes, H, W, ppb, code, threads,
+                              FA.ACT_CODES["silu"], stream)
+                kernels.check(run(), "plane_sweep")
+                torch.cuda.synchronize()
+                if not torch.allclose(out, want, atol=3e-5, rtol=1e-4):
+                    print(f"plane_sweep {shape}: WRONG at {threads} threads, "
+                          f"P {ppb}, tiles {code}", flush=True)
+                    ok = False
+                    continue
+                ms = smoke.time_ms(run, reps=args.reps)
+                tiles = tuple(FA.K5_TILES[b] for b in bits)
+                times[(threads, ppb, tiles)] = ms
+                if out_file:
+                    out_file.write(json.dumps(dict(
+                        shape=shape, threads=threads, P=ppb,
+                        tiles=tiles, ms=ms)) + "\n")
+        mine = times[(plan.threads, plan.planes_per_block, plan.tiles)]
+        best = min(times, key=times.get)
+        in_grid = [k for k in times
+                   if -(-nplanes // k[1]) >= min(FA.NUM_SMS, nplanes)]
+        best_grid = min(in_grid, key=times.get)
+        print(f"plane_sweep {shape}: plan {plan.threads} threads, P "
+              f"{plan.planes_per_block}, tiles {plan.tiles}: {mine:.4f} ms; "
+              f"quickest within one wave {best_grid}: "
+              f"{times[best_grid]:.4f} ms; quickest {best}: "
+              f"{times[best]:.4f} ms", flush=True)
+    if out_file:
+        out_file.close()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,6 +4,7 @@ an edited header rebuilds every kernel; and the flash kernels, forward and
 backward, share one tile loop (``flash_tile.cuh``) instead of carrying
 copies of it."""
 
+import importlib
 import re
 
 import pytest
@@ -98,15 +99,17 @@ def test_q_tile_matches_the_tile_loop():
 
 
 @pytest.mark.parametrize("where", ["root", "elsewhere"])
-def test_phase_check_needs_a_checkout_and_a_card(where, tmp_path,
-                                                 monkeypatch, capsys):
-    """phase_check.py, like kernel_check.py, refuses outside a checkout's
-    root and, here, for want of a card."""
-    from afldm_tpu_torch.scripts import phase_check
+@pytest.mark.parametrize("script,argv", [("phase_check", ["main_path"]),
+                                         ("plane_sweep", [])])
+def test_measurement_scripts_need_a_checkout_and_a_card(
+        script, argv, where, tmp_path, monkeypatch, capsys):
+    """phase_check.py and plane_sweep.py, like kernel_check.py, refuse
+    outside a checkout's root and, here, for want of a card."""
+    mod = importlib.import_module(f"afldm_tpu_torch.scripts.{script}")
     root = kernels.CSRC.parents[2]
     monkeypatch.chdir(root if where == "root" else tmp_path)
-    monkeypatch.setattr(phase_check.sys, "path", list(phase_check.sys.path))
-    assert phase_check.main(["main_path"]) == 1
+    monkeypatch.setattr(mod.sys, "path", list(mod.sys.path))
+    assert mod.main(argv) == 1
     err = capsys.readouterr().err
     assert ("no CUDA device" if where == "root" else "root of a checkout") \
         in err

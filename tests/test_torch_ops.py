@@ -141,7 +141,7 @@ def test_plane_plan(hw, nplanes):
         assert (tr, tc) in TF.K5_TILES
         assert rows % tr == 0 and cols % tc == 0 and depth % 4 == 0
     codes = plan.tile_codes
-    assert [TF.K5_TILES[(codes >> 2 * i) & 3] for i in range(4)] == \
+    assert [TF.K5_TILES[(codes >> i) & 1] for i in range(4)] == \
         list(plan.tiles)
 
 
