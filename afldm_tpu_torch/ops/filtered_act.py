@@ -232,7 +232,7 @@ def plane_plan(H: int, W: int, nplanes: int) -> PlanePlan:
     block's threads busy (half of them for a product K5_DEEP deep or more),
     else 4×4. The model, the rule and both constants were fitted to timings
     of every block size, P and micro-tile at the models' plane sizes on an
-    H100 (``scripts/plane_sweep.py``; PERF.md §6, PR 9)."""
+    H100 (``scripts/plane_sweep.py``; PERF.md §6)."""
     # the largest P with ceil(nplanes / P) >= NUM_SMS, or 1
     grid = max(1, -(-nplanes // (NUM_SMS - 1)) - 1)
     best = None
