@@ -30,7 +30,7 @@ LAUNCHES = {"filtered_act_plane": 0, "filtered_act_banded": 0,
             "flash_fwd": 0, "filtered_act_plane_bwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "filtered_act_banded_bwd": 0,
             "flash2_fwd": 0, "flash_probe_dots": 0,
-            "flash_probe_stream": 0}
+            "flash_probe_stream": 0, "filtered_gemm": 0}
 
 _LIBS = {}
 
@@ -48,10 +48,13 @@ _SIGNATURES = {
         # planes_per_block, act, stream
         "filtered_act_plane_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _P],
-        # x, out, uh, uwT, dh, dwT, nplanes, H, W, band_rows, acc_in_smem,
-        # act, stream
-        "filtered_act_banded_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _P],
+        # x, out, scratch, uwT, uhT, dwT, dhT, nplanes (of the chunk), H, W,
+        # tile codes, act, stream
+        "filtered_act_banded_f32": [*[_P] * 7, _I, _I, _I, _I, _I, _P],
+        # A, lda, sA, a_kmajor, B, ldb, sB, C, ldc, sC, batch, M, N, K,
+        # small, act, stream
+        "filtered_gemm_f32": [_P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I, _I,
+                              _I, _I, _I, _I, _P],
         # x, g, dx, uh, uwT, dhT, dw, uw, uhT, nplanes, H, W, band_rows,
         # acc_in_smem, act, stream
         "filtered_act_banded_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

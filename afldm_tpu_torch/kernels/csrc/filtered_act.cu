@@ -25,8 +25,9 @@
 // 67 TFLOP/s ÷ 3.35 TB/s ≈ 20. Without tensor cores (exact f32 is the
 // parity default) the ceiling is the f32 FMA rate.
 //
-// What the design does about it: the 2H×2W intermediate never leaves the
-// SM, so device memory sees each input and output once. The TPU's
+// What the design does about it: in K5, K5b and K2 the 2H×2W intermediate
+// never leaves the SM, so device memory sees each input and output once; K1
+// trades that for a grid that fills the card (below). The TPU's
 // lane-multiple-of-128 and 10 MB VMEM rules do not apply here: the limit is
 // the 227 KB of shared memory of a block.
 //   * plane (H, W <= 64, K5): one block holds P whole planes and every
@@ -44,17 +45,26 @@
 //     (ops/filtered_act.py::plane_plan): small planes are packed P to a
 //     block so that every thread holds a full micro-tile, within two blocks
 //     to an SM and a grid of at least one wave.
-//   * K5b, K1 and K2 run block_gemm: each thread keeps a 4×4 register tile
-//     of its product, so one pair of operand loads feeds 16 FMAs.
-//   * banded (every H, W % 4 == 0 with max(H, W) > 64): at 128 px the 2x
-//     plane alone is 256 KB, over the limit. The 2H intermediate rows are
-//     walked in bands of R rows (the wrapper takes the largest R in
-//     {32, 16, 8, 4} dividing 2H whose block fits in 227 KB):
-//       u = U_h[r,:]·x ;  h = act(u·U_wᵀ) ;  t = h·D_wᵀ ;  acc += D_h[:,r]·t
-//     so only R×3W floats of intermediate live in shared memory. The H×W
-//     accumulator stays in shared memory up to 64 KB (128 px); above that it
-//     accumulates in the output plane itself, which only this block touches.
-//     x is read from device memory (L1/L2-resident) once per band.
+//   * K5b and K2 run block_gemm: each thread keeps a 4×4 register tile of
+//     its product, so one pair of operand loads feeds 16 FMAs.
+//   * banded (every H, W % 4 == 0 with max(H, W) > 64, K1): at 128 px the 2x
+//     plane alone is 256 KB, over the limit, and one block a plane left
+//     most of the 132 SMs idle (16 planes at 1024 px). K1 no longer walks
+//     bands: a chunk of P planes runs as four launches of one tiled GEMM
+//     (filtered_gemm.cuh), x viewed as (P·H) × W:
+//       t = x · U_wᵀ              one GEMM, (P·H) × 2W, depth W
+//       hi[p] = act(U_h · t[p])   batched over P, 2H × 2W, depth H
+//       lo = hi · D_wᵀ            one GEMM, (P·2H) × W, depth 2W
+//       out[p] = D_h · lo[p]      batched over P, H × W, depth 2H
+//     Each block owns one output tile of one product over its full depth,
+//     so the grid grows with the plane's area and no block sums into
+//     another's output. The price is the intermediates in device memory:
+//     t, lo (2·H·W floats a plane, one buffer) and hi (4·H·W), written and
+//     read once, 64·H·W bytes a plane against 24·S³ FLOP, 0.375·S FLOP a
+//     byte (48 at 128 px): still above the ridge, so the products bound it.
+//     The wrapper chunks the planes so that one chunk's scratch stays under
+//     a cap and picks each product's block tile (ops/filtered_act.py::
+//     banded_plan).
 //   * plane backward (H, W <= 64, K5b): six products per plane, 12H²W + 24HW²
 //     FLOP (36·S³, 1.5x the forward), again arithmetic-bound. Like the JAX
 //     rule it saves x, not the 4x pre-activation, and recomputes it. One
@@ -63,23 +73,25 @@
 //     is formed in the epilogue of the last product of g's chain, in place
 //     over the pre-activation, so the 2x cotangent is never stored: 28 KB a
 //     plane at 32 px, 112 KB at 64 px (one plane a block).
-//   * banded backward (the forward's sizes): the same six products, 12H²W + 24HW²
-//     FLOP. The TPU kernel holds the 2H×2W pre-activation and cotangent of
-//     a whole plane in VMEM (512 KB at 128 px); here the 2H rows are walked
-//     in bands of R, as in the banded forward:
+//   * banded backward (the forward's sizes, K2): the same six products,
+//     12H²W + 24HW² FLOP. The TPU kernel holds the 2H×2W pre-activation and
+//     cotangent of a whole plane in VMEM (512 KB at 128 px); here one block
+//     a plane walks the 2H rows in bands of R (the largest of 32, 16, 8, 4
+//     dividing 2H whose block fits in 227 KB):
 //       u = U_h[r,:]·x ;  pre = u·U_wᵀ ;  v = D_hᵀ[r,:]·g ;
 //       m = act′(pre) ⊙ (v·D_w) ;  t = m·U_w ;  dx += U_hᵀ[:,r]·t
 //     u, v and t share one R×W buffer and pre/m one R×2W buffer (m formed
 //     in the epilogue of v·D_w, in place over pre), so a band costs 3·R·W
-//     floats, 48 KB at 128 px with R = 32; the H×W accumulator follows the
-//     forward's rule (shared memory up to 64 KB, else the block's dx plane).
-// K5b, K1 and K2 read their operators through the read-only path from device
+//     floats, 48 KB at 128 px with R = 32; the H×W accumulator stays in
+//     shared memory up to 64 KB (128 px), else in the block's dx plane.
+// K5b and K2 read their operators through the read-only path from device
 // memory; every block reads the same few KB, which stay in L2 and L1.
 // Making it fast (tensor-core TF32 splits, wgmma, TMA) is later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "filtered_gemm.cuh"
 #include "filtered_tile.cuh"
 
 namespace {
@@ -342,42 +354,6 @@ filtered_act_plane_bwd_kernel(const float* __restrict__ x,
                     2 * H, NONE);
 }
 
-__global__ void __launch_bounds__(kThreads)
-filtered_act_banded_kernel(const float* __restrict__ x, float* __restrict__ out,
-                           const float* __restrict__ uh,
-                           const float* __restrict__ uwT,
-                           const float* __restrict__ dh,
-                           const float* __restrict__ dwT,
-                           int H, int W, int R, int acc_in_smem, int act) {
-  extern __shared__ float smem[];
-  const long long HW = (long long)H * W;
-  const float* xp = x + blockIdx.x * HW;
-  float* op = out + blockIdx.x * HW;
-  float* u = smem;                  // R × W, reused for t
-  float* hb = smem + R * W;         // R × 2W
-  float* acc = acc_in_smem ? hb + 2 * R * W : op;  // H × W
-  for (long long i = threadIdx.x; i < HW; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  for (int r0 = 0; r0 < 2 * H; r0 += R) {
-    // u = U_h[r0:r0+R, :] · x        (R × W)
-    block_gemm<STORE>(uh + (long long)r0 * H, H, 0, xp, W, 0, u, W, 0, 1, R,
-                      W, H, NONE);
-    __syncthreads();
-    // hb = act(u · U_wᵀ)             (R × 2W)
-    block_gemm<STORE>(u, W, 0, uwT, 2 * W, 0, hb, 2 * W, 0, 1, R, 2 * W, W,
-                      act);
-    __syncthreads();
-    // u = hb · D_wᵀ                  (R × W)
-    block_gemm<STORE>(hb, 2 * W, 0, dwT, W, 0, u, W, 0, 1, R, W, 2 * W, NONE);
-    __syncthreads();
-    // acc += D_h[:, r0:r0+R] · u     (H × W)
-    block_gemm<ACCUM>(dh + r0, 2 * H, 0, u, W, 0, acc, W, 0, 1, H, W, R, NONE);
-    __syncthreads();
-  }
-  if (acc_in_smem)
-    for (long long i = threadIdx.x; i < HW; i += blockDim.x) op[i] = acc[i];
-}
-
 // dx for one plane above 64 px a block, the 2H rows walked in bands of R.
 // Operators as for filtered_act_plane_bwd_kernel.
 __global__ void __launch_bounds__(kThreads)
@@ -488,20 +464,64 @@ extern "C" int filtered_act_plane_bwd_f32(
   return (int)cudaGetLastError();
 }
 
+// out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ for P planes (one chunk), as four
+// launches of the tiled GEMM; scratch holds 6·H·W floats a plane: t and
+// then lo (2·H·W a plane), then hi (4·H·W). Bit i of ``tiles`` set gives
+// product i + 1 the 64×64 block tile. Operators, row-major as stored:
+// uwT = U_wᵀ (W×2W), uhT = U_hᵀ (H×2H), dwT = D_wᵀ (2W×W), dhT = D_hᵀ (2H×H).
 extern "C" int filtered_act_banded_f32(const float* x, float* out,
-                                       const float* uh, const float* uwT,
-                                       const float* dh, const float* dwT,
-                                       int nplanes, int H, int W, int R,
-                                       int acc_in_smem, int act,
+                                       float* scratch, const float* uwT,
+                                       const float* uhT, const float* dwT,
+                                       const float* dhT, int nplanes, int H,
+                                       int W, int tiles, int act,
                                        void* stream) {
-  const size_t smem =
-      ((size_t)3 * R * W + (acc_in_smem ? (size_t)H * W : 0)) * sizeof(float);
-  int err = set_smem((const void*)filtered_act_banded_kernel, smem);
-  if (err != cudaSuccess) return err;
-  filtered_act_banded_kernel<<<nplanes, kThreads, smem,
-                               (cudaStream_t)stream>>>(
-      x, out, uh, uwT, dh, dwT, H, W, R, acc_in_smem, act);
-  return (int)cudaGetLastError();
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::filtered_gemm;
+  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long P = nplanes, HW = (long long)H * W;
+  float* t = scratch;           // P × (H × 2W), then lo: P × (2H × W)
+  float* hi = scratch + 2 * HW * P;  // P × (2H × 2W)
+  // t = x · U_wᵀ, x viewed as (P·H) × W
+  int err = filtered_gemm<false>(
+      tiles & 1, GemmArgs{x, W, 0, uwT, 2 * W, 0, t, 2 * W, 0,
+                          (int)(P * H), 2 * W, W},
+      1, Identity{}, s);
+  if (err) return err;
+  // hi[p] = act(U_h · t[p]), U_h from its k-major form U_hᵀ
+  err = filtered_gemm<true>(
+      (tiles >> 1) & 1, GemmArgs{uhT, 2 * H, 0, t, 2 * W, 2 * HW, hi, 2 * W,
+                                 4 * HW, 2 * H, 2 * W, H},
+      nplanes, Activation{act}, s);
+  if (err) return err;
+  // lo = hi · D_wᵀ, hi viewed as (P·2H) × 2W; over t
+  err = filtered_gemm<false>(
+      (tiles >> 2) & 1, GemmArgs{hi, 2 * W, 0, dwT, W, 0, t, W, 0,
+                                 (int)(P * 2 * H), W, 2 * W},
+      1, Identity{}, s);
+  if (err) return err;
+  // out[p] = D_h · lo[p], D_h from its k-major form D_hᵀ
+  return filtered_gemm<true>(
+      (tiles >> 3) & 1, GemmArgs{dhT, H, 0, t, W, 2 * HW, out, W, HW, H, W,
+                                 2 * H},
+      nplanes, Identity{}, s);
+}
+
+// One launch of the tiled GEMM alone, C[b] = act(A[b] · B[b]) (act -1: the
+// identity), A row-major or k-major: its card tests' entry.
+extern "C" int filtered_gemm_f32(const float* A, long long lda,
+                                 long long sA, int a_kmajor, const float* B,
+                                 long long ldb, long long sB, float* C,
+                                 long long ldc, long long sC, int batch,
+                                 int M, int N, int K, int small, int act,
+                                 void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::filtered_gemm;
+  const GemmArgs g{A, lda, sA, B, ldb, sB, C, ldc, sC, M, N, K};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (a_kmajor)
+    return filtered_gemm<true>(small, g, batch, Activation{act}, s);
+  return filtered_gemm<false>(small, g, batch, Activation{act}, s);
 }
 
 extern "C" int filtered_act_banded_bwd_f32(

@@ -1,0 +1,223 @@
+// The batched, shared-memory-tiled f32 GEMM of the banded filtered
+// activation (filtered_act.cu, K1):
+//
+//   C[b] = epi(A[b] · B[b])          for b < batch
+//
+// A is M×K, B K×N and C M×N, f32, with a row stride and a batch stride each
+// (batch stride 0: one operand shared by every b). A arrives row-major, or
+// k-major (stored K×M, its row stride the step between k rows) where it is a
+// shared operator the host keeps transposed. M, N and K are multiples of 4;
+// the edges need not be multiples of the block tile: loads past an edge
+// fill zeros and stores past it are dropped.
+//
+// The classic design for this card's shared memory and registers. A block
+// of 256 threads owns one BM×BN tile of C (128×128, or 64×64 for a launch
+// that would fall short of a wave; the wrapper's plan chooses) over the
+// full depth K, so no two blocks write one element and nothing is reduced
+// across blocks. K is walked in slabs of 16: A's slab is stored k-major and
+// B's row-major in shared memory, double-buffered, with the next slab's
+// copy in flight during the current slab's products. B and a k-major A go
+// through 16-byte cp.async; cp.async cannot transpose, so a row-major A is
+// read into registers as float4 along k before the products and stored
+// k-major after them. Each thread keeps a TM×TN register micro-tile (8×8,
+// or 4×4 in the 64×64 tile) of rows {64·g + 4·ty + i} and columns
+// {64·g + 4·tx + j}: at each k it reads TM/4 float4 of A and TN/4 of B for
+// TM·TN FMAs (16 FMAs per float4 read at 8×8). A warp spans 4 ty × 8 tx, so
+// a float4 phase of 8 lanes reads one 128-byte run of a B row and one
+// same-address chunk of A.
+//
+// The arithmetic is exact f32 FMA, k ascending; no TF32, no tensor cores.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "filtered_tile.cuh"
+
+namespace afldm_filtered {
+
+// 16-byte cp.async that fills zeros in place of reading where !valid (src
+// must still be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
+                                                 bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+struct GemmArgs {
+  const float* A;
+  long long lda, sA;
+  const float* B;
+  long long ldb, sB;
+  float* C;
+  long long ldc, sC;
+  int M, N, K;
+};
+
+constexpr int kGemmThreads = 256;
+constexpr int kGemmBK = 16;
+
+template <int BM, int BN, bool A_KMAJOR, class Epi>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+filtered_gemm_kernel(GemmArgs g, Epi epi) {
+  constexpr int BK = kGemmBK, T = kGemmThreads;
+  constexpr int TM = BM / 16, TN = BN / 16;  // 16×16 threads
+  constexpr int A_LOADS = BM * BK / 4 / T, B_LOADS = BN * BK / 4 / T;
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 micro-tiles");
+  static_assert(A_LOADS >= 1 && B_LOADS >= 1, "one float4 a thread");
+  __shared__ __align__(16) float As[2][BK][BM];
+  __shared__ __align__(16) float Bs[2][BK][BN];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = (warp & 1) * 8 + (lane & 7);    // along N
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // along M
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const long long b = blockIdx.z;
+  const float* A = g.A + b * g.sA;
+  const float* B = g.B + b * g.sB;
+  float* C = g.C + b * g.sC;
+  const int M = g.M, N = g.N, K = g.K;
+
+  // B's slab: BK rows of BN columns, 16-byte chunks along N
+  auto load_b = [&](int buf, int k0) {
+#pragma unroll
+    for (int i = 0; i < B_LOADS; ++i) {
+      const int idx = tid + i * T, kk = idx / (BN / 4), c = 4 * (idx % (BN / 4));
+      const int k = k0 + kk, n = n0 + c;
+      const bool ok = k < K && n < N;
+      cp_async16_zfill(&Bs[buf][kk][c], ok ? B + k * g.ldb + n : B, ok);
+    }
+  };
+  // a k-major A's slab: the same along M
+  auto load_a_kmajor = [&](int buf, int k0) {
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      const int idx = tid + i * T, kk = idx / (BM / 4), c = 4 * (idx % (BM / 4));
+      const int k = k0 + kk, m = m0 + c;
+      const bool ok = k < K && m < M;
+      cp_async16_zfill(&As[buf][kk][c], ok ? A + k * g.lda + m : A, ok);
+    }
+  };
+  // a row-major A's slab, into registers: lane-consecutive rows, a float4
+  // along k each, so that the k-major store below is conflict-free
+  float4 a_reg[A_LOADS];
+  auto fetch_a_rows = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      const int idx = tid + i * T, r = idx % BM, k = k0 + 4 * (idx / BM);
+      const int m = m0 + r;
+      a_reg[i] = m < M && k < K
+                     ? *reinterpret_cast<const float4*>(A + m * g.lda + k)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  auto store_a_rows = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      const int idx = tid + i * T, r = idx % BM, kk = 4 * (idx / BM);
+      As[buf][kk][r] = a_reg[i].x;
+      As[buf][kk + 1][r] = a_reg[i].y;
+      As[buf][kk + 2][r] = a_reg[i].z;
+      As[buf][kk + 3][r] = a_reg[i].w;
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  if (A_KMAJOR) {
+    load_a_kmajor(0, 0);
+  } else {
+    fetch_a_rows(0);
+    store_a_rows(0);
+  }
+  load_b(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int nk = (K + BK - 1) / BK;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < nk;
+    if (more) {  // the next slab in flight into the other buffer
+      if (A_KMAJOR)
+        load_a_kmajor(cur ^ 1, (kt + 1) * BK);
+      else
+        fetch_a_rows((kt + 1) * BK);
+      load_b(cur ^ 1, (kt + 1) * BK);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&As[cur][kk][64 * q + 4 * ty]);
+        av[4 * q] = v.x;
+        av[4 * q + 1] = v.y;
+        av[4 * q + 2] = v.z;
+        av[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&Bs[cur][kk][64 * q + 4 * tx]);
+        bv[4 * q] = v.x;
+        bv[4 * q + 1] = v.y;
+        bv[4 * q + 2] = v.z;
+        bv[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) {
+      if (!A_KMAJOR) store_a_rows(cur ^ 1);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + 64 * (i / 4) + 4 * ty + i % 4;
+    if (m >= M) continue;
+#pragma unroll
+    for (int q = 0; q < TN / 4; ++q) {
+      const int n = n0 + 64 * q + 4 * tx;
+      if (n >= N) continue;  // N % 4 == 0: a chunk is all in or all out
+      *reinterpret_cast<float4*>(C + (long long)m * g.ldc + n) =
+          make_float4(epi(acc[i][4 * q]), epi(acc[i][4 * q + 1]),
+                      epi(acc[i][4 * q + 2]), epi(acc[i][4 * q + 3]));
+    }
+  }
+}
+
+// Launches C[b] = epi(A[b] · B[b]) for b < batch on ``stream``, in 64×64
+// block tiles where ``small``, else 128×128. Returns the launch's CUDA
+// error.
+template <bool A_KMAJOR, class Epi>
+int filtered_gemm(bool small, const GemmArgs& g, int batch, Epi epi,
+                  cudaStream_t stream) {
+  if (g.M % 4 || g.N % 4 || g.K % 4 || g.lda % 4 || g.ldb % 4 || g.ldc % 4 ||
+      g.sA % 4 || g.sB % 4 || g.sC % 4 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int bm = small ? 64 : 128;
+  const dim3 grid((g.N + bm - 1) / bm, (g.M + bm - 1) / bm, batch);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  if (small)
+    filtered_gemm_kernel<64, 64, A_KMAJOR, Epi>
+        <<<grid, kGemmThreads, 0, stream>>>(g, epi);
+  else
+    filtered_gemm_kernel<128, 128, A_KMAJOR, Epi>
+        <<<grid, kGemmThreads, 0, stream>>>(g, epi);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace afldm_filtered

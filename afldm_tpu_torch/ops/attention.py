@@ -90,7 +90,8 @@ def flash_fwd(q, k, v, scale=None):
     On the card, q/k/v are read through their strides; the only layout rule
     is a unit stride along D (a tensor without one is copied). A K/V batch
     expanded from 1 (``expand``, stride 0) is passed with batch stride 0 and
-    never copied."""
+    never copied. Inputs with no rows (batch or Lq 0) return empty outputs
+    without a launch."""
     if q.device.type == "cpu":
         return _attention_plain(q, k, v, scale)
     if scale is None:
@@ -107,11 +108,14 @@ def flash_fwd(q, k, v, scale=None):
     B1, B2, Lq, D = q4.shape
     Lk = k4.shape[2]
     if (k4.shape[:2] != (B1, B2) or v4.shape != k4.shape
-            or k4.shape[3] != D or D > FLASH_MAX_D or Lk == 0 or Lq == 0):
+            or k4.shape[3] != D or D > FLASH_MAX_D
+            or (Lk == 0 and B1 * B2 * Lq)):
         raise ValueError(f"flash_fwd: unsupported shapes {tuple(q.shape)} x "
                          f"{tuple(k.shape)} x {tuple(v.shape)}")
     out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
     lse = torch.empty((B1, B2, Lq, 1), device=q.device, dtype=torch.float32)
+    if out.numel() == 0:  # no rows: nothing to launch
+        return out.reshape(lead + (Lq, D)), lse.reshape(lead + (Lq, 1))
     strides = [s for t in (q4, k4, v4) for s in t.stride()[:3]]
     err = kernels.library("flash_fwd").flash_fwd_f32(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
@@ -136,7 +140,7 @@ def _bwd_launch_args(q, k, v, do, lse, delta, name):
     if (k4.shape[:2] != (B1, B2) or v4.shape != k4.shape
             or k4.shape[3] != D or do4.shape != q4.shape
             or lse.numel() != B1 * B2 * Lq or delta.numel() != B1 * B2 * Lq
-            or D > FLASH_MAX_D or Lk == 0 or Lq == 0):
+            or D > FLASH_MAX_D or (Lk == 0 and B1 * B2 * Lq)):
         raise ValueError(f"{name}: unsupported shapes {tuple(q.shape)} x "
                          f"{tuple(k.shape)} x {tuple(v.shape)}")
     lse, delta = lse.contiguous(), delta.contiguous()
@@ -157,6 +161,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale=None):
                                            "flash_bwd_dq")
     B1, B2, Lq, Lk, D = dims
     dq = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    if dq.numel() == 0:  # no rows: nothing to launch
+        return dq.reshape(q.shape)
     err = kernels.library("flash_bwd").flash_bwd_dq_f32(
         *ptrs, dq.data_ptr(), *dims, *strides, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -176,6 +182,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None):
     ptrs, dims, strides = _bwd_launch_args(q, k, v, do, lse, delta,
                                            "flash_bwd_dkv")
     B1, B2, Lq, Lk, D = dims
+    if B1 * B2 * Lq * Lk == 0:  # no rows: zero sums, nothing to launch
+        dk, dv = (torch.zeros((B1, B2, Lk, D), device=q.device,
+                              dtype=torch.float32) for _ in range(2))
+        return dk.reshape(k.shape), dv.reshape(v.shape)
     dk, dv = (torch.empty((B1, B2, Lk, D), device=q.device,
                           dtype=torch.float32) for _ in range(2))
     err = kernels.library("flash_bwd").flash_bwd_dkv_f32(
@@ -274,11 +284,13 @@ def flash2_fwd(q, k0, v0, k1, v1, alpha, scale=None):
     B1, B2, Lq, D = ts[0].shape
     Lk = ts[1].shape[2]
     if (any(t.shape != (B1, B2, Lk, D) for t in ts[1:]) or D > FLASH_MAX_D
-            or Lk == 0 or Lq == 0):
+            or (Lk == 0 and B1 * B2 * Lq)):
         raise ValueError(f"flash2_fwd: unsupported shapes {tuple(q.shape)} "
                          f"x {[tuple(t.shape) for t in kvs]}")
-    a = _alpha_per_lead(alpha, lead, q.device).contiguous()
     out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    if out.numel() == 0:  # no rows: nothing to launch
+        return out.reshape(lead + (Lq, D))
+    a = _alpha_per_lead(alpha, lead, q.device).contiguous()
     strides = [s for t in ts for s in t.stride()[:3]]
     err = kernels.library("flash2_fwd").flash2_fwd_f32(
         *(t.data_ptr() for t in ts), a.data_ptr(), out.data_ptr(), B1, B2,

@@ -9,19 +9,22 @@ float32 on the card.
   of the kernel inside ``pallas_kernels.py::_bwd_rule``), which recomputes
   the pre-activation from the saved x rather than storing the 4x
   intermediate.
-- ``filtered_act_banded``: the 2x intermediate walked in row bands,
-  every H, W % 4 == 0 with max(H, W) > 64 (counterpart of
-  ``pallas_kernels.py::_forward_spatial``);
-  differentiable, its backward is ``filtered_act_banded_bwd`` (counterpart
-  of ``pallas_kernels.py::_bwd_spatial``), which walks the same bands and
-  recomputes the pre-activation from the saved x.
+- ``filtered_act_banded``: every H, W % 4 == 0 with max(H, W) > 64
+  (counterpart of ``pallas_kernels.py::_forward_spatial``), a chunk of
+  planes at a time as four launches of one tiled GEMM kernel, the 2x
+  intermediates in device scratch (``banded_plan`` chunks the planes and
+  picks each product's block tile); differentiable, its backward is
+  ``filtered_act_banded_bwd`` (counterpart of
+  ``pallas_kernels.py::_bwd_spatial``), one block a plane walking the 2x
+  rows in bands, which recomputes the pre-activation from the saved x.
 - ``filtered_act_plain``: ``D_h act(U_h x U_w^T) D_w^T`` with
   ``torch.matmul``, the function both forward kernels compute;
   ``filtered_act_plane_bwd_plain`` the VJP's six products, the plain
   version of both backward kernels.
 
 A wrapper given a CPU tensor returns the plain version; given a CUDA tensor
-it launches its kernel or raises. There is no fallback between them.
+it launches its kernel or raises. There is no fallback between them. A
+CUDA tensor of 0 planes returns its empty result without a launch.
 """
 
 import functools
@@ -38,10 +41,16 @@ ACT_CODES = {"silu": 0, "swish": 0, "gelu": 1, "relu": 2, "mish": 3,
              "leaky_relu": 4, "tanh": 5, "linear": 6}
 
 # the plane kernels take H, W % 4 == 0 up to this; the banded kernels every
-# H, W % 4 == 0 above it, in bands of rows chosen from H and W (band_rows)
+# H, W % 4 == 0 above it (the backward in bands of rows chosen from H and W,
+# band_rows)
 PLANE_MAX = 64
-# the banded kernel keeps its H x W accumulator in shared memory up to this
+# the banded backward keeps its H x W accumulator in shared memory up to this
 ACC_SMEM_MAX_BYTES = 64 * 1024
+# the banded forward's scratch for one chunk of planes (6·H·W floats a
+# plane) stays under this, or holds one plane. On an H100 256 MB ran the
+# path's shapes 1.58× quicker than 32 MB, which fits the 50 MB L2 but cuts
+# the GEMMs' grids into a wave or two of blocks (PERF.md §6)
+BANDED_SCRATCH_BYTES = 256 * 2 ** 20
 # the shared memory one block may use on Hopper (227 KB)
 SMEM_MAX_BYTES = 232448
 
@@ -232,7 +241,10 @@ def plane_plan(H: int, W: int, nplanes: int) -> PlanePlan:
     block's threads busy (half of them for a product K5_DEEP deep or more),
     else 4×4. The model, the rule and both constants were fitted to timings
     of every block size, P and micro-tile at the models' plane sizes on an
-    H100 (``scripts/plane_sweep.py``; PERF.md §6)."""
+    H100 (``scripts/plane_sweep.py``; PERF.md §6). 0 planes get the
+    one-plane plan (the wrapper launches nothing for them)."""
+    if nplanes == 0:
+        return plane_plan(H, W, 1)
     # the largest P with ceil(nplanes / P) >= NUM_SMS, or 1
     grid = max(1, -(-nplanes // (NUM_SMS - 1)) - 1)
     best = None
@@ -266,6 +278,8 @@ def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     _, uwT, _, dwT = _kernel_ops(H, W, x.device)
     dhT, _, _, uhT = _kernel_bwd_ops(H, W, x.device)
     nplanes = x.shape[0] * x.shape[1]
+    if nplanes == 0:
+        return out
     plan = plane_plan(H, W, nplanes)
     err = kernels.library("filtered_act").filtered_act_plane_f32(
         x.data_ptr(), out.data_ptr(), uhT.data_ptr(), uwT.data_ptr(),
@@ -297,6 +311,8 @@ def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
         return filtered_act_plane_bwd_plain(x, g, act)
     args, nplanes, stream = _bwd_launch_args(
         x, g, act, False, "filtered_act_plane_bwd")
+    if nplanes == 0:
+        return args[2]
     H, W = x.shape[-2:]
     err = kernels.library("filtered_act").filtered_act_plane_bwd_f32(
         *(t.data_ptr() for t in args), nplanes, H, W,
@@ -328,6 +344,161 @@ def filtered_act_plane(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return _FilteredActPlane.apply(x, act)
 
 
+# -- the banded forward (K1): a chain of four launches of one tiled GEMM ---
+
+# the tiled GEMM's block tile sides, by the kernel's bit for a product
+# (filtered_gemm.cuh): 128×128, or 64×64 for a launch short of a wave
+GEMM_TILES = (128, 64)
+
+
+def banded_products(H: int, W: int, planes: int) -> tuple:
+    """(M, N, K, batch) of the banded forward's four GEMMs for a chunk of
+    ``planes`` planes: t = x·U_wᵀ, hi = act(U_h·t), lo = hi·D_wᵀ and
+    out = D_h·lo."""
+    return ((planes * H, 2 * W, W, 1), (2 * H, 2 * W, H, planes),
+            (planes * 2 * H, W, 2 * W, 1), (H, W, 2 * H, planes))
+
+
+def banded_scratch_bytes(H: int, W: int, planes: int) -> int:
+    """The chain's scratch for a chunk: t and then lo (2·H·W floats a
+    plane, one buffer) and hi (4·H·W)."""
+    return 4 * 6 * H * W * planes
+
+
+def gemm_blocks(M: int, N: int, batch: int, tile: int) -> int:
+    """Blocks of a GEMM launch in ``tile`` × ``tile`` block tiles."""
+    return -(-M // tile) * -(-N // tile) * batch
+
+
+class BandedChunk(NamedTuple):
+    """One call of the banded forward's C entry: planes ``start`` to
+    ``start + planes`` and each product's block tile side."""
+    start: int
+    planes: int
+    tiles: tuple
+
+    @property
+    def tile_codes(self) -> int:
+        """The C entry's ``tiles`` argument: bit i set gives product i + 1
+        the 64×64 tile."""
+        return sum(GEMM_TILES.index(t) << i for i, t in enumerate(self.tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def banded_plan(H: int, W: int, nplanes: int, cap: int) -> tuple:
+    """The banded forward's chunks (``BandedChunk``), in order, covering
+    every plane once: as few chunks as keep each chunk's scratch within
+    ``cap`` bytes (at least one plane a chunk, whatever its size), their
+    plane counts within one of each other. Each product takes the 128×128
+    tile unless that gives a grid short of a wave of NUM_SMS blocks, then
+    the 64×64 tile. No chunks for 0 planes."""
+    if nplanes == 0:
+        return ()
+    per = max(1, cap // banded_scratch_bytes(H, W, 1))
+    n = -(-nplanes // per)
+    base, extra = divmod(nplanes, n)
+    chunks, start = [], 0
+    for i in range(n):
+        planes = base + (i < extra)
+        tiles = tuple(
+            GEMM_TILES[0] if gemm_blocks(M, N, b, GEMM_TILES[0]) >= NUM_SMS
+            else GEMM_TILES[1]
+            for M, N, _, b in banded_products(H, W, planes))
+        chunks.append(BandedChunk(start, planes, tiles))
+        start += planes
+    return tuple(chunks)
+
+
+def _banded_ops(H: int, W: int, device) -> tuple:
+    """(U_wᵀ, U_hᵀ, D_wᵀ, D_hᵀ): the chain's operators, the H-side ones in
+    the k-major forms its batched products read."""
+    _, uwT, _, dwT = _kernel_ops(H, W, device)
+    dhT, _, _, uhT = _kernel_bwd_ops(H, W, device)
+    return uwT, uhT, dwT, dhT
+
+
+def _banded_entry(x, out, scratch, ops, chunk, act):
+    """One chunk through the C entry ``filtered_act_banded_f32``: the four
+    GEMM launches on the current stream. x, out: the chunk's (P, H, W)
+    planes, contiguous."""
+    H, W = x.shape[-2:]
+    err = kernels.library("filtered_act").filtered_act_banded_f32(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
+        ACT_CODES[act], torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "filtered_act_banded")
+
+
+def _banded_entry_plain(x, out, scratch, ops, chunk, act):
+    """``_banded_entry``'s four products with ``torch.matmul``, on the same
+    scratch offsets and operator layouts as the C entry (U_h and D_h read
+    from their k-major forms): the chain's bookkeeping without the card."""
+    uwT, uhT, dwT, dhT = ops
+    P, (H, W) = chunk.planes, x.shape[-2:]
+    t = scratch[:2 * H * W * P]           # t, then lo
+    hi = scratch[2 * H * W * P:6 * H * W * P]
+    t.view(P * H, 2 * W).copy_(x.reshape(P * H, W) @ uwT)
+    hi.view(P, 2 * H, 2 * W).copy_(
+        _ACTS[act](uhT.T @ t.view(P, H, 2 * W)))
+    t.view(P * 2 * H, W).copy_(hi.view(P * 2 * H, 2 * W) @ dwT)
+    out.copy_(dhT.T @ t.view(P, 2 * H, W))
+
+
+def _banded_chain(x: torch.Tensor, act: str, entry) -> torch.Tensor:
+    """x (NCHW, contiguous) through the banded forward's chunks, each by
+    ``entry`` (``_banded_entry`` on the card), with one scratch buffer for
+    the largest chunk."""
+    H, W = x.shape[-2:]
+    out = torch.empty_like(x)
+    xs, outs = x.view(-1, H, W), out.view(-1, H, W)
+    plan = banded_plan(H, W, xs.shape[0], BANDED_SCRATCH_BYTES)
+    if not plan:
+        return out
+    ops = _banded_ops(H, W, x.device)
+    scratch = torch.empty(
+        banded_scratch_bytes(H, W, max(c.planes for c in plan)) // 4,
+        device=x.device, dtype=torch.float32)
+    for c in plan:
+        rows = slice(c.start, c.start + c.planes)
+        entry(xs[rows], outs[rows], scratch, ops, c, act)
+    return out
+
+
+def filtered_gemm_plain(a: torch.Tensor, b: torch.Tensor, act=None,
+                        a_kmajor: bool = False) -> torch.Tensor:
+    """The plain version of ``filtered_gemm``: act(A · B) with
+    ``torch.matmul``, A = aᵀ where ``a_kmajor``."""
+    out = torch.matmul(a.transpose(-1, -2) if a_kmajor else a, b)
+    return out if act is None else _ACTS[act](out)
+
+
+def filtered_gemm(a: torch.Tensor, b: torch.Tensor, act=None,
+                  a_kmajor: bool = False, small: bool = False):
+    """C[i] = act(A[i] · B[i]) through the banded forward's tiled GEMM
+    kernel alone, in the 64×64 block tile where ``small`` (its card tests'
+    entry). a: (batch, M, K), or (batch, K, M) where ``a_kmajor``; b:
+    (batch, K, N); float32, unit stride along the last dim, any batch
+    stride (0: expanded from one matrix); M, N, K multiples of 4."""
+    if a.device.type == "cpu":
+        return filtered_gemm_plain(a, b, act, a_kmajor)
+    if a.ndim != 3 or b.ndim != 3 or a.stride(-1) != 1 or b.stride(-1) != 1:
+        raise ValueError("filtered_gemm: 3D operands with a unit last "
+                         "stride only")
+    batch, K, N = b.shape
+    M = a.shape[2] if a_kmajor else a.shape[1]
+    out = torch.empty((batch, M, N), device=a.device, dtype=torch.float32)
+    err = kernels.library("filtered_act").filtered_gemm_f32(
+        a.data_ptr(), a.stride(1), a.stride(0), int(a_kmajor), b.data_ptr(),
+        b.stride(1), b.stride(0), out.data_ptr(), N, M * N, batch, M, N, K,
+        int(small), -1 if act is None else ACT_CODES[act],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    kernels.check(err, "filtered_gemm")
+    kernels.LAUNCHES["filtered_gemm"] += 1
+    return out
+
+
+# -- the banded backward (K2) -------------------------------------------------
+
 def _acc_in_smem(H: int, W: int) -> bool:
     return H * W * 4 <= ACC_SMEM_MAX_BYTES
 
@@ -356,14 +527,12 @@ def _banded_forward(x: torch.Tensor, act: str) -> torch.Tensor:
         # the JAX package's chain: matmul up to 512 px, spectral above
         return filtered_nonlinearity(x, act)
     _check(x, act, True, "filtered_act_banded")
-    H, W = x.shape[-2:]
-    R = band_rows(H, W)
-    x, out, ops, nplanes, stream = _launch_args(x)
-    err = kernels.library("filtered_act").filtered_act_banded_f32(
-        x.data_ptr(), out.data_ptr(), *(o.data_ptr() for o in ops),
-        nplanes, H, W, R, int(_acc_in_smem(H, W)), ACT_CODES[act], stream)
-    kernels.check(err, "filtered_act_banded")
-    kernels.LAUNCHES["filtered_act_banded"] += 1
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the GEMM reads x in 16-byte chunks
+        x = x.clone()
+    out = _banded_chain(x, act, _banded_entry)
+    if out.numel():
+        kernels.LAUNCHES["filtered_act_banded"] += 1
     return out
 
 
@@ -374,6 +543,8 @@ def filtered_act_banded_bwd(x: torch.Tensor, g: torch.Tensor,
         return filtered_act_plane_bwd_plain(x, g, act)
     args, nplanes, stream = _bwd_launch_args(
         x, g, act, True, "filtered_act_banded_bwd")
+    if nplanes == 0:
+        return args[2]
     H, W = x.shape[-2:]
     R = band_rows(H, W)
     err = kernels.library("filtered_act").filtered_act_banded_bwd_f32(
@@ -401,8 +572,8 @@ class _FilteredActBanded(torch.autograd.Function):
 
 
 def filtered_act_banded(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Kernel for planes with max(H, W) above 64 px (H, W % 4 == 0), one
-    block per plane, differentiable through ``filtered_act_banded_bwd``."""
+    """Kernel chain for planes with max(H, W) above 64 px (H, W % 4 == 0),
+    differentiable through ``filtered_act_banded_bwd``."""
     return _FilteredActBanded.apply(x, act)
 
 
@@ -415,7 +586,7 @@ def filtered_act_fused(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     ``torch.fft``. Otherwise ``filtered_act_plane`` up to 64 px and
     ``filtered_act_banded`` above, whose CPU version is the JAX package's
     chain (matmul up to 512 px, spectral above); on the card the banded
-    kernels raise only above the width that bands of 4 rows can hold."""
+    backward raises above the width that bands of 4 rows can hold."""
     if x.ndim < 4:
         return _ACTS[act](x)
     H, W = x.shape[-2:]

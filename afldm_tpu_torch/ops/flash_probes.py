@@ -11,7 +11,8 @@ and ``::stream_only_kernel``), with K3's grid, staging and tile loop
 
 q: (..., Lq, D), k/v: (..., Lk, D), float32, Lq and Lk multiples of 64,
 D <= 256. A CPU tensor goes to the plain version; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises, and returns its empty output without a launch where
+there are no rows.
 """
 
 import torch
@@ -45,7 +46,8 @@ def _check(name, q, k, v):
     Lq, D = q.shape[-2:]
     Lk = k.shape[-2]
     if (k.shape[:-2] != q.shape[:-2] or v.shape != k.shape
-            or k.shape[-1] != D or D > FLASH_MAX_D or Lq == 0 or Lk == 0
+            or k.shape[-1] != D or D > FLASH_MAX_D
+            or (Lk == 0 and q.numel())
             or Lq % PROBE_TILE or Lk % PROBE_TILE):
         raise ValueError(
             f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -65,6 +67,8 @@ def _launch(name, q, k, v):
                   for t in (q4, k4, v4))
     B1, B2, Lq, D = q4.shape
     out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    if out.numel() == 0:  # no rows: nothing to launch
+        return out.reshape(lead + (Lq, D))
     strides = [s for t in (q4, k4, v4) for s in t.stride()[:3]]
     err = getattr(kernels.library("flash_probe"), f"{name}_f32")(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), B1, B2,

@@ -10,7 +10,8 @@ two commits' kernels can be timed in turns within one call on one card:
 
 ``--shapes_from <path of a chip_smoke.py>`` times the named kernels at that
 file's shapes instead of the checkout's own, so that an older checkout's
-kernels are timed at shapes added since.
+kernels are timed at shapes added since; ``--banded_scratch_bytes`` sets
+the banded forward's scratch cap a chunk (``BANDED_SCRATCH_BYTES``).
 
 Prints chip_smoke's ``check ...`` line per shape and each kernel's sums
 over the shapes run, and exits non-zero if a kernel disagrees with its
@@ -36,6 +37,9 @@ def main(argv=None):
     ap.add_argument("names", nargs="*", help="kernels to check (all)")
     ap.add_argument("--shapes_from", default=None,
                     help="a chip_smoke.py whose shapes to time")
+    ap.add_argument("--banded_scratch_bytes", type=int, default=None,
+                    help="the banded forward's scratch cap a chunk of "
+                         "planes (default: ops/filtered_act.py's)")
     args = ap.parse_args(argv)
     names = args.names
     root = Path.cwd()
@@ -50,6 +54,9 @@ def main(argv=None):
     smoke = importlib.import_module("chip_smoke")
     kernels = importlib.import_module("afldm_tpu_torch.kernels")
     importlib.import_module("afldm_tpu_torch.ops").set_af_precision("highest")
+    if args.banded_scratch_bytes:
+        fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
+        fa.BANDED_SCRATCH_BYTES = args.banded_scratch_bytes
     kernels.build_all()
     unknown = set(names) - set(smoke.KERNELS)
     if unknown:

@@ -1,7 +1,8 @@
 """Full-width phases of ``chip_smoke.py`` alone: the serving protocol
-(phase 4, ``main_path``) and the SD image interpolation (phase 12,
-``sd_interp``), with their wall times and launch counts, without the other
-phases. Run it as a file from the root of the checkout to measure, so that
+(phase 4, ``main_path``), the AF-VAE training path (phase 8,
+``vae_train``) and the SD image interpolation (phase 12, ``sd_interp``),
+with their wall times, peak device memory and launch counts, without the
+other phases. Run it as a file from the root of the checkout to measure, so that
 two commits' end-to-end times can be taken in turns within one call on one
 card:
 
@@ -19,7 +20,7 @@ import importlib
 import sys
 from pathlib import Path
 
-PHASES = ("main_path", "sd_interp")
+PHASES = ("main_path", "vae_train", "sd_interp")
 
 
 def main(argv=None):
@@ -27,6 +28,8 @@ def main(argv=None):
     ap.add_argument("phases", nargs="+", choices=PHASES)
     ap.add_argument("--steps", type=int, default=50,
                     help="DDIM steps of the serving protocol (default 50)")
+    ap.add_argument("--vae_steps", type=int, default=8,
+                    help="micro-steps of the VAE training path (default 8)")
     ap.add_argument("--sd_frames", type=int, default=17)
     ap.add_argument("--sd_steps", type=int, default=10)
     ap.add_argument("--repeat", type=int, default=1,
@@ -49,6 +52,8 @@ def main(argv=None):
     for phase in [p for p in args.phases for _ in range(args.repeat)]:
         if phase == "main_path":
             good, _ = smoke.run_main_path(torch, args.steps)
+        elif phase == "vae_train":
+            good, _ = smoke.run_vae_training(torch, args.vae_steps)
         else:
             good, _ = smoke.run_sd_interp(torch, args.sd_frames,
                                           args.sd_steps)

@@ -97,6 +97,7 @@ it.
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -434,17 +435,50 @@ def check_kernels(torch, report):
 
 
 def launch_plan(name, shape):
-    """The plane kernel's launch plan at ``shape`` (planes a block, each
-    product's micro-tile, threads and shared bytes a block) as a log
-    suffix; '' for the other kernels."""
-    if name != "filtered_act_plane":
+    """The launch plan at ``shape`` as a log suffix: the plane kernel's
+    (planes a block, each product's micro-tile, threads and shared bytes a
+    block) and the banded chain's (chunks, planes a chunk, each product's
+    block tile, scratch bytes); '' for the other kernels."""
+    if name not in ("filtered_act_plane", "filtered_act_banded"):
         return ""
-    from afldm_tpu_torch.ops.filtered_act import plane_plan
+    from afldm_tpu_torch.ops import filtered_act as FA
     n, c, h, w = shape
-    plan = plane_plan(h, w, n * c)
+    if name == "filtered_act_banded":
+        plan = FA.banded_plan(h, w, n * c, FA.BANDED_SCRATCH_BYTES)
+        sizes = sorted({ch.planes for ch in plan}, reverse=True)
+        tiles = "; ".join(
+            f"{ch.planes} planes: " + " ".join(str(t) for t in ch.tiles)
+            for ch in {ch.planes: ch for ch in plan}.values())
+        return (f"; plan {len(plan)} chunks of "
+                f"{'/'.join(str(p) for p in sizes)} planes, tiles ({tiles}), "
+                f"scratch {FA.banded_scratch_bytes(h, w, sizes[0])} B "
+                f"(cap {FA.BANDED_SCRATCH_BYTES} B)")
+    plan = FA.plane_plan(h, w, n * c)
     tiles = " ".join(f"{r}x{c}" for r, c in plan.tiles)
     return (f"; plan P {plan.planes_per_block}, tiles {tiles}, "
             f"{plan.threads} threads, smem {plan.smem_bytes} B")
+
+
+def ptxas_lines(build_log):
+    """(kernel, line) for each register or spill line of a build's
+    ``-Xptxas -v`` output, the kernel's name demangled by ``c++filt``
+    where the machine has it, without its arguments."""
+    names, rows = [], []
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            names.append(m.group(1))
+        elif names and ("Used" in line or "spill" in line):
+            rows.append((len(names) - 1, line.strip()))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines() or names
+    except OSError:
+        pass
+    short = [n.replace("(anonymous namespace)::", "").removeprefix("void ")
+             .rsplit("(", 1)[0] for n in names]
+    return [(short[i], line) for i, line in rows]
 
 
 def log_sums(name, row, over):
@@ -1168,9 +1202,8 @@ def main(argv=None):
     kernels.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name in kernels.SOURCES:
-        for line in kernels.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for fn, line in ptxas_lines(kernels.build_log(name)):
+            log(f"  ptxas {name} {fn}: {line}")
 
     set_af_precision("highest")
     report = {k: dict(name=k, route=v["route"], source=v["source"],

@@ -5,6 +5,7 @@ backward, share one tile loop (``flash_tile.cuh``) instead of carrying
 copies of it."""
 
 import importlib
+import importlib.util
 import re
 
 import pytest
@@ -100,11 +101,14 @@ def test_q_tile_matches_the_tile_loop():
 
 @pytest.mark.parametrize("where", ["root", "elsewhere"])
 @pytest.mark.parametrize("script,argv", [("phase_check", ["main_path"]),
-                                         ("plane_sweep", [])])
+                                         ("phase_check", ["vae_train"]),
+                                         ("plane_sweep", []),
+                                         ("gemm_check", [])])
 def test_measurement_scripts_need_a_checkout_and_a_card(
         script, argv, where, tmp_path, monkeypatch, capsys):
-    """phase_check.py and plane_sweep.py, like kernel_check.py, refuse
-    outside a checkout's root and, here, for want of a card."""
+    """phase_check.py, plane_sweep.py and gemm_check.py, like
+    kernel_check.py, refuse outside a checkout's root and, here, for want
+    of a card."""
     mod = importlib.import_module(f"afldm_tpu_torch.scripts.{script}")
     root = kernels.CSRC.parents[2]
     monkeypatch.chdir(root if where == "root" else tmp_path)
@@ -143,21 +147,31 @@ def _kernel_body(src, name):
 def test_plane_kernel_on_the_filtered_tile():
     """K5 runs its four products through filtered_tile.cuh (every operand
     staged in shared memory with 16-byte cp.async), not block_gemm, which
-    the K5b, K1 and K2 kernels keep."""
+    the K5b and K2 kernels keep; K1 is four launches of the tiled GEMM of
+    filtered_gemm.cuh, with no block_gemm and no kernel of its own. None
+    of them uses tensor cores (no wmma, mma.sync or TF32)."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
     assert '#include "filtered_tile.cuh"' in src
+    assert '#include "filtered_gemm.cuh"' in src
     k5 = _kernel_body(src, "filtered_act_plane_kernel")
     assert "block_gemm" not in k5
     assert k5.count("product(") == 4 and "stage(" in k5
     assert "cp_async16(" in k5
-    for name in ("filtered_act_plane_bwd_kernel", "filtered_act_banded_kernel",
+    for name in ("filtered_act_plane_bwd_kernel",
                  "filtered_act_banded_bwd_kernel"):
         assert "block_gemm" in _kernel_body(src, name), name
-    tile = re.sub(r"//[^\n]*", "",
-                  (kernels.CSRC / "filtered_tile.cuh").read_text())
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "filtered_act_banded_kernel" not in code
+    k1 = _kernel_body(src, "filtered_act_banded_f32")
+    assert "block_gemm" not in k1 and "<<<" not in k1
+    assert k1.count("filtered_gemm<") == 4
+    tile, gemm = (re.sub(r"//[^\n]*", "", (kernels.CSRC / f).read_text())
+                  for f in ("filtered_tile.cuh", "filtered_gemm.cuh"))
     assert "cp.async.cg.shared.global" in tile and "float4" in tile
-    for absent in ("wmma", "mma.sync", "tf32"):
-        assert absent not in (tile + k5).lower(), absent
+    assert "cp.async.cg.shared.global" in gemm and "float4" in gemm
+    assert "fmaf(" in gemm and "__syncthreads" in gemm
+    for absent in ("wmma", "mma.sync", "tf32", "wgmma"):
+        assert absent not in (tile + gemm + k5 + k1).lower(), absent
 
 
 def test_filtered_tile_edit_rebuilds_filtered_act(tmp_path, monkeypatch):
@@ -170,3 +184,46 @@ def test_filtered_tile_edit_rebuilds_filtered_act(tmp_path, monkeypatch):
     with open(tmp_path / "filtered_tile.cuh", "a") as f:
         f.write("// edit\n")
     assert kernels._target("filtered_act") != before
+
+
+def _chip_smoke():
+    path = kernels.CSRC.parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_logs_launch_plans():
+    """chip_smoke's log suffix at every kernel shape: K5's and K1's plans,
+    nothing for the other kernels."""
+    smoke = _chip_smoke()
+    for name, spec in smoke.KERNELS.items():
+        for shape in spec["shapes"]:
+            plan = smoke.launch_plan(name, shape)
+            if name in ("filtered_act_plane", "filtered_act_banded"):
+                assert plan.startswith("; plan "), (name, shape)
+            else:
+                assert plan == "", (name, shape)
+    assert "2 chunks of 8 planes" in smoke.launch_plan(
+        "filtered_act_banded", (1, 16, 1024, 1024))
+
+
+def test_chip_smoke_names_each_kernels_registers():
+    """Each register or spill line of a build log goes with the kernel
+    whose entry function ptxas compiled last."""
+    smoke = _chip_smoke()
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function 'bar' for 'sm_90a'",
+        "ptxas info    : Used 72 registers"])
+    lines = smoke.ptxas_lines(log)
+    assert [line for _, line in lines] == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        "ptxas info    : Used 72 registers"]
+    names = [fn for fn, _ in lines]
+    assert names[0] == names[1] != names[2] == "bar"
+    assert names[0] in ("foo", "_Z3fooPf")  # demangled where c++filt is

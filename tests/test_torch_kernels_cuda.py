@@ -22,6 +22,7 @@ import torch
 from afldm_tpu_torch import kernels
 from afldm_tpu_torch.ops import attention as TA
 from afldm_tpu_torch.ops import filtered_act as TF
+from afldm_tpu_torch.ops import flash_probes as P
 
 torch.set_num_threads(1)
 
@@ -96,6 +97,98 @@ def test_banded_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("side,planes,cap_planes", [(128, 5, 2),
+                                                    (1024, 12, None)])
+def test_banded_kernel_crosses_chunks(cuda, monkeypatch, side, planes,
+                                      cap_planes):
+    """K1 over several chunks of planes: five planes of 128 px in chunks of
+    two, and 12 planes of 1024 px at the module's cap (10 planes' scratch
+    a chunk)."""
+    if cap_planes is not None:
+        monkeypatch.setattr(TF, "BANDED_SCRATCH_BYTES",
+                            TF.banded_scratch_bytes(side, side, cap_planes))
+    assert len(TF.banded_plan(side, side, planes,
+                              TF.BANDED_SCRATCH_BYTES)) > 1
+    x = torch.randn(1, planes, side, side, device=cuda)
+    got = _launches("filtered_act_banded",
+                    lambda: TF.filtered_act_banded(x, "gelu"))
+    torch.testing.assert_close(got, TF.filtered_act_plain(x, "gelu"),
+                               atol=3e-5, rtol=1e-4)
+
+
+GEMM_SHAPES = [  # (batch, M, N, K): multiples of 4, ragged against the tiles
+    (1, 132, 196, 20), (3, 68, 60, 92), (2, 256, 256, 128), (1, 4, 4, 4),
+    (2, 300, 132, 516)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+@pytest.mark.parametrize("a_kmajor", [False, True])
+@pytest.mark.parametrize("shared_a", [False, True])
+@pytest.mark.parametrize("small", [False, True])
+def test_gemm_kernel_matches_matmul(cuda, shape, a_kmajor, shared_a, small):
+    """K1's tiled GEMM alone against torch.matmul, A row-major or k-major,
+    per batch or expanded from one matrix (batch stride 0), in either block
+    tile, at edges that are not multiples of the tile."""
+    batch, M, N, K = shape
+    a_shape = (K, M) if a_kmajor else (M, K)
+    a = (torch.randn(1, *a_shape, device=cuda).expand(batch, -1, -1)
+         if shared_a else torch.randn(batch, *a_shape, device=cuda))
+    b = torch.randn(batch, K, N, device=cuda)
+    got = _launches("filtered_gemm", lambda: TF.filtered_gemm(
+        a, b, a_kmajor=a_kmajor, small=small))
+    torch.testing.assert_close(got, TF.filtered_gemm_plain(a, b, None,
+                                                           a_kmajor),
+                               atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu", "mish",
+                                 "leaky_relu", "tanh", "linear"])
+def test_gemm_kernel_activation_epilogue(cuda, act):
+    """Every activation in the GEMM's epilogue, against act(torch.matmul)."""
+    a = torch.randn(2, 68, 36, device=cuda)
+    b = torch.randn(2, 36, 140, device=cuda)
+    got = _launches("filtered_gemm", lambda: TF.filtered_gemm(a, b, act))
+    torch.testing.assert_close(got, TF.filtered_gemm_plain(a, b, act),
+                               atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wrappers_at_zero_planes_and_rows(cuda):
+    """Every kernel wrapper given 0 planes (batch or channels 0) or 0 query
+    rows returns its empty output, shaped as on the CPU, and launches
+    nothing."""
+    before = dict(kernels.LAUNCHES)
+    for shape in [(0, 4, 32, 32), (2, 0, 32, 32), (0, 4, 128, 128),
+                  (2, 0, 96, 128)]:
+        x = torch.randn(shape, device=cuda)
+        banded = shape[-1] > TF.PLANE_MAX
+        fwd = TF.filtered_act_banded if banded else TF.filtered_act_plane
+        bwd = (TF.filtered_act_banded_bwd if banded
+               else TF.filtered_act_plane_bwd)
+        assert fwd(x, "silu").shape == shape
+        assert bwd(x, x, "silu").shape == shape
+        assert TF.filtered_act_fused(x, "silu").shape == shape
+    for B, Lq, Lk in [(0, 64, 64), (2, 0, 64)]:
+        q = torch.randn(B, 2, Lq, 24, device=cuda)
+        k, v = (torch.randn(B, 2, Lk, 24, device=cuda) for _ in range(2))
+        out, lse = TA.flash_fwd(q, k, v)
+        assert out.shape == q.shape and lse.shape == (B, 2, Lq, 1)
+        assert TA.flash2_fwd(q, k, v, k, v, 0.5).shape == q.shape
+        do = torch.randn_like(q)
+        delta = TA._delta(do, out)
+        assert TA.flash_bwd_dq(q, k, v, do, lse, delta).shape == q.shape
+        dk, dv = TA.flash_bwd_dkv(q, k, v, do, lse, delta)
+        assert dk.shape == k.shape and dv.shape == v.shape
+        assert not dk.any() and not dv.any()
+        for fn in (P.flash_probe_dots, P.flash_probe_stream):
+            assert fn(q, k, v).shape == q.shape
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
 def test_dispatcher_picks_kernels(cuda):
     x = torch.randn(1, 2, 8, 8, device=cuda)
     before = dict(kernels.LAUNCHES)
@@ -109,8 +202,14 @@ def test_dispatcher_picks_kernels(cuda):
     TF.filtered_act_fused(torch.randn(1, 1, 80, 80, device=cuda), "silu")
     assert kernels.LAUNCHES["filtered_act_banded"] == \
         before["filtered_act_banded"] + 2
-    with pytest.raises(ValueError, match="bands of 4 rows"):
-        TF.filtered_act_fused(torch.randn(1, 1, 4, 4848, device=cuda), "silu")
+    # a plane wider than bands of 4 rows can hold (the backward's limit):
+    # the forward's GEMM chain takes it
+    wide = torch.randn(1, 1, 4, 4848, device=cuda)
+    torch.testing.assert_close(TF.filtered_act_fused(wide, "silu"),
+                               TF.filtered_act_plain(wide, "silu"),
+                               atol=3e-5, rtol=1e-4)
+    assert kernels.LAUNCHES["filtered_act_banded"] == \
+        before["filtered_act_banded"] + 3
     with pytest.raises(TypeError):
         TF.filtered_act_plane(x.double(), "silu")
 
