@@ -429,21 +429,6 @@ def _banded_entry(x, out, scratch, ops, chunk, act):
     kernels.check(err, "filtered_act_banded")
 
 
-def _banded_entry_plain(x, out, scratch, ops, chunk, act):
-    """``_banded_entry``'s four products with ``torch.matmul``, on the same
-    scratch offsets and operator layouts as the C entry (U_h and D_h read
-    from their k-major forms): the chain's bookkeeping without the card."""
-    uwT, uhT, dwT, dhT = ops
-    P, (H, W) = chunk.planes, x.shape[-2:]
-    t = scratch[:2 * H * W * P]           # t, then lo
-    hi = scratch[2 * H * W * P:6 * H * W * P]
-    t.view(P * H, 2 * W).copy_(x.reshape(P * H, W) @ uwT)
-    hi.view(P, 2 * H, 2 * W).copy_(
-        _ACTS[act](uhT.T @ t.view(P, H, 2 * W)))
-    t.view(P * 2 * H, W).copy_(hi.view(P * 2 * H, 2 * W) @ dwT)
-    out.copy_(dhT.T @ t.view(P, 2 * H, W))
-
-
 def _banded_chain(x: torch.Tensor, act: str, entry) -> torch.Tensor:
     """x (NCHW, contiguous) through the banded forward's chunks, each by
     ``entry`` (``_banded_entry`` on the card), with one scratch buffer for
@@ -472,21 +457,51 @@ def filtered_gemm_plain(a: torch.Tensor, b: torch.Tensor, act=None,
     return out if act is None else _ACTS[act](out)
 
 
+def _gemm_dims(a: torch.Tensor, b: torch.Tensor, a_kmajor: bool) -> tuple:
+    """(batch, M, N, K) of ``filtered_gemm``'s operands, or ValueError:
+    3D, one batch, one K, M, N and K multiples of 4 (K positive)."""
+    if a.ndim != 3 or b.ndim != 3:
+        raise ValueError("filtered_gemm: 3D operands only, got shapes "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    batch, K, N = b.shape
+    ka, M = (a.shape[1], a.shape[2]) if a_kmajor else (a.shape[2],
+                                                       a.shape[1])
+    if a.shape[0] != batch or ka != K:
+        raise ValueError(f"filtered_gemm: a {tuple(a.shape)} (k-major: "
+                         f"{a_kmajor}) does not match b {tuple(b.shape)} in "
+                         "batch or K")
+    if M % 4 or N % 4 or K % 4 or K == 0:
+        raise ValueError("filtered_gemm: M, N and K must be multiples of 4 "
+                         f"and K positive, got {M}, {N}, {K}")
+    return batch, M, N, K
+
+
 def filtered_gemm(a: torch.Tensor, b: torch.Tensor, act=None,
                   a_kmajor: bool = False, small: bool = False):
     """C[i] = act(A[i] · B[i]) through the banded forward's tiled GEMM
     kernel alone, in the 64×64 block tile where ``small`` (its card tests'
     entry). a: (batch, M, K), or (batch, K, M) where ``a_kmajor``; b:
-    (batch, K, N); float32, unit stride along the last dim, any batch
-    stride (0: expanded from one matrix); M, N, K multiples of 4."""
+    (batch, K, N); M, N, K multiples of 4. On the card: float32, unit
+    stride along the last dim, the other strides multiples of 4 (a batch
+    stride of 0: expanded from one matrix) and 16-byte aligned data, as
+    the kernel's 16-byte copies read them; an empty result launches
+    nothing."""
+    batch, M, N, K = _gemm_dims(a, b, a_kmajor)
     if a.device.type == "cpu":
         return filtered_gemm_plain(a, b, act, a_kmajor)
-    if a.ndim != 3 or b.ndim != 3 or a.stride(-1) != 1 or b.stride(-1) != 1:
-        raise ValueError("filtered_gemm: 3D operands with a unit last "
-                         "stride only")
-    batch, K, N = b.shape
-    M = a.shape[2] if a_kmajor else a.shape[1]
+    if a.device != b.device or a.dtype != torch.float32 or (
+            b.dtype != torch.float32):
+        raise ValueError("filtered_gemm: float32 operands on one device "
+                         "only")
+    for t in (a, b):
+        if (t.stride(-1) != 1 or t.stride(0) % 4 or t.stride(1) % 4
+                or t.data_ptr() % 16):
+            raise ValueError("filtered_gemm: operands need a unit last "
+                             "stride, other strides multiples of 4 and "
+                             "16-byte aligned data")
     out = torch.empty((batch, M, N), device=a.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
     err = kernels.library("filtered_act").filtered_gemm_f32(
         a.data_ptr(), a.stride(1), a.stride(0), int(a_kmajor), b.data_ptr(),
         b.stride(1), b.stride(0), out.data_ptr(), N, M * N, batch, M, N, K,
@@ -556,10 +571,14 @@ def filtered_act_banded_bwd(x: torch.Tensor, g: torch.Tensor,
 
 
 class _FilteredActBanded(torch.autograd.Function):
-    """Saves x, not the 4x pre-activation (as ``_bwd_spatial`` does)."""
+    """Saves x, not the 4x pre-activation (as ``_bwd_spatial`` does). On
+    the card a plane too wide for the backward's bands (``band_rows``) is
+    refused before the forward runs where x needs a gradient."""
 
     @staticmethod
     def forward(ctx, x, act):
+        if ctx.needs_input_grad[0] and x.device.type == "cuda":
+            band_rows(*x.shape[-2:])
         ctx.act = act
         ctx.save_for_backward(x)
         return _banded_forward(x, act)
@@ -585,8 +604,10 @@ def filtered_act_fused(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     never reaches a Pallas kernel either; autograd runs through
     ``torch.fft``. Otherwise ``filtered_act_plane`` up to 64 px and
     ``filtered_act_banded`` above, whose CPU version is the JAX package's
-    chain (matmul up to 512 px, spectral above); on the card the banded
-    backward raises above the width that bands of 4 rows can hold."""
+    chain (matmul up to 512 px, spectral above); on the card a plane
+    above the width that the banded backward's bands of 4 rows can hold
+    runs forward only: where it needs a gradient it raises before the
+    forward."""
     if x.ndim < 4:
         return _ACTS[act](x)
     H, W = x.shape[-2:]

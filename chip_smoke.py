@@ -243,11 +243,19 @@ def bound_ms(flops, nbytes):
                                        else "bytes")
 
 
+def filter_pair_flops(h, w):
+    """FLOPs of one separable 2× filter pair on an h×w plane, an upsample
+    (h×w to 2h×2w) or a decimation back, in its cheaper order: H side first
+    costs 4h²w + 8hw², W side first 8h²w + 4hw² (12S³ either way square)."""
+    return min(4 * h * h * w + 8 * h * w * w, 8 * h * h * w + 4 * h * w * w)
+
+
 def filtered_act_work(shape):
-    """FLOPs of the four products per plane (8H²W + 16HW², = 24S³ square)
-    and bytes: x read once, out written once, the four operators read once."""
+    """FLOPs of the forward per plane, its upsample and its decimation each
+    in the cheaper order (2·filter_pair_flops, = 24S³ square), and bytes: x
+    read once, out written once, the four operators read once."""
     n, c, h, w = shape
-    flops = n * c * (8 * h * h * w + 16 * h * w * w)
+    flops = n * c * 2 * filter_pair_flops(h, w)
     nbytes = 4 * (2 * n * c * h * w + 4 * h * h + 4 * w * w)
     return flops, nbytes
 
@@ -291,12 +299,12 @@ def probe_work(name, shape):
 
 
 def filtered_act_bwd_work(shape):
-    """FLOPs of the six products per plane in both backward kernels' order
-    (U_h·x and D_hᵀ·g: 4H²W each; ·U_wᵀ, ·D_w and ·U_w: 8HW² each; U_hᵀ·t:
-    4H²W; together 12H²W + 24HW², = 36S³ square) and bytes: x and g read
-    once, dx written once, the six operators read once."""
+    """FLOPs of the VJP's three filter pairs per plane (the pre-activation
+    U_h·x·U_wᵀ, D_hᵀ·g·D_w and U_hᵀ·m·U_w), each in the cheaper order
+    (3·filter_pair_flops, = 36S³ square), and bytes: x and g read once, dx
+    written once, the six operators read once."""
     n, c, h, w = shape
-    flops = n * c * (12 * h * h * w + 24 * h * w * w)
+    flops = n * c * 3 * filter_pair_flops(h, w)
     nbytes = 4 * (3 * n * c * h * w + 6 * h * h + 6 * w * w)
     return flops, nbytes
 

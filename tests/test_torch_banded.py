@@ -20,9 +20,26 @@ from afldm_tpu.ops.ideal_lpf import filtered_nonlinearity
 from afldm_tpu.ops.pallas_kernels import filtered_act_pallas
 from afldm_tpu_torch import kernels
 from afldm_tpu_torch.ops import filtered_act as TF
+from afldm_tpu_torch.ops.ideal_lpf import _ACTS
 from test_torch_harness import nchw, nhwc, rand
 
 torch.set_num_threads(1)
+
+def _banded_entry_plain(x, out, scratch, ops, chunk, act):
+    """``TF._banded_entry``'s four products with ``torch.matmul``, on the
+    same scratch offsets and operator layouts as the C entry (U_h and D_h
+    read from their k-major forms): the chain's bookkeeping without the
+    card."""
+    uwT, uhT, dwT, dhT = ops
+    P, (H, W) = chunk.planes, x.shape[-2:]
+    t = scratch[:2 * H * W * P]           # t, then lo
+    hi = scratch[2 * H * W * P:6 * H * W * P]
+    t.view(P * H, 2 * W).copy_(x.reshape(P * H, W) @ uwT)
+    hi.view(P, 2 * H, 2 * W).copy_(
+        _ACTS[act](uhT.T @ t.view(P, H, 2 * W)))
+    t.view(P * 2 * H, W).copy_(hi.view(P * 2 * H, 2 * W) @ dwT)
+    out.copy_(dhT.T @ t.view(P, 2 * H, W))
+
 
 PLAN_SIDES = [(68, 92), (80, 80), (32, 128), (128, 128), (256, 256),
               (1024, 1024), (4, 4848)]
@@ -99,7 +116,7 @@ def test_banded_chain_matches_pallas_spatial(rng, monkeypatch, hw, act):
     want = jax.jit(lambda z: filtered_act_pallas(z, act, "spatial"))(
         jnp.asarray(x))
     before = dict(kernels.LAUNCHES)
-    got = TF._banded_chain(nchw(x).contiguous(), act, TF._banded_entry_plain)
+    got = TF._banded_chain(nchw(x).contiguous(), act, _banded_entry_plain)
     assert kernels.LAUNCHES == before
     np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=3e-5,
                                rtol=1e-4)
@@ -115,7 +132,7 @@ def test_banded_chain_scratch_offsets():
     out = torch.empty_like(x)
     chunk = TF.BandedChunk(0, P, (64,) * 4)
     ops = TF._banded_ops(H, W, "cpu")
-    TF._banded_entry_plain(x, out, scratch, ops, chunk, "silu")
+    _banded_entry_plain(x, out, scratch, ops, chunk, "silu")
     n = 6 * H * W * P
     assert torch.isfinite(scratch[:n]).all()
     assert torch.isnan(scratch[n:]).all()
@@ -143,3 +160,33 @@ def test_fused_at_zero_planes_matches_jax(shape):
     assert nhwc(got).shape == want.shape == shape
     got.sum().backward()
     assert xt.grad.shape == xt.shape
+
+
+@pytest.mark.parametrize("a_shape,b_shape,a_kmajor", [
+    ((1, 8, 12), (3, 12, 16), False),   # a's batch is not b's
+    ((3, 12, 8), (3, 16, 16), True),    # a's K (k-major) is not b's
+    ((3, 8, 16), (3, 12, 16), False),   # a's K is not b's
+    ((2, 6, 12), (2, 12, 16), False),   # M not a multiple of 4
+    ((2, 8, 12), (2, 12, 18), False),   # N not a multiple of 4
+    ((2, 8, 10), (2, 10, 16), False),   # K not a multiple of 4
+    ((2, 8, 0), (2, 0, 16), False),     # K of 0
+    ((8, 12), (12, 16), False),         # not batched
+])
+def test_gemm_refuses_mismatched_operands(a_shape, b_shape, a_kmajor):
+    """``filtered_gemm`` checks its operands on every device before the
+    kernel would read past them: one batch, one K, multiples of 4."""
+    a, b = torch.randn(a_shape), torch.randn(b_shape)
+    with pytest.raises(ValueError, match="filtered_gemm"):
+        TF.filtered_gemm(a, b, a_kmajor=a_kmajor)
+
+
+@pytest.mark.parametrize("a_kmajor", [False, True])
+def test_gemm_takes_a_shared_operator(a_kmajor):
+    """A stride-0 A expanded to b's batch is one operator for every
+    matrix, as the chain's batched products pass U_h and D_h."""
+    g = torch.Generator().manual_seed(0)
+    a1 = torch.randn((1, 12, 8) if a_kmajor else (1, 8, 12), generator=g)
+    b = torch.randn(3, 12, 16, generator=g)
+    got = TF.filtered_gemm(a1.expand(3, -1, -1), b, "silu", a_kmajor)
+    A = a1[0].T if a_kmajor else a1[0]
+    torch.testing.assert_close(got, torch.nn.functional.silu(A @ b))

@@ -11,6 +11,7 @@ import re
 import pytest
 
 from afldm_tpu_torch import kernels
+from afldm_tpu_torch.ops import filtered_act as TF
 
 
 @pytest.fixture
@@ -102,13 +103,11 @@ def test_q_tile_matches_the_tile_loop():
 @pytest.mark.parametrize("where", ["root", "elsewhere"])
 @pytest.mark.parametrize("script,argv", [("phase_check", ["main_path"]),
                                          ("phase_check", ["vae_train"]),
-                                         ("plane_sweep", []),
-                                         ("gemm_check", [])])
+                                         ("plane_sweep", [])])
 def test_measurement_scripts_need_a_checkout_and_a_card(
         script, argv, where, tmp_path, monkeypatch, capsys):
-    """phase_check.py, plane_sweep.py and gemm_check.py, like
-    kernel_check.py, refuse outside a checkout's root and, here, for want
-    of a card."""
+    """phase_check.py and plane_sweep.py, like kernel_check.py, refuse
+    outside a checkout's root and, here, for want of a card."""
     mod = importlib.import_module(f"afldm_tpu_torch.scripts.{script}")
     root = kernels.CSRC.parents[2]
     monkeypatch.chdir(root if where == "root" else tmp_path)
@@ -227,3 +226,24 @@ def test_chip_smoke_names_each_kernels_registers():
     names = [fn for fn, _ in lines]
     assert names[0] == names[1] != names[2] == "bar"
     assert names[0] in ("foo", "_Z3fooPf")  # demangled where c++filt is
+
+
+@pytest.mark.parametrize("hw", [(32, 128), (128, 32), (68, 92), (80, 80),
+                                (4, 4848)])
+def test_filtered_act_bounds_count_the_cheaper_order(hw):
+    """chip_smoke's bounds charge each filter pair the cheaper of its two
+    orders: 24·S³ (forward) and 36·S³ (backward) FLOP a square plane, the
+    same for a plane and its transpose, and never more than K1's chain
+    does (12H²W + 12HW², its order fixed)."""
+    smoke = _chip_smoke()
+    H, W = hw
+    fwd, _ = smoke.filtered_act_work((1, 2, H, W))
+    bwd, _ = smoke.filtered_act_bwd_work((1, 2, H, W))
+    assert fwd == smoke.filtered_act_work((1, 2, W, H))[0]
+    assert 3 * fwd == 2 * bwd
+    chain = sum(2 * m * n * k * b for m, n, k, b in
+                TF.banded_products(H, W, 2))
+    assert chain == 2 * (12 * H * H * W + 12 * H * W * W)
+    assert fwd <= chain and (fwd < chain) == (H != W)
+    if H == W:
+        assert fwd == 2 * 24 * H ** 3

@@ -154,6 +154,43 @@ def test_gemm_kernel_activation_epilogue(cuda, act):
                                atol=3e-5, rtol=1e-4)
 
 
+def _misaligned(t):
+    """t's values one float past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["batch", "K", "a_offset", "b_offset",
+                                  "a_stride", "b_stride", "dtype"])
+def test_gemm_refuses_operands_it_cannot_read(cuda, case):
+    """filtered_gemm raises ValueError, and launches nothing, for operands
+    whose batch or K disagree, that lie off a 16-byte boundary, whose row
+    stride is not a multiple of 4, or that are not float32: the kernel
+    would read past them or fault on its 16-byte copies."""
+    a = torch.randn(3, 68, 36, device=cuda)
+    b = torch.randn(3, 36, 140, device=cuda)
+    if case == "batch":
+        a = a[:1]
+    elif case == "K":
+        b = b[:, :32]
+    elif case == "a_offset":
+        a = _misaligned(a)
+    elif case == "b_offset":
+        b = _misaligned(b)
+    elif case == "a_stride":
+        a = torch.randn(3, 68, 38, device=cuda)[..., :36]
+    elif case == "b_stride":
+        b = torch.randn(3, 36, 142, device=cuda)[..., :140]
+    else:
+        b = b.double()
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="filtered_gemm"):
+        TF.filtered_gemm(a, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_wrappers_at_zero_planes_and_rows(cuda):
     """Every kernel wrapper given 0 planes (batch or channels 0) or 0 query
@@ -170,6 +207,9 @@ def test_wrappers_at_zero_planes_and_rows(cuda):
         assert fwd(x, "silu").shape == shape
         assert bwd(x, x, "silu").shape == shape
         assert TF.filtered_act_fused(x, "silu").shape == shape
+    a, b = torch.randn(0, 8, 12, device=cuda), torch.randn(0, 12, 16,
+                                                           device=cuda)
+    assert TF.filtered_gemm(a, b).shape == (0, 8, 16)
     for B, Lq, Lk in [(0, 64, 64), (2, 0, 64)]:
         q = torch.randn(B, 2, Lq, 24, device=cuda)
         k, v = (torch.randn(B, 2, Lk, 24, device=cuda) for _ in range(2))
@@ -212,6 +252,18 @@ def test_dispatcher_picks_kernels(cuda):
         before["filtered_act_banded"] + 3
     with pytest.raises(TypeError):
         TF.filtered_act_plane(x.double(), "silu")
+
+
+@pytest.mark.cuda
+def test_wide_plane_needing_a_gradient_is_refused_first(cuda):
+    """A plane the banded backward cannot hold (4×4848) that needs a
+    gradient raises before K1 runs, not after it in the backward."""
+    wide = torch.randn(1, 1, 4, 4848, device=cuda, requires_grad=True)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="bands of 4 rows"):
+        TF.filtered_act_fused(wide, "silu")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.cuda
