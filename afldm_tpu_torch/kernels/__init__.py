@@ -52,13 +52,12 @@ _SIGNATURES = {
         # tile codes, act, stream
         "filtered_act_banded_f32": [*[_P] * 7, _I, _I, _I, _I, _I, _P],
         # A, lda, sA, a_kmajor, B, ldb, sB, C, ldc, sC, batch, M, N, K,
-        # small, act, stream
+        # small, act, mul_act_grad, stream
         "filtered_gemm_f32": [_P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I, _I,
-                              _I, _I, _I, _I, _P],
-        # x, g, dx, uh, uwT, dhT, dw, uw, uhT, nplanes, H, W, band_rows,
-        # acc_in_smem, act, stream
-        "filtered_act_banded_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _P],
+        # x, g, dx, scratch, uwT, uhT, dw, dh, uw, uh, nplanes (of the
+        # chunk), H, W, tile codes, act, stream
+        "filtered_act_banded_bwd_f32": [*[_P] * 10, _I, _I, _I, _I, _I, _P],
     },
     "flash_fwd": {
         # q, k, v, out, lse, B1, B2, Lq, Lk, D,

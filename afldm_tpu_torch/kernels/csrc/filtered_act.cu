@@ -25,9 +25,9 @@
 // 67 TFLOP/s ÷ 3.35 TB/s ≈ 20. Without tensor cores (exact f32 is the
 // parity default) the ceiling is the f32 FMA rate.
 //
-// What the design does about it: in K5, K5b and K2 the 2H×2W intermediate
+// What the design does about it: in K5 and K5b the 2H×2W intermediate
 // never leaves the SM, so device memory sees each input and output once; K1
-// trades that for a grid that fills the card (below). The TPU's
+// and K2 trade that for a grid that fills the card (below). The TPU's
 // lane-multiple-of-128 and 10 MB VMEM rules do not apply here: the limit is
 // the 227 KB of shared memory of a block.
 //   * plane (H, W <= 64, K5): one block holds P whole planes and every
@@ -45,8 +45,8 @@
 //     (ops/filtered_act.py::plane_plan): small planes are packed P to a
 //     block so that every thread holds a full micro-tile, within two blocks
 //     to an SM and a grid of at least one wave.
-//   * K5b and K2 run block_gemm: each thread keeps a 4×4 register tile of
-//     its product, so one pair of operand loads feeds 16 FMAs.
+//   * K5b runs block_gemm: each thread keeps a 4×4 register tile of its
+//     product, so one pair of operand loads feeds 16 FMAs.
 //   * banded (every H, W % 4 == 0 with max(H, W) > 64, K1): at 128 px the 2x
 //     plane alone is 256 KB, over the limit, and one block a plane left
 //     most of the 132 SMs idle (16 planes at 1024 px). K1 no longer walks
@@ -73,19 +73,29 @@
 //     is formed in the epilogue of the last product of g's chain, in place
 //     over the pre-activation, so the 2x cotangent is never stored: 28 KB a
 //     plane at 32 px, 112 KB at 64 px (one plane a block).
-//   * banded backward (the forward's sizes, K2): the same six products,
-//     12H²W + 24HW² FLOP. The TPU kernel holds the 2H×2W pre-activation and
-//     cotangent of a whole plane in VMEM (512 KB at 128 px); here one block
-//     a plane walks the 2H rows in bands of R (the largest of 32, 16, 8, 4
-//     dividing 2H whose block fits in 227 KB):
-//       u = U_h[r,:]·x ;  pre = u·U_wᵀ ;  v = D_hᵀ[r,:]·g ;
-//       m = act′(pre) ⊙ (v·D_w) ;  t = m·U_w ;  dx += U_hᵀ[:,r]·t
-//     u, v and t share one R×W buffer and pre/m one R×2W buffer (m formed
-//     in the epilogue of v·D_w, in place over pre), so a band costs 3·R·W
-//     floats, 48 KB at 128 px with R = 32; the H×W accumulator stays in
-//     shared memory up to 64 KB (128 px), else in the block's dx plane.
-// K5b and K2 read their operators through the read-only path from device
-// memory; every block reads the same few KB, which stay in L2 and L1.
+//   * banded backward (the forward's sizes, K2): the six products of the
+//     VJP, 16HW² + 20H²W FLOP a plane (36·S³). The TPU kernel holds the
+//     2H×2W pre-activation and cotangent of a whole plane in VMEM (512 KB
+//     at 128 px), more than a block's shared memory, and one block a plane
+//     would leave most of the 132 SMs idle. K2 is K1's design with six
+//     launches of the same GEMM a chunk of P planes, x and g viewed as
+//     (P·H) × W, the W side first:
+//       t = x · U_wᵀ                      one GEMM, (P·H) × 2W, depth W
+//       pre[p] = U_h · t[p]               batched, 2H × 2W, depth H
+//       v = g · D_w                       one GEMM, (P·H) × 2W, depth W
+//       m[p] = act′(pre[p]) ⊙ (D_hᵀ·v[p]) batched, 2H × 2W, depth H
+//       s = m · U_w                       one GEMM, (P·2H) × W, depth 2W
+//       dx[p] = U_hᵀ · s[p]               batched, H × W, depth 2H
+//     Like the JAX rule it saves x, not the pre-activation, and recomputes
+//     it. m is formed in the fourth product's epilogue from the
+//     pre-activation it overwrites (the GEMM's kReadsC form: each element
+//     has one owning thread, so the read and the write race with nothing),
+//     so the 2x cotangent is never stored. The scratch is K1's, 6·H·W
+//     floats a plane: t, then v, then s in the first 2·H·W, pre and then m
+//     in the next 4·H·W; 112·H·W bytes a plane of scratch traffic against
+//     36·S³ FLOP, still above the ridge at 80 px and up.
+// K5b reads its operators through the read-only path from device memory;
+// every block reads the same few KB, which stay in L2 and L1.
 // Making it fast (tensor-core TF32 splits, wgmma, TMA) is later work.
 
 #include <cuda_runtime.h>
@@ -149,8 +159,7 @@ __device__ __forceinline__ float act_grad(float v, int act) {
 // How block_gemm writes its product P into C.
 enum Epilogue {
   STORE = 0,     // C = act(P)  (act NONE: C = P)
-  ACCUM = 1,     // C += P
-  MUL_DACT = 2,  // C = act′(C) ⊙ P, C read and written by the same thread
+  MUL_DACT = 1,  // C = act′(C) ⊙ P, C read and written by the same thread
 };
 
 // C[p] (epilogue) A[p] · B[p] for p < P, all row-major with leading
@@ -196,9 +205,7 @@ __device__ __forceinline__ void block_gemm(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const long long idx = (long long)(tm + i * tm_n) * ldc + tn + j * tn_n;
-        if (EPI == ACCUM) {
-          c[idx] += acc[i][j];
-        } else if (EPI == MUL_DACT) {
+        if (EPI == MUL_DACT) {
           c[idx] = act_grad(c[idx], act) * acc[i][j];
         } else {
           c[idx] = act == NONE ? acc[i][j] : apply_act(acc[i][j], act);
@@ -228,13 +235,25 @@ struct PlaneLayout {
   }
 };
 
+// The epilogues of filtered_tile.cuh's products and of the tiled GEMM
+// (filtered_gemm.cuh), which reads C first where kReadsC.
 struct Identity {
+  static constexpr bool kReadsC = false;
   __device__ __forceinline__ float operator()(float v) const { return v; }
 };
 struct Activation {
+  static constexpr bool kReadsC = false;
   int act;
   __device__ __forceinline__ float operator()(float v) const {
     return apply_act(v, act);
+  }
+};
+// act′(C's old value) ⊙ the product: K2's m, over the pre-activation
+struct MulActGrad {
+  static constexpr bool kReadsC = true;
+  int act;
+  __device__ __forceinline__ float operator()(float v, float old) const {
+    return act_grad(old, act) * v;
   }
 };
 
@@ -354,58 +373,6 @@ filtered_act_plane_bwd_kernel(const float* __restrict__ x,
                     2 * H, NONE);
 }
 
-// dx for one plane above 64 px a block, the 2H rows walked in bands of R.
-// Operators as for filtered_act_plane_bwd_kernel.
-__global__ void __launch_bounds__(kThreads)
-filtered_act_banded_bwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ g,
-                               float* __restrict__ dx,
-                               const float* __restrict__ uh,
-                               const float* __restrict__ uwT,
-                               const float* __restrict__ dhT,
-                               const float* __restrict__ dw,
-                               const float* __restrict__ uw,
-                               const float* __restrict__ uhT,
-                               int H, int W, int R, int acc_in_smem, int act) {
-  extern __shared__ float smem[];
-  const long long HW = (long long)H * W;
-  const float* xp = x + blockIdx.x * HW;
-  const float* gp = g + blockIdx.x * HW;
-  float* op = dx + blockIdx.x * HW;
-  float* ub = smem;                 // R × W: u, then v, then t
-  float* hb = smem + R * W;         // R × 2W: pre, then m
-  float* acc = acc_in_smem ? hb + 2 * R * W : op;  // H × W
-  for (long long i = threadIdx.x; i < HW; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  for (int r0 = 0; r0 < 2 * H; r0 += R) {
-    // ub = U_h[r0:r0+R, :] · x         (R × W)
-    block_gemm<STORE>(uh + (long long)r0 * H, H, 0, xp, W, 0, ub, W, 0, 1, R,
-                      W, H, NONE);
-    __syncthreads();
-    // hb = ub · U_wᵀ = pre             (R × 2W)
-    block_gemm<STORE>(ub, W, 0, uwT, 2 * W, 0, hb, 2 * W, 0, 1, R, 2 * W, W,
-                      NONE);
-    __syncthreads();
-    // ub = D_hᵀ[r0:r0+R, :] · g        (R × W)
-    block_gemm<STORE>(dhT + (long long)r0 * H, H, 0, gp, W, 0, ub, W, 0, 1, R,
-                      W, H, NONE);
-    __syncthreads();
-    // hb = act′(pre) ⊙ (ub · D_w) = m  (R × 2W), in place
-    block_gemm<MUL_DACT>(ub, W, 0, dw, 2 * W, 0, hb, 2 * W, 0, 1, R, 2 * W, W,
-                         act);
-    __syncthreads();
-    // ub = hb · U_w                    (R × W)
-    block_gemm<STORE>(hb, 2 * W, 0, uw, W, 0, ub, W, 0, 1, R, W, 2 * W, NONE);
-    __syncthreads();
-    // acc += U_hᵀ[:, r0:r0+R] · ub     (H × W)
-    block_gemm<ACCUM>(uhT + r0, 2 * H, 0, ub, W, 0, acc, W, 0, 1, H, W, R,
-                      NONE);
-    __syncthreads();
-  }
-  if (acc_in_smem)
-    for (long long i = threadIdx.x; i < HW; i += blockDim.x) op[i] = acc[i];
-}
-
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -507,34 +474,80 @@ extern "C" int filtered_act_banded_f32(const float* x, float* out,
       nplanes, Identity{}, s);
 }
 
-// One launch of the tiled GEMM alone, C[b] = act(A[b] · B[b]) (act -1: the
-// identity), A row-major or k-major: its card tests' entry.
+// dx = U_hᵀ · [act′(U_h · x · U_wᵀ) ⊙ (D_hᵀ · g · D_w)] · U_w for P planes
+// (one chunk), as six launches of the tiled GEMM; scratch holds 6·H·W
+// floats a plane, as K1's: t, then v, then s (2·H·W a plane), then pre and
+// m over it (4·H·W). Bit i of ``tiles`` set gives product i + 1 the 64×64
+// block tile. Operators, row-major as stored: uwT = U_wᵀ (W×2W), uhT = U_hᵀ
+// (H×2H), dw = D_w (W×2W), dh = D_h (H×2H), uw = U_w (2W×W), uh = U_h (2H×H).
+extern "C" int filtered_act_banded_bwd_f32(
+    const float* x, const float* g, float* dx, float* scratch,
+    const float* uwT, const float* uhT, const float* dw, const float* dh,
+    const float* uw, const float* uh, int nplanes, int H, int W, int tiles,
+    int act, void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::filtered_gemm;
+  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long P = nplanes, HW = (long long)H * W;
+  float* t = scratch;                 // P × (H × 2W): t, then v; then s
+  float* pre = scratch + 2 * HW * P;  // P × (2H × 2W): pre, then m
+  // t = x · U_wᵀ, x viewed as (P·H) × W
+  int err = filtered_gemm<false>(
+      tiles & 1, GemmArgs{x, W, 0, uwT, 2 * W, 0, t, 2 * W, 0,
+                          (int)(P * H), 2 * W, W},
+      1, Identity{}, s);
+  if (err) return err;
+  // pre[p] = U_h · t[p], U_h from its k-major form U_hᵀ
+  err = filtered_gemm<true>(
+      (tiles >> 1) & 1, GemmArgs{uhT, 2 * H, 0, t, 2 * W, 2 * HW, pre, 2 * W,
+                                 4 * HW, 2 * H, 2 * W, H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // v = g · D_w, g viewed as (P·H) × W; over t
+  err = filtered_gemm<false>(
+      (tiles >> 2) & 1, GemmArgs{g, W, 0, dw, 2 * W, 0, t, 2 * W, 0,
+                                 (int)(P * H), 2 * W, W},
+      1, Identity{}, s);
+  if (err) return err;
+  // m[p] = act′(pre[p]) ⊙ (D_hᵀ · v[p]), D_hᵀ from its k-major form D_h; in
+  // place over pre
+  err = filtered_gemm<true>(
+      (tiles >> 3) & 1, GemmArgs{dh, 2 * H, 0, t, 2 * W, 2 * HW, pre, 2 * W,
+                                 4 * HW, 2 * H, 2 * W, H},
+      nplanes, MulActGrad{act}, s);
+  if (err) return err;
+  // s = m · U_w, m viewed as (P·2H) × 2W; over v
+  err = filtered_gemm<false>(
+      (tiles >> 4) & 1, GemmArgs{pre, 2 * W, 0, uw, W, 0, t, W, 0,
+                                 (int)(P * 2 * H), W, 2 * W},
+      1, Identity{}, s);
+  if (err) return err;
+  // dx[p] = U_hᵀ · s[p], U_hᵀ from its k-major form U_h
+  return filtered_gemm<true>(
+      (tiles >> 5) & 1, GemmArgs{uh, H, 0, t, W, 2 * HW, dx, W, HW, H, W,
+                                 2 * H},
+      nplanes, Identity{}, s);
+}
+
+// One launch of the tiled GEMM alone, A row-major or k-major: its card
+// tests' entry. C[b] = act(A[b] · B[b]) (act -1: the identity), or where
+// ``mul_act_grad`` C[b] = act′(C[b]) ⊙ (A[b] · B[b]) over C's old values.
 extern "C" int filtered_gemm_f32(const float* A, long long lda,
                                  long long sA, int a_kmajor, const float* B,
                                  long long ldb, long long sB, float* C,
                                  long long ldc, long long sC, int batch,
                                  int M, int N, int K, int small, int act,
-                                 void* stream) {
+                                 int mul_act_grad, void* stream) {
   using afldm_filtered::GemmArgs;
   using afldm_filtered::filtered_gemm;
   const GemmArgs g{A, lda, sA, B, ldb, sB, C, ldc, sC, M, N, K};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (mul_act_grad)
+    return a_kmajor
+               ? filtered_gemm<true>(small, g, batch, MulActGrad{act}, s)
+               : filtered_gemm<false>(small, g, batch, MulActGrad{act}, s);
   if (a_kmajor)
     return filtered_gemm<true>(small, g, batch, Activation{act}, s);
   return filtered_gemm<false>(small, g, batch, Activation{act}, s);
-}
-
-extern "C" int filtered_act_banded_bwd_f32(
-    const float* x, const float* g, float* dx, const float* uh,
-    const float* uwT, const float* dhT, const float* dw, const float* uw,
-    const float* uhT, int nplanes, int H, int W, int R, int acc_in_smem,
-    int act, void* stream) {
-  const size_t smem =
-      ((size_t)3 * R * W + (acc_in_smem ? (size_t)H * W : 0)) * sizeof(float);
-  int err = set_smem((const void*)filtered_act_banded_bwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  filtered_act_banded_bwd_kernel<<<nplanes, kThreads, smem,
-                                   (cudaStream_t)stream>>>(
-      x, g, dx, uh, uwT, dhT, dw, uw, uhT, H, W, R, acc_in_smem, act);
-  return (int)cudaGetLastError();
 }

@@ -1,7 +1,11 @@
 // The batched, shared-memory-tiled f32 GEMM of the banded filtered
-// activation (filtered_act.cu, K1):
+// activation and its backward (filtered_act.cu, K1 and K2):
 //
 //   C[b] = epi(A[b] · B[b])          for b < batch
+//
+// or, for an epilogue that declares kReadsC, C[b] = epi(A[b] · B[b], C[b])
+// elementwise from C's old values (K2's act′(pre) ⊙ product, in place over
+// the pre-activation).
 //
 // A is M×K, B K×N and C M×N, f32, with a row stride and a batch stride each
 // (batch stride 0: one operand shared by every b). A arrives row-major, or
@@ -14,7 +18,8 @@
 // of 256 threads owns one BM×BN tile of C (128×128, or 64×64 for a launch
 // that would fall short of a wave; the wrapper's plan chooses) over the
 // full depth K, so no two blocks write one element and nothing is reduced
-// across blocks. K is walked in slabs of 16: A's slab is stored k-major and
+// across blocks; within the block one thread owns each element of C, which
+// is what makes an epilogue that reads C and writes it back race-free. K is walked in slabs of 16: A's slab is stored k-major and
 // B's row-major in shared memory, double-buffered, with the next slab's
 // copy in flight during the current slab's products. B and a k-major A go
 // through 16-byte cp.async; cp.async cannot transpose, so a row-major A is
@@ -192,16 +197,26 @@ filtered_gemm_kernel(GemmArgs g, Epi epi) {
     for (int q = 0; q < TN / 4; ++q) {
       const int n = n0 + 64 * q + 4 * tx;
       if (n >= N) continue;  // N % 4 == 0: a chunk is all in or all out
-      *reinterpret_cast<float4*>(C + (long long)m * g.ldc + n) =
-          make_float4(epi(acc[i][4 * q]), epi(acc[i][4 * q + 1]),
-                      epi(acc[i][4 * q + 2]), epi(acc[i][4 * q + 3]));
+      float4* c = reinterpret_cast<float4*>(C + (long long)m * g.ldc + n);
+      if constexpr (Epi::kReadsC) {
+        // this thread alone owns these four elements over the full depth:
+        // no other thread reads or writes them during the launch
+        const float4 old = *c;
+        *c = make_float4(epi(acc[i][4 * q], old.x),
+                         epi(acc[i][4 * q + 1], old.y),
+                         epi(acc[i][4 * q + 2], old.z),
+                         epi(acc[i][4 * q + 3], old.w));
+      } else {
+        *c = make_float4(epi(acc[i][4 * q]), epi(acc[i][4 * q + 1]),
+                         epi(acc[i][4 * q + 2]), epi(acc[i][4 * q + 3]));
+      }
     }
   }
 }
 
-// Launches C[b] = epi(A[b] · B[b]) for b < batch on ``stream``, in 64×64
-// block tiles where ``small``, else 128×128. Returns the launch's CUDA
-// error.
+// Launches C[b] = epi(A[b] · B[b]) (epi(A[b] · B[b], C[b]) where
+// Epi::kReadsC) for b < batch on ``stream``, in 64×64 block tiles where
+// ``small``, else 128×128. Returns the launch's CUDA error.
 template <bool A_KMAJOR, class Epi>
 int filtered_gemm(bool small, const GemmArgs& g, int batch, Epi epi,
                   cudaStream_t stream) {

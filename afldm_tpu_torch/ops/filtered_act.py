@@ -1,6 +1,6 @@
-"""The filtered activation's kernels (K5, K5b and K1 of the JAX package),
-their plain versions, their autograd Functions and the dispatcher. NCHW;
-float32 on the card.
+"""The filtered activation's kernels (K5, K5b, K1 and K2 of the JAX
+package), their plain versions, their autograd Functions and the
+dispatcher. NCHW; float32 on the card.
 
 - ``filtered_act_plane``: whole planes in shared memory, H, W <= 64
   (counterpart of ``pallas_kernels.py::_forward``), P planes a block and
@@ -13,10 +13,11 @@ float32 on the card.
   (counterpart of ``pallas_kernels.py::_forward_spatial``), a chunk of
   planes at a time as four launches of one tiled GEMM kernel, the 2x
   intermediates in device scratch (``banded_plan`` chunks the planes and
-  picks each product's block tile); differentiable, its backward is
-  ``filtered_act_banded_bwd`` (counterpart of
-  ``pallas_kernels.py::_bwd_spatial``), one block a plane walking the 2x
-  rows in bands, which recomputes the pre-activation from the saved x.
+  picks each product's block tile); differentiable at every such size,
+  its backward is ``filtered_act_banded_bwd`` (counterpart of
+  ``pallas_kernels.py::_bwd_spatial``), six launches of the same GEMM a
+  chunk on the same scratch and plan, which recomputes the pre-activation
+  from the saved x.
 - ``filtered_act_plain``: ``D_h act(U_h x U_w^T) D_w^T`` with
   ``torch.matmul``, the function both forward kernels compute;
   ``filtered_act_plane_bwd_plain`` the VJP's six products, the plain
@@ -41,15 +42,13 @@ ACT_CODES = {"silu": 0, "swish": 0, "gelu": 1, "relu": 2, "mish": 3,
              "leaky_relu": 4, "tanh": 5, "linear": 6}
 
 # the plane kernels take H, W % 4 == 0 up to this; the banded kernels every
-# H, W % 4 == 0 above it (the backward in bands of rows chosen from H and W,
-# band_rows)
+# H, W % 4 == 0 above it
 PLANE_MAX = 64
-# the banded backward keeps its H x W accumulator in shared memory up to this
-ACC_SMEM_MAX_BYTES = 64 * 1024
-# the banded forward's scratch for one chunk of planes (6·H·W floats a
-# plane) stays under this, or holds one plane. On an H100 256 MB ran the
-# path's shapes 1.58× quicker than 32 MB, which fits the 50 MB L2 but cuts
-# the GEMMs' grids into a wave or two of blocks (PERF.md §6)
+# the banded chains' scratch for one chunk of planes (6·H·W floats a plane,
+# forward and backward) stays under this, or holds one plane. On an H100
+# 256 MB ran K1 at the path's shapes 1.58× quicker than 32 MB, which fits
+# the 50 MB L2 but cuts the GEMMs' grids into a wave or two of blocks
+# (PERF.md §6)
 BANDED_SCRATCH_BYTES = 256 * 2 ** 20
 # the shared memory one block may use on Hopper (227 KB)
 SMEM_MAX_BYTES = 232448
@@ -141,6 +140,13 @@ def _check(x: torch.Tensor, act: str, banded: bool, name: str):
                          f"{side} {PLANE_MAX}, got {H}x{W}")
     if act not in ACT_CODES:
         raise ValueError(f"{name}: unknown activation {act!r}")
+
+
+def _contiguous16(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous, at a 16-byte boundary: the kernels read it in 16-byte
+    chunks."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _launch_args(x: torch.Tensor):
@@ -270,9 +276,7 @@ def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     if x.device.type == "cpu":
         return filtered_act_plain(x, act)
     _check(x, act, False, "filtered_act_plane")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel stages x with 16-byte copies
-        x = x.clone()
+    x = _contiguous16(x)
     out = torch.empty_like(x)
     H, W = x.shape[-2:]
     _, uwT, _, dwT = _kernel_ops(H, W, x.device)
@@ -291,14 +295,18 @@ def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
     return out
 
 
-def _bwd_launch_args(x, g, act, banded, name):
-    """Checks x and g, then returns (the kernel's tensor arguments: x, g,
-    dx and the operators U_h, U_wᵀ, D_hᵀ, D_w, U_w, U_hᵀ, contiguous;
-    nplanes; stream)."""
+def _check_bwd(x, g, act, banded, name):
     _check(x, act, banded, name)
     if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"{name}: g must match x in shape, device and "
                          "dtype")
+
+
+def _bwd_launch_args(x, g, act, name):
+    """Checks x and g, then returns (the plane backward's tensor arguments:
+    x, g, dx and the operators U_h, U_wᵀ, D_hᵀ, D_w, U_w, U_hᵀ, contiguous;
+    nplanes; stream)."""
+    _check_bwd(x, g, act, False, name)
     x, dx, ops, nplanes, stream = _launch_args(x)
     bwd_ops = _kernel_bwd_ops(*x.shape[-2:], x.device)
     return (x, g.contiguous(), dx, *ops[:2], *bwd_ops), nplanes, stream
@@ -310,7 +318,7 @@ def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
     if x.device.type == "cpu":
         return filtered_act_plane_bwd_plain(x, g, act)
     args, nplanes, stream = _bwd_launch_args(
-        x, g, act, False, "filtered_act_plane_bwd")
+        x, g, act, "filtered_act_plane_bwd")
     if nplanes == 0:
         return args[2]
     H, W = x.shape[-2:]
@@ -344,7 +352,7 @@ def filtered_act_plane(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return _FilteredActPlane.apply(x, act)
 
 
-# -- the banded forward (K1): a chain of four launches of one tiled GEMM ---
+# -- the banded chains (K1, K2): launches of one tiled GEMM ---------------
 
 # the tiled GEMM's block tile sides, by the kernel's bit for a product
 # (filtered_gemm.cuh): 128×128, or 64×64 for a launch short of a wave
@@ -359,9 +367,19 @@ def banded_products(H: int, W: int, planes: int) -> tuple:
             (planes * 2 * H, W, 2 * W, 1), (H, W, 2 * H, planes))
 
 
+def banded_bwd_products(H: int, W: int, planes: int) -> tuple:
+    """(M, N, K, batch) of the banded backward's six GEMMs for a chunk of
+    ``planes`` planes: t = x·U_wᵀ, pre = U_h·t, v = g·D_w,
+    m = act′(pre) ⊙ (D_hᵀ·v), s = m·U_w and dx = U_hᵀ·s."""
+    return ((planes * H, 2 * W, W, 1), (2 * H, 2 * W, H, planes),
+            (planes * H, 2 * W, W, 1), (2 * H, 2 * W, H, planes),
+            (planes * 2 * H, W, 2 * W, 1), (H, W, 2 * H, planes))
+
+
 def banded_scratch_bytes(H: int, W: int, planes: int) -> int:
-    """The chain's scratch for a chunk: t and then lo (2·H·W floats a
-    plane, one buffer) and hi (4·H·W)."""
+    """Either chain's scratch for a chunk: 2·H·W floats a plane (the
+    forward's t and then lo; the backward's t, v and then s) and 4·H·W
+    (the forward's hi; the backward's pre and then m)."""
     return 4 * 6 * H * W * planes
 
 
@@ -371,7 +389,7 @@ def gemm_blocks(M: int, N: int, batch: int, tile: int) -> int:
 
 
 class BandedChunk(NamedTuple):
-    """One call of the banded forward's C entry: planes ``start`` to
+    """One call of a banded chain's C entry: planes ``start`` to
     ``start + planes`` and each product's block tile side."""
     start: int
     planes: int
@@ -385,13 +403,16 @@ class BandedChunk(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def banded_plan(H: int, W: int, nplanes: int, cap: int) -> tuple:
-    """The banded forward's chunks (``BandedChunk``), in order, covering
-    every plane once: as few chunks as keep each chunk's scratch within
-    ``cap`` bytes (at least one plane a chunk, whatever its size), their
-    plane counts within one of each other. Each product takes the 128×128
-    tile unless that gives a grid short of a wave of NUM_SMS blocks, then
-    the 64×64 tile. No chunks for 0 planes."""
+def banded_plan(H: int, W: int, nplanes: int, cap: int,
+                products=banded_products) -> tuple:
+    """A banded chain's chunks (``BandedChunk``), in order, covering every
+    plane once: as few chunks as keep each chunk's scratch within ``cap``
+    bytes (at least one plane a chunk, whatever its size), their plane
+    counts within one of each other. Each of the chain's ``products``
+    (``banded_products``: the forward's; ``banded_bwd_products``: the
+    backward's) takes the 128×128 tile unless that gives a grid short of a
+    wave of NUM_SMS blocks, then the 64×64 tile. No chunks for 0
+    planes."""
     if nplanes == 0:
         return ()
     per = max(1, cap // banded_scratch_bytes(H, W, 1))
@@ -403,18 +424,27 @@ def banded_plan(H: int, W: int, nplanes: int, cap: int) -> tuple:
         tiles = tuple(
             GEMM_TILES[0] if gemm_blocks(M, N, b, GEMM_TILES[0]) >= NUM_SMS
             else GEMM_TILES[1]
-            for M, N, _, b in banded_products(H, W, planes))
+            for M, N, _, b in products(H, W, planes))
         chunks.append(BandedChunk(start, planes, tiles))
         start += planes
     return tuple(chunks)
 
 
 def _banded_ops(H: int, W: int, device) -> tuple:
-    """(U_wᵀ, U_hᵀ, D_wᵀ, D_hᵀ): the chain's operators, the H-side ones in
-    the k-major forms its batched products read."""
+    """(U_wᵀ, U_hᵀ, D_wᵀ, D_hᵀ): the forward chain's operators, the H-side
+    ones in the k-major forms its batched products read."""
     _, uwT, _, dwT = _kernel_ops(H, W, device)
     dhT, _, _, uhT = _kernel_bwd_ops(H, W, device)
     return uwT, uhT, dwT, dhT
+
+
+def _banded_bwd_ops(H: int, W: int, device) -> tuple:
+    """(U_wᵀ, U_hᵀ, D_w, D_h, U_w, U_h): the backward chain's operators in
+    the order of its products, the H-side ones (U_h, D_hᵀ, U_hᵀ) in the
+    k-major forms its batched products read."""
+    uh, uwT, dh, _ = _kernel_ops(H, W, device)
+    _, dw, uw, uhT = _kernel_bwd_ops(H, W, device)
+    return uwT, uhT, dw, dh, uw, uh
 
 
 def _banded_entry(x, out, scratch, ops, chunk, act):
@@ -429,31 +459,55 @@ def _banded_entry(x, out, scratch, ops, chunk, act):
     kernels.check(err, "filtered_act_banded")
 
 
-def _banded_chain(x: torch.Tensor, act: str, entry) -> torch.Tensor:
-    """x (NCHW, contiguous) through the banded forward's chunks, each by
-    ``entry`` (``_banded_entry`` on the card), with one scratch buffer for
-    the largest chunk."""
+def _banded_bwd_entry(x, g, dx, scratch, ops, chunk, act):
+    """One chunk through the C entry ``filtered_act_banded_bwd_f32``: the
+    six GEMM launches on the current stream. x, g, dx: the chunk's
+    (P, H, W) planes, contiguous."""
+    H, W = x.shape[-2:]
+    err = kernels.library("filtered_act").filtered_act_banded_bwd_f32(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+        *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
+        ACT_CODES[act], torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "filtered_act_banded_bwd")
+
+
+def _banded_chain(x: torch.Tensor, act: str, entry,
+                  g: torch.Tensor = None) -> torch.Tensor:
+    """x (NCHW, contiguous) through the banded forward's chunks or, given
+    the cotangent g (x's shape, contiguous), the backward's, with one
+    scratch buffer for the largest chunk. Each chunk goes through
+    ``entry`` (on the card ``_banded_entry``, ``_banded_bwd_entry``) as
+    entry(x, out, scratch, ops, chunk, act), or entry(x, g, dx, ...), on
+    its (P, H, W) planes."""
     H, W = x.shape[-2:]
     out = torch.empty_like(x)
-    xs, outs = x.view(-1, H, W), out.view(-1, H, W)
-    plan = banded_plan(H, W, xs.shape[0], BANDED_SCRATCH_BYTES)
+    ins = [t.view(-1, H, W) for t in (x, g) if t is not None]
+    products, ops = ((banded_products, _banded_ops) if g is None
+                     else (banded_bwd_products, _banded_bwd_ops))
+    plan = banded_plan(H, W, ins[0].shape[0], BANDED_SCRATCH_BYTES,
+                       products)
     if not plan:
         return out
-    ops = _banded_ops(H, W, x.device)
+    ops = ops(H, W, x.device)
     scratch = torch.empty(
         banded_scratch_bytes(H, W, max(c.planes for c in plan)) // 4,
         device=x.device, dtype=torch.float32)
+    outs = out.view(-1, H, W)
     for c in plan:
         rows = slice(c.start, c.start + c.planes)
-        entry(xs[rows], outs[rows], scratch, ops, c, act)
+        entry(*(t[rows] for t in ins), outs[rows], scratch, ops, c, act)
     return out
 
 
 def filtered_gemm_plain(a: torch.Tensor, b: torch.Tensor, act=None,
-                        a_kmajor: bool = False) -> torch.Tensor:
-    """The plain version of ``filtered_gemm``: act(A · B) with
-    ``torch.matmul``, A = aᵀ where ``a_kmajor``."""
+                        a_kmajor: bool = False,
+                        grad_at: torch.Tensor = None) -> torch.Tensor:
+    """The plain version of ``filtered_gemm``: act(A · B), or
+    act′(grad_at) ⊙ (A · B), with ``torch.matmul``, A = aᵀ where
+    ``a_kmajor``."""
     out = torch.matmul(a.transpose(-1, -2) if a_kmajor else a, b)
+    if grad_at is not None:
+        return act_grad(grad_at, act) * out
     return out if act is None else _ACTS[act](out)
 
 
@@ -477,18 +531,25 @@ def _gemm_dims(a: torch.Tensor, b: torch.Tensor, a_kmajor: bool) -> tuple:
 
 
 def filtered_gemm(a: torch.Tensor, b: torch.Tensor, act=None,
-                  a_kmajor: bool = False, small: bool = False):
-    """C[i] = act(A[i] · B[i]) through the banded forward's tiled GEMM
-    kernel alone, in the 64×64 block tile where ``small`` (its card tests'
-    entry). a: (batch, M, K), or (batch, K, M) where ``a_kmajor``; b:
-    (batch, K, N); M, N, K multiples of 4. On the card: float32, unit
-    stride along the last dim, the other strides multiples of 4 (a batch
-    stride of 0: expanded from one matrix) and 16-byte aligned data, as
-    the kernel's 16-byte copies read them; an empty result launches
-    nothing."""
+                  a_kmajor: bool = False, small: bool = False,
+                  grad_at: torch.Tensor = None):
+    """C[i] = act(A[i] · B[i]) through the banded chains' tiled GEMM kernel
+    alone, in the 64×64 block tile where ``small`` (its card tests'
+    entry); given ``grad_at`` (batch, M, N), C[i] = act′(grad_at[i]) ⊙
+    (A[i] · B[i]) through the epilogue that reads C (K2's fourth product),
+    grad_at left as it is. a: (batch, M, K), or (batch, K, M) where
+    ``a_kmajor``; b: (batch, K, N); M, N, K multiples of 4. On the card:
+    float32, unit stride along the last dim, the other strides multiples
+    of 4 (a batch stride of 0: expanded from one matrix) and 16-byte
+    aligned data, as the kernel's 16-byte copies read them; an empty
+    result launches nothing."""
     batch, M, N, K = _gemm_dims(a, b, a_kmajor)
+    if grad_at is not None and (act is None
+                                or tuple(grad_at.shape) != (batch, M, N)):
+        raise ValueError("filtered_gemm: grad_at needs an activation and "
+                         f"the result's shape {(batch, M, N)}")
     if a.device.type == "cpu":
-        return filtered_gemm_plain(a, b, act, a_kmajor)
+        return filtered_gemm_plain(a, b, act, a_kmajor, grad_at)
     if a.device != b.device or a.dtype != torch.float32 or (
             b.dtype != torch.float32):
         raise ValueError("filtered_gemm: float32 operands on one device "
@@ -499,42 +560,23 @@ def filtered_gemm(a: torch.Tensor, b: torch.Tensor, act=None,
             raise ValueError("filtered_gemm: operands need a unit last "
                              "stride, other strides multiples of 4 and "
                              "16-byte aligned data")
-    out = torch.empty((batch, M, N), device=a.device, dtype=torch.float32)
+    if grad_at is None:
+        out = torch.empty((batch, M, N), device=a.device,
+                          dtype=torch.float32)
+    else:  # the kernel reads act′'s argument from C and writes over it
+        out = grad_at.to(device=a.device, dtype=torch.float32,
+                         memory_format=torch.contiguous_format, copy=True)
     if out.numel() == 0:
         return out
     err = kernels.library("filtered_act").filtered_gemm_f32(
         a.data_ptr(), a.stride(1), a.stride(0), int(a_kmajor), b.data_ptr(),
         b.stride(1), b.stride(0), out.data_ptr(), N, M * N, batch, M, N, K,
         int(small), -1 if act is None else ACT_CODES[act],
+        int(grad_at is not None),
         torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check(err, "filtered_gemm")
     kernels.LAUNCHES["filtered_gemm"] += 1
     return out
-
-
-# -- the banded backward (K2) -------------------------------------------------
-
-def _acc_in_smem(H: int, W: int) -> bool:
-    return H * W * 4 <= ACC_SMEM_MAX_BYTES
-
-
-def banded_smem_bytes(H: int, W: int, R: int) -> int:
-    """Shared memory of a banded block: 3·R·W floats of band buffers, plus
-    the H x W accumulator when it stays in shared memory."""
-    return 4 * (3 * R * W + (H * W if _acc_in_smem(H, W) else 0))
-
-
-def band_rows(H: int, W: int) -> int:
-    """Rows of the 2H intermediate per band: the largest of 32, 16, 8, 4
-    that divides 2H and keeps the block within SMEM_MAX_BYTES (8 and 4
-    always divide 2H when H % 4 == 0). Raises above the width that 4 rows
-    can hold (W of about 4800 px; no AF model level comes near it)."""
-    for r in (32, 16, 8, 4):
-        if (2 * H) % r == 0 and banded_smem_bytes(H, W, r) <= SMEM_MAX_BYTES:
-            return r
-    raise ValueError(f"filtered_act_banded: a {H}x{W} plane needs more than "
-                     f"{SMEM_MAX_BYTES} bytes of shared memory even in "
-                     "bands of 4 rows")
 
 
 def _banded_forward(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -542,10 +584,7 @@ def _banded_forward(x: torch.Tensor, act: str) -> torch.Tensor:
         # the JAX package's chain: matmul up to 512 px, spectral above
         return filtered_nonlinearity(x, act)
     _check(x, act, True, "filtered_act_banded")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the GEMM reads x in 16-byte chunks
-        x = x.clone()
-    out = _banded_chain(x, act, _banded_entry)
+    out = _banded_chain(_contiguous16(x), act, _banded_entry)
     if out.numel():
         kernels.LAUNCHES["filtered_act_banded"] += 1
     return out
@@ -553,32 +592,23 @@ def _banded_forward(x: torch.Tensor, act: str) -> torch.Tensor:
 
 def filtered_act_banded_bwd(x: torch.Tensor, g: torch.Tensor,
                             act: str = "silu") -> torch.Tensor:
-    """The VJP of ``filtered_act_banded`` at x for the cotangent g (K2)."""
+    """The VJP of ``filtered_act_banded`` at x for the cotangent g (K2): on
+    the card the backward chain's six GEMM launches a chunk of planes."""
     if x.device.type == "cpu":
         return filtered_act_plane_bwd_plain(x, g, act)
-    args, nplanes, stream = _bwd_launch_args(
-        x, g, act, True, "filtered_act_banded_bwd")
-    if nplanes == 0:
-        return args[2]
-    H, W = x.shape[-2:]
-    R = band_rows(H, W)
-    err = kernels.library("filtered_act").filtered_act_banded_bwd_f32(
-        *(t.data_ptr() for t in args), nplanes, H, W, R,
-        int(_acc_in_smem(H, W)), ACT_CODES[act], stream)
-    kernels.check(err, "filtered_act_banded_bwd")
-    kernels.LAUNCHES["filtered_act_banded_bwd"] += 1
-    return args[2]
+    _check_bwd(x, g, act, True, "filtered_act_banded_bwd")
+    dx = _banded_chain(_contiguous16(x), act, _banded_bwd_entry,
+                       _contiguous16(g))
+    if dx.numel():
+        kernels.LAUNCHES["filtered_act_banded_bwd"] += 1
+    return dx
 
 
 class _FilteredActBanded(torch.autograd.Function):
-    """Saves x, not the 4x pre-activation (as ``_bwd_spatial`` does). On
-    the card a plane too wide for the backward's bands (``band_rows``) is
-    refused before the forward runs where x needs a gradient."""
+    """Saves x, not the 4x pre-activation (as ``_bwd_spatial`` does)."""
 
     @staticmethod
     def forward(ctx, x, act):
-        if ctx.needs_input_grad[0] and x.device.type == "cuda":
-            band_rows(*x.shape[-2:])
         ctx.act = act
         ctx.save_for_backward(x)
         return _banded_forward(x, act)
@@ -604,10 +634,8 @@ def filtered_act_fused(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     never reaches a Pallas kernel either; autograd runs through
     ``torch.fft``. Otherwise ``filtered_act_plane`` up to 64 px and
     ``filtered_act_banded`` above, whose CPU version is the JAX package's
-    chain (matmul up to 512 px, spectral above); on the card a plane
-    above the width that the banded backward's bands of 4 rows can hold
-    runs forward only: where it needs a gradient it raises before the
-    forward."""
+    chain (matmul up to 512 px, spectral above); both are differentiable
+    at every size they take."""
     if x.ndim < 4:
         return _ACTS[act](x)
     H, W = x.shape[-2:]

@@ -11,7 +11,8 @@ two commits' kernels can be timed in turns within one call on one card:
 ``--shapes_from <path of a chip_smoke.py>`` times the named kernels at that
 file's shapes instead of the checkout's own, so that an older checkout's
 kernels are timed at shapes added since; ``--banded_scratch_bytes`` sets
-the banded forward's scratch cap a chunk (``BANDED_SCRATCH_BYTES``).
+the banded chains' scratch cap a chunk (``BANDED_SCRATCH_BYTES``: K1's and,
+since it runs the same chain, K2's).
 
 Prints chip_smoke's ``check ...`` line per shape and each kernel's sums
 over the shapes run, and exits non-zero if a kernel disagrees with its
@@ -38,7 +39,7 @@ def main(argv=None):
     ap.add_argument("--shapes_from", default=None,
                     help="a chip_smoke.py whose shapes to time")
     ap.add_argument("--banded_scratch_bytes", type=int, default=None,
-                    help="the banded forward's scratch cap a chunk of "
+                    help="the banded chains' scratch cap a chunk of "
                          "planes (default: ops/filtered_act.py's)")
     args = ap.parse_args(argv)
     names = args.names

@@ -127,7 +127,8 @@ def _interp_run(args):
 # kernel-name groups of the breakdown, first match wins. cuDNN runs some
 # f32 convolutions as FFT tiles (r2c, a complex GEMM, c2r), which land in
 # "FFT and complex GEMM" with torch.fft's own kernels
-PORT_KERNELS = ("filtered_act", "flash_", "flash2_")
+# (the banded chains K1 and K2 run as filtered_gemm_kernel launches)
+PORT_KERNELS = ("filtered_act", "filtered_gemm", "flash_", "flash2_")
 GROUPS = (("port kernels", PORT_KERNELS),
           ("FFT and complex GEMM", ("fft", "cf32")),
           ("convolution", ("conv", "cudnn", "implicit", "winograd", "wgrad",

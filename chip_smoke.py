@@ -16,9 +16,12 @@ Phases, each of which fails the run:
    at the SD UNet's head dims 40, 80 and 160), and time kernel, plain
    version, the library call where one exists, and the bound (the larger
    of FLOPs / 67 TFLOP/s f32 and bytes / 3.35 TB/s); the flash backward's
-   sums are logged over its first three shapes and over all, the plane
-   kernel's over its first five and over all, with its launch plan (planes
-   a block, micro-tiles, threads and shared bytes a block) at each shape;
+   and the banded backward's sums are logged over their first three
+   shapes and over all, the plane kernel's over its first five and over
+   all, with its launch plan (planes a block, micro-tiles, threads and
+   shared bytes a block) at each shape, and the banded forward's and
+   backward's chunk plans (chunks, planes a chunk, the block tile of each
+   of their four and six GEMM launches);
 3. run the tiny pipeline on the card and on the CPU with the same weights
    and compare (the end-to-end reference check of serving);
 4. the serving path at full width (256.4M-parameter UNet, AF-VAE at
@@ -45,8 +48,9 @@ Phases, each of which fails the run:
    accumulation 2), synthetic data, random weights from seed 0,
    ``--vae_steps`` micro-steps with the counters set to 0 just before and
    read just after; every loss must be finite, every VAE parameter must
-   have moved and the filtered-activation kernels (K1, K2, K5, K5b) must
-   have launched;
+   have moved and the filtered-activation kernels (K1 and K2, each a
+   chain of the tiled GEMM at the 128 px level, K5, K5b) must have
+   launched;
 9. a tiny FFHQ interp denoise (two DDIM inversions, two STORE passes, one
    interp pass of 3 frames with one alpha each) on the card and on the CPU
    with the same weights and latents: latents compared;
@@ -174,10 +178,14 @@ KERNELS = {
         replaces="afldm_tpu/ops/pallas_kernels.py:261",
         # the AF-VAE's 128 px level at batch 4: the encoder's first resnet
         # (128 channels), the 256-channel resnets, the decoder's first
-        # resnet after the 512-channel upsampler; an AF-VAE at 320 px (80 px
-        # level, outside the old 96-512 px window)
+        # resnet after the 512-channel upsampler (``base_shapes``: their
+        # sums are the kernel table's yardstick, logged apart); an AF-VAE at
+        # 320 px (80 px level, outside the old 96-512 px window); a 1024 px
+        # plane, which the band walk before the GEMM chain ran one block a
+        # plane
         shapes=[(4, 128, 128, 128), (4, 256, 128, 128), (4, 512, 128, 128),
-                (4, 256, 80, 80)]),
+                (4, 256, 80, 80), (1, 16, 1024, 1024)],
+        base_shapes=3),
     "flash2_fwd": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/flash2_fwd.cu",
         replaces="afldm_tpu/ops/attention.py:302",
@@ -445,14 +453,19 @@ def check_kernels(torch, report):
 def launch_plan(name, shape):
     """The launch plan at ``shape`` as a log suffix: the plane kernel's
     (planes a block, each product's micro-tile, threads and shared bytes a
-    block) and the banded chain's (chunks, planes a chunk, each product's
-    block tile, scratch bytes); '' for the other kernels."""
-    if name not in ("filtered_act_plane", "filtered_act_banded"):
+    block) and the banded chains' (chunks, planes a chunk, each product's
+    block tile, four for K1 and six for K2, scratch bytes); '' for the
+    other kernels."""
+    banded = ("filtered_act_banded", "filtered_act_banded_bwd")
+    if name not in ("filtered_act_plane", *banded):
         return ""
     from afldm_tpu_torch.ops import filtered_act as FA
     n, c, h, w = shape
-    if name == "filtered_act_banded":
-        plan = FA.banded_plan(h, w, n * c, FA.BANDED_SCRATCH_BYTES)
+    if name in banded:
+        products = (FA.banded_products if name == "filtered_act_banded"
+                    else FA.banded_bwd_products)
+        plan = FA.banded_plan(h, w, n * c, FA.BANDED_SCRATCH_BYTES,
+                              products)
         sizes = sorted({ch.planes for ch in plan}, reverse=True)
         tiles = "; ".join(
             f"{ch.planes} planes: " + " ".join(str(t) for t in ch.tiles)

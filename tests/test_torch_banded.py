@@ -44,18 +44,12 @@ def _banded_entry_plain(x, out, scratch, ops, chunk, act):
 PLAN_SIDES = [(68, 92), (80, 80), (32, 128), (128, 128), (256, 256),
               (1024, 1024), (4, 4848)]
 CAPS = [32 * 2 ** 20, 256 * 2 ** 20, 1]
+PLAN_PLANES = [1, 5, 16, 4096, 8192]
 
 
-@pytest.mark.parametrize("hw", PLAN_SIDES)
-@pytest.mark.parametrize("nplanes", [1, 5, 16, 4096, 8192])
-@pytest.mark.parametrize("cap", CAPS)
-def test_banded_plan(hw, nplanes, cap):
-    """Chunks cover every plane exactly once, in order, at least one plane
-    each; a chunk's scratch stays under the cap unless one plane alone
-    exceeds it; as few chunks as the cap allows, within one plane of each
-    other; each product's tile is 128 unless that grid is short of a wave."""
-    H, W = hw
-    plan = TF.banded_plan(H, W, nplanes, cap)
+def check_plan(H, W, nplanes, cap, products):
+    """``banded_plan``'s rules for the chain of ``products``."""
+    plan = TF.banded_plan(H, W, nplanes, cap, products)
     one = TF.banded_scratch_bytes(H, W, 1)
     assert [c.start for c in plan] == \
         list(np.cumsum([0] + [c.planes for c in plan])[:-1])
@@ -67,19 +61,33 @@ def test_banded_plan(hw, nplanes, cap):
     assert len(plan) == -(-nplanes // per)
     assert max(c.planes for c in plan) - min(c.planes for c in plan) <= 1
     for c in plan:
-        assert len(c.tiles) == 4
-        for (M, N, _, b), tile in zip(TF.banded_products(H, W, c.planes),
-                                      c.tiles):
+        n = len(products(H, W, c.planes))
+        assert len(c.tiles) == n
+        for (M, N, _, b), tile in zip(products(H, W, c.planes), c.tiles):
             big = TF.gemm_blocks(M, N, b, 128) >= TF.NUM_SMS
             assert tile == (128 if big else 64)
-        assert [TF.GEMM_TILES[(c.tile_codes >> i) & 1] for i in range(4)] \
+        assert [TF.GEMM_TILES[(c.tile_codes >> i) & 1] for i in range(n)] \
             == list(c.tiles)
+        assert c.tile_codes >> n == 0
+
+
+@pytest.mark.parametrize("hw", PLAN_SIDES)
+@pytest.mark.parametrize("nplanes", PLAN_PLANES)
+@pytest.mark.parametrize("cap", CAPS)
+def test_banded_plan(hw, nplanes, cap):
+    """Chunks cover every plane exactly once, in order, at least one plane
+    each; a chunk's scratch stays under the cap unless one plane alone
+    exceeds it; as few chunks as the cap allows, within one plane of each
+    other; each product's tile is 128 unless that grid is short of a wave."""
+    check_plan(*hw, nplanes, cap, TF.banded_products)
 
 
 def test_plans_at_zero_planes():
-    """0 planes: no chunks for K1; K5's plan is its one-plane plan (its
-    wrapper launches nothing either)."""
+    """0 planes: no chunks for K1 or K2; K5's plan is its one-plane plan
+    (its wrapper launches nothing either)."""
     assert TF.banded_plan(128, 128, 0, TF.BANDED_SCRATCH_BYTES) == ()
+    assert TF.banded_plan(128, 128, 0, TF.BANDED_SCRATCH_BYTES,
+                          TF.banded_bwd_products) == ()
     for hw in [(4, 4), (32, 32), (64, 64), (12, 20)]:
         assert TF.plane_plan(*hw, 0) == TF.plane_plan(*hw, 1)
 

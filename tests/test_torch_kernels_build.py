@@ -146,9 +146,9 @@ def _kernel_body(src, name):
 def test_plane_kernel_on_the_filtered_tile():
     """K5 runs its four products through filtered_tile.cuh (every operand
     staged in shared memory with 16-byte cp.async), not block_gemm, which
-    the K5b and K2 kernels keep; K1 is four launches of the tiled GEMM of
-    filtered_gemm.cuh, with no block_gemm and no kernel of its own. None
-    of them uses tensor cores (no wmma, mma.sync or TF32)."""
+    the K5b kernel keeps; K1 is four and K2 six launches of the tiled GEMM
+    of filtered_gemm.cuh, with no block_gemm and no kernel of their own.
+    None of them uses tensor cores (no wmma, mma.sync or TF32)."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
     assert '#include "filtered_tile.cuh"' in src
     assert '#include "filtered_gemm.cuh"' in src
@@ -156,21 +156,24 @@ def test_plane_kernel_on_the_filtered_tile():
     assert "block_gemm" not in k5
     assert k5.count("product(") == 4 and "stage(" in k5
     assert "cp_async16(" in k5
-    for name in ("filtered_act_plane_bwd_kernel",
-                 "filtered_act_banded_bwd_kernel"):
-        assert "block_gemm" in _kernel_body(src, name), name
+    assert "block_gemm" in _kernel_body(src, "filtered_act_plane_bwd_kernel")
     code = re.sub(r"//[^\n]*", "", src)
     assert "filtered_act_banded_kernel" not in code
+    assert "filtered_act_banded_bwd_kernel" not in code
     k1 = _kernel_body(src, "filtered_act_banded_f32")
     assert "block_gemm" not in k1 and "<<<" not in k1
     assert k1.count("filtered_gemm<") == 4
+    k2 = _kernel_body(src, "filtered_act_banded_bwd_f32")
+    assert "block_gemm" not in k2 and "<<<" not in k2
+    assert k2.count("filtered_gemm<") == 6
+    assert k2.count("MulActGrad{") == 1
     tile, gemm = (re.sub(r"//[^\n]*", "", (kernels.CSRC / f).read_text())
                   for f in ("filtered_tile.cuh", "filtered_gemm.cuh"))
     assert "cp.async.cg.shared.global" in tile and "float4" in tile
     assert "cp.async.cg.shared.global" in gemm and "float4" in gemm
     assert "fmaf(" in gemm and "__syncthreads" in gemm
     for absent in ("wmma", "mma.sync", "tf32", "wgmma"):
-        assert absent not in (tile + gemm + k5 + k1).lower(), absent
+        assert absent not in (tile + gemm + k5 + k1 + k2).lower(), absent
 
 
 def test_filtered_tile_edit_rebuilds_filtered_act(tmp_path, monkeypatch):
@@ -194,18 +197,22 @@ def _chip_smoke():
 
 
 def test_chip_smoke_logs_launch_plans():
-    """chip_smoke's log suffix at every kernel shape: K5's and K1's plans,
-    nothing for the other kernels."""
+    """chip_smoke's log suffix at every kernel shape: K5's, K1's and K2's
+    plans (K2's with six tiles a chunk), nothing for the other kernels."""
     smoke = _chip_smoke()
     for name, spec in smoke.KERNELS.items():
         for shape in spec["shapes"]:
             plan = smoke.launch_plan(name, shape)
-            if name in ("filtered_act_plane", "filtered_act_banded"):
+            if name in ("filtered_act_plane", "filtered_act_banded",
+                        "filtered_act_banded_bwd"):
                 assert plan.startswith("; plan "), (name, shape)
             else:
                 assert plan == "", (name, shape)
-    assert "2 chunks of 8 planes" in smoke.launch_plan(
-        "filtered_act_banded", (1, 16, 1024, 1024))
+    for name in ("filtered_act_banded", "filtered_act_banded_bwd"):
+        assert "2 chunks of 8 planes" in smoke.launch_plan(
+            name, (1, 16, 1024, 1024))
+    assert "(8 planes: 128 128 128 128 128 128)" in smoke.launch_plan(
+        "filtered_act_banded_bwd", (1, 16, 1024, 1024))
 
 
 def test_chip_smoke_names_each_kernels_registers():
@@ -233,8 +240,8 @@ def test_chip_smoke_names_each_kernels_registers():
 def test_filtered_act_bounds_count_the_cheaper_order(hw):
     """chip_smoke's bounds charge each filter pair the cheaper of its two
     orders: 24·S³ (forward) and 36·S³ (backward) FLOP a square plane, the
-    same for a plane and its transpose, and never more than K1's chain
-    does (12H²W + 12HW², its order fixed)."""
+    same for a plane and its transpose, and never more than K1's and K2's
+    chains do (12H²W + 12HW² and 20H²W + 16HW², their order fixed)."""
     smoke = _chip_smoke()
     H, W = hw
     fwd, _ = smoke.filtered_act_work((1, 2, H, W))
@@ -245,5 +252,29 @@ def test_filtered_act_bounds_count_the_cheaper_order(hw):
                 TF.banded_products(H, W, 2))
     assert chain == 2 * (12 * H * H * W + 12 * H * W * W)
     assert fwd <= chain and (fwd < chain) == (H != W)
+    bwd_chain = sum(2 * m * n * k * b for m, n, k, b in
+                    TF.banded_bwd_products(H, W, 2))
+    assert bwd_chain == 2 * (20 * H * H * W + 16 * H * W * W)
+    assert bwd <= bwd_chain and (bwd < bwd_chain) == (H != W)
     if H == W:
         assert fwd == 2 * 24 * H ** 3
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void afldm_filtered::filtered_gemm_kernel<128, 128, true, "
+     "(anonymous namespace)::MulActGrad>(afldm_filtered::GemmArgs)",
+     "port kernels"),
+    ("(anonymous namespace)::filtered_act_plane_bwd_kernel(float const*)",
+     "port kernels"),
+    ("void flash_fwd_kernel<64>(FlashArgs)", "port kernels"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_nt_n_tilesize64x64x8_stage3",
+     "GEMM"),
+    ("sm80_xmma_gemm_cf32cf32_f32f32_cf32_nt_n_tilesize32x64x8",
+     "FFT and complex GEMM"),
+    ("sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw",
+     "convolution")])
+def test_profile_groups_kernel_names(name, group):
+    """The device-time breakdown counts the banded chains' GEMM launches
+    (K1, K2) with the port's kernels, not with cuBLAS's GEMMs."""
+    from afldm_tpu_torch.scripts import profile_main_path
+    assert profile_main_path.group_of(name) == group

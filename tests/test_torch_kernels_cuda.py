@@ -154,6 +154,32 @@ def test_gemm_kernel_activation_epilogue(cuda, act):
                                atol=3e-5, rtol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu", "mish",
+                                 "leaky_relu", "tanh", "linear"])
+@pytest.mark.parametrize("a_kmajor", [False, True])
+@pytest.mark.parametrize("small", [False, True])
+def test_gemm_kernel_reads_c_in_its_epilogue(cuda, act, a_kmajor, small):
+    """The epilogue that reads C (K2's fourth product): act′(C's old
+    value) ⊙ (A · B) for every activation, A row-major or k-major, in
+    either block tile, edges ragged against it; relu and leaky_relu
+    meet old values of exactly 0 (their slope there is 1); grad_at itself
+    is left as it is."""
+    batch, M, N, K = 2, 132, 196, 36
+    a = torch.randn((batch, K, M) if a_kmajor else (batch, M, K),
+                    device=cuda)
+    b = torch.randn(batch, K, N, device=cuda)
+    c = torch.randn(batch, M, N, device=cuda)
+    c[:, ::7] = 0.0
+    c0 = c.clone()
+    got = _launches("filtered_gemm", lambda: TF.filtered_gemm(
+        a, b, act, a_kmajor, small, grad_at=c))
+    torch.testing.assert_close(
+        got, TF.filtered_gemm_plain(a, b, act, a_kmajor, grad_at=c0),
+        atol=3e-5, rtol=1e-4)
+    assert torch.equal(c, c0)
+
+
 def _misaligned(t):
     """t's values one float past a 16-byte boundary."""
     buf = torch.empty(t.numel() + 1, device=t.device)
@@ -242,8 +268,7 @@ def test_dispatcher_picks_kernels(cuda):
     TF.filtered_act_fused(torch.randn(1, 1, 80, 80, device=cuda), "silu")
     assert kernels.LAUNCHES["filtered_act_banded"] == \
         before["filtered_act_banded"] + 2
-    # a plane wider than bands of 4 rows can hold (the backward's limit):
-    # the forward's GEMM chain takes it
+    # a plane 4848 px wide: the forward's GEMM chain takes it
     wide = torch.randn(1, 1, 4, 4848, device=cuda)
     torch.testing.assert_close(TF.filtered_act_fused(wide, "silu"),
                                TF.filtered_act_plain(wide, "silu"),
@@ -255,15 +280,19 @@ def test_dispatcher_picks_kernels(cuda):
 
 
 @pytest.mark.cuda
-def test_wide_plane_needing_a_gradient_is_refused_first(cuda):
-    """A plane the banded backward cannot hold (4×4848) that needs a
-    gradient raises before K1 runs, not after it in the backward."""
-    wide = torch.randn(1, 1, 4, 4848, device=cuda, requires_grad=True)
-    before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="bands of 4 rows"):
-        TF.filtered_act_fused(wide, "silu")
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES == before
+@pytest.mark.parametrize("shape", [(1, 1, 4, 4848), (1, 2, 1024, 1024)])
+def test_wide_planes_take_a_gradient(cuda, shape):
+    """Planes as wide as 4848 px and as large as 1024 px run forward (K1)
+    and backward (K2) through the dispatcher where they need a gradient,
+    one launch of each wrapper, and the gradient is the plain version's."""
+    x = torch.randn(shape, device=cuda, requires_grad=True)
+    g = torch.randn(shape, device=cuda)
+    y = _launches("filtered_act_banded",
+                  lambda: TF.filtered_act_fused(x, "silu"))
+    _launches("filtered_act_banded_bwd", lambda: y.backward(g))
+    torch.testing.assert_close(
+        x.grad, TF.filtered_act_plane_bwd_plain(x.detach(), g, "silu"),
+        atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -417,14 +446,55 @@ def test_plane_function_backward_launches_kernel(cuda):
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu", "mish",
                                  "leaky_relu", "tanh"])
 def test_banded_bwd_kernel_matches_plain(cuda, shape, act):
-    """K2 with its accumulator in shared memory (up to 128x128) and in the
-    block's dx plane (above), bands of 32, 16 and 8 rows."""
+    """K2's six GEMM launches at square and mixed planes, sides that are
+    and are not multiples of the 64 and 128 px block tiles, in one chunk,
+    for every activation's derivative in the epilogue that reads C."""
     x = torch.randn(shape, device=cuda)
     g = torch.randn(shape, device=cuda)
     got = _launches("filtered_act_banded_bwd",
                     lambda: TF.filtered_act_banded_bwd(x, g, act))
     torch.testing.assert_close(
         got, TF.filtered_act_plane_bwd_plain(x, g, act), atol=1e-4,
+        rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,planes,cap_planes", [(128, 5, 2),
+                                                    (80, 7, 3),
+                                                    (1024, 12, None)])
+def test_banded_bwd_kernel_crosses_chunks(cuda, monkeypatch, side, planes,
+                                          cap_planes):
+    """K2 over several chunks of planes: five planes of 128 px in chunks of
+    two, seven of 80 px in chunks of three, and 12 planes of 1024 px at
+    the module's cap (10 planes' scratch a chunk); one scratch buffer,
+    reused chunk after chunk."""
+    if cap_planes is not None:
+        monkeypatch.setattr(TF, "BANDED_SCRATCH_BYTES",
+                            TF.banded_scratch_bytes(side, side, cap_planes))
+    assert len(TF.banded_plan(side, side, planes, TF.BANDED_SCRATCH_BYTES,
+                              TF.banded_bwd_products)) > 1
+    x = torch.randn(1, planes, side, side, device=cuda)
+    g = torch.randn(1, planes, side, side, device=cuda)
+    got = _launches("filtered_act_banded_bwd",
+                    lambda: TF.filtered_act_banded_bwd(x, g, "gelu"))
+    torch.testing.assert_close(
+        got, TF.filtered_act_plane_bwd_plain(x, g, "gelu"), atol=1e-4,
+        rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_banded_bwd_kernel_misaligned_and_strided(cuda):
+    """x and g off a 16-byte boundary, and g a non-contiguous view (as
+    autograd may hand it), are copied to what the GEMM's 16-byte reads
+    take; dx is the plain version's."""
+    shape = (1, 3, 96, 128)
+    x = _misaligned(torch.randn(shape, device=cuda))
+    g = torch.randn(1, 3, 128, 96, device=cuda).transpose(-1, -2)
+    assert x.data_ptr() % 16 and not g.is_contiguous()
+    got = _launches("filtered_act_banded_bwd",
+                    lambda: TF.filtered_act_banded_bwd(x, g, "silu"))
+    torch.testing.assert_close(
+        got, TF.filtered_act_plane_bwd_plain(x, g, "silu"), atol=1e-4,
         rtol=1e-4)
 
 
@@ -626,8 +696,8 @@ WIDE_SHAPES = [(2, 3, 80, 80), (1, 2, 68, 92), (1, 2, 32, 128),
 @pytest.mark.parametrize("shape", WIDE_SHAPES)
 def test_banded_kernels_widened_window(cuda, shape):
     """K1 and K2 at the sizes between and beyond the old 96-512 px window:
-    68-92 px, mixed 32x128, and planes above 512 px (bands of 16 rows at
-    640 and 1024 px, the accumulator in the output plane)."""
+    68-92 px, mixed 32x128, and planes above 512 px (one or two planes a
+    chunk, their GEMM grids many waves deep)."""
     x = torch.randn(shape, device=cuda)
     g = torch.randn(shape, device=cuda)
     got = _launches("filtered_act_banded",

@@ -85,26 +85,6 @@ def test_dispatcher_below_4d_and_out_of_range(rng):
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("H", [4, 8, 12, 64, 96, 128, 256])
-@pytest.mark.parametrize("W", [128, 512, 1024, 2048])
-def test_band_rows_divide(H, W):
-    """The band rows divide 2H and keep a block within the 227 KB of
-    shared memory, accumulator included where it stays there."""
-    r = TF.band_rows(H, W)
-    assert (2 * H) % r == 0 and r % 4 == 0
-    assert TF.banded_smem_bytes(H, W, r) <= 232448
-    acc = 4 * H * W if 4 * H * W <= 64 * 1024 else 0
-    assert TF.banded_smem_bytes(H, W, r) == 12 * r * W + acc
-    larger = [p for p in (32, 16, 8) if p > r and (2 * H) % p == 0]
-    assert all(TF.banded_smem_bytes(H, W, p) > 232448 for p in larger)
-
-
-def test_band_rows_raise_beyond_four_rows():
-    assert TF.band_rows(8, 4800) == 4
-    with pytest.raises(ValueError, match="bands of 4 rows"):
-        TF.band_rows(8, 4848)
-
-
 def test_kernel_operators_layout():
     uh, uwT, dh, dwT = TF._kernel_ops(8, 12, "cpu")
     assert tuple(uh.shape) == (16, 8) and tuple(uwT.shape) == (12, 24)
