@@ -44,10 +44,10 @@ _SIGNATURES = {
         # tile codes, threads, act, stream
         "filtered_act_plane_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _P],
-        # x, g, dx, uh, uwT, dhT, dw, uw, uhT, nplanes, H, W,
-        # planes_per_block, act, stream
-        "filtered_act_plane_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _P],
+        # x, g, dx, uhT, uwT, dh, dw, uw, uh, nplanes, H, W,
+        # planes_per_block, tile codes, threads, act, stream
+        "filtered_act_plane_bwd_f32": [*[_P] * 9, _I, _I, _I, _I, _I, _I,
+                                       _I, _P],
         # x, out, scratch, uwT, uhT, dwT, dhT, nplanes (of the chunk), H, W,
         # tile codes, act, stream
         "filtered_act_banded_f32": [*[_P] * 7, _I, _I, _I, _I, _I, _P],

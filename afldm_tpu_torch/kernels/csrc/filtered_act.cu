@@ -25,8 +25,8 @@
 // 67 TFLOP/s ÷ 3.35 TB/s ≈ 20. Without tensor cores (exact f32 is the
 // parity default) the ceiling is the f32 FMA rate.
 //
-// What the design does about it: in K5 and K5b the 2H×2W intermediate
-// never leaves the SM, so device memory sees each input and output once; K1
+// What the design does about it: in K5 and K5b the 2H×2W intermediates
+// never leave the SM, so device memory sees each input and output once; K1
 // and K2 trade that for a grid that fills the card (below). The TPU's
 // lane-multiple-of-128 and 10 MB VMEM rules do not apply here: the limit is
 // the 227 KB of shared memory of a block.
@@ -45,8 +45,6 @@
 //     (ops/filtered_act.py::plane_plan): small planes are packed P to a
 //     block so that every thread holds a full micro-tile, within two blocks
 //     to an SM and a grid of at least one wave.
-//   * K5b runs block_gemm: each thread keeps a 4×4 register tile of its
-//     product, so one pair of operand loads feeds 16 FMAs.
 //   * banded (every H, W % 4 == 0 with max(H, W) > 64, K1): at 128 px the 2x
 //     plane alone is 256 KB, over the limit, and one block a plane left
 //     most of the 132 SMs idle (16 planes at 1024 px). K1 no longer walks
@@ -67,12 +65,25 @@
 //     banded_plan).
 //   * plane backward (H, W <= 64, K5b): six products per plane, 12H²W + 24HW²
 //     FLOP (36·S³, 1.5x the forward), again arithmetic-bound. Like the JAX
-//     rule it saves x, not the 4x pre-activation, and recomputes it. One
-//     block holds P planes of 7·H·W floats: the 2H×2W pre-activation (x is
-//     staged inside it), g, and one 2H×W temporary. act′(pre) ⊙ (D_hᵀ g D_w)
-//     is formed in the epilogue of the last product of g's chain, in place
-//     over the pre-activation, so the 2x cotangent is never stored: 28 KB a
-//     plane at 32 px, 112 KB at 64 px (one plane a block).
+//     rule it saves x, not the 4x pre-activation, and recomputes it. K5b is
+//     K5's design with six products: the same routine, the same two
+//     operator buffers (each operator's cp.async in flight during the
+//     product before the one that reads it) and a launch plan of its own
+//     (ops/filtered_act.py::plane_bwd_plan). Per plane: the 2W×2H preᵀ (x
+//     staged inside it), one buffer for tᵀ, uᵀ and s in turn, and the
+//     staged g (H×W); the H side first, as in K5:
+//       tᵀ   = xᵀ · U_hᵀ                  (W×2H)   from x and U_hᵀ
+//       preᵀ = U_w · tᵀ                   (2W×2H)  from U_wᵀ and tᵀ, over x
+//       uᵀ   = gᵀ · D_h                   (W×2H)   from g and D_h, over tᵀ
+//       mᵀ   = act′(preᵀ) ⊙ (D_wᵀ · uᵀ)   (2W×2H)  from D_w and uᵀ, over preᵀ
+//       s    = m · U_w                    (2H×W)   from mᵀ and U_w, over uᵀ
+//       dx   = U_hᵀ · s                   (H×W)    from U_h and s, to device
+//     mᵀ is formed in the epilogue of its product, which reads the
+//     pre-activation it overwrites (Epi::kReadsC; each element has one
+//     owning thread), so the 2x cotangent is never stored. A plane takes
+//     7·H·W floats and row padding: 30 KB at 32 px, 116 KB at 64 px, where
+//     with the operator buffers' 64 KB a block holds one plane and an SM
+//     one block.
 //   * banded backward (the forward's sizes, K2): the six products of the
 //     VJP, 16HW² + 20H²W FLOP a plane (36·S³). The TPU kernel holds the
 //     2H×2W pre-activation and cotangent of a whole plane in VMEM (512 KB
@@ -94,9 +105,7 @@
 //     floats a plane: t, then v, then s in the first 2·H·W, pre and then m
 //     in the next 4·H·W; 112·H·W bytes a plane of scratch traffic against
 //     36·S³ FLOP, still above the ridge at 80 px and up.
-// K5b reads its operators through the read-only path from device memory;
-// every block reads the same few KB, which stay in L2 and L1.
-// Making it fast (tensor-core TF32 splits, wgmma, TMA) is later work.
+// Making them faster (tensor-core TF32 splits, wgmma, TMA) is later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -156,67 +165,6 @@ __device__ __forceinline__ float act_grad(float v, int act) {
   }
 }
 
-// How block_gemm writes its product P into C.
-enum Epilogue {
-  STORE = 0,     // C = act(P)  (act NONE: C = P)
-  MUL_DACT = 1,  // C = act′(C) ⊙ P, C read and written by the same thread
-};
-
-// C[p] (epilogue) A[p] · B[p] for p < P, all row-major with leading
-// dimensions lda/ldb/ldc and per-plane strides sA/sB/sC (0: shared by all
-// planes). M and N are multiples of 4. Thread t owns the 4×4 tile of rows
-// {tm + i·M/4} and cols {tn + j·N/4}: neighbouring threads read
-// neighbouring B columns (conflict-free, coalesced) and mostly the same A
-// element (a broadcast).
-template <int EPI>
-__device__ __forceinline__ void block_gemm(
-    const float* __restrict__ A, int lda, long long sA,
-    const float* __restrict__ B, int ldb, long long sB,
-    float* __restrict__ C, int ldc, long long sC,
-    int P, int M, int N, int K, int act) {
-  const int tm_n = M >> 2, tn_n = N >> 2;
-  const int tiles = tm_n * tn_n;
-  for (int t = threadIdx.x; t < P * tiles; t += blockDim.x) {
-    const int p = t / tiles;
-    const int r = t - p * tiles;
-    const int tm = r / tn_n, tn = r - tm * tn_n;
-    const float* a = A + p * sA + (long long)tm * lda;
-    const float* b = B + p * sB + tn;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    const long long a_step = (long long)tm_n * lda;
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a[i * a_step + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = b[(long long)k * ldb + j * tn_n];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    float* c = C + p * sC;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long long idx = (long long)(tm + i * tm_n) * ldc + tn + j * tn_n;
-        if (EPI == MUL_DACT) {
-          c[idx] = act_grad(c[idx], act) * acc[i][j];
-        } else {
-          c[idx] = act == NONE ? acc[i][j] : apply_act(acc[i][j], act);
-        }
-      }
-    }
-  }
-}
-
-constexpr int kThreads = 256;
-
 // Shared memory of a K5 block, in floats: two operator buffers, each the
 // largest operator (2·max(H, W)²), then for each of the P planes the 2W×2H
 // hiᵀ (x staged at its start, rows row_pad(2H)) and one buffer for tᵀ
@@ -235,6 +183,18 @@ struct PlaneLayout {
   }
 };
 
+// Shared memory of a K5b block, in floats: K5's, with big holding preᵀ and
+// then mᵀ (x staged at its start) and small tᵀ, uᵀ and then s, and the
+// staged g (H×W) a plane after them.
+struct PlaneBwdLayout : PlaneLayout {
+  int g;
+  __host__ __device__ PlaneBwdLayout(int H, int W)
+      : PlaneLayout(H, W), g(H * W) {}
+  __host__ __device__ size_t floats(int ppb) const {
+    return PlaneLayout::floats(ppb) + (size_t)ppb * g;
+  }
+};
+
 // The epilogues of filtered_tile.cuh's products and of the tiled GEMM
 // (filtered_gemm.cuh), which reads C first where kReadsC.
 struct Identity {
@@ -248,7 +208,8 @@ struct Activation {
     return apply_act(v, act);
   }
 };
-// act′(C's old value) ⊙ the product: K2's m, over the pre-activation
+// act′(C's old value) ⊙ the product: K5b's mᵀ and K2's m, over the
+// pre-activation
 struct MulActGrad {
   static constexpr bool kReadsC = true;
   int act;
@@ -322,55 +283,92 @@ filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
           W, HW, P, H, W, 2 * H, Identity{});
 }
 
-// dx for P planes a block. Operators, all row-major: uh = U_h (2H×H),
-// uwT = U_wᵀ (W×2W), dhT = D_hᵀ (2H×H), dw = D_w (W×2W), uw = U_w (2W×W),
-// uhT = U_hᵀ (H×2H).
-__global__ void __launch_bounds__(kThreads)
+// dx = U_hᵀ · [act′(U_h · x · U_wᵀ) ⊙ (D_hᵀ · g · D_w)] · U_w for P planes a
+// block of THREADS threads (as filtered_act_plane_kernel), every operand in
+// shared memory; bit i of ``tiles`` set gives product i + 1 4×4
+// micro-tiles in place of 8×4. Operators, row-major as stored: uhT = U_hᵀ
+// (H×2H), uwT = U_wᵀ (W×2W), dh = D_h (H×2H), dw = D_w (W×2W), uw = U_w
+// (2W×W), uh = U_h (2H×H): each the k-major form its product reads.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == 256 ? 2 : 1)
 filtered_act_plane_bwd_kernel(const float* __restrict__ x,
                               const float* __restrict__ g,
                               float* __restrict__ dx,
-                              const float* __restrict__ uh,
+                              const float* __restrict__ uhT,
                               const float* __restrict__ uwT,
-                              const float* __restrict__ dhT,
+                              const float* __restrict__ dh,
                               const float* __restrict__ dw,
                               const float* __restrict__ uw,
-                              const float* __restrict__ uhT,
-                              int nplanes, int H, int W, int ppb, int act) {
-  extern __shared__ float smem[];
-  const long long HW = (long long)H * W;
+                              const float* __restrict__ uh, int nplanes,
+                              int H, int W, int ppb, int tiles, int act) {
+  using namespace afldm_filtered;
+  extern __shared__ __align__(16) float plane_smem[];
+  const int HW = H * W;
   const long long p0 = (long long)blockIdx.x * ppb;
-  const int P = min((long long)ppb, nplanes - p0);
-  float* hi = smem;                 // P × (2H×2W); x is staged here first
-  float* t = hi + ppb * 4 * HW;     // P × (2H×W)
-  float* gs = t + ppb * 2 * HW;     // P × (H×W)
+  const int P = (int)min((long long)ppb, nplanes - p0);
+  const PlaneBwdLayout lay(H, W);
+  float* op0 = plane_smem;
+  float* op1 = plane_smem + lay.op;
+  float* big = op1 + lay.op;             // P × preᵀ, then mᵀ; x staged first
+  float* small = big + ppb * lay.big;    // P × tᵀ, then uᵀ, then s
+  float* gs = small + ppb * lay.small;   // P × g
+  const int ld2h = row_pad(2 * H), ldw = row_pad(W);
+  // x, g and U_hᵀ, then U_wᵀ, in flight together
   const float* xg = x + p0 * HW;
   const float* gg = g + p0 * HW;
-  for (long long i = threadIdx.x; i < P * HW; i += blockDim.x) {
-    hi[i] = xg[i];
-    gs[i] = gg[i];
+  const int c4 = HW / 4;
+  for (int i = threadIdx.x; i < P * c4; i += blockDim.x) {
+    const int p = i / c4, c = i - p * c4;
+    cp_async16(big + p * lay.big + 4 * c, xg + (long long)p * HW + 4 * c);
+    cp_async16(gs + p * lay.g + 4 * c, gg + (long long)p * HW + 4 * c);
   }
+  stage(op0, uhT, H * H / 2);
+  cp_async_commit();
+  stage(op1, uwT, W * W / 2);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
-  // t = U_h · x                      (2H × W)
-  block_gemm<STORE>(uh, H, 0, hi, W, HW, t, W, 2 * HW, P, 2 * H, W, H, NONE);
+  // 1. tᵀ = xᵀ · U_hᵀ = (U_h · x)ᵀ             (W × 2H)
+  product(tiles & 1, op0, 2 * H, 0, big, W, lay.big, small, ld2h, lay.small,
+          P, W, 2 * H, H, Identity{});
   __syncthreads();
-  // hi = t · U_wᵀ = pre              (2H × 2W); overwrites the staged x
-  block_gemm<STORE>(t, W, 2 * HW, uwT, 2 * W, 0, hi, 2 * W, 4 * HW, P, 2 * H,
-                    2 * W, W, NONE);
+  stage(op0, dh, H * H / 2);  // D_h in flight during the next product
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
-  // t = D_hᵀ · g                     (2H × W)
-  block_gemm<STORE>(dhT, H, 0, gs, W, HW, t, W, 2 * HW, P, 2 * H, W, H, NONE);
+  // 2. preᵀ = U_w · tᵀ = (U_h · x · U_wᵀ)ᵀ      (2W × 2H); over the staged x
+  product((tiles >> 1) & 1, small, ld2h, lay.small, op1, 2 * W, 0, big, ld2h,
+          lay.big, P, 2 * W, 2 * H, W, Identity{});
   __syncthreads();
-  // hi = act′(pre) ⊙ (t · D_w) = m   (2H × 2W), in place
-  block_gemm<MUL_DACT>(t, W, 2 * HW, dw, 2 * W, 0, hi, 2 * W, 4 * HW, P,
-                       2 * H, 2 * W, W, act);
+  stage(op1, dw, W * W / 2);  // D_w in flight during the next product
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
-  // t = m · U_w                      (2H × W)
-  block_gemm<STORE>(hi, 2 * W, 4 * HW, uw, W, 0, t, W, 2 * HW, P, 2 * H, W,
-                    2 * W, NONE);
+  // 3. uᵀ = gᵀ · D_h = (D_hᵀ · g)ᵀ              (W × 2H); over tᵀ
+  product((tiles >> 2) & 1, op0, 2 * H, 0, gs, W, lay.g, small, ld2h,
+          lay.small, P, W, 2 * H, H, Identity{});
   __syncthreads();
-  // dx = U_hᵀ · t                    (H × W), straight to device memory
-  block_gemm<STORE>(uhT, 2 * H, 0, t, W, 2 * HW, dx + p0 * HW, W, HW, P, H, W,
-                    2 * H, NONE);
+  stage(op0, uw, W * W / 2);  // U_w in flight during the next product
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // 4. mᵀ = act′(preᵀ) ⊙ (D_wᵀ · uᵀ)            (2W × 2H); in place over
+  //    preᵀ, which the epilogue reads
+  product((tiles >> 3) & 1, small, ld2h, lay.small, op1, 2 * W, 0, big, ld2h,
+          lay.big, P, 2 * W, 2 * H, W, MulActGrad{act});
+  __syncthreads();
+  stage(op1, uh, H * H / 2);  // U_h in flight during the next product
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // 5. s = m · U_w = (mᵀ)ᵀ · U_w                (2H × W); over uᵀ
+  product((tiles >> 4) & 1, op0, W, 0, big, ld2h, lay.big, small, ldw,
+          lay.small, P, 2 * H, W, 2 * W, Identity{});
+  cp_async_wait<0>();
+  __syncthreads();
+  // 6. dx = U_hᵀ · s = (U_h)ᵀ · s               (H × W), to device memory
+  product((tiles >> 5) & 1, small, ldw, lay.small, op1, H, 0, dx + p0 * HW,
+          W, HW, P, H, W, 2 * H, Identity{});
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -379,17 +377,26 @@ int set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
-template <int THREADS>
-int launch_plane(const float* x, float* out, const float* uhT,
-                 const float* uwT, const float* dwT, const float* dhT,
-                 int nplanes, int H, int W, int ppb, int tiles, int act,
-                 cudaStream_t stream) {
-  const size_t smem = PlaneLayout(H, W).floats(ppb) * sizeof(float);
-  int err = set_smem((const void*)filtered_act_plane_kernel<THREADS>, smem);
+// cudaErrorInvalidValue unless the plane kernels take (H, W, ppb, tiles,
+// threads): ``rows`` holds the rows of the n products' results, and an
+// 8×4 micro-tile (bit clear) needs them % 8 == 0.
+int check_plane_args(int H, int W, int ppb, int tiles, int threads,
+                     const int* rows, int n) {
+  if (H % 4 || W % 4 || ppb < 1 || (threads != 256 && threads != 512))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i)
+    if (!((tiles >> i) & 1) && rows[i] % 8) return (int)cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// One launch of a plane kernel: ceil(nplanes / ppb) blocks of ``threads``
+// with ``smem`` bytes of dynamic shared memory.
+template <class... Params, class... Args>
+int launch_planes(void (*kernel)(Params...), int threads, size_t smem,
+                  int nplanes, int ppb, cudaStream_t stream, Args... args) {
+  int err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (nplanes + ppb - 1) / ppb;
-  filtered_act_plane_kernel<THREADS><<<blocks, THREADS, smem, stream>>>(
-      x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, tiles, act);
+  kernel<<<(nplanes + ppb - 1) / ppb, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -401,34 +408,35 @@ extern "C" int filtered_act_plane_f32(const float* x, float* out,
                                       int nplanes, int H, int W, int ppb,
                                       int tiles, int threads, int act,
                                       void* stream) {
-  // the rows of the products' results tᵀ, hiᵀ, t and out: 8×4 tiles need
-  // them % 8 == 0
+  // the rows of the products' results tᵀ, hiᵀ, t and out
   const int rows[4] = {W, 2 * W, 2 * H, H};
-  if (H % 4 || W % 4 || ppb < 1) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < 4; ++i)
-    if (!((tiles >> i) & 1) && rows[i] % 8) return (int)cudaErrorInvalidValue;
-  if (threads == 256)
-    return launch_plane<256>(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb,
-                             tiles, act, (cudaStream_t)stream);
-  if (threads == 512)
-    return launch_plane<512>(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb,
-                             tiles, act, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  const int err = check_plane_args(H, W, ppb, tiles, threads, rows, 4);
+  if (err != cudaSuccess) return err;
+  return launch_planes(threads == 256 ? &filtered_act_plane_kernel<256>
+                                      : &filtered_act_plane_kernel<512>,
+                       threads, PlaneLayout(H, W).floats(ppb) * sizeof(float),
+                       nplanes, ppb, (cudaStream_t)stream, x, out, uhT, uwT,
+                       dwT, dhT, nplanes, H, W, ppb, tiles, act);
 }
 
+// dx for P planes a block of ``threads`` (256 or 512); bit i of ``tiles``
+// set gives product i + 1 4×4 micro-tiles. Operators as the kernel takes
+// them: U_hᵀ, U_wᵀ, D_h, D_w, U_w, U_h, row-major.
 extern "C" int filtered_act_plane_bwd_f32(
-    const float* x, const float* g, float* dx, const float* uh,
-    const float* uwT, const float* dhT, const float* dw, const float* uw,
-    const float* uhT, int nplanes, int H, int W, int ppb, int act,
-    void* stream) {
-  const size_t smem = (size_t)ppb * 7 * H * W * sizeof(float);
-  int err = set_smem((const void*)filtered_act_plane_bwd_kernel, smem);
+    const float* x, const float* g, float* dx, const float* uhT,
+    const float* uwT, const float* dh, const float* dw, const float* uw,
+    const float* uh, int nplanes, int H, int W, int ppb, int tiles,
+    int threads, int act, void* stream) {
+  // the rows of the products' results tᵀ, preᵀ, uᵀ, mᵀ, s and dx
+  const int rows[6] = {W, 2 * W, W, 2 * W, 2 * H, H};
+  const int err = check_plane_args(H, W, ppb, tiles, threads, rows, 6);
   if (err != cudaSuccess) return err;
-  const int blocks = (nplanes + ppb - 1) / ppb;
-  filtered_act_plane_bwd_kernel<<<blocks, kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-      x, g, dx, uh, uwT, dhT, dw, uw, uhT, nplanes, H, W, ppb, act);
-  return (int)cudaGetLastError();
+  return launch_planes(
+      threads == 256 ? &filtered_act_plane_bwd_kernel<256>
+                     : &filtered_act_plane_bwd_kernel<512>,
+      threads, PlaneBwdLayout(H, W).floats(ppb) * sizeof(float), nplanes,
+      ppb, (cudaStream_t)stream, x, g, dx, uhT, uwT, dh, dw, uw, uh, nplanes,
+      H, W, ppb, tiles, act);
 }
 
 // out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ for P planes (one chunk), as four

@@ -1,9 +1,10 @@
-// The register-tiled f32 product of the filtered activation's plane kernel
-// (filtered_act.cu, K5) and the 16-byte staging that feeds it.
+// The register-tiled f32 product of the filtered activation's plane kernels
+// (filtered_act.cu: K5 and its VJP K5b) and the 16-byte staging that feeds
+// it.
 //
-// One routine serves all four products of a plane: every operand is stored
-// k-major in shared memory (row k holds the k-th term of every output row
-// or column), and
+// One routine serves every product of a plane (K5's four, K5b's six):
+// every operand is stored k-major in shared memory (row k holds the k-th
+// term of every output row or column), and
 //
 //   C[r][c] = epi( Σ_k Y[k][r] · X[k][c] )          C = Yᵀ · X
 //
@@ -17,15 +18,18 @@
 // the shared-memory pipe far less) and store 8 chunks of one C row. Only
 // where NC < 8 does a phase reach several C rows, 4 rows apart; a row
 // stride of 4 mod 8 floats puts two such rows on different bank halves
-// (row_pad).
+// (row_pad). An epilogue that reads C (Epi::kReadsC: K5b's act′(pre) ⊙
+// product, written over the pre-activation) reads each float4 of C just
+// before its owning thread writes it.
 //
 // The micro-tile is 8×4 or 4×4, picked per product by the wrapper's launch
-// plan (ops/filtered_act.py::plane_plan). 8×4 reads two same-address Y
-// chunks to one X chunk for 32 FMAs; on an H100 it was quicker than 8×8
-// (2 + 2 chunks for 64 FMAs, 64 accumulators) at the 64 px hiᵀ product and
-// matched or beat 4×8 (2 X chunks to 1 Y) elsewhere. 4×4 is quicker where
-// a product is too small to give every thread a larger tile, and serves
-// results with 4 mod 8 rows (tᵀ of a 12×20 plane).
+// plans (ops/filtered_act.py::plane_plan, plane_bwd_plan). 8×4 reads two
+// same-address Y chunks to one X chunk for 32 FMAs; on an H100 it was
+// quicker than 8×8 (2 + 2 chunks for 64 FMAs, 64 accumulators) at K5's
+// 64 px hiᵀ product and matched or beat 4×8 (2 X chunks to 1 Y)
+// elsewhere. 4×4 is quicker where a product is too small to give every
+// thread a larger tile, and serves results with 4 mod 8 rows (tᵀ of a
+// 12×20 plane).
 //
 // The block walks P planes' tiles (plane strides sX, sY, sC; 0 for an
 // operand shared by the planes); a thread takes tiles t, t + blockDim.x, …
@@ -65,7 +69,9 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n4) {
 
 // C[p] = epi(Y[p]ᵀ · X[p]) for p < P: X[p] is K × C (row stride ldx), Y[p]
 // K × R (ldy), C[p] R × C (ldc); all strides and bases multiples of 4
-// floats. R % TR == 0 and C % TC == 0 (the caller checks).
+// floats. R % TR == 0 and C % TC == 0 (the caller checks). Where
+// Epi::kReadsC, C[p] = epi(Y[p]ᵀ · X[p], C[p]) over C's old values; C
+// must then not alias X or Y.
 template <int TR, int TC, class Epi>
 __device__ __forceinline__ void tile_product(
     const float* __restrict__ X, int ldx, int sX,
@@ -122,9 +128,21 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
       for (int j = 0; j < TC / 4; ++j) {
         const int col = 4 * (tc + nc * j);
-        *reinterpret_cast<float4*>(cp + (long long)row * ldc + col) =
-            make_float4(epi(acc[a][4 * j]), epi(acc[a][4 * j + 1]),
-                        epi(acc[a][4 * j + 2]), epi(acc[a][4 * j + 3]));
+        if constexpr (Epi::kReadsC) {
+          // this thread alone owns these four elements over the full
+          // depth: no other thread reads or writes them during the product
+          float4* c = reinterpret_cast<float4*>(cp + (long long)row * ldc +
+                                                col);
+          const float4 old = *c;
+          *c = make_float4(epi(acc[a][4 * j], old.x),
+                           epi(acc[a][4 * j + 1], old.y),
+                           epi(acc[a][4 * j + 2], old.z),
+                           epi(acc[a][4 * j + 3], old.w));
+        } else {
+          *reinterpret_cast<float4*>(cp + (long long)row * ldc + col) =
+              make_float4(epi(acc[a][4 * j]), epi(acc[a][4 * j + 1]),
+                          epi(acc[a][4 * j + 2]), epi(acc[a][4 * j + 3]));
+        }
       }
     }
   }

@@ -6,7 +6,8 @@ dispatcher. NCHW; float32 on the card.
   (counterpart of ``pallas_kernels.py::_forward``), P planes a block and
   each product's register micro-tile chosen by ``plane_plan``;
   differentiable, its backward is ``filtered_act_plane_bwd`` (counterpart
-  of the kernel inside ``pallas_kernels.py::_bwd_rule``), which recomputes
+  of the kernel inside ``pallas_kernels.py::_bwd_rule``), the same design
+  with six products on its own plan (``plane_bwd_plan``), which recomputes
   the pre-activation from the saved x rather than storing the 4x
   intermediate.
 - ``filtered_act_banded``: every H, W % 4 == 0 with max(H, W) > 64
@@ -149,26 +150,10 @@ def _contiguous16(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def _launch_args(x: torch.Tensor):
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    H, W = x.shape[-2:]
-    ops = _kernel_ops(H, W, x.device)
-    nplanes = x.shape[0] * x.shape[1]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    return x, out, ops, nplanes, stream
-
-
-def _planes_per_block(H: int, W: int) -> int:
-    """P planes a block of the backward kernel (K5b), so that small planes
-    still give 256 threads work."""
-    return max(1, 1024 // (H * W))
-
-
-# the plane kernel's (K5) launch: the threads a block it is built for (256
-# runs two blocks an SM where shared memory allows, 512 one), the SMs, and
-# the shared memory a block may take with two blocks an SM (228 KB an SM,
-# 1 KB of it reserved for each block)
+# the plane kernels' (K5, K5b) launch: the threads a block they are built
+# for (256 runs two blocks an SM where shared memory allows, 512 one), the
+# SMs, and the shared memory a block may take with two blocks an SM (228 KB
+# an SM, 1 KB of it reserved for each block)
 K5_THREADS = (256, 512)
 NUM_SMS = 132
 SMEM_TWO_BLOCKS_BYTES = 233472 // 2 - 1024
@@ -181,11 +166,20 @@ K5_DEEP = 64
 # two 256-thread blocks on an SM overlap each other's barriers and copies,
 # which the plan's rounds do not count: their waves are weighted by this
 K5_TWO_BLOCKS = 0.9
+# K5b's micro-tiles: a product at least this deep takes 8×4 with half of
+# the block's threads busy, and its fourth product (mᵀ), whose epilogue
+# reads C and takes act′, 4×4 always. On an H100 (plane_sweep.py --bwd,
+# PERF.md §6) that picked the quickest choice at K5b's three chip_smoke
+# shapes up to 32 px and came within 0.5 % of it at the two 64 px ones;
+# K5's rule (K5_DEEP, 8×4 for mᵀ) ran 2-4 % slower than the quickest
+K5B_DEEP = 32
+K5B_SMALL = (3,)
 
 
 class PlanePlan(NamedTuple):
-    """How ``filtered_act_plane``'s kernel is launched: P planes a block,
-    each product's micro-tile (rows, columns), the threads a block and the
+    """How a plane kernel (``filtered_act_plane``'s, or
+    ``filtered_act_plane_bwd``'s) is launched: P planes a block, each
+    product's micro-tile (rows, columns), the threads a block and the
     shared bytes a block."""
     planes_per_block: int
     tiles: tuple
@@ -220,21 +214,67 @@ def plane_smem_bytes(H: int, W: int, ppb: int) -> int:
     return 4 * (2 * op + ppb * (big + small))
 
 
-def _plane_cost(H: int, W: int, nplanes: int, ppb: int, threads: int):
-    """The plan's model of a launch's time: waves of blocks (a wave is one
+def plane_bwd_products(H: int, W: int) -> tuple:
+    """(rows, columns, depth) of the plane backward's six results: tᵀ,
+    preᵀ, uᵀ, mᵀ, s and dx (filtered_act.cu, K5b)."""
+    return ((W, 2 * H, H), (2 * W, 2 * H, W), (W, 2 * H, H),
+            (2 * W, 2 * H, W), (2 * H, W, 2 * W), (H, W, 2 * H))
+
+
+def plane_bwd_smem_bytes(H: int, W: int, ppb: int) -> int:
+    """Shared memory of a plane backward block
+    (filtered_act.cu::PlaneBwdLayout): the forward's, its per-plane
+    buffers holding preᵀ (then mᵀ) and tᵀ (then uᵀ, then s), and the
+    staged g (H × W) a plane."""
+    return plane_smem_bytes(H, W, ppb) + 4 * ppb * H * W
+
+
+def _plane_cost(products: tuple, smem: int, nplanes: int, ppb: int,
+                threads: int):
+    """The plans' model of a launch's time: waves of blocks (a wave is one
     block an SM, or two at 256 threads where they fit, weighted by
-    K5_TWO_BLOCKS) times a block's rounds of 4×4 tiles over its threads,
-    each round weighted by its product's depth. None where the block
-    exceeds SMEM_MAX_BYTES."""
-    smem = plane_smem_bytes(H, W, ppb)
+    K5_TWO_BLOCKS) times a block's rounds of 4×4 tiles of its
+    ``products`` (rows, columns, depth) over its threads, each round
+    weighted by its product's depth. None where the block's ``smem``
+    bytes exceed SMEM_MAX_BYTES."""
     if smem > SMEM_MAX_BYTES:
         return None
     per_sm = 2 if threads == 256 and smem <= SMEM_TWO_BLOCKS_BYTES else 1
     blocks = -(-nplanes // ppb)
     waves = -(-blocks // (NUM_SMS * per_sm))
     rounds = sum(k * -(-ppb * (r * c // 16) // threads)
-                 for r, c, k in plane_products(H, W))
+                 for r, c, k in products)
     return waves * rounds * (K5_TWO_BLOCKS if per_sm == 2 else 1.0)
+
+
+def _plane_launch(H: int, W: int, nplanes: int, products, smem_bytes,
+                  deep: int = K5_DEEP, small: tuple = ()) -> PlanePlan:
+    """A plane kernel's launch plan, for its ``products(H, W)`` and
+    ``smem_bytes(H, W, P)``: ``plane_plan``'s rule, a product ``deep`` or
+    deeper taking 8×4 tiles with half of the threads busy, the products
+    indexed in ``small`` 4×4 tiles always."""
+    if nplanes == 0:
+        nplanes = 1
+    # the largest P with ceil(nplanes / P) >= NUM_SMS, or 1
+    grid = max(1, -(-nplanes // (NUM_SMS - 1)) - 1)
+    best = None
+    for threads in K5_THREADS:
+        for ppb in range(1, min(grid, nplanes) + 1):
+            cost = _plane_cost(products(H, W), smem_bytes(H, W, ppb),
+                               nplanes, ppb, threads)
+            if cost is None:
+                break
+            if best is None or cost < best[0] or (cost == best[0]
+                                                  and threads > best[2]):
+                best = (cost, ppb, threads)
+    _, ppb, threads = best
+    tiles = []
+    for i, (rows, cols, depth) in enumerate(products(H, W)):
+        need = threads // 2 if depth >= deep else threads
+        wide = (rows % 8 == 0 and i not in small
+                and ppb * (rows // 8) * (cols // 4) >= need)
+        tiles.append(K5_TILES[0] if wide else K5_TILES[1])
+    return PlanePlan(ppb, tuple(tiles), threads, smem_bytes(H, W, ppb))
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,27 +289,20 @@ def plane_plan(H: int, W: int, nplanes: int) -> PlanePlan:
     of every block size, P and micro-tile at the models' plane sizes on an
     H100 (``scripts/plane_sweep.py``; PERF.md §6). 0 planes get the
     one-plane plan (the wrapper launches nothing for them)."""
-    if nplanes == 0:
-        return plane_plan(H, W, 1)
-    # the largest P with ceil(nplanes / P) >= NUM_SMS, or 1
-    grid = max(1, -(-nplanes // (NUM_SMS - 1)) - 1)
-    best = None
-    for threads in K5_THREADS:
-        for ppb in range(1, min(grid, nplanes) + 1):
-            cost = _plane_cost(H, W, nplanes, ppb, threads)
-            if cost is None:
-                break
-            if best is None or cost < best[0] or (cost == best[0]
-                                                  and threads > best[2]):
-                best = (cost, ppb, threads)
-    _, ppb, threads = best
-    tiles = []
-    for rows, cols, depth in plane_products(H, W):
-        need = threads // 2 if depth >= K5_DEEP else threads
-        wide = rows % 8 == 0 and ppb * (rows // 8) * (cols // 4) >= need
-        tiles.append(K5_TILES[0] if wide else K5_TILES[1])
-    return PlanePlan(ppb, tuple(tiles), threads,
-                     plane_smem_bytes(H, W, ppb))
+    return _plane_launch(H, W, nplanes, plane_products, plane_smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def plane_bwd_plan(H: int, W: int, nplanes: int) -> PlanePlan:
+    """The plane backward kernel's (K5b) launch plan: ``plane_plan``'s
+    model and rule over its six products (``plane_bwd_products``) and its
+    block (``plane_bwd_smem_bytes``), with its own micro-tile constants
+    (K5B_DEEP, K5B_SMALL), fitted to timings of every block size, P and
+    micro-tile at its chip_smoke shapes on an H100
+    (``scripts/plane_sweep.py --bwd``; PERF.md §6). 0 planes get the
+    one-plane plan."""
+    return _plane_launch(H, W, nplanes, plane_bwd_products,
+                         plane_bwd_smem_bytes, K5B_DEEP, K5B_SMALL)
 
 
 def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -302,32 +335,39 @@ def _check_bwd(x, g, act, banded, name):
                          "dtype")
 
 
-def _bwd_launch_args(x, g, act, name):
-    """Checks x and g, then returns (the plane backward's tensor arguments:
-    x, g, dx and the operators U_h, U_wᵀ, D_hᵀ, D_w, U_w, U_hᵀ, contiguous;
-    nplanes; stream)."""
-    _check_bwd(x, g, act, False, name)
-    x, dx, ops, nplanes, stream = _launch_args(x)
-    bwd_ops = _kernel_bwd_ops(*x.shape[-2:], x.device)
-    return (x, g.contiguous(), dx, *ops[:2], *bwd_ops), nplanes, stream
+def _plane_bwd_ops(H: int, W: int, device) -> tuple:
+    """(U_hᵀ, U_wᵀ, D_h, D_w, U_w, U_h): the plane backward's operators in
+    the order of its products, each in the k-major form its product
+    reads."""
+    uh, uwT, dh, _ = _kernel_ops(H, W, device)
+    _, dw, uw, uhT = _kernel_bwd_ops(H, W, device)
+    return uhT, uwT, dh, dw, uw, uh
 
 
 def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
                            act: str = "silu") -> torch.Tensor:
-    """The VJP of ``filtered_act_plane`` at x for the cotangent g (K5b)."""
+    """The VJP of ``filtered_act_plane`` at x for the cotangent g (K5b).
+    On the card x and g are read in 16-byte chunks, so a strided or
+    misaligned one (a cotangent from autograd may be either) is copied
+    first."""
     if x.device.type == "cpu":
         return filtered_act_plane_bwd_plain(x, g, act)
-    args, nplanes, stream = _bwd_launch_args(
-        x, g, act, "filtered_act_plane_bwd")
+    _check_bwd(x, g, act, False, "filtered_act_plane_bwd")
+    x, g = _contiguous16(x), _contiguous16(g)
+    dx = torch.empty_like(x)
+    nplanes = x.shape[0] * x.shape[1]
     if nplanes == 0:
-        return args[2]
+        return dx
     H, W = x.shape[-2:]
+    plan = plane_bwd_plan(H, W, nplanes)
     err = kernels.library("filtered_act").filtered_act_plane_bwd_f32(
-        *(t.data_ptr() for t in args), nplanes, H, W,
-        _planes_per_block(H, W), ACT_CODES[act], stream)
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        *(o.data_ptr() for o in _plane_bwd_ops(H, W, x.device)), nplanes, H,
+        W, plan.planes_per_block, plan.tile_codes, plan.threads,
+        ACT_CODES[act], torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, "filtered_act_plane_bwd")
     kernels.LAUNCHES["filtered_act_plane_bwd"] += 1
-    return args[2]
+    return dx
 
 
 class _FilteredActPlane(torch.autograd.Function):

@@ -11,8 +11,9 @@ card:
         <this checkout>/afldm_tpu_torch/scripts/phase_check.py main_path
 
 Prints chip_smoke's own lines for each run of a phase (``--repeat`` runs
-each several times in one process, the first including the cold start)
-and exits non-zero if a run fails.
+each several times in one process, the first including the cold start;
+``--shapes`` adds the input shapes each filtered-activation kernel was
+called with, and how often) and exits non-zero if a run fails.
 """
 
 import argparse
@@ -21,6 +22,23 @@ import sys
 from pathlib import Path
 
 PHASES = ("main_path", "vae_train", "sd_interp")
+# the filtered-activation wrappers that launch a kernel (K5, K5b, K1, K2),
+# each called with its input first
+FILTERED_ACT_ENTRIES = ("_plane_forward", "filtered_act_plane_bwd",
+                        "_banded_forward", "filtered_act_banded_bwd")
+
+
+def count_shapes(fa, seen: dict):
+    """Wraps each of FILTERED_ACT_ENTRIES in the module ``fa`` so that a
+    call adds one to seen[(name, shape of its input)]."""
+    def counted(name, fn):
+        def call(x, *args, **kwargs):
+            key = (name, tuple(x.shape))
+            seen[key] = seen.get(key, 0) + 1
+            return fn(x, *args, **kwargs)
+        return call
+    for name in FILTERED_ACT_ENTRIES:
+        setattr(fa, name, counted(name, getattr(fa, name)))
 
 
 def main(argv=None):
@@ -35,6 +53,9 @@ def main(argv=None):
     ap.add_argument("--repeat", type=int, default=1,
                     help="runs of each phase in this process; the first "
                          "includes the cold start (default 1)")
+    ap.add_argument("--shapes", action="store_true",
+                    help="log the shapes each filtered-activation kernel "
+                         "was called with in each run")
     args = ap.parse_args(argv)
     root = Path.cwd()
     if not (root / "chip_smoke.py").exists():
@@ -48,6 +69,10 @@ def main(argv=None):
     smoke = importlib.import_module("chip_smoke")
     importlib.import_module("afldm_tpu_torch.kernels").build_all()
     importlib.import_module("afldm_tpu_torch.ops").set_af_precision("highest")
+    seen = {}
+    if args.shapes:
+        count_shapes(importlib.import_module(
+            "afldm_tpu_torch.ops.filtered_act"), seen)
     ok = True
     for phase in [p for p in args.phases for _ in range(args.repeat)]:
         if phase == "main_path":
@@ -58,6 +83,10 @@ def main(argv=None):
             good, _ = smoke.run_sd_interp(torch, args.sd_frames,
                                           args.sd_steps)
         ok &= bool(good)
+        for (name, shape), n in sorted(seen.items()):
+            print(f"phase_check {phase} shapes: {name} {shape} x {n}",
+                  flush=True)
+        seen.clear()
         torch.cuda.empty_cache()
     return 0 if ok else 1
 

@@ -1,16 +1,19 @@
-"""Time the plane kernel (K5, ``filtered_act_plane``) at every block size,
+"""Time the plane kernel (K5, ``filtered_act_plane``) or, with ``--bwd``,
+its backward (K5b, ``filtered_act_plane_bwd``) at every block size,
 planes-per-block P and micro-tile choice against the launch plan's pick:
-the data ``ops/filtered_act.py::plane_plan`` is fitted to. Run from the
-root of a checkout on a machine with a card:
+the data ``ops/filtered_act.py::plane_plan`` and ``plane_bwd_plan`` are
+fitted to. Run from the root of a checkout on a machine with a card:
 
-    python afldm_tpu_torch/scripts/plane_sweep.py [--out sweep.jsonl]
+    python afldm_tpu_torch/scripts/plane_sweep.py [--bwd] [--out sweep.jsonl]
 
-Shapes: ``chip_smoke.KERNELS["filtered_act_plane"]["shapes"]``. P runs over
+Shapes: the kernel's ``chip_smoke.KERNELS[...]["shapes"]``. P runs over
 powers of two and their halfway points up to the plane count, plus the
 plan's own P and the largest P that keeps one wave of blocks; every launch
-is held against the plain version first (atol 3e-5, rtol 1e-4). Prints,
-per shape, the plan's time and the quickest launch found, with and without
-the plan's grid rule; exits non-zero if a launch disagrees.
+goes through the C entry and is held against the plain version first
+(chip_smoke's tolerance: K5 atol 3e-5, rtol 1e-4; K5b atol 1e-4, rtol
+1e-4). Prints, per shape, the plan's time and the quickest launch found,
+with and without the plan's grid rule; exits non-zero if a launch
+disagrees.
 """
 
 import argparse
@@ -32,6 +35,8 @@ def _candidates(nplanes: int, plan_p: int, grid_p: int) -> list:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bwd", action="store_true",
+                    help="sweep the backward kernel (K5b)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="JSON lines, one a launch")
     args = ap.parse_args(argv)
@@ -47,44 +52,58 @@ def main(argv=None):
     smoke = importlib.import_module("chip_smoke")
     kernels = importlib.import_module("afldm_tpu_torch.kernels")
     FA = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
-    fn = kernels.library("filtered_act").filtered_act_plane_f32
+    lib = kernels.library("filtered_act")
+    if args.bwd:
+        name, fn = "filtered_act_plane_bwd", lib.filtered_act_plane_bwd_f32
+        plan_of, products, smem_of = (FA.plane_bwd_plan, FA.plane_bwd_products,
+                                      FA.plane_bwd_smem_bytes)
+    else:
+        name, fn = "filtered_act_plane", lib.filtered_act_plane_f32
+        plan_of, products, smem_of = (FA.plane_plan, FA.plane_products,
+                                      FA.plane_smem_bytes)
+    atol, rtol = smoke.TOL[name]
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
     out_file = open(args.out, "w") if args.out else None
     ok = True
-    for shape in smoke.KERNELS["filtered_act_plane"]["shapes"]:
+    for shape in smoke.KERNELS[name]["shapes"]:
         n, c, H, W = shape
         nplanes = n * c
         x = torch.randn(shape, device=dev, generator=g)
-        want = FA.filtered_act_plain(x, "silu")
         out = torch.empty_like(x)
-        _, uwT, _, dwT = FA._kernel_ops(H, W, dev)
-        dhT, _, _, uhT = FA._kernel_bwd_ops(H, W, dev)
+        if args.bwd:
+            gr = torch.randn(shape, device=dev, generator=g)
+            want = FA.filtered_act_plane_bwd_plain(x, gr, "silu")
+            tensors = (x, gr, out, *FA._plane_bwd_ops(H, W, dev))
+        else:
+            want = FA.filtered_act_plain(x, "silu")
+            _, uwT, _, dwT = FA._kernel_ops(H, W, dev)
+            dhT, _, _, uhT = FA._kernel_bwd_ops(H, W, dev)
+            tensors = (x, out, uhT, uwT, dwT, dhT)
+        ptrs = [t.data_ptr() for t in tensors]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        plan = FA.plane_plan(H, W, nplanes)
+        plan = plan_of(H, W, nplanes)
         grid_p = max(1, -(-nplanes // (FA.NUM_SMS - 1)) - 1)
-        rows = [r for r, _, _ in FA.plane_products(H, W)]
+        rows = [r for r, _, _ in products(H, W)]
         times = {}
         for threads, ppb in itertools.product(
                 FA.K5_THREADS, _candidates(nplanes, plan.planes_per_block,
                                            grid_p)):
-            if FA.plane_smem_bytes(H, W, ppb) > FA.SMEM_MAX_BYTES:
+            if smem_of(H, W, ppb) > FA.SMEM_MAX_BYTES:
                 continue
-            for bits in itertools.product((0, 1), repeat=4):
+            for bits in itertools.product((0, 1), repeat=len(rows)):
                 if any(b == 0 and r % 8 for b, r in zip(bits, rows)):
                     continue  # 8×4 tiles need rows % 8 == 0
                 code = sum(b << i for i, b in enumerate(bits))
 
                 def run():
-                    return fn(x.data_ptr(), out.data_ptr(), uhT.data_ptr(),
-                              uwT.data_ptr(), dwT.data_ptr(), dhT.data_ptr(),
-                              nplanes, H, W, ppb, code, threads,
+                    return fn(*ptrs, nplanes, H, W, ppb, code, threads,
                               FA.ACT_CODES["silu"], stream)
                 kernels.check(run(), "plane_sweep")
                 torch.cuda.synchronize()
-                if not torch.allclose(out, want, atol=3e-5, rtol=1e-4):
-                    print(f"plane_sweep {shape}: WRONG at {threads} threads, "
-                          f"P {ppb}, tiles {code}", flush=True)
+                if not torch.allclose(out, want, atol=atol, rtol=rtol):
+                    print(f"plane_sweep {name} {shape}: WRONG at {threads} "
+                          f"threads, P {ppb}, tiles {code}", flush=True)
                     ok = False
                     continue
                 ms = smoke.time_ms(run, reps=args.reps)
@@ -92,14 +111,14 @@ def main(argv=None):
                 times[(threads, ppb, tiles)] = ms
                 if out_file:
                     out_file.write(json.dumps(dict(
-                        shape=shape, threads=threads, P=ppb,
+                        kernel=name, shape=shape, threads=threads, P=ppb,
                         tiles=tiles, ms=ms)) + "\n")
         mine = times[(plan.threads, plan.planes_per_block, plan.tiles)]
         best = min(times, key=times.get)
         in_grid = [k for k in times
                    if -(-nplanes // k[1]) >= min(FA.NUM_SMS, nplanes)]
         best_grid = min(in_grid, key=times.get)
-        print(f"plane_sweep {shape}: plan {plan.threads} threads, P "
+        print(f"plane_sweep {name} {shape}: plan {plan.threads} threads, P "
               f"{plan.planes_per_block}, tiles {plan.tiles}: {mine:.4f} ms; "
               f"quickest within one wave {best_grid}: "
               f"{times[best_grid]:.4f} ms; quickest {best}: "

@@ -9,8 +9,9 @@ interp``: the full-width SD image interpolation of the CLI
 (``scripts/image_interpolation.py``: random weights from seed 0, its
 synthetic 512 px pair and Lucas-Kanade flow) of ``--frames`` frames with
 ``--steps`` DDIM steps; the flow is estimated once, outside the runs. Prints
-the device time by kernel name (top 25) and by group (the port's kernels,
-convolutions, GEMMs, FFTs, ...), the sum of device time against the traced
+the device time by kernel name (top 25, and every one of the port's
+kernels) and by group (the port's kernels, convolutions, GEMMs, FFTs,
+...), the sum of device time against the traced
 wall time, and the wall time of the untraced run.
 
   python -m afldm_tpu_torch.scripts.profile_main_path --steps 50
@@ -193,6 +194,9 @@ def main(argv=None):
     ours_ms = sum(ms for ms, _ in ours.values())
     print(f"port kernels: {ours_ms:.1f} ms ({100 * ours_ms / total:.1f}% of "
           f"device time)")
+    for k, (ms, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
+        print(f"port kernel {ms:10.2f} ms {100 * ms / total:5.1f}% {n:7d}x  "
+              f"{k[:110]}")
     groups = {}
     for k, (ms, _) in rows.items():
         groups[group_of(k)] = groups.get(group_of(k), 0.0) + ms

@@ -18,8 +18,9 @@ Phases, each of which fails the run:
    of FLOPs / 67 TFLOP/s f32 and bytes / 3.35 TB/s); the flash backward's
    and the banded backward's sums are logged over their first three
    shapes and over all, the plane kernel's over its first five and over
-   all, with its launch plan (planes a block, micro-tiles, threads and
-   shared bytes a block) at each shape, and the banded forward's and
+   all, the plane backward's over its first two and over all, both with
+   their launch plans (planes a block, micro-tiles, threads and shared
+   bytes a block) at each shape, and the banded forward's and
    backward's chunk plans (chunks, planes a chunk, the block tile of each
    of their four and six GEMM launches);
 3. run the tiny pipeline on the card and on the CPU with the same weights
@@ -163,8 +164,13 @@ KERNELS = {
     "filtered_act_plane_bwd": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/filtered_act.cu",
         replaces="afldm_tpu/ops/pallas_kernels.py:328",
-        # the training step's 32 px and 4 px levels
-        shapes=[(16, 192, 32, 32), (16, 1536, 4, 4)]),
+        # the LDM training step's 32 px and 4 px levels (``base_shapes``:
+        # their sums are logged apart, to compare with commits that timed
+        # only them); the AF-VAE training step's at batch 4: the 64 px
+        # level's 512- and 256-channel planes, the 32 px level's
+        shapes=[(16, 192, 32, 32), (16, 1536, 4, 4), (4, 512, 64, 64),
+                (4, 256, 64, 64), (4, 512, 32, 32)],
+        base_shapes=2),
     "flash_bwd_dq": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_bwd.cu",
         replaces="afldm_tpu/ops/attention.py:142",
@@ -451,13 +457,14 @@ def check_kernels(torch, report):
 
 
 def launch_plan(name, shape):
-    """The launch plan at ``shape`` as a log suffix: the plane kernel's
-    (planes a block, each product's micro-tile, threads and shared bytes a
-    block) and the banded chains' (chunks, planes a chunk, each product's
-    block tile, four for K1 and six for K2, scratch bytes); '' for the
-    other kernels."""
+    """The launch plan at ``shape`` as a log suffix: the plane kernels'
+    (planes a block, each product's micro-tile, four for K5 and six for
+    K5b, threads and shared bytes a block) and the banded chains' (chunks,
+    planes a chunk, each product's block tile, four for K1 and six for K2,
+    scratch bytes); '' for the other kernels."""
     banded = ("filtered_act_banded", "filtered_act_banded_bwd")
-    if name not in ("filtered_act_plane", *banded):
+    planes = ("filtered_act_plane", "filtered_act_plane_bwd")
+    if name not in (*planes, *banded):
         return ""
     from afldm_tpu_torch.ops import filtered_act as FA
     n, c, h, w = shape
@@ -474,7 +481,8 @@ def launch_plan(name, shape):
                 f"{'/'.join(str(p) for p in sizes)} planes, tiles ({tiles}), "
                 f"scratch {FA.banded_scratch_bytes(h, w, sizes[0])} B "
                 f"(cap {FA.BANDED_SCRATCH_BYTES} B)")
-    plan = FA.plane_plan(h, w, n * c)
+    plan = (FA.plane_plan if name == "filtered_act_plane"
+            else FA.plane_bwd_plan)(h, w, n * c)
     tiles = " ".join(f"{r}x{c}" for r, c in plan.tiles)
     return (f"; plan P {plan.planes_per_block}, tiles {tiles}, "
             f"{plan.threads} threads, smem {plan.smem_bytes} B")

@@ -103,7 +103,8 @@ def test_q_tile_matches_the_tile_loop():
 @pytest.mark.parametrize("where", ["root", "elsewhere"])
 @pytest.mark.parametrize("script,argv", [("phase_check", ["main_path"]),
                                          ("phase_check", ["vae_train"]),
-                                         ("plane_sweep", [])])
+                                         ("plane_sweep", []),
+                                         ("plane_sweep", ["--bwd"])])
 def test_measurement_scripts_need_a_checkout_and_a_card(
         script, argv, where, tmp_path, monkeypatch, capsys):
     """phase_check.py and plane_sweep.py, like kernel_check.py, refuse
@@ -144,36 +145,40 @@ def _kernel_body(src, name):
 
 
 def test_plane_kernel_on_the_filtered_tile():
-    """K5 runs its four products through filtered_tile.cuh (every operand
-    staged in shared memory with 16-byte cp.async), not block_gemm, which
-    the K5b kernel keeps; K1 is four and K2 six launches of the tiled GEMM
-    of filtered_gemm.cuh, with no block_gemm and no kernel of their own.
-    None of them uses tensor cores (no wmma, mma.sync or TF32)."""
+    """K5 runs its four products and K5b its six through filtered_tile.cuh
+    (every operand staged in shared memory with 16-byte cp.async; K5b's
+    act′ ⊙ product in the epilogue that reads C); block_gemm is gone from
+    the file; K1 is four and K2 six launches of the tiled GEMM of
+    filtered_gemm.cuh, with no kernel of their own. None of them uses
+    tensor cores (no wmma, mma.sync, wgmma or TF32)."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
     assert '#include "filtered_tile.cuh"' in src
     assert '#include "filtered_gemm.cuh"' in src
+    assert "block_gemm" not in src
     k5 = _kernel_body(src, "filtered_act_plane_kernel")
-    assert "block_gemm" not in k5
     assert k5.count("product(") == 4 and "stage(" in k5
     assert "cp_async16(" in k5
-    assert "block_gemm" in _kernel_body(src, "filtered_act_plane_bwd_kernel")
+    k5b = _kernel_body(src, "filtered_act_plane_bwd_kernel")
+    assert k5b.count("product(") == 6 and "stage(" in k5b
+    assert "cp_async16(" in k5b and k5b.count("MulActGrad{") == 1
     code = re.sub(r"//[^\n]*", "", src)
     assert "filtered_act_banded_kernel" not in code
     assert "filtered_act_banded_bwd_kernel" not in code
     k1 = _kernel_body(src, "filtered_act_banded_f32")
-    assert "block_gemm" not in k1 and "<<<" not in k1
+    assert "<<<" not in k1
     assert k1.count("filtered_gemm<") == 4
     k2 = _kernel_body(src, "filtered_act_banded_bwd_f32")
-    assert "block_gemm" not in k2 and "<<<" not in k2
+    assert "<<<" not in k2
     assert k2.count("filtered_gemm<") == 6
     assert k2.count("MulActGrad{") == 1
     tile, gemm = (re.sub(r"//[^\n]*", "", (kernels.CSRC / f).read_text())
                   for f in ("filtered_tile.cuh", "filtered_gemm.cuh"))
     assert "cp.async.cg.shared.global" in tile and "float4" in tile
+    assert "kReadsC" in tile
     assert "cp.async.cg.shared.global" in gemm and "float4" in gemm
     assert "fmaf(" in gemm and "__syncthreads" in gemm
     for absent in ("wmma", "mma.sync", "tf32", "wgmma"):
-        assert absent not in (tile + gemm + k5 + k1 + k2).lower(), absent
+        assert absent not in (tile + gemm + code).lower(), absent
 
 
 def test_filtered_tile_edit_rebuilds_filtered_act(tmp_path, monkeypatch):
@@ -197,14 +202,15 @@ def _chip_smoke():
 
 
 def test_chip_smoke_logs_launch_plans():
-    """chip_smoke's log suffix at every kernel shape: K5's, K1's and K2's
-    plans (K2's with six tiles a chunk), nothing for the other kernels."""
+    """chip_smoke's log suffix at every kernel shape: K5's, K5b's, K1's and
+    K2's plans (K5b's with six micro-tiles, K2's with six tiles a chunk),
+    nothing for the other kernels."""
     smoke = _chip_smoke()
     for name, spec in smoke.KERNELS.items():
         for shape in spec["shapes"]:
             plan = smoke.launch_plan(name, shape)
-            if name in ("filtered_act_plane", "filtered_act_banded",
-                        "filtered_act_banded_bwd"):
+            if name in ("filtered_act_plane", "filtered_act_plane_bwd",
+                        "filtered_act_banded", "filtered_act_banded_bwd"):
                 assert plan.startswith("; plan "), (name, shape)
             else:
                 assert plan == "", (name, shape)
@@ -213,6 +219,11 @@ def test_chip_smoke_logs_launch_plans():
             name, (1, 16, 1024, 1024))
     assert "(8 planes: 128 128 128 128 128 128)" in smoke.launch_plan(
         "filtered_act_banded_bwd", (1, 16, 1024, 1024))
+    plan = TF.plane_bwd_plan(64, 64, 2048)
+    assert smoke.launch_plan("filtered_act_plane_bwd", (4, 512, 64, 64)) == (
+        f"; plan P 1, tiles {' '.join(f'{r}x{c}' for r, c in plan.tiles)}, "
+        f"{plan.threads} threads, smem {TF.plane_bwd_smem_bytes(64, 64, 1)} B")
+    assert len(plan.tiles) == 6
 
 
 def test_chip_smoke_names_each_kernels_registers():
@@ -264,8 +275,10 @@ def test_filtered_act_bounds_count_the_cheaper_order(hw):
     ("void afldm_filtered::filtered_gemm_kernel<128, 128, true, "
      "(anonymous namespace)::MulActGrad>(afldm_filtered::GemmArgs)",
      "port kernels"),
-    ("(anonymous namespace)::filtered_act_plane_bwd_kernel(float const*)",
-     "port kernels"),
+    ("void (anonymous namespace)::filtered_act_plane_bwd_kernel<512>(float "
+     "const*, float const*, float*, float const*, float const*, float "
+     "const*, float const*, float const*, float const*, int, int, int, int, "
+     "int, int)", "port kernels"),
     ("void flash_fwd_kernel<64>(FlashArgs)", "port kernels"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_nt_n_tilesize64x64x8_stage3",
      "GEMM"),

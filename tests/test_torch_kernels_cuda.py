@@ -406,7 +406,8 @@ def test_flash_kernel_expanded_and_strided_kv(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 16, 32, 32), (2, 64, 4, 4),
                                    (1, 4, 64, 64), (1, 4, 12, 20),
-                                   (3, 5, 8, 8), (2, 6, 16, 16)])
+                                   (3, 5, 8, 8), (2, 6, 16, 16),
+                                   (4, 8, 64, 64)])
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu", "mish",
                                  "leaky_relu", "tanh"])
 def test_plane_bwd_kernel_matches_plain(cuda, shape, act):
@@ -416,6 +417,67 @@ def test_plane_bwd_kernel_matches_plain(cuda, shape, act):
                     lambda: TF.filtered_act_plane_bwd(x, g, act))
     torch.testing.assert_close(
         got, TF.filtered_act_plane_bwd_plain(x, g, act), atol=1e-4,
+        rtol=1e-4)
+
+
+def _plane_bwd_entry(x, g, dx, ppb, tiles, threads, act="silu"):
+    """One launch of the plane backward's C entry; returns its error."""
+    H, W = x.shape[-2:]
+    return kernels.library("filtered_act").filtered_act_plane_bwd_f32(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        *(o.data_ptr() for o in TF._plane_bwd_ops(H, W, x.device)),
+        x.shape[0] * x.shape[1], H, W, ppb, tiles, threads,
+        TF.ACT_CODES[act], torch.cuda.current_stream(x.device).cuda_stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8, 64, 64), (1, 7, 32, 32),
+                                   (2, 5, 12, 20), (1, 9, 8, 8),
+                                   (1, 13, 4, 4)])
+@pytest.mark.parametrize("threads", [256, 512])
+def test_plane_bwd_entry_takes_every_plan(cuda, shape, threads):
+    """Every P that fits the block (up to the plane count, so the last
+    block holds fewer where P does not divide it) and every micro-tile
+    choice the rows allow, through the C entry at both thread counts: each
+    gives the plain version's dx; a choice the rows refuse, and P = 0,
+    return cudaErrorInvalidValue (1) without a launch."""
+    x = torch.randn(shape, device=cuda)
+    g = torch.randn(shape, device=cuda)
+    want = TF.filtered_act_plane_bwd_plain(x, g, "gelu")
+    H, W = shape[-2:]
+    nplanes = shape[0] * shape[1]
+    rows = [r for r, _, _ in TF.plane_bwd_products(H, W)]
+    for ppb in range(1, nplanes + 1):
+        if TF.plane_bwd_smem_bytes(H, W, ppb) > TF.SMEM_MAX_BYTES:
+            break
+        for tiles in range(64):
+            dx = torch.full_like(x, float("nan"))
+            err = _plane_bwd_entry(x, g, dx, ppb, tiles, threads, "gelu")
+            wide_bad = any(not (tiles >> i) & 1 and r % 8
+                           for i, r in enumerate(rows))
+            assert err == (1 if wide_bad else 0), (ppb, tiles)
+            if not wide_bad:
+                torch.cuda.synchronize()
+                torch.testing.assert_close(dx, want, atol=1e-4, rtol=1e-4,
+                                           msg=f"P {ppb}, tiles {tiles}")
+    dx = torch.empty_like(x)
+    assert _plane_bwd_entry(x, g, dx, 0, 63, threads) == 1
+    assert _plane_bwd_entry(x, g, dx, 1, 63, 384) == 1
+
+
+@pytest.mark.cuda
+def test_plane_bwd_kernel_misaligned_and_strided(cuda):
+    """x and g off a 16-byte boundary, and g a non-contiguous view (as
+    autograd may hand it), are copied to what the kernel's 16-byte copies
+    read; dx is the plain version's."""
+    shape = (2, 6, 32, 32)
+    x = _misaligned(torch.randn(shape, device=cuda))
+    g = torch.randn(2, 6, 32, 32, device=cuda).transpose(-1, -2)
+    assert x.data_ptr() % 16 and not g.is_contiguous()
+    got = _launches("filtered_act_plane_bwd",
+                    lambda: TF.filtered_act_plane_bwd(x, g, "silu"))
+    torch.testing.assert_close(
+        got, TF.filtered_act_plane_bwd_plain(x, g, "silu"), atol=1e-4,
         rtol=1e-4)
 
 
