@@ -9,6 +9,7 @@ from .convert import from_flax
 from .attention_blocks import (BasicTransformerBlock, CrossAttention,
                                FeedForward, Transformer2DModel)
 from .unet2d_condition import UNet2DConditionConfig, UNet2DConditionModel
+from .controlnet import ControlNetConfig, ControlNetModel
 
 __all__ = [
     "Attention", "Downsample2D", "KVHelper", "ResnetBlock2D",
@@ -18,5 +19,5 @@ __all__ = [
     "gaussian_kl", "gaussian_sample", "Discriminator", "hinge_d_loss",
     "hinge_g_loss", "from_flax", "BasicTransformerBlock", "CrossAttention",
     "FeedForward", "Transformer2DModel", "UNet2DConditionConfig",
-    "UNet2DConditionModel",
+    "UNet2DConditionModel", "ControlNetConfig", "ControlNetModel",
 ]

@@ -2,9 +2,9 @@
 layout (CrossAttnDown/UpBlock2D, UNetMidBlock2DCrossAttn), NCHW, with the
 alias-free wiring taken from the config (filtered resnet activations and
 alias-free resamplers in the down, mid and up blocks; the transformer
-blocks untouched) and explicit CFA maps on the self-attentions.
-Counterpart of ``afldm_tpu/models/unet2d_condition.py``; the ControlNet
-residual inputs are not ported yet.
+blocks untouched), explicit CFA maps on the self-attentions and the
+ControlNet's residual inputs. Counterpart of
+``afldm_tpu/models/unet2d_condition.py``.
 """
 
 from dataclasses import asdict, dataclass, field
@@ -152,9 +152,12 @@ class UNetMidBlock2DCrossAttn(nn.Module):
 
 class UNet2DConditionModel(nn.Module):
     """``forward(sample, timesteps, encoder_hidden_states, kv_in=None,
-    kv_in2=None, alpha=None) -> (eps, stored_maps)``: ``kv_in`` (the maps
+    kv_in2=None, alpha=None, down_block_residuals=None,
+    mid_block_residual=None) -> (eps, stored_maps)``: ``kv_in`` (the maps
     of a STORE pass) for cross-frame attention, ``kv_in2`` and ``alpha``
-    to blend two of them (interpolation)."""
+    to blend two of them (interpolation); a ControlNet's residuals (one
+    per skip, and one for the mid block) are added to the skips and to
+    the mid block's output."""
 
     def __init__(self, config: UNet2DConditionConfig):
         super().__init__()
@@ -196,7 +199,8 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
     def forward(self, sample, timesteps, encoder_hidden_states, kv_in=None,
-                kv_in2=None, alpha=None):
+                kv_in2=None, alpha=None, down_block_residuals=None,
+                mid_block_residual=None):
         cfg = self.config
         kv = KVHelper(kv_in, kv_in2, alpha)
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -212,7 +216,12 @@ class UNet2DConditionModel(nn.Module):
         for block in self.down_blocks:
             x, block_skips = block(x, temb, ehs, kv)
             skips.extend(block_skips)
+        if down_block_residuals is not None:
+            skips = [s + r for s, r in zip(skips, down_block_residuals,
+                                           strict=True)]
         x = self.mid_block(x, temb, ehs, kv)
+        if mid_block_residual is not None:
+            x = x + mid_block_residual
         n_res = cfg.layers_per_block + 1
         for block in self.up_blocks:
             block_skips, skips = skips[-n_res:], skips[:-n_res]

@@ -5,6 +5,9 @@ Counterpart of the single-device part of ``afldm_tpu/pipelines/_frames.py``
 
 import torch
 
+# frames an encode or decode: the AF-VAE's 2x maps at 512 px
+DECODE_CHUNK = 4
+
 
 def decode_chunked(decode, latents, chunk=None):
     """``decode`` over ``latents`` ``chunk`` frames at a time: the alias-free

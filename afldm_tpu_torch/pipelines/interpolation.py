@@ -67,9 +67,7 @@ class ImageInterpolationPipeline(LDMPipeline):
         self.flow_fn = flow_fn
 
     def _eps(self, x, t, **kv):
-        ehs = torch.zeros((1, 77, self.unet.config.cross_attention_dim),
-                          device=x.device)
-        return self.unet(x, t, ehs, **kv)
+        return self.unet(x, t, self.prompt_embeds(), **kv)
 
     @torch.inference_mode()
     def warp_noise(self, inv0, fwd_flow, fwd_occ, alphas, draws,
@@ -119,8 +117,8 @@ class ImageInterpolationPipeline(LDMPipeline):
         alphas = np.linspace(0.0, 1.0, num_frames)
         a = torch.tensor(alphas, dtype=torch.float32, device=dev)
 
-        inv0 = self.ddim_inversion(self.encode(img0), num_inference_steps)
-        inv1 = self.ddim_inversion(self.encode(img1), num_inference_steps)
+        inv0, _ = self.ddim_inversion(self.encode(img0), num_inference_steps)
+        inv1, _ = self.ddim_inversion(self.encode(img1), num_inference_steps)
         if draws is None:
             if generator is None:
                 raise ValueError("pass draws or a generator")

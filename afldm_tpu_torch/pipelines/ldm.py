@@ -16,6 +16,10 @@ class LDMPipeline:
     """Bundles (vae, unet, scheduler); all methods run under
     ``torch.inference_mode`` on the device of the UNet's parameters."""
 
+    # anything with ``encode(list of prompts) -> (n, 77, D)``; a pipeline of
+    # a cross-attention UNet without one embeds every prompt as zeros
+    text_encoder = None
+
     def __init__(self, vae: AutoencoderKL, unet: UNet2DModel,
                  scheduler: DDIMScheduler, scaling_factor: float = None):
         self.vae = vae
@@ -27,6 +31,16 @@ class LDMPipeline:
     @property
     def device(self) -> torch.device:
         return next(self.unet.parameters()).device
+
+    def prompt_embeds(self, batch: int = 1, prompt: str = ""):
+        """(batch, 77, D) embeddings of ``prompt`` for a cross-attention
+        UNet: the text encoder's, or zeros without one."""
+        if self.text_encoder is not None:
+            e = self.text_encoder.encode([prompt]).to(self.device)
+        else:
+            e = torch.zeros((1, 77, self.unet.config.cross_attention_dim),
+                            device=self.device)
+        return e.expand(batch, -1, -1)
 
     # -- VAE -------------------------------------------------------------------
 
@@ -48,7 +62,8 @@ class LDMPipeline:
 
     def _eps(self, x, t, **kv):
         """The UNet's (noise prediction, stored maps) at (x, t); ``kv``
-        are its cross-frame-attention inputs. A conditioned pipeline adds
+        are its cross-frame-attention inputs and the conditioning passed to
+        ``denoise`` or ``ddim_inversion``. A conditioned pipeline applies
         its conditioning here."""
         return self.unet(x, t, **kv)
 
@@ -62,17 +77,10 @@ class LDMPipeline:
         """One sampler update x_t -> x_{t_prev} (DDIM here)."""
         return self.scheduler.step(eps, t, x, prev_timestep=t_prev)[0]
 
-    @torch.inference_mode()
-    def denoise(self, latents, num_inference_steps: int = 50, kv_traj=None,
-                kv_traj2=None, alpha=None, collect_kv: bool = False):
-        """Full DDIM denoise. Without ``kv_traj`` (STORE) returns
-        (latents, per-step stored maps if ``collect_kv`` else None); with a
-        trajectory from a STORE pass (LOAD) each step reads its maps; with
-        two (interp) each step blends the attention over both with
-        ``alpha`` (a scalar or one per frame). LOAD and interp return
-        (latents, None)."""
-        ts, ts_prev = self._schedule(num_inference_steps)
-        x = latents
+    def _walk(self, x, ts, ts_prev, update, kv_traj, kv_traj2, alpha,
+              collect_kv, conditioning):
+        """The loop of ``denoise`` and ``ddim_inversion``: one ``_eps`` and
+        one ``update(eps, t, t_prev, x)`` a step."""
         traj = [] if (collect_kv and kv_traj is None) else None
         if alpha is not None:  # moved to the device once, not per layer
             alpha = torch.as_tensor(alpha, dtype=torch.float32,
@@ -81,23 +89,44 @@ class LDMPipeline:
             kv_in = None if kv_traj is None else kv_traj[i]
             kv_in2 = None if kv_traj2 is None else kv_traj2[i]
             eps, stored = self._eps(x, t, kv_in=kv_in, kv_in2=kv_in2,
-                                    alpha=alpha)
-            x = self._step(eps, t, pt, x)
+                                    alpha=alpha, **conditioning)
+            x = update(eps, t, pt, x)
             if traj is not None:
                 traj.append(stored)
         return x, traj
 
     @torch.inference_mode()
-    def ddim_inversion(self, latents, num_inference_steps: int = 50):
-        """Closed-form DDIM inversion, from x_0 up the schedule."""
+    def denoise(self, latents, num_inference_steps: int = 50, kv_traj=None,
+                kv_traj2=None, alpha=None, collect_kv: bool = False,
+                start_step: int = 0, **conditioning):
+        """Full DDIM denoise, or its last steps from ``start_step`` on (the
+        img2img truncation). Without ``kv_traj`` (STORE) returns (latents,
+        per-step stored maps if ``collect_kv`` else None); with a
+        trajectory from a STORE pass (LOAD) each step reads its maps; with
+        two (interp) each step blends the attention over both with
+        ``alpha`` (a scalar or one per frame). LOAD and interp return
+        (latents, None). ``conditioning`` goes to ``_eps``."""
+        ts, ts_prev = self._schedule(num_inference_steps)
+        return self._walk(latents, ts[start_step:], ts_prev[start_step:],
+                          self._step, kv_traj, kv_traj2, alpha, collect_kv,
+                          conditioning)
+
+    @torch.inference_mode()
+    def ddim_inversion(self, latents, num_inference_steps: int = 50,
+                       kv_traj=None, collect_kv: bool = False,
+                       start_step: int = 0, **conditioning):
+        """Closed-form DDIM inversion, from x_0 up the schedule (up its
+        steps from ``start_step`` on, reversed), the first step from
+        timestep -1. STORE and LOAD, the return value and ``conditioning``
+        as in ``denoise``."""
         ts, _ = self._schedule(num_inference_steps)
-        ts_up = ts[::-1]
+        ts_up = ts[start_step:][::-1]
         ts_prev = [-1] + ts_up[:-1]
-        x = latents
-        for t, t_prev in zip(ts_up, ts_prev):
-            eps, _ = self._eps(x, t)
-            x = self.scheduler.inversion_step(eps, t_prev, t, x)
-        return x
+
+        def update(eps, t, t_prev, x):
+            return self.scheduler.inversion_step(eps, t_prev, t, x)
+        return self._walk(latents, ts_up, ts_prev, update, kv_traj, None,
+                          None, collect_kv, conditioning)
 
     # -- generation ------------------------------------------------------------
 

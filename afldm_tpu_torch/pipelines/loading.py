@@ -10,6 +10,7 @@ import os
 
 import torch
 
+from ..models.controlnet import ControlNetConfig, ControlNetModel
 from ..models.unet2d import UNet2DConfig, UNet2DModel
 from ..models.unet2d_condition import (UNet2DConditionConfig,
                                        UNet2DConditionModel)
@@ -20,6 +21,8 @@ from ..schedulers.i2sb import I2SBScheduler
 from .i2sb import I2SBLDMPipeline
 from .interpolation import ImageInterpolationPipeline
 from .ldm import LDMPipeline
+from .normal_control import NormControlPipeline
+from .video_editing import VideoEquivEditingPipeline
 
 # the FFHQ pipeline's DDIM, for a pipeline directory without a scheduler
 DEFAULT_SCHEDULER = {
@@ -121,9 +124,42 @@ def init_random_interp_pipeline(unet_config, vae_config, scheduler_config,
         vae, unet, DDIMScheduler.from_config(scheduler_config))
 
 
+def init_random_video_editing_pipeline(
+        unet_config, vae_config, scheduler_config, seed: int = 0,
+        device=None) -> VideoEquivEditingPipeline:
+    """The video-editing pipeline (SD-family conditioned UNet, AF-VAE)
+    with random weights from ``seed``; the configs as for
+    ``init_random_pipeline``."""
+    vae, unet = _random_modules(UNet2DConditionConfig, UNet2DConditionModel,
+                                unet_config, vae_config, seed, device)
+    return VideoEquivEditingPipeline(
+        vae, unet, DDIMScheduler.from_config(scheduler_config))
+
+
+def init_random_normal_pipeline(unet_config, vae_config, scheduler_config,
+                                seed: int = 0, device=None,
+                                zero_controls: bool = True
+                                ) -> NormControlPipeline:
+    """The normal-estimation pipeline (SD-family conditioned UNet, AF-VAE,
+    the ControlNet of ``ControlNetConfig.from_unet_config``) with random
+    weights from ``seed``; the configs as for ``init_random_pipeline``.
+    ``zero_controls=False`` draws ``conv_in2`` and the residual convs like
+    every other weight instead of zeroing them, so that the ControlNet's
+    residuals are not all zero (checks of the residual path)."""
+    vae, unet, cn = _random_modules(UNet2DConditionConfig,
+                                    UNet2DConditionModel, unet_config,
+                                    vae_config, seed, device,
+                                    controlnet=True)
+    if zero_controls:
+        cn.zero_controls_()
+    return NormControlPipeline(vae, unet, cn,
+                               DDIMScheduler.from_config(scheduler_config))
+
+
 def _random_modules(config_cls, unet_cls, unet_config, vae_config, seed,
-                    device):
-    """(vae, unet) with weights drawn from ``seed``, on ``device``."""
+                    device, controlnet: bool = False):
+    """(vae, unet[, controlnet]) with weights drawn from ``seed`` (UNet,
+    VAE, ControlNet in turn), on ``device``."""
     device = resolve_device(device)
     set_af_precision("highest")
     if isinstance(unet_config, dict):
@@ -131,8 +167,11 @@ def _random_modules(config_cls, unet_cls, unet_config, vae_config, seed,
     if isinstance(vae_config, dict):
         vae_config = AutoencoderKLConfig.from_diffusers(vae_config)
     gen = torch.Generator().manual_seed(seed)
-    unet = unet_cls(unet_config)
-    vae = AutoencoderKL(vae_config)
-    init_random_weights(unet, gen)
-    init_random_weights(vae, gen)
-    return vae.to(device).eval(), unet.to(device).eval()
+    modules = [unet_cls(unet_config), AutoencoderKL(vae_config)]
+    if controlnet:
+        modules.append(ControlNetModel(
+            ControlNetConfig.from_unet_config(unet_config)))
+    for m in modules:
+        init_random_weights(m, gen)
+    unet, vae, *rest = (m.to(device).eval() for m in modules)
+    return (vae, unet, *rest)

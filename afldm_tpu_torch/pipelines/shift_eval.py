@@ -49,7 +49,7 @@ def shift_equivariance_eval(pipeline, generator=None,
     if init_latent is None:
         if input_image is not None:
             z = pipeline.encode(input_image, generator=generator)
-            init_latent = pipeline.ddim_inversion(z, num_inference_steps)
+            init_latent, _ = pipeline.ddim_inversion(z, num_inference_steps)
         else:
             if generator is None:
                 raise ValueError("pass init_latent, input_image or a "

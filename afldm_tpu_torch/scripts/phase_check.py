@@ -1,10 +1,11 @@
 """Full-width phases of ``chip_smoke.py`` alone: the serving protocol
 (phase 4, ``main_path``), the AF-VAE training path (phase 8,
-``vae_train``) and the SD image interpolation (phase 12, ``sd_interp``),
-with their wall times, peak device memory and launch counts, without the
-other phases. Run it as a file from the root of the checkout to measure, so that
-two commits' end-to-end times can be taken in turns within one call on one
-card:
+``vae_train``), the SD image interpolation (phase 12, ``sd_interp``), the
+video editing (phase 20, ``video_edit``) and the normal estimation (phase
+22, ``normal``), with their wall times, peak device memory and launch
+counts, without the other phases. Run it as a file from the root of the
+checkout to measure, so that two commits' end-to-end times can be taken in
+turns within one call on one card:
 
     python afldm_tpu_torch/scripts/phase_check.py main_path sd_interp
     cd <other checkout> && python \\
@@ -21,7 +22,7 @@ import importlib
 import sys
 from pathlib import Path
 
-PHASES = ("main_path", "vae_train", "sd_interp")
+PHASES = ("main_path", "vae_train", "sd_interp", "video_edit", "normal")
 # the filtered-activation wrappers that launch a kernel (K5, K5b, K1, K2),
 # each called with its input first
 FILTERED_ACT_ENTRIES = ("_plane_forward", "filtered_act_plane_bwd",
@@ -50,6 +51,9 @@ def main(argv=None):
                     help="micro-steps of the VAE training path (default 8)")
     ap.add_argument("--sd_frames", type=int, default=17)
     ap.add_argument("--sd_steps", type=int, default=10)
+    ap.add_argument("--video_frames", type=int, default=8)
+    ap.add_argument("--video_steps", type=int, default=10)
+    ap.add_argument("--normal_shifts", type=int, default=16)
     ap.add_argument("--repeat", type=int, default=1,
                     help="runs of each phase in this process; the first "
                          "includes the cold start (default 1)")
@@ -79,9 +83,14 @@ def main(argv=None):
             good, _ = smoke.run_main_path(torch, args.steps)
         elif phase == "vae_train":
             good, _ = smoke.run_vae_training(torch, args.vae_steps)
-        else:
+        elif phase == "sd_interp":
             good, _ = smoke.run_sd_interp(torch, args.sd_frames,
                                           args.sd_steps)
+        elif phase == "video_edit":
+            good, _ = smoke.run_video_editing(torch, args.video_frames,
+                                              args.video_steps)
+        else:
+            good, _ = smoke.run_normal_estimation(torch, args.normal_shifts)
         ok &= bool(good)
         for (name, shape), n in sorted(seen.items()):
             print(f"phase_check {phase} shapes: {name} {shape} x {n}",

@@ -5,7 +5,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py            # 50 DDIM steps, 16 shifts, 4 + 8 steps
     python3 chip_smoke.py --steps 10 --train_steps 3 --vae_steps 8 \
-        --interp_steps 10 --sd_frames 5 --sd_steps 4
+        --interp_steps 10 --sd_frames 5 --sd_steps 4 --video_frames 2 \
+        --video_steps 4 --normal_shifts 4
 
 Phases, each of which fails the run:
 1. build every CUDA kernel from ``afldm_tpu_torch/kernels/csrc`` (nvcc, one
@@ -92,12 +93,36 @@ Phases, each of which fails the run:
     AF-VAE at 256 px, the I2SB scheduler of ``configs/sr``): degrade the
     synthetic input 4x, encode, ``shift_equivariance_eval`` with
     ``--sr_steps`` (default 50) and 16 shifts, counters set to 0 just
-    before and read just after; K5, K1 and K3 launched, all PSNRs finite.
+    before and read just after; K5, K1 and K3 launched, all PSNRs finite;
+19. the tiny video editing of the CLI (64 px, 2 frames, 2 DDIM steps at
+    strength 1) on the card and on the CPU with the same weights, noise
+    and stub prompt embeddings (distinct for the prompt and the negative
+    prompt, so that CFG acts), as SDEdit with ``guidance_rescale`` 0.7 and
+    as DDIM inversion: frames compared;
+20. video editing at full width, as ``scripts.video_editing`` builds it
+    (SD-1.5 widths, 64x64 latents, the AF-VAE at 512 px, SD 1.5's DDIM,
+    random weights from seed 0): ``--video_frames`` synthetic frames
+    (default 8, the CLI's) edited by SDEdit at strength 0.7 with
+    ``--video_steps`` DDIM steps (default 10, so 7 denoise steps) and
+    guidance 7.5: the STORE pass of frame 0, the LOAD pass of all frames
+    at CFG batch 2N, the decode; counters set to 0 just before and read
+    just after; K5, K1 and K3 launched, every frame finite;
+21. the tiny normal estimation of the CLI (64 px, 2 shifts) on the card and
+    on the CPU with the same weights, the ControlNet's zero-started convs
+    drawn non-zero: YOSO, and 2 DDIM steps with guidance 2.0 and guess
+    mode; normals and PSNRs compared;
+22. normal estimation at full width, as ``scripts.shift_normal_estimation``
+    builds it (the SD UNet and the latent ControlNet of
+    ``ControlNetConfig.from_unet_config``, the AF-VAE at 512 px, random
+    weights from seed 0, the ControlNet's convs started at zero): YOSO over
+    1 + ``--normal_shifts`` (default 16) shifted latents in one batch,
+    counters set to 0 just before and read just after; K5, K1 and K3
+    launched, all normals and PSNRs finite.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
-full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16 and 18), the last the
-device JSON. Exits non-zero without a GPU or without the package beside
-it.
+full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20 and 22), the
+last the device JSON. Exits non-zero without a GPU or without the package
+beside it.
 """
 
 import argparse
@@ -839,6 +864,9 @@ def run_vae_training(torch, n_steps):
 FFHQ_INTERP_KERNELS = ("filtered_act_plane", "flash_fwd", "flash2_fwd")
 SD_INTERP_KERNELS = ("filtered_act_plane", "filtered_act_banded",
                      "flash_fwd")
+# the kernels every tiny SD-family card-vs-CPU check must launch (the tiny
+# AF-VAE at 64 px has no level above 64 px, so no K1)
+TINY_SD_KERNELS = ("filtered_act_plane", "flash_fwd")
 
 
 def _ffhq_interp(torch, pipe, ends, n_frames, steps):
@@ -848,7 +876,7 @@ def _ffhq_interp(torch, pipe, ends, n_frames, steps):
     inversions) and their decode. Returns (latents, images)."""
     from afldm_tpu_torch.pipelines import slerp
     dev = pipe.device
-    inv = [pipe.ddim_inversion(e.to(dev), steps) for e in ends]
+    inv = [pipe.ddim_inversion(e.to(dev), steps)[0] for e in ends]
     kv = [pipe.denoise(i, steps, collect_kv=True)[1] for i in inv]
     a = torch.linspace(0, 1, n_frames, device=dev)
     noises = slerp(inv[0].expand(n_frames, -1, -1, -1),
@@ -1179,6 +1207,210 @@ def run_sr(torch, steps):
     return ok and not missing, counts
 
 
+def _tiny_pair(what, res, limits):
+    """Logs and checks one card-vs-CPU comparison of a tiny SD-family
+    run: ``res`` maps each device to (output on [0, 1], PSNRs or None),
+    the card's launches under "launched"; ``limits`` = (output, PSNR)."""
+    import numpy as np
+    (got, got_p), (want, want_p) = res["cuda"], res["cpu"]
+    d = float(np.abs(got - want).max())
+    d_p = 0.0 if got_p is None else float(np.abs(got_p - want_p).max())
+    launched = res["launched"]
+    ok = (got.shape == want.shape and bool(np.isfinite(got).all())
+          and (got_p is None or bool(np.isfinite(got_p).all()))
+          and d <= limits[0] and d_p <= limits[1]
+          and all(launched[k] > 0 for k in TINY_SD_KERNELS))
+    psnr = ("" if got_p is None else
+            f", max |dPSNR| {d_p:.2e} dB (limit {limits[1]})")
+    log(f"{what} (card vs CPU): max |d| {d:.2e} on [0, 1] (limit "
+        f"{limits[0]}){psnr}; launches {json.dumps(launched)} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+class _StubTextEncoder:
+    """``encode([prompt]) -> (1, 77, dim)``: a fixed draw per prompt, on
+    the CPU; the tiny video check's pipelines hold one so that the
+    [uncond, cond] halves of their CFG batches differ."""
+
+    def __init__(self, torch, prompts, dim, seed=11):
+        gen = torch.Generator().manual_seed(seed)
+        self.table = {p: torch.randn((1, 77, dim), generator=gen)
+                      for p in prompts}
+
+    def encode(self, prompts):
+        (prompt,) = prompts
+        return self.table[prompt]
+
+
+def check_tiny_video_editing(torch):
+    """The tiny video editing of the CLI (64 px, 2 frames of its synthetic
+    pattern, 2 DDIM steps at strength 1) with the same weights, prompt
+    embeddings (a stub text encoder's draws, distinct for the prompt, the
+    negative prompt and the empty inversion prompt) and SDEdit noise on
+    the card and on the CPU, as SDEdit with guidance_rescale 0.7 and as
+    DDIM inversion: frames on [0, 1] within 1e-3, after checking that the
+    card's unconditional and conditional noise predictions differ."""
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_video_editing_pipeline
+    from afldm_tpu_torch.scripts.video_editing import load_configs, load_frames
+    frames = load_frames(None, 64, 2)
+    noise = torch.randn((2, 4, 8, 8),
+                        generator=torch.Generator().manual_seed(1))
+    prompts = ("a red car", "blurry")
+    pipes = {dev: init_random_video_editing_pipeline(
+        *load_configs(tiny=True), seed=0, device=dev)
+        for dev in ("cuda", "cpu")}
+    encoder = _StubTextEncoder(torch, prompts + ("",),
+                               pipes["cpu"].unet.config.cross_attention_dim)
+    for pipe in pipes.values():
+        pipe.text_encoder = encoder
+    card = pipes["cuda"]
+    with torch.inference_mode():
+        x = noise[0:1].cuda()
+        eps, _ = card.unet(torch.cat([x, x]), 999,
+                           torch.cat(card.encode_prompt(*prompts)))
+    halves = float((eps[1] - eps[0]).abs().max())
+    ok = halves > 0.1
+    log(f"tiny video editing: max |eps_cond - eps_uncond| {halves:.3f} "
+        f"(must exceed 0.1) {'ok' if ok else 'FAIL'}")
+    for mode, kw in (("SDEdit, guidance_rescale 0.7",
+                      dict(guidance_rescale=0.7, noise=noise)),
+                     ("inversion", dict(use_inversion=True))):
+        res = {}
+        for dev, pipe in pipes.items():
+            kernels.reset_launch_counts()
+            res[dev] = (pipe(frames, *prompts, strength=1.0,
+                             num_inference_steps=2, **kw), None)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                res["launched"] = dict(kernels.LAUNCHES)
+        ok &= _tiny_pair(f"tiny video editing ({mode}, 2 frames, 2 steps)",
+                         res, (1e-3, 0.0))
+    return ok
+
+
+def run_video_editing(torch, n_frames, steps):
+    """Video editing at full width, as the CLI builds it
+    (``init_random_video_editing_pipeline`` on its configs, random weights
+    from seed 0, its synthetic frames at 512 px, SDEdit at strength 0.7
+    with guidance 7.5 and noise from a seeded generator)."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_video_editing_pipeline
+    from afldm_tpu_torch.scripts.video_editing import load_configs, load_frames
+    t0 = time.perf_counter()
+    pipe = init_random_video_editing_pipeline(*load_configs(), seed=0,
+                                              device="cuda")
+    res = pipe.unet.config.sample_size * pipe.vae.config.downsample_ratio
+    log(f"video editing: full-width pipeline built in "
+        f"{time.perf_counter() - t0:.1f} s (VAE at {res} px)")
+    frames = load_frames(None, res, n_frames).cuda()
+    n_denoise = len(pipe.get_timesteps(steps, 0.7))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(frames, "a video", strength=0.7, num_inference_steps=steps,
+               guidance_scale=7.5, generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    finite = bool(np.isfinite(out).all())
+    log(f"video editing: {n_frames} frames, SDEdit {n_denoise} of {steps} "
+        f"steps (STORE of frame 0 at CFG batch 2, LOAD of all at CFG batch "
+        f"{2 * n_frames}) at {res} px in {wall:.2f} s wall; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"frames {out.shape} finite: {finite}")
+    log(f"video editing launches: {json.dumps(counts)}")
+    missing = _missing("video editing", counts, SD_INTERP_KERNELS)
+    ok = finite and out.shape == (n_frames, res, res, 3) and not missing
+    if not ok:
+        log("video editing: FAIL")
+    return ok, counts
+
+
+def check_tiny_normal(torch):
+    """The tiny normal estimation of the CLI (64 px, 2 shifts) with the
+    same weights on the card and on the CPU, ``conv_in2`` and the residual
+    convs drawn non-zero so that the residual path counts: YOSO, and 2 DDIM
+    steps from the same noise with guidance 2.0 and guess mode; normals on
+    [0, 1] within 1e-3 and PSNRs within 0.05 dB."""
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_normal_pipeline
+    from afldm_tpu_torch.scripts.shift_normal_estimation import (
+        load_configs, synthetic_image)
+    image = synthetic_image(64)
+    noise = torch.randn((1, 4, 8, 8),
+                        generator=torch.Generator().manual_seed(2))
+    pipes = {dev: init_random_normal_pipeline(
+        *load_configs(tiny=True), seed=0, device=dev, zero_controls=False)
+        for dev in ("cuda", "cpu")}
+    ok = True
+    for mode, kw in (("YOSO", {}),
+                     ("2 steps, guidance 2.0, guess mode",
+                      dict(is_yoso=False, num_inference_steps=2,
+                           guidance_scale=2.0, guess_mode=True,
+                           noise=noise))):
+        res = {}
+        for dev, pipe in pipes.items():
+            kernels.reset_launch_counts()
+            r = pipe(image, num_shift_steps=2, **kw)
+            res[dev] = (r.normals / 2 + 0.5, r.psnrs)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                res["launched"] = dict(kernels.LAUNCHES)
+        ok &= _tiny_pair(f"tiny normal estimation ({mode}, 2 shifts)",
+                         res, (1e-3, 0.05))
+    return ok
+
+
+def run_normal_estimation(torch, n_shifts):
+    """Normal estimation at full width, as the CLI builds it
+    (``init_random_normal_pipeline`` on its configs: the ControlNet of
+    ``ControlNetConfig.from_unet_config`` with its zero-started convs,
+    random weights from seed 0, the synthetic 512 px image): YOSO over the
+    base and ``n_shifts`` shifted latents in one batch."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_normal_pipeline
+    from afldm_tpu_torch.scripts.shift_normal_estimation import (
+        load_configs, synthetic_image)
+    t0 = time.perf_counter()
+    pipe = init_random_normal_pipeline(*load_configs(), seed=0, device="cuda")
+    res = pipe.unet.config.sample_size * pipe.vae.config.downsample_ratio
+    n_params = sum(p.numel() for p in pipe.controlnet.parameters())
+    log(f"normal estimation: full-width pipeline built in "
+        f"{time.perf_counter() - t0:.1f} s (ControlNet {n_params / 1e6:.1f}M "
+        f"params, VAE at {res} px)")
+    image = synthetic_image(res).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(image, num_shift_steps=n_shifts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    finite = (bool(np.isfinite(out.psnrs).all())
+              and bool(np.isfinite(out.normals).all()))
+    log(f"normal estimation: YOSO over 1 + {n_shifts} shifted latents at "
+        f"{res} px in {wall:.2f} s wall; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; finite: "
+        f"{finite}")
+    log("normal estimation PSNRs (dB): "
+        + " ".join(f"{p:.3f}" for p in out.psnrs)
+        + f"; mean {out.mean_psnr:.3f}")
+    log(f"normal estimation launches: {json.dumps(counts)}")
+    missing = _missing("normal estimation", counts, SD_INTERP_KERNELS)
+    ok = (finite and out.psnrs.shape == (n_shifts,)
+          and out.normals.shape == (1 + n_shifts, res, res, 3)
+          and not missing)
+    if not ok:
+        log("normal estimation: FAIL")
+    return ok, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1204,6 +1436,15 @@ def main(argv=None):
     ap.add_argument("--sr_steps", type=int, default=50,
                     help="I2SB steps of the full-width SR protocol "
                          "(default 50)")
+    ap.add_argument("--video_frames", type=int, default=8,
+                    help="frames of the full-width video editing (default "
+                         "8, the CLI's)")
+    ap.add_argument("--video_steps", type=int, default=10,
+                    help="DDIM steps of the full-width video editing, at "
+                         "strength 0.7 (default 10: 7 denoise steps)")
+    ap.add_argument("--normal_shifts", type=int, default=16,
+                    help="shifts of the full-width normal estimation "
+                         "(default 16)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1273,8 +1514,19 @@ def main(argv=None):
     ok &= check_tiny_sr(torch)
     sr_ok, sr_counts = run_sr(torch, args.sr_steps)
     ok &= sr_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_video_editing(torch)
+    video_ok, video_counts = run_video_editing(torch, args.video_frames,
+                                               args.video_steps)
+    ok &= video_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_normal(torch)
+    normal_ok, normal_counts = run_normal_estimation(torch,
+                                                     args.normal_shifts)
+    ok &= normal_ok
     runs = (counts, train_counts, vae_counts, interp_counts, sd_counts,
-            sweep_counts, head_counts, serve_counts, sr_counts)
+            sweep_counts, head_counts, serve_counts, sr_counts, video_counts,
+            normal_counts)
     for k, row in report.items():
         row["launches"] = sum(c[k] for c in runs)
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -103,6 +103,8 @@ def test_q_tile_matches_the_tile_loop():
 @pytest.mark.parametrize("where", ["root", "elsewhere"])
 @pytest.mark.parametrize("script,argv", [("phase_check", ["main_path"]),
                                          ("phase_check", ["vae_train"]),
+                                         ("phase_check", ["video_edit"]),
+                                         ("phase_check", ["normal"]),
                                          ("plane_sweep", []),
                                          ("plane_sweep", ["--bwd"])])
 def test_measurement_scripts_need_a_checkout_and_a_card(
