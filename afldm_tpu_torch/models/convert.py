@@ -52,3 +52,24 @@ def from_flax(flat: dict) -> dict:
             name = leaf
         out[".".join(parts + [name])] = torch.tensor(val)
     return out
+
+
+def text_encoder_from_flax(flat: dict) -> dict:
+    """``FlaxCLIPTextModel`` parameters (flat as for ``from_flax``) -> the
+    state dict of ``text_encoder.CLIPTextModel``, whose keys are the
+    Hugging Face torch ``CLIPTextModel``'s: the path joined with dots,
+    ``kernel`` -> ``weight`` transposed, ``scale`` and ``embedding`` ->
+    ``weight``."""
+    out = {}
+    for path, val in flat.items():
+        if isinstance(path, str):
+            path = tuple(path.split("/"))
+        if path and path[0] == "params":
+            path = path[1:]
+        val = np.asarray(val)
+        leaf = path[-1]
+        if leaf == "kernel":
+            val = val.T
+        name = "weight" if leaf in ("kernel", "scale", "embedding") else leaf
+        out[".".join(path[:-1] + (name,))] = torch.tensor(val)
+    return out

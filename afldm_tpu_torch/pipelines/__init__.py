@@ -5,7 +5,7 @@ from .ldm import LDMPipeline
 from .loading import (init_random_interp_pipeline,
                       init_random_normal_pipeline, init_random_pipeline,
                       init_random_video_editing_pipeline, load_pipeline,
-                      resolve_device)
+                      load_sd_components, resolve_device)
 from .normal_control import NormalEstimationResult, NormControlPipeline
 from .shift_eval import ShiftEvalResult, shift_equivariance_eval
 from .video_editing import VideoEquivEditingPipeline
@@ -14,6 +14,7 @@ __all__ = ["I2SBLDMPipeline", "ImageInterpolationPipeline", "interp_draws",
            "slerp", "LDMPipeline", "init_random_interp_pipeline",
            "init_random_normal_pipeline", "init_random_pipeline",
            "init_random_video_editing_pipeline", "load_pipeline",
-           "resolve_device", "NormalEstimationResult", "NormControlPipeline",
+           "load_sd_components", "resolve_device", "NormalEstimationResult",
+           "NormControlPipeline",
            "ShiftEvalResult", "shift_equivariance_eval",
            "VideoEquivEditingPipeline"]

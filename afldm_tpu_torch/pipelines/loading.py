@@ -1,6 +1,7 @@
 """Build a pipeline with random weights from a seed (the published
 checkpoints are not in the repository), or load one that this port's
-``LDMTrainer.save_pipeline`` wrote. Weights are drawn on the CPU from an
+trainers' ``save_pipeline`` or ``scripts/convert_reference_checkpoint.py``
+wrote. Weights are drawn on the CPU from an
 explicit ``torch.Generator`` and then moved, so a seed gives the same
 weights on every device."""
 
@@ -74,42 +75,118 @@ def init_random_pipeline(unet_config, vae_config, scheduler_config,
                sched_cls.from_config(scheduler_config))
 
 
-def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
-                  scheduler_config=None) -> LDMPipeline:
-    """A pipeline from a directory that this port's
-    ``LDMTrainer.save_pipeline`` wrote: its config JSONs and the newest
-    ``checkpoint-{step}`` (the EMA UNet where it was saved, else the UNet;
-    the VAE). ``scheduler_config`` replaces the directory's
-    ``scheduler_config.json`` (an I2SB pipeline passes its own). Raises
-    when the directory holds no checkpoint or the checkpoint no weights:
-    a wrong path never scores random weights. Orbax directories of the JAX
-    package are not read."""
+def _read_json(pipeline_dir, name):
+    with open(os.path.join(pipeline_dir, name)) as f:
+        return json.load(f)
+
+
+def _restore_latest(pipeline_dir, allow_random: bool):
+    """The state of the newest ``checkpoint-{step}`` under
+    ``pipeline_dir``, or None when there is none and ``allow_random``."""
     from ..train.checkpoint import latest_checkpoint, restore_checkpoint
+    ckpt = latest_checkpoint(pipeline_dir)
+    if ckpt is None:
+        if not allow_random:
+            raise FileNotFoundError(
+                f"no checkpoint-* directory under {pipeline_dir!r}; pass "
+                "allow_random=True to score random-initialized weights")
+        return None, None
+    return ckpt, restore_checkpoint(ckpt)
 
-    def read(name):
-        with open(os.path.join(pipeline_dir, name)) as f:
-            return json.load(f)
 
+def _fail_on_missing(ckpt, missing, allow_random):
+    if missing and not allow_random:
+        raise FileNotFoundError(
+            f"checkpoint {ckpt!r} holds no weights for {missing}; pass "
+            "allow_random=True to keep random weights for those")
+
+
+def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
+                  scheduler_config=None, use_ema: bool = True,
+                  allow_random: bool = False) -> LDMPipeline:
+    """A pipeline from a directory that this port's trainers'
+    ``save_pipeline`` wrote: its config JSONs and the newest
+    ``checkpoint-{step}`` (the EMA UNet where ``use_ema`` and it was
+    saved, else the UNet; the VAE). ``scheduler_config`` replaces the
+    directory's ``scheduler_config.json`` (an I2SB pipeline passes its
+    own). A directory without a checkpoint, or a checkpoint without UNet
+    or VAE weights, raises unless ``allow_random``, which keeps the random
+    weights (seed 0) of what is missing: a wrong path never scores random
+    weights unasked. Orbax directories of the JAX package are not read."""
     if scheduler_config is None:
         has = os.path.exists(os.path.join(pipeline_dir,
                                           "scheduler_config.json"))
-        scheduler_config = (read("scheduler_config.json") if has
-                            else DEFAULT_SCHEDULER)
-    ckpt = latest_checkpoint(pipeline_dir)
-    if ckpt is None:
-        raise FileNotFoundError(
-            f"no checkpoint-* directory under {pipeline_dir!r}")
-    state = restore_checkpoint(ckpt)
-    unet_state = state.get("unet_ema") or state.get("unet")
-    if not unet_state or not state.get("vae"):
-        raise FileNotFoundError(
-            f"checkpoint {ckpt!r} holds no UNet or no VAE weights")
-    pipe = init_random_pipeline(read("unet_config.json"),
-                                read("vae_config.json"), scheduler_config,
-                                device=device, cls=cls)
-    pipe.unet.load_state_dict(unet_state, strict=True)
-    pipe.vae.load_state_dict(state["vae"], strict=True)
+        scheduler_config = (_read_json(pipeline_dir, "scheduler_config.json")
+                            if has else DEFAULT_SCHEDULER)
+    ckpt, state = _restore_latest(pipeline_dir, allow_random)
+    pipe = init_random_pipeline(_read_json(pipeline_dir, "unet_config.json"),
+                                _read_json(pipeline_dir, "vae_config.json"),
+                                scheduler_config, device=device, cls=cls)
+    if state is None:
+        return pipe
+    key = "unet_ema" if use_ema and state.get("unet_ema") else "unet"
+    _fail_on_missing(ckpt, [n for n, k in (("unet/unet_ema", key),
+                                           ("vae", "vae"))
+                            if not state.get(k)], allow_random)
+    if state.get(key):
+        pipe.unet.load_state_dict(state[key], strict=True)
+    if state.get("vae"):
+        pipe.vae.load_state_dict(state["vae"], strict=True)
     return pipe
+
+
+def load_sd_components(pipeline_dir, device=None,
+                       allow_random: bool = False) -> dict:
+    """The SD-family components of a pipeline directory, the layout that
+    ``scripts/convert_reference_checkpoint.py`` and the SD trainers'
+    ``save_pipeline`` write: ``unet_config.json`` (a cross-attention UNet),
+    ``vae_config.json``, an optional ``controlnet_config.json``, optional
+    ``text_encoder/`` and ``tokenizer/`` folders, an optional
+    ``scheduler_config.json`` and ``checkpoint-{step}``. The UNet is the
+    EMA one where it was saved. Returns {"unet", "vae"[, "controlnet"][,
+    "text_encoder"][, "scheduler_config"]}, the modules on ``device`` in
+    eval mode. Raises as ``load_pipeline`` does on a missing checkpoint or
+    missing weights unless ``allow_random``, which keeps those from seed
+    0. The configs are read as written (``alias_free`` from the
+    JSON, else off), as the JAX package reads them."""
+    from ..models.text_encoder import TextEncoder
+    device = resolve_device(device)
+    set_af_precision("highest")
+    ucfg = UNet2DConditionConfig.from_diffusers(
+        _read_json(pipeline_dir, "unet_config.json"))
+    vcfg = AutoencoderKLConfig.from_diffusers(
+        _read_json(pipeline_dir, "vae_config.json"))
+    out = {"unet": UNet2DConditionModel(ucfg), "vae": AutoencoderKL(vcfg)}
+    if os.path.exists(os.path.join(pipeline_dir, "controlnet_config.json")):
+        out["controlnet"] = ControlNetModel(ControlNetConfig.from_diffusers(
+            _read_json(pipeline_dir, "controlnet_config.json")))
+    ckpt, state = _restore_latest(pipeline_dir, allow_random)
+    state = state or {}
+    names = {"unet": "unet_ema" if state.get("unet_ema") else "unet",
+             "vae": "vae", "controlnet": "controlnet"}
+    if ckpt is not None:
+        _fail_on_missing(ckpt, [k for k in out if not state.get(names[k])],
+                         allow_random)
+    gen = torch.Generator().manual_seed(0)
+    for k, m in out.items():
+        if state.get(names[k]):
+            m.load_state_dict(state[names[k]], strict=True)
+        else:  # random weights only where allow_random let them stay
+            init_random_weights(m, gen)
+            if k == "controlnet":
+                m.zero_controls_()
+        out[k] = m.to(device).eval()
+
+    te_dir = os.path.join(pipeline_dir, "text_encoder")
+    if os.path.isdir(te_dir):
+        tok = os.path.join(pipeline_dir, "tokenizer")
+        out["text_encoder"] = TextEncoder(
+            pretrained_dir=te_dir, device=device,
+            tokenizer_dir=tok if os.path.isdir(tok) else None)
+    if os.path.exists(os.path.join(pipeline_dir, "scheduler_config.json")):
+        out["scheduler_config"] = _read_json(pipeline_dir,
+                                             "scheduler_config.json")
+    return out
 
 
 def init_random_interp_pipeline(unet_config, vae_config, scheduler_config,

@@ -1,9 +1,13 @@
 """Full-width phases of ``chip_smoke.py`` alone: the serving protocol
 (phase 4, ``main_path``), the AF-VAE training path (phase 8,
 ``vae_train``), the SD image interpolation (phase 12, ``sd_interp``), the
-video editing (phase 20, ``video_edit``) and the normal estimation (phase
-22, ``normal``), with their wall times, peak device memory and launch
-counts, without the other phases. Run it as a file from the root of the
+video editing (phase 20, ``video_edit``), the normal estimation (phase
+22, ``normal``), the tiny card-vs-CPU checks of the I2SB, SD text and
+normal-ControlNet trainers, the text encoder and the SD pipeline round
+trip (phases 23-25, ``tiny_trainers``) and those three trainers at full
+width (phase 26: ``i2sb_train``, ``sd_text_train``, ``norm_train``),
+with their wall times, peak device memory and launch counts, without the
+other phases. Run it as a file from the root of the
 checkout to measure, so that two commits' end-to-end times can be taken in
 turns within one call on one card:
 
@@ -22,7 +26,11 @@ import importlib
 import sys
 from pathlib import Path
 
-PHASES = ("main_path", "vae_train", "sd_interp", "video_edit", "normal")
+PHASES = ("main_path", "vae_train", "sd_interp", "video_edit", "normal",
+          "tiny_trainers", "i2sb_train", "sd_text_train", "norm_train")
+# the full-width trainer of each trainer phase
+TRAINER_PHASES = {"i2sb_train": "i2sb", "sd_text_train": "sd_text",
+                  "norm_train": "norm_controlnet"}
 # the filtered-activation wrappers that launch a kernel (K5, K5b, K1, K2),
 # each called with its input first
 FILTERED_ACT_ENTRIES = ("_plane_forward", "filtered_act_plane_bwd",
@@ -54,6 +62,7 @@ def main(argv=None):
     ap.add_argument("--video_frames", type=int, default=8)
     ap.add_argument("--video_steps", type=int, default=10)
     ap.add_argument("--normal_shifts", type=int, default=16)
+    ap.add_argument("--trainer_steps", type=int, default=3)
     ap.add_argument("--repeat", type=int, default=1,
                     help="runs of each phase in this process; the first "
                          "includes the cold start (default 1)")
@@ -77,7 +86,7 @@ def main(argv=None):
     if args.shapes:
         count_shapes(importlib.import_module(
             "afldm_tpu_torch.ops.filtered_act"), seen)
-    ok = True
+    ok, sd_state = True, None
     for phase in [p for p in args.phases for _ in range(args.repeat)]:
         if phase == "main_path":
             good, _ = smoke.run_main_path(torch, args.steps)
@@ -89,8 +98,18 @@ def main(argv=None):
         elif phase == "video_edit":
             good, _ = smoke.run_video_editing(torch, args.video_frames,
                                               args.video_steps)
-        else:
+        elif phase == "normal":
             good, _ = smoke.run_normal_estimation(torch, args.normal_shifts)
+        elif phase == "tiny_trainers":
+            good = (smoke.check_tiny_new_trainers(torch)
+                    & smoke.check_text_encoder(torch)
+                    & smoke.check_sd_round_trip(torch))
+        else:
+            name = TRAINER_PHASES[phase]
+            if name != "i2sb" and sd_state is None:
+                sd_state = smoke._sd_states(torch)
+            good, _ = smoke.run_new_trainer(torch, name, args.trainer_steps,
+                                            sd_state)
         ok &= bool(good)
         for (name, shape), n in sorted(seen.items()):
             print(f"phase_check {phase} shapes: {name} {shape} x {n}",

@@ -53,6 +53,30 @@ def ffhq_trainer(device=None, seed: int = 0):
     return tr, ds
 
 
+def i2sb_trainer(device=None, seed: int = 0):
+    """The I2SB trainer of ``configs/sr/train_i2sb_imagenet.json`` as it
+    stands (the FFHQ UNet of ``configs/ldm/model_unet.json``, batch 16 at
+    256 px, CFA shift loss), prepared with random weights from ``seed``,
+    and its dataset. Its vae_path holds no checkpoint in the repository,
+    so the VAE is built from ``configs/vae/model_afvae.json``; without
+    train_data_dir ``make_dataset`` gives SyntheticDataset. Returns
+    (trainer, dataset)."""
+    from .. import train as T
+    cfgs = T.load_training_config(str(CONFIGS / "sr" /
+                                      "train_i2sb_imagenet.json"))
+    base, cfg = cfgs["base"], cfgs["i2sb"]
+    root = CONFIGS.parent
+    cfg.unet_config = str(root / cfg.unet_config)
+    cfg.scheduler_path = str(root / cfg.scheduler_path)
+    tr = T.create_trainer("i2sb", base, cfg, device=device)
+    tr.init_modules(vae_config=json.loads(
+        (CONFIGS / "vae" / "model_afvae.json").read_text()))
+    ds = T.make_dataset(base)
+    tr.init_optimizers(len(ds) // base.train_batch_size * base.num_epochs)
+    tr.prepare_modules(seed=seed)
+    return tr, ds
+
+
 def afvae_trainer(device=None, seed: int = 0):
     """The VAE trainer of ``configs/vae/train_afvae_imagenet.json`` as it
     stands (the AF-VAE of ``model_afvae.json`` at 256 px, batch 4, shift

@@ -7,6 +7,8 @@ DDIM branch; the start latent and the condition latent shift together by
 1/8 .. ``--shift_steps``/8 latent px, and each shifted output is scored by
 masked PSNR against the pixel-shifted base output. The input is a ``.npy``
 image ((H, W, 3) in [0, 1], at 512 px) or a synthetic blocky pattern.
+``--pipeline_dir`` takes the UNet, ControlNet and VAE (and text encoder)
+of a pipeline directory instead, as ``load_sd_components`` reads it.
 Prints the PSNRs; writes the normals, (1 + shifts, H, W, 3) in [0, 1], and
 beside them ``<name>_diffs.npy``, the absolute difference of each shifted
 output from the shifted base.
@@ -65,19 +67,37 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
     p.add_argument("--pipeline_dir", default=None,
-                   help="not ported: SD pipeline directories")
+                   help="a pipeline directory (load_sd_components' layout) "
+                        "whose UNet, ControlNet and VAE to use")
     return p.parse_args(argv)
 
 
+def build_pipeline(tiny=False, pipeline_dir=None, device=None):
+    """The normal-estimation pipeline: random weights from seed 0 on the
+    CLI's configs, or the UNet, ControlNet and VAE of ``pipeline_dir``
+    (``load_sd_components``; its text encoder too, where it has one),
+    with the JAX script's DDIM. A directory without a ControlNet
+    raises."""
+    from ..pipelines import (NormControlPipeline, init_random_normal_pipeline,
+                             load_sd_components)
+    from ..schedulers import DDIMScheduler
+    if not pipeline_dir:
+        return init_random_normal_pipeline(*load_configs(tiny), seed=0,
+                                           device=device)
+    parts = load_sd_components(pipeline_dir, device=device)
+    if "controlnet" not in parts:
+        raise FileNotFoundError(
+            f"{pipeline_dir!r} holds no controlnet_config.json: normal "
+            "estimation needs a ControlNet")
+    return NormControlPipeline(parts["vae"], parts["unet"],
+                               parts["controlnet"],
+                               DDIMScheduler.from_config(NORMAL_DDIM),
+                               text_encoder=parts.get("text_encoder"))
+
+
 def main(argv=None):
-    from ..pipelines import init_random_normal_pipeline
     args = parse_args(argv)
-    if args.pipeline_dir:
-        raise NotImplementedError(
-            "--pipeline_dir: SD pipeline directories are not ported yet "
-            "(ROADMAP Queue 1 item 3); the pipeline runs on random weights")
-    pipe = init_random_normal_pipeline(*load_configs(args.tiny), seed=0,
-                                       device=args.device)
+    pipe = build_pipeline(args.tiny, args.pipeline_dir, args.device)
     res = pipe.unet.config.sample_size * pipe.vae.config.downsample_ratio
     if args.input_path:
         img = np.load(args.input_path).astype(np.float32)

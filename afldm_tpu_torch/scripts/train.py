@@ -1,9 +1,16 @@
 """Training CLI: one JSON config with a ``base`` key and one trainer key
-("vae" or "ldm"). Runs on the card unless given ``--device cpu``.
+("vae", "ldm", "i2sb", "sd_text" or "norm_controlnet"). Runs on the card
+unless given ``--device cpu``.
 
   python -m afldm_tpu_torch.scripts.train configs/vae/train_afvae_imagenet.json
   python -m afldm_tpu_torch.scripts.train configs/ldm/train_unet_ffhq.json
+  python -m afldm_tpu_torch.scripts.train configs/sr/train_i2sb_imagenet.json
   python -m afldm_tpu_torch.scripts.train tiny.json --device cpu --max_steps 2
+
+The SD trainers ("sd_text", "norm_controlnet") take their models from the
+pipeline directory named by ``pretrained_model_name_or_path`` where it is
+one; else SD text builds SD-1.5 widths with random weights, as the JAX
+package does.
 
 The loop of the JAX package's ``train.py``: shuffled epochs, window-mean
 metrics as JSON lines every 10 steps (``<output_dir>/<logging_dir>/

@@ -79,7 +79,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
     p.add_argument("--pipeline_dir", default=None,
-                   help="not ported: SD pipeline directories")
+                   help="refused: the JAX CLI parses it and never reads it")
     p.add_argument("--shard_frames", action="store_true",
                    help="not ported: frame sharding needs the multi-card "
                         "layer")
@@ -91,8 +91,9 @@ def main(argv=None):
     args = parse_args(argv)
     if args.pipeline_dir:
         raise NotImplementedError(
-            "--pipeline_dir: SD pipeline directories are not ported yet "
-            "(ROADMAP Queue 1 item 3); the pipeline runs on random weights")
+            "--pipeline_dir: the JAX video-editing CLI parses this flag and "
+            "never reads it, so there is no behaviour to port (ROADMAP "
+            "Queue 3); the pipeline runs on random weights")
     if args.shard_frames:
         raise NotImplementedError(
             "--shard_frames: frame sharding over several cards is not "

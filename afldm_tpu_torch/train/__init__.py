@@ -1,5 +1,6 @@
 from .config import (BaseTrainingConfig, I2SBLDMTrainingConfig,
-                     LDMTrainingConfig, VAETrainingConfig,
+                     LDMTrainingConfig, NormControlNetConfig,
+                     SDTextTrainingConfig, VAETrainingConfig,
                      load_training_config)
 from .trainer import Trainer, TrainOptimizer, create_trainer, remat_policy
 from .ema import EMA, ema_decay
@@ -10,7 +11,8 @@ from .data import (DeadLeavesDataset, ImageFolderDataset, SyntheticDataset,
 
 __all__ = [
     "BaseTrainingConfig", "I2SBLDMTrainingConfig", "LDMTrainingConfig",
-    "VAETrainingConfig", "load_training_config", "Trainer",
+    "NormControlNetConfig", "SDTextTrainingConfig", "VAETrainingConfig",
+    "load_training_config", "Trainer",
     "TrainOptimizer", "create_trainer", "remat_policy",
     "EMA", "ema_decay", "latest_checkpoint", "restore_checkpoint",
     "resume_step_from_path", "save_checkpoint", "DeadLeavesDataset",

@@ -31,6 +31,9 @@ from .trainer import Trainer, TrainOptimizer, checkpointed, load_json
 
 
 class LDMTrainer(Trainer):
+    # ``scale_lr`` multiplies the lr by the batch too (the JAX LDM trainer
+    # passes it to ``make_optimizer``; its I2SB and SD trainers do not)
+    SCALE_LR_BY_BATCH = True
 
     def init_modules(self, vae_config=None, unet_config=None,
                      scheduler_config=None):
@@ -40,7 +43,7 @@ class LDMTrainer(Trainer):
         if cfg.is_vqvae:
             raise NotImplementedError(
                 "is_vqvae: the VQ autoencoder (models/vq.py) is not ported "
-                "yet (ROADMAP Queue 1 item 15)")
+                "yet (ROADMAP Queue 1 item 9)")
         if scheduler_config is None:
             scheduler_config = load_json(cfg.scheduler_path)
         self.noise_scheduler = DDPMScheduler.from_config(scheduler_config)
@@ -90,25 +93,24 @@ class LDMTrainer(Trainer):
         return None
 
     def init_params(self, seed: int = 0, unet_state=None, vae_state=None):
-        """Random weights from ``seed`` (LeCun-normal, drawn on the CPU),
-        then, where given or found, saved ones: ``vae_state`` /
+        """Saved weights where given or found (``vae_state`` /
         ``unet_state`` state dicts, else the checkpoints under
-        ``cfg.vae_path`` / ``cfg.unet_path``."""
-        gen = torch.Generator().manual_seed(seed)
-        init_random_weights(self.vae, gen)
-        init_random_weights(self.unet, gen)
+        ``cfg.vae_path`` / ``cfg.unet_path``), random ones from ``seed``
+        (LeCun-normal, drawn on the CPU, the VAE's first) for the rest."""
         cfg = self.cfg
         if vae_state is None and cfg.vae_path and os.path.isdir(cfg.vae_path):
             # a VAE-trainer save (vae/model_ema) or an LDM run's (vae)
             vae_state = self._load_saved_params(cfg.vae_path,
                                                 ("model_ema", "vae"))
-        if (unet_state is None and cfg.unet_path
-                and os.path.isdir(cfg.unet_path)):
-            unet_state = self._load_saved_params(cfg.unet_path, ("unet",))
-        if vae_state is not None:
-            self.vae.load_state_dict(vae_state, strict=True)
-        if unet_state is not None:
-            self.unet.load_state_dict(unet_state, strict=True)
+        unet_path = getattr(cfg, "unet_path", None)
+        if unet_state is None and unet_path and os.path.isdir(unet_path):
+            unet_state = self._load_saved_params(unet_path, ("unet",))
+        gen = torch.Generator().manual_seed(seed)
+        for module, state in ((self.vae, vae_state), (self.unet, unet_state)):
+            if state is None:
+                init_random_weights(module, gen)
+            else:
+                module.load_state_dict(state, strict=True)
 
     def prepare_modules(self, seed: int = 0, unet_state=None,
                         vae_state=None):
@@ -122,7 +124,8 @@ class LDMTrainer(Trainer):
         self.opt = TrainOptimizer(
             self.unet.parameters(), self.cfg, self.total_steps,
             grad_accum=base.gradient_accumulation_steps,
-            train_batch_size=base.train_batch_size)
+            train_batch_size=(base.train_batch_size
+                              if self.SCALE_LR_BY_BATCH else 1))
         self.ema = EMA(self.unet.parameters()) if self.cfg.use_ema else None
         self.step = 0
         if base.gradient_checkpointing:
@@ -156,9 +159,11 @@ class LDMTrainer(Trainer):
             "ti": ti, "tj": tj,
         }
 
-    def loss_fn(self, images, draws):
-        """images: NCHW in [-1, 1] on the trainer's device. Returns
-        (loss, {train_loss, mse_loss, shift_loss} as tensors)."""
+    def loss_fn(self, images, draws, cond=()):
+        """images: NCHW in [-1, 1] on the trainer's device; ``cond``: the
+        UNet's inputs after the timesteps (a conditioned UNet's prompt
+        embeddings). Returns (loss, {train_loss, mse_loss, shift_loss} as
+        tensors)."""
         cfg = self.cfg
         dev = images.device
         with torch.no_grad():
@@ -171,7 +176,7 @@ class LDMTrainer(Trainer):
         ti, tj = draws["ti"], draws["tj"]
         noisy = self.noise_scheduler.add_noise(latents, noise, t)
 
-        pred0, kv = self.unet_apply(noisy, t)
+        pred0, kv = self.unet_apply(noisy, t, *cond)
         if not (cfg.use_shift_loss and cfg.use_cross_attn):
             kv = None
         shift_loss = torch.zeros((), device=dev)
@@ -180,8 +185,8 @@ class LDMTrainer(Trainer):
             cache = self.shifter.precompute(noisy)
             shifted_noisy, _ = self.shifter.shift(noisy, ti, tj, cache=cache)
             target, _ = self.shifter.shift(pred0, ti, tj)
-            pred_s, _ = self.unet_apply(shifted_noisy, t, kv)
-            if cfg.use_stop_grad:
+            pred_s, _ = self.unet_apply(shifted_noisy, t, *cond, kv)
+            if getattr(cfg, "use_stop_grad", False):
                 pred_s = pred_s.detach()
             shift_loss = mask_mse(pred_s, target, mask)
         mse_loss = torch.mean((pred0.float() - noise.float()) ** 2)
@@ -195,11 +200,19 @@ class LDMTrainer(Trainer):
         ``gradient_accumulation_steps`` micro-batches), EMA (every call, as
         the JAX step updates it). ``batch["input"]``: NHWC in [-1, 1];
         ``draws`` (as ``draw`` returns them) replace the step's own."""
-        images = torch.as_tensor(batch["input"]).permute(0, 3, 1, 2)
-        images = images.to(self.device, torch.float32).contiguous()
+        images = self._images(batch["input"])
         if draws is None:
             draws = self.draw(global_step, images.shape[0])
-        loss, logs = self.loss_fn(images, draws)
+        return self._update(*self.loss_fn(images, draws))
+
+    def _images(self, nhwc):
+        """A batch's NHWC images as NCHW float32 on the trainer's device."""
+        images = torch.as_tensor(nhwc).permute(0, 3, 1, 2)
+        return images.to(self.device, torch.float32).contiguous()
+
+    def _update(self, loss, logs) -> dict:
+        """Backward, the optimizer (every ``gradient_accumulation_steps``
+        micro-batches) and the EMA; the logs as floats."""
         loss.backward()
         self.opt.step()
         if self.ema is not None:
@@ -224,9 +237,8 @@ class LDMTrainer(Trainer):
 
     # -- validation / export -------------------------------------------------
 
-    def make_pipeline(self, use_ema=None) -> LDMPipeline:
-        """A DDIM pipeline over the frozen VAE and the UNet, or a copy of it
-        carrying the EMA weights."""
+    def _pipeline_unet(self, use_ema=None):
+        """The UNet, or a copy of it carrying the EMA weights."""
         use_ema = self.cfg.use_ema if use_ema is None else use_ema
         unet = self.unet
         if use_ema and self.ema is not None:
@@ -234,6 +246,12 @@ class LDMTrainer(Trainer):
             with torch.no_grad():
                 torch._foreach_copy_(list(unet.parameters()),
                                      self.ema.params)
+        return unet
+
+    def make_pipeline(self, use_ema=None) -> LDMPipeline:
+        """A DDIM pipeline over the frozen VAE and the UNet, or a copy of it
+        carrying the EMA weights."""
+        unet = self._pipeline_unet(use_ema)
         ddim = DDIMScheduler(
             **{k: v for k, v in self.noise_scheduler.config.items()
                if k in ("num_train_timesteps", "beta_start", "beta_end",

@@ -204,23 +204,17 @@ class Trainer(abc.ABC):
         ...
 
 
-_WAITING = {
-    "i2sb": "I2SB super-resolution (ROADMAP Queue 1 item 12)",
-    "sd_text": "the SD family (ROADMAP Queue 1 item 14)",
-    "norm_controlnet": "the SD family (ROADMAP Queue 1 item 14)",
-}
-
-
 def create_trainer(name: str, base_cfg, cfg, device=None) -> Trainer:
-    """Factory. "vae" and "ldm" are ported; the others raise naming their
-    slice."""
-    if name == "ldm":
-        from .ldm_trainer import LDMTrainer
-        return LDMTrainer(base_cfg, cfg, device=device)
-    if name == "vae":
-        from .vae_trainer import VAETrainer
-        return VAETrainer(base_cfg, cfg, device=device)
-    if name in _WAITING:
-        raise NotImplementedError(f"trainer {name!r} is not ported yet: it "
-                                  f"comes with {_WAITING[name]}")
-    raise ValueError(f"unknown trainer {name!r}")
+    """Factory of the five trainers: "vae", "ldm", "i2sb", "sd_text" and
+    "norm_controlnet"."""
+    from .i2sb_trainer import I2SBTrainer
+    from .ldm_trainer import LDMTrainer
+    from .norm_controlnet_trainer import NormControlNetTrainer
+    from .sd_text_trainer import SDTextTrainer
+    from .vae_trainer import VAETrainer
+    registry = {"vae": VAETrainer, "ldm": LDMTrainer, "i2sb": I2SBTrainer,
+                "sd_text": SDTextTrainer,
+                "norm_controlnet": NormControlNetTrainer}
+    if name not in registry:
+        raise ValueError(f"unknown trainer {name!r}")
+    return registry[name](base_cfg, cfg, device=device)

@@ -6,7 +6,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 chip_smoke.py            # 50 DDIM steps, 16 shifts, 4 + 8 steps
     python3 chip_smoke.py --steps 10 --train_steps 3 --vae_steps 8 \
         --interp_steps 10 --sd_frames 5 --sd_steps 4 --video_frames 2 \
-        --video_steps 4 --normal_shifts 4
+        --video_steps 4 --normal_shifts 4 --trainer_steps 2
 
 Phases, each of which fails the run:
 1. build every CUDA kernel from ``afldm_tpu_torch/kernels/csrc`` (nvcc, one
@@ -14,7 +14,8 @@ Phases, each of which fails the run:
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (and the banded pair at sizes outside the old
    96-512 px window: 80 px, 32x128 and 1024 px planes; the flash backward
-   at the SD UNet's head dims 40, 80 and 160), and time kernel, plain
+   at the SD UNet's head dims 40, 80 and 160, and at its cross-attention
+   over 77 text tokens), and time kernel, plain
    version, the library call where one exists, and the bound (the larger
    of FLOPs / 67 TFLOP/s f32 and bytes / 3.35 TB/s); the flash backward's
    and the banded backward's sums are logged over their first three
@@ -117,11 +118,32 @@ Phases, each of which fails the run:
     weights from seed 0, the ControlNet's convs started at zero): YOSO over
     1 + ``--normal_shifts`` (default 16) shifted latents in one batch,
     counters set to 0 just before and read just after; K5, K1 and K3
-    launched, all normals and PSNRs finite.
+    launched, all normals and PSNRs finite;
+23. two steps of the tiny I2SB (bridge noise, CFA), SD text (a tiny
+    random CLIP, prompt dropout 0.5) and normal-ControlNet trainers (64 px,
+    batch 2) on the card and on the CPU with the same weights, images and
+    draws: each step's losses and every gradient of the trained modules,
+    compared as in 5;
+24. ViT-L/14's CLIP text transformer from seed 0 on the card and on the
+    CPU: hidden states within 1e-4 of their scale;
+25. the tiny SD text trainer's ``save_pipeline``, ``load_sd_components``
+    and one YOSO normal estimation on the card: the weights come back bit
+    for bit and the normals agree with the in-memory modules' within
+    1e-5;
+26. the three trainers at full width, ``--trainer_steps`` steps each
+    (default 3), counters set to 0 just before and read just after: I2SB
+    as ``configs/sr/train_i2sb_imagenet.json`` stands (the FFHQ UNet,
+    batch 16 at 256 px, CFA shift loss; synthetic data, random weights);
+    SD text and the normal ControlNet at the JAX defaults (SD-1.5 widths,
+    512 px, batch 1; one host draw of the UNet and the AF-VAE shared by
+    both; SD text with ViT-L/14's random CLIP, the ControlNet of
+    ``ControlNetConfig.from_unet_config``): every loss finite, every
+    trained tensor with a non-zero gradient moved, K5, K1, K3, K5b, K4a
+    and K4b launched, and in the SD trainers K4b over the 77 text tokens.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
-full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20 and 22), the
-last the device JSON. Exits non-zero without a GPU or without the package
+full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20, 22 and
+26), the last the device JSON. Exits non-zero without a GPU or without the package
 beside it.
 """
 
@@ -150,7 +172,10 @@ FLASH_BWD_SHAPES = [
     (16, 16, 256, 24, 16), (16, 16, 64, 24, 16), (16, 32, 16, 24, 16),
     # one shape at each larger DP, the SD UNet's head dims 40, 80 and 160
     # at its 64, 32 and 16 px levels (batch 2)
-    (2, 8, 4096, 40, 2), (2, 8, 1024, 80, 2), (2, 8, 256, 160, 2)]
+    (2, 8, 4096, 40, 2), (2, 8, 1024, 80, 2), (2, 8, 256, 160, 2),
+    # the SD trainers' cross-attention over 77 text tokens at those levels
+    # (batch 1; the sixth element is Lk)
+    (1, 8, 4096, 40, 1, 77), (1, 8, 1024, 80, 1, 77), (1, 8, 256, 160, 1, 77)]
 
 KERNELS = {
     "filtered_act_plane": dict(
@@ -192,9 +217,11 @@ KERNELS = {
         # the LDM training step's 32 px and 4 px levels (``base_shapes``:
         # their sums are logged apart, to compare with commits that timed
         # only them); the AF-VAE training step's at batch 4: the 64 px
-        # level's 512- and 256-channel planes, the 32 px level's
+        # level's 512- and 256-channel planes, the 32 px level's; the SD
+        # trainers' UNet at batch 1: its 64 px and 8 px levels
         shapes=[(16, 192, 32, 32), (16, 1536, 4, 4), (4, 512, 64, 64),
-                (4, 256, 64, 64), (4, 512, 32, 32)],
+                (4, 256, 64, 64), (4, 512, 32, 32), (1, 320, 64, 64),
+                (1, 1280, 8, 8)],
         base_shapes=2),
     "flash_bwd_dq": dict(
         route="cuda", source="afldm_tpu_torch/kernels/csrc/flash_bwd.cu",
@@ -349,15 +376,16 @@ def filtered_act_bwd_work(shape):
 
 
 def flash_bwd_work(name, shape):
-    """dq: q·kᵀ, dO·vᵀ and ds·k (6·B·L²·D); dkv adds dsᵀ·q and pᵀ·dO in
-    place of ds·k (8·B·L²·D). Bytes: q, dO, lse, delta and the unique K/V
-    rows read once; dq, or dk and dv (dense per image), written once."""
-    n, heads, L, d, n_kv = shape
-    rows = n * heads * L
-    reads = 2 * rows * d + 2 * rows + 2 * n_kv * heads * L * d
+    """dq: q·kᵀ, dO·vᵀ and ds·k (6·B·Lq·Lk·D); dkv adds dsᵀ·q and pᵀ·dO in
+    place of ds·k (8·B·Lq·Lk·D). Bytes: q, dO, lse, delta and the unique
+    K/V rows read once; dq, or dk and dv (dense per image), written
+    once."""
+    n, heads, Lq, Lk, d, n_kv = _flash_dims(shape)
+    rows = n * heads * Lq
+    reads = 2 * rows * d + 2 * rows + 2 * n_kv * heads * Lk * d
     if name == "flash_bwd_dq":
-        return 6 * rows * L * d, 4 * (reads + rows * d)
-    return 8 * rows * L * d, 4 * (reads + 2 * rows * d)
+        return 6 * rows * Lk * d, 4 * (reads + rows * d)
+    return 8 * rows * Lk * d, 4 * (reads + 2 * n * heads * Lk * d)
 
 
 def _case(torch, name, shape, dev, g):
@@ -1411,6 +1439,351 @@ def run_normal_estimation(torch, n_shifts):
     return ok, counts
 
 
+# the kernels the tiny trainers of phase 23 launch (their AF-VAE has no
+# level above 64 px, so neither K1 nor K2)
+TINY_TRAINING_KERNELS = ("filtered_act_plane", "flash_fwd",
+                         "filtered_act_plane_bwd", "flash_bwd_dq",
+                         "flash_bwd_dkv")
+NEW_TRAINERS = ("i2sb", "sd_text", "norm_controlnet")
+# the tiny SD text trainer's CLIP: the width of the tiny SD UNet's text
+# embeddings, ViT-L/14's vocabulary and 77 positions
+TINY_CLIP = dict(hidden_size=16, intermediate_size=32, num_hidden_layers=2,
+                 num_attention_heads=2)
+
+
+def _tiny_new_trainer(torch, name, device):
+    """The tiny trainer ``name`` at 64 px, batch 2, weights from seed 0:
+    I2SB on the tiny FFHQ UNet and AF-VAE of the protocol CLI (bridge
+    noise on, CFA); the SD trainers on the tiny SD UNet and AF-VAE of the
+    SD CLIs, SD text with a tiny random CLIP and prompt dropout 0.5."""
+    from afldm_tpu_torch import train as T
+    from afldm_tpu_torch.models.text_encoder import (CLIPTextConfig,
+                                                     TextEncoder)
+    from afldm_tpu_torch.scripts import image_interpolation, shift_ldm_ffhq
+    base = T.BaseTrainingConfig(resolution=64, train_batch_size=2, seed=0,
+                                prompt_dropout=0.5)
+    if name == "i2sb":
+        ucfg, vcfg, _ = shift_ldm_ffhq.load_configs(tiny=True)
+        sched = json.loads((REPO / "configs" / "sr" /
+                            "i2sb_scheduler.json").read_text())
+        tr = T.create_trainer(name, base, T.I2SBLDMTrainingConfig(
+            is_ode=False, use_cfa=True, use_ema=True), device=device)
+        tr.init_modules(vae_config=vcfg, unet_config=ucfg,
+                        scheduler_config=sched)
+    else:
+        ucfg, vcfg, _ = image_interpolation.load_configs(tiny=True)
+        if name == "sd_text":
+            tr = T.create_trainer(name, base, T.SDTextTrainingConfig(),
+                                  device=device)
+            tr.init_modules(vae_config=vcfg, unet_config=ucfg,
+                            text_encoder=TextEncoder(
+                                seed=0, device=device,
+                                config=CLIPTextConfig(**TINY_CLIP)))
+        else:
+            tr = T.create_trainer(name, base, T.NormControlNetConfig(),
+                                  device=device)
+            tr.init_modules(vae_config=vcfg, unet_config=ucfg)
+    tr.init_optimizers(100)
+    tr.prepare_modules(seed=0)
+    return tr
+
+
+def _trainer_loss(torch, tr, name, step, batch):
+    """(loss, logs) of trainer ``name``'s step with its own draws, as its
+    ``training_step`` computes them."""
+    draws = tr.draw(step, len(batch["input"]))
+
+    def nchw(a):
+        return torch.as_tensor(a).permute(0, 3, 1, 2).contiguous().to(
+            tr.device)
+    if name == "norm_controlnet":
+        return tr.loss_fn(nchw(batch["input"]), nchw(batch["normal"]),
+                          tr.prompt_embeds(len(batch["input"])), draws)
+    if name == "sd_text":
+        ehs = tr.text_encoder.encode(tr.prompts(step, batch)).to(tr.device)
+        return tr.loss_fn(nchw(batch["input"]), draws, (ehs,))
+    return tr.loss_fn(nchw(batch["input"]), draws)
+
+
+def _trainer_modules(tr):
+    mods = {"unet": tr.unet}
+    if hasattr(tr, "controlnet"):
+        mods["controlnet"] = tr.controlnet
+    return mods
+
+
+def _trainer_update(tr):
+    """The optimizer step(s) and EMA of ``training_step``."""
+    tr.opt.step()
+    if hasattr(tr, "cn_opt"):
+        tr.cn_opt.step()
+    if getattr(tr, "ema", None) is not None:
+        tr.ema.update(tr.unet.parameters())
+    tr.step += 1
+
+
+def check_tiny_new_trainers(torch):
+    """Two steps of the tiny I2SB, SD text (prompt dropout 0.5) and
+    normal-ControlNet trainers (64 px, batch 2) from the same weights,
+    images and draws on the card (kernels) and on the CPU (plain
+    versions): each step's losses within LOSS_RTOL and every gradient of
+    the trained modules within GRAD_RTOL of its scale, taken before that
+    step's update; the card must launch the tiny trainers' kernels."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch import train as T
+    batch = next(T.epoch_batches(T.SyntheticDataset(resolution=64,
+                                                    length=2), 2))
+    batch["caption"] = np.array(["a red car", "a blue bird"])
+    batch["normal"] = batch["input"][:, ::-1].copy()
+    ok = True
+    for name in NEW_TRAINERS:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            tr = _tiny_new_trainer(torch, name, dev)
+            if dev == "cuda":
+                kernels.reset_launch_counts()
+            steps = []
+            for step in range(2):
+                loss, logs = _trainer_loss(torch, tr, name, step, batch)
+                loss.backward()
+                # copies: the optimizer clips the gradients in place
+                grads = {f"{m}.{n}": p.grad.detach().cpu().clone()
+                         for m, mod in _trainer_modules(tr).items()
+                         for n, p in mod.named_parameters()
+                         if p.grad is not None}
+                steps.append(({k: float(v) for k, v in logs.items()},
+                              grads))
+                _trainer_update(tr)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = dict(kernels.LAUNCHES)
+            res[dev] = steps
+        for step in range(2):
+            (lc, gc), (lp, gp) = res["cuda"][step], res["cpu"][step]
+            d_loss = max(abs(lc[k] - lp[k]) / abs(lp[k]) for k in lp)
+            worst, worst_name = _grads_close(gc, gp)
+            good = (all(np.isfinite(v) for v in lc.values())
+                    and set(gc) == set(gp) and d_loss <= LOSS_RTOL
+                    and worst <= GRAD_RTOL)
+            log(f"tiny {name} training reference (card vs CPU, step "
+                f"{step}): losses {json.dumps(lc)}; max loss rel err "
+                f"{d_loss:.2e} (limit {LOSS_RTOL}), max grad err "
+                f"{worst:.2e} of its tensor's scale at {worst_name} (limit "
+                f"{GRAD_RTOL}) over {len(gp)} tensors "
+                f"{'ok' if good else 'FAIL'}")
+            ok &= good
+        missing = _missing(f"tiny {name} training", launched,
+                           TINY_TRAINING_KERNELS)
+        log(f"tiny {name} training launches (card, two steps): "
+            f"{json.dumps(launched)}")
+        ok &= not missing
+    return ok
+
+
+def check_text_encoder(torch):
+    """ViT-L/14's text transformer with weights from seed 0 on the card and
+    on the CPU, over two prompts of the hash tokenizer: hidden states
+    within 1e-4 of their scale (12 layers of f32 products summed in other
+    orders)."""
+    from afldm_tpu_torch.models.text_encoder import TextEncoder
+    prompts = ["a photo of an astronaut riding a horse", ""]
+    out = {dev: TextEncoder(seed=0, device=dev).encode(prompts).cpu()
+           for dev in ("cuda", "cpu")}
+    d = float((out["cuda"] - out["cpu"]).abs().max())
+    lim = 1e-4 * float(out["cpu"].abs().max())
+    ok = (out["cuda"].shape == (2, 77, 768)
+          and bool(torch.isfinite(out["cuda"]).all()) and d <= lim)
+    log(f"text encoder (ViT-L/14, 123.1M params, card vs CPU, 2 prompts): "
+        f"max |d| {d:.2e} (limit {lim:.2e}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _watch_cross_attention_bwd():
+    """Counts the K4b launches whose K/V has 77 rows (the text tokens) until
+    the returned ``stop`` is called."""
+    from afldm_tpu_torch.ops import attention as A
+    orig, seen = A.flash_bwd_dkv, []
+
+    def watched(q, k, *args, **kwargs):
+        seen.append(k.shape[-2])
+        return orig(q, k, *args, **kwargs)
+    A.flash_bwd_dkv = watched
+
+    def stop():
+        A.flash_bwd_dkv = orig
+        return sum(1 for n in seen if n == 77)
+    return stop
+
+
+def _sd_states(torch):
+    """One host draw (seed 0) of the SD-1.5-width alias-free UNet and of the
+    AF-VAE of ``model_afvae.json``, shared by the two SD trainers."""
+    from afldm_tpu_torch.models import (AutoencoderKL, AutoencoderKLConfig,
+                                        UNet2DConditionConfig,
+                                        UNet2DConditionModel)
+    from afldm_tpu_torch.pipelines.loading import init_random_weights
+    vcfg = json.loads((REPO / "configs" / "vae" /
+                       "model_afvae.json").read_text())
+    gen = torch.Generator().manual_seed(0)
+    vae = AutoencoderKL(AutoencoderKLConfig.from_diffusers(vcfg))
+    unet = UNet2DConditionModel(UNet2DConditionConfig(alias_free=True))
+    for m in (vae, unet):
+        init_random_weights(m, gen)
+    return vcfg, vae.state_dict(), unet.state_dict()
+
+
+def _full_trainer(torch, name, sd):
+    """The full-width trainer ``name`` on the card with its dataset: I2SB
+    as ``configs/sr/train_i2sb_imagenet.json`` stands
+    (``profile_main_path.i2sb_trainer``); SD text and the normal ControlNet
+    at the JAX defaults (512 px, batch 1, SD-1.5 widths, the shared UNet
+    and VAE states of ``sd``; SD text with ViT-L/14's random CLIP, the
+    ControlNet of ``ControlNetConfig.from_unet_config`` from seed 0)."""
+    from afldm_tpu_torch import train as T
+    from afldm_tpu_torch.scripts.profile_main_path import i2sb_trainer
+    if name == "i2sb":
+        return i2sb_trainer(device="cuda", seed=0)
+    vcfg, vae_state, unet_state = sd
+    base = T.BaseTrainingConfig(seed=0)
+    cfg = (T.SDTextTrainingConfig() if name == "sd_text"
+           else T.NormControlNetConfig())
+    tr = T.create_trainer(name, base, cfg, device="cuda")
+    tr.init_modules(vae_config=vcfg)
+    ds = T.make_dataset(base)
+    tr.init_optimizers(len(ds) // base.train_batch_size * base.num_epochs)
+    tr.prepare_modules(seed=0, unet_state=unet_state, vae_state=vae_state)
+    return tr, ds
+
+
+def run_new_trainer(torch, name, n_steps, sd=None):
+    """``n_steps`` steps of the full-width trainer ``name``, the counters
+    set to 0 just before and read just after: the median step over steps
+    1.., the peak memory, the launches (those of K4b over 77 text tokens
+    apart); every loss finite, every trained tensor that had a non-zero
+    gradient moved (at least 80 % had one), the six training kernels
+    launched (and K4b at Lk = 77 in the SD trainers)."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch import train as T
+    t0 = time.perf_counter()
+    tr, ds = _full_trainer(torch, name, sd)
+    base = tr.base_cfg
+    trained = [p for m in _trainer_modules(tr).values()
+               for p in m.parameters() if p.requires_grad]
+    p0 = [p.detach().clone() for p in trained]
+    # which trained tensors ever had a non-zero gradient: one that never
+    # had (the queries of a cross-attention over equal keys) need not move
+    touched = [torch.zeros((), dtype=torch.bool, device="cuda")
+               for _ in trained]
+
+    def mark(i):
+        def hook(p):
+            touched[i] |= (p.grad != 0).any()
+        return hook
+    handles = [p.register_post_accumulate_grad_hook(mark(i))
+               for i, p in enumerate(trained)]
+    sizes = {k: sum(p.numel() for p in m.parameters()) / 1e6
+             for k, m in _trainer_modules(tr).items()}
+    log(f"{name} training: full-width trainer built in "
+        f"{time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}M params" for k, v in sizes.items())
+        + f", {sum(p.numel() for p in trained) / 1e6:.1f}M trained, batch "
+        f"{base.train_batch_size}, {base.resolution} px)")
+    batches = T.epoch_batches(ds, base.train_batch_size, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    stop = _watch_cross_attention_bwd()
+    times, losses = [], []
+    try:
+        for step in range(n_steps):
+            batch = next(batches)
+            batch["normal"] = batch["input"][:, ::-1].copy()
+            t0 = time.perf_counter()
+            logs = tr.training_step(step, batch)  # floats: synchronises
+            times.append(time.perf_counter() - t0)
+            losses.append(logs)
+            log(f"{name} training step {step}: {times[-1]:.3f} s "
+                f"{json.dumps(logs)}")
+    finally:
+        cross = stop()
+        for h in handles:
+            h.remove()
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(times[1:] or times))
+    moved = [not torch.equal(a, p) for a, p in zip(p0, trained)]
+    graded = [bool(t) for t in touched]
+    stuck = sum(g and not m for g, m in zip(graded, moved))
+    finite = all(np.isfinite(v) for d in losses for v in d.values())
+    log(f"{name} training: median step {med:.3f} s over steps "
+        f"1..{n_steps - 1} ({base.train_batch_size / med:.2f} images/s), "
+        f"first step {times[0]:.3f} s, peak device memory {peak:.2f} GiB; "
+        f"{sum(moved)} of {len(p0)} trained tensors moved, "
+        f"{sum(graded)} had a non-zero gradient, {stuck} of those did not "
+        f"move; losses finite: {finite}; K4b launches over 77 text tokens: "
+        f"{cross}")
+    log(f"{name} training launches: {json.dumps(counts)}")
+    missing = _missing(f"{name} training", counts, TRAINING_KERNELS)
+    ok = (finite and stuck == 0 and sum(graded) >= 0.8 * len(p0)
+          and not missing)
+    if name != "i2sb" and cross == 0:
+        log(f"{name} training: FAIL, no K4b launch over the text tokens")
+        ok = False
+    if not ok:
+        log(f"{name} training: FAIL")
+    return ok, counts
+
+
+def check_sd_round_trip(torch):
+    """The tiny SD text trainer's ``save_pipeline`` after one step on the
+    card, then ``load_sd_components``: every UNet and VAE tensor comes back
+    bit for bit, and one YOSO normal estimation (2 shifts, a ControlNet
+    from seed 0 with its zero-started convs drawn too) through the loaded
+    modules gives the in-memory modules' normals within 1e-5 on [-1, 1]
+    (the card repeats a pass within ~1e-6: cuDNN may pick other
+    algorithms)."""
+    import shutil
+    import numpy as np
+    from afldm_tpu_torch.models import ControlNetConfig, ControlNetModel
+    from afldm_tpu_torch.pipelines import (NormControlPipeline,
+                                           load_sd_components)
+    from afldm_tpu_torch.pipelines.loading import init_random_weights
+    from afldm_tpu_torch.schedulers import DDIMScheduler
+    from afldm_tpu_torch.scripts.shift_normal_estimation import (
+        NORMAL_DDIM, synthetic_image)
+    tr = _tiny_new_trainer(torch, "sd_text", "cuda")
+    tr.training_step(0, {"input": np.zeros((2, 64, 64, 3), np.float32)})
+    out = REPO / "results" / "chip_smoke_sd_pipeline"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        tr.save_pipeline(str(out))
+        parts = load_sd_components(str(out), device="cuda")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    same = all(torch.equal(v, mod.state_dict()[k])
+               for name, mod in (("unet", tr.unet), ("vae", tr.vae))
+               for k, v in parts[name].state_dict().items())
+    cn = ControlNetModel(ControlNetConfig.from_unet_config(tr.unet_config))
+    init_random_weights(cn, torch.Generator().manual_seed(0))
+    cn = cn.cuda().eval()
+    image = synthetic_image(64)
+    normals = [NormControlPipeline(vae, unet, cn,
+                                   DDIMScheduler.from_config(NORMAL_DDIM))(
+        image, num_shift_steps=2).normals
+        for vae, unet in ((tr.vae, tr.unet), (tr.vae, tr.unet),
+                          (parts["vae"], parts["unet"]))]
+    again = float(np.abs(normals[0] - normals[1]).max())
+    d = float(np.abs(normals[0] - normals[2]).max())
+    ok = same and d <= 1e-5 and bool(np.isfinite(normals[2]).all())
+    log(f"SD pipeline round trip (save_pipeline, load_sd_components, YOSO "
+        f"on the card): weights bit for bit: {same}; max |d normals| "
+        f"{d:.2e} (limit 1e-5; the in-memory pass repeated: {again:.2e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1445,6 +1818,9 @@ def main(argv=None):
     ap.add_argument("--normal_shifts", type=int, default=16,
                     help="shifts of the full-width normal estimation "
                          "(default 16)")
+    ap.add_argument("--trainer_steps", type=int, default=3,
+                    help="steps of each full-width I2SB, SD text and "
+                         "normal-ControlNet trainer (default 3)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1524,9 +1900,23 @@ def main(argv=None):
     normal_ok, normal_counts = run_normal_estimation(torch,
                                                      args.normal_shifts)
     ok &= normal_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_new_trainers(torch)
+    ok &= check_text_encoder(torch)
+    ok &= check_sd_round_trip(torch)
+    new_counts = []
+    sd_state = None
+    for name in NEW_TRAINERS:
+        if name != "i2sb" and sd_state is None:
+            sd_state = _sd_states(torch)
+        run_ok, run_counts = run_new_trainer(torch, name, args.trainer_steps,
+                                             sd_state)
+        ok &= run_ok
+        new_counts.append(run_counts)
+        torch.cuda.empty_cache()
     runs = (counts, train_counts, vae_counts, interp_counts, sd_counts,
             sweep_counts, head_counts, serve_counts, sr_counts, video_counts,
-            normal_counts)
+            normal_counts, *new_counts)
     for k, row in report.items():
         row["launches"] = sum(c[k] for c in runs)
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

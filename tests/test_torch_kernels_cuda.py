@@ -597,6 +597,45 @@ def test_flash_bwd_kernels_match_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [  # (B, H, Lq, Lk, D, K/V batch)
+    (1, 8, 4096, 77, 40, 1), (1, 8, 1024, 77, 80, 1),
+    (1, 8, 256, 77, 160, 1)])
+def test_flash_bwd_at_the_sd_cross_attention(cuda, shape):
+    """K4a and K4b at the SD trainers' cross-attention over 77 text tokens
+    (a second K/V tile of 13 valid rows): dk and dv of the padded rows are
+    neither written nor summed, dq's sum over Lk masks the tail."""
+    B, H, Lq, Lk, D, nkv = shape
+    q, k, v, out, lse, do = _attn_inputs(cuda, B, H, Lq, Lk, D, nkv)
+    delta = TA._delta(do, out)
+    dq = _launches("flash_bwd_dq",
+                   lambda: TA.flash_bwd_dq(q, k, v, do, lse, delta))
+    dk, dv = _launches("flash_bwd_dkv",
+                       lambda: TA.flash_bwd_dkv(q, k, v, do, lse, delta))
+    assert dk.shape == dv.shape == (B, H, Lk, D)
+    want = TA._attention_bwd_plain(q, k, v, out, lse, do)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 320, 64, 64), (1, 1280, 8, 8)])
+def test_plane_bwd_at_the_sd_unet(cuda, shape):
+    """K5b at the SD UNet's 64 px and 8 px levels at batch 1: its launch
+    plan finds a plan there, and the kernel matches its plain version."""
+    _, c, h, w = shape
+    plan = TF.plane_bwd_plan(h, w, c)
+    assert plan.planes_per_block >= 1 and plan.smem_bytes <= \
+        TF.SMEM_MAX_BYTES
+    x = torch.randn(shape, device=cuda)
+    g = torch.randn(shape, device=cuda)
+    got = _launches("filtered_act_plane_bwd",
+                    lambda: TF.filtered_act_plane_bwd(x, g, "silu"))
+    torch.testing.assert_close(
+        got, TF.filtered_act_plane_bwd_plain(x, g, "silu"), atol=1e-4,
+        rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_flash_function_expanded_kv_and_strided_do(cuda):
     """Through autograd: q a transposed view, K/V expanded from one image
     (stride 0) whose gradients sum over the batch, dO strided (it arrives

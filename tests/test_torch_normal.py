@@ -250,8 +250,9 @@ def test_cli_tiny_cpu(tmp_path, capsys):
     assert normals.shape == (3, 64, 64, 3) and diffs.shape == (2, 64, 64, 3)
     np.testing.assert_allclose(normals, np.clip(res.normals / 2 + 0.5, 0, 1))
     assert np.isfinite(diffs).all() and diffs.min() >= 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        main(["--tiny", "--device", "cpu", "--pipeline_dir", "x"])
+    with pytest.raises(FileNotFoundError):  # a pipeline directory is read
+        main(["--tiny", "--device", "cpu", "--pipeline_dir",
+              str(tmp_path / "missing")])
 
 
 def test_cli_raises_without_cuda(monkeypatch):

@@ -463,8 +463,32 @@ def test_config_needs_one_trainer_key(tmp_path):
 
 @pytest.mark.parametrize("name", ["i2sb", "sd_text", "norm_controlnet"])
 def test_unported_trainers_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        PT.create_trainer(name, PT.BaseTrainingConfig(), None, device="cpu")
+    """These three trainers raised until they were ported; each now builds
+    on the CPU (its tiny modules, optimizer state and first draws), and an
+    unknown name still raises."""
+    from test_train_sd import TINY_SD, TINY_VAE as SD_VAE
+    base = PT.BaseTrainingConfig(resolution=RES, train_batch_size=2, seed=0)
+    tr = PT.create_trainer(name, base, {
+        "i2sb": PT.I2SBLDMTrainingConfig(),
+        "sd_text": PT.SDTextTrainingConfig(),
+        "norm_controlnet": PT.NormControlNetConfig()}[name], device="cpu")
+    if name == "i2sb":
+        vae, unet = _port_configs()
+        tr.init_modules(vae_config=vae, unet_config=unet, scheduler_config=(
+            json.loads((REPO / "configs/sr/i2sb_scheduler.json").read_text())))
+    else:
+        kw = dict(vae_config=PM.AutoencoderKLConfig(**asdict(SD_VAE)),
+                  unet_config=PM.UNet2DConditionConfig(**asdict(TINY_SD)))
+        tr.init_modules(**kw, **({"text_encoder": object()}
+                                 if name == "sd_text" else {}))
+    tr.init_optimizers(10)
+    tr.prepare_modules(seed=0)
+    assert tr.device.type == "cpu" and tr.step == 0
+    assert all(p.device.type == "cpu" for p in tr.unet.parameters())
+    assert tr.draw(0, 2)["ti"] == tr.draw(0, 2)["ti"]
+    with pytest.raises(ValueError, match="unknown trainer"):
+        PT.create_trainer(name + "_x", PT.BaseTrainingConfig(), None,
+                          device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [

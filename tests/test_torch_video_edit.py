@@ -142,8 +142,9 @@ def test_cli_tiny_cpu(tmp_path, capsys):
     np.testing.assert_allclose(read[1].numpy(), 0.0, atol=1e-6)
     again = main(argv + ["--input_video", str(src)])
     assert again.shape == (2, 64, 64, 3) and np.isfinite(again).all()
-    for flag in ("--shard_frames", "--pipeline_dir=x"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item"):
+    for flag, where in (("--shard_frames", "Queue 1 item 9"),
+                        ("--pipeline_dir=x", "Queue 3")):
+        with pytest.raises(NotImplementedError, match=where):
             main(["--tiny", "--device", "cpu", flag])
     with pytest.raises(ValueError, match="directory of .npy"):
         load_frames(out, 64, 2)
