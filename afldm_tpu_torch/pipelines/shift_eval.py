@@ -1,8 +1,9 @@
 """Shift-equivariance evaluation, the FFHQ-256 protocol. Counterpart of
 ``afldm_tpu/pipelines/shift_eval.py``: denoise a latent with cross-frame
-attention in STORE mode, denoise its fractionally shifted copies together
-in ONE batched LOAD pass, decode, and score each against a bilinear pixel
-shift of the reference decode under a validity mask.
+attention in STORE mode, denoise its fractionally shifted copies with
+LOAD (together in ONE batched pass, or one at a time as the reference
+does), decode, and score each against a bilinear pixel shift of the
+reference decode under a validity mask.
 """
 
 from dataclasses import dataclass
@@ -36,12 +37,13 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
 def shift_equivariance_eval(pipeline, generator=None,
                             num_inference_steps: int = 50,
                             num_shift_steps: int = 16, init_latent=None,
-                            input_image=None,
+                            input_image=None, batch_shifts: bool = True,
                             decode_chunk: int | None = None
                             ) -> ShiftEvalResult:
     """``init_latent`` is (1, C, h, w); without it the latent comes from
     ``input_image`` (encode + DDIM inversion) or from ``generator``.
-    ``decode_chunk`` decodes the shifted frames that many at a time."""
+    ``batch_shifts=False`` denoises and decodes each shift on its own;
+    ``decode_chunk`` decodes the batched shifts that many at a time."""
     cfg = pipeline.unet.config
     ratio = pipeline.vae.config.downsample_ratio
     device = pipeline.device
@@ -76,10 +78,18 @@ def shift_equivariance_eval(pipeline, generator=None,
     shifted = torch.cat([s for s, _ in pairs])
     lat_masks = torch.cat([m for _, m in pairs])
 
-    den_shifted, _ = pipeline.denoise(shifted, num_inference_steps,
-                                      kv_traj=kv_traj)
-    outputs = decode_chunked(pipeline.decode, den_shifted * lat_masks,
-                             decode_chunk)
+    if batch_shifts:
+        den_shifted, _ = pipeline.denoise(shifted, num_inference_steps,
+                                          kv_traj=kv_traj)
+        outputs = decode_chunked(pipeline.decode, den_shifted * lat_masks,
+                                 decode_chunk)
+    else:  # one LOAD pass and one decode a shift, as the reference runs
+        outs = []
+        for i in range(num_shift_steps):
+            d, _ = pipeline.denoise(shifted[i:i + 1], num_inference_steps,
+                                    kv_traj=kv_traj)
+            outs.append(pipeline.decode(d * lat_masks[i:i + 1]))
+        outputs = torch.cat(outs)
 
     # ground truth: pixel-space bilinear shift of the reference decode
     image_shifter = ImageShifter()

@@ -6,7 +6,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 chip_smoke.py            # 50 DDIM steps, 16 shifts, 4 + 8 steps
     python3 chip_smoke.py --steps 10 --train_steps 3 --vae_steps 8 \
         --interp_steps 10 --sd_frames 5 --sd_steps 4 --video_frames 2 \
-        --video_steps 4 --normal_shifts 4 --trainer_steps 2
+        --video_steps 4 --normal_shifts 4 --trainer_steps 2 \
+        --eq_samples 2 --eq_steps 4
 
 Phases, each of which fails the run:
 1. build every CUDA kernel from ``afldm_tpu_torch/kernels/csrc`` (nvcc, one
@@ -139,11 +140,28 @@ Phases, each of which fails the run:
     both; SD text with ViT-L/14's random CLIP, the ControlNet of
     ``ControlNetConfig.from_unet_config``): every loss finite, every
     trained tensor with a non-zero gradient moved, K5, K1, K3, K5b, K4a
-    and K4b launched, and in the SD trainers K4b over the 77 text tokens.
+    and K4b launched, and in the SD trainers K4b over the 77 text tokens;
+27. the shift toolkit on a 256 px image on the card and on the CPU: the
+    upfirdn2d family, the lanczos, fourier and fourier_crop shifts, the
+    fractional rotation and pseudo-rotation, ``forward_flow_warp``,
+    ``flow_warp_with_occ_bg`` and ``ImageDownsampler("bilinear")``; max
+    |d| of each within its limit, masks equal;
+28. the StyleGAN-3 EQ metrics at full width, as
+    ``scripts.eval_equivariance`` runs them (the FFHQ UNet and AF-VAE at
+    256 px, random weights from seed 0): ``--eq_samples`` samples (default
+    4) of ``--eq_steps`` DDIM steps (default 20), each a STORE generation
+    and two translated LOAD generations, counters set to 0 just before
+    and read just after; EQ-T and EQ-T_frac finite, K5, K1 and K3
+    launched;
+29. the shift protocol on that pipeline, 4 shifts at 10 steps, batched
+    (one LOAD pass) and with ``batch_shifts=False`` (one pass a shift) from
+    the same latent, counters set to 0 just before the pair and read just
+    after: per-shift PSNRs within 0.01 dB of each other, K5, K1 and K3
+    launched.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
-full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20, 22 and
-26), the last the device JSON. Exits non-zero without a GPU or without the package
+full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20, 22, 26, 28
+and 29), the last the device JSON. Exits non-zero without a GPU or without the package
 beside it.
 """
 
@@ -1784,6 +1802,157 @@ def check_sd_round_trip(torch):
     return ok
 
 
+# card vs CPU for the shift toolkit at 256 px: f32 sums in another order
+# (cuDNN's convolutions, cuFFT, atomic scatter-adds); the 47x47 rotation
+# filter sums the most terms
+SHIFT_OPS_ATOL = 1e-4
+SHIFT_MASK_FLIPS = 1e-4
+
+
+def _shift_ops(torch, x, flow, mask, bg):
+    """name -> output of each toolkit op on ``x`` (1, 3, 256, 256) and the
+    flow, mask and background of the warps."""
+    from afldm_tpu_torch.ops import (conv2d_resample, downsample2d,
+                                     filter2d, setup_filter, upfirdn2d,
+                                     upsample2d)
+    from afldm_tpu_torch.shift import equivariance as E
+    from afldm_tpu_torch.shift import flow as FL
+    from afldm_tpu_torch.shift.shifters import ImageDownsampler, ImageShifter
+    f4 = setup_filter([1, 3, 3, 1])
+    f8 = setup_filter([1, 2, 3, 4, 4, 3, 2, 1])
+    w = torch.linspace(-1, 1, 8 * 3 * 9, device=x.device).reshape(8, 3, 3, 3)
+    out = {
+        "upfirdn2d": upfirdn2d(x, f4, up=2, padding=(2, 1, 2, 1)),
+        "filter2d (8 taps, separable)": filter2d(x, f8),
+        "upsample2d": upsample2d(x, f4),
+        "downsample2d": downsample2d(x, f8),
+        "conv2d_resample (up 2)": conv2d_resample(x, w, f4, up=2, padding=1),
+    }
+    for mode in ("lanczos", "fourier", "fourier_crop"):
+        warped, m = ImageShifter(mode).shift(x, 3.37, -5.81)
+        out[f"{mode} shift"] = warped
+        out[f"{mode} shift mask"] = m
+    for name, fn in (("fractional rotation", E.apply_fractional_rotation),
+                     ("pseudo-rotation", E.apply_fractional_pseudo_rotation)):
+        y, m = fn(x, 0.4)
+        out[name] = y
+        out[f"{name} mask"] = m
+    splat, occ = FL.forward_flow_warp(x, flow)
+    out["forward_flow_warp"] = splat
+    out["forward_flow_warp occlusion"] = occ
+    out["flow_warp_with_occ_bg"] = FL.flow_warp_with_occ_bg(
+        x, flow, mask, False, background=bg)
+    out["ImageDownsampler bilinear"] = ImageDownsampler(
+        2, "bilinear").downsample(x)
+    return out
+
+
+def check_shift_ops(torch):
+    """The shift toolkit on one 256 px image on the card and on the CPU:
+    each op's max |d| within SHIFT_OPS_ATOL, each mask equal."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand((1, 3, 256, 256), generator=g) * 2 - 1
+    flow = torch.randn((1, 2, 256, 256), generator=g) * 2
+    mask = (torch.rand((1, 1, 256, 256), generator=g) > 0.2).float()
+    bg = torch.rand((1, 3, 1, 1), generator=g) * 2 - 1
+    cpu = _shift_ops(torch, x, flow, mask, bg)
+    card = _shift_ops(torch, *(t.cuda() for t in (x, flow, mask, bg)))
+    ok = True
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        if got.shape != want.shape:
+            log(f"shift toolkit {name}: FAIL, shape {tuple(got.shape)} on "
+                f"the card, {tuple(want.shape)} on the CPU")
+            ok = False
+            continue
+        d = float((got - want).abs().max())
+        if "mask" in name or "occlusion" in name:
+            # a nearest sample or a weight sum exactly at a rounding tie
+            # may flip one element
+            n = int((got != want).sum())
+            good = n <= SHIFT_MASK_FLIPS * want.numel()
+            what = (f"{n} of {want.numel()} elements differ (limit "
+                    f"{SHIFT_MASK_FLIPS:g} of them)")
+        else:
+            good = d <= SHIFT_OPS_ATOL and bool(torch.isfinite(got).all())
+            what = f"max |d| {d:.3e} (limit {SHIFT_OPS_ATOL})"
+        ok &= good
+        log(f"shift toolkit {name} {tuple(got.shape)} (card vs CPU): {what} "
+            f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def run_equivariance(torch, n_samples, steps):
+    """``scripts.eval_equivariance`` at full width: EQ-T and EQ-T_frac over
+    ``n_samples`` samples of ``steps`` DDIM steps. Returns (ok, counts,
+    the pipeline for phase 29)."""
+    import math
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.scripts import eval_equivariance
+    t0 = time.perf_counter()
+    pipe = eval_equivariance.build_pipeline(device="cuda")
+    log(f"EQ metrics: full-width pipeline built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eq_t, eq_t_frac = eval_equivariance.run(pipe, n_samples, 1, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    res = pipe.unet.config.sample_size * pipe.vae.config.downsample_ratio
+    finite = math.isfinite(eq_t) and math.isfinite(eq_t_frac)
+    log(f"EQ metrics: {n_samples} samples x 3 generations of {steps} steps "
+        f"at {res} px in {wall:.2f} s wall; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; EQ-T "
+        f"{eq_t:.3f} dB, EQ-T_frac {eq_t_frac:.3f} dB (random weights); "
+        f"finite: {finite}")
+    log(f"EQ metrics launches: {json.dumps(counts)}")
+    missing = _missing("EQ metrics", counts, SERVING_KERNELS)
+    ok = finite and not missing
+    if not ok:
+        log("EQ metrics: FAIL")
+    return ok, counts, pipe
+
+
+def run_sequential_protocol(torch, pipe, n_shifts=4, steps=10):
+    """The shift protocol on ``pipe`` batched and with
+    ``batch_shifts=False`` from one latent: per-shift PSNRs within 0.01
+    dB."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import shift_equivariance_eval
+    cfg = pipe.unet.config
+    lat = torch.randn((1, cfg.in_channels, cfg.sample_size, cfg.sample_size),
+                      generator=torch.Generator().manual_seed(5)
+                      ).to(pipe.device)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    walls, res = [], []
+    for batch_shifts in (True, False):
+        t0 = time.perf_counter()
+        res.append(shift_equivariance_eval(
+            pipe, init_latent=lat, num_inference_steps=steps,
+            num_shift_steps=n_shifts, batch_shifts=batch_shifts))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = dict(kernels.LAUNCHES)
+    d = float(np.abs(res[0].psnrs - res[1].psnrs).max())
+    finite = bool(np.isfinite(res[1].psnrs).all())
+    log(f"sequential protocol: {n_shifts} shifts at {steps} steps, batched "
+        f"{walls[0]:.2f} s, one pass a shift {walls[1]:.2f} s wall; PSNRs "
+        f"(dB) batched " + " ".join(f"{p:.3f}" for p in res[0].psnrs)
+        + ", sequential " + " ".join(f"{p:.3f}" for p in res[1].psnrs)
+        + f"; max |dPSNR| {d:.2e} dB (limit 0.01)")
+    log(f"sequential protocol launches: {json.dumps(counts)}")
+    missing = _missing("sequential protocol", counts, SERVING_KERNELS)
+    ok = finite and d <= 0.01 and not missing
+    if not ok:
+        log("sequential protocol: FAIL")
+    return ok, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1821,6 +1990,11 @@ def main(argv=None):
     ap.add_argument("--trainer_steps", type=int, default=3,
                     help="steps of each full-width I2SB, SD text and "
                          "normal-ControlNet trainer (default 3)")
+    ap.add_argument("--eq_samples", type=int, default=4,
+                    help="samples of the full-width EQ metrics (default 4)")
+    ap.add_argument("--eq_steps", type=int, default=20,
+                    help="DDIM steps of each EQ generation (default 20, the "
+                         "CLI's)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1914,9 +2088,18 @@ def main(argv=None):
         ok &= run_ok
         new_counts.append(run_counts)
         torch.cuda.empty_cache()
+    del sd_state
+    ok &= check_shift_ops(torch)
+    eq_ok, eq_counts, eq_pipe = run_equivariance(torch, args.eq_samples,
+                                                 args.eq_steps)
+    ok &= eq_ok
+    seq_ok, seq_counts = run_sequential_protocol(torch, eq_pipe)
+    ok &= seq_ok
+    del eq_pipe
+    torch.cuda.empty_cache()
     runs = (counts, train_counts, vae_counts, interp_counts, sd_counts,
             sweep_counts, head_counts, serve_counts, sr_counts, video_counts,
-            normal_counts, *new_counts)
+            normal_counts, *new_counts, eq_counts, seq_counts)
     for k, row in report.items():
         row["launches"] = sum(c[k] for c in runs)
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
