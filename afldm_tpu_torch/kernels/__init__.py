@@ -31,6 +31,13 @@ LAUNCHES = {"filtered_act_plane": 0, "filtered_act_banded": 0,
             "flash_bwd_dkv": 0, "filtered_act_banded_bwd": 0,
             "flash2_fwd": 0, "flash_probe_dots": 0,
             "flash_probe_stream": 0, "filtered_gemm": 0}
+# the bf16 tensor-core variants of the filtered activation's kernels, one
+# count per reduced precision level ("filtered_act_plane:high", ...)
+LEVEL_KERNELS = ("filtered_act_plane", "filtered_act_banded",
+                 "filtered_act_plane_bwd", "filtered_act_banded_bwd",
+                 "filtered_gemm")
+LAUNCHES.update({f"{k}:{level}": 0 for k in LEVEL_KERNELS
+                 for level in ("high", "default")})
 
 _LIBS = {}
 
@@ -58,6 +65,24 @@ _SIGNATURES = {
         # x, g, dx, scratch, uwT, uhT, dw, dh, uw, uh, nplanes (of the
         # chunk), H, W, tile codes, act, stream
         "filtered_act_banded_bwd_f32": [*[_P] * 10, _I, _I, _I, _I, _I, _P],
+        # the reduced levels' bf16 variants, ``passes`` 3 or 1 before act:
+        # x, out, the split blobs of U_hᵀ, U_wᵀ, D_wᵀ, D_hᵀ, nplanes, H, W,
+        # planes_per_block, passes, act, stream
+        "filtered_act_plane_bf16": [*[_P] * 6, _I, _I, _I, _I, _I, _I, _P],
+        # x, g, dx, the split blobs of U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h,
+        # nplanes, H, W, planes_per_block, passes, act, stream
+        "filtered_act_plane_bwd_bf16": [*[_P] * 9, _I, _I, _I, _I, _I, _I,
+                                        _P],
+        # x, out, scratch, uhT, uwT, dhT, dwT, nplanes (of the chunk), H, W,
+        # tile codes, passes, act, stream
+        "filtered_act_banded_bf16": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _P],
+        # x, g, dx, scratch, uhT, uwT, dh, dw, uh, uw, nplanes (of the
+        # chunk), H, W, tile codes, passes, act, stream
+        "filtered_act_banded_bwd_bf16": [*[_P] * 10, _I, _I, _I, _I, _I, _I,
+                                         _P],
+        # as filtered_gemm_f32, with passes after small
+        "filtered_gemm_bf16": [_P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_fwd": {
         # q, k, v, out, lse, B1, B2, Lq, Lk, D,

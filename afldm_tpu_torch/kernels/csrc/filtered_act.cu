@@ -105,12 +105,39 @@
 //     floats a plane: t, then v, then s in the first 2·H·W, pre and then m
 //     in the next 4·H·W; 112·H·W bytes a plane of scratch traffic against
 //     36·S³ FLOP, still above the ridge at 80 px and up.
-// Making them faster (tensor-core TF32 splits, wgmma, TMA) is later work.
+//
+// The reduced precision levels ("high": 3 bf16 passes a product,
+// "default": 1; filtered_mma.cuh) run the same four functions on bf16
+// tensor cores, each in its TPU kernel's product order, which at these
+// levels decides which intermediates are split:
+//   * K5 (filtered_act_plane_bf16), _forward's order: U_h then U_w up, D_w
+//     then D_h down, the order of the f32 kernel above. Every operand is a
+//     split buffer in shared memory, hi and lo pieces: the operators split
+//     once on the host (blobs already padded to the kernel's layout,
+//     MmaPlaneLayout), x split as it is staged, and each product's f32
+//     result split from the registers straight into the next product's
+//     operand, so no f32 intermediate is stored. P planes a block of 256
+//     threads, from ops/filtered_act.py::plane_mma_plan.
+//   * K5b (filtered_act_plane_bwd_bf16), _bwd_rule's order: pre and the
+//     cotangent D_hᵀ·g·D_w H side first, dx W side first, as the f32
+//     kernel. The pre-activation is needed only as act′(pre): its product
+//     and the cotangent's second product have one shape, so one warp
+//     computes both over the same tile (mma_product2) and splits act′(pre)
+//     ⊙ cotangent into mᵀ from registers; pre is never stored.
+//   * K1 (filtered_act_banded_bf16) and K2 (filtered_act_banded_bwd_bf16),
+//     _forward_spatial's and _bwd_spatial's order: H side first in every
+//     filter pair (the f32 chains take W first), as four and six launches
+//     of the GEMM's bf16 variant (filtered_gemm.cuh), which splits the f32
+//     scratch intermediates as it loads them. The act and act′ ⊙ epilogues
+//     stay f32.
+// Making them faster (wgmma, TMA) is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "filtered_gemm.cuh"
+#include "filtered_mma.cuh"
 #include "filtered_tile.cuh"
 
 namespace {
@@ -371,6 +398,237 @@ filtered_act_plane_bwd_kernel(const float* __restrict__ x,
           W, HW, P, H, W, 2 * H, Identity{});
 }
 
+// -- the reduced precision levels on bf16 tensor cores ---------------------
+
+// Shared memory of a K5 (bwd false) or K5b (bwd true) bf16 block, in bf16
+// elements: two operator buffers, each the largest operator's split blob;
+// then for each of the P planes a big buffer (K5: hiᵀ, x staged in it;
+// K5b: mᵀ, x and g staged in it) and a small one (tᵀ and then t; K5b: tᵀ
+// and then s), and K5b's uᵀ.
+struct MmaPlaneLayout {
+  int op, big, small, small2;
+  __host__ __device__ MmaPlaneLayout(int H, int W, bool bwd) {
+    using afldm_filtered::mma_buf;
+    const int a = mma_buf(H, 2 * H), b = mma_buf(W, 2 * W);
+    const int c = mma_buf(2 * W, W), d = mma_buf(2 * H, H);
+    op = imax(imax(a, b), imax(c, d));
+    const int x = mma_buf(H, W);
+    big = imax(mma_buf(2 * W, 2 * H), bwd ? 2 * x : x);
+    small = imax(mma_buf(W, 2 * H), mma_buf(2 * H, W));
+    small2 = bwd ? mma_buf(W, 2 * H) : 0;
+  }
+  __host__ __device__ static int imax(int a, int b) { return a > b ? a : b; }
+  __host__ __device__ size_t bytes(int ppb) const {
+    return 2 * (2 * (size_t)op + (size_t)ppb * (big + small + small2));
+  }
+};
+
+// cp.async of an operator's split blob (n bf16, a multiple of 8)
+__device__ __forceinline__ void stage_blob(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int n) {
+  afldm_filtered::stage(reinterpret_cast<float*>(dst),
+                        reinterpret_cast<const float*>(src), n / 8);
+}
+
+// A product's result, epi applied, split into the pieces of the next
+// product's operand (every row and column of the padded tile: the padding
+// computes to zero).
+template <class Epi>
+struct ToPieces {
+  afldm_filtered::Piece d;
+  Epi epi;
+  __device__ __forceinline__ void operator()(int p, int r0, int c0,
+                                             const float (&acc)[2][4],
+                                             int lane) const {
+    afldm_filtered::for_pairs(
+        r0, c0, acc, lane, [&](int r, int c, float v0, float v1) {
+          unsigned h, l;
+          afldm_filtered::split2(epi(v0), epi(v1), h, l);
+          __nv_bfloat16* q = d.hi + p * d.ps + r * d.ld + c;
+          *reinterpret_cast<unsigned*>(q) = h;
+          *reinterpret_cast<unsigned*>(q + d.lo) = l;
+        });
+  }
+};
+
+// A product's result to device memory: rows < R and columns < C of P
+// row-major R × C planes ``ps`` floats apart.
+struct ToPlanes {
+  float* out;
+  int R, C;
+  long long ps;
+  __device__ __forceinline__ void operator()(int p, int r0, int c0,
+                                             const float (&acc)[2][4],
+                                             int lane) const {
+    afldm_filtered::for_pairs(
+        r0, c0, acc, lane, [&](int r, int c, float v0, float v1) {
+          if (r < R && c < C)
+            *reinterpret_cast<float2*>(out + p * ps + (long long)r * C + c) =
+                make_float2(v0, v1);
+        });
+  }
+};
+
+// act′(pre) ⊙ the cotangent, split into mᵀ's pieces: K5b's fused product
+struct MulActGradToPieces {
+  afldm_filtered::Piece d;
+  int act;
+  __device__ __forceinline__ void operator()(int p, int r0, int c0,
+                                             const float (&pre)[2][4],
+                                             const float (&v)[2][4],
+                                             int lane) const {
+    float m[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[j][e] = act_grad(pre[j][e], act) * v[j][e];
+    ToPieces<Identity>{d, Identity{}}(p, r0, c0, m, lane);
+  }
+};
+
+// out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ at PASSES bf16 passes a product,
+// P planes a block of 256 threads, in _forward's order (tᵀ, hiᵀ, t, out as
+// the f32 kernel). Operators: the split blobs of U_hᵀ (H×2H), U_wᵀ (W×2W),
+// D_wᵀ (2W×W), D_hᵀ (2H×H), each (hi, lo) × pad16(rows) × mma_ld(cols).
+template <int PASSES>
+__global__ void __launch_bounds__(256)
+filtered_act_plane_mma_kernel(const float* __restrict__ x,
+                              float* __restrict__ out,
+                              const __nv_bfloat16* __restrict__ uhT,
+                              const __nv_bfloat16* __restrict__ uwT,
+                              const __nv_bfloat16* __restrict__ dwT,
+                              const __nv_bfloat16* __restrict__ dhT,
+                              int nplanes, int H, int W, int ppb, int act) {
+  using namespace afldm_filtered;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int HW = H * W;
+  const long long p0 = (long long)blockIdx.x * ppb;
+  const int P = (int)min((long long)ppb, nplanes - p0);
+  const MmaPlaneLayout lay(H, W, false);
+  __nv_bfloat16* op0 = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* op1 = op0 + lay.op;
+  __nv_bfloat16* big = op1 + lay.op;            // P × hiᵀ; x staged first
+  __nv_bfloat16* small = big + ppb * lay.big;   // P × tᵀ, then P × t
+  stage_blob(op0, uhT, mma_buf(H, 2 * H));
+  cp_async_commit();
+  stage_blob(op1, uwT, mma_buf(W, 2 * W));
+  cp_async_commit();
+  stage_split(x + p0 * HW, HW, P, H, W, piece(big, H, W, lay.big));
+  cp_async_wait<1>();
+  __syncthreads();
+  // tᵀ = xᵀ · U_hᵀ                          (W × 2H)
+  mma_product<PASSES>(piece(big, H, W, lay.big), piece(op0, H, 2 * H, 0), P,
+                      pad16(W), pad16(2 * H), pad16(H),
+                      ToPieces<Identity>{piece(small, W, 2 * H, lay.small),
+                                         Identity{}});
+  __syncthreads();
+  stage_blob(op0, dwT, mma_buf(2 * W, W));  // in flight during the next
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // hiᵀ = act(U_w · tᵀ)                     (2W × 2H); over the staged x
+  mma_product<PASSES>(piece(op1, W, 2 * W, 0), piece(small, W, 2 * H, lay.small),
+                      P, pad16(2 * W), pad16(2 * H), pad16(W),
+                      ToPieces<Activation>{piece(big, 2 * W, 2 * H, lay.big),
+                                           Activation{act}});
+  __syncthreads();
+  stage_blob(op1, dhT, mma_buf(2 * H, H));
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // t = hi · D_wᵀ                           (2H × W); over tᵀ
+  mma_product<PASSES>(piece(big, 2 * W, 2 * H, lay.big),
+                      piece(op0, 2 * W, W, 0), P, pad16(2 * H), pad16(W),
+                      pad16(2 * W),
+                      ToPieces<Identity>{piece(small, 2 * H, W, lay.small),
+                                         Identity{}});
+  cp_async_wait<0>();
+  __syncthreads();
+  // out = D_h · t                           (H × W), to device memory
+  mma_product<PASSES>(piece(op1, 2 * H, H, 0), piece(small, 2 * H, W, lay.small),
+                      P, pad16(H), pad16(W), pad16(2 * H),
+                      ToPlanes{out + p0 * HW, H, W, HW});
+}
+
+// dx = U_hᵀ · [act′(U_h · x · U_wᵀ) ⊙ (D_hᵀ · g · D_w)] · U_w at PASSES
+// bf16 passes a product, P planes a block of 256 threads, in _bwd_rule's
+// order. Operators: the split blobs of U_hᵀ (H×2H), D_h (H×2H), U_wᵀ
+// (W×2W), D_w (W×2W), U_w (2W×W), U_h (2H×H).
+template <int PASSES>
+__global__ void __launch_bounds__(256)
+filtered_act_plane_bwd_mma_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ g,
+                                  float* __restrict__ dx,
+                                  const __nv_bfloat16* __restrict__ uhT,
+                                  const __nv_bfloat16* __restrict__ dh,
+                                  const __nv_bfloat16* __restrict__ uwT,
+                                  const __nv_bfloat16* __restrict__ dw,
+                                  const __nv_bfloat16* __restrict__ uw,
+                                  const __nv_bfloat16* __restrict__ uh,
+                                  int nplanes, int H, int W, int ppb,
+                                  int act) {
+  using namespace afldm_filtered;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int HW = H * W;
+  const long long p0 = (long long)blockIdx.x * ppb;
+  const int P = (int)min((long long)ppb, nplanes - p0);
+  const MmaPlaneLayout lay(H, W, true);
+  __nv_bfloat16* op0 = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* op1 = op0 + lay.op;
+  __nv_bfloat16* big = op1 + lay.op;             // P × mᵀ; x, g staged first
+  __nv_bfloat16* small = big + ppb * lay.big;    // P × tᵀ, then s
+  __nv_bfloat16* small2 = small + ppb * lay.small;  // P × uᵀ
+  __nv_bfloat16* gs = big + mma_buf(H, W);
+  stage_blob(op0, uhT, mma_buf(H, 2 * H));
+  stage_blob(op1, dh, mma_buf(H, 2 * H));
+  cp_async_commit();
+  stage_split(x + p0 * HW, HW, P, H, W, piece(big, H, W, lay.big));
+  stage_split(g + p0 * HW, HW, P, H, W, piece(gs, H, W, lay.big));
+  cp_async_wait<0>();
+  __syncthreads();
+  // tᵀ = xᵀ · U_hᵀ = (U_h · x)ᵀ             (W × 2H)
+  mma_product<PASSES>(piece(big, H, W, lay.big), piece(op0, H, 2 * H, 0), P,
+                      pad16(W), pad16(2 * H), pad16(H),
+                      ToPieces<Identity>{piece(small, W, 2 * H, lay.small),
+                                         Identity{}});
+  // uᵀ = gᵀ · D_h = (D_hᵀ · g)ᵀ             (W × 2H)
+  mma_product<PASSES>(piece(gs, H, W, lay.big), piece(op1, H, 2 * H, 0), P,
+                      pad16(W), pad16(2 * H), pad16(H),
+                      ToPieces<Identity>{piece(small2, W, 2 * H, lay.small2),
+                                         Identity{}});
+  __syncthreads();
+  stage_blob(op0, uwT, mma_buf(W, 2 * W));
+  stage_blob(op1, dw, mma_buf(W, 2 * W));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // mᵀ = act′(U_w · tᵀ) ⊙ (D_wᵀ · uᵀ)       (2W × 2H); over x and g
+  mma_product2<PASSES>(piece(op0, W, 2 * W, 0),
+                       piece(small, W, 2 * H, lay.small),
+                       piece(op1, W, 2 * W, 0),
+                       piece(small2, W, 2 * H, lay.small2), P, pad16(2 * W),
+                       pad16(2 * H), pad16(W),
+                       MulActGradToPieces{piece(big, 2 * W, 2 * H, lay.big),
+                                          act});
+  __syncthreads();
+  stage_blob(op0, uw, mma_buf(2 * W, W));
+  stage_blob(op1, uh, mma_buf(2 * H, H));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // s = m · U_w = (mᵀ)ᵀ · U_w               (2H × W); over tᵀ
+  mma_product<PASSES>(piece(big, 2 * W, 2 * H, lay.big),
+                      piece(op0, 2 * W, W, 0), P, pad16(2 * H), pad16(W),
+                      pad16(2 * W),
+                      ToPieces<Identity>{piece(small, 2 * H, W, lay.small),
+                                         Identity{}});
+  __syncthreads();
+  // dx = U_hᵀ · s = (U_h)ᵀ · s              (H × W), to device memory
+  mma_product<PASSES>(piece(op1, 2 * H, H, 0), piece(small, 2 * H, W, lay.small),
+                      P, pad16(H), pad16(W), pad16(2 * H),
+                      ToPlanes{dx + p0 * HW, H, W, HW});
+}
+
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -558,4 +816,159 @@ extern "C" int filtered_gemm_f32(const float* A, long long lda,
   if (a_kmajor)
     return filtered_gemm<true>(small, g, batch, Activation{act}, s);
   return filtered_gemm<false>(small, g, batch, Activation{act}, s);
+}
+
+// -- the reduced precision levels' entries: ``passes`` 3 ("high") or 1
+// ("default") bf16 passes a product ----------------------------------------
+
+// K5 at a reduced level: P planes a block of 256 threads; the operators'
+// split blobs of U_hᵀ, U_wᵀ, D_wᵀ, D_hᵀ.
+extern "C" int filtered_act_plane_bf16(
+    const float* x, float* out, const __nv_bfloat16* uhT,
+    const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
+    const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppb, int passes,
+    int act, void* stream) {
+  if (H % 4 || W % 4 || ppb < 1 || (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = passes == 3 ? &filtered_act_plane_mma_kernel<3>
+                            : &filtered_act_plane_mma_kernel<1>;
+  return launch_planes(kernel, 256, MmaPlaneLayout(H, W, false).bytes(ppb),
+                       nplanes, ppb, (cudaStream_t)stream, x, out, uhT, uwT,
+                       dwT, dhT, nplanes, H, W, ppb, act);
+}
+
+// K5b at a reduced level; the split blobs of U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h.
+extern "C" int filtered_act_plane_bwd_bf16(
+    const float* x, const float* g, float* dx, const __nv_bfloat16* uhT,
+    const __nv_bfloat16* dh, const __nv_bfloat16* uwT,
+    const __nv_bfloat16* dw, const __nv_bfloat16* uw,
+    const __nv_bfloat16* uh, int nplanes, int H, int W, int ppb, int passes,
+    int act, void* stream) {
+  if (H % 4 || W % 4 || ppb < 1 || (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = passes == 3 ? &filtered_act_plane_bwd_mma_kernel<3>
+                            : &filtered_act_plane_bwd_mma_kernel<1>;
+  return launch_planes(kernel, 256, MmaPlaneLayout(H, W, true).bytes(ppb),
+                       nplanes, ppb, (cudaStream_t)stream, x, g, dx, uhT, dh,
+                       uwT, dw, uw, uh, nplanes, H, W, ppb, act);
+}
+
+// K1 at a reduced level, _forward_spatial's order, as four launches of the
+// GEMM's bf16 variant; scratch as the f32 chain's: t and then lo (2·H·W a
+// plane), then hi (4·H·W). Operators, row-major as stored: uhT = U_hᵀ
+// (H×2H), uwT = U_wᵀ (W×2W), dhT = D_hᵀ (2H×H), dwT = D_wᵀ (2W×W).
+extern "C" int filtered_act_banded_bf16(const float* x, float* out,
+                                        float* scratch, const float* uhT,
+                                        const float* uwT, const float* dhT,
+                                        const float* dwT, int nplanes, int H,
+                                        int W, int tiles, int passes, int act,
+                                        void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::filtered_gemm_mma;
+  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long P = nplanes, HW = (long long)H * W;
+  float* t = scratch;                // P × (2H × W), then lo: P × (H × 2W)
+  float* hi = scratch + 2 * HW * P;  // P × (2H × 2W)
+  // t[p] = U_h · x[p], U_h from its k-major form U_hᵀ
+  int err = filtered_gemm_mma<true>(
+      tiles & 1, passes, GemmArgs{uhT, 2 * H, 0, x, W, HW, t, W, 2 * HW,
+                                  2 * H, W, H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // hi = act(t · U_wᵀ), t viewed as (P·2H) × W
+  err = filtered_gemm_mma<false>(
+      (tiles >> 1) & 1, passes, GemmArgs{t, W, 0, uwT, 2 * W, 0, hi, 2 * W,
+                                         0, (int)(P * 2 * H), 2 * W, W},
+      1, Activation{act}, s);
+  if (err) return err;
+  // lo[p] = D_h · hi[p], D_h from its k-major form D_hᵀ; over t
+  err = filtered_gemm_mma<true>(
+      (tiles >> 2) & 1, passes, GemmArgs{dhT, H, 0, hi, 2 * W, 4 * HW, t,
+                                         2 * W, 2 * HW, H, 2 * W, 2 * H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // out = lo · D_wᵀ, lo viewed as (P·H) × 2W
+  return filtered_gemm_mma<false>(
+      (tiles >> 3) & 1, passes, GemmArgs{t, 2 * W, 0, dwT, W, 0, out, W, 0,
+                                         (int)(P * H), W, 2 * W},
+      1, Identity{}, s);
+}
+
+// K2 at a reduced level, _bwd_spatial's order, as six launches of the
+// GEMM's bf16 variant; scratch as the f32 chain's: t, then v, then s
+// (2·H·W a plane), then pre and m over it (4·H·W). Operators, row-major as
+// stored: uhT = U_hᵀ (H×2H), uwT = U_wᵀ (W×2W), dh = D_h (H×2H), dw = D_w
+// (W×2W), uh = U_h (2H×H), uw = U_w (2W×W).
+extern "C" int filtered_act_banded_bwd_bf16(
+    const float* x, const float* g, float* dx, float* scratch,
+    const float* uhT, const float* uwT, const float* dh, const float* dw,
+    const float* uh, const float* uw, int nplanes, int H, int W, int tiles,
+    int passes, int act, void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::filtered_gemm_mma;
+  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long P = nplanes, HW = (long long)H * W;
+  float* t = scratch;                 // P × (2H × W): t, then v; then s
+  float* pre = scratch + 2 * HW * P;  // P × (2H × 2W): pre, then m
+  // t[p] = U_h · x[p]
+  int err = filtered_gemm_mma<true>(
+      tiles & 1, passes, GemmArgs{uhT, 2 * H, 0, x, W, HW, t, W, 2 * HW,
+                                  2 * H, W, H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // pre = t · U_wᵀ, t viewed as (P·2H) × W
+  err = filtered_gemm_mma<false>(
+      (tiles >> 1) & 1, passes, GemmArgs{t, W, 0, uwT, 2 * W, 0, pre, 2 * W,
+                                         0, (int)(P * 2 * H), 2 * W, W},
+      1, Identity{}, s);
+  if (err) return err;
+  // v[p] = D_hᵀ · g[p], D_hᵀ from its k-major form D_h; over t
+  err = filtered_gemm_mma<true>(
+      (tiles >> 2) & 1, passes, GemmArgs{dh, 2 * H, 0, g, W, HW, t, W,
+                                         2 * HW, 2 * H, W, H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // m = act′(pre) ⊙ (v · D_w), v viewed as (P·2H) × W; in place over pre
+  err = filtered_gemm_mma<false>(
+      (tiles >> 3) & 1, passes, GemmArgs{t, W, 0, dw, 2 * W, 0, pre, 2 * W,
+                                         0, (int)(P * 2 * H), 2 * W, W},
+      1, MulActGrad{act}, s);
+  if (err) return err;
+  // s[p] = U_hᵀ · m[p], U_hᵀ from its k-major form U_h; over v
+  err = filtered_gemm_mma<true>(
+      (tiles >> 4) & 1, passes, GemmArgs{uh, H, 0, pre, 2 * W, 4 * HW, t,
+                                         2 * W, 2 * HW, H, 2 * W, 2 * H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // dx = s · U_w, s viewed as (P·H) × 2W
+  return filtered_gemm_mma<false>(
+      (tiles >> 5) & 1, passes, GemmArgs{t, 2 * W, 0, uw, W, 0, dx, W, 0,
+                                         (int)(P * H), W, 2 * W},
+      1, Identity{}, s);
+}
+
+// One launch of the GEMM's bf16 variant alone (its card tests' entry): as
+// filtered_gemm_f32, at ``passes`` bf16 passes a product.
+extern "C" int filtered_gemm_bf16(const float* A, long long lda,
+                                  long long sA, int a_kmajor, const float* B,
+                                  long long ldb, long long sB, float* C,
+                                  long long ldc, long long sC, int batch,
+                                  int M, int N, int K, int small, int passes,
+                                  int act, int mul_act_grad, void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::filtered_gemm_mma;
+  const GemmArgs g{A, lda, sA, B, ldb, sB, C, ldc, sC, M, N, K};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mul_act_grad)
+    return a_kmajor ? filtered_gemm_mma<true>(small, passes, g, batch,
+                                              MulActGrad{act}, s)
+                    : filtered_gemm_mma<false>(small, passes, g, batch,
+                                               MulActGrad{act}, s);
+  if (a_kmajor)
+    return filtered_gemm_mma<true>(small, passes, g, batch, Activation{act},
+                                   s);
+  return filtered_gemm_mma<false>(small, passes, g, batch, Activation{act},
+                                  s);
 }

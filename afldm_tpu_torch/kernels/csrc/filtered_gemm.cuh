@@ -32,11 +32,23 @@
 // same-address chunk of A.
 //
 // The arithmetic is exact f32 FMA, k ascending; no TF32, no tensor cores.
+//
+// Its bf16 tensor-core variant (filtered_gemm_mma_kernel, the reduced
+// precision levels of the banded chains) keeps the block tiles, the grid
+// and the epilogues, and runs the products on filtered_mma.cuh's
+// fragments: each f32 operand is split into bf16 hi and lo pieces as it
+// is stored into shared memory (A k-major where it arrives k-major, else
+// row-major; B row-major), and each of the 8 warps (2 along M × 4 along N)
+// owns a (BM/2) × (BN/4) piece of C in m16n8 accumulators, 1 or 3 passes
+// at each 16-deep step. The slab is 16 deep, double-buffered through
+// registers: the next slab's float4 loads are issued before the current
+// slab's products and split into the other buffer after them.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "filtered_mma.cuh"
 #include "filtered_tile.cuh"
 
 namespace afldm_filtered {
@@ -231,6 +243,215 @@ int filtered_gemm(bool small, const GemmArgs& g, int batch, Epi epi,
         <<<grid, kGemmThreads, 0, stream>>>(g, epi);
   else
     filtered_gemm_kernel<128, 128, A_KMAJOR, Epi>
+        <<<grid, kGemmThreads, 0, stream>>>(g, epi);
+  return (int)cudaGetLastError();
+}
+
+// C[b] = epi(A[b] · B[b]) (epi(·, C[b]) where Epi::kReadsC) with each
+// product a·b run as ah·bh + ah·bl + al·bh (PASSES 3) or ah·bh (PASSES 1)
+// on bf16 tensor cores: the GEMM above at a reduced precision level.
+template <int BM, int BN, bool A_KMAJOR, int PASSES, class Epi>
+__global__ void __launch_bounds__(kGemmThreads)
+filtered_gemm_mma_kernel(GemmArgs g, Epi epi) {
+  constexpr int BK = kGemmBK, T = kGemmThreads;
+  constexpr int WM = BM / 2, WN = BN / 4;  // 2 × 4 warps
+  constexpr int MT = WM / 16, NT = WN / 8;
+  constexpr int A_LOADS = BM * BK / 4 / T, B_LOADS = BN * BK / 4 / T;
+  // A k-major: BK rows of BM; row-major: BM rows of BK. B: BK rows of BN.
+  constexpr int LDA = A_KMAJOR ? BM + 8 : BK + 8;
+  constexpr int A_PIECE = (A_KMAJOR ? BK : BM) * LDA, LDB = BN + 8;
+  constexpr int B_PIECE = BK * LDB;
+  static_assert(NT % 2 == 0 && A_LOADS >= 1 && B_LOADS >= 1, "tiles");
+  __shared__ __align__(16) __nv_bfloat16 As[2][2 * A_PIECE];
+  __shared__ __align__(16) __nv_bfloat16 Bs[2][2 * B_PIECE];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const long long b = blockIdx.z;
+  const float* A = g.A + b * g.sA;
+  const float* B = g.B + b * g.sB;
+  float* C = g.C + b * g.sC;
+  const int M = g.M, N = g.N, K = g.K;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  float4 ra[A_LOADS], rb[B_LOADS];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      const int idx = tid + i * T;
+      if (A_KMAJOR) {
+        const int k = k0 + idx / (BM / 4), m = m0 + 4 * (idx % (BM / 4));
+        ra[i] = k < K && m < M
+                    ? *reinterpret_cast<const float4*>(A + k * g.lda + m)
+                    : zero;
+      } else {
+        const int m = m0 + idx / (BK / 4), k = k0 + 4 * (idx % (BK / 4));
+        ra[i] = m < M && k < K
+                    ? *reinterpret_cast<const float4*>(A + m * g.lda + k)
+                    : zero;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < B_LOADS; ++i) {
+      const int idx = tid + i * T;
+      const int k = k0 + idx / (BN / 4), n = n0 + 4 * (idx % (BN / 4));
+      rb[i] = k < K && n < N
+                  ? *reinterpret_cast<const float4*>(B + k * g.ldb + n)
+                  : zero;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      const int idx = tid + i * T;
+      const int off = A_KMAJOR
+                          ? (idx / (BM / 4)) * LDA + 4 * (idx % (BM / 4))
+                          : (idx / (BK / 4)) * LDA + 4 * (idx % (BK / 4));
+      store_split4(&As[buf][off], &As[buf][A_PIECE + off], ra[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < B_LOADS; ++i) {
+      const int idx = tid + i * T;
+      const int off = (idx / (BN / 4)) * LDB + 4 * (idx % (BN / 4));
+      store_split4(&Bs[buf][off], &Bs[buf][B_PIECE + off], rb[i]);
+    }
+  };
+  // the fragments of one piece of A (MT m16 tiles) and of B (NT n8 tiles)
+  auto frag_a = [&](unsigned (&a)[MT][4], const __nv_bfloat16* As_) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (A_KMAJOR)
+        ldsm_x4_t(a[mt], As_ + ((lane & 7) + 8 * (lane >> 4)) * LDA + wm +
+                             16 * mt + 8 * ((lane >> 3) & 1));
+      else
+        ldsm_x4(a[mt], As_ + (wm + 16 * mt + (lane & 15)) * LDA +
+                           8 * (lane >> 4));
+    }
+  };
+  auto frag_b = [&](unsigned (&bf)[NT / 2][4], const __nv_bfloat16* Bs_) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np)
+      ldsm_x4_t(bf[np], Bs_ + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDB +
+                            wn + 16 * np + 8 * (lane >> 4));
+  };
+  // ah·bh in acc, each 16-deep step from zero added in f32 (by TwoSum at 3
+  // passes); the small passes and those additions' errors in an
+  // accumulator of their own (filtered_mma.cuh::warp_tile)
+  float acc[MT][NT][4], small[PASSES == 3 ? MT : 1][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0.0f;
+        if (PASSES == 3) small[i][j][e] = 0.0f;
+      }
+  auto mma_step = [&](const unsigned (&a)[MT][4],
+                      const unsigned (&bf)[NT / 2][4]) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float step[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(step, a[i], bf[j / 2][2 * (j % 2)],
+                 bf[j / 2][2 * (j % 2) + 1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (PASSES == 3)
+            add_two_sum(acc[i][j][e], step[e], small[i][j][e]);
+          else
+            acc[i][j][e] += step[e];
+        }
+      }
+  };
+  auto mma_small = [&](const unsigned (&a)[MT][4],
+                       const unsigned (&bf)[NT / 2][4]) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mma_bf16(small[PASSES == 3 ? i : 0][j], a[i],
+                 bf[j / 2][2 * (j % 2)], bf[j / 2][2 * (j % 2) + 1]);
+  };
+
+  fetch(0);
+  store(0);
+  __syncthreads();
+  const int nk = (K + BK - 1) / BK;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < nk;
+    if (more) fetch((kt + 1) * BK);
+    {
+      unsigned ah[MT][4], bh[NT / 2][4];
+      frag_a(ah, As[cur]);
+      frag_b(bh, Bs[cur]);
+      mma_step(ah, bh);
+      if constexpr (PASSES == 3) {
+        unsigned bl[NT / 2][4];
+        frag_b(bl, Bs[cur] + B_PIECE);
+        mma_small(ah, bl);
+        unsigned al[MT][4];
+        frag_a(al, As[cur] + A_PIECE);
+        mma_small(al, bh);
+      }
+    }
+    if (more) store(cur ^ 1);
+    __syncthreads();
+  }
+
+  const int gr = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + gr + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + wn + 8 * j + t2;
+        if (n >= N) continue;  // N % 4 == 0, n even: a pair is all in or out
+        float2* c = reinterpret_cast<float2*>(C + (long long)m * g.ldc + n);
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if constexpr (PASSES == 3) {
+          v0 += small[i][j][2 * h];
+          v1 += small[i][j][2 * h + 1];
+        }
+        if constexpr (Epi::kReadsC) {
+          // this thread alone owns these two elements over the full depth
+          const float2 old = *c;
+          *c = make_float2(epi(v0, old.x), epi(v1, old.y));
+        } else {
+          *c = make_float2(epi(v0), epi(v1));
+        }
+      }
+    }
+}
+
+// Launches the bf16 variant of filtered_gemm at ``passes`` (1 or 3), in
+// 64×64 block tiles where ``small``, else 128×128.
+template <bool A_KMAJOR, class Epi>
+int filtered_gemm_mma(bool small, int passes, const GemmArgs& g, int batch,
+                      Epi epi, cudaStream_t stream) {
+  if (g.M % 4 || g.N % 4 || g.K % 4 || g.lda % 4 || g.ldb % 4 || g.ldc % 4 ||
+      g.sA % 4 || g.sB % 4 || g.sC % 4 || batch < 1 || batch > 65535 ||
+      (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  const int bm = small ? 64 : 128;
+  const dim3 grid((g.N + bm - 1) / bm, (g.M + bm - 1) / bm, batch);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  if (small && passes == 1)
+    filtered_gemm_mma_kernel<64, 64, A_KMAJOR, 1, Epi>
+        <<<grid, kGemmThreads, 0, stream>>>(g, epi);
+  else if (small)
+    filtered_gemm_mma_kernel<64, 64, A_KMAJOR, 3, Epi>
+        <<<grid, kGemmThreads, 0, stream>>>(g, epi);
+  else if (passes == 1)
+    filtered_gemm_mma_kernel<128, 128, A_KMAJOR, 1, Epi>
+        <<<grid, kGemmThreads, 0, stream>>>(g, epi);
+  else
+    filtered_gemm_mma_kernel<128, 128, A_KMAJOR, 3, Epi>
         <<<grid, kGemmThreads, 0, stream>>>(g, epi);
   return (int)cudaGetLastError();
 }

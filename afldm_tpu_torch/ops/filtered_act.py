@@ -20,24 +20,42 @@ dispatcher. NCHW; float32 on the card.
   chunk on the same scratch and plan, which recomputes the pre-activation
   from the saved x.
 - ``filtered_act_plain``: ``D_h act(U_h x U_w^T) D_w^T`` with
-  ``torch.matmul``, the function both forward kernels compute;
-  ``filtered_act_plane_bwd_plain`` the VJP's six products, the plain
-  version of both backward kernels.
+  ``torch.matmul``, the function both forward kernels compute (at
+  'highest'); ``filtered_act_plane_bwd_plain`` the VJP's six products,
+  the plain version of both backward kernels at 'highest'.
+
+At the reduced precision levels (``ideal_lpf.set_af_precision("high")``
+or ``"default"``) each of the four kernels has a bf16 tensor-core variant
+(``kernels/csrc/filtered_mma.cuh``): every product ``ah·bh + ah·bl +
+al·bh`` (3 passes) or ``ah·bh`` (1), each f32 result split again before
+the next product, in the product order of its JAX kernel, which decides
+what is split: K5 and K5b as the f32 kernels, K1 and K2 H side first in
+every filter pair (``filtered_act_plane_plain``,
+``filtered_act_banded_plain``, ``filtered_act_plane_bwd_plain``,
+``filtered_act_banded_bwd_plain`` at a level are their plain versions,
+with each product's sum exactly rounded).
+The level applies to planes up to LEVEL_MAX px a side, where the JAX
+package runs the circulant products; above it both packages filter
+exactly (the JAX package spectrally) and the f32 kernels run. The autograd
+Functions keep the forward's level for the backward.
 
 A wrapper given a CPU tensor returns the plain version; given a CUDA tensor
-it launches its kernel or raises. There is no fallback between them. A
-CUDA tensor of 0 planes returns its empty result without a launch.
+it launches its kernel (the f32 one at "highest", the bf16 variant
+otherwise) or raises. There is no fallback between them. A CUDA tensor of
+0 planes returns its empty result without a launch.
 """
 
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from .. import kernels
-from .ideal_lpf import (_ACTS, _downsample_op, _op, _upsample_op,
-                        filtered_act_matmul, filtered_nonlinearity)
+from .ideal_lpf import (_ACTS, LEVEL_PASSES, _downsample_op, _op,
+                        _upsample_op, af_precision, filtered_act_matmul,
+                        filtered_nonlinearity, level_matmul, split_bf16)
 
 ACT_CODES = {"silu": 0, "swish": 0, "gelu": 1, "relu": 2, "mish": 3,
              "leaky_relu": 4, "tanh": 5, "linear": 6}
@@ -45,6 +63,10 @@ ACT_CODES = {"silu": 0, "swish": 0, "gelu": 1, "relu": 2, "mish": 3,
 # the plane kernels take H, W % 4 == 0 up to this; the banded kernels every
 # H, W % 4 == 0 above it
 PLANE_MAX = 64
+# the largest side at which the reduced precision levels apply: the JAX
+# package's filtered activation runs circulant products up to it
+# (2·max(H, W) <= 1024) and the exact spectral chain above
+LEVEL_MAX = 512
 # the banded chains' scratch for one chunk of planes (6·H·W floats a plane,
 # forward and backward) stays under this, or holds one plane. On an H100
 # 256 MB ran K1 at the path's shapes 1.58× quicker than 32 MB, which fits
@@ -87,18 +109,87 @@ def act_grad(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {act!r}")
 
 
-def filtered_act_plane_bwd_plain(x: torch.Tensor, g: torch.Tensor,
-                                 act: str = "silu") -> torch.Tensor:
-    """dx = U_h^T [act'(U_h x U_w^T) * (D_h^T g D_w)] U_w, six products
-    with ``torch.matmul`` in float32 (float64 for float64 input)."""
-    H, W = x.shape[-2:]
+def _plain_ops(H: int, W: int, device, dt) -> tuple:
+    """(U_h, U_w, D_h, D_w) of an H × W plane as ``dt`` on ``device``."""
+    uh, uw = (_op("up", n, 2, device).to(dt) for n in (H, W))
+    dh, dw = (_op("down", 2 * n, 2, device).to(dt) for n in (H, W))
+    return uh, uw, dh, dw
+
+
+# the kernels' plain versions at a reduced level: each product's sum
+# exactly rounded to float32 (float32 sums in cuBLAS's or the CPU's order
+# move the bf16 lo pieces of the results they split again by as much as
+# a third of the level's own error, PERF.md)
+_mm = functools.partial(level_matmul, exact_sums=True)
+
+
+def _forward_plain(x, act, level, down_w_first):
+    """D_h act(U_h x U_w^T) D_w^T with ``level_matmul`` at ``level``, up
+    the H side first, down the W side first where ``down_w_first``."""
     dt = torch.promote_types(x.dtype, torch.float32)
-    uh, uw = (_op("up", n, 2, x.device).to(dt) for n in (H, W))
-    dh, dw = (_op("down", 2 * n, 2, x.device).to(dt) for n in (H, W))
-    pre = torch.matmul(torch.matmul(uh, x.to(dt)), uw.T)
-    gu = torch.matmul(torch.matmul(dh.T, g.to(dt)), dw)
+    uh, uw, dh, dw = _plain_ops(*x.shape[-2:], x.device, dt)
+    hi = _ACTS[act](_mm(_mm(uh, x.to(dt), level), uw.T, level))
+    if down_w_first:
+        out = _mm(dh, _mm(hi, dw.T, level), level)
+    else:
+        out = _mm(_mm(dh, hi, level), dw.T, level)
+    return out.to(x.dtype)
+
+
+def filtered_act_plane_plain(x: torch.Tensor, act: str = "silu",
+                             level: str = None) -> torch.Tensor:
+    """K5's plain version at ``level`` (default: the current one): at
+    'highest' ``filtered_act_plain``'s exact products; at a reduced level
+    ``_forward``'s order, U_h then U_w up, D_w then D_h down."""
+    level = level or af_precision()
+    return _forward_plain(x, act, level, level != "highest")
+
+
+def filtered_act_banded_plain(x: torch.Tensor, act: str = "silu",
+                              level: str = None) -> torch.Tensor:
+    """K1's plain version at ``level`` (default: the current one), in
+    ``_forward_spatial``'s order: U_h, U_w, D_h, D_w."""
+    return _forward_plain(x, act, level or af_precision(), False)
+
+
+def _bwd_plain(x, g, act, level, dx_w_first):
+    """dx = U_h^T [act'(U_h x U_w^T) * (D_h^T g D_w)] U_w, six products
+    with ``level_matmul`` at ``level``, H side first except dx's where
+    ``dx_w_first``; float32 (float64 for float64 input)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    uh, uw, dh, dw = _plain_ops(*x.shape[-2:], x.device, dt)
+    pre = _mm(_mm(uh, x.to(dt), level), uw.T, level)
+    gu = _mm(_mm(dh.T, g.to(dt), level), dw, level)
     m = act_grad(pre, act) * gu
-    return torch.matmul(torch.matmul(uh.T, m), uw).to(x.dtype)
+    if dx_w_first:
+        dx = _mm(uh.T, _mm(m, uw, level), level)
+    else:
+        dx = _mm(_mm(uh.T, m, level), uw, level)
+    return dx.to(x.dtype)
+
+
+def filtered_act_plane_bwd_plain(x: torch.Tensor, g: torch.Tensor,
+                                 act: str = "silu",
+                                 level: str = None) -> torch.Tensor:
+    """K5b's plain version at ``level`` (default: the current one): at
+    'highest' the exact six products; at a reduced level ``_bwd_rule``'s
+    order (dx's W side first)."""
+    level = level or af_precision()
+    return _bwd_plain(x, g, act, level, level != "highest")
+
+
+def filtered_act_banded_bwd_plain(x: torch.Tensor, g: torch.Tensor,
+                                  act: str = "silu",
+                                  level: str = None) -> torch.Tensor:
+    """K2's plain version at ``level`` (default: the current one), in
+    ``_bwd_spatial``'s order: H side first in all three filter pairs."""
+    return _bwd_plain(x, g, act, level or af_precision(), False)
+
+
+def _level_at(H: int, W: int, level: str = None) -> str:
+    """The level a filtered-activation kernel runs an H × W plane at:
+    ``level`` (default: the current one), 'highest' above LEVEL_MAX."""
+    return "highest" if max(H, W) > LEVEL_MAX else level or af_precision()
 
 
 def _kernel_ops(H: int, W: int, device) -> tuple:
@@ -305,10 +396,145 @@ def plane_bwd_plan(H: int, W: int, nplanes: int) -> PlanePlan:
                          plane_bwd_smem_bytes, K5B_DEEP, K5B_SMALL)
 
 
-def _plane_forward(x: torch.Tensor, act: str) -> torch.Tensor:
+# -- the plane kernels' bf16 variants (the reduced levels) -----------------
+
+# threads a block of the bf16 plane kernels: 8 warps, each taking one
+# 16×16 result tile at a time
+MMA_THREADS = 256
+
+
+def _pad16(n: int) -> int:  # filtered_mma.cuh::pad16
+    return -(-n // 16) * 16
+
+
+def mma_ld(n: int) -> int:
+    """The row stride, in bf16, of a split piece of n columns
+    (filtered_mma.cuh::mma_ld): padded to 16, plus 8."""
+    return _pad16(n) + 8
+
+
+def mma_buf(rows: int, cols: int) -> int:
+    """bf16 elements of a split buffer, hi and lo pieces of rows × cols
+    (filtered_mma.cuh::mma_buf)."""
+    return 2 * _pad16(rows) * mma_ld(cols)
+
+
+def plane_mma_smem_bytes(H: int, W: int, ppb: int, bwd: bool = False) -> int:
+    """Shared memory of a bf16 plane block (filtered_act.cu::
+    MmaPlaneLayout): two operator buffers of the largest operator's split
+    blob, and per plane a big buffer (hiᵀ, or K5b's mᵀ; x, and K5b's g,
+    staged in it), a small one (tᵀ then t, or K5b's tᵀ then s) and K5b's
+    uᵀ."""
+    op = max(mma_buf(H, 2 * H), mma_buf(W, 2 * W), mma_buf(2 * W, W),
+             mma_buf(2 * H, H))
+    x = mma_buf(H, W)
+    big = max(mma_buf(2 * W, 2 * H), 2 * x if bwd else x)
+    small = max(mma_buf(W, 2 * H), mma_buf(2 * H, W))
+    small2 = mma_buf(W, 2 * H) if bwd else 0
+    return 2 * (2 * op + ppb * (big + small + small2))
+
+
+def plane_mma_products(H: int, W: int, bwd: bool = False) -> tuple:
+    """(rows, columns, depth) of a bf16 plane kernel's products: K5's four
+    (tᵀ, hiᵀ, t, out) or K5b's six (tᵀ, uᵀ, the fused pre-activation and
+    cotangent over one tile as two, s, dx)."""
+    if not bwd:
+        return plane_products(H, W)
+    return ((W, 2 * H, H), (W, 2 * H, H), (2 * W, 2 * H, W),
+            (2 * W, 2 * H, W), (2 * H, W, 2 * W), (H, W, 2 * H))
+
+
+def _mma_cost(products: tuple, smem: int, nplanes: int, ppb: int):
+    """``_plane_cost``'s model for the bf16 blocks: waves of blocks times a
+    block's rounds of 16×16 warp tiles over its 8 warps, each round
+    weighted by its product's padded depth; None over SMEM_MAX_BYTES."""
+    if smem > SMEM_MAX_BYTES:
+        return None
+    per_sm = 2 if smem <= SMEM_TWO_BLOCKS_BYTES else 1
+    waves = -(-(-(-nplanes // ppb)) // (NUM_SMS * per_sm))
+    warps = MMA_THREADS // 32
+    rounds = sum(_pad16(k) // 16
+                 * -(-ppb * (_pad16(r) // 16) * (_pad16(c) // 16) // warps)
+                 for r, c, k in products)
+    return waves * rounds * (K5_TWO_BLOCKS if per_sm == 2 else 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def plane_mma_plan(H: int, W: int, nplanes: int,
+                   bwd: bool = False) -> PlanePlan:
+    """The launch plan of K5's (K5b's where ``bwd``) bf16 variant: P
+    planes a block minimising ``_mma_cost`` (on a tie the smaller P), with
+    P at most the plane count, the block within SMEM_MAX_BYTES and the grid
+    at least one wave where the planes allow it, as ``plane_plan`` picks
+    P; 256 threads and no micro-tiles (``tiles`` empty). Not yet fitted to
+    timings on the card. 0 planes get the one-plane plan."""
+    n = max(nplanes, 1)
+    grid = max(1, -(-n // (NUM_SMS - 1)) - 1)
+    best = None
+    for ppb in range(1, min(grid, n) + 1):
+        cost = _mma_cost(plane_mma_products(H, W, bwd),
+                         plane_mma_smem_bytes(H, W, ppb, bwd), n, ppb)
+        if cost is None:
+            break
+        if best is None or cost < best[0]:
+            best = (cost, ppb)
+    ppb = best[1]
+    return PlanePlan(ppb, (), MMA_THREADS,
+                     plane_mma_smem_bytes(H, W, ppb, bwd))
+
+
+def _mma_blob(op: np.ndarray) -> torch.Tensor:
+    """An operator's split blob as the bf16 plane kernels stage it: (hi,
+    lo) bf16 pieces of ``split_bf16``, zero-padded to pad16(rows) ×
+    mma_ld(cols)."""
+    rows, cols = op.shape
+    blob = torch.zeros((2, _pad16(rows), mma_ld(cols)), dtype=torch.bfloat16)
+    hi, lo = split_bf16(torch.from_numpy(np.ascontiguousarray(op)))
+    blob[0, :rows, :cols] = hi
+    blob[1, :rows, :cols] = lo
+    return blob
+
+
+def _mma_blobs(H: int, W: int, device, bwd: bool) -> tuple:
+    """The split blobs of the bf16 plane kernels' operators, each in the
+    k-major form its product reads: K5's U_hᵀ, U_wᵀ, D_wᵀ, D_hᵀ; K5b's
+    U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h. Split once on the host and cached; one
+    blob serves both reduced levels ('default' reads only its hi piece)."""
+    key = ("mma", bwd, H, W, torch.device(device))
+    if key not in _KERNEL_OPS:
+        uh, uw = _upsample_op(H, 2), _upsample_op(W, 2)
+        dh, dw = _downsample_op(2 * H, 2), _downsample_op(2 * W, 2)
+        ops = ((uh.T, dh, uw.T, dw, uw, uh) if bwd
+               else (uh.T, uw.T, dw.T, dh.T))
+        with torch.inference_mode(False):  # see ideal_lpf._op
+            _KERNEL_OPS[key] = tuple(_mma_blob(o).to(device) for o in ops)
+    return _KERNEL_OPS[key]
+
+
+def _plane_forward_mma(x: torch.Tensor, act: str, level: str):
+    x = _contiguous16(x)
+    out = torch.empty_like(x)
+    H, W = x.shape[-2:]
+    nplanes = x.shape[0] * x.shape[1]
+    if nplanes == 0:
+        return out
+    plan = plane_mma_plan(H, W, nplanes)
+    err = kernels.library("filtered_act").filtered_act_plane_bf16(
+        x.data_ptr(), out.data_ptr(),
+        *(o.data_ptr() for o in _mma_blobs(H, W, x.device, False)), nplanes,
+        H, W, plan.planes_per_block, LEVEL_PASSES[level], ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, f"filtered_act_plane:{level}")
+    kernels.LAUNCHES[f"filtered_act_plane:{level}"] += 1
+    return out
+
+
+def _plane_forward(x: torch.Tensor, act: str, level: str) -> torch.Tensor:
     if x.device.type == "cpu":
-        return filtered_act_plain(x, act)
+        return filtered_act_plane_plain(x, act, level)
     _check(x, act, False, "filtered_act_plane")
+    if level != "highest":
+        return _plane_forward_mma(x, act, level)
     x = _contiguous16(x)
     out = torch.empty_like(x)
     H, W = x.shape[-2:]
@@ -345,13 +571,15 @@ def _plane_bwd_ops(H: int, W: int, device) -> tuple:
 
 
 def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
-                           act: str = "silu") -> torch.Tensor:
-    """The VJP of ``filtered_act_plane`` at x for the cotangent g (K5b).
-    On the card x and g are read in 16-byte chunks, so a strided or
-    misaligned one (a cotangent from autograd may be either) is copied
-    first."""
+                           act: str = "silu",
+                           level: str = None) -> torch.Tensor:
+    """The VJP of ``filtered_act_plane`` at x for the cotangent g (K5b), at
+    ``level`` (default: the current one). On the card x and g are read in
+    16-byte chunks, so a strided or misaligned one (a cotangent from
+    autograd may be either) is copied first."""
+    level = level or af_precision()
     if x.device.type == "cpu":
-        return filtered_act_plane_bwd_plain(x, g, act)
+        return filtered_act_plane_bwd_plain(x, g, act, level)
     _check_bwd(x, g, act, False, "filtered_act_plane_bwd")
     x, g = _contiguous16(x), _contiguous16(g)
     dx = torch.empty_like(x)
@@ -359,31 +587,43 @@ def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
     if nplanes == 0:
         return dx
     H, W = x.shape[-2:]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if level != "highest":
+        plan = plane_mma_plan(H, W, nplanes, bwd=True)
+        err = kernels.library("filtered_act").filtered_act_plane_bwd_bf16(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            *(o.data_ptr() for o in _mma_blobs(H, W, x.device, True)),
+            nplanes, H, W, plan.planes_per_block, LEVEL_PASSES[level],
+            ACT_CODES[act], stream)
+        kernels.check(err, f"filtered_act_plane_bwd:{level}")
+        kernels.LAUNCHES[f"filtered_act_plane_bwd:{level}"] += 1
+        return dx
     plan = plane_bwd_plan(H, W, nplanes)
     err = kernels.library("filtered_act").filtered_act_plane_bwd_f32(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(),
         *(o.data_ptr() for o in _plane_bwd_ops(H, W, x.device)), nplanes, H,
         W, plan.planes_per_block, plan.tile_codes, plan.threads,
-        ACT_CODES[act], torch.cuda.current_stream(x.device).cuda_stream)
+        ACT_CODES[act], stream)
     kernels.check(err, "filtered_act_plane_bwd")
     kernels.LAUNCHES["filtered_act_plane_bwd"] += 1
     return dx
 
 
 class _FilteredActPlane(torch.autograd.Function):
-    """Saves x, not the 4x pre-activation (as ``_bwd_rule`` does)."""
+    """Saves x, not the 4x pre-activation (as ``_bwd_rule`` does), and the
+    forward's precision level for the backward."""
 
     @staticmethod
     def forward(ctx, x, act):
-        ctx.act = act
+        ctx.act, ctx.level = act, af_precision()
         ctx.save_for_backward(x)
-        return _plane_forward(x, act)
+        return _plane_forward(x, act, ctx.level)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return filtered_act_plane_bwd(x, g, ctx.act), None
+        return filtered_act_plane_bwd(x, g, ctx.act, ctx.level), None
 
 
 def filtered_act_plane(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -414,6 +654,23 @@ def banded_bwd_products(H: int, W: int, planes: int) -> tuple:
     return ((planes * H, 2 * W, W, 1), (2 * H, 2 * W, H, planes),
             (planes * H, 2 * W, W, 1), (2 * H, 2 * W, H, planes),
             (planes * 2 * H, W, 2 * W, 1), (H, W, 2 * H, planes))
+
+
+def banded_mma_products(H: int, W: int, planes: int) -> tuple:
+    """(M, N, K, batch) of K1's bf16 chain (``_forward_spatial``'s order)
+    for a chunk: t = U_h·x, hi = act(t·U_wᵀ), lo = D_h·hi and
+    out = lo·D_wᵀ."""
+    return ((2 * H, W, H, planes), (planes * 2 * H, 2 * W, W, 1),
+            (H, 2 * W, 2 * H, planes), (planes * H, W, 2 * W, 1))
+
+
+def banded_mma_bwd_products(H: int, W: int, planes: int) -> tuple:
+    """(M, N, K, batch) of K2's bf16 chain (``_bwd_spatial``'s order) for a
+    chunk: t = U_h·x, pre = t·U_wᵀ, v = D_hᵀ·g, m = act′(pre) ⊙ (v·D_w),
+    s = U_hᵀ·m and dx = s·U_w."""
+    return ((2 * H, W, H, planes), (planes * 2 * H, 2 * W, W, 1),
+            (2 * H, W, H, planes), (planes * 2 * H, 2 * W, W, 1),
+            (H, 2 * W, 2 * H, planes), (planes * H, W, 2 * W, 1))
 
 
 def banded_scratch_bytes(H: int, W: int, planes: int) -> int:
@@ -450,9 +707,10 @@ def banded_plan(H: int, W: int, nplanes: int, cap: int,
     bytes (at least one plane a chunk, whatever its size), their plane
     counts within one of each other. Each of the chain's ``products``
     (``banded_products``: the forward's; ``banded_bwd_products``: the
-    backward's) takes the 128×128 tile unless that gives a grid short of a
-    wave of NUM_SMS blocks, then the 64×64 tile. No chunks for 0
-    planes."""
+    backward's; ``banded_mma_products``, ``banded_mma_bwd_products``: their
+    bf16 chains', the same chunks and tile rule) takes the 128×128 tile
+    unless that gives a grid short of a wave of NUM_SMS blocks, then the
+    64×64 tile. No chunks for 0 planes."""
     if nplanes == 0:
         return ()
     per = max(1, cap // banded_scratch_bytes(H, W, 1))
@@ -487,6 +745,23 @@ def _banded_bwd_ops(H: int, W: int, device) -> tuple:
     return uwT, uhT, dw, dh, uw, uh
 
 
+def _banded_mma_ops(H: int, W: int, device) -> tuple:
+    """(U_hᵀ, U_wᵀ, D_hᵀ, D_wᵀ): K1's bf16 chain's operators, the H-side
+    ones in the k-major forms its batched products read."""
+    _, uwT, _, dwT = _kernel_ops(H, W, device)
+    dhT, _, _, uhT = _kernel_bwd_ops(H, W, device)
+    return uhT, uwT, dhT, dwT
+
+
+def _banded_mma_bwd_ops(H: int, W: int, device) -> tuple:
+    """(U_hᵀ, U_wᵀ, D_h, D_w, U_h, U_w): K2's bf16 chain's operators in the
+    order of its products, the H-side ones (U_h, D_hᵀ, U_hᵀ) in the k-major
+    forms its batched products read."""
+    uh, uwT, dh, _ = _kernel_ops(H, W, device)
+    _, dw, uw, uhT = _kernel_bwd_ops(H, W, device)
+    return uhT, uwT, dh, dw, uh, uw
+
+
 def _banded_entry(x, out, scratch, ops, chunk, act):
     """One chunk through the C entry ``filtered_act_banded_f32``: the four
     GEMM launches on the current stream. x, out: the chunk's (P, H, W)
@@ -511,19 +786,52 @@ def _banded_bwd_entry(x, g, dx, scratch, ops, chunk, act):
     kernels.check(err, "filtered_act_banded_bwd")
 
 
+def _banded_mma_entry(x, out, scratch, ops, chunk, act, level):
+    """One chunk through ``filtered_act_banded_bf16`` at ``level``: K1's
+    four bf16 GEMM launches on the current stream."""
+    H, W = x.shape[-2:]
+    err = kernels.library("filtered_act").filtered_act_banded_bf16(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
+        LEVEL_PASSES[level], ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, f"filtered_act_banded:{level}")
+
+
+def _banded_mma_bwd_entry(x, g, dx, scratch, ops, chunk, act, level):
+    """One chunk through ``filtered_act_banded_bwd_bf16`` at ``level``:
+    K2's six bf16 GEMM launches on the current stream."""
+    H, W = x.shape[-2:]
+    err = kernels.library("filtered_act").filtered_act_banded_bwd_bf16(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+        *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
+        LEVEL_PASSES[level], ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, f"filtered_act_banded_bwd:{level}")
+
+
+# the banded chains' products and operators: (forward, backward) by
+# whether the level is reduced
+_BANDED_CHAINS = {
+    False: ((banded_products, _banded_ops),
+            (banded_bwd_products, _banded_bwd_ops)),
+    True: ((banded_mma_products, _banded_mma_ops),
+           (banded_mma_bwd_products, _banded_mma_bwd_ops))}
+
+
 def _banded_chain(x: torch.Tensor, act: str, entry,
-                  g: torch.Tensor = None) -> torch.Tensor:
+                  g: torch.Tensor = None,
+                  level: str = "highest") -> torch.Tensor:
     """x (NCHW, contiguous) through the banded forward's chunks or, given
-    the cotangent g (x's shape, contiguous), the backward's, with one
-    scratch buffer for the largest chunk. Each chunk goes through
-    ``entry`` (on the card ``_banded_entry``, ``_banded_bwd_entry``) as
-    entry(x, out, scratch, ops, chunk, act), or entry(x, g, dx, ...), on
-    its (P, H, W) planes."""
+    the cotangent g (x's shape, contiguous), the backward's, at ``level``,
+    with one scratch buffer for the largest chunk. Each chunk goes through
+    ``entry`` (on the card ``_banded_entry``, ``_banded_bwd_entry`` or at a
+    reduced level their bf16 entries) as entry(x, out, scratch, ops, chunk,
+    act), or entry(x, g, dx, ...), on its (P, H, W) planes."""
     H, W = x.shape[-2:]
     out = torch.empty_like(x)
     ins = [t.view(-1, H, W) for t in (x, g) if t is not None]
-    products, ops = ((banded_products, _banded_ops) if g is None
-                     else (banded_bwd_products, _banded_bwd_ops))
+    products, ops = _BANDED_CHAINS[level != "highest"][g is not None]
     plan = banded_plan(H, W, ins[0].shape[0], BANDED_SCRATCH_BYTES,
                        products)
     if not plan:
@@ -541,11 +849,12 @@ def _banded_chain(x: torch.Tensor, act: str, entry,
 
 def filtered_gemm_plain(a: torch.Tensor, b: torch.Tensor, act=None,
                         a_kmajor: bool = False,
-                        grad_at: torch.Tensor = None) -> torch.Tensor:
+                        grad_at: torch.Tensor = None,
+                        level: str = "highest") -> torch.Tensor:
     """The plain version of ``filtered_gemm``: act(A · B), or
-    act′(grad_at) ⊙ (A · B), with ``torch.matmul``, A = aᵀ where
-    ``a_kmajor``."""
-    out = torch.matmul(a.transpose(-1, -2) if a_kmajor else a, b)
+    act′(grad_at) ⊙ (A · B), with ``level_matmul`` at ``level`` (exact
+    sums at a reduced level), A = aᵀ where ``a_kmajor``."""
+    out = _mm(a.transpose(-1, -2) if a_kmajor else a, b, level)
     if grad_at is not None:
         return act_grad(grad_at, act) * out
     return out if act is None else _ACTS[act](out)
@@ -572,7 +881,7 @@ def _gemm_dims(a: torch.Tensor, b: torch.Tensor, a_kmajor: bool) -> tuple:
 
 def filtered_gemm(a: torch.Tensor, b: torch.Tensor, act=None,
                   a_kmajor: bool = False, small: bool = False,
-                  grad_at: torch.Tensor = None):
+                  grad_at: torch.Tensor = None, level: str = None):
     """C[i] = act(A[i] · B[i]) through the banded chains' tiled GEMM kernel
     alone, in the 64×64 block tile where ``small`` (its card tests'
     entry); given ``grad_at`` (batch, M, N), C[i] = act′(grad_at[i]) ⊙
@@ -582,14 +891,16 @@ def filtered_gemm(a: torch.Tensor, b: torch.Tensor, act=None,
     float32, unit stride along the last dim, the other strides multiples
     of 4 (a batch stride of 0: expanded from one matrix) and 16-byte
     aligned data, as the kernel's 16-byte copies read them; an empty
-    result launches nothing."""
+    result launches nothing. At ``level`` (default: the current one) other
+    than 'highest' the products run on the kernel's bf16 variant."""
+    level = level or af_precision()
     batch, M, N, K = _gemm_dims(a, b, a_kmajor)
     if grad_at is not None and (act is None
                                 or tuple(grad_at.shape) != (batch, M, N)):
         raise ValueError("filtered_gemm: grad_at needs an activation and "
                          f"the result's shape {(batch, M, N)}")
     if a.device.type == "cpu":
-        return filtered_gemm_plain(a, b, act, a_kmajor, grad_at)
+        return filtered_gemm_plain(a, b, act, a_kmajor, grad_at, level)
     if a.device != b.device or a.dtype != torch.float32 or (
             b.dtype != torch.float32):
         raise ValueError("filtered_gemm: float32 operands on one device "
@@ -608,56 +919,79 @@ def filtered_gemm(a: torch.Tensor, b: torch.Tensor, act=None,
                          memory_format=torch.contiguous_format, copy=True)
     if out.numel() == 0:
         return out
-    err = kernels.library("filtered_act").filtered_gemm_f32(
-        a.data_ptr(), a.stride(1), a.stride(0), int(a_kmajor), b.data_ptr(),
-        b.stride(1), b.stride(0), out.data_ptr(), N, M * N, batch, M, N, K,
-        int(small), -1 if act is None else ACT_CODES[act],
-        int(grad_at is not None),
-        torch.cuda.current_stream(a.device).cuda_stream)
-    kernels.check(err, "filtered_gemm")
-    kernels.LAUNCHES["filtered_gemm"] += 1
+    args = (a.data_ptr(), a.stride(1), a.stride(0), int(a_kmajor),
+            b.data_ptr(), b.stride(1), b.stride(0), out.data_ptr(), N, M * N,
+            batch, M, N, K, int(small))
+    tail = (-1 if act is None else ACT_CODES[act], int(grad_at is not None),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    lib = kernels.library("filtered_act")
+    if level == "highest":
+        name, err = "filtered_gemm", lib.filtered_gemm_f32(*args, *tail)
+    else:
+        name = f"filtered_gemm:{level}"
+        err = lib.filtered_gemm_bf16(*args, LEVEL_PASSES[level], *tail)
+    kernels.check(err, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
-def _banded_forward(x: torch.Tensor, act: str) -> torch.Tensor:
+def _banded_forward(x: torch.Tensor, act: str, level: str) -> torch.Tensor:
+    level = _level_at(*x.shape[-2:], level)
     if x.device.type == "cpu":
-        # the JAX package's chain: matmul up to 512 px, spectral above
-        return filtered_nonlinearity(x, act)
+        if level == "highest":
+            # the JAX package's chain: matmul up to 512 px, spectral above
+            # (the level is the current one: only the Function calls this)
+            return filtered_nonlinearity(x, act)
+        return filtered_act_banded_plain(x, act, level)
     _check(x, act, True, "filtered_act_banded")
-    out = _banded_chain(_contiguous16(x), act, _banded_entry)
+    if level == "highest":
+        name, entry = "filtered_act_banded", _banded_entry
+    else:
+        name = f"filtered_act_banded:{level}"
+        entry = functools.partial(_banded_mma_entry, level=level)
+    out = _banded_chain(_contiguous16(x), act, entry, level=level)
     if out.numel():
-        kernels.LAUNCHES["filtered_act_banded"] += 1
+        kernels.LAUNCHES[name] += 1
     return out
 
 
 def filtered_act_banded_bwd(x: torch.Tensor, g: torch.Tensor,
-                            act: str = "silu") -> torch.Tensor:
-    """The VJP of ``filtered_act_banded`` at x for the cotangent g (K2): on
-    the card the backward chain's six GEMM launches a chunk of planes."""
+                            act: str = "silu",
+                            level: str = None) -> torch.Tensor:
+    """The VJP of ``filtered_act_banded`` at x for the cotangent g (K2), at
+    ``level`` (default: the current one; 'highest' above LEVEL_MAX): on the
+    card the backward chain's six GEMM launches a chunk of planes."""
+    level = _level_at(*x.shape[-2:], level)
     if x.device.type == "cpu":
-        return filtered_act_plane_bwd_plain(x, g, act)
+        return filtered_act_banded_bwd_plain(x, g, act, level)
     _check_bwd(x, g, act, True, "filtered_act_banded_bwd")
-    dx = _banded_chain(_contiguous16(x), act, _banded_bwd_entry,
-                       _contiguous16(g))
+    if level == "highest":
+        name, entry = "filtered_act_banded_bwd", _banded_bwd_entry
+    else:
+        name = f"filtered_act_banded_bwd:{level}"
+        entry = functools.partial(_banded_mma_bwd_entry, level=level)
+    dx = _banded_chain(_contiguous16(x), act, entry, _contiguous16(g),
+                       level)
     if dx.numel():
-        kernels.LAUNCHES["filtered_act_banded_bwd"] += 1
+        kernels.LAUNCHES[name] += 1
     return dx
 
 
 class _FilteredActBanded(torch.autograd.Function):
-    """Saves x, not the 4x pre-activation (as ``_bwd_spatial`` does)."""
+    """Saves x, not the 4x pre-activation (as ``_bwd_spatial`` does), and
+    the forward's precision level for the backward."""
 
     @staticmethod
     def forward(ctx, x, act):
-        ctx.act = act
+        ctx.act, ctx.level = act, af_precision()
         ctx.save_for_backward(x)
-        return _banded_forward(x, act)
+        return _banded_forward(x, act, ctx.level)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return filtered_act_banded_bwd(x, g, ctx.act), None
+        return filtered_act_banded_bwd(x, g, ctx.act, ctx.level), None
 
 
 def filtered_act_banded(x: torch.Tensor, act: str = "silu") -> torch.Tensor:

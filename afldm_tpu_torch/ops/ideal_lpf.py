@@ -7,9 +7,13 @@ PyTorch counterpart of ``afldm_tpu/ops/ideal_lpf.py``: the same rect masks
 two. FFTs and circulant products run in float32 and the input dtype is
 restored on the way out.
 
-Precision: ``set_af_precision("highest")`` (the default) keeps every
-float32 product exact on the card by switching TF32 off for both matmuls
-and cuDNN convolutions.
+Precision of the circulant products (``set_af_precision``): "highest"
+(the default) is exact float32; "high" is each product's 3-pass bf16 split
+``ah·bh + ah·bl + al·bh`` and "default" its single pass ``ah·bh``, where
+``hi = bf16(a)`` and ``lo = bf16(a - hi)`` round to nearest even, the
+products are exact and the sums float32. The level governs the circulant
+operators only: TF32 stays off for matmuls and cuDNN convolutions at every
+level.
 """
 
 import numpy as np
@@ -145,8 +149,7 @@ def upsample_rfft(x: torch.Tensor, up: int = 2, factor: int = 1,
     even = H % 2 == 0 and W % 2 == 0 and up % 2 == 0
     if (impl == "matmul" and factor == 1 and even
             and max(H, W) * up <= _MATMUL_MAX_SIZE):
-        return _apply_sep(x, _op("up", H, up, x.device),
-                          _op("up", W, up, x.device))
+        return _apply_sep(x, ("up", H, up), ("up", W, up))
     if impl in ("spectral", "matmul") and factor == 1 and even:
         X = torch.fft.rfft2(x.float())
         Y = _spectral_pad(X, H, W, up)
@@ -163,8 +166,7 @@ def downsample_rfft(x: torch.Tensor, down: int = 2,
     H, W = x.shape[-2:]
     ok = H % (2 * down) == 0 and W % (2 * down) == 0
     if impl == "matmul" and ok and max(H, W) <= _MATMUL_MAX_SIZE:
-        return _apply_sep(x, _op("down", H, down, x.device),
-                          _op("down", W, down, x.device))
+        return _apply_sep(x, ("down", H, down), ("down", W, down))
     if impl in ("spectral", "matmul") and ok:
         X = torch.fft.rfft2(x.float())
         Y = _spectral_fold(X, H, W, down)
@@ -206,11 +208,9 @@ def filtered_act_matmul(x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """The sandwich with dense circulant operators on both axes:
     ``D_h act(U_h x U_w^T) D_w^T``. Needs H, W % 4 == 0."""
     H, W = x.shape[-2:]
-    dev = x.device
-    hi = _apply_sep(x, _op("up", H, 2, dev), _op("up", W, 2, dev))
+    hi = _apply_sep(x, ("up", H, 2), ("up", W, 2))
     hi = _ACTS[act](hi)
-    return _apply_sep(hi, _op("down", 2 * H, 2, dev),
-                      _op("down", 2 * W, 2, dev))
+    return _apply_sep(hi, ("down", 2 * H, 2), ("down", 2 * W, 2))
 
 
 def filtered_nonlinearity(x: torch.Tensor, act: str = "silu",
@@ -287,25 +287,123 @@ def _op(kind: str, N: int, factor: int, device) -> torch.Tensor:
     return _DEV_OPS[key]
 
 
-def _apply_sep(x: torch.Tensor, op_h: torch.Tensor,
-               op_w: torch.Tensor) -> torch.Tensor:
-    """y = op_h @ x @ op_w^T over the last two axes, in float32 (float64
-    for float64 input, so that gradcheck can hold the chain)."""
-    dt = torch.promote_types(x.dtype, torch.float32)
-    y = torch.matmul(op_h.to(dt), x.to(dt))
-    return torch.matmul(y, op_w.to(dt).T).to(x.dtype)
-
-
 # ---------------------------------------------------------------------------
 # Precision
 # ---------------------------------------------------------------------------
 
+AF_PRECISIONS = ("highest", "high", "default")
+# the bf16 passes of one product at each reduced level
+LEVEL_PASSES = {"high": 3, "default": 1}
+_AF_PRECISION = "highest"
+
+
 def set_af_precision(p: str = "highest"):
-    """'highest' (the default and the only level so far): exact float32,
-    i.e. TF32 off for matmuls and for cuDNN convolutions. 'high' and
-    'default' wait for an accuracy check of their own."""
-    if p != "highest":
-        raise ValueError(f"af_precision {p!r} is not supported yet; "
-                         "only 'highest'")
+    """'highest' (the default): exact float32 circulant products. 'high':
+    each product the 3-pass bf16 split ``ah·bh + ah·bl + al·bh`` (~2e-4
+    per op on the JAX package's TPU); 'default': the single pass ``ah·bh``
+    (~1e-2 per op there). Every level switches TF32 off for matmuls and
+    cuDNN convolutions: convolutions and attention stay exact float32."""
+    global _AF_PRECISION
+    if p not in AF_PRECISIONS:
+        raise ValueError(f"unknown af_precision {p!r}; one of "
+                         f"{AF_PRECISIONS}")
+    _AF_PRECISION = p
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def af_precision() -> str:
+    """The level the circulant products run at now."""
+    return _AF_PRECISION
+
+
+def split_bf16(t: torch.Tensor) -> tuple:
+    """(hi, lo) in bfloat16 with ``hi = bf16(t)`` and ``lo = bf16(t - hi)``,
+    both rounded to nearest even (the casts of ``ml_dtypes`` and of the JAX
+    package's ``_split_bf16``)."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.to(t.dtype)).to(torch.bfloat16)
+
+
+def _pieces(t: torch.Tensor, level: str) -> tuple:
+    """The bf16 pieces of t that ``level`` multiplies, as tensors of t's
+    dtype: (hi, lo) at 'high', (hi,) at 'default'."""
+    hi, lo = split_bf16(t)
+    return (hi.to(t.dtype), lo.to(t.dtype)) if level == "high" else (
+        hi.to(t.dtype),)
+
+
+def level_matmul(a: torch.Tensor, b: torch.Tensor, level: str,
+                 a_pieces: tuple = None, b_pieces: tuple = None,
+                 exact_sums: bool = False) -> torch.Tensor:
+    """a @ b at ``level``: exact at 'highest'; else the bf16 pieces of both
+    as float32 tensors, ``ah@bh + ah@bl + al@bh`` ('high', summed in that
+    order) or ``ah@bh`` ('default'). Each piece holds 8 significant bits,
+    so each product of two is exact in float32. ``a_pieces``/``b_pieces``:
+    the pieces of an operand split earlier (a cached operator).
+    ``exact_sums``: at a reduced level, sum in float64 and round the result
+    to a's dtype once, the float32 result of an exactly rounding
+    accumulator (what the kernels' plain versions hold them to)."""
+    if level == "highest":
+        return torch.matmul(a, b)
+    ah, *al = a_pieces or _pieces(a, level)
+    bh, *bl = b_pieces or _pieces(b, level)
+    dt = torch.float64 if exact_sums else ah.dtype
+    ah, bh, *al = (t.to(dt) for t in (ah, bh, *al))
+    bl = [t.to(dt) for t in bl]
+    out = torch.matmul(ah, bh)
+    if level == "high":
+        out = out + torch.matmul(ah, bl[0]) + torch.matmul(al[0], bh)
+    return out.to(a.dtype)
+
+
+def _op_pieces(kind: str, N: int, factor: int, device,
+               level: str) -> torch.Tensor:
+    """The operator's bf16 pieces at ``level`` as float32, stacked (hi, lo
+    at 'high'; hi at 'default'), cached per level beside the operator and
+    built outside inference mode as ``_op`` is."""
+    key = (kind, N, factor, torch.device(device), level)
+    if key not in _DEV_OPS:
+        with torch.inference_mode(False):
+            _DEV_OPS[key] = torch.stack(
+                _pieces(_op(kind, N, factor, device), level))
+    return _DEV_OPS[key]
+
+
+class _SepAtLevel(torch.autograd.Function):
+    """op_h @ x @ op_w^T at a reduced level, H side first, as the JAX
+    package's ``_apply_sep`` contracts. Its backward is the transposed
+    chain at the same level, W side first (the transpose of the forward's
+    two contractions), as a dot's transpose keeps its precision in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, op_h, op_w, ph, pw, level):
+        ctx.save_for_backward(op_h, op_w, ph, pw)
+        ctx.level = level
+        y = level_matmul(op_h, x, level, a_pieces=tuple(ph))
+        return level_matmul(y, op_w.T, level,
+                            b_pieces=tuple(t.T for t in pw))
+
+    @staticmethod
+    def backward(ctx, g):
+        op_h, op_w, ph, pw = ctx.saved_tensors
+        gw = level_matmul(g, op_w, ctx.level, b_pieces=tuple(pw))
+        dx = level_matmul(op_h.T, gw, ctx.level,
+                          a_pieces=tuple(t.T for t in ph))
+        return dx, None, None, None, None, None
+
+
+def _apply_sep(x: torch.Tensor, key_h: tuple, key_w: tuple) -> torch.Tensor:
+    """y = op_h @ x @ op_w^T over the last two axes at the current level,
+    the operators given by their ``_op`` keys (kind, N, factor); in
+    float32 (float64 for float64 input, so that gradcheck can hold the
+    chain)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    op_h, op_w = (_op(*k, x.device).to(dt) for k in (key_h, key_w))
+    if _AF_PRECISION == "highest":
+        y = torch.matmul(op_h, x.to(dt))
+        return torch.matmul(y, op_w.T).to(x.dtype)
+    ph, pw = (_op_pieces(*k, x.device, _AF_PRECISION).to(dt)
+              for k in (key_h, key_w))
+    return _SepAtLevel.apply(x.to(dt), op_h, op_w, ph, pw,
+                             _AF_PRECISION).to(x.dtype)

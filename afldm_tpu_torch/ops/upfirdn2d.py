@@ -14,8 +14,8 @@ StyleGAN-3 reference's plain PyTorch path
 (W first, then H) share the gain. The filter runs as a grouped
 ``F.conv2d`` (one filter shared by all channels) whose stride does the
 decimation; zero-stuffing is a reshape, padding and cropping ``F.pad``.
-Exact float32 needs ``set_af_precision("highest")`` on the card, which
-turns TF32 off for cuDNN.
+Exact float32 needs ``set_af_precision`` on the card, which turns TF32
+off for cuDNN at every level.
 """
 
 import numpy as np

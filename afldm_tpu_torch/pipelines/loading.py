@@ -16,7 +16,7 @@ from ..models.unet2d import UNet2DConfig, UNet2DModel
 from ..models.unet2d_condition import (UNet2DConditionConfig,
                                        UNet2DConditionModel)
 from ..models.vae import AutoencoderKL, AutoencoderKLConfig
-from ..ops.ideal_lpf import set_af_precision
+from ..ops import ideal_lpf
 from ..schedulers.ddim import DDIMScheduler
 from ..schedulers.i2sb import I2SBScheduler
 from .i2sb import I2SBLDMPipeline
@@ -61,14 +61,22 @@ def init_random_weights(module: torch.nn.Module, generator: torch.Generator):
                     / math.sqrt(fan_in))
 
 
+def _set_precision(level=None):
+    """Set the circulant products' level where one is given, else re-apply
+    the current one: either way TF32 goes off for matmuls and cuDNN."""
+    ideal_lpf.set_af_precision(level or ideal_lpf.af_precision())
+
+
 def init_random_pipeline(unet_config, vae_config, scheduler_config,
-                         seed: int = 0, device=None,
-                         cls=LDMPipeline) -> LDMPipeline:
+                         seed: int = 0, device=None, cls=LDMPipeline,
+                         af_precision=None) -> LDMPipeline:
     """Configs may be dataclasses or diffusers-style dicts (the UNet dict is
     read as alias-free, like the JAX package's loader). ``cls`` is
     ``LDMPipeline`` (DDIM) or ``I2SBLDMPipeline`` (``I2SBScheduler``, e.g.
-    from ``configs/sr/i2sb_scheduler.json``). Sets exact float32
-    (``set_af_precision("highest")``)."""
+    from ``configs/sr/i2sb_scheduler.json``). ``af_precision``
+    ('highest' | 'high' | 'default') sets the circulant products' level;
+    None leaves it as it is. TF32 is switched off either way."""
+    _set_precision(af_precision)
     sched_cls = I2SBScheduler if cls is I2SBLDMPipeline else DDIMScheduler
     return cls(*_random_modules(UNet2DConfig, UNet2DModel, unet_config,
                                 vae_config, seed, device),
@@ -103,7 +111,8 @@ def _fail_on_missing(ckpt, missing, allow_random):
 
 def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
                   scheduler_config=None, use_ema: bool = True,
-                  allow_random: bool = False) -> LDMPipeline:
+                  allow_random: bool = False,
+                  af_precision=None) -> LDMPipeline:
     """A pipeline from a directory that this port's trainers'
     ``save_pipeline`` wrote: its config JSONs and the newest
     ``checkpoint-{step}`` (the EMA UNet where ``use_ema`` and it was
@@ -112,7 +121,10 @@ def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
     own). A directory without a checkpoint, or a checkpoint without UNet
     or VAE weights, raises unless ``allow_random``, which keeps the random
     weights (seed 0) of what is missing: a wrong path never scores random
-    weights unasked. Orbax directories of the JAX package are not read."""
+    weights unasked. Orbax directories of the JAX package are not read.
+    ``af_precision`` ('highest' | 'high' | 'default') is the serving knob
+    of the circulant products' level, as in the JAX package; None leaves
+    the level as it is (a CLI may have set it)."""
     if scheduler_config is None:
         has = os.path.exists(os.path.join(pipeline_dir,
                                           "scheduler_config.json"))
@@ -121,7 +133,8 @@ def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
     ckpt, state = _restore_latest(pipeline_dir, allow_random)
     pipe = init_random_pipeline(_read_json(pipeline_dir, "unet_config.json"),
                                 _read_json(pipeline_dir, "vae_config.json"),
-                                scheduler_config, device=device, cls=cls)
+                                scheduler_config, device=device, cls=cls,
+                                af_precision=af_precision)
     if state is None:
         return pipe
     key = "unet_ema" if use_ema and state.get("unet_ema") else "unet"
@@ -151,7 +164,7 @@ def load_sd_components(pipeline_dir, device=None,
     JSON, else off), as the JAX package reads them."""
     from ..models.text_encoder import TextEncoder
     device = resolve_device(device)
-    set_af_precision("highest")
+    _set_precision()
     ucfg = UNet2DConditionConfig.from_diffusers(
         _read_json(pipeline_dir, "unet_config.json"))
     vcfg = AutoencoderKLConfig.from_diffusers(
@@ -238,7 +251,7 @@ def _random_modules(config_cls, unet_cls, unet_config, vae_config, seed,
     """(vae, unet[, controlnet]) with weights drawn from ``seed`` (UNet,
     VAE, ControlNet in turn), on ``device``."""
     device = resolve_device(device)
-    set_af_precision("highest")
+    _set_precision()
     if isinstance(unet_config, dict):
         unet_config = config_cls.from_diffusers(unet_config, alias_free=True)
     if isinstance(vae_config, dict):

@@ -15,7 +15,8 @@ program, measured once in a subprocess with ``--device cpu`` and cached in
 best earlier run is flagged on stderr. ``--full`` also writes
 ``results/bench_torch_extra.json``: the b1 and b8 denoise with FLOPs per
 step, TFLOP/s and the share of the 67 TFLOP/s f32 peak; AF-VAE
-encode+decode images/s at b4, 256 px; the SD UNet at b2, 50 steps.
+encode+decode images/s at b4, 256 px, exact and with the circulant products
+at ``af_precision`` 'high'; the SD UNet at b2, 50 steps.
 
   python -m afldm_tpu_torch.scripts.bench [--full]     # on the card
 """
@@ -252,6 +253,15 @@ def main(argv=None):
                                      "on the CPU; FFTs not counted")
         extras["vae_enc_dec_b4_f32_img_per_s"] = measure_vae(
             device=args.device)
+        # the circulant products at 'high' (3 bf16 passes a product, the
+        # filtered activations' bf16 kernels); the headline stays exact
+        from ..ops import set_af_precision
+        set_af_precision("high")
+        try:
+            extras["vae_enc_dec_b4_f32_high_img_per_s"] = measure_vae(
+                device=args.device)
+        finally:
+            set_af_precision("highest")
         extras["sd_unet_denoise_b2_steps_per_s"] = measure_sd(
             device=args.device)
         print(f"vae b4: {extras['vae_enc_dec_b4_f32_img_per_s']} img/s; sd "

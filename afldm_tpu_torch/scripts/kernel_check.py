@@ -16,7 +16,10 @@ since it runs the same chain, K2's).
 
 Prints chip_smoke's ``check ...`` line per shape and each kernel's sums
 over the shapes run, and exits non-zero if a kernel disagrees with its
-plain version.
+plain version. The filtered activation's kernels are also run in their
+bf16 variants at the reduced precision levels ('high', 'default'), as
+chip_smoke's phase 30 runs them, beside the f32 kernel (where the
+checkout's chip_smoke has that phase).
 """
 
 import argparse
@@ -75,9 +78,17 @@ def main(argv=None):
     report = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                       library_ms=None) for k in smoke.KERNELS}
     ok = smoke.check_kernels(torch, report)
+    if hasattr(smoke, "check_level_kernels"):
+        level_names = [k for k in smoke.LEVEL_KERNELS if k in smoke.KERNELS]
+        report.update({f"{k}:{level}": dict(max_abs_err=0.0, rms_ratio=0.0,
+                                            ms=0.0, plain_ms=0.0,
+                                            bound_ms=0.0, library_ms=None)
+                       for k in level_names for level in smoke.LEVELS})
+        ok &= smoke.check_level_kernels(torch, report, level_names)
     for k, row in report.items():  # an older chip_smoke logs no sums
         lib = row["library_ms"]
-        print(f"kernel_check sum {k} over {len(smoke.KERNELS[k]['shapes'])} "
+        shapes = smoke.KERNELS[k.split(":")[0]]["shapes"]
+        print(f"kernel_check sum {k} over {len(shapes)} "
               f"shapes: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library "
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "

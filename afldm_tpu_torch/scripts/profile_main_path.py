@@ -77,16 +77,20 @@ def i2sb_trainer(device=None, seed: int = 0):
     return tr, ds
 
 
-def afvae_trainer(device=None, seed: int = 0):
+def afvae_trainer(device=None, seed: int = 0, af_precision=None):
     """The VAE trainer of ``configs/vae/train_afvae_imagenet.json`` as it
     stands (the AF-VAE of ``model_afvae.json`` at 256 px, batch 4, shift
     loss, no GAN, gradient accumulation 2), prepared with random weights
     from ``seed``, and its dataset: without its train_data_dir
-    ``make_dataset`` gives SyntheticDataset. Returns (trainer, dataset)."""
+    ``make_dataset`` gives SyntheticDataset. ``af_precision`` replaces the
+    config's level of the circulant products. Returns (trainer,
+    dataset)."""
     from .. import train as T
     cfgs = T.load_training_config(str(CONFIGS / "vae" /
                                       "train_afvae_imagenet.json"))
     base, cfg = cfgs["base"], cfgs["vae"]
+    if af_precision is not None:
+        base.af_precision = af_precision
     cfg.model_cfg = str(CONFIGS.parent / cfg.model_cfg)
     tr = T.create_trainer("vae", base, cfg, device=device)
     tr.init_modules()

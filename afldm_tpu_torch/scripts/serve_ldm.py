@@ -32,23 +32,21 @@ def parse_args(argv=None):
                    help="'cuda' (the default) or 'cpu'")
     p.add_argument("--af_precision", default="highest",
                    choices=["highest", "high", "default"],
-                   help="only 'highest' (exact f32) is ported")
+                   help="circulant products' level: 'highest' exact f32, "
+                        "'high' 3 bf16 passes, 'default' 1")
     return p.parse_args(argv)
 
 
 def build_pipeline(args):
     from ..pipelines import init_random_pipeline, load_pipeline
-    if args.af_precision != "highest":
-        raise NotImplementedError(
-            f"--af_precision {args.af_precision}: only 'highest' (exact "
-            f"f32) is ported; the TF32/bf16 levels need the port's own "
-            f"accuracy check first")
     if args.pipeline_dir:
-        return load_pipeline(args.pipeline_dir, device=args.device)
+        return load_pipeline(args.pipeline_dir, device=args.device,
+                             af_precision=args.af_precision)
     ucfg, vcfg, scfg = load_configs(tiny=args.tiny)
     if args.tiny:
         vcfg.update(TINY_VAE)
-    return init_random_pipeline(ucfg, vcfg, scfg, seed=0, device=args.device)
+    return init_random_pipeline(ucfg, vcfg, scfg, seed=0, device=args.device,
+                                af_precision=args.af_precision)
 
 
 def main(argv=None):

@@ -7,6 +7,10 @@ shift.
       --shift_steps 16                      # on the card
   python -m afldm_tpu_torch.scripts.shift_ldm_ffhq --tiny --device cpu \\
       --num_inference_steps 2 --shift_steps 2
+  python -m afldm_tpu_torch.scripts.shift_ldm_ffhq --af_precision high
+
+``--af_precision`` sets the level of the circulant products for the run
+(``ops.set_af_precision``).
 """
 
 import argparse
@@ -47,6 +51,10 @@ def parse_args(argv=None):
                    help="tiny random model for smoke runs")
     p.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
+    p.add_argument("--af_precision", default="highest",
+                   choices=["highest", "high", "default"],
+                   help="circulant products' level: 'highest' exact f32, "
+                        "'high' 3 bf16 passes, 'default' 1")
     return p.parse_args(argv)
 
 
@@ -54,7 +62,8 @@ def main(argv=None):
     from ..pipelines import init_random_pipeline, shift_equivariance_eval
     args = parse_args(argv)
     pipe = init_random_pipeline(*load_configs(args.tiny), seed=0,
-                                device=args.device)
+                                device=args.device,
+                                af_precision=args.af_precision)
     gen = torch.Generator(pipe.device).manual_seed(0)
     res = shift_equivariance_eval(
         pipe, generator=gen, num_inference_steps=args.num_inference_steps,

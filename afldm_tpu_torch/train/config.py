@@ -4,8 +4,7 @@ copy of ``afldm_tpu/train/config.py``: the same dataclasses and fields, so
 the repository's training JSONs load unchanged; unknown fields (e.g.
 xformers flags) are accepted and ignored. Fields that select features this
 port does not have yet (``mixed_precision="bf16"``, ``model_parallel`` > 1,
-``fsdp``, ``af_precision`` other than "highest") load, and the trainer
-raises on them."""
+``fsdp``) load, and the trainer raises on them."""
 
 import json
 from dataclasses import dataclass, field, fields
@@ -37,7 +36,7 @@ class BaseTrainingConfig:
     # outputs of matmuls and convolutions and recomputes the rest
     remat_policy: str = "full"
     # precision of the alias-free circulant products: "highest" (exact
-    # float32, the only level of this port so far)
+    # float32), "high" (3 bf16 passes a product) or "default" (1)
     af_precision: str = "highest"
     # tensor-parallel size (1: one card; more raises in this port)
     model_parallel: int = 1

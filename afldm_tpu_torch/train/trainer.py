@@ -159,8 +159,9 @@ class Trainer(abc.ABC):
         self.cfg = cfg
         if base_cfg.mixed_precision == "bf16":
             raise NotImplementedError(
-                "mixed_precision='bf16' is not ported yet: the kernels are "
-                "float32")
+                "mixed_precision='bf16' is not ported yet: the kernels take "
+                "float32 activations (bf16 activations through all nine "
+                "kernels, with set_af_bf16_split, come next)")
         if (getattr(base_cfg, "model_parallel", 1) or 1) > 1:
             raise NotImplementedError("model_parallel > 1 is not ported: "
                                       "the port trains on one card")

@@ -157,12 +157,37 @@ Phases, each of which fails the run:
     (one LOAD pass) and with ``batch_shifts=False`` (one pass a shift) from
     the same latent, counters set to 0 just before the pair and read just
     after: per-shift PSNRs within 0.01 dB of each other, K5, K1 and K3
+    launched;
+30. the bf16 tensor-core variants of K5, K1, K5b and K2 at the reduced
+    precision levels 'high' and 'default', at every shape of their
+    KERNELS rows up to 512 px (above it the f32 kernels run at every
+    level), against their plain versions at the same level on the card:
+    RMS(kernel - plain) at most LEVEL_RMS_RATIO of the level's own RMS
+    error (plain at the level against plain at 'highest'), max |kernel -
+    plain| at most the level's own max error; each timed beside its
+    plain version and its bound (1 or 3 passes at the bf16 dense tensor
+    peak, or the bytes), a row of its own in the kernels line; and the
+    plain resamplers (``upsample_rfft`` / ``downsample_rfft``, whose
+    products split with ``torch.matmul`` at a reduced level) timed at each
+    level at the AF-VAE's shapes;
+31. ``scripts.eval_af_precision`` at full width (the FFHQ UNet and AF-VAE
+    at 256 px, random weights from seed 0): ``--afp_steps`` DDIM steps
+    (default 50) and ``--afp_shifts`` shifts (default 8) at 'highest',
+    'high' and 'default', each on a fresh pipeline with the counters set to
+    0 just before and read just after: wall, peak memory, per-shift PSNRs
+    and the dB deltas logged (random weights: not gated), PSNRs finite,
+    and at each level K5 and K1 launched in that level's variant;
+32. the AF-VAE trainer of ``configs/vae/train_afvae_imagenet.json`` from
+    one start at 'highest', 'high' and 'default', ``--afp_vae_steps``
+    micro-steps each (default 4), counters set to 0 just before and read
+    just after: losses finite, their relative gaps to 'highest' logged,
+    and at each reduced level all four of its variants (K5, K1, K5b, K2)
     launched.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
-full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20, 22, 26, 28
-and 29), the last the device JSON. Exits non-zero without a GPU or without the package
-beside it.
+full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20, 22, 26, 28,
+29, 31 and 32), the last the device JSON. Exits non-zero without a GPU or
+without the package beside it.
 """
 
 import argparse
@@ -175,6 +200,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 without tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 dense tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 # the K4 pair's shapes (images, heads, L, D, K/V images). The first three
@@ -587,6 +613,163 @@ def log_sums(name, row, over):
         f"{row['plain_ms']:.4f} ms, library "
         f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
         f"{row['bound_ms']:.4f} ms")
+
+
+# -- phase 30: the reduced precision levels' bf16 variants -----------------
+
+LEVELS = ("high", "default")
+# the filtered activation's kernels with a bf16 variant a level, and the
+# functions that name each: (kernel call, plain version, work)
+LEVEL_KERNELS = ("filtered_act_plane", "filtered_act_banded",
+                 "filtered_act_plane_bwd", "filtered_act_banded_bwd")
+# a variant agrees with its plain version at its level when the RMS of
+# their difference is at most this share of the level's own RMS error, and
+# their max difference at most the level's own max error: the tensor core
+# sums in another order than the plain version's exactly rounded sums, and
+# a last-bit change of an f32 intermediate moves its bf16 split by one bf16
+# ulp of lo ('high') or hi ('default') at a few elements, so the max is
+# bounded loosely and the RMS tightly
+LEVEL_RMS_RATIO = 0.25
+LEVEL_PASSES = {"high": 3, "default": 1}
+
+
+def level_bound_ms(flops, nbytes, level):
+    """The bound of a bf16 variant: its products' FLOPs times the level's
+    passes at the bf16 dense tensor peak, or its bytes over HBM."""
+    t_ops = LEVEL_PASSES[level] * flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _level_case(torch, name, shape, dev, g):
+    """(kernel call, plain version at a level, work) of a level row."""
+    from afldm_tpu_torch.ops import filtered_act as FA
+    x = torch.randn(shape, device=dev, generator=g)
+    fn = getattr(FA, name)
+    plain = getattr(FA, f"{name}_plain")
+    if name.endswith("_bwd"):
+        gr = torch.randn(shape, device=dev, generator=g)
+        return (lambda: fn(x, gr, "silu"),
+                lambda level: plain(x, gr, "silu", level),
+                filtered_act_bwd_work(shape))
+    return (lambda: fn(x, "silu"), lambda level: plain(x, "silu", level),
+            filtered_act_work(shape))
+
+
+def level_launch_plan(name, shape):
+    """The bf16 variant's launch plan at ``shape`` as a log suffix: the
+    plane kernels' planes a block and shared bytes, the banded chains'
+    chunks and each GEMM's block tile."""
+    from afldm_tpu_torch.ops import filtered_act as FA
+    n, c, h, w = shape
+    if name.startswith("filtered_act_plane"):
+        plan = FA.plane_mma_plan(h, w, n * c, name.endswith("_bwd"))
+        return (f"; plan P {plan.planes_per_block}, {plan.threads} threads, "
+                f"smem {plan.smem_bytes} B")
+    products = (FA.banded_mma_bwd_products if name.endswith("_bwd")
+                else FA.banded_mma_products)
+    plan = FA.banded_plan(h, w, n * c, FA.BANDED_SCRATCH_BYTES, products)
+    tiles = "; ".join(
+        f"{ch.planes} planes: " + " ".join(str(t) for t in ch.tiles)
+        for ch in {ch.planes: ch for ch in plan}.values())
+    return f"; plan {len(plan)} chunks, tiles ({tiles})"
+
+
+# the plain resamplers at the AF-VAE's shapes: its decoder's three
+# upsamplers in the serving protocol (batch 9: the base and 8 shifts) and
+# its encoder's first downsampler in the VAE trainer (batch 4)
+RESAMPLER_SHAPES = (("up", (9, 512, 32, 32)), ("up", (9, 512, 64, 64)),
+                    ("up", (9, 256, 128, 128)), ("down", (4, 128, 256, 256)))
+
+
+def time_resamplers(torch):
+    """The plain resamplers at each level: time and the RMS of the change
+    from 'highest' over the output's RMS (logged, not gated)."""
+    from afldm_tpu_torch.ops import ideal_lpf as L
+    g = torch.Generator("cuda").manual_seed(0)
+    for op, shape in RESAMPLER_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=g)
+        fn = L.upsample_rfft if op == "up" else L.downsample_rfft
+        times, outs = {}, {}
+        try:
+            with torch.inference_mode():
+                for level in ("highest", *LEVELS):
+                    L.set_af_precision(level)
+                    outs[level] = fn(x, 2)
+                    times[level] = time_ms(lambda: fn(x, 2))
+        finally:
+            L.set_af_precision("highest")
+        scale = float(outs["highest"].double().pow(2).mean().sqrt())
+        rel = {lv: float((outs[lv] - outs["highest"]).double().pow(2).mean()
+                         .sqrt()) / scale for lv in LEVELS}
+        log(f"resampler {op} {shape}: " + ", ".join(
+            f"{lv} {times[lv]:.4f} ms" for lv in times) + "; RMS change "
+            "from highest / output RMS: " + ", ".join(
+                f"{lv} {rel[lv]:.3e}" for lv in LEVELS))
+        del x, outs
+        torch.cuda.empty_cache()
+
+
+def check_level_kernels(torch, report, names=LEVEL_KERNELS):
+    """Phase 30: each bf16 variant at each level against its plain version
+    at that level, timed; fills the level rows of ``report``."""
+    from afldm_tpu_torch.ops import filtered_act as FA
+    from afldm_tpu_torch.ops import set_af_precision
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    ok = True
+    for name in names:
+        for level in LEVELS:
+            row = report[f"{name}:{level}"]
+            split = {"operations": 0.0, "bytes": 0.0}
+            for shape in KERNELS[name]["shapes"]:
+                if max(shape[-2:]) > FA.LEVEL_MAX:
+                    log(f"check {name}:{level} {shape}: n/a, above "
+                        f"{FA.LEVEL_MAX} px the f32 kernel runs at every "
+                        "level")
+                    continue
+                run, plain, work = _level_case(torch, name, shape, dev, g)
+                try:
+                    set_af_precision(level)
+                    got, want = run(), plain(level)
+                    exact = plain("highest")
+                    own = want - exact
+                    own_rms = float(own.double().pow(2).mean().sqrt())
+                    own_max = float(own.abs().max())
+                    del own, exact
+                    d = got - want
+                    err_rms = float(d.double().pow(2).mean().sqrt())
+                    err = float(d.abs().max())
+                    del d, got, want
+                    ratio = err_rms / own_rms if own_rms else float("inf")
+                    good = ratio <= LEVEL_RMS_RATIO and err <= own_max
+                    t = time_ms(run)
+                    tp = time_ms(lambda: plain(level))
+                finally:
+                    set_af_precision("highest")
+                b, by = level_bound_ms(*work, level)
+                log(f"check {name}:{level} {shape}: RMS ratio {ratio:.4f} "
+                    f"(limit {LEVEL_RMS_RATIO}; RMS err {err_rms:.3e}, "
+                    f"level's own RMS {own_rms:.3e}), max_abs_err {err:.3e} "
+                    f"(limit: the level's own max {own_max:.3e}) "
+                    f"{'ok' if good else 'FAIL'}; kernel {t:.4f} ms, plain "
+                    f"{tp:.4f} ms, bound {b:.4f} ms ({by}-bound, "
+                    f"{LEVEL_PASSES[level]} x {work[0] / 1e9:.3f} GFLOP, "
+                    f"{work[1] / 1e6:.3f} MB)"
+                    f"{level_launch_plan(name, shape)}")
+                ok &= bool(good)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["rms_ratio"] = max(row["rms_ratio"], ratio)
+                row["ms"] += t
+                row["plain_ms"] += tp
+                row["bound_ms"] += b
+                split[by] += b
+                del run, plain
+                torch.cuda.empty_cache()
+            row["bound_by"] = max(split, key=split.get)
+            log_sums(f"{name}:{level}", row, "its shapes")
+    return ok
 
 
 def check_tiny_reference(torch):
@@ -1953,6 +2136,100 @@ def run_sequential_protocol(torch, pipe, n_shifts=4, steps=10):
     return ok, counts
 
 
+def _level_suffix(level):
+    return "" if level == "highest" else f":{level}"
+
+
+def run_af_precision_eval(torch, steps, shifts):
+    """Phase 31: ``scripts.eval_af_precision`` at full width, each level on
+    a fresh pipeline. Returns (ok, [counts of each level's run])."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.scripts import eval_af_precision as E
+    ok, psnrs, runs = True, {}, []
+    for level in ("highest", "high", "default"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = E.eval_level(level, eval_steps=steps, shift_steps=shifts,
+                           device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        runs.append(counts)
+        psnrs[level] = res.psnrs
+        sfx = _level_suffix(level)
+        need = [f"filtered_act_plane{sfx}", f"filtered_act_banded{sfx}"]
+        finite = bool(np.isfinite(res.psnrs).all())
+        log(f"af_precision eval {level}: {shifts} shifts at {steps} steps in "
+            f"{wall:.2f} s wall (pipeline build included); peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"PSNRs (dB) " + " ".join(f"{p:.4f}" for p in res.psnrs)
+            + f"; launches " + ", ".join(f"{k} {counts[k]}" for k in need)
+            + f"; finite: {finite}")
+        missing = [k for k in need if counts[k] == 0]
+        if missing:
+            log(f"af_precision eval {level}: FAIL, never launched: {missing}")
+        ok &= finite and not missing
+    rows = E.summarize(psnrs, steps, shifts)
+    log("af_precision eval (random weights, deltas not gated): "
+        + json.dumps({k: v for k, v in rows.items()
+                      if not isinstance(v, dict)}))
+    if not ok:
+        log("af_precision eval: FAIL")
+    return ok, runs
+
+
+def run_vae_training_level(torch, n_steps):
+    """Phase 32: the full-width AF-VAE trainer from one start at 'highest',
+    'high' and 'default'. Returns (ok, [counts of each run])."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch import train as T
+    from afldm_tpu_torch.ops import set_af_precision
+    from afldm_tpu_torch.scripts.profile_main_path import afvae_trainer
+    losses, runs, ok = {}, [], True
+    for level in ("highest", *LEVELS):
+        try:
+            tr, ds = afvae_trainer(device="cuda", seed=0, af_precision=level)
+            batches = T.epoch_batches(ds, tr.base_cfg.train_batch_size,
+                                      seed=0)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses[level] = [tr.training_step(step, next(batches))
+                             for step in range(n_steps)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.LAUNCHES)
+        finally:
+            set_af_precision("highest")
+        runs.append(counts)
+        sfx = _level_suffix(level)
+        need = [f"{k}{sfx}" for k in LEVEL_KERNELS]
+        log(f"VAE training at {level}: {n_steps} micro-steps in {wall:.2f} s "
+            f"wall; losses " + json.dumps(losses[level]) + "; launches "
+            + ", ".join(f"{k} {counts[k]}" for k in need))
+        missing = [k for k in need if counts[k] == 0]
+        if missing:
+            log(f"VAE training at {level}: FAIL, never launched: {missing}")
+        finite = all(np.isfinite(v) for d in losses[level]
+                     for v in d.values())
+        ok &= finite and not missing
+        del tr, ds, batches
+        torch.cuda.empty_cache()
+    for level in LEVELS:
+        gaps = {k: max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-30)
+                       for a, b in zip(losses["highest"], losses[level]))
+                for k in losses["highest"][0]}
+        log(f"VAE training {level} vs highest, max relative loss gap over "
+            "the micro-steps (logged, not gated): " + json.dumps(gaps))
+    if not ok:
+        log("VAE training at the levels: FAIL")
+    return ok, runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -1995,6 +2272,15 @@ def main(argv=None):
     ap.add_argument("--eq_steps", type=int, default=20,
                     help="DDIM steps of each EQ generation (default 20, the "
                          "CLI's)")
+    ap.add_argument("--afp_steps", type=int, default=50,
+                    help="DDIM steps of the full-width af_precision eval "
+                         "(default 50, the CLI's)")
+    ap.add_argument("--afp_shifts", type=int, default=8,
+                    help="shifts of the full-width af_precision eval "
+                         "(default 8, the CLI's)")
+    ap.add_argument("--afp_vae_steps", type=int, default=4,
+                    help="micro-steps of the AF-VAE trainer at each level "
+                         "(default 4)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2031,6 +2317,10 @@ def main(argv=None):
                       ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
                       library_ms=None)
               for k, v in KERNELS.items()}
+    for k in LEVEL_KERNELS:  # the bf16 variants: rows of their own
+        for level in LEVELS:
+            report[f"{k}:{level}"] = dict(
+                report[k], name=f"{k}:{level}", rms_ratio=0.0)
     ok = check_kernels(torch, report)
     ok &= check_tiny_reference(torch)
     main_ok, counts = run_main_path(torch, args.steps)
@@ -2097,9 +2387,19 @@ def main(argv=None):
     ok &= seq_ok
     del eq_pipe
     torch.cuda.empty_cache()
+    ok &= check_level_kernels(torch, report)
+    time_resamplers(torch)
+    afp_ok, afp_counts = run_af_precision_eval(torch, args.afp_steps,
+                                               args.afp_shifts)
+    ok &= afp_ok
+    torch.cuda.empty_cache()
+    vlev_ok, vlev_counts = run_vae_training_level(torch, args.afp_vae_steps)
+    ok &= vlev_ok
+    torch.cuda.empty_cache()
     runs = (counts, train_counts, vae_counts, interp_counts, sd_counts,
             sweep_counts, head_counts, serve_counts, sr_counts, video_counts,
-            normal_counts, *new_counts, eq_counts, seq_counts)
+            normal_counts, *new_counts, eq_counts, seq_counts, *afp_counts,
+            *vlev_counts)
     for k, row in report.items():
         row["launches"] = sum(c[k] for c in runs)
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

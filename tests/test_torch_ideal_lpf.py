@@ -135,9 +135,18 @@ def test_below_4d_gets_plain_activation(rng):
 
 
 def test_set_af_precision_turns_tf32_off():
-    torch.backends.cudnn.allow_tf32 = True
-    T.set_af_precision("highest")
-    assert not torch.backends.cudnn.allow_tf32
-    assert not torch.backends.cuda.matmul.allow_tf32
-    with pytest.raises(ValueError):
-        T.set_af_precision("high")
+    """Every level switches TF32 off for matmuls and cuDNN (the level
+    governs the circulant products only); an unknown name raises."""
+    try:
+        for level in ("highest", "high", "default"):
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            T.set_af_precision(level)
+            assert T.af_precision() == level
+            assert not torch.backends.cudnn.allow_tf32
+            assert not torch.backends.cuda.matmul.allow_tf32
+        with pytest.raises(ValueError, match="bogus"):
+            T.set_af_precision("bogus")
+        assert T.af_precision() == "default"
+    finally:
+        T.set_af_precision("highest")

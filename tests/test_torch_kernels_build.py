@@ -137,12 +137,13 @@ def test_kernel_check_needs_a_checkout_and_a_card(where, tmp_path,
 
 
 def _kernel_body(src, name):
-    """The text of ``__global__`` kernel ``name`` up to the next kernel or
-    entry point, comments removed."""
+    """The text of ``__global__`` kernel ``name`` up to the next kernel,
+    struct or entry point, comments removed."""
     code = re.sub(r"//[^\n]*", "", src)
     start = code.index(f"{name}(")
     end = min(i for i in (code.find("__global__", start),
-                          code.find('extern "C"', start)) if i > 0)
+                          code.find('extern "C"', start),
+                          code.find("\nstruct ", start)) if i > 0)
     return code[start:end]
 
 
@@ -151,8 +152,10 @@ def test_plane_kernel_on_the_filtered_tile():
     (every operand staged in shared memory with 16-byte cp.async; K5b's
     act′ ⊙ product in the epilogue that reads C); block_gemm is gone from
     the file; K1 is four and K2 six launches of the tiled GEMM of
-    filtered_gemm.cuh, with no kernel of their own. None of them uses
-    tensor cores (no wmma, mma.sync, wgmma or TF32)."""
+    filtered_gemm.cuh, with no kernel of their own. None of these f32
+    kernels uses tensor cores (no wmma, mma.sync, wgmma or TF32): the bf16
+    variants of the reduced precision levels do, through filtered_mma.cuh
+    alone (test_level_variants_on_the_mma_routine)."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
     assert '#include "filtered_tile.cuh"' in src
     assert '#include "filtered_gemm.cuh"' in src
@@ -179,8 +182,74 @@ def test_plane_kernel_on_the_filtered_tile():
     assert "kReadsC" in tile
     assert "cp.async.cg.shared.global" in gemm and "float4" in gemm
     assert "fmaf(" in gemm and "__syncthreads" in gemm
-    for absent in ("wmma", "mma.sync", "tf32", "wgmma"):
-        assert absent not in (tile + gemm + code).lower(), absent
+    gemm_f32 = gemm[gemm.index("filtered_gemm_kernel"):
+                    gemm.index("filtered_gemm_mma_kernel")]
+    f32_code = k5 + k5b + k1 + k2
+    for absent in ("wmma", "mma.sync", "mma_", "ldmatrix", "tf32", "wgmma",
+                   "bfloat16"):
+        assert absent not in (tile + gemm_f32 + f32_code).lower(), absent
+
+
+def test_level_variants_on_the_mma_routine():
+    """The reduced levels' variants: K5's four products and K5b's four,
+    two of them fused (pre-activation and cotangent over one tile), run
+    through filtered_mma.cuh's warp tile (ldmatrix fragments, mma.sync
+    m16n8k16 bf16, 1 or 3 passes); K1 is four and K2 six launches of the
+    GEMM's bf16 variant; no TF32 and no wgmma anywhere."""
+    src = (kernels.CSRC / "filtered_act.cu").read_text()
+    assert '#include "filtered_mma.cuh"' in src
+    k5 = _kernel_body(src, "filtered_act_plane_mma_kernel")
+    assert k5.count("mma_product<") == 4 and "stage_split(" in k5
+    k5b = _kernel_body(src, "filtered_act_plane_bwd_mma_kernel")
+    assert k5b.count("mma_product<") == 4
+    assert k5b.count("mma_product2<") == 1
+    assert k5b.count("MulActGradToPieces{") == 1
+    k1 = _kernel_body(src, "filtered_act_banded_bf16")
+    assert "<<<" not in k1 and k1.count("filtered_gemm_mma<") == 4
+    k2 = _kernel_body(src, "filtered_act_banded_bwd_bf16")
+    assert "<<<" not in k2 and k2.count("filtered_gemm_mma<") == 6
+    assert k2.count("MulActGrad{") == 1
+    mma = re.sub(r"//[^\n]*", "", (kernels.CSRC / "filtered_mma.cuh")
+                 .read_text())
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in mma
+    assert "__floats2bfloat162_rn" in mma and "PASSES == 3" in mma
+    gemm = re.sub(r"//[^\n]*", "", (kernels.CSRC / "filtered_gemm.cuh")
+                  .read_text())
+    assert "mma_bf16(" in gemm[gemm.index("filtered_gemm_mma_kernel"):]
+    code = re.sub(r"//[^\n]*", "", src)
+    for absent in ("tf32", "wgmma"):
+        assert absent not in (mma + gemm + code).lower(), absent
+
+
+def _entry_points(src):
+    """{name: number of parameters} of the ``extern "C"`` functions of a
+    source, comments removed."""
+    code = re.sub(r"//[^\n]*", "", src)
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', code):
+        out[m.group(1)] = len([a for a in m.group(2).split(",") if a.strip()])
+    return out
+
+
+@pytest.mark.parametrize("name", kernels.SOURCES)
+def test_entry_points_match_their_ctypes_signatures(name):
+    """Every C entry of a source has a ctypes signature of its own number
+    of arguments, and every signature names an entry: a missing or extra
+    argument would pass pointers as ints, or shift every argument."""
+    entries = _entry_points((kernels.CSRC / f"{name}.cu").read_text())
+    sigs = kernels._SIGNATURES[name]
+    assert set(entries) == set(sigs)
+    for fn, n in entries.items():
+        assert len(sigs[fn]) == n, fn
+
+
+def test_every_level_variant_has_launch_counts():
+    """One counter per kernel and reduced level, beside the f32 kernel's."""
+    for k in kernels.LEVEL_KERNELS:
+        assert k in kernels.LAUNCHES
+        for level in ("high", "default"):
+            assert f"{k}:{level}" in kernels.LAUNCHES
 
 
 def test_filtered_tile_edit_rebuilds_filtered_act(tmp_path, monkeypatch):

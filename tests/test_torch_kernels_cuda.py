@@ -928,3 +928,139 @@ def test_flash_probes_scalar_and_strided_staging(cuda, kind):
         want = plain(q, k, v)
         err = float((got - want).abs().max())
         assert err <= rel * float(want.abs().max()), (name, err)
+
+
+# -- the reduced precision levels: the bf16 tensor-core variants ------------
+
+# A variant agrees with its plain version at the same level when the RMS of
+# their difference is at most LEVEL_RMS_RATIO of the level's own RMS error
+# (plain at the level against plain at 'highest'), and their max difference
+# at most the level's own max error: the tensor core sums in another order
+# than cuBLAS, and a 1-ulp change of an f32 intermediate can move its bf16
+# split by one bf16 ulp of lo ('high') or of hi ('default') at a few
+# elements, so the max is bounded loosely and the RMS tightly.
+LEVEL_RMS_RATIO = 0.25
+
+
+def _rms(t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def assert_level_close(got, want, exact):
+    own_rms, own_max = _rms(want - exact), float((want - exact).abs().max())
+    assert own_rms > 0, "the level changed nothing"
+    err_rms, err_max = _rms(got - want), float((got - want).abs().max())
+    assert err_rms <= LEVEL_RMS_RATIO * own_rms, (err_rms, own_rms)
+    assert err_max <= own_max, (err_max, own_max)
+
+
+@pytest.fixture(params=["high", "default"])
+def level(request):
+    from afldm_tpu_torch.ops import set_af_precision
+    set_af_precision(request.param)
+    yield request.param
+    set_af_precision("highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 16, 32, 32), (2, 64, 4, 4), (1, 8, 64, 64), (1, 4, 12, 20),
+    (3, 5, 8, 8), (1, 7, 4, 64), (1, 192, 32, 32)])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+def test_plane_level_variant_matches_plain(cuda, level, shape, act):
+    x = torch.randn(shape, device=cuda)
+    got = _launches(f"filtered_act_plane:{level}",
+                    lambda: TF.filtered_act_plane(x, act))
+    assert_level_close(got, TF.filtered_act_plane_plain(x, act, level),
+                       TF.filtered_act_plane_plain(x, act, "highest"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 16, 32, 32), (2, 64, 4, 4), (1, 8, 64, 64), (1, 4, 12, 20),
+    (3, 5, 8, 8), (1, 7, 4, 64)])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+def test_plane_bwd_level_variant_matches_plain(cuda, level, shape, act):
+    x, g = (torch.randn(shape, device=cuda) for _ in range(2))
+    got = _launches(f"filtered_act_plane_bwd:{level}",
+                    lambda: TF.filtered_act_plane_bwd(x, g, act))
+    assert_level_close(got, TF.filtered_act_plane_bwd_plain(x, g, act, level),
+                       TF.filtered_act_plane_bwd_plain(x, g, act, "highest"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 96, 96), (2, 3, 128, 128),
+                                   (1, 2, 80, 80), (1, 3, 32, 128),
+                                   (1, 1, 200, 104)])
+def test_banded_level_variants_match_plain(cuda, level, shape):
+    x, g = (torch.randn(shape, device=cuda) for _ in range(2))
+    got = _launches(f"filtered_act_banded:{level}",
+                    lambda: TF.filtered_act_banded(x, "silu"))
+    assert_level_close(got, TF.filtered_act_banded_plain(x, "silu", level),
+                       TF.filtered_act_banded_plain(x, "silu", "highest"))
+    got = _launches(f"filtered_act_banded_bwd:{level}",
+                    lambda: TF.filtered_act_banded_bwd(x, g, "silu"))
+    assert_level_close(
+        got, TF.filtered_act_banded_bwd_plain(x, g, "silu", level),
+        TF.filtered_act_banded_bwd_plain(x, g, "silu", "highest"))
+
+
+@pytest.mark.cuda
+def test_banded_level_applies_up_to_512_px(cuda, level):
+    """Above LEVEL_MAX the f32 chain runs at every level, as the JAX
+    package filters exactly (spectrally) there."""
+    x = torch.randn(1, 1, 1024, 1024, device=cuda)
+    got = _launches("filtered_act_banded",
+                    lambda: TF.filtered_act_banded(x, "silu"))
+    torch.testing.assert_close(
+        got, TF.filtered_act_banded_plain(x, "silu", "highest"), atol=3e-5,
+        rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+@pytest.mark.parametrize("a_kmajor", [False, True])
+@pytest.mark.parametrize("small", [False, True])
+def test_gemm_level_variant_matches_plain(cuda, level, shape, a_kmajor,
+                                          small):
+    batch, M, N, K = shape
+    a = torch.randn((batch, K, M) if a_kmajor else (batch, M, K),
+                    device=cuda)
+    b = torch.randn(batch, K, N, device=cuda)
+    pre = torch.randn(batch, M, N, device=cuda)
+    got = _launches(f"filtered_gemm:{level}",
+                    lambda: TF.filtered_gemm(a, b, "silu", a_kmajor, small))
+    assert_level_close(
+        got, TF.filtered_gemm_plain(a, b, "silu", a_kmajor, None, level),
+        TF.filtered_gemm_plain(a, b, "silu", a_kmajor))
+    got = _launches(f"filtered_gemm:{level}",
+                    lambda: TF.filtered_gemm(a, b, "gelu", a_kmajor, small,
+                                             grad_at=pre))
+    assert_level_close(
+        got, TF.filtered_gemm_plain(a, b, "gelu", a_kmajor, pre, level),
+        TF.filtered_gemm_plain(a, b, "gelu", a_kmajor, pre))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (1, 4, 128, 128)])
+def test_level_functions_keep_the_forward_level(cuda, shape):
+    """The autograd Functions run the backward at the forward's level even
+    when the level changes in between."""
+    from afldm_tpu_torch.ops import set_af_precision
+    kind = "plane" if shape[-1] <= TF.PLANE_MAX else "banded"
+    x = torch.randn(shape, device=cuda, requires_grad=True)
+    try:
+        set_af_precision("high")
+        out = TF.filtered_act_fused(x, "silu")
+        set_af_precision("highest")
+        before = kernels.LAUNCHES[f"filtered_act_{kind}_bwd:high"]
+        out.backward(torch.ones_like(out))
+        torch.cuda.synchronize()
+    finally:
+        set_af_precision("highest")
+    assert kernels.LAUNCHES[f"filtered_act_{kind}_bwd:high"] == before + 1
+    plain = (TF.filtered_act_plane_bwd_plain if kind == "plane"
+             else TF.filtered_act_banded_bwd_plain)
+    g = torch.ones_like(x)
+    assert_level_close(x.grad, plain(x.detach(), g, "silu", "high"),
+                       plain(x.detach(), g, "silu", "highest"))

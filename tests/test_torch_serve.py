@@ -191,9 +191,14 @@ def test_serve_cli_builds_pipelines(tmp_path):
         ["--tiny", "--device", "cpu"]))
     assert pipe.unet.config.sample_size == 8
     assert pipe.vae.config.downsample_ratio == 2
-    with pytest.raises(NotImplementedError, match="highest"):
-        serve_ldm.build_pipeline(serve_ldm.parse_args(
+    from afldm_tpu_torch.ops import ideal_lpf
+    try:
+        pipe = serve_ldm.build_pipeline(serve_ldm.parse_args(
             ["--tiny", "--device", "cpu", "--af_precision", "high"]))
+        assert ideal_lpf.af_precision() == "high"
+        assert pipe.unet.config.sample_size == 8
+    finally:
+        ideal_lpf.set_af_precision("highest")
     with pytest.raises(FileNotFoundError, match="checkpoint"):
         serve_ldm.build_pipeline(serve_ldm.parse_args(
             ["--pipeline_dir", str(tmp_path), "--device", "cpu"]))
