@@ -38,6 +38,13 @@ LEVEL_KERNELS = ("filtered_act_plane", "filtered_act_banded",
                  "filtered_gemm")
 LAUNCHES.update({f"{k}:{level}": 0 for k in LEVEL_KERNELS
                  for level in ("high", "default")})
+# the variants that take bfloat16 activations, one count per variant they
+# shadow ("filtered_act_plane/bf16", "filtered_act_plane:high/bf16", ...)
+BF16_KERNELS = ("filtered_act_plane", "filtered_act_plane:high",
+                "filtered_act_plane:default", "filtered_act_banded",
+                "filtered_act_banded:high", "filtered_act_banded:default",
+                "flash_fwd", "flash2_fwd")
+LAUNCHES.update({f"{k}/bf16": 0 for k in BF16_KERNELS})
 
 _LIBS = {}
 
@@ -83,12 +90,25 @@ _SIGNATURES = {
         # as filtered_gemm_f32, with passes after small
         "filtered_gemm_bf16": [_P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P],
+        # bfloat16 x and out (``_xbf16``) beside the f32 kernel and the
+        # reduced levels' products (``_f32``, ``_bf16``): the same arguments
+        "filtered_act_plane_f32_xbf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                         _I, _I, _I, _I, _P],
+        "filtered_act_plane_bf16_xbf16": [*[_P] * 6, _I, _I, _I, _I, _I, _I,
+                                          _P],
+        "filtered_act_banded_f32_xbf16": [*[_P] * 7, _I, _I, _I, _I, _I,
+                                          _P],
+        "filtered_act_banded_bf16_xbf16": [*[_P] * 7, _I, _I, _I, _I, _I,
+                                           _I, _P],
     },
     "flash_fwd": {
         # q, k, v, out, lse, B1, B2, Lq, Lk, D,
         # q strides (b1, b2, l), k strides, v strides, scale, stream
         "flash_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+        # bfloat16 q, k, v and out, f32 lse: the same arguments
+        "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     },
     "flash_bwd": {
         # q, k, v, dO, lse, delta, dq, B1, B2, Lq, Lk, D,
@@ -105,6 +125,9 @@ _SIGNATURES = {
         # q, k0, v0, k1, v1 strides (b1, b2, l), scale, stream
         "flash2_fwd_f32": [*[_P] * 7, _I, _I, _I, _I, _I, *[_L] * 15, _F,
                            _P],
+        # bfloat16 q, k0, v0, k1, v1 and out, f32 alpha: the same arguments
+        "flash2_fwd_bf16": [*[_P] * 7, _I, _I, _I, _I, _I, *[_L] * 15, _F,
+                            _P],
     },
     "flash_probe": {
         # q, k, v, out, B1, B2, Lq, Lk, D, q, k, v strides (b1, b2, l),

@@ -131,10 +131,25 @@
 //     scratch intermediates as it loads them. The act and act′ ⊙ epilogues
 //     stay f32.
 // Making them faster (wgmma, TMA) is later work.
+//
+// bfloat16 activations (the ``_xbf16`` entries): the forward kernels K5 and
+// K1 at every level take a bf16 x and write a bf16 out, which is what the
+// TPU kernels do for a bf16 x (cast to f32 inside, the products at the
+// level, the result cast to x's dtype): out = bf16(f(f32(x))). Only the
+// edges change. K5 widens x as it stages it (8-byte loads of 4 elements,
+// plain loads and stores in place of the f32 kernel's cp.async, which
+// cannot convert; at the reduced levels stage_split splits the widened
+// values, whose lo pieces are zero) and its last product rounds each sum
+// to bf16 in the epilogue; in K1 the chain's first GEMM reads x as bf16
+// and its last writes out as bf16, the scratch intermediates staying f32.
+// Device memory sees half the bytes of x and out; the products are the
+// same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "filtered_gemm.cuh"
 #include "filtered_mma.cuh"
@@ -251,9 +266,9 @@ struct MulActGrad {
 // 4×4 micro-tiles in place of 8×4 (filtered_tile.cuh::product).
 // Operators, row-major as stored: uhT = U_hᵀ (H×2H), uwT = U_wᵀ (W×2W),
 // dwT = D_wᵀ (2W×W), dhT = D_hᵀ (2H×H).
-template <int THREADS>
+template <int THREADS, class T>
 __global__ void __launch_bounds__(THREADS, THREADS == 256 ? 2 : 1)
-filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
+filtered_act_plane_kernel(const T* __restrict__ x, T* __restrict__ out,
                           const float* __restrict__ uhT,
                           const float* __restrict__ uwT,
                           const float* __restrict__ dwT,
@@ -271,12 +286,17 @@ filtered_act_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
   float* big = op1 + lay.op;            // P × hiᵀ; x staged here first
   float* small = big + ppb * lay.big;   // P × tᵀ, then P × t
   const int ld2h = row_pad(2 * H), ldw = row_pad(W);
-  // x and U_hᵀ, then U_wᵀ, in flight together
-  const float* xg = x + p0 * HW;
+  // x and U_hᵀ, then U_wᵀ, in flight together (a bf16 x is widened by
+  // plain loads and stores, which the first barrier orders)
+  const T* xg = x + p0 * HW;
   const int c4 = HW / 4;
   for (int i = threadIdx.x; i < P * c4; i += blockDim.x) {
     const int p = i / c4, c = i - p * c4;
-    cp_async16(big + p * lay.big + 4 * c, xg + (long long)p * HW + 4 * c);
+    if constexpr (std::is_same<T, float>::value)
+      cp_async16(big + p * lay.big + 4 * c, xg + (long long)p * HW + 4 * c);
+    else
+      *reinterpret_cast<float4*>(big + p * lay.big + 4 * c) =
+          load4(xg + (long long)p * HW + 4 * c);
   }
   stage(op0, uhT, H * H / 2);
   cp_async_commit();
@@ -452,9 +472,11 @@ struct ToPieces {
 };
 
 // A product's result to device memory: rows < R and columns < C of P
-// row-major R × C planes ``ps`` floats apart.
+// row-major R × C planes ``ps`` elements apart, f32 or bf16 (rounded to
+// nearest even).
+template <class T>
 struct ToPlanes {
-  float* out;
+  T* out;
   int R, C;
   long long ps;
   __device__ __forceinline__ void operator()(int p, int r0, int c0,
@@ -462,9 +484,13 @@ struct ToPlanes {
                                              int lane) const {
     afldm_filtered::for_pairs(
         r0, c0, acc, lane, [&](int r, int c, float v0, float v1) {
-          if (r < R && c < C)
+          if (r >= R || c >= C) return;
+          if constexpr (std::is_same<T, float>::value)
             *reinterpret_cast<float2*>(out + p * ps + (long long)r * C + c) =
                 make_float2(v0, v1);
+          else
+            afldm_filtered::store2(out + p * ps + (long long)r * C + c, v0,
+                                   v1);
         });
   }
 };
@@ -490,10 +516,9 @@ struct MulActGradToPieces {
 // P planes a block of 256 threads, in _forward's order (tᵀ, hiᵀ, t, out as
 // the f32 kernel). Operators: the split blobs of U_hᵀ (H×2H), U_wᵀ (W×2W),
 // D_wᵀ (2W×W), D_hᵀ (2H×H), each (hi, lo) × pad16(rows) × mma_ld(cols).
-template <int PASSES>
+template <int PASSES, class T>
 __global__ void __launch_bounds__(256)
-filtered_act_plane_mma_kernel(const float* __restrict__ x,
-                              float* __restrict__ out,
+filtered_act_plane_mma_kernel(const T* __restrict__ x, T* __restrict__ out,
                               const __nv_bfloat16* __restrict__ uhT,
                               const __nv_bfloat16* __restrict__ uwT,
                               const __nv_bfloat16* __restrict__ dwT,
@@ -547,7 +572,7 @@ filtered_act_plane_mma_kernel(const float* __restrict__ x,
   // out = D_h · t                           (H × W), to device memory
   mma_product<PASSES>(piece(op1, 2 * H, H, 0), piece(small, 2 * H, W, lay.small),
                       P, pad16(H), pad16(W), pad16(2 * H),
-                      ToPlanes{out + p0 * HW, H, W, HW});
+                      ToPlanes<T>{out + p0 * HW, H, W, HW});
 }
 
 // dx = U_hᵀ · [act′(U_h · x · U_wᵀ) ⊙ (D_hᵀ · g · D_w)] · U_w at PASSES
@@ -626,7 +651,7 @@ filtered_act_plane_bwd_mma_kernel(const float* __restrict__ x,
   // dx = U_hᵀ · s = (U_h)ᵀ · s              (H × W), to device memory
   mma_product<PASSES>(piece(op1, 2 * H, H, 0), piece(small, 2 * H, W, lay.small),
                       P, pad16(H), pad16(W), pad16(2 * H),
-                      ToPlanes{dx + p0 * HW, H, W, HW});
+                      ToPlanes<float>{dx + p0 * HW, H, W, HW});
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -660,21 +685,140 @@ int launch_planes(void (*kernel)(Params...), int threads, size_t smem,
 
 }  // namespace
 
+namespace {
+
+// K5 (f32 products) on P planes a block of ``threads``; x and out of T.
+template <class T>
+int plane_f32(const T* x, T* out, const float* uhT, const float* uwT,
+              const float* dwT, const float* dhT, int nplanes, int H, int W,
+              int ppb, int tiles, int threads, int act, void* stream) {
+  // the rows of the products' results tᵀ, hiᵀ, t and out
+  const int rows[4] = {W, 2 * W, 2 * H, H};
+  const int err = check_plane_args(H, W, ppb, tiles, threads, rows, 4);
+  if (err != cudaSuccess) return err;
+  return launch_planes(threads == 256 ? &filtered_act_plane_kernel<256, T>
+                                      : &filtered_act_plane_kernel<512, T>,
+                       threads, PlaneLayout(H, W).floats(ppb) * sizeof(float),
+                       nplanes, ppb, (cudaStream_t)stream, x, out, uhT, uwT,
+                       dwT, dhT, nplanes, H, W, ppb, tiles, act);
+}
+
+// K5 at a reduced level (``passes`` bf16 passes a product); x and out of T.
+template <class T>
+int plane_bf16(const T* x, T* out, const __nv_bfloat16* uhT,
+               const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
+               const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppb,
+               int passes, int act, void* stream) {
+  if (H % 4 || W % 4 || ppb < 1 || (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = passes == 3 ? &filtered_act_plane_mma_kernel<3, T>
+                            : &filtered_act_plane_mma_kernel<1, T>;
+  return launch_planes(kernel, 256, MmaPlaneLayout(H, W, false).bytes(ppb),
+                       nplanes, ppb, (cudaStream_t)stream, x, out, uhT, uwT,
+                       dwT, dhT, nplanes, H, W, ppb, act);
+}
+
+// K1 (f32 products) on one chunk of P planes, four launches of the tiled
+// GEMM; x and out of T (the first GEMM's A, the last GEMM's C).
+template <class T>
+int banded_f32(const T* x, T* out, float* scratch, const float* uwT,
+               const float* uhT, const float* dwT, const float* dhT,
+               int nplanes, int H, int W, int tiles, int act, void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::GemmArgsT;
+  using afldm_filtered::filtered_gemm;
+  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long P = nplanes, HW = (long long)H * W;
+  float* t = scratch;           // P × (H × 2W), then lo: P × (2H × W)
+  float* hi = scratch + 2 * HW * P;  // P × (2H × 2W)
+  // t = x · U_wᵀ, x viewed as (P·H) × W
+  int err = filtered_gemm<false>(
+      tiles & 1, GemmArgsT<T, float, float>{x, W, 0, uwT, 2 * W, 0, t, 2 * W,
+                                            0, (int)(P * H), 2 * W, W},
+      1, Identity{}, s);
+  if (err) return err;
+  // hi[p] = act(U_h · t[p]), U_h from its k-major form U_hᵀ
+  err = filtered_gemm<true>(
+      (tiles >> 1) & 1, GemmArgs{uhT, 2 * H, 0, t, 2 * W, 2 * HW, hi, 2 * W,
+                                 4 * HW, 2 * H, 2 * W, H},
+      nplanes, Activation{act}, s);
+  if (err) return err;
+  // lo = hi · D_wᵀ, hi viewed as (P·2H) × 2W; over t
+  err = filtered_gemm<false>(
+      (tiles >> 2) & 1, GemmArgs{hi, 2 * W, 0, dwT, W, 0, t, W, 0,
+                                 (int)(P * 2 * H), W, 2 * W},
+      1, Identity{}, s);
+  if (err) return err;
+  // out[p] = D_h · lo[p], D_h from its k-major form D_hᵀ
+  return filtered_gemm<true>(
+      (tiles >> 3) & 1, GemmArgsT<float, float, T>{dhT, H, 0, t, W, 2 * HW,
+                                                   out, W, HW, H, W, 2 * H},
+      nplanes, Identity{}, s);
+}
+
+// K1 at a reduced level, _forward_spatial's order, as four launches of the
+// GEMM's bf16 variant; x and out of T (the first GEMM's B, the last GEMM's
+// C).
+template <class T>
+int banded_bf16(const T* x, T* out, float* scratch, const float* uhT,
+                const float* uwT, const float* dhT, const float* dwT,
+                int nplanes, int H, int W, int tiles, int passes, int act,
+                void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::GemmArgsT;
+  using afldm_filtered::filtered_gemm_mma;
+  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long P = nplanes, HW = (long long)H * W;
+  float* t = scratch;                // P × (2H × W), then lo: P × (H × 2W)
+  float* hi = scratch + 2 * HW * P;  // P × (2H × 2W)
+  // t[p] = U_h · x[p], U_h from its k-major form U_hᵀ
+  int err = filtered_gemm_mma<true>(
+      tiles & 1, passes,
+      GemmArgsT<float, T, float>{uhT, 2 * H, 0, x, W, HW, t, W, 2 * HW,
+                                 2 * H, W, H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // hi = act(t · U_wᵀ), t viewed as (P·2H) × W
+  err = filtered_gemm_mma<false>(
+      (tiles >> 1) & 1, passes, GemmArgs{t, W, 0, uwT, 2 * W, 0, hi, 2 * W,
+                                         0, (int)(P * 2 * H), 2 * W, W},
+      1, Activation{act}, s);
+  if (err) return err;
+  // lo[p] = D_h · hi[p], D_h from its k-major form D_hᵀ; over t
+  err = filtered_gemm_mma<true>(
+      (tiles >> 2) & 1, passes, GemmArgs{dhT, H, 0, hi, 2 * W, 4 * HW, t,
+                                         2 * W, 2 * HW, H, 2 * W, 2 * H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // out = lo · D_wᵀ, lo viewed as (P·H) × 2W
+  return filtered_gemm_mma<false>(
+      (tiles >> 3) & 1, passes,
+      GemmArgsT<float, float, T>{t, 2 * W, 0, dwT, W, 0, out, W, 0,
+                                 (int)(P * H), W, 2 * W},
+      1, Identity{}, s);
+}
+
+}  // namespace
+
 extern "C" int filtered_act_plane_f32(const float* x, float* out,
                                       const float* uhT, const float* uwT,
                                       const float* dwT, const float* dhT,
                                       int nplanes, int H, int W, int ppb,
                                       int tiles, int threads, int act,
                                       void* stream) {
-  // the rows of the products' results tᵀ, hiᵀ, t and out
-  const int rows[4] = {W, 2 * W, 2 * H, H};
-  const int err = check_plane_args(H, W, ppb, tiles, threads, rows, 4);
-  if (err != cudaSuccess) return err;
-  return launch_planes(threads == 256 ? &filtered_act_plane_kernel<256>
-                                      : &filtered_act_plane_kernel<512>,
-                       threads, PlaneLayout(H, W).floats(ppb) * sizeof(float),
-                       nplanes, ppb, (cudaStream_t)stream, x, out, uhT, uwT,
-                       dwT, dhT, nplanes, H, W, ppb, tiles, act);
+  return plane_f32(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, tiles,
+                   threads, act, stream);
+}
+
+// K5 for a bf16 x: the same arguments, x and out bf16.
+extern "C" int filtered_act_plane_f32_xbf16(
+    const __nv_bfloat16* x, __nv_bfloat16* out, const float* uhT,
+    const float* uwT, const float* dwT, const float* dhT, int nplanes, int H,
+    int W, int ppb, int tiles, int threads, int act, void* stream) {
+  return plane_f32(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, tiles,
+                   threads, act, stream);
 }
 
 // dx for P planes a block of ``threads`` (256 or 512); bit i of ``tiles``
@@ -708,36 +852,17 @@ extern "C" int filtered_act_banded_f32(const float* x, float* out,
                                        const float* dhT, int nplanes, int H,
                                        int W, int tiles, int act,
                                        void* stream) {
-  using afldm_filtered::GemmArgs;
-  using afldm_filtered::filtered_gemm;
-  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long P = nplanes, HW = (long long)H * W;
-  float* t = scratch;           // P × (H × 2W), then lo: P × (2H × W)
-  float* hi = scratch + 2 * HW * P;  // P × (2H × 2W)
-  // t = x · U_wᵀ, x viewed as (P·H) × W
-  int err = filtered_gemm<false>(
-      tiles & 1, GemmArgs{x, W, 0, uwT, 2 * W, 0, t, 2 * W, 0,
-                          (int)(P * H), 2 * W, W},
-      1, Identity{}, s);
-  if (err) return err;
-  // hi[p] = act(U_h · t[p]), U_h from its k-major form U_hᵀ
-  err = filtered_gemm<true>(
-      (tiles >> 1) & 1, GemmArgs{uhT, 2 * H, 0, t, 2 * W, 2 * HW, hi, 2 * W,
-                                 4 * HW, 2 * H, 2 * W, H},
-      nplanes, Activation{act}, s);
-  if (err) return err;
-  // lo = hi · D_wᵀ, hi viewed as (P·2H) × 2W; over t
-  err = filtered_gemm<false>(
-      (tiles >> 2) & 1, GemmArgs{hi, 2 * W, 0, dwT, W, 0, t, W, 0,
-                                 (int)(P * 2 * H), W, 2 * W},
-      1, Identity{}, s);
-  if (err) return err;
-  // out[p] = D_h · lo[p], D_h from its k-major form D_hᵀ
-  return filtered_gemm<true>(
-      (tiles >> 3) & 1, GemmArgs{dhT, H, 0, t, W, 2 * HW, out, W, HW, H, W,
-                                 2 * H},
-      nplanes, Identity{}, s);
+  return banded_f32(x, out, scratch, uwT, uhT, dwT, dhT, nplanes, H, W,
+                    tiles, act, stream);
+}
+
+// K1 for a bf16 x: the same arguments, x and out bf16 (scratch f32).
+extern "C" int filtered_act_banded_f32_xbf16(
+    const __nv_bfloat16* x, __nv_bfloat16* out, float* scratch,
+    const float* uwT, const float* uhT, const float* dwT, const float* dhT,
+    int nplanes, int H, int W, int tiles, int act, void* stream) {
+  return banded_f32(x, out, scratch, uwT, uhT, dwT, dhT, nplanes, H, W,
+                    tiles, act, stream);
 }
 
 // dx = U_hᵀ · [act′(U_h · x · U_wᵀ) ⊙ (D_hᵀ · g · D_w)] · U_w for P planes
@@ -828,13 +953,18 @@ extern "C" int filtered_act_plane_bf16(
     const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
     const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppb, int passes,
     int act, void* stream) {
-  if (H % 4 || W % 4 || ppb < 1 || (passes != 1 && passes != 3))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = passes == 3 ? &filtered_act_plane_mma_kernel<3>
-                            : &filtered_act_plane_mma_kernel<1>;
-  return launch_planes(kernel, 256, MmaPlaneLayout(H, W, false).bytes(ppb),
-                       nplanes, ppb, (cudaStream_t)stream, x, out, uhT, uwT,
-                       dwT, dhT, nplanes, H, W, ppb, act);
+  return plane_bf16(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, passes,
+                    act, stream);
+}
+
+// K5 at a reduced level for a bf16 x: the same arguments, x and out bf16.
+extern "C" int filtered_act_plane_bf16_xbf16(
+    const __nv_bfloat16* x, __nv_bfloat16* out, const __nv_bfloat16* uhT,
+    const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
+    const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppb, int passes,
+    int act, void* stream) {
+  return plane_bf16(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, passes,
+                    act, stream);
 }
 
 // K5b at a reduced level; the split blobs of U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h.
@@ -863,36 +993,17 @@ extern "C" int filtered_act_banded_bf16(const float* x, float* out,
                                         const float* dwT, int nplanes, int H,
                                         int W, int tiles, int passes, int act,
                                         void* stream) {
-  using afldm_filtered::GemmArgs;
-  using afldm_filtered::filtered_gemm_mma;
-  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long P = nplanes, HW = (long long)H * W;
-  float* t = scratch;                // P × (2H × W), then lo: P × (H × 2W)
-  float* hi = scratch + 2 * HW * P;  // P × (2H × 2W)
-  // t[p] = U_h · x[p], U_h from its k-major form U_hᵀ
-  int err = filtered_gemm_mma<true>(
-      tiles & 1, passes, GemmArgs{uhT, 2 * H, 0, x, W, HW, t, W, 2 * HW,
-                                  2 * H, W, H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // hi = act(t · U_wᵀ), t viewed as (P·2H) × W
-  err = filtered_gemm_mma<false>(
-      (tiles >> 1) & 1, passes, GemmArgs{t, W, 0, uwT, 2 * W, 0, hi, 2 * W,
-                                         0, (int)(P * 2 * H), 2 * W, W},
-      1, Activation{act}, s);
-  if (err) return err;
-  // lo[p] = D_h · hi[p], D_h from its k-major form D_hᵀ; over t
-  err = filtered_gemm_mma<true>(
-      (tiles >> 2) & 1, passes, GemmArgs{dhT, H, 0, hi, 2 * W, 4 * HW, t,
-                                         2 * W, 2 * HW, H, 2 * W, 2 * H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // out = lo · D_wᵀ, lo viewed as (P·H) × 2W
-  return filtered_gemm_mma<false>(
-      (tiles >> 3) & 1, passes, GemmArgs{t, 2 * W, 0, dwT, W, 0, out, W, 0,
-                                         (int)(P * H), W, 2 * W},
-      1, Identity{}, s);
+  return banded_bf16(x, out, scratch, uhT, uwT, dhT, dwT, nplanes, H, W,
+                     tiles, passes, act, stream);
+}
+
+// K1 at a reduced level for a bf16 x: the same arguments, x and out bf16.
+extern "C" int filtered_act_banded_bf16_xbf16(
+    const __nv_bfloat16* x, __nv_bfloat16* out, float* scratch,
+    const float* uhT, const float* uwT, const float* dhT, const float* dwT,
+    int nplanes, int H, int W, int tiles, int passes, int act, void* stream) {
+  return banded_bf16(x, out, scratch, uhT, uwT, dhT, dwT, nplanes, H, W,
+                     tiles, passes, act, stream);
 }
 
 // K2 at a reduced level, _bwd_spatial's order, as six launches of the

@@ -43,10 +43,19 @@
 // at each 16-deep step. The slab is 16 deep, double-buffered through
 // registers: the next slab's float4 loads are issued before the current
 // slab's products and split into the other buffer after them.
+//
+// A bf16 x (the forward's bfloat16 activations) enters as one operand of
+// the chain's first GEMM and its out leaves as the last GEMM's C: an
+// operand read through registers (the f32 GEMM's row-major A, either of
+// the bf16 variant's A and B) may be bf16, widened by load4; C may be bf16,
+// each element rounded once in the epilogue (store4, store2). The scratch
+// intermediates stay f32.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "filtered_mma.cuh"
 #include "filtered_tile.cuh"
@@ -63,27 +72,32 @@ __device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
                "l"(src), "r"(n));
 }
 
-struct GemmArgs {
-  const float* A;
+template <class TA = float, class TB = float, class TC = float>
+struct GemmArgsT {
+  const TA* A;
   long long lda, sA;
-  const float* B;
+  const TB* B;
   long long ldb, sB;
-  float* C;
+  TC* C;
   long long ldc, sC;
   int M, N, K;
 };
+using GemmArgs = GemmArgsT<>;
 
 constexpr int kGemmThreads = 256;
 constexpr int kGemmBK = 16;
 
-template <int BM, int BN, bool A_KMAJOR, class Epi>
+template <int BM, int BN, bool A_KMAJOR, class Epi, class TA, class TC>
 __global__ void __launch_bounds__(kGemmThreads, 2)
-filtered_gemm_kernel(GemmArgs g, Epi epi) {
+filtered_gemm_kernel(GemmArgsT<TA, float, TC> g, Epi epi) {
   constexpr int BK = kGemmBK, T = kGemmThreads;
   constexpr int TM = BM / 16, TN = BN / 16;  // 16×16 threads
   constexpr int A_LOADS = BM * BK / 4 / T, B_LOADS = BN * BK / 4 / T;
   static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 micro-tiles");
   static_assert(A_LOADS >= 1 && B_LOADS >= 1, "one float4 a thread");
+  // cp.async copies a k-major A as it is: only a row-major A may be bf16
+  static_assert(!A_KMAJOR || std::is_same<TA, float>::value, "A type");
+  static_assert(!Epi::kReadsC || std::is_same<TC, float>::value, "C type");
   __shared__ __align__(16) float As[2][BK][BM];
   __shared__ __align__(16) float Bs[2][BK][BN];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -91,9 +105,9 @@ filtered_gemm_kernel(GemmArgs g, Epi epi) {
   const int ty = (warp >> 1) * 4 + (lane >> 3);  // along M
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const long long b = blockIdx.z;
-  const float* A = g.A + b * g.sA;
+  const TA* A = g.A + b * g.sA;
   const float* B = g.B + b * g.sB;
-  float* C = g.C + b * g.sC;
+  TC* C = g.C + b * g.sC;
   const int M = g.M, N = g.N, K = g.K;
 
   // B's slab: BK rows of BN columns, 16-byte chunks along N
@@ -113,7 +127,8 @@ filtered_gemm_kernel(GemmArgs g, Epi epi) {
       const int idx = tid + i * T, kk = idx / (BM / 4), c = 4 * (idx % (BM / 4));
       const int k = k0 + kk, m = m0 + c;
       const bool ok = k < K && m < M;
-      cp_async16_zfill(&As[buf][kk][c], ok ? A + k * g.lda + m : A, ok);
+      if constexpr (A_KMAJOR)
+        cp_async16_zfill(&As[buf][kk][c], ok ? A + k * g.lda + m : A, ok);
     }
   };
   // a row-major A's slab, into registers: lane-consecutive rows, a float4
@@ -124,9 +139,8 @@ filtered_gemm_kernel(GemmArgs g, Epi epi) {
     for (int i = 0; i < A_LOADS; ++i) {
       const int idx = tid + i * T, r = idx % BM, k = k0 + 4 * (idx / BM);
       const int m = m0 + r;
-      a_reg[i] = m < M && k < K
-                     ? *reinterpret_cast<const float4*>(A + m * g.lda + k)
-                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      a_reg[i] = m < M && k < K ? load4(A + m * g.lda + k)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   };
   auto store_a_rows = [&](int buf) {
@@ -209,18 +223,23 @@ filtered_gemm_kernel(GemmArgs g, Epi epi) {
     for (int q = 0; q < TN / 4; ++q) {
       const int n = n0 + 64 * q + 4 * tx;
       if (n >= N) continue;  // N % 4 == 0: a chunk is all in or all out
-      float4* c = reinterpret_cast<float4*>(C + (long long)m * g.ldc + n);
+      TC* c = C + (long long)m * g.ldc + n;
       if constexpr (Epi::kReadsC) {
         // this thread alone owns these four elements over the full depth:
         // no other thread reads or writes them during the launch
-        const float4 old = *c;
-        *c = make_float4(epi(acc[i][4 * q], old.x),
-                         epi(acc[i][4 * q + 1], old.y),
-                         epi(acc[i][4 * q + 2], old.z),
-                         epi(acc[i][4 * q + 3], old.w));
+        float4* c4 = reinterpret_cast<float4*>(c);
+        const float4 old = *c4;
+        *c4 = make_float4(epi(acc[i][4 * q], old.x),
+                          epi(acc[i][4 * q + 1], old.y),
+                          epi(acc[i][4 * q + 2], old.z),
+                          epi(acc[i][4 * q + 3], old.w));
+      } else if constexpr (std::is_same<TC, float>::value) {
+        *reinterpret_cast<float4*>(c) =
+            make_float4(epi(acc[i][4 * q]), epi(acc[i][4 * q + 1]),
+                        epi(acc[i][4 * q + 2]), epi(acc[i][4 * q + 3]));
       } else {
-        *c = make_float4(epi(acc[i][4 * q]), epi(acc[i][4 * q + 1]),
-                         epi(acc[i][4 * q + 2]), epi(acc[i][4 * q + 3]));
+        store4(c, epi(acc[i][4 * q]), epi(acc[i][4 * q + 1]),
+               epi(acc[i][4 * q + 2]), epi(acc[i][4 * q + 3]));
       }
     }
   }
@@ -229,9 +248,9 @@ filtered_gemm_kernel(GemmArgs g, Epi epi) {
 // Launches C[b] = epi(A[b] · B[b]) (epi(A[b] · B[b], C[b]) where
 // Epi::kReadsC) for b < batch on ``stream``, in 64×64 block tiles where
 // ``small``, else 128×128. Returns the launch's CUDA error.
-template <bool A_KMAJOR, class Epi>
-int filtered_gemm(bool small, const GemmArgs& g, int batch, Epi epi,
-                  cudaStream_t stream) {
+template <bool A_KMAJOR, class Epi, class TA, class TC>
+int filtered_gemm(bool small, const GemmArgsT<TA, float, TC>& g, int batch,
+                  Epi epi, cudaStream_t stream) {
   if (g.M % 4 || g.N % 4 || g.K % 4 || g.lda % 4 || g.ldb % 4 || g.ldc % 4 ||
       g.sA % 4 || g.sB % 4 || g.sC % 4 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
@@ -239,10 +258,10 @@ int filtered_gemm(bool small, const GemmArgs& g, int batch, Epi epi,
   const dim3 grid((g.N + bm - 1) / bm, (g.M + bm - 1) / bm, batch);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (small)
-    filtered_gemm_kernel<64, 64, A_KMAJOR, Epi>
+    filtered_gemm_kernel<64, 64, A_KMAJOR, Epi, TA, TC>
         <<<grid, kGemmThreads, 0, stream>>>(g, epi);
   else
-    filtered_gemm_kernel<128, 128, A_KMAJOR, Epi>
+    filtered_gemm_kernel<128, 128, A_KMAJOR, Epi, TA, TC>
         <<<grid, kGemmThreads, 0, stream>>>(g, epi);
   return (int)cudaGetLastError();
 }
@@ -250,9 +269,10 @@ int filtered_gemm(bool small, const GemmArgs& g, int batch, Epi epi,
 // C[b] = epi(A[b] · B[b]) (epi(·, C[b]) where Epi::kReadsC) with each
 // product a·b run as ah·bh + ah·bl + al·bh (PASSES 3) or ah·bh (PASSES 1)
 // on bf16 tensor cores: the GEMM above at a reduced precision level.
-template <int BM, int BN, bool A_KMAJOR, int PASSES, class Epi>
+template <int BM, int BN, bool A_KMAJOR, int PASSES, class Epi, class TA,
+          class TB, class TC>
 __global__ void __launch_bounds__(kGemmThreads)
-filtered_gemm_mma_kernel(GemmArgs g, Epi epi) {
+filtered_gemm_mma_kernel(GemmArgsT<TA, TB, TC> g, Epi epi) {
   constexpr int BK = kGemmBK, T = kGemmThreads;
   constexpr int WM = BM / 2, WN = BN / 4;  // 2 × 4 warps
   constexpr int MT = WM / 16, NT = WN / 8;
@@ -262,15 +282,16 @@ filtered_gemm_mma_kernel(GemmArgs g, Epi epi) {
   constexpr int A_PIECE = (A_KMAJOR ? BK : BM) * LDA, LDB = BN + 8;
   constexpr int B_PIECE = BK * LDB;
   static_assert(NT % 2 == 0 && A_LOADS >= 1 && B_LOADS >= 1, "tiles");
+  static_assert(!Epi::kReadsC || std::is_same<TC, float>::value, "C type");
   __shared__ __align__(16) __nv_bfloat16 As[2][2 * A_PIECE];
   __shared__ __align__(16) __nv_bfloat16 Bs[2][2 * B_PIECE];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const long long b = blockIdx.z;
-  const float* A = g.A + b * g.sA;
-  const float* B = g.B + b * g.sB;
-  float* C = g.C + b * g.sC;
+  const TA* A = g.A + b * g.sA;
+  const TB* B = g.B + b * g.sB;
+  TC* C = g.C + b * g.sC;
   const int M = g.M, N = g.N, K = g.K;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
@@ -281,23 +302,17 @@ filtered_gemm_mma_kernel(GemmArgs g, Epi epi) {
       const int idx = tid + i * T;
       if (A_KMAJOR) {
         const int k = k0 + idx / (BM / 4), m = m0 + 4 * (idx % (BM / 4));
-        ra[i] = k < K && m < M
-                    ? *reinterpret_cast<const float4*>(A + k * g.lda + m)
-                    : zero;
+        ra[i] = k < K && m < M ? load4(A + k * g.lda + m) : zero;
       } else {
         const int m = m0 + idx / (BK / 4), k = k0 + 4 * (idx % (BK / 4));
-        ra[i] = m < M && k < K
-                    ? *reinterpret_cast<const float4*>(A + m * g.lda + k)
-                    : zero;
+        ra[i] = m < M && k < K ? load4(A + m * g.lda + k) : zero;
       }
     }
 #pragma unroll
     for (int i = 0; i < B_LOADS; ++i) {
       const int idx = tid + i * T;
       const int k = k0 + idx / (BN / 4), n = n0 + 4 * (idx % (BN / 4));
-      rb[i] = k < K && n < N
-                  ? *reinterpret_cast<const float4*>(B + k * g.ldb + n)
-                  : zero;
+      rb[i] = k < K && n < N ? load4(B + k * g.ldb + n) : zero;
     }
   };
   auto store = [&](int buf) {
@@ -412,7 +427,7 @@ filtered_gemm_mma_kernel(GemmArgs g, Epi epi) {
       for (int j = 0; j < NT; ++j) {
         const int n = n0 + wn + 8 * j + t2;
         if (n >= N) continue;  // N % 4 == 0, n even: a pair is all in or out
-        float2* c = reinterpret_cast<float2*>(C + (long long)m * g.ldc + n);
+        TC* c = C + (long long)m * g.ldc + n;
         float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
         if constexpr (PASSES == 3) {
           v0 += small[i][j][2 * h];
@@ -420,10 +435,13 @@ filtered_gemm_mma_kernel(GemmArgs g, Epi epi) {
         }
         if constexpr (Epi::kReadsC) {
           // this thread alone owns these two elements over the full depth
-          const float2 old = *c;
-          *c = make_float2(epi(v0, old.x), epi(v1, old.y));
+          float2* c2 = reinterpret_cast<float2*>(c);
+          const float2 old = *c2;
+          *c2 = make_float2(epi(v0, old.x), epi(v1, old.y));
+        } else if constexpr (std::is_same<TC, float>::value) {
+          *reinterpret_cast<float2*>(c) = make_float2(epi(v0), epi(v1));
         } else {
-          *c = make_float2(epi(v0), epi(v1));
+          store2(c, epi(v0), epi(v1));
         }
       }
     }
@@ -431,9 +449,9 @@ filtered_gemm_mma_kernel(GemmArgs g, Epi epi) {
 
 // Launches the bf16 variant of filtered_gemm at ``passes`` (1 or 3), in
 // 64×64 block tiles where ``small``, else 128×128.
-template <bool A_KMAJOR, class Epi>
-int filtered_gemm_mma(bool small, int passes, const GemmArgs& g, int batch,
-                      Epi epi, cudaStream_t stream) {
+template <bool A_KMAJOR, class Epi, class TA, class TB, class TC>
+int filtered_gemm_mma(bool small, int passes, const GemmArgsT<TA, TB, TC>& g,
+                      int batch, Epi epi, cudaStream_t stream) {
   if (g.M % 4 || g.N % 4 || g.K % 4 || g.lda % 4 || g.ldb % 4 || g.ldc % 4 ||
       g.sA % 4 || g.sB % 4 || g.sC % 4 || batch < 1 || batch > 65535 ||
       (passes != 1 && passes != 3))
@@ -442,16 +460,16 @@ int filtered_gemm_mma(bool small, int passes, const GemmArgs& g, int batch,
   const dim3 grid((g.N + bm - 1) / bm, (g.M + bm - 1) / bm, batch);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (small && passes == 1)
-    filtered_gemm_mma_kernel<64, 64, A_KMAJOR, 1, Epi>
+    filtered_gemm_mma_kernel<64, 64, A_KMAJOR, 1, Epi, TA, TB, TC>
         <<<grid, kGemmThreads, 0, stream>>>(g, epi);
   else if (small)
-    filtered_gemm_mma_kernel<64, 64, A_KMAJOR, 3, Epi>
+    filtered_gemm_mma_kernel<64, 64, A_KMAJOR, 3, Epi, TA, TB, TC>
         <<<grid, kGemmThreads, 0, stream>>>(g, epi);
   else if (passes == 1)
-    filtered_gemm_mma_kernel<128, 128, A_KMAJOR, 1, Epi>
+    filtered_gemm_mma_kernel<128, 128, A_KMAJOR, 1, Epi, TA, TB, TC>
         <<<grid, kGemmThreads, 0, stream>>>(g, epi);
   else
-    filtered_gemm_mma_kernel<128, 128, A_KMAJOR, 3, Epi>
+    filtered_gemm_mma_kernel<128, 128, A_KMAJOR, 3, Epi, TA, TB, TC>
         <<<grid, kGemmThreads, 0, stream>>>(g, epi);
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "filtered_tile.cuh"
+
 namespace afldm_filtered {
 
 __host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
@@ -120,11 +122,12 @@ __device__ __forceinline__ void store_split4(__nv_bfloat16* hi,
   *reinterpret_cast<uint2*>(lo) = l;
 }
 
-// Stages P row-major f32 planes of rows × cols (16-byte aligned, cols % 4
-// == 0, planes ``src_ps`` floats apart) into split pieces zero-padded to
-// pad16(rows) × pad16(cols). Plain loads: the split needs the values in
-// registers.
-__device__ __forceinline__ void stage_split(const float* __restrict__ src,
+// Stages P row-major f32 or bf16 planes of rows × cols (16-byte aligned,
+// cols % 4 == 0, planes ``src_ps`` elements apart) into split pieces
+// zero-padded to pad16(rows) × pad16(cols). Plain loads: the split needs
+// the values in registers (a bf16 plane's lo pieces are zero).
+template <class T>
+__device__ __forceinline__ void stage_split(const T* __restrict__ src,
                                             long long src_ps, int P, int rows,
                                             int cols, Piece dst) {
   const int rp = pad16(rows), c4 = pad16(cols) / 4;
@@ -133,8 +136,7 @@ __device__ __forceinline__ void stage_split(const float* __restrict__ src,
     const int r = q / c4, c = 4 * (q - r * c4);
     const float4 v =
         r < rows && c < cols
-            ? *reinterpret_cast<const float4*>(src + p * src_ps +
-                                               (long long)r * cols + c)
+            ? load4(src + p * src_ps + (long long)r * cols + c)
             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     __nv_bfloat16* h = dst.hi + p * dst.ps + r * dst.ld + c;
     store_split4(h, h + dst.lo, v);

@@ -35,12 +35,47 @@
 // operand shared by the planes); a thread takes tiles t, t + blockDim.x, …
 //
 // The arithmetic is exact f32 FMA, k ascending; no TF32, no tensor cores.
+// The result C may be bf16 (the last product of a bf16 x's forward, its
+// epilogue rounding each f32 sum once, to nearest even); the operands are
+// f32 in shared memory whatever x's type (load4 widens a bf16 x as it is
+// staged).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace afldm_filtered {
+
+// Four consecutive elements of f32 or bf16 as a float4 (16- or 8-byte
+// aligned); four bf16 (8-byte aligned) stored from four floats, rounded to
+// nearest even. f32 results are stored in place, as float4 or float2.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+// Two consecutive bf16 (4-byte aligned) from two floats.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 // A row of n floats padded to a stride of 4 mod 8 floats (16-byte aligned).
 __host__ __device__ __forceinline__ int row_pad(int n) {
@@ -69,16 +104,18 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n4) {
 
 // C[p] = epi(Y[p]ᵀ · X[p]) for p < P: X[p] is K × C (row stride ldx), Y[p]
 // K × R (ldy), C[p] R × C (ldc); all strides and bases multiples of 4
-// floats. R % TR == 0 and C % TC == 0 (the caller checks). Where
-// Epi::kReadsC, C[p] = epi(Y[p]ᵀ · X[p], C[p]) over C's old values; C
-// must then not alias X or Y.
-template <int TR, int TC, class Epi>
+// elements. R % TR == 0 and C % TC == 0 (the caller checks). Where
+// Epi::kReadsC, C[p] = epi(Y[p]ᵀ · X[p], C[p]) over C's old values (f32
+// only); C must then not alias X or Y.
+template <int TR, int TC, class Epi, class TOut>
 __device__ __forceinline__ void tile_product(
     const float* __restrict__ X, int ldx, int sX,
     const float* __restrict__ Y, int ldy, int sY,
-    float* __restrict__ C, int ldc, long long sC,
+    TOut* __restrict__ C, int ldc, long long sC,
     int P, int R, int Cn, int K, Epi epi) {
   static_assert(TR % 4 == 0 && TC % 4 == 0, "float4 micro-tiles");
+  static_assert(!Epi::kReadsC || std::is_same<TOut, float>::value,
+                "an epilogue that reads C takes an f32 C");
   const int nc = Cn / TC, nr = R / TR;
   const int tiles = nc * nr;
   for (int t = threadIdx.x; t < P * tiles; t += blockDim.x) {
@@ -121,7 +158,7 @@ __device__ __forceinline__ void tile_product(
             acc[a][b] = fmaf(yv[a], xv[b], acc[a][b]);
       }
     }
-    float* cp = C + p * sC;
+    TOut* cp = C + p * sC;
 #pragma unroll
     for (int a = 0; a < TR; ++a) {
       const int row = 4 * (tr + nr * (a / 4)) + a % 4;
@@ -138,10 +175,16 @@ __device__ __forceinline__ void tile_product(
                            epi(acc[a][4 * j + 1], old.y),
                            epi(acc[a][4 * j + 2], old.z),
                            epi(acc[a][4 * j + 3], old.w));
-        } else {
+        } else if constexpr (std::is_same<TOut, float>::value) {
+          // the f32 store written out: through store4 the compiler lost C's
+          // __restrict__ and K5 ran 2 % slower on an H100 (kernel_check.py)
           *reinterpret_cast<float4*>(cp + (long long)row * ldc + col) =
               make_float4(epi(acc[a][4 * j]), epi(acc[a][4 * j + 1]),
                           epi(acc[a][4 * j + 2]), epi(acc[a][4 * j + 3]));
+        } else {
+          store4(cp + (long long)row * ldc + col, epi(acc[a][4 * j]),
+                 epi(acc[a][4 * j + 1]), epi(acc[a][4 * j + 2]),
+                 epi(acc[a][4 * j + 3]));
         }
       }
     }
@@ -150,10 +193,10 @@ __device__ __forceinline__ void tile_product(
 
 // tile_product with the 8×4 micro-tile, or 4×4 where ``small``; an 8×4
 // tile needs R % 8 == 0.
-template <class Epi>
+template <class Epi, class TOut>
 __device__ __forceinline__ void product(
     bool small, const float* X, int ldx, int sX, const float* Y, int ldy,
-    int sY, float* C, int ldc, long long sC, int P, int R, int Cn, int K,
+    int sY, TOut* C, int ldc, long long sC, int P, int R, int Cn, int K,
     Epi epi) {
   if (small)
     tile_product<4, 4>(X, ldx, sX, Y, ldy, sY, C, ldc, sC, P, R, Cn, K, epi);

@@ -22,6 +22,12 @@
 // and each thread writes (1-α)·o0 for its own elements of the output rows,
 // then set 1 runs and each thread adds α·o1 to the same elements, which only
 // it reads and writes.
+//
+// bf16 q, k0, v0, k1, v1 (flash2_fwd_bf16): the semantics of the JAX
+// package's sdpa2_xla at bf16, the port's plain version: each set's
+// attention as K3's bf16 (flash_tile.cuh::mma_attend, out rounded to
+// bf16), then (1-α)·o0 + α·o1 in f32, rounded to bf16. Set 0's bf16 o0
+// goes to out, exact, and set 1's thread reads back its own elements.
 
 #include "flash_tile.cuh"
 
@@ -89,6 +95,47 @@ flash2_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k0,
   }
 }
 
+template <class C>
+__global__ void __launch_bounds__(C::kThreads)
+flash2_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k0,
+                       const __nv_bfloat16* __restrict__ v0,
+                       const __nv_bfloat16* __restrict__ k1,
+                       const __nv_bfloat16* __restrict__ v1,
+                       const float* __restrict__ alpha,
+                       __nv_bfloat16* __restrict__ out, int B2, int Lq,
+                       int Lk, int D, Strides st, float scale, int n_qtiles,
+                       int vec) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const MmaSmem<C> S(reinterpret_cast<__nv_bfloat16*>(smb));
+  const int b = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x - b * n_qtiles) * C::BQ;
+  const int b1 = b / B2, b2 = b - b1 * B2;
+  const long long* s = st.s;
+  auto at_b = [&](const __nv_bfloat16* t, int i) {
+    return t + b1 * s[3 * i] + b2 * s[3 * i + 1];
+  };
+
+  // staged once for both sets
+  stage_rows_bf16<C, C::BQ>(S.Qs, at_b(q, 0), s[2], q0, Lq, D, vec);
+  cp_async_commit();
+  const float a = alpha[b];
+  float o[C::DT][4], m[2], l[2];
+  __nv_bfloat16* ob = out + (long long)b * Lq * D;
+  mma_attend<C>(S.Qs, S.K0, S.K1, S.Vs, at_b(k0, 1), at_b(v0, 2), s[5], s[8],
+                Lk, D, vec, scale, o, m, l);
+  for_out<C>(q0, Lq, D, [&](int row, int d, int e, int j) {
+    ob[(long long)row * D + d] = __float2bfloat16_rn(o[j][e]);
+  });
+  mma_attend<C>(S.Qs, S.K0, S.K1, S.Vs, at_b(k1, 3), at_b(v1, 4), s[11],
+                s[14], Lk, D, vec, scale, o, m, l);
+  for_out<C>(q0, Lq, D, [&](int row, int d, int e, int j) {
+    __nv_bfloat16* p = ob + (long long)row * D + d;
+    const float o1 = __bfloat162float(__float2bfloat16_rn(o[j][e]));
+    *p = __float2bfloat16_rn((1.0f - a) * __bfloat162float(*p) + a * o1);
+  });
+}
+
 }  // namespace
 
 // out is contiguous (B1, B2, Lq, D); alpha is contiguous (B1·B2); q, k0, v0,
@@ -114,5 +161,33 @@ extern "C" int flash2_fwd_f32(
     return launch_tiles<C>(flash2_fwd_kernel<C>, (long long)B1 * B2 * n_qtiles,
                            (cudaStream_t)stream, q, k0, v0, k1, v1, alpha, out,
                            B2, Lq, Lk, D, st, scale, n_qtiles, vec);
+  });
+}
+
+// The bf16 forward: q, k0, v0, k1, v1 and out bf16, alpha f32, the same
+// arguments.
+extern "C" int flash2_fwd_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k0,
+    const __nv_bfloat16* v0, const __nv_bfloat16* k1,
+    const __nv_bfloat16* v1, const float* alpha, __nv_bfloat16* out, int B1,
+    int B2, int Lq, int Lk, int D, long long qs1, long long qs2,
+    long long qsl, long long k0s1, long long k0s2, long long k0sl,
+    long long v0s1, long long v0s2, long long v0sl, long long k1s1,
+    long long k1s2, long long k1sl, long long v1s1, long long v1s2,
+    long long v1sl, float scale, void* stream) {
+  const Strides st{{qs1, qs2, qsl, k0s1, k0s2, k0sl, v0s1, v0s2, v0sl, k1s1,
+                    k1s2, k1sl, v1s1, v1s2, v1sl}};
+  const __nv_bfloat16* ts[5] = {q, k0, v0, k1, v1};
+  int vec = 1;
+  for (int i = 0; i < 5; ++i)
+    vec &= vec_ok_bf16(ts[i], st.s[3 * i], st.s[3 * i + 1], st.s[3 * i + 2],
+                       D);
+  return with_dp_mma(D, [&](auto dp) {
+    using C = MmaCfg<decltype(dp)::value>;
+    const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
+    return launch_mma_tiles<C>(flash2_fwd_bf16_kernel<C>,
+                               (long long)B1 * B2 * n_qtiles,
+                               (cudaStream_t)stream, q, k0, v0, k1, v1, alpha,
+                               out, B2, Lq, Lk, D, st, scale, n_qtiles, vec);
   });
 }

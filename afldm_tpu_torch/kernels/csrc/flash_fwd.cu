@@ -21,7 +21,14 @@
 // -inf, a query beyond Lq is computed on zeros and not stored. Inputs are
 // addressed through (b1, b2, row) strides, so a K/V batch expanded from 1
 // (stride 0, the CFA LOAD pass) is read without a copy. Tensor cores
-// (3×TF32 with an accuracy check) are later work.
+// (3×TF32 with an accuracy check) are later work for f32.
+//
+// bf16 q, k, v (flash_fwd_bf16): the same function on bf16 tensor cores,
+// the bf16 tile loop of flash_tile.cuh (mma_attend), out bf16 and lse f32.
+// Bound: at D = 24 (padded to 32) and L = 1024 a head does 6·L²·D =
+// 151 MFLOP (the statistics pass recomputes Q·Kᵀ) against 0.2 MB, so the
+// bf16 tensor-core rate; at the model's small D the padding and the
+// 16-row warp tiles' softmax work weigh as much as the products.
 
 #include "flash_tile.cuh"
 
@@ -66,6 +73,43 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <class C>
+__global__ void __launch_bounds__(C::kThreads)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int B2, int Lq, int Lk, int D,
+                      long long qs1, long long qs2, long long qsl,
+                      long long ks1, long long ks2, long long ksl,
+                      long long vs1, long long vs2, long long vsl,
+                      float scale, int n_qtiles, int vec) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const MmaSmem<C> S(reinterpret_cast<__nv_bfloat16*>(smb));
+  const int b = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x - b * n_qtiles) * C::BQ;
+  const int b1 = b / B2, b2 = b - b1 * B2;
+
+  stage_rows_bf16<C, C::BQ>(S.Qs, q + b1 * qs1 + b2 * qs2, qsl, q0, Lq, D,
+                            vec);
+  cp_async_commit();
+  float o[C::DT][4], m[2], l[2];
+  mma_attend<C>(S.Qs, S.K0, S.K1, S.Vs, k + b1 * ks1 + b2 * ks2,
+                v + b1 * vs1 + b2 * vs2, ksl, vsl, Lk, D, vec, scale, o, m,
+                l);
+  __nv_bfloat16* ob = out + (long long)b * Lq * D;
+  for_out<C>(q0, Lq, D, [&](int row, int d, int e, int j) {
+    ob[(long long)row * D + d] = __float2bfloat16_rn(o[j][e]);
+  });
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2) + 8 * h;
+    if ((lane & 3) == 0 && row < Lq)
+      lse[(long long)b * Lq + row] = m[h] + logf(l[h]);
+  }
+}
+
 }  // namespace
 
 // out and lse are contiguous (B1, B2, Lq, D) and (B1, B2, Lq); q, k, v have
@@ -85,5 +129,28 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
                            (cudaStream_t)stream, q, k, v, out, lse, B2, Lq, Lk,
                            D, qs1, qs2, qsl, ks1, ks2, ksl, vs1, vs2, vsl,
                            scale, n_qtiles, vec);
+  });
+}
+
+// The bf16 forward: q, k, v, out bf16, lse f32, the same arguments.
+extern "C" int flash_fwd_bf16(const __nv_bfloat16* q,
+                              const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, __nv_bfloat16* out,
+                              float* lse, int B1, int B2, int Lq, int Lk,
+                              int D, long long qs1, long long qs2,
+                              long long qsl, long long ks1, long long ks2,
+                              long long ksl, long long vs1, long long vs2,
+                              long long vsl, float scale, void* stream) {
+  const int vec = vec_ok_bf16(q, qs1, qs2, qsl, D) &&
+                  vec_ok_bf16(k, ks1, ks2, ksl, D) &&
+                  vec_ok_bf16(v, vs1, vs2, vsl, D);
+  return with_dp_mma(D, [&](auto dp) {
+    using C = MmaCfg<decltype(dp)::value>;
+    const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
+    return launch_mma_tiles<C>(flash_fwd_bf16_kernel<C>,
+                               (long long)B1 * B2 * n_qtiles,
+                               (cudaStream_t)stream, q, k, v, out, lse, B2,
+                               Lq, Lk, D, qs1, qs2, qsl, ks1, ks2, ksl, vs1,
+                               vs2, vsl, scale, n_qtiles, vec);
   });
 }

@@ -36,11 +36,14 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "filtered_mma.cuh"
 
 namespace afldm_flash {
 
@@ -595,5 +598,292 @@ struct DkvBody {
     pv_tile<C>(Ps, Qs, ln, dk);
   }
 };
+
+// ---------------------------------------------------------------------------
+// The bf16 tile loop of K3 and K6 (flash_fwd_bf16, flash2_fwd_bf16): bf16
+// q, k, v on the tensor cores, the semantics of the JAX package's
+// ``sdpa_xla`` at bf16 (the port's plain version): f32 scores, f32
+// softmax, the NORMALISED p rounded to bf16, P·V summed in f32, out
+// rounded to bf16, lse f32.
+//
+// A warp owns 16 query rows (4 warps, a 64-row Q tile a block) and runs
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on fragments
+// loaded by ldmatrix (filtered_mma.cuh): Q as the A operand of S = Q·Kᵀ,
+// K rows as its B operand, V through ldmatrix.trans as the B operand of
+// O += P·V. The S accumulators of two neighbouring 8-key tiles are the A
+// fragment of P·V over those 16 keys, so P never leaves the registers.
+//
+// Why two passes over K: rounding p to bf16 rounds p = exp(s − m)/l, which
+// needs the row's final max m and sum l. An online softmax rounds
+// exp(s − m_running) before the row's last max and sum are known: each
+// rounding error is then scaled by a later correction, and on the CPU that
+// moved the output from sdpa_xla's by 1.3 times sdpa_xla's own bf16 − f32
+// error (as JAX's own flash kernel, which rounds unnormalised p, lies from
+// sdpa_xla; tests/test_torch_bf16.py). So a first pass walks the K tiles
+// for the row max and sum (the online rescaling, in f32), and a second
+// recomputes S, forms the normalised p and accumulates P·V: 6·Lq·Lk·D
+// FLOP in place of 4·Lq·Lk·D, on tensor cores.
+//
+// D is zero-padded to DP, a multiple of 16 (the path's 24 to 32, the SD
+// UNet's 40 to 48); rows are DP + 8 bf16 apart in shared memory, an odd
+// multiple of 16 bytes, so the 8 rows an ldmatrix phase reads fall on
+// different 16-byte bank groups. Staging is 16-byte cp.async (8 bf16)
+// where every row base is 16-byte aligned and D % 8 == 0, else a masked
+// scalar copy; keys past Lk score -inf, queries past Lq run on zero rows
+// and are not stored. K/V with a batch stride of 0 are read in place.
+// wgmma and TMA are later work.
+
+template <int DP_>
+struct MmaCfg {
+  static constexpr int DP = DP_;
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int BQ = 16 * kWarps;  // Q tile rows
+  static constexpr int LD = DP + 8;       // padded row, in bf16
+  static constexpr int NT = kBK / 8;      // 8-key score tiles of a warp
+  static constexpr int DT = DP / 8;       // 8-column output tiles of a warp
+  static_assert(DP % 16 == 0, "mma k steps");
+  // Q, two K buffers (the statistics pass), V
+  static constexpr size_t smem_bytes = (size_t)(BQ + 3 * kBK) * LD * 2;
+};
+
+// f(std::integral_constant<int, DP>) for the smallest instantiated
+// multiple of 16 at least D.
+template <class F>
+int with_dp_mma(int D, F&& f) {
+  if (D <= 0) return (int)cudaErrorInvalidValue;
+  if (D <= 32) return f(std::integral_constant<int, 32>{});
+  if (D <= 48) return f(std::integral_constant<int, 48>{});
+  if (D <= 64) return f(std::integral_constant<int, 64>{});
+  if (D <= 80) return f(std::integral_constant<int, 80>{});
+  if (D <= 128) return f(std::integral_constant<int, 128>{});
+  if (D <= 160) return f(std::integral_constant<int, 160>{});
+  if (D <= 256) return f(std::integral_constant<int, 256>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// True when a (b1, b2, row)-strided bf16 tensor can be staged with 16-byte
+// copies: base 16-byte aligned, every stride a multiple of 8, D % 8 == 0.
+inline bool vec_ok_bf16(const void* p, long long s1, long long s2,
+                        long long sl, int D) {
+  return ((uintptr_t)p & 15) == 0 && s1 % 8 == 0 && s2 % 8 == 0 &&
+         sl % 8 == 0 && D % 8 == 0;
+}
+
+// Sets the dynamic shared memory of a bf16 kernel and launches it on one
+// block per (b, Q tile).
+template <class C, class K, class... Args>
+int launch_mma_tiles(K kernel, long long n_blocks, cudaStream_t stream,
+                     Args... args) {
+  if (C::smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)n_blocks, C::kThreads, C::smem_bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// dst[rr][0:DP] = bf16 src rows r0 + rr (rr < ROWS) at row stride ``rs``,
+// zero past D and past row L; cp.async (vec) or a synchronous copy. The
+// caller commits the group.
+template <class C, int ROWS>
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long rs, int r0, int L,
+                                                int D, bool vec) {
+  constexpr int CPR = C::DP / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * CPR; i += C::kThreads) {
+    const int rr = i / CPR;
+    const int d = (i - rr * CPR) * 8;
+    const int row = r0 + rr;
+    __nv_bfloat16* s = dst + rr * C::LD + d;
+    const __nv_bfloat16* g = src + (long long)row * rs + d;
+    if (vec) {
+      const bool ok = row < L && d < D;  // D % 8 == 0: all 8 or none
+      cp_async16(reinterpret_cast<float*>(s),
+                 reinterpret_cast<const float*>(ok ? g : src), ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        s[e] = (row < L && d + e < D) ? g[e] : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// S = Q·Kᵀ over a warp's 16 rows and a tile's 64 keys: s[j] holds keys
+// 8j + 2t, 8j + 2t + 1 of rows g (e 0, 1) and g + 8 (e 2, 3), g = lane/4,
+// t = lane%4.
+template <class C>
+__device__ __forceinline__ void mma_scores(const __nv_bfloat16* Qs,
+                                           const __nv_bfloat16* Ks, int warp,
+                                           int lane, float (&s)[C::NT][4]) {
+  using afldm_filtered::ldsm_x4;
+  using afldm_filtered::mma_bf16;
+#pragma unroll
+  for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+  const __nv_bfloat16* qa =
+      Qs + (16 * warp + (lane & 15)) * C::LD + 8 * (lane >> 4);
+  const __nv_bfloat16* kb =
+      Ks + ((lane & 7) + 8 * (lane >> 4)) * C::LD + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int k0 = 0; k0 < C::DP; k0 += 16) {
+    unsigned a[4];
+    ldsm_x4(a, qa + k0);
+#pragma unroll
+    for (int np = 0; np < C::NT / 2; ++np) {
+      unsigned b[4];
+      ldsm_x4(b, kb + 16 * np * C::LD + k0);
+      mma_bf16(s[2 * np], a, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// One attention of the staged Q tile over one K/V set, bf16: the row
+// statistics pass, then the P·V pass. Leaves o (the warp's 16 rows × DP
+// columns, in the accumulator layout of s), m and l (the row max and sum
+// of rows g and g + 8, whole over the quad) in the caller's registers.
+// Every thread calls it; the Q tile, if staged and committed just before,
+// has landed by the first scores.
+template <class C>
+__device__ __forceinline__ void mma_attend(
+    const __nv_bfloat16* Qs, __nv_bfloat16* K0, __nv_bfloat16* K1,
+    __nv_bfloat16* Vs, const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+    long long ksl, long long vsl, int Lk, int D, bool vec, float scale,
+    float (&o)[C::DT][4], float (&m)[2], float (&l)[2]) {
+  using afldm_filtered::ldsm_x4_t;
+  using afldm_filtered::mma_bf16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t2 = 2 * (lane & 3);
+  float s[C::NT][4];
+  // pass 1: the row max and sum, K tiles double-buffered
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.0f;
+  stage_rows_bf16<C, kBK>(K0, kb, ksl, 0, Lk, D, vec);
+  cp_async_commit();
+  for (int k0 = 0, it = 0; k0 < Lk; k0 += kBK, ++it) {
+    __nv_bfloat16* cur = it & 1 ? K1 : K0;
+    if (k0 + kBK < Lk)
+      stage_rows_bf16<C, kBK>(it & 1 ? K0 : K1, kb, ksl, k0 + kBK, Lk, D,
+                              vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but K_{j+1}: K_j (and Q) have landed
+    __syncthreads();
+    mma_scores<C>(Qs, cur, warp, lane, s);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + t2 + e;
+          float& v = s[j][2 * h + e];
+          v = key < Lk ? v * scale : -INFINITY;
+          mx = fmaxf(mx, v);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);  // finite: a valid key
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j)
+        sum += expf(s[j][2 * h] - m_new) + expf(s[j][2 * h + 1] - m_new);
+      l[h] = l[h] * expf(m[h] - m_new) + sum;  // exp(-inf) = 0 at first
+      m[h] = m_new;
+    }
+    __syncthreads();  // cur is no longer read before it is restaged
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  // pass 2: p = exp(s − m) / l rounded to bf16, O += P·V; K_{j+1} in
+  // flight during P·V, V_{j+1} during the next scores
+#pragma unroll
+  for (int t = 0; t < C::DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.0f;
+  stage_rows_bf16<C, kBK>(K0, kb, ksl, 0, Lk, D, vec);
+  cp_async_commit();
+  stage_rows_bf16<C, kBK>(Vs, vb, vsl, 0, Lk, D, vec);
+  cp_async_commit();
+  const __nv_bfloat16* vt =
+      Vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LD + 8 * (lane >> 4);
+  for (int k0 = 0; k0 < Lk; k0 += kBK) {
+    cp_async_wait<1>();  // all but V_j: K_j has landed
+    __syncthreads();
+    mma_scores<C>(Qs, K0, warp, lane, s);
+    unsigned pa[kBK / 16][4];  // P as the A fragments of four 16-key steps
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + t2 + e;
+          p[e] = key < Lk ? expf(s[j][2 * h + e] * scale - m[h]) / l[h]
+                          : 0.0f;
+        }
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(p[0], p[1]);
+        pa[j / 2][2 * (j & 1) + h] = *reinterpret_cast<const unsigned*>(&pb);
+      }
+    __syncthreads();  // K_j is no longer read
+    if (k0 + kBK < Lk) stage_rows_bf16<C, kBK>(K0, kb, ksl, k0 + kBK, Lk, D,
+                                               vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but K_{j+1}: V_j has landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < C::DT / 2; ++dp) {
+        unsigned b[4];
+        ldsm_x4_t(b, vt + 16 * kk * C::LD + 16 * dp);
+        mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
+      }
+    __syncthreads();  // V_j is no longer read
+    if (k0 + kBK < Lk) stage_rows_bf16<C, kBK>(Vs, vb, vsl, k0 + kBK, Lk, D,
+                                               vec);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+// The shared-memory carve-up of a bf16 block.
+template <class C>
+struct MmaSmem {
+  __nv_bfloat16 *Qs, *K0, *K1, *Vs;
+  __device__ __forceinline__ explicit MmaSmem(__nv_bfloat16* sm)
+      : Qs(sm), K0(sm + C::BQ * C::LD), K1(K0 + kBK * C::LD),
+        Vs(K1 + kBK * C::LD) {}
+};
+
+// Calls f(row, d, e, h, j) for the output elements a thread holds, rows
+// q0 + 16·warp + g + 8h and columns d = 8j + 2t + e below (Lq, D).
+template <class C, class F>
+__device__ __forceinline__ void for_out(int q0, int Lq, int D, F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row >= Lq) continue;
+#pragma unroll
+    for (int j = 0; j < C::DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * j + t2 + e;
+        if (d < D) f(row, d, 2 * h + e, j);
+      }
+  }
+}
 
 }  // namespace afldm_flash

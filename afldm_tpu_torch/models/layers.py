@@ -5,6 +5,12 @@ alias-free variants, NCHW. Counterpart of ``afldm_tpu/models/layers.py``.
 Every block takes ``alias_free`` / ``filtered_act`` flags; the parameters
 are the same either way (the alias-free downsampler runs the stride-2
 conv's weights at stride 1), so one state dict serves both wirings.
+
+Compute dtype, as Flax's ``dtype=``: parameters stay float32, and every
+``Conv2d`` and ``Linear`` casts its input, weight and bias to its module's
+compute dtype at call, adding the bias after the product in that dtype;
+every ``GroupNorm`` normalises in float32 and returns the compute dtype.
+``set_compute_dtype`` sets it for every such layer of a model.
 """
 
 import math
@@ -15,7 +21,67 @@ import torch.nn.functional as F
 
 from ..ops.attention import sdpa, sdpa2
 from ..ops.filtered_act import filtered_act_fused
-from ..ops.ideal_lpf import _ACTS, downsample_rfft, upsample_rfft
+from ..ops.ideal_lpf import _ACTS, downsample_rfft, silu, upsample_rfft
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` run in ``compute_dtype`` (float32 unless
+    ``set_compute_dtype`` changes it): x, weight and bias cast to it, the
+    bias added after the product (two roundings, as Flax's ``Conv``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32 and x.dtype == dt:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(dt)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` run in ``compute_dtype``, as ``Conv2d`` (Flax's
+    ``Dense``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32 and x.dtype == dt:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` whose statistics and normalisation run in float32
+    and whose result is cast to ``compute_dtype`` (Flax's
+    ``GroupNorm(dtype=)``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32 and x.dtype == dt:
+            return super().forward(x)
+        w, b = (None if t is None else t.float()
+                for t in (self.weight, self.bias))
+        return F.group_norm(x.float(), self.num_groups, w, b,
+                            self.eps).to(dt)
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
+    """Sets the compute dtype of every ``Conv2d``, ``Linear`` and
+    ``GroupNorm`` in ``module`` (float32 or bfloat16); the parameters keep
+    their dtype. Returns ``module``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype float32 or bfloat16, got {dtype}")
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Linear, GroupNorm)):
+            m.compute_dtype = dtype
+    return module
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -43,11 +109,11 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_channels: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_channels, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_channels, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample):
-        return self.linear_2(F.silu(self.linear_1(sample)))
+        return self.linear_2(silu(self.linear_1(sample)))
 
 
 class WrappedActivation(nn.Module):
@@ -75,13 +141,13 @@ class ResnetBlock2D(nn.Module):
                  filtered_act: bool = False):
         super().__init__()
         self.act = WrappedActivation(act_fn, filtered_act)
-        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+        self.norm1 = GroupNorm(groups, in_channels, eps=eps)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (Linear(temb_channels, out_channels)
                               if temb_channels else None)
-        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.norm2 = GroupNorm(groups, out_channels, eps=eps)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x, temb=None):
@@ -113,11 +179,11 @@ class Attention(nn.Module):
                  groups: int = 32):
         super().__init__()
         self.num_heads = num_heads
-        self.group_norm = nn.GroupNorm(groups, channels, eps=eps)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.group_norm = GroupNorm(groups, channels, eps=eps)
+        self.to_q = Linear(channels, channels)
+        self.to_k = Linear(channels, channels)
+        self.to_v = Linear(channels, channels)
+        self.to_out = nn.ModuleList([Linear(channels, channels)])
 
     def _tokens(self, x):
         """(N, C, H, W) -> group-normed (N, H*W, C)."""
@@ -167,7 +233,7 @@ class Downsample2D(nn.Module):
         super().__init__()
         self.alias_free = alias_free
         self.padding = padding
-        self.conv = nn.Conv2d(channels, out_channels, 3,
+        self.conv = Conv2d(channels, out_channels, 3,
                               stride=1 if alias_free else 2,
                               padding=1 if alias_free else padding)
 
@@ -187,7 +253,7 @@ class Upsample2D(nn.Module):
                  alias_free: bool = False):
         super().__init__()
         self.alias_free = alias_free
-        self.conv = nn.Conv2d(channels, out_channels, 3, padding=1)
+        self.conv = Conv2d(channels, out_channels, 3, padding=1)
 
     def forward(self, x):
         if self.alias_free:

@@ -14,9 +14,10 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from .layers import (Attention, Downsample2D, KVHelper, ResnetBlock2D,
-                     TimestepEmbedding, Upsample2D, WrappedActivation,
-                     get_timestep_embedding)
+from .layers import (Attention, Conv2d, Downsample2D, GroupNorm, KVHelper,
+                     ResnetBlock2D, TimestepEmbedding, Upsample2D,
+                     WrappedActivation, get_timestep_embedding,
+                     set_compute_dtype)
 
 
 @dataclass
@@ -160,9 +161,12 @@ class UNet2DModel(nn.Module):
     """``forward(sample, timesteps, kv_in=None, kv_in2=None, alpha=None)
     -> (eps, stored_maps)``; pass ``kv_in`` (the maps of a STORE pass) for
     cross-frame attention, and ``kv_in2`` with ``alpha`` to blend the
-    attention over two STORE passes (interpolation)."""
+    attention over two STORE passes (interpolation). ``dtype`` is the
+    compute dtype of every block (float32 or bfloat16, ``layers.
+    set_compute_dtype``); the parameters stay float32 and eps comes out in
+    it."""
 
-    def __init__(self, config: UNet2DConfig):
+    def __init__(self, config: UNet2DConfig, dtype=torch.float32):
         super().__init__()
         cfg = self.config = config
         ch = list(cfg.block_out_channels)
@@ -173,7 +177,7 @@ class UNet2DModel(nn.Module):
                       head_dim=cfg.attention_head_dim,
                       temb_channels=temb_ch)
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
 
         self.down_blocks = nn.ModuleList()
         skip_ch = [ch[0]]
@@ -205,10 +209,12 @@ class UNet2DModel(nn.Module):
                 add_upsample=not is_final,
                 use_attention=btype.startswith("Attn"), **common))
 
-        self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, ch[0],
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch[0],
                                           eps=cfg.norm_eps)
         self.conv_act = WrappedActivation(cfg.act_fn, filtered=False)
-        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     def forward(self, sample, timesteps, kv_in=None, kv_in2=None, alpha=None):
         cfg = self.config

@@ -23,8 +23,9 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (Downsample2D, KVHelper, ResnetBlock2D, Upsample2D,
-                     WrappedActivation)
+from .layers import (Conv2d, Downsample2D, GroupNorm, KVHelper,
+                     ResnetBlock2D, Upsample2D, WrappedActivation,
+                     set_compute_dtype)
 from .unet2d import UNetMidBlock2D
 
 _EPS = 1e-6
@@ -107,7 +108,7 @@ class Encoder(nn.Module):
         filtered = [cfg.alias_free and f for f in cfg.down_filtered_act]
         af_resample = list(reversed(
             [cfg.alias_free and r for r in cfg.up_rescale])) + [False]
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
         prev = ch[0]
         for i, out_ch in enumerate(ch):
@@ -126,9 +127,9 @@ class Encoder(nn.Module):
             ch[-1], None, None, g, _EPS, cfg.act_fn,
             cfg.alias_free and cfg.mid_act,
             add_attention=cfg.mid_block_add_attention)
-        self.conv_norm_out = nn.GroupNorm(g, ch[-1], eps=_EPS)
+        self.conv_norm_out = GroupNorm(g, ch[-1], eps=_EPS)
         self.conv_act = WrappedActivation(cfg.act_fn, filtered=False)
-        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3,
+        self.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3,
                                   padding=1)
 
     def forward(self, x):
@@ -146,7 +147,7 @@ class Decoder(nn.Module):
         g = cfg.norm_num_groups
         filtered = [cfg.alias_free and f for f in cfg.up_filtered_act]
         af_resample = [cfg.alias_free and r for r in cfg.up_rescale] + [False]
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = UNetMidBlock2D(
             rev[0], None, None, g, _EPS, cfg.act_fn,
             cfg.alias_free and cfg.mid_act,
@@ -164,9 +165,9 @@ class Decoder(nn.Module):
             self.up_blocks.append(_Level(resnets, upsamplers=ups,
                                          remat=remat))
             prev = out_ch
-        self.conv_norm_out = nn.GroupNorm(g, rev[-1], eps=_EPS)
+        self.conv_norm_out = GroupNorm(g, rev[-1], eps=_EPS)
         self.conv_act = WrappedActivation(cfg.act_fn, filtered=False)
-        self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z):
         x = self.conv_in(z)
@@ -178,18 +179,23 @@ class Decoder(nn.Module):
 
 class AutoencoderKL(nn.Module):
     """``encode`` returns (mean, logvar); ``gaussian_sample`` draws from it.
-    ``remat``: per-resnet-block gradient checkpointing."""
+    ``remat``: per-resnet-block gradient checkpointing. ``dtype``: the
+    compute dtype of every block (float32 or bfloat16); the parameters stay
+    float32, and encode and decode return it."""
 
-    def __init__(self, config: AutoencoderKLConfig, remat: bool = False):
+    def __init__(self, config: AutoencoderKLConfig, remat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config, remat)
         self.decoder = Decoder(config, remat)
         lc = config.latent_channels
-        self.quant_conv = (nn.Conv2d(2 * lc, 2 * lc, 1)
+        self.quant_conv = (Conv2d(2 * lc, 2 * lc, 1)
                            if config.use_quant_conv else None)
-        self.post_quant_conv = (nn.Conv2d(lc, lc, 1)
+        self.post_quant_conv = (Conv2d(lc, lc, 1)
                                 if config.use_post_quant_conv else None)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     def encode(self, x):
         h = self.encoder(x)

@@ -9,6 +9,13 @@ q: (..., Lq, D), k/v: (..., Lk, D). Semantics of the JAX ``sdpa_xla``:
 f32 scores, f32 softmax, p cast to v's dtype for p @ v. The backward is the
 JAX ``_sdpa_bwd``: p recomputed from the forward's logsumexp,
 ``delta = rowsum(dO * O)`` in plain torch, ``ds = p * (dp - delta) * scale``.
+
+bfloat16 q, k, v (the forwards only, on the card ``flash_fwd_bf16`` and
+``flash2_fwd_bf16``, counted as ``flash_fwd/bf16`` and ``flash2_fwd/bf16``):
+f32 scores and softmax, the normalised p rounded to bf16, p @ v summed in
+f32 and rounded to bf16, lse f32: ``sdpa_xla`` at bf16. The two-KV blend
+takes the two bf16 attentions and blends them in f32 (``sdpa2_xla``). A
+bf16 backward on the card raises: the backward kernels take float32 only.
 """
 
 import math
@@ -32,7 +39,25 @@ def _attention_plain(q, k, v, scale=None):
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.matmul(p, v), lse
+    # p @ v summed in at least f32 and rounded once to v's dtype
+    acc = torch.promote_types(v.dtype, torch.float32)
+    return torch.matmul(p.to(acc), v.to(acc)).to(v.dtype), lse
+
+
+def _no_bf16_backward(t, name):
+    if t.device.type == "cuda" and t.dtype == torch.bfloat16:
+        raise TypeError(f"{name}: no bfloat16 backward kernel yet (bf16 "
+                        "training, ROADMAP); float32 only on the card")
+
+
+def _kernel_dtype(ts, name) -> str:
+    """'f32' or 'bf16': the C entry's suffix for inputs of one dtype."""
+    if all(t.dtype == torch.float32 for t in ts):
+        return "f32"
+    if all(t.dtype == torch.bfloat16 for t in ts):
+        return "bf16"
+    raise TypeError(f"{name}: float32 or bfloat16 inputs of one dtype only, "
+                    f"got {[t.dtype for t in ts]}")
 
 
 def _as_4d(t):
@@ -84,8 +109,8 @@ def _attention_bwd_plain(q, k, v, out, lse, do, scale=None):
 
 
 def flash_fwd(q, k, v, scale=None):
-    """Flash forward; returns ``(out, lse)`` with lse (..., Lq, 1) f32, like
-    the JAX ``_flash_3d``.
+    """Flash forward; returns ``(out, lse)`` with out in q's dtype (float32
+    or bfloat16) and lse (..., Lq, 1) f32, like the JAX ``_flash_3d``.
 
     On the card, q/k/v are read through their strides; the only layout rule
     is a unit stride along D (a tensor without one is copied). A K/V batch
@@ -99,8 +124,7 @@ def flash_fwd(q, k, v, scale=None):
     if not all(t.device == q.device and t.device.type == "cuda"
                for t in (q, k, v)):
         raise ValueError("flash_fwd: q, k, v must lie on one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError("flash_fwd: float32 only")
+    dt = _kernel_dtype((q, k, v), "flash_fwd")
     lead = q.shape[:-2]
     q4, k4, v4 = (_as_4d(t) for t in (q, k, v))
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
@@ -112,17 +136,18 @@ def flash_fwd(q, k, v, scale=None):
             or (Lk == 0 and B1 * B2 * Lq)):
         raise ValueError(f"flash_fwd: unsupported shapes {tuple(q.shape)} x "
                          f"{tuple(k.shape)} x {tuple(v.shape)}")
-    out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B1, B2, Lq, 1), device=q.device, dtype=torch.float32)
     if out.numel() == 0:  # no rows: nothing to launch
         return out.reshape(lead + (Lq, D)), lse.reshape(lead + (Lq, 1))
     strides = [s for t in (q4, k4, v4) for s in t.stride()[:3]]
-    err = kernels.library("flash_fwd").flash_fwd_f32(
+    err = getattr(kernels.library("flash_fwd"), f"flash_fwd_{dt}")(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B1, B2, Lq, Lk, D, *strides, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(err, "flash_fwd")
-    kernels.LAUNCHES["flash_fwd"] += 1
+    key = "flash_fwd" if dt == "f32" else "flash_fwd/bf16"
+    kernels.check(err, key)
+    kernels.LAUNCHES[key] += 1
     return out.reshape(lead + (Lq, D)), lse.reshape(lead + (Lq, 1))
 
 
@@ -211,6 +236,7 @@ class _FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
+        _no_bf16_backward(q, "sdpa")
         delta = _delta(do, out)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
@@ -266,7 +292,8 @@ def flash2_fwd(q, k0, v0, k1, v1, alpha, scale=None):
     a*attn(q,k1,v1)`` with one alpha per leading index. The layout rules
     are ``flash_fwd``'s: inputs read through their strides (a unit stride
     along D, else copied), K/V expanded from one image (stride 0) never
-    copied. The four K/V tensors share one shape."""
+    copied. The four K/V tensors share one shape; all five are float32,
+    or all bfloat16 (out in q's dtype)."""
     if q.device.type == "cpu":
         return sdpa2_eager(q, k0, v0, k1, v1, alpha, scale)
     if scale is None:
@@ -276,8 +303,7 @@ def flash2_fwd(q, k0, v0, k1, v1, alpha, scale=None):
                for t in (q, *kvs)):
         raise ValueError("flash2_fwd: q, k0, v0, k1, v1 must lie on one "
                          "CUDA device")
-    if not all(t.dtype == torch.float32 for t in (q, *kvs)):
-        raise TypeError("flash2_fwd: float32 only")
+    dt = _kernel_dtype((q, *kvs), "flash2_fwd")
     lead = q.shape[:-2]
     ts = [_as_4d(t) for t in (q, *kvs)]
     ts = [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
@@ -287,17 +313,18 @@ def flash2_fwd(q, k0, v0, k1, v1, alpha, scale=None):
             or (Lk == 0 and B1 * B2 * Lq)):
         raise ValueError(f"flash2_fwd: unsupported shapes {tuple(q.shape)} "
                          f"x {[tuple(t.shape) for t in kvs]}")
-    out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=q.dtype)
     if out.numel() == 0:  # no rows: nothing to launch
         return out.reshape(lead + (Lq, D))
     a = _alpha_per_lead(alpha, lead, q.device).contiguous()
     strides = [s for t in ts for s in t.stride()[:3]]
-    err = kernels.library("flash2_fwd").flash2_fwd_f32(
+    err = getattr(kernels.library("flash2_fwd"), f"flash2_fwd_{dt}")(
         *(t.data_ptr() for t in ts), a.data_ptr(), out.data_ptr(), B1, B2,
         Lq, Lk, D, *strides, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(err, "flash2_fwd")
-    kernels.LAUNCHES["flash2_fwd"] += 1
+    key = "flash2_fwd" if dt == "f32" else "flash2_fwd/bf16"
+    kernels.check(err, key)
+    kernels.LAUNCHES[key] += 1
     return out.reshape(lead + (Lq, D))
 
 
@@ -316,6 +343,7 @@ class _FlashAttention2(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        _no_bf16_backward(ctx.saved_tensors[0], "sdpa2")
         scale = ctx.scale
         needs = ctx.needs_input_grad[:6]
         with torch.enable_grad():

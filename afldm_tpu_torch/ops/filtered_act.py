@@ -1,6 +1,6 @@
 """The filtered activation's kernels (K5, K5b, K1 and K2 of the JAX
 package), their plain versions, their autograd Functions and the
-dispatcher. NCHW; float32 on the card.
+dispatcher. NCHW; float32 on the card, bfloat16 too for the forwards.
 
 - ``filtered_act_plane``: whole planes in shared memory, H, W <= 64
   (counterpart of ``pallas_kernels.py::_forward``), P planes a block and
@@ -39,10 +39,21 @@ package runs the circulant products; above it both packages filter
 exactly (the JAX package spectrally) and the f32 kernels run. The autograd
 Functions keep the forward's level for the backward.
 
+bfloat16 activations: the forward kernels K5 and K1 take a bf16 x and
+write a bf16 out at every level (the ``_xbf16`` C entries, counted as
+``<kernel>[:<level>]/bf16``): x is loaded as bf16, the products run as
+for a float32 x (exact f32 at 'highest', the level's bf16 passes
+otherwise) and out is rounded to bf16 once, so the result is
+``bf16(f(f32(x)))``, which is what the JAX package's kernels compute for a
+bf16 x (they cast x to float32 inside and write x's dtype). Their plain
+versions at bf16 are the same function. The backward kernels take float32
+only: a bf16 backward on the card raises.
+
 A wrapper given a CPU tensor returns the plain version; given a CUDA tensor
-it launches its kernel (the f32 one at "highest", the bf16 variant
-otherwise) or raises. There is no fallback between them. A CUDA tensor of
-0 planes returns its empty result without a launch.
+it launches its kernel (chosen by dtype, level and shape: the f32 one at
+"highest", the bf16 variant otherwise) or raises. There is no fallback
+between them. A CUDA tensor of 0 planes returns its empty result without a
+launch.
 """
 
 import functools
@@ -218,11 +229,13 @@ def _kernel_bwd_ops(H: int, W: int, device) -> tuple:
     return _KERNEL_OPS[key]
 
 
-def _check(x: torch.Tensor, act: str, banded: bool, name: str):
+def _check(x: torch.Tensor, act: str, banded: bool, name: str,
+           dtypes: tuple = (torch.float32, torch.bfloat16)):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: CPU or CUDA tensors only, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 only, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: {' or '.join(map(str, dtypes))} only on "
+                        f"the card, got {x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"{name}: expects NCHW, got shape {tuple(x.shape)}")
     H, W = x.shape[-2:]
@@ -511,6 +524,18 @@ def _mma_blobs(H: int, W: int, device, bwd: bool) -> tuple:
     return _KERNEL_OPS[key]
 
 
+def _variant(name: str, level: str, dtype) -> tuple:
+    """(C entry suffix, LAUNCHES key) of a forward kernel's variant for
+    ``level`` and x's ``dtype``: '_f32' / 'name' at 'highest', '_bf16' /
+    'name:level' at a reduced level, each with '_xbf16' / '/bf16' after it
+    for a bfloat16 x."""
+    suffix, key = ("_f32", name) if level == "highest" else (
+        "_bf16", f"{name}:{level}")
+    if dtype == torch.bfloat16:
+        return suffix + "_xbf16", key + "/bf16"
+    return suffix, key
+
+
 def _plane_forward_mma(x: torch.Tensor, act: str, level: str):
     x = _contiguous16(x)
     out = torch.empty_like(x)
@@ -519,13 +544,15 @@ def _plane_forward_mma(x: torch.Tensor, act: str, level: str):
     if nplanes == 0:
         return out
     plan = plane_mma_plan(H, W, nplanes)
-    err = kernels.library("filtered_act").filtered_act_plane_bf16(
+    suffix, key = _variant("filtered_act_plane", level, x.dtype)
+    err = getattr(kernels.library("filtered_act"),
+                  f"filtered_act_plane{suffix}")(
         x.data_ptr(), out.data_ptr(),
         *(o.data_ptr() for o in _mma_blobs(H, W, x.device, False)), nplanes,
         H, W, plan.planes_per_block, LEVEL_PASSES[level], ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(err, f"filtered_act_plane:{level}")
-    kernels.LAUNCHES[f"filtered_act_plane:{level}"] += 1
+    kernels.check(err, key)
+    kernels.LAUNCHES[key] += 1
     return out
 
 
@@ -544,18 +571,23 @@ def _plane_forward(x: torch.Tensor, act: str, level: str) -> torch.Tensor:
     if nplanes == 0:
         return out
     plan = plane_plan(H, W, nplanes)
-    err = kernels.library("filtered_act").filtered_act_plane_f32(
+    suffix, key = _variant("filtered_act_plane", level, x.dtype)
+    err = getattr(kernels.library("filtered_act"),
+                  f"filtered_act_plane{suffix}")(
         x.data_ptr(), out.data_ptr(), uhT.data_ptr(), uwT.data_ptr(),
         dwT.data_ptr(), dhT.data_ptr(), nplanes, H, W,
         plan.planes_per_block, plan.tile_codes, plan.threads, ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(err, "filtered_act_plane")
-    kernels.LAUNCHES["filtered_act_plane"] += 1
+    kernels.check(err, key)
+    kernels.LAUNCHES[key] += 1
     return out
 
 
 def _check_bwd(x, g, act, banded, name):
-    _check(x, act, banded, name)
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        raise TypeError(f"{name}: no bfloat16 backward kernel yet (bf16 "
+                        "training, ROADMAP); float32 only on the card")
+    _check(x, act, banded, name, (torch.float32,))
     if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"{name}: g must match x in shape, device and "
                          "dtype")
@@ -763,11 +795,13 @@ def _banded_mma_bwd_ops(H: int, W: int, device) -> tuple:
 
 
 def _banded_entry(x, out, scratch, ops, chunk, act):
-    """One chunk through the C entry ``filtered_act_banded_f32``: the four
-    GEMM launches on the current stream. x, out: the chunk's (P, H, W)
-    planes, contiguous."""
+    """One chunk through the C entry ``filtered_act_banded_f32`` (its
+    ``_xbf16`` twin for a bfloat16 x): the four GEMM launches on the
+    current stream. x, out: the chunk's (P, H, W) planes, contiguous."""
     H, W = x.shape[-2:]
-    err = kernels.library("filtered_act").filtered_act_banded_f32(
+    suffix, _ = _variant("filtered_act_banded", "highest", x.dtype)
+    err = getattr(kernels.library("filtered_act"),
+                  f"filtered_act_banded{suffix}")(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
         ACT_CODES[act], torch.cuda.current_stream(x.device).cuda_stream)
@@ -787,10 +821,13 @@ def _banded_bwd_entry(x, g, dx, scratch, ops, chunk, act):
 
 
 def _banded_mma_entry(x, out, scratch, ops, chunk, act, level):
-    """One chunk through ``filtered_act_banded_bf16`` at ``level``: K1's
-    four bf16 GEMM launches on the current stream."""
+    """One chunk through ``filtered_act_banded_bf16`` (its ``_xbf16`` twin
+    for a bfloat16 x) at ``level``: K1's four bf16 GEMM launches on the
+    current stream."""
     H, W = x.shape[-2:]
-    err = kernels.library("filtered_act").filtered_act_banded_bf16(
+    suffix, _ = _variant("filtered_act_banded", level, x.dtype)
+    err = getattr(kernels.library("filtered_act"),
+                  f"filtered_act_banded{suffix}")(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
         LEVEL_PASSES[level], ACT_CODES[act],
@@ -940,14 +977,16 @@ def _banded_forward(x: torch.Tensor, act: str, level: str) -> torch.Tensor:
     if x.device.type == "cpu":
         if level == "highest":
             # the JAX package's chain: matmul up to 512 px, spectral above
-            # (the level is the current one: only the Function calls this)
-            return filtered_nonlinearity(x, act)
+            # (the level is the current one: only the Function calls this),
+            # in float32 for a bf16 x, rounded once
+            dt = torch.promote_types(x.dtype, torch.float32)
+            return filtered_nonlinearity(x.to(dt), act).to(x.dtype)
         return filtered_act_banded_plain(x, act, level)
     _check(x, act, True, "filtered_act_banded")
+    _, name = _variant("filtered_act_banded", level, x.dtype)
     if level == "highest":
-        name, entry = "filtered_act_banded", _banded_entry
+        entry = _banded_entry
     else:
-        name = f"filtered_act_banded:{level}"
         entry = functools.partial(_banded_mma_entry, level=level)
     out = _banded_chain(_contiguous16(x), act, entry, level=level)
     if out.numel():

@@ -14,6 +14,13 @@ Precision of the circulant products (``set_af_precision``): "highest"
 products are exact and the sums float32. The level governs the circulant
 operators only: TF32 stays off for matmuls and cuDNN convolutions at every
 level.
+
+bfloat16 activations (``set_af_bf16_split``): by default a bf16 input to
+a circulant product is promoted to float32, filtered at the level and
+rounded once on the way out, as the JAX package does. With the split on,
+each operator is its bf16 (hi, lo) pair and each side's product with the
+bf16 x is two single bf16 passes summed in float32, rounded to bf16
+between the H side and the W side (the JAX package's ``_einsum_split``).
 """
 
 import numpy as np
@@ -191,9 +198,18 @@ def _mish(x):
     return x * torch.tanh(F.softplus(x))
 
 
+def silu(x):
+    """x·sigmoid(x). A bfloat16 x takes the JAX package's bf16 definition,
+    x · 1 / (1 + exp(-x)) with each step rounded to bf16 (XLA's expansion
+    of its silu); other dtypes ``F.silu``."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 _ACTS = {
-    "silu": F.silu,
-    "swish": F.silu,
+    "silu": silu,
+    "swish": silu,
     # the JAX package's gelu is the tanh approximation
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "relu": F.relu,
@@ -317,6 +333,22 @@ def af_precision() -> str:
     return _AF_PRECISION
 
 
+_AF_BF16_SPLIT = False
+
+
+def set_af_bf16_split(on: bool):
+    """Run the circulant products of bfloat16 activations as two single
+    bf16 passes of the operator's (hi, lo) pieces (on), or promote them to
+    float32 (off, the default). Read at call time, as the level is."""
+    global _AF_BF16_SPLIT
+    _AF_BF16_SPLIT = bool(on)
+
+
+def af_bf16_split() -> bool:
+    """Whether bfloat16 activations take the split circulant products."""
+    return _AF_BF16_SPLIT
+
+
 def split_bf16(t: torch.Tensor) -> tuple:
     """(hi, lo) in bfloat16 with ``hi = bf16(t)`` and ``lo = bf16(t - hi)``,
     both rounded to nearest even (the casts of ``ml_dtypes`` and of the JAX
@@ -393,11 +425,34 @@ class _SepAtLevel(torch.autograd.Function):
         return dx, None, None, None, None, None
 
 
+def _split_op(kind: str, N: int, factor: int, device) -> tuple:
+    """The operator's (hi, lo) bf16 pieces, cached per device beside it
+    and built outside inference mode as ``_op`` is."""
+    key = (kind, N, factor, torch.device(device), "split")
+    if key not in _DEV_OPS:
+        with torch.inference_mode(False):
+            _DEV_OPS[key] = split_bf16(_op(kind, N, factor, device))
+    return _DEV_OPS[key]
+
+
+def _matmul_split(pieces: tuple, x: torch.Tensor) -> torch.Tensor:
+    """hi @ x + lo @ x for the bf16 pieces of an operator and a bf16 x:
+    each product exact, summed in float32."""
+    hi, lo = (p.float() for p in pieces)
+    return torch.matmul(hi, x.float()) + torch.matmul(lo, x.float())
+
+
 def _apply_sep(x: torch.Tensor, key_h: tuple, key_w: tuple) -> torch.Tensor:
     """y = op_h @ x @ op_w^T over the last two axes at the current level,
     the operators given by their ``_op`` keys (kind, N, factor); in
     float32 (float64 for float64 input, so that gradcheck can hold the
-    chain)."""
+    chain). A bfloat16 x with ``set_af_bf16_split`` on takes the split
+    products instead, H side then W side, each rounded to bf16."""
+    if _AF_BF16_SPLIT and x.dtype == torch.bfloat16:
+        y = _matmul_split(_split_op(*key_h, x.device), x).to(x.dtype)
+        wh, wl = _split_op(*key_w, x.device)
+        y = _matmul_split((wh, wl), y.transpose(-1, -2))
+        return y.transpose(-1, -2).to(x.dtype)
     dt = torch.promote_types(x.dtype, torch.float32)
     op_h, op_w = (_op(*k, x.device).to(dt) for k in (key_h, key_w))
     if _AF_PRECISION == "highest":

@@ -90,7 +90,10 @@ class LDMPipeline:
             kv_in2 = None if kv_traj2 is None else kv_traj2[i]
             eps, stored = self._eps(x, t, kv_in=kv_in, kv_in2=kv_in2,
                                     alpha=alpha, **conditioning)
-            x = update(eps, t, pt, x)
+            # a bf16 model's eps is promoted to the latents' dtype: the
+            # sampler's arithmetic stays in it, as in the JAX package
+            x = update(eps.to(torch.promote_types(eps.dtype, x.dtype)), t,
+                       pt, x)
             if traj is not None:
                 traj.append(stored)
         return x, traj

@@ -69,17 +69,20 @@ def _set_precision(level=None):
 
 def init_random_pipeline(unet_config, vae_config, scheduler_config,
                          seed: int = 0, device=None, cls=LDMPipeline,
-                         af_precision=None) -> LDMPipeline:
+                         af_precision=None,
+                         dtype=torch.float32) -> LDMPipeline:
     """Configs may be dataclasses or diffusers-style dicts (the UNet dict is
     read as alias-free, like the JAX package's loader). ``cls`` is
     ``LDMPipeline`` (DDIM) or ``I2SBLDMPipeline`` (``I2SBScheduler``, e.g.
     from ``configs/sr/i2sb_scheduler.json``). ``af_precision``
     ('highest' | 'high' | 'default') sets the circulant products' level;
-    None leaves it as it is. TF32 is switched off either way."""
+    None leaves it as it is. TF32 is switched off either way. ``dtype``
+    (float32 or bfloat16) is the UNet's and the VAE's compute dtype; the
+    weights stay float32, drawn as at float32."""
     _set_precision(af_precision)
     sched_cls = I2SBScheduler if cls is I2SBLDMPipeline else DDIMScheduler
     return cls(*_random_modules(UNet2DConfig, UNet2DModel, unet_config,
-                                vae_config, seed, device),
+                                vae_config, seed, device, dtype=dtype),
                sched_cls.from_config(scheduler_config))
 
 
@@ -111,8 +114,8 @@ def _fail_on_missing(ckpt, missing, allow_random):
 
 def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
                   scheduler_config=None, use_ema: bool = True,
-                  allow_random: bool = False,
-                  af_precision=None) -> LDMPipeline:
+                  allow_random: bool = False, af_precision=None,
+                  dtype=torch.float32) -> LDMPipeline:
     """A pipeline from a directory that this port's trainers'
     ``save_pipeline`` wrote: its config JSONs and the newest
     ``checkpoint-{step}`` (the EMA UNet where ``use_ema`` and it was
@@ -124,7 +127,8 @@ def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
     weights unasked. Orbax directories of the JAX package are not read.
     ``af_precision`` ('highest' | 'high' | 'default') is the serving knob
     of the circulant products' level, as in the JAX package; None leaves
-    the level as it is (a CLI may have set it)."""
+    the level as it is (a CLI may have set it). ``dtype`` is the compute
+    dtype, as for ``init_random_pipeline``."""
     if scheduler_config is None:
         has = os.path.exists(os.path.join(pipeline_dir,
                                           "scheduler_config.json"))
@@ -134,7 +138,7 @@ def load_pipeline(pipeline_dir, cls=LDMPipeline, device=None,
     pipe = init_random_pipeline(_read_json(pipeline_dir, "unet_config.json"),
                                 _read_json(pipeline_dir, "vae_config.json"),
                                 scheduler_config, device=device, cls=cls,
-                                af_precision=af_precision)
+                                af_precision=af_precision, dtype=dtype)
     if state is None:
         return pipe
     key = "unet_ema" if use_ema and state.get("unet_ema") else "unet"
@@ -203,13 +207,16 @@ def load_sd_components(pipeline_dir, device=None,
 
 
 def init_random_interp_pipeline(unet_config, vae_config, scheduler_config,
-                                seed: int = 0,
-                                device=None) -> ImageInterpolationPipeline:
+                                seed: int = 0, device=None,
+                                dtype=torch.float32
+                                ) -> ImageInterpolationPipeline:
     """The image-interpolation pipeline (SD-family conditioned UNet,
-    AF-VAE) with random weights from ``seed``; the configs as for
-    ``init_random_pipeline``."""
+    AF-VAE) with random weights from ``seed``; the configs and ``dtype``
+    as for ``init_random_pipeline``. The SD-family UNet computes in
+    float32 only: a bfloat16 ``dtype`` raises (ROADMAP)."""
     vae, unet = _random_modules(UNet2DConditionConfig, UNet2DConditionModel,
-                                unet_config, vae_config, seed, device)
+                                unet_config, vae_config, seed, device,
+                                dtype=dtype)
     return ImageInterpolationPipeline(
         vae, unet, DDIMScheduler.from_config(scheduler_config))
 
@@ -247,17 +254,23 @@ def init_random_normal_pipeline(unet_config, vae_config, scheduler_config,
 
 
 def _random_modules(config_cls, unet_cls, unet_config, vae_config, seed,
-                    device, controlnet: bool = False):
+                    device, controlnet: bool = False, dtype=torch.float32):
     """(vae, unet[, controlnet]) with weights drawn from ``seed`` (UNet,
-    VAE, ControlNet in turn), on ``device``."""
+    VAE, ControlNet in turn), on ``device``; the UNet and the VAE compute
+    in ``dtype`` (only ``UNet2DModel`` takes bfloat16)."""
     device = resolve_device(device)
     _set_precision()
     if isinstance(unet_config, dict):
         unet_config = config_cls.from_diffusers(unet_config, alias_free=True)
     if isinstance(vae_config, dict):
         vae_config = AutoencoderKLConfig.from_diffusers(vae_config)
+    if unet_cls is not UNet2DModel and dtype != torch.float32:
+        raise ValueError(f"{unet_cls.__name__} computes in float32 only; "
+                         f"got dtype {dtype} (bf16 SD UNet: ROADMAP)")
     gen = torch.Generator().manual_seed(seed)
-    modules = [unet_cls(unet_config), AutoencoderKL(vae_config)]
+    unet = (unet_cls(unet_config, dtype=dtype) if unet_cls is UNet2DModel
+            else unet_cls(unet_config))
+    modules = [unet, AutoencoderKL(vae_config, dtype=dtype)]
     if controlnet:
         modules.append(ControlNetModel(
             ControlNetConfig.from_unet_config(unet_config)))

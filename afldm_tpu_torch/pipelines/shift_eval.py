@@ -68,7 +68,9 @@ def shift_equivariance_eval(pipeline, generator=None,
     # STORE pass + reference reconstruction
     denoised, kv_traj = pipeline.denoise(init_latent, num_inference_steps,
                                          collect_kv=True)
-    rec_img = pipeline.decode(denoised)
+    # images in float32 from here on (a bf16 VAE decodes to bf16): the
+    # ground-truth shift and the masked PSNR run in float32
+    rec_img = pipeline.decode(denoised).float()
 
     # all fractional shifts tj = k/ratio, k = 1..num_shift_steps
     latent_shifter = ImageShifter("ideal_crop", upsample_ratio=ratio)
@@ -82,14 +84,14 @@ def shift_equivariance_eval(pipeline, generator=None,
         den_shifted, _ = pipeline.denoise(shifted, num_inference_steps,
                                           kv_traj=kv_traj)
         outputs = decode_chunked(pipeline.decode, den_shifted * lat_masks,
-                                 decode_chunk)
+                                 decode_chunk).float()
     else:  # one LOAD pass and one decode a shift, as the reference runs
         outs = []
         for i in range(num_shift_steps):
             d, _ = pipeline.denoise(shifted[i:i + 1], num_inference_steps,
                                     kv_traj=kv_traj)
             outs.append(pipeline.decode(d * lat_masks[i:i + 1]))
-        outputs = torch.cat(outs)
+        outputs = torch.cat(outs).float()
 
     # ground truth: pixel-space bilinear shift of the reference decode
     image_shifter = ImageShifter()

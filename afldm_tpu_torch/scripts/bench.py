@@ -14,9 +14,13 @@ program, measured once in a subprocess with ``--device cpu`` and cached in
 ``results/bench_torch_history.jsonl``; a drop of more than 10 % below the
 best earlier run is flagged on stderr. ``--full`` also writes
 ``results/bench_torch_extra.json``: the b1 and b8 denoise with FLOPs per
-step, TFLOP/s and the share of the 67 TFLOP/s f32 peak; AF-VAE
-encode+decode images/s at b4, 256 px, exact and with the circulant products
-at ``af_precision`` 'high'; the SD UNet at b2, 50 steps.
+step, TFLOP/s and the share of the 67 TFLOP/s f32 peak; the same at bf16
+(the UNet computing in bfloat16 with its weights cast to bf16, as the root
+``bench.py``'s ``cast_params`` does, TFLOP/s also against the 989 TFLOP/s
+bf16 peak), and at bf16 with the circulant products at ``af_precision``
+'default'; AF-VAE encode+decode images/s at b4, 256 px, exact, with the
+circulant products at 'high', and at bf16; the SD UNet at b2, 50 steps.
+The headline stays float32.
 
   python -m afldm_tpu_torch.scripts.bench [--full]     # on the card
 """
@@ -33,6 +37,7 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 RESULTS = REPO / "results"
 PEAK_F32_TFLOPS = 67.0  # H100 SXM, f32 without tensor cores
+PEAK_BF16_TFLOPS = 989.0  # H100 SXM, bf16 dense tensor cores
 
 
 def cpu_baseline_path():
@@ -77,9 +82,13 @@ def _best_of(run, repeats):
     return best
 
 
-def _random_module(module, device, seed=0):
+def _random_module(module, device, seed=0, cast_params=False):
+    """Weights from ``seed`` (float32, as every loader draws them), cast
+    to the module's compute dtype where ``cast_params``."""
     from ..pipelines.loading import init_random_weights
     init_random_weights(module, torch.Generator().manual_seed(seed))
+    if cast_params:
+        module = module.to(module.dtype)
     return module.to(device).eval()
 
 
@@ -96,16 +105,19 @@ def unet_flops(unet, x, t):
 
 @torch.inference_mode()
 def measure(n_steps=50, repeats=3, batch=1, device=None,
-            return_details=False):
-    """Steps/s of the ``n_steps``-step denoise at ``batch``; with
-    ``return_details`` a dict with FLOPs per step and the f32 peak share."""
+            return_details=False, dtype=torch.float32, cast_params=False):
+    """Steps/s of the ``n_steps``-step denoise at ``batch`` with the UNet
+    computing in ``dtype`` (its weights cast to it where ``cast_params``),
+    at the current ``af_precision``; with ``return_details`` a dict with
+    FLOPs per step and the peak shares."""
     from ..models import UNet2DModel
-    from ..ops import set_af_precision
+    from ..ops import af_precision, set_af_precision
     from ..pipelines.loading import resolve_device
     device = resolve_device(device)
-    set_af_precision("highest")
+    set_af_precision(af_precision())  # the current level; TF32 off
     cfg = unet_config()
-    unet = _random_module(UNet2DModel(cfg), device)
+    unet = _random_module(UNet2DModel(cfg, dtype=dtype), device,
+                          cast_params=cast_params)
     sched = scheduler()
     ts, ts_prev = timesteps(n_steps)
     lat = torch.randn((batch, cfg.in_channels, cfg.sample_size,
@@ -122,23 +134,32 @@ def measure(n_steps=50, repeats=3, batch=1, device=None,
     sps = n_steps / _best_of(denoise, repeats)
     if not return_details:
         return sps
+    name = device_name(device)
     flops = unet_flops(unet, lat, int(ts[0]))
     tflops = flops * sps / 1e12
-    return {"steps_per_s": sps, "batch": batch, "dtype": "float32",
-            "device": device_name(device), "gflop_per_step": flops / 1e9,
-            "tflop_per_s": tflops,
-            "mfu_vs_67tflops_f32": tflops / PEAK_F32_TFLOPS}
+    d = {"steps_per_s": sps, "batch": batch,
+         "dtype": str(dtype).removeprefix("torch."),
+         "weights": str(next(unet.parameters()).dtype).removeprefix(
+             "torch."), "af_precision": af_precision(), "device": name,
+         "gflop_per_step": flops / 1e9, "tflop_per_s": tflops,
+         "mfu_vs_67tflops_f32": tflops / PEAK_F32_TFLOPS}
+    if dtype == torch.bfloat16:
+        d["mfu_vs_989tflops_bf16"] = tflops / PEAK_BF16_TFLOPS
+    return d
 
 
 @torch.inference_mode()
-def measure_vae(batch=4, res=256, repeats=3, device=None):
-    """AF-VAE encode (mean) + decode images/s at ``res`` px."""
+def measure_vae(batch=4, res=256, repeats=3, device=None,
+                dtype=torch.float32):
+    """AF-VAE encode (mean) + decode images/s at ``res`` px, computing in
+    ``dtype`` (bf16: its weights cast to bf16 too)."""
     from ..models import AutoencoderKL, AutoencoderKLConfig
     from ..pipelines.loading import resolve_device
     device = resolve_device(device)
     vae = _random_module(
-        AutoencoderKL(AutoencoderKLConfig(alias_free=True, sample_size=res)),
-        device)
+        AutoencoderKL(AutoencoderKLConfig(alias_free=True, sample_size=res),
+                      dtype=dtype), device,
+        cast_params=dtype != torch.float32)
     x = torch.randn((batch, 3, res, res),
                     generator=torch.Generator().manual_seed(1)).to(device)
 
@@ -244,18 +265,35 @@ def main(argv=None):
     args = parse_args(argv)
     if args.full:
         # stdout stays ONE JSON line: the extra rows go to a file and stderr
+        from ..ops import set_af_precision
         extras = {}
+        bf = dict(dtype=torch.bfloat16, cast_params=True)
         for batch in (1, 8):
-            d = measure(batch=batch, device=args.device, return_details=True)
-            extras[f"unet_denoise_b{batch}_f32"] = d
-            print(f"unet b{batch} f32: {d}", file=sys.stderr)
+            for name, kw in (("f32", {}), ("bf16", bf)):
+                d = measure(batch=batch, device=args.device,
+                            return_details=True, **kw)
+                extras[f"unet_denoise_b{batch}_{name}"] = d
+                print(f"unet b{batch} {name}: {d}", file=sys.stderr)
+        # bf16 with the circulant products at 'default' (one bf16 pass a
+        # product), as the root bench.py's rows
+        set_af_precision("default")
+        try:
+            for batch in (1, 8):
+                d = measure(batch=batch, device=args.device,
+                            return_details=True, **bf)
+                extras[f"unet_denoise_b{batch}_bf16_afprec_default"] = d
+                print(f"unet b{batch} bf16 afprec=default: {d}",
+                      file=sys.stderr)
+        finally:
+            set_af_precision("highest")
         extras["flop_count_note"] = ("FlopCounterMode over one UNet forward "
                                      "on the CPU; FFTs not counted")
         extras["vae_enc_dec_b4_f32_img_per_s"] = measure_vae(
             device=args.device)
+        extras["vae_enc_dec_b4_bf16_img_per_s"] = measure_vae(
+            device=args.device, dtype=torch.bfloat16)
         # the circulant products at 'high' (3 bf16 passes a product, the
         # filtered activations' bf16 kernels); the headline stays exact
-        from ..ops import set_af_precision
         set_af_precision("high")
         try:
             extras["vae_enc_dec_b4_f32_high_img_per_s"] = measure_vae(
@@ -264,13 +302,16 @@ def main(argv=None):
             set_af_precision("highest")
         extras["sd_unet_denoise_b2_steps_per_s"] = measure_sd(
             device=args.device)
-        print(f"vae b4: {extras['vae_enc_dec_b4_f32_img_per_s']} img/s; sd "
+        print(f"vae b4: {extras['vae_enc_dec_b4_f32_img_per_s']} img/s, "
+              f"{extras['vae_enc_dec_b4_bf16_img_per_s']} at bf16; sd "
               f"unet b2: {extras['sd_unet_denoise_b2_steps_per_s']} steps/s",
               file=sys.stderr)
         path = extra_path()
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(extras, indent=2))
 
+    from ..ops import set_af_precision
+    set_af_precision("highest")
     sps = measure(device=args.device)
     cpu_sps = cpu_baseline()
     record_history(sps)

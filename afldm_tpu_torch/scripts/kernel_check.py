@@ -19,7 +19,11 @@ over the shapes run, and exits non-zero if a kernel disagrees with its
 plain version. The filtered activation's kernels are also run in their
 bf16 variants at the reduced precision levels ('high', 'default'), as
 chip_smoke's phase 30 runs them, beside the f32 kernel (where the
-checkout's chip_smoke has that phase).
+checkout's chip_smoke has that phase); and the bf16-activation variants
+of K5, K1 (at every level), K3 and K6 as its phase 33 runs them, each
+beside its f32 kernel on the same values in float32 and, for K3 and K6,
+the library call at bf16 (where the checkout's chip_smoke has that
+phase).
 """
 
 import argparse
@@ -85,9 +89,18 @@ def main(argv=None):
                                             bound_ms=0.0, library_ms=None)
                        for k in level_names for level in smoke.LEVELS})
         ok &= smoke.check_level_kernels(torch, report, level_names)
+    if hasattr(smoke, "check_bf16_kernels"):
+        smoke.BF16_ROWS = tuple(r for r in smoke.BF16_ROWS
+                                if r[1] in smoke.KERNELS)
+        report.update({row: dict(max_abs_err=0.0, rms_ratio=0.0,
+                                 ulp_share=0.0, max_ulps=0, ms=0.0,
+                                 f32_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                 library_ms=None)
+                       for row, _, _ in smoke.BF16_ROWS})
+        ok &= smoke.check_bf16_kernels(torch, report)
     for k, row in report.items():  # an older chip_smoke logs no sums
         lib = row["library_ms"]
-        shapes = smoke.KERNELS[k.split(":")[0]]["shapes"]
+        shapes = smoke.KERNELS[k.split(":")[0].split("/")[0]]["shapes"]
         print(f"kernel_check sum {k} over {len(shapes)} "
               f"shapes: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library "

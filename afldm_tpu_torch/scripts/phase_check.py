@@ -6,7 +6,8 @@ video editing (phase 20, ``video_edit``), the normal estimation (phase
 normal-ControlNet trainers, the text encoder and the SD pipeline round
 trip (phases 23-25, ``tiny_trainers``) and those three trainers at full
 width (phase 26: ``i2sb_train``, ``sd_text_train``, ``norm_train``),
-with their wall times, peak device memory and launch counts, without the
+and the serving protocol and the FFHQ interp on a bf16 pipeline (phases
+34 and 35: ``bf16_protocol``, ``bf16_interp``), with their wall times, peak device memory and launch counts, without the
 other phases. Run it as a file from the root of the
 checkout to measure, so that two commits' end-to-end times can be taken in
 turns within one call on one card:
@@ -27,7 +28,8 @@ import sys
 from pathlib import Path
 
 PHASES = ("main_path", "vae_train", "sd_interp", "video_edit", "normal",
-          "tiny_trainers", "i2sb_train", "sd_text_train", "norm_train")
+          "tiny_trainers", "i2sb_train", "sd_text_train", "norm_train",
+          "bf16_protocol", "bf16_interp")
 # the full-width trainer of each trainer phase
 TRAINER_PHASES = {"i2sb_train": "i2sb", "sd_text_train": "sd_text",
                   "norm_train": "norm_controlnet"}
@@ -63,6 +65,7 @@ def main(argv=None):
     ap.add_argument("--video_steps", type=int, default=10)
     ap.add_argument("--normal_shifts", type=int, default=16)
     ap.add_argument("--trainer_steps", type=int, default=3)
+    ap.add_argument("--bf16_interp_steps", type=int, default=20)
     ap.add_argument("--repeat", type=int, default=1,
                     help="runs of each phase in this process; the first "
                          "includes the cold start (default 1)")
@@ -89,7 +92,13 @@ def main(argv=None):
     ok, sd_state = True, None
     for phase in [p for p in args.phases for _ in range(args.repeat)]:
         if phase == "main_path":
-            good, _ = smoke.run_main_path(torch, args.steps)
+            good = smoke.run_main_path(torch, args.steps)[0]
+        elif phase == "bf16_protocol":
+            import numpy as np  # its PSNR deltas are against zeros here
+            good, _ = smoke.run_bf16_protocol(torch, args.steps,
+                                              np.zeros(16))
+        elif phase == "bf16_interp":
+            good, _ = smoke.run_bf16_interp(torch, args.bf16_interp_steps)
         elif phase == "vae_train":
             good, _ = smoke.run_vae_training(torch, args.vae_steps)
         elif phase == "sd_interp":

@@ -8,9 +8,13 @@ shift.
   python -m afldm_tpu_torch.scripts.shift_ldm_ffhq --tiny --device cpu \\
       --num_inference_steps 2 --shift_steps 2
   python -m afldm_tpu_torch.scripts.shift_ldm_ffhq --af_precision high
+  python -m afldm_tpu_torch.scripts.shift_ldm_ffhq --bf16
 
 ``--af_precision`` sets the level of the circulant products for the run
-(``ops.set_af_precision``).
+(``ops.set_af_precision``). ``--bf16`` runs the UNet and the VAE in
+bfloat16 (float32 weights; the circulant and FFT islands filter in
+float32 and return bf16; latents, the sampler and the PSNR stay float32),
+``ops.set_af_bf16_split`` as set by the caller.
 """
 
 import argparse
@@ -55,19 +59,34 @@ def parse_args(argv=None):
                    choices=["highest", "high", "default"],
                    help="circulant products' level: 'highest' exact f32, "
                         "'high' 3 bf16 passes, 'default' 1")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute in the UNet and the VAE")
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    from ..pipelines import init_random_pipeline, shift_equivariance_eval
-    args = parse_args(argv)
-    pipe = init_random_pipeline(*load_configs(args.tiny), seed=0,
-                                device=args.device,
-                                af_precision=args.af_precision)
+def build(args):
+    """The pipeline of the parsed flags: random weights from seed 0, the
+    level set, the compute dtype bf16 with ``--bf16``."""
+    from ..pipelines import init_random_pipeline
+    return init_random_pipeline(
+        *load_configs(args.tiny), seed=0, device=args.device,
+        af_precision=args.af_precision,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32)
+
+
+def evaluate(pipe, args):
+    """The protocol on ``pipe`` from seed 0's latent."""
+    from ..pipelines import shift_equivariance_eval
     gen = torch.Generator(pipe.device).manual_seed(0)
-    res = shift_equivariance_eval(
+    return shift_equivariance_eval(
         pipe, generator=gen, num_inference_steps=args.num_inference_steps,
         num_shift_steps=args.shift_steps)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    pipe = build(args)
+    res = evaluate(pipe, args)
     ratio = pipe.vae.config.downsample_ratio
     for k, p in enumerate(res.psnrs, 1):
         print(f"shift {k}/{ratio} px: masked PSNR {p:.3f} dB")

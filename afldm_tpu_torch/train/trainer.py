@@ -159,9 +159,10 @@ class Trainer(abc.ABC):
         self.cfg = cfg
         if base_cfg.mixed_precision == "bf16":
             raise NotImplementedError(
-                "mixed_precision='bf16' is not ported yet: the kernels take "
-                "float32 activations (bf16 activations through all nine "
-                "kernels, with set_af_bf16_split, come next)")
+                "mixed_precision='bf16' is not ported yet: the forward "
+                "kernels take bf16 activations, the backward kernels (K5b, "
+                "K2, K4a, K4b) float32 only; bf16 training, with their bf16 "
+                "variants, is the next slice of ROADMAP Queue 1 item 8b")
         if (getattr(base_cfg, "model_parallel", 1) or 1) > 1:
             raise NotImplementedError("model_parallel > 1 is not ported: "
                                       "the port trains on one card")

@@ -182,12 +182,41 @@ Phases, each of which fails the run:
     micro-steps each (default 4), counters set to 0 just before and read
     just after: losses finite, their relative gaps to 'highest' logged,
     and at each reduced level all four of its variants (K5, K1, K5b, K2)
-    launched.
+    launched;
+33. the bfloat16-activation variants of K5 and K1 (at 'highest', 'high'
+    and 'default'), K3 and K6, at every shape of their KERNELS rows
+    (reduced levels up to 512 px), against their plain versions on the
+    card: K5 and K1 no element more than one bf16 ulp of itself off
+    beyond the f32 kernel's atol, at most 0.1 % of the elements
+    different; K3 and K6 the RMS of (kernel - plain) at most 0.1 of the
+    RMS of (plain - the f32 plain on the same values), no element more
+    than 4 bf16 ulps of the output's largest magnitude off; each timed
+    beside its plain version, its f32 kernel on the same values, the
+    library call at bf16 (K3: scaled_dot_product_attention; K6: two of
+    them and the blend) and its bound, a row of its own in the kernels
+    line;
+34. the tiny pipeline at bf16 on the card and on the CPU (4 steps, 4
+    shifts): images within BF16_TINY_RATIO of the CPU's own bf16 - f32
+    RMS error, PSNRs within BF16_TINY_DPSNR dB; then the FFHQ shift
+    protocol at bf16 and full width through ``scripts.shift_ldm_ffhq
+    --bf16`` (16 shifts, ``--steps``, the latent of phase 4), again with
+    ``set_af_bf16_split(True)``, and with ``--af_precision high`` and
+    ``default`` (the
+    levels' bf16 variants), counters set to 0 just before each and read
+    just after: PSNRs finite, their difference from phase 4's logged,
+    wall and peak memory logged, and the filtered activations' launches
+    (K5 and K1 in the run's bf16 variant) equal to the count reckoned from
+    the configs, K3's bf16 variant launched;
+35. the tiny FFHQ interp at bf16 on the card and on the CPU (3 frames, 4
+    steps), as in 34; then the FFHQ interp of phase 10 on a bf16 pipeline
+    at ``--bf16_interp_steps`` (default 20), counters set to 0 just before
+    and read just after: images finite, K5/bf16 and K1/bf16 as reckoned,
+    K3/bf16 and K6/bf16 launched.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
 full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20, 22, 26, 28,
-29, 31 and 32), the last the device JSON. Exits non-zero without a GPU or
-without the package beside it.
+29, 31, 32, 34 and 35), the last the device JSON. Exits non-zero without a
+GPU or without the package beside it.
 """
 
 import argparse
@@ -844,7 +873,7 @@ def run_main_path(torch, steps):
     missing = [k for k in SERVING_KERNELS if counts[k] == 0]
     if missing:
         log(f"main path: FAIL, never launched: {missing}")
-    return ok and not missing, counts
+    return ok and not missing, counts, res.psnrs
 
 
 def _tiny_trainer(device):
@@ -2230,6 +2259,447 @@ def run_vae_training_level(torch, n_steps):
     return ok, runs
 
 
+# -- phases 33-35: bfloat16 activations on the serving path ----------------
+
+# the bf16-activation variants: (row, the KERNELS row whose shapes it takes,
+# its level or None for the flash kernels)
+BF16_ROWS = (("filtered_act_plane/bf16", "filtered_act_plane", "highest"),
+             ("filtered_act_plane:high/bf16", "filtered_act_plane", "high"),
+             ("filtered_act_plane:default/bf16", "filtered_act_plane",
+              "default"),
+             ("filtered_act_banded/bf16", "filtered_act_banded", "highest"),
+             ("filtered_act_banded:high/bf16", "filtered_act_banded",
+              "high"),
+             ("filtered_act_banded:default/bf16", "filtered_act_banded",
+              "default"),
+             ("flash_fwd/bf16", "flash_fwd", None),
+             ("flash2_fwd/bf16", "flash2_fwd", None))
+# the filtered activations at bf16 agree with their plain version (the
+# same f32 function between a bf16 load and a bf16 store) when no element
+# is more than one bf16 ulp off and at most this share of them differ:
+# the f32 sums run in another order and a sum on a rounding edge may round
+# the other way. An element that cancels to near zero carries the f32
+# kernel's own absolute error (TOL's atol) besides, as many of its ulps.
+# At 'default' every f32 intermediate is cut to its bf16 hi piece, so a
+# last-bit difference in one moves the next product by a bf16 ulp of the
+# intermediate: those variants are held as phase 30 holds their f32
+# twins, RMS(kernel - plain) at most LEVEL_RMS_RATIO of the level's own
+# RMS error (plain at 'default' against plain at 'highest', both bf16) and
+# max at most the level's own max (on an H100 up to 406 ulps of a
+# near-zero element, 0.09 % of them differing)
+BF16_ULP_SHARE = 1e-3
+# the flash kernels at bf16 agree with their plain version (``sdpa_xla``'s
+# semantics) when RMS(kernel - plain) is at most this share of RMS(plain -
+# the f32 plain on the same bf16 inputs), bf16's own error, and no element
+# is more than BF16_FLASH_ULPS bf16 ulps of the output's largest magnitude
+# off: an output is an average, and an element near zero carries the
+# absolute error of its row's rounded weights
+BF16_FLASH_RATIO = 0.1
+BF16_FLASH_ULPS = 4
+
+
+def bf16_ulps(torch, a, b, atol=0.0):
+    """|a - b| beyond ``atol`` in bf16 ulps of the larger of |a| and |b|,
+    elementwise (float64; 0 where both are 0): the ulp of a bf16 value v
+    with |v| = m·2^e, 0.5 <= m < 1, is 2^(e - 8)."""
+    a, b = a.double(), b.double()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)
+    d = ((a - b).abs() - atol).clamp(min=0)
+    return torch.where(d > 0, d / ulp, torch.zeros_like(d))
+
+
+def _bf16_case(torch, row, base, shape, dev, g):
+    """(kernel call, plain version, reference, f32 kernel, library call or
+    None, work (FLOPs, bytes at bf16)) of a bf16 row at ``shape``; the
+    reference is the plain version at 'highest' on the same bf16 x (the
+    filtered activations) or the f32 plain on the same values (the flash
+    kernels)."""
+    import torch.nn.functional as F
+    from afldm_tpu_torch.ops import attention as A
+    from afldm_tpu_torch.ops import filtered_act as FA
+    bf = torch.bfloat16
+    if base.startswith("filtered_act"):
+        level = dict((r, lv) for r, _, lv in BF16_ROWS)[row]
+        x = torch.randn(shape, device=dev, generator=g).to(bf)
+        xf = x.float()
+        fn = getattr(FA, base)
+        plain = getattr(FA, f"{base}_plain")
+        flops, nbytes = filtered_act_work(shape)
+        n, c, h, w = shape
+        # x and out at 2 bytes, the four operators at 4
+        nbytes = 2 * 2 * n * c * h * w + 4 * (4 * h * h + 4 * w * w)
+        return (lambda: fn(x, "silu"), lambda: plain(x, "silu", level),
+                lambda: plain(x, "silu", "highest"), lambda: fn(xf, "silu"),
+                None, (flops, nbytes))
+    n, heads, L, Lk, d, n_kv = _flash_dims(shape)
+    q = torch.randn(n, heads, L, d, device=dev, generator=g).to(bf)
+    kv = [torch.randn(n_kv, heads, Lk, d, device=dev, generator=g).to(bf)
+          .expand(n, -1, -1, -1)
+          for _ in range(2 if base == "flash_fwd" else 4)]
+    f32 = [t.float() for t in (q, *kv)]
+    flops, nbytes = (flash_work if base == "flash_fwd" else flash2_work)(
+        shape)
+    if base == "flash_fwd":
+        # q, the K/V rows, out at 2 bytes, lse at 4
+        nbytes = (2 * (2 * n * heads * L * d + 2 * n_kv * heads * Lk * d)
+                  + 4 * n * heads * L)
+        return (lambda: A.flash_fwd(q, *kv)[0],
+                lambda: A._attention_plain(q, *kv)[0],
+                lambda: A._attention_plain(*f32)[0],
+                lambda: A.flash_fwd(*f32)[0],
+                lambda: F.scaled_dot_product_attention(q, *kv),
+                (flops, nbytes))
+    alpha = torch.linspace(0, 1, n, device=dev)[:, None, None]
+    a4 = alpha[:, None]
+    nbytes = 2 * (2 * n * heads * L * d + 4 * n_kv * heads * L * d) + 4 * n
+
+    def library():  # two SDPA calls at bf16 and the blend in f32
+        o0 = F.scaled_dot_product_attention(q, kv[0], kv[1]).float()
+        o1 = F.scaled_dot_product_attention(q, kv[2], kv[3]).float()
+        return ((1 - a4) * o0 + a4 * o1).to(bf)
+    return (lambda: A.flash2_fwd(q, *kv, alpha),
+            lambda: A.sdpa2_eager(q, *kv, alpha),
+            lambda: A.sdpa2_eager(*f32, alpha),
+            lambda: A.flash2_fwd(*f32, alpha), library, (flops, nbytes))
+
+
+def bf16_bound_ms(flops, nbytes, level):
+    """The bound of a bf16-activation variant: its products' FLOPs at the
+    f32 rate ('highest': f32 products), at the bf16 dense tensor rate times
+    the level's passes, or (the flash kernels, level None) once at the bf16
+    rate; or its bytes over HBM."""
+    if level == "highest":
+        t_ops = flops / PEAK_F32_FLOPS
+    else:
+        t_ops = LEVEL_PASSES.get(level, 1) * flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_bf16_kernels(torch, report):
+    """Phase 33: every bf16-activation variant at every shape of its
+    KERNELS row against its plain version on the card, timed beside its
+    plain version, its f32 kernel on the same values in float32 and the
+    library call; fills the bf16 rows of ``report``."""
+    from afldm_tpu_torch.ops import filtered_act as FA
+    from afldm_tpu_torch.ops import set_af_precision
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    ok = True
+    for row_name, base, level in BF16_ROWS:
+        row = report[row_name]
+        split = {"operations": 0.0, "bytes": 0.0}
+        for shape in KERNELS[base]["shapes"]:
+            if (level not in (None, "highest")
+                    and max(shape[-2:]) > FA.LEVEL_MAX):
+                log(f"check {row_name} {shape}: n/a, above {FA.LEVEL_MAX} "
+                    "px the f32 products run at every level")
+                continue
+            run, plain, plain32, run32, library, work = _bf16_case(
+                torch, row_name, base, shape, dev, g)
+            try:
+                set_af_precision(level or "highest")
+                got, want = run(), plain()
+                assert got.dtype == want.dtype == torch.bfloat16
+                ulps = bf16_ulps(torch, got, want, TOL[base][0])
+                max_ulps = float(ulps.max())
+                differ = float((got != want).double().mean())
+                d = (got.float() - want.float())
+                err = float(d.abs().max())
+                if level is None:
+                    _, e = torch.frexp(want.float().abs().max())
+                    max_ulps = float(d.abs().max()) / 2.0 ** (int(e) - 8)
+                    gap = want.float() - plain32().float()
+                    gap_rms = float(gap.double().pow(2).mean().sqrt())
+                    rms = float(d.double().pow(2).mean().sqrt())
+                    ratio = rms / gap_rms if gap_rms else float("inf")
+                    good = (ratio <= BF16_FLASH_RATIO
+                            and max_ulps <= BF16_FLASH_ULPS)
+                    verdict = (f"RMS ratio {ratio:.4f} (limit "
+                               f"{BF16_FLASH_RATIO}; RMS err {rms:.3e}, "
+                               f"bf16's own RMS {gap_rms:.3e}), max "
+                               f"{max_ulps:.3f} ulps of the output's scale "
+                               f"(limit {BF16_FLASH_ULPS}), share differing "
+                               f"{differ:.2e}")
+                    row["rms_ratio"] = max(row["rms_ratio"], ratio)
+                    del gap
+                elif level == "default":
+                    own = want.float() - plain32().float()
+                    own_rms = float(own.double().pow(2).mean().sqrt())
+                    own_max = float(own.abs().max())
+                    rms = float(d.double().pow(2).mean().sqrt())
+                    ratio = rms / own_rms if own_rms else float("inf")
+                    good = ratio <= LEVEL_RMS_RATIO and err <= own_max
+                    verdict = (f"RMS ratio {ratio:.4f} (limit "
+                               f"{LEVEL_RMS_RATIO}; the level's own RMS "
+                               f"{own_rms:.3e}), max_abs_err within the "
+                               f"level's own max {own_max:.3e}; max "
+                               f"{max_ulps:.3f} ulp beyond atol, share "
+                               f"differing {differ:.2e}")
+                    row["rms_ratio"] = max(row["rms_ratio"], ratio)
+                    del own
+                else:
+                    good = max_ulps <= 1 and differ <= BF16_ULP_SHARE
+                    verdict = (f"max {max_ulps:.3f} ulp beyond atol "
+                               f"{TOL[base][0]} (limit 1), share differing "
+                               f"{differ:.2e} (limit {BF16_ULP_SHARE})")
+                row["ulp_share"] = max(row["ulp_share"], differ)
+                row["max_ulps"] = max(row["max_ulps"], max_ulps)
+                del got, want, d, ulps
+                t = time_ms(run)
+                tp = time_ms(plain)
+                t32 = time_ms(run32)
+                tl = None if library is None else time_ms(library)
+            finally:
+                set_af_precision("highest")
+            b, by = bf16_bound_ms(*work, level)
+            log(f"check {row_name} {shape}: {verdict}, max_abs_err "
+                f"{err:.3e} {'ok' if good else 'FAIL'}; kernel {t:.4f} ms, "
+                f"its f32 kernel {t32:.4f} ms, plain {tp:.4f} ms, library "
+                f"{'n/a' if tl is None else f'{tl:.4f} ms'}, bound "
+                f"{b:.4f} ms ({by}-bound, {work[0] / 1e9:.3f} GFLOP, "
+                f"{work[1] / 1e6:.3f} MB)")
+            ok &= bool(good)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ms"] += t
+            row["f32_ms"] += t32
+            row["plain_ms"] += tp
+            row["bound_ms"] += b
+            split[by] += b
+            if tl is not None:
+                row["library_ms"] = (row["library_ms"] or 0.0) + tl
+            del run, plain, plain32, run32, library
+            torch.cuda.empty_cache()
+        row["bound_by"] = max(split, key=split.get)
+        log_sums(row_name, row, "its shapes")
+        log(f"sum {row_name}: its f32 kernel {row['f32_ms']:.4f} ms")
+    return ok
+
+
+def reckon_filtered_launches(pipe, unet_forwards, decodes, level="highest"):
+    """The filtered-activation launches that ``unet_forwards`` UNet
+    forwards and ``decodes`` VAE decodes make, from the configs: every
+    filtered activation of a 4D map with H, W % 4 == 0 is one launch of K5
+    (up to 64 px) or K1 (above), keyed as in ``kernels.LAUNCHES`` for a
+    bf16 x at ``level``."""
+    from afldm_tpu_torch.ops import filtered_act as FA
+    u, v = pipe.unet.config, pipe.vae.config
+    sizes = []  # (side, filtered activations) per forward or decode
+    if u.resolved_filtered_act():
+        n = len(u.block_out_channels)
+        side = [u.sample_size // 2 ** i for i in range(n)]
+        sizes += [(s, 2 * u.layers_per_block) for s in side]  # down
+        sizes += [(side[-1], 4)]  # mid: two resnets
+        sizes += [(s, 2 * (u.layers_per_block + 1)) for s in side]  # up
+    per_unet = list(sizes)
+    sizes = []
+    if v.alias_free:
+        z = u.sample_size
+        if v.mid_act:
+            sizes.append((z, 4))
+        for i, f in enumerate(v.up_filtered_act):
+            if f:
+                sizes.append((z * 2 ** i, 2 * (v.layers_per_block + 1)))
+    counts = {}
+    for runs, table in ((unet_forwards, per_unet), (decodes, sizes)):
+        for side, n_acts in table:
+            if side % 4:
+                continue
+            name = ("filtered_act_plane" if side <= FA.PLANE_MAX
+                    else "filtered_act_banded")
+            lv = "highest" if side > FA.LEVEL_MAX else level
+            key = name + ("" if lv == "highest" else f":{lv}") + "/bf16"
+            counts[key] = counts.get(key, 0) + runs * n_acts
+    return counts
+
+
+BF16_INTERP_KERNELS = ("filtered_act_plane/bf16", "filtered_act_banded/bf16",
+                       "flash_fwd/bf16", "flash2_fwd/bf16")
+# card vs CPU at bf16 on the tiny pipelines: RMS(card - CPU) at most this
+# share of RMS(CPU at bf16 - CPU at f32), bf16's own error there, and so
+# is the card's own error, RMS(card - CPU at f32); the PSNRs within
+# BF16_TINY_DPSNR dB of the CPU's. Both devices round to bf16 after every
+# layer, and a sum in another order that lands on the other side of a
+# rounding edge flips a bf16 ulp, which the rest of the run amplifies as
+# it amplifies its own roundings: two bf16 runs end about as far apart as
+# either from f32 (measured on an H100: 0.90 for the protocol, 1.25 for
+# the interp; the CPU tests find 0.95-1.01 between the port and JAX).
+# A wrong kernel lands at the scale of the signal, far above
+BF16_TINY_RATIO = 2.0
+BF16_TINY_DPSNR = 0.5
+
+
+def _rms(t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def check_tiny_bf16(torch, what):
+    """The tiny FFHQ pipeline at bf16 on the card and on the CPU with the
+    same weights and inputs, and at f32 on the CPU: ``what`` 'protocol' (4
+    steps, 4 shifts; images and PSNRs) or 'interp' (3 frames, 4 steps;
+    latents and images)."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import (init_random_pipeline,
+                                           shift_equivariance_eval)
+    from afldm_tpu_torch.scripts.shift_ldm_ffhq import load_configs
+    cfgs = load_configs(tiny=True)
+    gen = torch.Generator().manual_seed(1)
+    lat = torch.randn(1, 4, 8, 8, generator=gen)
+    ends = torch.randn(2, 1, 4, 8, 8, generator=gen)
+    out = {}
+    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
+                    ("cpu", torch.float32)):
+        pipe = init_random_pipeline(*cfgs, seed=0, device=dev, dtype=dt)
+        kernels.reset_launch_counts()
+        if what == "protocol":
+            r = shift_equivariance_eval(pipe, init_latent=lat,
+                                        num_inference_steps=4,
+                                        num_shift_steps=4)
+            out[dev, dt] = (torch.from_numpy(r.outputs), r.psnrs)
+        else:
+            la, im = _ffhq_interp(torch, pipe, ends, 3, 4)
+            out[dev, dt] = (im.float().cpu(), la.float().cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    (card, c2), (cpu, p2), (f32, f2) = (out["cuda", torch.bfloat16],
+                                        out["cpu", torch.bfloat16],
+                                        out["cpu", torch.float32])
+    ratio = _rms(card - cpu) / _rms(cpu - f32)
+    accuracy = _rms(card - f32) / _rms(cpu - f32)
+    if what == "protocol":
+        d2 = float(np.abs(c2 - p2).max())
+        gap2 = float(np.abs(p2 - f2).max())
+        good2 = bool(np.isfinite(c2).all()) and d2 <= BF16_TINY_DPSNR
+        second = (f"max |dPSNR| {d2:.3e} dB (limit {BF16_TINY_DPSNR}; CPU "
+                  f"bf16 vs f32 {gap2:.3e} dB)")
+        need = ("filtered_act_plane/bf16", "flash_fwd/bf16")
+    else:
+        r2 = _rms(c2 - p2) / _rms(p2 - f2)
+        good2 = bool(torch.isfinite(c2).all()) and r2 <= BF16_TINY_RATIO
+        second = f"latents RMS ratio {r2:.3f} (limit {BF16_TINY_RATIO})"
+        need = ("filtered_act_plane/bf16", "flash_fwd/bf16",
+                "flash2_fwd/bf16")
+    missing = [k for k in need if k not in launched]
+    ok = (ratio <= BF16_TINY_RATIO and accuracy <= BF16_TINY_RATIO and good2
+          and not missing)
+    log(f"tiny bf16 {what} (card vs CPU at bf16, the CPU's bf16 vs f32 as "
+        f"the scale): images RMS ratio {ratio:.3f}, the card's against the "
+        f"CPU's f32 {accuracy:.3f} (limit {BF16_TINY_RATIO} each), "
+        f"{second}; launches {json.dumps(launched)} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# phase 34's runs of ``scripts.shift_ldm_ffhq``: (tag, extra flags,
+# ``set_af_bf16_split`` during the run)
+BF16_PROTOCOL_RUNS = (("bf16", [], False), ("bf16 + split", [], True),
+                      ("bf16 at high", ["--af_precision", "high"], False),
+                      ("bf16 at default", ["--af_precision", "default"],
+                       False))
+
+
+def run_bf16_protocol(torch, steps, f32_psnrs):
+    """Phase 34: the FFHQ shift protocol at bf16 and full width through
+    ``scripts.shift_ldm_ffhq --bf16`` (seed 0: the latent of phase 4),
+    again with ``set_af_bf16_split(True)``, and at the reduced levels (the
+    levels' bf16 variants). Returns (ok, [counts of each run])."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.ops import set_af_bf16_split, set_af_precision
+    from afldm_tpu_torch.scripts import shift_ldm_ffhq
+    ok, runs = True, []
+    for tag, flags, split in BF16_PROTOCOL_RUNS:
+        args = shift_ldm_ffhq.parse_args(
+            ["--bf16", "--device", "cuda", "--num_inference_steps",
+             str(steps), "--shift_steps", "16"] + flags)
+        try:
+            t0 = time.perf_counter()
+            pipe = shift_ldm_ffhq.build(args)
+            build = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            set_af_bf16_split(split)
+            res = shift_ldm_ffhq.evaluate(pipe, args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            set_af_bf16_split(False)
+            set_af_precision("highest")
+        counts = dict(kernels.LAUNCHES)
+        runs.append(counts)
+        want = reckon_filtered_launches(pipe, 2 * steps, 2,
+                                        args.af_precision)
+        got = {k: counts[k] for k in want}
+        finite = bool(np.isfinite(res.psnrs).all()
+                      and np.isfinite(res.outputs).all())
+        delta = res.psnrs - f32_psnrs
+        log(f"protocol {tag}: pipeline built in {build:.1f} s; 16 shifts x "
+            f"{steps} steps in {wall:.2f} s wall; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean "
+            f"PSNR {res.mean_psnr:.4f} dB, minus f32 (phase 4) "
+            f"{float(delta.mean()):+.4f} dB")
+        log(f"protocol {tag} PSNRs (dB): "
+            + " ".join(f"{p:.3f}" for p in res.psnrs)
+            + "; minus f32: " + " ".join(f"{p:+.3f}" for p in delta))
+        log(f"protocol {tag} launches: {json.dumps(counts)}; filtered "
+            f"activations reckoned from the configs {json.dumps(want)}")
+        missing = _missing(f"protocol {tag}", counts,
+                           [*want, "flash_fwd/bf16"])
+        good = (finite and res.psnrs.shape == (16,) and got == want
+                and not missing)
+        if got != want:
+            log(f"protocol {tag}: FAIL, launches {got} not as reckoned")
+        if not good:
+            log(f"protocol {tag}: FAIL")
+        ok &= good
+        del res, pipe
+        torch.cuda.empty_cache()
+    return ok, runs
+
+
+def run_bf16_interp(torch, steps, n_frames=17):
+    """Phase 35: the FFHQ interp path of phase 10 on a bf16 pipeline at
+    ``steps`` DDIM steps."""
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch.pipelines import init_random_pipeline
+    from afldm_tpu_torch.scripts.shift_ldm_ffhq import load_configs
+    pipe = init_random_pipeline(*load_configs(), seed=0, device="cuda",
+                                dtype=torch.bfloat16)
+    ends = torch.randn(2, 1, 4, 32, 32, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lat, img = _ffhq_interp(torch, pipe, ends, n_frames, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    finite = bool(torch.isfinite(lat).all() and torch.isfinite(img).all())
+    # 2 inversions, 2 STORE passes and one interp pass; one decode
+    want = reckon_filtered_launches(pipe, 5 * steps, 1)
+    got = {k: counts[k] for k in want}
+    log(f"FFHQ interp bf16: 2 inversions + 2 STORE passes + interp of "
+        f"{n_frames} frames, {steps} steps each, and the decode in "
+        f"{wall:.2f} s wall; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; images "
+        f"{tuple(img.shape)} {img.dtype} finite: {finite}")
+    log(f"FFHQ interp bf16 launches: {json.dumps(counts)}; filtered "
+        f"activations reckoned from the configs {json.dumps(want)}")
+    missing = _missing("FFHQ interp bf16", counts, BF16_INTERP_KERNELS)
+    ok = (finite and img.shape == (n_frames, 3, 256, 256) and got == want
+          and not missing)
+    if not ok:
+        log("FFHQ interp bf16: FAIL")
+    return ok, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -2281,6 +2751,9 @@ def main(argv=None):
     ap.add_argument("--afp_vae_steps", type=int, default=4,
                     help="micro-steps of the AF-VAE trainer at each level "
                          "(default 4)")
+    ap.add_argument("--bf16_interp_steps", type=int, default=20,
+                    help="DDIM steps of the full-width FFHQ interp on a "
+                         "bf16 pipeline (default 20)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2321,9 +2794,12 @@ def main(argv=None):
         for level in LEVELS:
             report[f"{k}:{level}"] = dict(
                 report[k], name=f"{k}:{level}", rms_ratio=0.0)
+    for row, base, _ in BF16_ROWS:  # the bf16-activation variants
+        report[row] = dict(report[base], name=row, rms_ratio=0.0,
+                           ulp_share=0.0, max_ulps=0, f32_ms=0.0)
     ok = check_kernels(torch, report)
     ok &= check_tiny_reference(torch)
-    main_ok, counts = run_main_path(torch, args.steps)
+    main_ok, counts, f32_psnrs = run_main_path(torch, args.steps)
     ok &= main_ok
     torch.cuda.empty_cache()
     ok &= check_tiny_training(torch)
@@ -2396,10 +2872,19 @@ def main(argv=None):
     vlev_ok, vlev_counts = run_vae_training_level(torch, args.afp_vae_steps)
     ok &= vlev_ok
     torch.cuda.empty_cache()
+    ok &= check_bf16_kernels(torch, report)
+    ok &= check_tiny_bf16(torch, "protocol")
+    bf_ok, bf_counts = run_bf16_protocol(torch, args.steps, f32_psnrs)
+    ok &= bf_ok
+    torch.cuda.empty_cache()
+    ok &= check_tiny_bf16(torch, "interp")
+    bfi_ok, bfi_counts = run_bf16_interp(torch, args.bf16_interp_steps)
+    ok &= bfi_ok
+    torch.cuda.empty_cache()
     runs = (counts, train_counts, vae_counts, interp_counts, sd_counts,
             sweep_counts, head_counts, serve_counts, sr_counts, video_counts,
             normal_counts, *new_counts, eq_counts, seq_counts, *afp_counts,
-            *vlev_counts)
+            *vlev_counts, *bf_counts, bfi_counts)
     for k, row in report.items():
         row["launches"] = sum(c[k] for c in runs)
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -61,14 +61,25 @@ def test_flash_kernels_include_the_tile_loop(name):
         assert copy not in code, (name, copy)
 
 
+def _dispatched(src, fn="with_dp"):
+    """The D thresholds of the dispatcher ``fn`` of flash_tile.cuh, in
+    order."""
+    body = src[src.index(f"int {fn}(int D"):]
+    body = body[:body.index("\n}\n")]
+    return [int(d) for d in re.findall(r"if \(D <= (\d+)\) return f\(",
+                                       body)]
+
+
 def test_tile_loop_instantiates_padded_head_dims():
-    """DP is D rounded up within {24, 32, 40, 64, 80, 128, 160, 256}."""
+    """DP is D rounded up within {24, 32, 40, 64, 80, 128, 160, 256}; for
+    the bf16 tile loop (``with_dp_mma``, ``MmaCfg``) D rounded up to a
+    multiple of 16 within {32, 48, 64, 80, 128, 160, 256}."""
     src = (kernels.CSRC / "flash_tile.cuh").read_text()
     dps = [int(d) for d in re.findall(r"struct FlashCfg<(\d+)>", src)]
     assert dps == [24, 32, 40, 64, 80, 128, 160, 256]
-    dispatched = [int(d) for d in re.findall(
-        r"if \(D <= (\d+)\) return f\(", src)]
-    assert dispatched == dps
+    assert _dispatched(src) == dps
+    assert _dispatched(src, "with_dp_mma") == [32, 48, 64, 80, 128, 160,
+                                                256]
 
 
 def test_backward_configures_every_padded_head_dim():
@@ -76,8 +87,7 @@ def test_backward_configures_every_padded_head_dim():
     (``BwdCfg``), and both backward kernels dispatch through ``with_dp``
     onto it."""
     src = (kernels.CSRC / "flash_tile.cuh").read_text()
-    dispatched = [int(d) for d in re.findall(
-        r"if \(D <= (\d+)\) return f\(", src)]
+    dispatched = _dispatched(src)
     cfgs = [int(d) for d in re.findall(r"struct BwdCfg<(\d+)> : Cfg<", src)]
     assert cfgs == dispatched
     bwd = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_bwd.cu").read_text())
@@ -152,10 +162,13 @@ def test_plane_kernel_on_the_filtered_tile():
     (every operand staged in shared memory with 16-byte cp.async; K5b's
     act′ ⊙ product in the epilogue that reads C); block_gemm is gone from
     the file; K1 is four and K2 six launches of the tiled GEMM of
-    filtered_gemm.cuh, with no kernel of their own. None of these f32
+    filtered_gemm.cuh (K1's chain in ``banded_f32``, which serves a float32
+    and a bfloat16 x), with no kernel of their own. None of these f32
     kernels uses tensor cores (no wmma, mma.sync, wgmma or TF32): the bf16
     variants of the reduced precision levels do, through filtered_mma.cuh
-    alone (test_level_variants_on_the_mma_routine)."""
+    alone (test_level_variants_on_the_mma_routine). bf16 appears in
+    filtered_tile.cuh only as a storage type of x and out (its load4 and
+    store4), never in the f32 kernels' bodies."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
     assert '#include "filtered_tile.cuh"' in src
     assert '#include "filtered_gemm.cuh"' in src
@@ -169,7 +182,7 @@ def test_plane_kernel_on_the_filtered_tile():
     code = re.sub(r"//[^\n]*", "", src)
     assert "filtered_act_banded_kernel" not in code
     assert "filtered_act_banded_bwd_kernel" not in code
-    k1 = _kernel_body(src, "filtered_act_banded_f32")
+    k1 = _kernel_body(src, "banded_f32")
     assert "<<<" not in k1
     assert k1.count("filtered_gemm<") == 4
     k2 = _kernel_body(src, "filtered_act_banded_bwd_f32")
@@ -185,9 +198,9 @@ def test_plane_kernel_on_the_filtered_tile():
     gemm_f32 = gemm[gemm.index("filtered_gemm_kernel"):
                     gemm.index("filtered_gemm_mma_kernel")]
     f32_code = k5 + k5b + k1 + k2
-    for absent in ("wmma", "mma.sync", "mma_", "ldmatrix", "tf32", "wgmma",
-                   "bfloat16"):
+    for absent in ("wmma", "mma.sync", "mma_", "ldmatrix", "tf32", "wgmma"):
         assert absent not in (tile + gemm_f32 + f32_code).lower(), absent
+    assert "bfloat16" not in (gemm_f32 + f32_code).lower()
 
 
 def test_level_variants_on_the_mma_routine():
@@ -204,7 +217,7 @@ def test_level_variants_on_the_mma_routine():
     assert k5b.count("mma_product<") == 4
     assert k5b.count("mma_product2<") == 1
     assert k5b.count("MulActGradToPieces{") == 1
-    k1 = _kernel_body(src, "filtered_act_banded_bf16")
+    k1 = _kernel_body(src, "banded_bf16")
     assert "<<<" not in k1 and k1.count("filtered_gemm_mma<") == 4
     k2 = _kernel_body(src, "filtered_act_banded_bwd_bf16")
     assert "<<<" not in k2 and k2.count("filtered_gemm_mma<") == 6
@@ -242,6 +255,42 @@ def test_entry_points_match_their_ctypes_signatures(name):
     assert set(entries) == set(sigs)
     for fn, n in entries.items():
         assert len(sigs[fn]) == n, fn
+
+
+def test_every_bf16_variant_has_launch_counts():
+    """One counter per bf16-activation variant, beside the one of the
+    variant it shadows, and an entry of its own in the sources."""
+    for k in kernels.BF16_KERNELS:
+        assert k in kernels.LAUNCHES and f"{k}/bf16" in kernels.LAUNCHES
+    entries = {**_entry_points((kernels.CSRC / "filtered_act.cu")
+                               .read_text()),
+               **_entry_points((kernels.CSRC / "flash_fwd.cu").read_text()),
+               **_entry_points((kernels.CSRC / "flash2_fwd.cu").read_text())}
+    for name in ("filtered_act_plane_f32_xbf16",
+                 "filtered_act_plane_bf16_xbf16",
+                 "filtered_act_banded_f32_xbf16",
+                 "filtered_act_banded_bf16_xbf16", "flash_fwd_bf16",
+                 "flash2_fwd_bf16"):
+        assert name in entries, name
+
+
+def test_flash_bf16_kernels_on_the_mma_tile_loop():
+    """K3's and K6's bf16 kernels run flash_tile.cuh's bf16 tile loop
+    (mma_attend: the statistics pass and the P·V pass on mma.sync bf16,
+    V through ldmatrix.trans), K6's twice over one staged Q tile, and
+    dispatch D through with_dp_mma; no wgmma, no TF32."""
+    tile = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_tile.cuh")
+                  .read_text())
+    body = tile[tile.index("void mma_attend("):]
+    assert "ldsm_x4_t(" in body and body.count("mma_scores<C>(") == 2
+    for name, n in (("flash_fwd", 1), ("flash2_fwd", 2)):
+        src = re.sub(r"//[^\n]*", "", (kernels.CSRC / f"{name}.cu")
+                     .read_text())
+        k = _kernel_body(src, f"{name}_bf16_kernel")
+        assert k.count("mma_attend<C>(") == n, name
+        assert src.count("with_dp_mma(D,") == 1
+        for absent in ("wgmma", "tf32"):
+            assert absent not in src.lower(), absent
 
 
 def test_every_level_variant_has_launch_counts():

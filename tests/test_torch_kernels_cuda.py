@@ -1064,3 +1064,139 @@ def test_level_functions_keep_the_forward_level(cuda, shape):
     g = torch.ones_like(x)
     assert_level_close(x.grad, plain(x.detach(), g, "silu", "high"),
                        plain(x.detach(), g, "silu", "highest"))
+
+
+# -- bfloat16 activations: K5, K1 (every level), K3 and K6 ------------------
+
+# A filtered activation at bf16 agrees with its plain version (the same f32
+# function between a bf16 load and a bf16 store) when no element is more
+# than one bf16 ulp of itself off beyond the f32 kernel's atol (3e-5: an
+# element that cancels to near zero carries f32 sum-order error) and at
+# most 0.1 % of the elements, or 2 of a smaller tensor, differ (a 1-ulp
+# flip on a rounding edge: one of 960 elements at (1, 4, 12, 20) on an
+# H100); at 'default', where each f32
+# intermediate is cut to its bf16 hi piece, as its f32 twin is held
+# (assert_level_close on the bf16 outputs). Attention at bf16 agrees with its
+# plain version (sdpa_xla's semantics) when the RMS of their difference is
+# at most 0.1 of bf16's own error (plain at bf16 against the f32 plain on
+# the same values) and no element is more than 4 bf16 ulps of the output's
+# largest magnitude off.
+BF = torch.bfloat16
+
+
+def _bf16_ulps(got, want, atol):
+    got, want = got.double(), want.double()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    d = ((got - want).abs() - atol).clamp(min=0)
+    return torch.where(d > 0, d / torch.ldexp(torch.ones_like(d), e - 8),
+                       torch.zeros_like(d))
+
+
+def assert_bf16_close(got, want, exact, level, atol=3e-5):
+    """``exact``: the plain version at 'highest' on the same bf16 x."""
+    assert got.dtype == want.dtype == BF
+    if level == "default":
+        assert_level_close(got.float(), want.float(), exact.float())
+        return
+    assert float(_bf16_ulps(got, want, atol).max()) <= 1
+    assert int((got != want).sum()) <= max(2, 1e-3 * got.numel())
+
+
+@pytest.fixture(params=["highest", "high", "default"])
+def any_level(request):
+    from afldm_tpu_torch.ops import set_af_precision
+    set_af_precision(request.param)
+    yield request.param
+    set_af_precision("highest")
+
+
+def _bf16_key(name, level):
+    return name + ("" if level == "highest" else f":{level}") + "/bf16"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 16, 32, 32), (2, 64, 4, 4), (1, 8, 64, 64), (1, 4, 12, 20),
+    (3, 5, 8, 8), (1, 7, 4, 64), (1, 192, 32, 32), (16, 96, 16, 16)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_plane_bf16_variant_matches_plain(cuda, any_level, shape, act):
+    x = torch.randn(shape, device=cuda).to(BF)
+    got = _launches(_bf16_key("filtered_act_plane", any_level),
+                    lambda: TF.filtered_act_plane(x, act))
+    assert_bf16_close(got, TF.filtered_act_plane_plain(x, act, any_level),
+                      TF.filtered_act_plane_plain(x, act, "highest"),
+                      any_level)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 96, 96), (2, 3, 128, 128),
+                                   (1, 2, 80, 80), (1, 3, 32, 128),
+                                   (1, 1, 200, 104)])
+def test_banded_bf16_variant_matches_plain(cuda, any_level, shape):
+    x = torch.randn(shape, device=cuda).to(BF)
+    got = _launches(_bf16_key("filtered_act_banded", any_level),
+                    lambda: TF.filtered_act_banded(x, "silu"))
+    assert_bf16_close(got, TF.filtered_act_banded_plain(x, "silu",
+                                                        any_level),
+                      TF.filtered_act_banded_plain(x, "silu", "highest"),
+                      any_level)
+
+
+@pytest.mark.cuda
+def test_bf16_filtered_backward_raises(cuda):
+    """No bf16 backward kernel: the autograd Functions raise on the card."""
+    for shape in ((1, 2, 8, 8), (1, 2, 96, 96)):
+        x = torch.randn(shape, device=cuda).to(BF).requires_grad_()
+        out = TF.filtered_act_fused(x, "silu")
+        with pytest.raises(TypeError, match="bfloat16 backward"):
+            out.sum().backward()
+
+
+def assert_attn_bf16_close(got, want, want32):
+    assert got.dtype == want.dtype == BF
+    d = (got.float() - want.float())
+    gap = _rms(want.float() - want32.float())
+    assert _rms(d) <= 0.1 * gap, (_rms(d), gap)
+    _, e = torch.frexp(want.float().abs().max())
+    assert float(d.abs().max()) <= 4 * 2.0 ** (int(e) - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,L,Lk,d,n_kv", [
+    (2, 8, 1024, 1024, 24, 1), (2, 2, 4, 4, 24, 2), (2, 3, 100, 77, 33, 1),
+    (1, 2, 64, 200, 8, 1), (2, 2, 130, 130, 80, 2), (1, 2, 256, 256, 40, 1),
+    (1, 1, 70, 64, 256, 1), (2, 2, 64, 64, 160, 2)])
+def test_flash_bf16_matches_plain(cuda, n, h, L, Lk, d, n_kv):
+    q = torch.randn(n, h, L, d, device=cuda).to(BF)
+    k, v = (torch.randn(n_kv, h, Lk, d, device=cuda).to(BF)
+            .expand(n, -1, -1, -1) for _ in range(2))
+    out, lse = _launches("flash_fwd/bf16", lambda: TA.flash_fwd(q, k, v))
+    want, want_lse = TA._attention_plain(q, k, v)
+    assert lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert_attn_bf16_close(out, want, TA._attention_plain(
+        q.float(), k.float(), v.float())[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,L,d", [(17, 8, 1024, 24), (3, 32, 4, 24),
+                                     (2, 2, 100, 40)])
+def test_flash2_bf16_matches_plain(cuda, n, h, L, d):
+    q = torch.randn(n, h, L, d, device=cuda).to(BF)
+    kv = [torch.randn(1, h, L, d, device=cuda).to(BF).expand(n, -1, -1, -1)
+          for _ in range(4)]
+    alpha = torch.linspace(0, 1, n, device=cuda)[:, None, None]
+    got = _launches("flash2_fwd/bf16", lambda: TA.flash2_fwd(q, *kv, alpha))
+    assert_attn_bf16_close(got, TA.sdpa2_eager(q, *kv, alpha),
+                           TA.sdpa2_eager(q.float(),
+                                          *(t.float() for t in kv), alpha))
+
+
+@pytest.mark.cuda
+def test_bf16_attention_backward_raises(cuda):
+    q, k, v = (torch.randn(1, 2, 16, 24, device=cuda).to(BF)
+               .requires_grad_() for _ in range(3))
+    with pytest.raises(TypeError, match="bfloat16 backward"):
+        TA.sdpa(q, k, v).sum().backward()
+    with pytest.raises(TypeError, match="bfloat16 backward"):
+        TA.sdpa2(q, k, v, k, v, 0.5).sum().backward()
