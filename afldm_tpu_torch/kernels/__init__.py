@@ -40,10 +40,10 @@ LAUNCHES.update({f"{k}:{level}": 0 for k in LEVEL_KERNELS
                  for level in ("high", "default")})
 # the variants that take bfloat16 activations, one count per variant they
 # shadow ("filtered_act_plane/bf16", "filtered_act_plane:high/bf16", ...)
-BF16_KERNELS = ("filtered_act_plane", "filtered_act_plane:high",
-                "filtered_act_plane:default", "filtered_act_banded",
-                "filtered_act_banded:high", "filtered_act_banded:default",
-                "flash_fwd", "flash2_fwd")
+BF16_KERNELS = tuple(f"{k}{level}" for k in (
+    "filtered_act_plane", "filtered_act_banded", "filtered_act_plane_bwd",
+    "filtered_act_banded_bwd") for level in ("", ":high", ":default")) + (
+    "flash_fwd", "flash2_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 LAUNCHES.update({f"{k}/bf16": 0 for k in BF16_KERNELS})
 
 _LIBS = {}
@@ -100,6 +100,16 @@ _SIGNATURES = {
                                           _P],
         "filtered_act_banded_bf16_xbf16": [*[_P] * 7, _I, _I, _I, _I, _I,
                                            _I, _P],
+        # bfloat16 x, g and dx beside the backward kernels: the same
+        # arguments
+        "filtered_act_plane_bwd_f32_xbf16": [*[_P] * 9, _I, _I, _I, _I, _I,
+                                             _I, _I, _P],
+        "filtered_act_plane_bwd_bf16_xbf16": [*[_P] * 9, _I, _I, _I, _I, _I,
+                                              _I, _P],
+        "filtered_act_banded_bwd_f32_xbf16": [*[_P] * 10, _I, _I, _I, _I, _I,
+                                              _P],
+        "filtered_act_banded_bwd_bf16_xbf16": [*[_P] * 10, _I, _I, _I, _I,
+                                               _I, _I, _P],
     },
     "flash_fwd": {
         # q, k, v, out, lse, B1, B2, Lq, Lk, D,
@@ -119,6 +129,12 @@ _SIGNATURES = {
         # q, k, v, dO strides (b1, b2, l), scale, stream
         "flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, *[_L] * 12, _F, _P],
+        # bfloat16 q, k, v, dO and gradients, f32 lse and delta: the same
+        # arguments
+        "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, *[_L] * 12, _F, _P],
+        "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, *[_L] * 12, _F, _P],
     },
     "flash2_fwd": {
         # q, k0, v0, k1, v1, alpha, out, B1, B2, Lq, Lk, D,

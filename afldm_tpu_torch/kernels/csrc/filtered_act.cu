@@ -143,7 +143,13 @@
 // to bf16 in the epilogue; in K1 the chain's first GEMM reads x as bf16
 // and its last writes out as bf16, the scratch intermediates staying f32.
 // Device memory sees half the bytes of x and out; the products are the
-// same.
+// same. The backward kernels K5b and K2 take a bf16 x and g and write a
+// bf16 dx the same way at every level (the JAX _bwd_rule and _bwd_spatial
+// cast x and g to f32 inside and write x's dtype): dx = bf16(vjp(f32(x),
+// f32(g))). K5b widens x and g as it stages them (stage_split at the
+// reduced levels) and rounds dx in its last product's epilogue; K2's first
+// and third GEMMs read x and g as bf16 and its last writes dx as bf16, the
+// scratch intermediates f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -336,11 +342,11 @@ filtered_act_plane_kernel(const T* __restrict__ x, T* __restrict__ out,
 // micro-tiles in place of 8×4. Operators, row-major as stored: uhT = U_hᵀ
 // (H×2H), uwT = U_wᵀ (W×2W), dh = D_h (H×2H), dw = D_w (W×2W), uw = U_w
 // (2W×W), uh = U_h (2H×H): each the k-major form its product reads.
-template <int THREADS>
+template <int THREADS, class T>
 __global__ void __launch_bounds__(THREADS, THREADS == 256 ? 2 : 1)
-filtered_act_plane_bwd_kernel(const float* __restrict__ x,
-                              const float* __restrict__ g,
-                              float* __restrict__ dx,
+filtered_act_plane_bwd_kernel(const T* __restrict__ x,
+                              const T* __restrict__ g,
+                              T* __restrict__ dx,
                               const float* __restrict__ uhT,
                               const float* __restrict__ uwT,
                               const float* __restrict__ dh,
@@ -360,14 +366,22 @@ filtered_act_plane_bwd_kernel(const float* __restrict__ x,
   float* small = big + ppb * lay.big;    // P × tᵀ, then uᵀ, then s
   float* gs = small + ppb * lay.small;   // P × g
   const int ld2h = row_pad(2 * H), ldw = row_pad(W);
-  // x, g and U_hᵀ, then U_wᵀ, in flight together
-  const float* xg = x + p0 * HW;
-  const float* gg = g + p0 * HW;
+  // x, g and U_hᵀ, then U_wᵀ, in flight together (a bf16 x and g are
+  // widened by plain loads and stores, which the first barrier orders)
+  const T* xg = x + p0 * HW;
+  const T* gg = g + p0 * HW;
   const int c4 = HW / 4;
   for (int i = threadIdx.x; i < P * c4; i += blockDim.x) {
     const int p = i / c4, c = i - p * c4;
-    cp_async16(big + p * lay.big + 4 * c, xg + (long long)p * HW + 4 * c);
-    cp_async16(gs + p * lay.g + 4 * c, gg + (long long)p * HW + 4 * c);
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async16(big + p * lay.big + 4 * c, xg + (long long)p * HW + 4 * c);
+      cp_async16(gs + p * lay.g + 4 * c, gg + (long long)p * HW + 4 * c);
+    } else {
+      *reinterpret_cast<float4*>(big + p * lay.big + 4 * c) =
+          load4(xg + (long long)p * HW + 4 * c);
+      *reinterpret_cast<float4*>(gs + p * lay.g + 4 * c) =
+          load4(gg + (long long)p * HW + 4 * c);
+    }
   }
   stage(op0, uhT, H * H / 2);
   cp_async_commit();
@@ -579,11 +593,11 @@ filtered_act_plane_mma_kernel(const T* __restrict__ x, T* __restrict__ out,
 // bf16 passes a product, P planes a block of 256 threads, in _bwd_rule's
 // order. Operators: the split blobs of U_hᵀ (H×2H), D_h (H×2H), U_wᵀ
 // (W×2W), D_w (W×2W), U_w (2W×W), U_h (2H×H).
-template <int PASSES>
+template <int PASSES, class T>
 __global__ void __launch_bounds__(256)
-filtered_act_plane_bwd_mma_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ g,
-                                  float* __restrict__ dx,
+filtered_act_plane_bwd_mma_kernel(const T* __restrict__ x,
+                                  const T* __restrict__ g,
+                                  T* __restrict__ dx,
                                   const __nv_bfloat16* __restrict__ uhT,
                                   const __nv_bfloat16* __restrict__ dh,
                                   const __nv_bfloat16* __restrict__ uwT,
@@ -651,7 +665,7 @@ filtered_act_plane_bwd_mma_kernel(const float* __restrict__ x,
   // dx = U_hᵀ · s = (U_h)ᵀ · s              (H × W), to device memory
   mma_product<PASSES>(piece(op1, 2 * H, H, 0), piece(small, 2 * H, W, lay.small),
                       P, pad16(H), pad16(W), pad16(2 * H),
-                      ToPlanes<float>{dx + p0 * HW, H, W, HW});
+                      ToPlanes<T>{dx + p0 * HW, H, W, HW});
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -800,6 +814,154 @@ int banded_bf16(const T* x, T* out, float* scratch, const float* uhT,
       1, Identity{}, s);
 }
 
+// K5b (f32 products) on P planes a block of ``threads``; x, g and dx of T.
+template <class T>
+int plane_bwd_f32(const T* x, const T* g, T* dx, const float* uhT,
+                  const float* uwT, const float* dh, const float* dw,
+                  const float* uw, const float* uh, int nplanes, int H, int W,
+                  int ppb, int tiles, int threads, int act, void* stream) {
+  // the rows of the products' results tᵀ, preᵀ, uᵀ, mᵀ, s and dx
+  const int rows[6] = {W, 2 * W, W, 2 * W, 2 * H, H};
+  const int err = check_plane_args(H, W, ppb, tiles, threads, rows, 6);
+  if (err != cudaSuccess) return err;
+  return launch_planes(
+      threads == 256 ? &filtered_act_plane_bwd_kernel<256, T>
+                     : &filtered_act_plane_bwd_kernel<512, T>,
+      threads, PlaneBwdLayout(H, W).floats(ppb) * sizeof(float), nplanes,
+      ppb, (cudaStream_t)stream, x, g, dx, uhT, uwT, dh, dw, uw, uh, nplanes,
+      H, W, ppb, tiles, act);
+}
+
+// K5b at a reduced level (``passes`` bf16 passes a product); x, g and dx of
+// T.
+template <class T>
+int plane_bwd_bf16(const T* x, const T* g, T* dx, const __nv_bfloat16* uhT,
+                   const __nv_bfloat16* dh, const __nv_bfloat16* uwT,
+                   const __nv_bfloat16* dw, const __nv_bfloat16* uw,
+                   const __nv_bfloat16* uh, int nplanes, int H, int W,
+                   int ppb, int passes, int act, void* stream) {
+  if (H % 4 || W % 4 || ppb < 1 || (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = passes == 3 ? &filtered_act_plane_bwd_mma_kernel<3, T>
+                            : &filtered_act_plane_bwd_mma_kernel<1, T>;
+  return launch_planes(kernel, 256, MmaPlaneLayout(H, W, true).bytes(ppb),
+                       nplanes, ppb, (cudaStream_t)stream, x, g, dx, uhT, dh,
+                       uwT, dw, uw, uh, nplanes, H, W, ppb, act);
+}
+
+// K2 (f32 products) on one chunk of P planes, six launches of the tiled
+// GEMM; x and g of T (the first and third GEMMs' row-major A), dx of T (the
+// last GEMM's C).
+template <class T>
+int banded_bwd_f32(const T* x, const T* g, T* dx, float* scratch,
+                   const float* uwT, const float* uhT, const float* dw,
+                   const float* dh, const float* uw, const float* uh,
+                   int nplanes, int H, int W, int tiles, int act,
+                   void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::GemmArgsT;
+  using afldm_filtered::filtered_gemm;
+  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long P = nplanes, HW = (long long)H * W;
+  float* t = scratch;                 // P × (H × 2W): t, then v; then s
+  float* pre = scratch + 2 * HW * P;  // P × (2H × 2W): pre, then m
+  // t = x · U_wᵀ, x viewed as (P·H) × W
+  int err = filtered_gemm<false>(
+      tiles & 1, GemmArgsT<T, float, float>{x, W, 0, uwT, 2 * W, 0, t, 2 * W,
+                                            0, (int)(P * H), 2 * W, W},
+      1, Identity{}, s);
+  if (err) return err;
+  // pre[p] = U_h · t[p], U_h from its k-major form U_hᵀ
+  err = filtered_gemm<true>(
+      (tiles >> 1) & 1, GemmArgs{uhT, 2 * H, 0, t, 2 * W, 2 * HW, pre, 2 * W,
+                                 4 * HW, 2 * H, 2 * W, H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // v = g · D_w, g viewed as (P·H) × W; over t
+  err = filtered_gemm<false>(
+      (tiles >> 2) & 1, GemmArgsT<T, float, float>{g, W, 0, dw, 2 * W, 0, t,
+                                                   2 * W, 0, (int)(P * H),
+                                                   2 * W, W},
+      1, Identity{}, s);
+  if (err) return err;
+  // m[p] = act′(pre[p]) ⊙ (D_hᵀ · v[p]), D_hᵀ from its k-major form D_h; in
+  // place over pre
+  err = filtered_gemm<true>(
+      (tiles >> 3) & 1, GemmArgs{dh, 2 * H, 0, t, 2 * W, 2 * HW, pre, 2 * W,
+                                 4 * HW, 2 * H, 2 * W, H},
+      nplanes, MulActGrad{act}, s);
+  if (err) return err;
+  // s = m · U_w, m viewed as (P·2H) × 2W; over v
+  err = filtered_gemm<false>(
+      (tiles >> 4) & 1, GemmArgs{pre, 2 * W, 0, uw, W, 0, t, W, 0,
+                                 (int)(P * 2 * H), W, 2 * W},
+      1, Identity{}, s);
+  if (err) return err;
+  // dx[p] = U_hᵀ · s[p], U_hᵀ from its k-major form U_h
+  return filtered_gemm<true>(
+      (tiles >> 5) & 1, GemmArgsT<float, float, T>{uh, H, 0, t, W, 2 * HW, dx,
+                                                   W, HW, H, W, 2 * H},
+      nplanes, Identity{}, s);
+}
+
+// K2 at a reduced level, _bwd_spatial's order, as six launches of the
+// GEMM's bf16 variant; x and g of T (the first and third GEMMs' B), dx of
+// T (the last GEMM's C).
+template <class T>
+int banded_bwd_bf16(const T* x, const T* g, T* dx, float* scratch,
+                    const float* uhT, const float* uwT, const float* dh,
+                    const float* dw, const float* uh, const float* uw,
+                    int nplanes, int H, int W, int tiles, int passes, int act,
+                    void* stream) {
+  using afldm_filtered::GemmArgs;
+  using afldm_filtered::GemmArgsT;
+  using afldm_filtered::filtered_gemm_mma;
+  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long P = nplanes, HW = (long long)H * W;
+  float* t = scratch;                 // P × (2H × W): t, then v; then s
+  float* pre = scratch + 2 * HW * P;  // P × (2H × 2W): pre, then m
+  // t[p] = U_h · x[p]
+  int err = filtered_gemm_mma<true>(
+      tiles & 1, passes,
+      GemmArgsT<float, T, float>{uhT, 2 * H, 0, x, W, HW, t, W, 2 * HW,
+                                 2 * H, W, H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // pre = t · U_wᵀ, t viewed as (P·2H) × W
+  err = filtered_gemm_mma<false>(
+      (tiles >> 1) & 1, passes, GemmArgs{t, W, 0, uwT, 2 * W, 0, pre, 2 * W,
+                                         0, (int)(P * 2 * H), 2 * W, W},
+      1, Identity{}, s);
+  if (err) return err;
+  // v[p] = D_hᵀ · g[p], D_hᵀ from its k-major form D_h; over t
+  err = filtered_gemm_mma<true>(
+      (tiles >> 2) & 1, passes,
+      GemmArgsT<float, T, float>{dh, 2 * H, 0, g, W, HW, t, W, 2 * HW,
+                                 2 * H, W, H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // m = act′(pre) ⊙ (v · D_w), v viewed as (P·2H) × W; in place over pre
+  err = filtered_gemm_mma<false>(
+      (tiles >> 3) & 1, passes, GemmArgs{t, W, 0, dw, 2 * W, 0, pre, 2 * W,
+                                         0, (int)(P * 2 * H), 2 * W, W},
+      1, MulActGrad{act}, s);
+  if (err) return err;
+  // s[p] = U_hᵀ · m[p], U_hᵀ from its k-major form U_h; over v
+  err = filtered_gemm_mma<true>(
+      (tiles >> 4) & 1, passes, GemmArgs{uh, H, 0, pre, 2 * W, 4 * HW, t,
+                                         2 * W, 2 * HW, H, 2 * W, 2 * H},
+      nplanes, Identity{}, s);
+  if (err) return err;
+  // dx = s · U_w, s viewed as (P·H) × 2W
+  return filtered_gemm_mma<false>(
+      (tiles >> 5) & 1, passes,
+      GemmArgsT<float, float, T>{t, 2 * W, 0, uw, W, 0, dx, W, 0,
+                                 (int)(P * H), W, 2 * W},
+      1, Identity{}, s);
+}
+
 }  // namespace
 
 extern "C" int filtered_act_plane_f32(const float* x, float* out,
@@ -829,16 +991,18 @@ extern "C" int filtered_act_plane_bwd_f32(
     const float* uwT, const float* dh, const float* dw, const float* uw,
     const float* uh, int nplanes, int H, int W, int ppb, int tiles,
     int threads, int act, void* stream) {
-  // the rows of the products' results tᵀ, preᵀ, uᵀ, mᵀ, s and dx
-  const int rows[6] = {W, 2 * W, W, 2 * W, 2 * H, H};
-  const int err = check_plane_args(H, W, ppb, tiles, threads, rows, 6);
-  if (err != cudaSuccess) return err;
-  return launch_planes(
-      threads == 256 ? &filtered_act_plane_bwd_kernel<256>
-                     : &filtered_act_plane_bwd_kernel<512>,
-      threads, PlaneBwdLayout(H, W).floats(ppb) * sizeof(float), nplanes,
-      ppb, (cudaStream_t)stream, x, g, dx, uhT, uwT, dh, dw, uw, uh, nplanes,
-      H, W, ppb, tiles, act);
+  return plane_bwd_f32(x, g, dx, uhT, uwT, dh, dw, uw, uh, nplanes, H, W,
+                       ppb, tiles, threads, act, stream);
+}
+
+// K5b for a bf16 x and g: the same arguments, x, g and dx bf16.
+extern "C" int filtered_act_plane_bwd_f32_xbf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* g, __nv_bfloat16* dx,
+    const float* uhT, const float* uwT, const float* dh, const float* dw,
+    const float* uw, const float* uh, int nplanes, int H, int W, int ppb,
+    int tiles, int threads, int act, void* stream) {
+  return plane_bwd_f32(x, g, dx, uhT, uwT, dh, dw, uw, uh, nplanes, H, W,
+                       ppb, tiles, threads, act, stream);
 }
 
 // out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ for P planes (one chunk), as four
@@ -876,49 +1040,19 @@ extern "C" int filtered_act_banded_bwd_f32(
     const float* uwT, const float* uhT, const float* dw, const float* dh,
     const float* uw, const float* uh, int nplanes, int H, int W, int tiles,
     int act, void* stream) {
-  using afldm_filtered::GemmArgs;
-  using afldm_filtered::filtered_gemm;
-  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long P = nplanes, HW = (long long)H * W;
-  float* t = scratch;                 // P × (H × 2W): t, then v; then s
-  float* pre = scratch + 2 * HW * P;  // P × (2H × 2W): pre, then m
-  // t = x · U_wᵀ, x viewed as (P·H) × W
-  int err = filtered_gemm<false>(
-      tiles & 1, GemmArgs{x, W, 0, uwT, 2 * W, 0, t, 2 * W, 0,
-                          (int)(P * H), 2 * W, W},
-      1, Identity{}, s);
-  if (err) return err;
-  // pre[p] = U_h · t[p], U_h from its k-major form U_hᵀ
-  err = filtered_gemm<true>(
-      (tiles >> 1) & 1, GemmArgs{uhT, 2 * H, 0, t, 2 * W, 2 * HW, pre, 2 * W,
-                                 4 * HW, 2 * H, 2 * W, H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // v = g · D_w, g viewed as (P·H) × W; over t
-  err = filtered_gemm<false>(
-      (tiles >> 2) & 1, GemmArgs{g, W, 0, dw, 2 * W, 0, t, 2 * W, 0,
-                                 (int)(P * H), 2 * W, W},
-      1, Identity{}, s);
-  if (err) return err;
-  // m[p] = act′(pre[p]) ⊙ (D_hᵀ · v[p]), D_hᵀ from its k-major form D_h; in
-  // place over pre
-  err = filtered_gemm<true>(
-      (tiles >> 3) & 1, GemmArgs{dh, 2 * H, 0, t, 2 * W, 2 * HW, pre, 2 * W,
-                                 4 * HW, 2 * H, 2 * W, H},
-      nplanes, MulActGrad{act}, s);
-  if (err) return err;
-  // s = m · U_w, m viewed as (P·2H) × 2W; over v
-  err = filtered_gemm<false>(
-      (tiles >> 4) & 1, GemmArgs{pre, 2 * W, 0, uw, W, 0, t, W, 0,
-                                 (int)(P * 2 * H), W, 2 * W},
-      1, Identity{}, s);
-  if (err) return err;
-  // dx[p] = U_hᵀ · s[p], U_hᵀ from its k-major form U_h
-  return filtered_gemm<true>(
-      (tiles >> 5) & 1, GemmArgs{uh, H, 0, t, W, 2 * HW, dx, W, HW, H, W,
-                                 2 * H},
-      nplanes, Identity{}, s);
+  return banded_bwd_f32(x, g, dx, scratch, uwT, uhT, dw, dh, uw, uh, nplanes,
+                        H, W, tiles, act, stream);
+}
+
+// K2 for a bf16 x and g: the same arguments, x, g and dx bf16 (scratch
+// f32).
+extern "C" int filtered_act_banded_bwd_f32_xbf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* g, __nv_bfloat16* dx,
+    float* scratch, const float* uwT, const float* uhT, const float* dw,
+    const float* dh, const float* uw, const float* uh, int nplanes, int H,
+    int W, int tiles, int act, void* stream) {
+  return banded_bwd_f32(x, g, dx, scratch, uwT, uhT, dw, dh, uw, uh, nplanes,
+                        H, W, tiles, act, stream);
 }
 
 // One launch of the tiled GEMM alone, A row-major or k-major: its card
@@ -974,13 +1108,20 @@ extern "C" int filtered_act_plane_bwd_bf16(
     const __nv_bfloat16* dw, const __nv_bfloat16* uw,
     const __nv_bfloat16* uh, int nplanes, int H, int W, int ppb, int passes,
     int act, void* stream) {
-  if (H % 4 || W % 4 || ppb < 1 || (passes != 1 && passes != 3))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = passes == 3 ? &filtered_act_plane_bwd_mma_kernel<3>
-                            : &filtered_act_plane_bwd_mma_kernel<1>;
-  return launch_planes(kernel, 256, MmaPlaneLayout(H, W, true).bytes(ppb),
-                       nplanes, ppb, (cudaStream_t)stream, x, g, dx, uhT, dh,
-                       uwT, dw, uw, uh, nplanes, H, W, ppb, act);
+  return plane_bwd_bf16(x, g, dx, uhT, dh, uwT, dw, uw, uh, nplanes, H, W,
+                        ppb, passes, act, stream);
+}
+
+// K5b at a reduced level for a bf16 x and g: the same arguments, x, g and
+// dx bf16.
+extern "C" int filtered_act_plane_bwd_bf16_xbf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* g, __nv_bfloat16* dx,
+    const __nv_bfloat16* uhT, const __nv_bfloat16* dh,
+    const __nv_bfloat16* uwT, const __nv_bfloat16* dw,
+    const __nv_bfloat16* uw, const __nv_bfloat16* uh, int nplanes, int H,
+    int W, int ppb, int passes, int act, void* stream) {
+  return plane_bwd_bf16(x, g, dx, uhT, dh, uwT, dw, uw, uh, nplanes, H, W,
+                        ppb, passes, act, stream);
 }
 
 // K1 at a reduced level, _forward_spatial's order, as four launches of the
@@ -1016,48 +1157,19 @@ extern "C" int filtered_act_banded_bwd_bf16(
     const float* uhT, const float* uwT, const float* dh, const float* dw,
     const float* uh, const float* uw, int nplanes, int H, int W, int tiles,
     int passes, int act, void* stream) {
-  using afldm_filtered::GemmArgs;
-  using afldm_filtered::filtered_gemm_mma;
-  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long P = nplanes, HW = (long long)H * W;
-  float* t = scratch;                 // P × (2H × W): t, then v; then s
-  float* pre = scratch + 2 * HW * P;  // P × (2H × 2W): pre, then m
-  // t[p] = U_h · x[p]
-  int err = filtered_gemm_mma<true>(
-      tiles & 1, passes, GemmArgs{uhT, 2 * H, 0, x, W, HW, t, W, 2 * HW,
-                                  2 * H, W, H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // pre = t · U_wᵀ, t viewed as (P·2H) × W
-  err = filtered_gemm_mma<false>(
-      (tiles >> 1) & 1, passes, GemmArgs{t, W, 0, uwT, 2 * W, 0, pre, 2 * W,
-                                         0, (int)(P * 2 * H), 2 * W, W},
-      1, Identity{}, s);
-  if (err) return err;
-  // v[p] = D_hᵀ · g[p], D_hᵀ from its k-major form D_h; over t
-  err = filtered_gemm_mma<true>(
-      (tiles >> 2) & 1, passes, GemmArgs{dh, 2 * H, 0, g, W, HW, t, W,
-                                         2 * HW, 2 * H, W, H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // m = act′(pre) ⊙ (v · D_w), v viewed as (P·2H) × W; in place over pre
-  err = filtered_gemm_mma<false>(
-      (tiles >> 3) & 1, passes, GemmArgs{t, W, 0, dw, 2 * W, 0, pre, 2 * W,
-                                         0, (int)(P * 2 * H), 2 * W, W},
-      1, MulActGrad{act}, s);
-  if (err) return err;
-  // s[p] = U_hᵀ · m[p], U_hᵀ from its k-major form U_h; over v
-  err = filtered_gemm_mma<true>(
-      (tiles >> 4) & 1, passes, GemmArgs{uh, H, 0, pre, 2 * W, 4 * HW, t,
-                                         2 * W, 2 * HW, H, 2 * W, 2 * H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // dx = s · U_w, s viewed as (P·H) × 2W
-  return filtered_gemm_mma<false>(
-      (tiles >> 5) & 1, passes, GemmArgs{t, 2 * W, 0, uw, W, 0, dx, W, 0,
-                                         (int)(P * H), W, 2 * W},
-      1, Identity{}, s);
+  return banded_bwd_bf16(x, g, dx, scratch, uhT, uwT, dh, dw, uh, uw,
+                         nplanes, H, W, tiles, passes, act, stream);
+}
+
+// K2 at a reduced level for a bf16 x and g: the same arguments, x, g and dx
+// bf16 (scratch f32).
+extern "C" int filtered_act_banded_bwd_bf16_xbf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* g, __nv_bfloat16* dx,
+    float* scratch, const float* uhT, const float* uwT, const float* dh,
+    const float* dw, const float* uh, const float* uw, int nplanes, int H,
+    int W, int tiles, int passes, int act, void* stream) {
+  return banded_bwd_bf16(x, g, dx, scratch, uhT, uwT, dh, dw, uh, uw,
+                         nplanes, H, W, tiles, passes, act, stream);
 }
 
 // One launch of the GEMM's bf16 variant alone (its card tests' entry): as

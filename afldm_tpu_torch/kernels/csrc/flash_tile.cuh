@@ -886,4 +886,192 @@ __device__ __forceinline__ void for_out(int q0, int Lq, int D, F f) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward (flash_bwd_dq_bf16, flash_bwd_dkv_bf16: K4a and K4b for
+// bf16 q, k, v and dO), the semantics of the JAX kernels at bf16: s and dp
+// from bf16 products summed in f32, p = exp(s·scale − lse) and ds = p ⊙ (dp −
+// delta)·scale in f32, ds (and, for dv, p) rounded to bf16 before it is the
+// A operand of the second product of its pair, every accumulator f32, dq,
+// dk and dv rounded to bf16 once at the store. lse and delta stay f32.
+//
+// A block's rows are a 64-row tile (Q for dq, K/V for dkv) in 4 row groups
+// of 16; the products run on mma.sync m16n8k16 from ldmatrix as in K3/bf16:
+// the scores (and dp) through mma_scores, whose accumulators of two
+// neighbouring 8-column tiles are the A fragment of the next product over
+// those 16 columns, and the walked tile (K for dq; dO and Q for dkv)
+// through ldmatrix.trans as its B operand. The second product's f32
+// accumulator of a row group is 16 × DP: at large DP, CS warps share a row
+// group, each computing the row group's scores (CS times over) and
+// accumulating DW = DP / CS of the columns, so that no thread holds more
+// than 64 accumulators of one product (dkv holds dk and dv).
+//
+// Staging is K3/bf16's (stage_rows_bf16: 16-byte cp.async where every base
+// and stride allows, else the masked scalar copy; rows padded to LD = DP +
+// 8); the walked tiles are double-buffered, the next tile's copy in flight
+// while the current one is computed on. D is zero-padded to DP, a multiple
+// of 16 (24 to 32, 40 to 48); ragged lengths are masked (p = ds = 0 past Lk
+// or Lq) and rows past the length are not stored.
+
+template <int DP_, int CS_>
+struct BwdMmaCfg {
+  static constexpr int DP = DP_;
+  static constexpr int CS = CS_;          // warps sharing a row group
+  static constexpr int kWarps = 4 * CS;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int BQ = 64;           // the block's row tile
+  static constexpr int LD = DP + 8;       // padded row, in bf16
+  static constexpr int NT = kBK / 8;      // 8-column score tiles
+  static constexpr int DW = DP / CS;      // accumulator columns a warp
+  static constexpr int DWT = DW / 8;      // its 8-column tiles
+  static_assert(DP % 16 == 0 && DW % 16 == 0, "mma k and n steps");
+  // the block's two row tiles, two buffers of two walked tiles, and two
+  // buffers of a walked tile's 64 lse and 64 delta values (dkv)
+  static constexpr size_t smem_bytes =
+      (size_t)(2 * BQ + 4 * kBK) * LD * 2 + 2 * 2 * kBK * sizeof(float);
+  static_assert(smem_bytes <= kMaxSmemBytes, "bf16 backward smem");
+};
+
+// f(BwdMmaCfg<DP, CS>) for the smallest multiple of 16 DP at least D, with
+// CS column slices a row group where DP > ``wide`` (4 above 160 where
+// ``split4``).
+template <int WIDE, bool SPLIT4, class F>
+int with_bwd_mma(int D, F&& f) {
+  return with_dp_mma(D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    constexpr int CS = DP <= WIDE ? 1 : (SPLIT4 && DP > 160) ? 4 : 2;
+    return f(BwdMmaCfg<DP, CS>{});
+  });
+}
+
+// The walked tile's B fragments (ldmatrix.trans) of a warp: row kk·16 + …
+// and the warp's column slice.
+template <class C>
+__device__ __forceinline__ const __nv_bfloat16* trans_base(
+    const __nv_bfloat16* tile, int cs, int lane) {
+  return tile + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LD + 8 * (lane >> 4) +
+         cs * C::DW;
+}
+
+// acc += A · T over the 64 walked rows of ``tb`` (trans_base): A the four
+// 16-column A fragments of a row group, T the walked tile's rows.
+template <class C>
+__device__ __forceinline__ void mma_walked(float (&acc)[C::DWT][4],
+                                           const unsigned (&a)[kBK / 16][4],
+                                           const __nv_bfloat16* tb) {
+  using afldm_filtered::ldsm_x4_t;
+  using afldm_filtered::mma_bf16;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < C::DWT / 2; ++dp) {
+      unsigned b[4];
+      ldsm_x4_t(b, tb + 16 * kk * C::LD + 16 * dp);
+      mma_bf16(acc[2 * dp], a[kk], b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// The pair (v[j][2h], v[j][2h + 1]) rounded to bf16 as the A fragment word
+// of a 16-column step (mma_attend's packing of P).
+__device__ __forceinline__ void pack_a(unsigned (&a)[kBK / 16][4], int j,
+                                       int h, float v0, float v1) {
+  const __nv_bfloat162 pb = __floats2bfloat162_rn(v0, v1);
+  a[j / 2][2 * (j & 1) + h] = *reinterpret_cast<const unsigned*>(&pb);
+}
+
+// dq's step (rows: a row group's 16 queries, columns: the tile's 64 keys
+// from k0): ds = p ⊙ (dp − δ)·scale, p = exp(s·scale − lse) and 0 past Lk,
+// rounded to bf16 as the A fragments of ds·K. ls, dl: the lse and delta of
+// rows g and g + 8.
+template <class C>
+__device__ __forceinline__ void ds_fragments(unsigned (&da)[kBK / 16][4],
+                                             const float (&s)[C::NT][4],
+                                             const float (&dp)[C::NT][4],
+                                             const float (&ls)[2],
+                                             const float (&dl)[2],
+                                             float scale, int k0, int Lk,
+                                             int lane) {
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = bwd_p(s[j][2 * h + e], scale, ls[h],
+                              k0 + 8 * j + t2 + e < Lk);
+        d[e] = bwd_ds(p, dp[j][2 * h + e], dl[h], scale);
+      }
+      pack_a(da, j, h, d[0], d[1]);
+    }
+}
+
+// dkv's first step (rows: a row group's 16 keys, columns: the tile's 64
+// queries from q0): pᵀ = exp(sᵀ·scale − lse) in place over sᵀ, 0 past Lq,
+// and rounded to bf16 as the A fragments of pᵀ·dO. xl: the tile's 64 lse.
+template <class C>
+__device__ __forceinline__ void p_fragments(unsigned (&pa)[kBK / 16][4],
+                                            float (&p)[C::NT][4],
+                                            const float* xl, float scale,
+                                            int q0, int Lq, int lane) {
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = 8 * j + t2 + e;
+        p[j][2 * h + e] = bwd_p(p[j][2 * h + e], scale, xl[qi], q0 + qi < Lq);
+      }
+      pack_a(pa, j, h, p[j][2 * h], p[j][2 * h + 1]);
+    }
+}
+
+// dkv's second step: dsᵀ = pᵀ ⊙ (dpᵀ − δ)·scale rounded to bf16 as the A
+// fragments of dsᵀ·Q. xd: the tile's 64 delta values.
+template <class C>
+__device__ __forceinline__ void dst_fragments(unsigned (&da)[kBK / 16][4],
+                                              const float (&p)[C::NT][4],
+                                              const float (&dp)[C::NT][4],
+                                              const float* xd, float scale,
+                                              int lane) {
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        d[e] = bwd_ds(p[j][2 * h + e], dp[j][2 * h + e], xd[8 * j + t2 + e],
+                      scale);
+      pack_a(da, j, h, d[0], d[1]);
+    }
+}
+
+// Stores a warp's 16 rows × DW columns of acc, rounded to bf16, rows r0 +
+// g + 8h below L and columns below D, into the dense (·, D) rows of ``out``.
+template <class C>
+__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* out,
+                                                const float (&acc)[C::DWT][4],
+                                                int r0, int L, int D, int cs,
+                                                int lane) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= L) continue;
+#pragma unroll
+    for (int j = 0; j < C::DWT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = cs * C::DW + 8 * j + t2 + e;
+        if (d < D)
+          out[(long long)row * D + d] = __float2bfloat16_rn(acc[j][2 * h + e]);
+      }
+  }
+}
+
 }  // namespace afldm_flash

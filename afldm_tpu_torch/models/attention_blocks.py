@@ -9,13 +9,21 @@ stored map is the token map *after* ``norm1``, which a LOAD pass takes
 as the K/V source directly (unlike ``layers.Attention``, whose stored map
 is pre-norm). Interpolation blends two such passes after ``to_out``, as
 the JAX package computes it: two ``sdpa`` calls, not the fused ``sdpa2``.
+
+Compute dtype as in ``layers``: every projection, norm and convolution is
+the ``layers`` one, so ``set_compute_dtype`` on a model reaches these
+blocks too (the LayerNorms normalise in float32 and return the compute
+dtype, as Flax's ``LayerNorm(dtype=)``).
 """
+
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import sdpa
+from .layers import Conv2d, GroupNorm, LayerNorm, Linear
 
 
 class CrossAttention(nn.Module):
@@ -29,10 +37,10 @@ class CrossAttention(nn.Module):
         inner = num_heads * head_dim
         context_dim = context_dim or query_dim
         self.num_heads = num_heads
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim)])
 
     def _heads(self, t):
         n, L, C = t.shape
@@ -69,17 +77,28 @@ class CrossAttention(nn.Module):
         return (1 - a) * o0 + a * o1
 
 
+def gelu_exact(x):
+    """The exact (erf) gelu. A bfloat16 x takes the JAX package's bf16
+    definition, 0.5·x·erfc(−x·√½) with √½ in bf16 and each step rounded to
+    bf16 (Flax's ``nn.gelu(approximate=False)``); other dtypes
+    ``F.gelu``."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x)
+    sqrt_half = float(torch.tensor(math.sqrt(0.5), dtype=torch.bfloat16))
+    return 0.5 * x * torch.erfc(-x * sqrt_half)
+
+
 class GEGLU(nn.Module):
     """``proj`` to twice the width, then value * gelu(gate) with the exact
     (erf) gelu, as diffusers computes it."""
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
-        return h * F.gelu(gate)
+        return h * gelu_exact(gate)
 
 
 class FeedForward(nn.Module):
@@ -89,7 +108,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(0.0),
-                                  nn.Linear(dim * mult, dim)])
+                                  Linear(dim * mult, dim)])
 
     def forward(self, x):
         for m in self.net:
@@ -105,12 +124,12 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  cross_attention_dim: int):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn1 = CrossAttention(dim, num_heads, head_dim)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.attn2 = CrossAttention(dim, num_heads, head_dim,
                                     cross_attention_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm3 = LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
     def forward(self, x, encoder_hidden_states, kv_override=None,
@@ -130,13 +149,13 @@ class Transformer2DModel(nn.Module):
     def __init__(self, channels: int, num_heads: int, head_dim: int,
                  cross_attention_dim: int, depth: int = 1, groups: int = 32):
         super().__init__()
-        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.norm = GroupNorm(groups, channels, eps=1e-6)
+        self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, num_heads, head_dim,
                                   cross_attention_dim)
             for _ in range(depth)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x, encoder_hidden_states, kv):
         N, C, H, W = x.shape

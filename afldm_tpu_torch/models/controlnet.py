@@ -16,7 +16,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .layers import KVHelper, TimestepEmbedding, get_timestep_embedding
+from .layers import (Conv2d, KVHelper, TimestepEmbedding,
+                     get_timestep_embedding, set_compute_dtype)
 from .unet2d_condition import (CrossAttnDownBlock2D, UNet2DConditionConfig,
                                UNetMidBlock2DCrossAttn)
 
@@ -76,17 +77,19 @@ class ControlNetModel(nn.Module):
     conditioning_scale=1.0, kv_in=None, kv_in2=None, alpha=None,
     guess_mode=False) -> (down_residuals, mid_residual, stored_maps)``.
     ``guess_mode`` ramps the residual strengths logarithmically from 0.1
-    (shallowest skip) to 1 (mid block) before ``conditioning_scale``."""
+    (shallowest skip) to 1 (mid block) before ``conditioning_scale``.
+    ``dtype`` is the compute dtype (``layers.set_compute_dtype``); the
+    parameters stay float32 and the residuals come out in it."""
 
-    def __init__(self, config: ControlNetConfig):
+    def __init__(self, config: ControlNetConfig, dtype=torch.float32):
         super().__init__()
         cfg = self.config = config
         ch = list(cfg.block_out_channels)
         temb_ch = ch[0] * 4
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
-        self.conv_in2 = nn.Conv2d(cfg.conditioning_channels, ch[0], 3,
-                                  padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in2 = Conv2d(cfg.conditioning_channels, ch[0], 3,
+                               padding=1)
 
         self.down_blocks = nn.ModuleList()
         skip_ch = [ch[0]]
@@ -101,9 +104,11 @@ class ControlNetModel(nn.Module):
             prev = ch[i]
         self.mid_block = UNetMidBlock2DCrossAttn(ch[-1], temb_ch, cfg)
         self.controlnet_down_blocks = nn.ModuleList(
-            [nn.Conv2d(c, c, 1) for c in skip_ch])
-        self.controlnet_mid_block = nn.Conv2d(ch[-1], ch[-1], 1)
+            [Conv2d(c, c, 1) for c in skip_ch])
+        self.controlnet_mid_block = Conv2d(ch[-1], ch[-1], 1)
         self.zero_controls_()
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     @torch.no_grad()
     def zero_controls_(self):

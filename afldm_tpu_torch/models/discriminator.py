@@ -9,6 +9,10 @@ the leaky-ReLU takes the filtered 2x sandwich.
 Module names follow the Flax ones through ``from_flax``: ``conv_0`` ..
 ``conv_{depth-1}`` are ``conv.0`` .. ``conv.{depth-1}``; ``conv_pre`` and
 ``conv_out`` keep their names; the norms have no parameters.
+
+``dtype`` is the compute dtype (``layers.set_compute_dtype``), as Flax's
+``dtype=``: the convolutions run in it, the instance norms normalise in
+float32 and return it; the parameters stay float32.
 """
 
 import torch
@@ -16,13 +20,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.ideal_lpf import downsample_rfft, filtered_nonlinearity
+from .layers import Conv2d, set_compute_dtype
 
 
 class Discriminator(nn.Module):
 
     def __init__(self, in_channels: int = 3, hidden_channels: int = 512,
                  depth: int = 6, use_bn: bool = False,
-                 antialias: bool = False, mod_act: bool = True):
+                 antialias: bool = False, mod_act: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         if use_bn:
             raise NotImplementedError(
@@ -37,10 +43,12 @@ class Discriminator(nn.Module):
             for i in range(depth - 1)]
         stride, pad = (1, 0) if antialias else (2, 1)
         self.conv = nn.ModuleList(
-            nn.Conv2d(cin, cout, 4, stride=stride, padding=pad)
+            Conv2d(cin, cout, 4, stride=stride, padding=pad)
             for cin, cout in zip([in_channels] + chans[:-1], chans))
-        self.conv_pre = nn.Conv2d(chans[-1], hidden_channels, 4, padding=1)
-        self.conv_out = nn.Conv2d(hidden_channels, 1, 4, padding=1)
+        self.conv_pre = Conv2d(chans[-1], hidden_channels, 4, padding=1)
+        self.conv_out = Conv2d(hidden_channels, 1, 4, padding=1)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     def _act(self, h):
         if self.antialias and self.mod_act:
@@ -56,8 +64,9 @@ class Discriminator(nn.Module):
 
     @staticmethod
     def _norm(h):
-        # InstanceNorm: a group norm with one group per channel, no affine
-        return F.group_norm(h, h.shape[1], eps=1e-5)
+        # InstanceNorm: a group norm with one group per channel, no affine,
+        # in float32, returned in h's dtype
+        return F.group_norm(h.float(), h.shape[1], eps=1e-5).to(h.dtype)
 
     def forward(self, x):
         x = self._act(self._down(self.conv[0], x))

@@ -9,8 +9,9 @@ conv's weights at stride 1), so one state dict serves both wirings.
 Compute dtype, as Flax's ``dtype=``: parameters stay float32, and every
 ``Conv2d`` and ``Linear`` casts its input, weight and bias to its module's
 compute dtype at call, adding the bias after the product in that dtype;
-every ``GroupNorm`` normalises in float32 and returns the compute dtype.
-``set_compute_dtype`` sets it for every such layer of a model.
+every ``GroupNorm`` and ``LayerNorm`` normalises in float32 and returns
+the compute dtype. ``set_compute_dtype`` sets it for every such layer of a
+model.
 """
 
 import math
@@ -72,14 +73,31 @@ class GroupNorm(nn.GroupNorm):
                             self.eps).to(dt)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` whose statistics and normalisation run in float32
+    and whose result is cast to ``compute_dtype`` (Flax's
+    ``LayerNorm(dtype=)``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32 and x.dtype == dt:
+            return super().forward(x)
+        w, b = (None if t is None else t.float()
+                for t in (self.weight, self.bias))
+        return F.layer_norm(x.float(), self.normalized_shape, w, b,
+                            self.eps).to(dt)
+
+
 def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
-    """Sets the compute dtype of every ``Conv2d``, ``Linear`` and
-    ``GroupNorm`` in ``module`` (float32 or bfloat16); the parameters keep
-    their dtype. Returns ``module``."""
+    """Sets the compute dtype of every ``Conv2d``, ``Linear``,
+    ``GroupNorm`` and ``LayerNorm`` in ``module`` (float32 or bfloat16);
+    the parameters keep their dtype. Returns ``module``."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype float32 or bfloat16, got {dtype}")
     for m in module.modules():
-        if isinstance(m, (Conv2d, Linear, GroupNorm)):
+        if isinstance(m, (Conv2d, Linear, GroupNorm, LayerNorm)):
             m.compute_dtype = dtype
     return module
 

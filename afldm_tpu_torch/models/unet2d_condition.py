@@ -14,9 +14,10 @@ import torch
 import torch.nn as nn
 
 from .attention_blocks import Transformer2DModel
-from .layers import (Downsample2D, KVHelper, ResnetBlock2D,
-                     TimestepEmbedding, Upsample2D, WrappedActivation,
-                     get_timestep_embedding)
+from .layers import (Conv2d, Downsample2D, GroupNorm, KVHelper,
+                     ResnetBlock2D, TimestepEmbedding, Upsample2D,
+                     WrappedActivation, get_timestep_embedding,
+                     set_compute_dtype)
 
 
 @dataclass
@@ -157,15 +158,17 @@ class UNet2DConditionModel(nn.Module):
     of a STORE pass) for cross-frame attention, ``kv_in2`` and ``alpha``
     to blend two of them (interpolation); a ControlNet's residuals (one
     per skip, and one for the mid block) are added to the skips and to
-    the mid block's output."""
+    the mid block's output. ``dtype`` is the compute dtype of every block
+    (float32 or bfloat16, ``layers.set_compute_dtype``); the parameters
+    stay float32 and eps comes out in it."""
 
-    def __init__(self, config: UNet2DConditionConfig):
+    def __init__(self, config: UNet2DConditionConfig, dtype=torch.float32):
         super().__init__()
         cfg = self.config = config
         ch = list(cfg.block_out_channels)
         temb_ch = ch[0] * 4
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
 
         self.down_blocks = nn.ModuleList()
         skip_ch = [ch[0]]
@@ -193,10 +196,12 @@ class UNet2DConditionModel(nn.Module):
                 add_upsample=not is_final,
                 use_attention=btype.startswith("CrossAttn")))
 
-        self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, ch[0],
-                                          eps=cfg.norm_eps)
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch[0],
+                                       eps=cfg.norm_eps)
         self.conv_act = WrappedActivation(cfg.act_fn, filtered=False)
-        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     def forward(self, sample, timesteps, encoder_hidden_states, kv_in=None,
                 kv_in2=None, alpha=None, down_block_residuals=None,

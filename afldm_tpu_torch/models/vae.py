@@ -220,11 +220,12 @@ class AutoencoderKL(nn.Module):
 
 def gaussian_sample(mean, logvar, generator=None, noise=None):
     """mean + exp(logvar / 2) * noise, the noise drawn from ``generator``
-    unless given."""
+    unless given, in mean's dtype either way (the JAX package draws it in
+    mean's dtype: bfloat16 for a bf16 encoder)."""
     if noise is None:
         noise = torch.randn(mean.shape, generator=generator,
                             device=mean.device, dtype=mean.dtype)
-    return mean + torch.exp(0.5 * logvar) * noise
+    return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
 
 
 def gaussian_kl(mean, logvar):

@@ -10,12 +10,19 @@ f32 scores, f32 softmax, p cast to v's dtype for p @ v. The backward is the
 JAX ``_sdpa_bwd``: p recomputed from the forward's logsumexp,
 ``delta = rowsum(dO * O)`` in plain torch, ``ds = p * (dp - delta) * scale``.
 
-bfloat16 q, k, v (the forwards only, on the card ``flash_fwd_bf16`` and
-``flash2_fwd_bf16``, counted as ``flash_fwd/bf16`` and ``flash2_fwd/bf16``):
-f32 scores and softmax, the normalised p rounded to bf16, p @ v summed in
-f32 and rounded to bf16, lse f32: ``sdpa_xla`` at bf16. The two-KV blend
-takes the two bf16 attentions and blends them in f32 (``sdpa2_xla``). A
-bf16 backward on the card raises: the backward kernels take float32 only.
+bfloat16 q, k, v (on the card ``flash_fwd_bf16`` and ``flash2_fwd_bf16``,
+counted as ``flash_fwd/bf16`` and ``flash2_fwd/bf16``): f32 scores and
+softmax, the normalised p rounded to bf16, p @ v summed in f32 and rounded
+to bf16, lse f32: ``sdpa_xla`` at bf16. The two-KV blend takes the two bf16
+attentions and blends them in f32 (``sdpa2_xla``). The backward at bf16
+(``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``, counted as
+``flash_bwd_dq/bf16`` and ``flash_bwd_dkv/bf16``) follows the JAX kernels
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` at bf16: s and dp
+from bf16 products summed in f32, p and ds in f32, ds (and p for dv)
+rounded to bf16 before the second product of each pair, accumulated in f32
+and rounded to bf16 once. lse and delta stay f32. A K/V batch expanded from
+one image gets bf16 dk and dv for each leading index, which autograd's
+expand backward sums (in f32, rounded to bf16 once).
 """
 
 import math
@@ -42,12 +49,6 @@ def _attention_plain(q, k, v, scale=None):
     # p @ v summed in at least f32 and rounded once to v's dtype
     acc = torch.promote_types(v.dtype, torch.float32)
     return torch.matmul(p.to(acc), v.to(acc)).to(v.dtype), lse
-
-
-def _no_bf16_backward(t, name):
-    if t.device.type == "cuda" and t.dtype == torch.bfloat16:
-        raise TypeError(f"{name}: no bfloat16 backward kernel yet (bf16 "
-                        "training, ROADMAP); float32 only on the card")
 
 
 def _kernel_dtype(ts, name) -> str:
@@ -77,18 +78,28 @@ def _bwd_probs(q, k, v, do, lse, delta, scale):
     return p, p * (dp - delta) * scale
 
 
+def _rounded(t, dtype):
+    """f32 t rounded to ``dtype`` and read back as f32 (bf16: the kernels'
+    A operands; f32: t itself)."""
+    return t.to(dtype).float()
+
+
 def _bwd_dq_plain(q, k, v, do, lse, delta, scale):
-    """The plain version of ``flash_bwd_dq``."""
+    """The plain version of ``flash_bwd_dq``: ds rounded to k's dtype,
+    ds·k summed in f32, rounded once to q's dtype."""
     _, ds = _bwd_probs(q, k, v, do, lse, delta, scale)
-    return torch.matmul(ds, k.float()).to(q.dtype)
+    return torch.matmul(_rounded(ds, k.dtype), k.float()).to(q.dtype)
 
 
 def _bwd_dkv_plain(q, k, v, do, lse, delta, scale):
     """The plain version of ``flash_bwd_dkv``: (dk, dv), dense per leading
-    index."""
+    index; ds rounded to q's dtype and p to dO's before their products,
+    each summed in f32 and rounded once."""
     p, ds = _bwd_probs(q, k, v, do, lse, delta, scale)
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype)
-    dv = torch.matmul(p.to(do.dtype).transpose(-1, -2), do).to(v.dtype)
+    dk = torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2),
+                      q.float()).to(k.dtype)
+    dv = torch.matmul(_rounded(p, do.dtype).transpose(-1, -2),
+                      do.float()).to(v.dtype)
     return dk, dv
 
 
@@ -155,8 +166,9 @@ def _bwd_launch_args(q, k, v, do, lse, delta, name):
     if not all(t.device == q.device and t.device.type == "cuda"
                for t in (q, k, v, do, lse, delta)):
         raise ValueError(f"{name}: all inputs must lie on one CUDA device")
-    if not all(t.dtype == torch.float32 for t in (q, k, v, do, lse, delta)):
-        raise TypeError(f"{name}: float32 only")
+    dt = _kernel_dtype((q, k, v, do), name)
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError(f"{name}: lse and delta must be float32")
     q4, k4, v4, do4 = (_as_4d(t) for t in (q, k, v, do))
     q4, k4, v4, do4 = (t if t.stride(-1) == 1 else t.contiguous()
                        for t in (q4, k4, v4, do4))
@@ -171,53 +183,57 @@ def _bwd_launch_args(q, k, v, do, lse, delta, name):
     lse, delta = lse.contiguous(), delta.contiguous()
     strides = [s for t in (q4, k4, v4, do4) for s in t.stride()[:3]]
     ptrs = [t.data_ptr() for t in (q4, k4, v4, do4, lse, delta)]
-    return ptrs, (B1, B2, Lq, Lk, D), strides
+    return ptrs, (B1, B2, Lq, Lk, D), strides, dt
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale=None):
     """dq of the flash backward (K4a): p recomputed from ``lse`` (the
     forward's (..., Lq, 1) logsumexp), ``delta = rowsum(dO * O)``
-    (..., Lq, 1). Same layout rules as ``flash_fwd``; dq is dense."""
+    (..., Lq, 1). Same layout rules as ``flash_fwd``; q, k, v and dO all
+    float32 or all bfloat16, lse and delta float32; dq is dense, in q's
+    dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return _bwd_dq_plain(q, k, v, do, lse, delta, scale)
-    ptrs, dims, strides = _bwd_launch_args(q, k, v, do, lse, delta,
-                                           "flash_bwd_dq")
+    ptrs, dims, strides, dt = _bwd_launch_args(q, k, v, do, lse, delta,
+                                               "flash_bwd_dq")
     B1, B2, Lq, Lk, D = dims
-    dq = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    dq = torch.empty((B1, B2, Lq, D), device=q.device, dtype=q.dtype)
     if dq.numel() == 0:  # no rows: nothing to launch
         return dq.reshape(q.shape)
-    err = kernels.library("flash_bwd").flash_bwd_dq_f32(
+    key = "flash_bwd_dq" if dt == "f32" else "flash_bwd_dq/bf16"
+    err = getattr(kernels.library("flash_bwd"), f"flash_bwd_dq_{dt}")(
         *ptrs, dq.data_ptr(), *dims, *strides, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(err, "flash_bwd_dq")
-    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    kernels.check(err, key)
+    kernels.LAUNCHES[key] += 1
     return dq.reshape(q.shape)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None):
     """(dk, dv) of the flash backward (K4b), dense per leading index: for a
     K/V batch expanded from 1 each image gets its own rows, and autograd's
-    expand backward sums them."""
+    expand backward sums them. Gradients in q's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return _bwd_dkv_plain(q, k, v, do, lse, delta, scale)
-    ptrs, dims, strides = _bwd_launch_args(q, k, v, do, lse, delta,
-                                           "flash_bwd_dkv")
+    ptrs, dims, strides, dt = _bwd_launch_args(q, k, v, do, lse, delta,
+                                               "flash_bwd_dkv")
     B1, B2, Lq, Lk, D = dims
     if B1 * B2 * Lq * Lk == 0:  # no rows: zero sums, nothing to launch
         dk, dv = (torch.zeros((B1, B2, Lk, D), device=q.device,
-                              dtype=torch.float32) for _ in range(2))
+                              dtype=q.dtype) for _ in range(2))
         return dk.reshape(k.shape), dv.reshape(v.shape)
-    dk, dv = (torch.empty((B1, B2, Lk, D), device=q.device,
-                          dtype=torch.float32) for _ in range(2))
-    err = kernels.library("flash_bwd").flash_bwd_dkv_f32(
+    dk, dv = (torch.empty((B1, B2, Lk, D), device=q.device, dtype=q.dtype)
+              for _ in range(2))
+    key = "flash_bwd_dkv" if dt == "f32" else "flash_bwd_dkv/bf16"
+    err = getattr(kernels.library("flash_bwd"), f"flash_bwd_dkv_{dt}")(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *strides, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(err, "flash_bwd_dkv")
-    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    kernels.check(err, key)
+    kernels.LAUNCHES[key] += 1
     return dk.reshape(k.shape), dv.reshape(v.shape)
 
 
@@ -236,7 +252,6 @@ class _FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        _no_bf16_backward(q, "sdpa")
         delta = _delta(do, out)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
@@ -343,7 +358,6 @@ class _FlashAttention2(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        _no_bf16_backward(ctx.saved_tensors[0], "sdpa2")
         scale = ctx.scale
         needs = ctx.needs_input_grad[:6]
         with torch.enable_grad():

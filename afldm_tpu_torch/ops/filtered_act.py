@@ -1,6 +1,6 @@
 """The filtered activation's kernels (K5, K5b, K1 and K2 of the JAX
 package), their plain versions, their autograd Functions and the
-dispatcher. NCHW; float32 on the card, bfloat16 too for the forwards.
+dispatcher. NCHW; float32 or bfloat16 on the card.
 
 - ``filtered_act_plane``: whole planes in shared memory, H, W <= 64
   (counterpart of ``pallas_kernels.py::_forward``), P planes a block and
@@ -46,8 +46,10 @@ for a float32 x (exact f32 at 'highest', the level's bf16 passes
 otherwise) and out is rounded to bf16 once, so the result is
 ``bf16(f(f32(x)))``, which is what the JAX package's kernels compute for a
 bf16 x (they cast x to float32 inside and write x's dtype). Their plain
-versions at bf16 are the same function. The backward kernels take float32
-only: a bf16 backward on the card raises.
+versions at bf16 are the same function. So do the backward kernels K5b and
+K2 (``_xbf16`` entries too, counted as ``<kernel>[:<level>]/bf16``): a bf16
+x and g, a bf16 dx, ``bf16(vjp(f32(x), f32(g)))``, what the JAX package's
+``_bwd_rule`` and ``_bwd_spatial`` compute for bf16 x and g.
 
 A wrapper given a CPU tensor returns the plain version; given a CUDA tensor
 it launches its kernel (chosen by dtype, level and shape: the f32 one at
@@ -525,7 +527,7 @@ def _mma_blobs(H: int, W: int, device, bwd: bool) -> tuple:
 
 
 def _variant(name: str, level: str, dtype) -> tuple:
-    """(C entry suffix, LAUNCHES key) of a forward kernel's variant for
+    """(C entry suffix, LAUNCHES key) of a kernel's variant for
     ``level`` and x's ``dtype``: '_f32' / 'name' at 'highest', '_bf16' /
     'name:level' at a reduced level, each with '_xbf16' / '/bf16' after it
     for a bfloat16 x."""
@@ -584,10 +586,7 @@ def _plane_forward(x: torch.Tensor, act: str, level: str) -> torch.Tensor:
 
 
 def _check_bwd(x, g, act, banded, name):
-    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        raise TypeError(f"{name}: no bfloat16 backward kernel yet (bf16 "
-                        "training, ROADMAP); float32 only on the card")
-    _check(x, act, banded, name, (torch.float32,))
+    _check(x, act, banded, name)
     if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"{name}: g must match x in shape, device and "
                          "dtype")
@@ -620,24 +619,24 @@ def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
         return dx
     H, W = x.shape[-2:]
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    suffix, key = _variant("filtered_act_plane_bwd", level, x.dtype)
+    entry = getattr(kernels.library("filtered_act"),
+                    f"filtered_act_plane_bwd{suffix}")
     if level != "highest":
         plan = plane_mma_plan(H, W, nplanes, bwd=True)
-        err = kernels.library("filtered_act").filtered_act_plane_bwd_bf16(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            *(o.data_ptr() for o in _mma_blobs(H, W, x.device, True)),
-            nplanes, H, W, plan.planes_per_block, LEVEL_PASSES[level],
-            ACT_CODES[act], stream)
-        kernels.check(err, f"filtered_act_plane_bwd:{level}")
-        kernels.LAUNCHES[f"filtered_act_plane_bwd:{level}"] += 1
-        return dx
-    plan = plane_bwd_plan(H, W, nplanes)
-    err = kernels.library("filtered_act").filtered_act_plane_bwd_f32(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        *(o.data_ptr() for o in _plane_bwd_ops(H, W, x.device)), nplanes, H,
-        W, plan.planes_per_block, plan.tile_codes, plan.threads,
-        ACT_CODES[act], stream)
-    kernels.check(err, "filtered_act_plane_bwd")
-    kernels.LAUNCHES["filtered_act_plane_bwd"] += 1
+        err = entry(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                    *(o.data_ptr() for o in _mma_blobs(H, W, x.device,
+                                                       True)),
+                    nplanes, H, W, plan.planes_per_block,
+                    LEVEL_PASSES[level], ACT_CODES[act], stream)
+    else:
+        plan = plane_bwd_plan(H, W, nplanes)
+        err = entry(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                    *(o.data_ptr() for o in _plane_bwd_ops(H, W, x.device)),
+                    nplanes, H, W, plan.planes_per_block, plan.tile_codes,
+                    plan.threads, ACT_CODES[act], stream)
+    kernels.check(err, key)
+    kernels.LAUNCHES[key] += 1
     return dx
 
 
@@ -809,11 +808,13 @@ def _banded_entry(x, out, scratch, ops, chunk, act):
 
 
 def _banded_bwd_entry(x, g, dx, scratch, ops, chunk, act):
-    """One chunk through the C entry ``filtered_act_banded_bwd_f32``: the
-    six GEMM launches on the current stream. x, g, dx: the chunk's
-    (P, H, W) planes, contiguous."""
+    """One chunk through the C entry ``filtered_act_banded_bwd_f32`` (its
+    ``_xbf16`` twin for bfloat16 x and g): the six GEMM launches on the
+    current stream. x, g, dx: the chunk's (P, H, W) planes, contiguous."""
     H, W = x.shape[-2:]
-    err = kernels.library("filtered_act").filtered_act_banded_bwd_f32(
+    suffix, _ = _variant("filtered_act_banded_bwd", "highest", x.dtype)
+    err = getattr(kernels.library("filtered_act"),
+                  f"filtered_act_banded_bwd{suffix}")(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
         *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
         ACT_CODES[act], torch.cuda.current_stream(x.device).cuda_stream)
@@ -836,10 +837,13 @@ def _banded_mma_entry(x, out, scratch, ops, chunk, act, level):
 
 
 def _banded_mma_bwd_entry(x, g, dx, scratch, ops, chunk, act, level):
-    """One chunk through ``filtered_act_banded_bwd_bf16`` at ``level``:
-    K2's six bf16 GEMM launches on the current stream."""
+    """One chunk through ``filtered_act_banded_bwd_bf16`` (its ``_xbf16``
+    twin for bfloat16 x and g) at ``level``: K2's six bf16 GEMM launches on
+    the current stream."""
     H, W = x.shape[-2:]
-    err = kernels.library("filtered_act").filtered_act_banded_bwd_bf16(
+    suffix, _ = _variant("filtered_act_banded_bwd", level, x.dtype)
+    err = getattr(kernels.library("filtered_act"),
+                  f"filtered_act_banded_bwd{suffix}")(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
         *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
         LEVEL_PASSES[level], ACT_CODES[act],
@@ -1004,10 +1008,10 @@ def filtered_act_banded_bwd(x: torch.Tensor, g: torch.Tensor,
     if x.device.type == "cpu":
         return filtered_act_banded_bwd_plain(x, g, act, level)
     _check_bwd(x, g, act, True, "filtered_act_banded_bwd")
+    _, name = _variant("filtered_act_banded_bwd", level, x.dtype)
     if level == "highest":
-        name, entry = "filtered_act_banded_bwd", _banded_bwd_entry
+        entry = _banded_bwd_entry
     else:
-        name = f"filtered_act_banded_bwd:{level}"
         entry = functools.partial(_banded_mma_bwd_entry, level=level)
     dx = _banded_chain(_contiguous16(x), act, entry, _contiguous16(g),
                        level)

@@ -212,8 +212,7 @@ def init_random_interp_pipeline(unet_config, vae_config, scheduler_config,
                                 ) -> ImageInterpolationPipeline:
     """The image-interpolation pipeline (SD-family conditioned UNet,
     AF-VAE) with random weights from ``seed``; the configs and ``dtype``
-    as for ``init_random_pipeline``. The SD-family UNet computes in
-    float32 only: a bfloat16 ``dtype`` raises (ROADMAP)."""
+    as for ``init_random_pipeline``."""
     vae, unet = _random_modules(UNet2DConditionConfig, UNet2DConditionModel,
                                 unet_config, vae_config, seed, device,
                                 dtype=dtype)
@@ -256,24 +255,20 @@ def init_random_normal_pipeline(unet_config, vae_config, scheduler_config,
 def _random_modules(config_cls, unet_cls, unet_config, vae_config, seed,
                     device, controlnet: bool = False, dtype=torch.float32):
     """(vae, unet[, controlnet]) with weights drawn from ``seed`` (UNet,
-    VAE, ControlNet in turn), on ``device``; the UNet and the VAE compute
-    in ``dtype`` (only ``UNet2DModel`` takes bfloat16)."""
+    VAE, ControlNet in turn), on ``device``; every module computes in
+    ``dtype`` (float32 or bfloat16), its parameters float32."""
     device = resolve_device(device)
     _set_precision()
     if isinstance(unet_config, dict):
         unet_config = config_cls.from_diffusers(unet_config, alias_free=True)
     if isinstance(vae_config, dict):
         vae_config = AutoencoderKLConfig.from_diffusers(vae_config)
-    if unet_cls is not UNet2DModel and dtype != torch.float32:
-        raise ValueError(f"{unet_cls.__name__} computes in float32 only; "
-                         f"got dtype {dtype} (bf16 SD UNet: ROADMAP)")
     gen = torch.Generator().manual_seed(seed)
-    unet = (unet_cls(unet_config, dtype=dtype) if unet_cls is UNet2DModel
-            else unet_cls(unet_config))
-    modules = [unet, AutoencoderKL(vae_config, dtype=dtype)]
+    modules = [unet_cls(unet_config, dtype=dtype),
+               AutoencoderKL(vae_config, dtype=dtype)]
     if controlnet:
         modules.append(ControlNetModel(
-            ControlNetConfig.from_unet_config(unet_config)))
+            ControlNetConfig.from_unet_config(unet_config), dtype=dtype))
     for m in modules:
         init_random_weights(m, gen)
     unet, vae, *rest = (m.to(device).eval() for m in modules)

@@ -16,6 +16,8 @@ wall time, and the wall time of the untraced run.
 
   python -m afldm_tpu_torch.scripts.profile_main_path --steps 50
   python -m afldm_tpu_torch.scripts.profile_main_path --path train
+  python -m afldm_tpu_torch.scripts.profile_main_path --path train \
+      --mixed_precision bf16
   python -m afldm_tpu_torch.scripts.profile_main_path --path vae_train
   python -m afldm_tpu_torch.scripts.profile_main_path --path interp --steps 10
 """
@@ -31,16 +33,21 @@ import torch
 CONFIGS = Path(__file__).resolve().parents[2] / "configs"
 
 
-def ffhq_trainer(device=None, seed: int = 0):
+def ffhq_trainer(device=None, seed: int = 0, mixed_precision=None):
     """The LDM trainer of ``configs/ldm/train_unet_ffhq.json`` as it stands,
     prepared with random weights from ``seed``, and its dataset. The
     config's vae_path holds no checkpoint in the repository, so the VAE is
     built from ``configs/vae/model_afvae.json``; without train_data_dir
-    ``make_dataset`` gives SyntheticDataset. Returns (trainer, dataset)."""
+    ``make_dataset`` gives SyntheticDataset. ``mixed_precision="bf16"``
+    makes it the JAX package's flagship LDM run (``scripts/flagship_ab.py``
+    trains this UNet at bf16 with gradient checkpointing, the shift loss,
+    CFA and EMA). Returns (trainer, dataset)."""
     from .. import train as T
     cfgs = T.load_training_config(str(CONFIGS / "ldm" /
                                       "train_unet_ffhq.json"))
     base, cfg = cfgs["base"], cfgs["ldm"]
+    if mixed_precision is not None:
+        base.mixed_precision = mixed_precision
     root = CONFIGS.parent
     cfg.unet_config = str(root / cfg.unet_config)
     cfg.scheduler_path = str(root / cfg.scheduler_path)
@@ -53,18 +60,20 @@ def ffhq_trainer(device=None, seed: int = 0):
     return tr, ds
 
 
-def i2sb_trainer(device=None, seed: int = 0):
+def i2sb_trainer(device=None, seed: int = 0, mixed_precision=None):
     """The I2SB trainer of ``configs/sr/train_i2sb_imagenet.json`` as it
     stands (the FFHQ UNet of ``configs/ldm/model_unet.json``, batch 16 at
     256 px, CFA shift loss), prepared with random weights from ``seed``,
     and its dataset. Its vae_path holds no checkpoint in the repository,
     so the VAE is built from ``configs/vae/model_afvae.json``; without
     train_data_dir ``make_dataset`` gives SyntheticDataset. Returns
-    (trainer, dataset)."""
+    (trainer, dataset); ``mixed_precision`` replaces the config's."""
     from .. import train as T
     cfgs = T.load_training_config(str(CONFIGS / "sr" /
                                       "train_i2sb_imagenet.json"))
     base, cfg = cfgs["base"], cfgs["i2sb"]
+    if mixed_precision is not None:
+        base.mixed_precision = mixed_precision
     root = CONFIGS.parent
     cfg.unet_config = str(root / cfg.unet_config)
     cfg.scheduler_path = str(root / cfg.scheduler_path)
@@ -77,20 +86,23 @@ def i2sb_trainer(device=None, seed: int = 0):
     return tr, ds
 
 
-def afvae_trainer(device=None, seed: int = 0, af_precision=None):
+def afvae_trainer(device=None, seed: int = 0, af_precision=None,
+                  mixed_precision=None):
     """The VAE trainer of ``configs/vae/train_afvae_imagenet.json`` as it
     stands (the AF-VAE of ``model_afvae.json`` at 256 px, batch 4, shift
     loss, no GAN, gradient accumulation 2), prepared with random weights
     from ``seed``, and its dataset: without its train_data_dir
     ``make_dataset`` gives SyntheticDataset. ``af_precision`` replaces the
-    config's level of the circulant products. Returns (trainer,
-    dataset)."""
+    config's level of the circulant products, ``mixed_precision`` its
+    mixed precision. Returns (trainer, dataset)."""
     from .. import train as T
     cfgs = T.load_training_config(str(CONFIGS / "vae" /
                                       "train_afvae_imagenet.json"))
     base, cfg = cfgs["base"], cfgs["vae"]
     if af_precision is not None:
         base.af_precision = af_precision
+    if mixed_precision is not None:
+        base.mixed_precision = mixed_precision
     cfg.model_cfg = str(CONFIGS.parent / cfg.model_cfg)
     tr = T.create_trainer("vae", base, cfg, device=device)
     tr.init_modules()
@@ -115,7 +127,7 @@ def _serve_run(args):
 
 def _train_run(args):
     from ..train import epoch_batches
-    tr, ds = ffhq_trainer()
+    tr, ds = ffhq_trainer(mixed_precision=args.mixed_precision)
     batches = epoch_batches(ds, tr.base_cfg.train_batch_size, seed=0)
 
     def run():
@@ -126,7 +138,7 @@ def _train_run(args):
 
 def _vae_train_run(args):
     from ..train import epoch_batches
-    tr, ds = afvae_trainer()
+    tr, ds = afvae_trainer(mixed_precision=args.mixed_precision)
     batches = epoch_batches(ds, tr.base_cfg.train_batch_size, seed=0)
     step = [0]
 
@@ -185,6 +197,9 @@ def main(argv=None):
     ap.add_argument("--train_steps", type=int, default=2,
                     help="training (micro-)steps per run (warm-up and "
                          "traced)")
+    ap.add_argument("--mixed_precision", choices=["bf16"], default=None,
+                    help="the train and vae_train paths' mixed_precision "
+                         "(default: the config's)")
     args = ap.parse_args(argv)
     body = {"serve": _serve_run, "train": _train_run,
             "vae_train": _vae_train_run,

@@ -3,8 +3,8 @@ trainer key (vae | ldm | i2sb | sd_text | norm_controlnet). The port's own
 copy of ``afldm_tpu/train/config.py``: the same dataclasses and fields, so
 the repository's training JSONs load unchanged; unknown fields (e.g.
 xformers flags) are accepted and ignored. Fields that select features this
-port does not have yet (``mixed_precision="bf16"``, ``model_parallel`` > 1,
-``fsdp``) load, and the trainer raises on them."""
+port does not have yet (``model_parallel`` > 1, ``fsdp``) load, and the
+trainer raises on them; ``mixed_precision="bf16"`` trains in bfloat16."""
 
 import json
 from dataclasses import dataclass, field, fields

@@ -63,8 +63,8 @@ class I2SBTrainer(LDMTrainer):
         if isinstance(unet_config, dict):
             unet_config = UNet2DConfig.from_diffusers(
                 unet_config, alias_free=cfg.af_models)
-        self.vae = AutoencoderKL(vae_config)
-        self.unet = UNet2DModel(unet_config)
+        self.vae = AutoencoderKL(vae_config, dtype=self.weight_dtype)
+        self.unet = UNet2DModel(unet_config, dtype=self.weight_dtype)
         self.vae_config = vae_config
         self.unet_config = unet_config
         self.shifter = ImageShifter("ideal", vae_config.downsample_ratio)
@@ -112,7 +112,7 @@ class I2SBTrainer(LDMTrainer):
             xt_s, _ = self.shifter.shift(xt, ti, tj)
             target, _ = self.shifter.shift(pred0, ti, tj)
             pred_s, _ = self.unet_apply(xt_s, t, kv)
-            shift_loss = mask_mse(pred_s, target, mask)
+            shift_loss = mask_mse(pred_s.float(), target.float(), mask)
         loss = mse_loss + shift_loss
         return loss, {"train_loss": loss.detach(),
                       "mse_loss": mse_loss.detach(),

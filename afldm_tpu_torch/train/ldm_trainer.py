@@ -69,8 +69,8 @@ class LDMTrainer(Trainer):
         if isinstance(unet_config, dict):
             unet_config = UNet2DConfig.from_diffusers(
                 unet_config, alias_free=cfg.af_models)
-        self.vae = AutoencoderKL(vae_config)
-        self.unet = UNet2DModel(unet_config)
+        self.vae = AutoencoderKL(vae_config, dtype=self.weight_dtype)
+        self.unet = UNet2DModel(unet_config, dtype=self.weight_dtype)
         self.vae_config = vae_config
         self.unet_config = unet_config
         self.shifter = ImageShifter("ideal", vae_config.downsample_ratio)
@@ -163,15 +163,16 @@ class LDMTrainer(Trainer):
         """images: NCHW in [-1, 1] on the trainer's device; ``cond``: the
         UNet's inputs after the timesteps (a conditioned UNet's prompt
         embeddings). Returns (loss, {train_loss, mse_loss, shift_loss} as
-        tensors)."""
+        tensors). At bf16 the draws are rounded to the dtype JAX draws them
+        in (the latents'), and both losses are taken in float32."""
         cfg = self.cfg
         dev = images.device
         with torch.no_grad():
             mean, logvar = self.vae.encode(images)
-            eps = draws["enc_eps"].to(dev)
+            eps = draws["enc_eps"].to(dev, mean.dtype)
             latents = ((mean + torch.exp(0.5 * logvar) * eps)
                        * self.vae_config.scaling_factor)
-        noise = draws["noise"].to(dev)
+        noise = draws["noise"].to(dev, latents.dtype)
         t = draws["t"].to(dev)
         ti, tj = draws["ti"], draws["tj"]
         noisy = self.noise_scheduler.add_noise(latents, noise, t)
@@ -188,7 +189,7 @@ class LDMTrainer(Trainer):
             pred_s, _ = self.unet_apply(shifted_noisy, t, *cond, kv)
             if getattr(cfg, "use_stop_grad", False):
                 pred_s = pred_s.detach()
-            shift_loss = mask_mse(pred_s, target, mask)
+            shift_loss = mask_mse(pred_s.float(), target.float(), mask)
         mse_loss = torch.mean((pred0.float() - noise.float()) ** 2)
         loss = mse_loss + shift_loss
         return loss, {"train_loss": loss.detach(),

@@ -69,9 +69,11 @@ class NormControlNetTrainer(Trainer):
         self.vae_config, self.unet_config = vae_config, unet_config
         self.controlnet_config = ControlNetConfig.from_unet_config(
             unet_config)
-        self.vae = AutoencoderKL(vae_config)
-        self.unet = UNet2DConditionModel(unet_config)
-        self.controlnet = ControlNetModel(self.controlnet_config)
+        self.vae = AutoencoderKL(vae_config, dtype=self.weight_dtype)
+        self.unet = UNet2DConditionModel(unet_config,
+                                         dtype=self.weight_dtype)
+        self.controlnet = ControlNetModel(self.controlnet_config,
+                                          dtype=self.weight_dtype)
         self.text_encoder = text_encoder
         self.shifter = ImageShifter("ideal", vae_config.downsample_ratio)
 
@@ -157,7 +159,7 @@ class NormControlNetTrainer(Trainer):
         with torch.no_grad():
             cond = self.vae.encode(images)[0] * scaling
             target = self.vae.encode(normals)[0] * scaling
-        noise = draws["noise"].to(dev)
+        noise = draws["noise"].to(dev, cond.dtype)  # JAX draws it so
         zero = draws["zero"].to(dev).reshape(-1, 1, 1, 1)
         lat = torch.where(zero, torch.zeros_like(noise), noise)
         t = torch.full((cond.shape[0],), YOSO_TIMESTEP, device=dev)
@@ -172,7 +174,7 @@ class NormControlNetTrainer(Trainer):
             lat_s, _ = self.shifter.shift(lat, ti, tj)
             tgt_s, _ = self.shifter.shift(pred0, ti, tj)
             pred_s, _ = self.forward(lat_s, cond_s, ehs, t, kv_in=kv)
-            shift_loss = mask_mse(pred_s, tgt_s, mask)
+            shift_loss = mask_mse(pred_s.float(), tgt_s.float(), mask)
         loss = mse_loss + shift_loss
         return loss, {"train_loss": loss.detach(),
                       "mse_loss": mse_loss.detach(),

@@ -84,8 +84,9 @@ class SDTextTrainer(LDMTrainer):
         if isinstance(unet_config, dict):
             unet_config = UNet2DConditionConfig.from_diffusers(
                 unet_config, alias_free=cfg.af_models)
-        self.vae = AutoencoderKL(vae_config)
-        self.unet = UNet2DConditionModel(unet_config)
+        self.vae = AutoencoderKL(vae_config, dtype=self.weight_dtype)
+        self.unet = UNet2DConditionModel(unet_config,
+                                         dtype=self.weight_dtype)
         self.vae_config = vae_config
         self.unet_config = unet_config
         self.text_encoder = text_encoder

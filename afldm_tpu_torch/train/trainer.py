@@ -4,7 +4,14 @@ machinery. Counterpart of ``afldm_tpu/train/trainer.py``.
 A trainer owns its modules, its optimizer and its EMA on one device (the
 card unless the caller passes ``device``); ``training_step`` runs one
 micro-batch eagerly. The JAX package's mesh, sharding and jit have no
-counterpart here: one card, no model parallelism, float32.
+counterpart here: one card, no model parallelism.
+
+``mixed_precision="bf16"`` is the JAX package's: ``weight_dtype`` is
+bfloat16 and every trained or frozen model computes in it (the text
+encoder excepted, as in JAX), while parameters, optimizer state and EMA
+stay float32 and each loss is taken in float32 where the JAX trainers cast
+to it. The backward kernels take the bf16 activations (K5b, K2, K4a and
+K4b at bf16).
 """
 
 import abc
@@ -157,12 +164,10 @@ class Trainer(abc.ABC):
     def __init__(self, base_cfg, cfg, device=None):
         self.base_cfg = base_cfg
         self.cfg = cfg
-        if base_cfg.mixed_precision == "bf16":
-            raise NotImplementedError(
-                "mixed_precision='bf16' is not ported yet: the forward "
-                "kernels take bf16 activations, the backward kernels (K5b, "
-                "K2, K4a, K4b) float32 only; bf16 training, with their bf16 "
-                "variants, is the next slice of ROADMAP Queue 1 item 8b")
+        # the models' compute dtype, as the JAX Trainer's weight_dtype
+        self.weight_dtype = (torch.bfloat16
+                             if base_cfg.mixed_precision == "bf16"
+                             else torch.float32)
         if (getattr(base_cfg, "model_parallel", 1) or 1) > 1:
             raise NotImplementedError("model_parallel > 1 is not ported: "
                                       "the port trains on one card")

@@ -44,7 +44,8 @@ class VAETrainer(Trainer):
             vae_config = AutoencoderKLConfig.from_diffusers(vae_config)
         self.vae_config = vae_config
         self.vae = AutoencoderKL(vae_config,
-                                 remat=self.base_cfg.gradient_checkpointing)
+                                 remat=self.base_cfg.gradient_checkpointing,
+                                 dtype=self.weight_dtype)
         self.disc = None
         if cfg.use_disc:
             if disc_config is None:
@@ -52,7 +53,8 @@ class VAETrainer(Trainer):
             disc_config = {k: v for k, v in disc_config.items()
                            if not k.startswith("_")}
             self.disc = Discriminator(
-                **{"in_channels": vae_config.in_channels, **disc_config})
+                **{"in_channels": vae_config.in_channels, **disc_config},
+                dtype=self.weight_dtype)
         d = vae_config.downsample_ratio
         self.img_shifter = ImageShifter("ideal_crop", 1)
         self.latent_shifter = ImageShifter("ideal_crop", d)
@@ -124,17 +126,19 @@ class VAETrainer(Trainer):
         terms): loss = rec_total + shift_loss + kl_weight * kl_loss, and
         ``terms`` the tensors mse_loss, perceptual_loss, kl_loss,
         shift_loss, disc_loss (the generator's GAN term, 0 without a
-        discriminator) and rec_total, with their graphs."""
+        discriminator) and rec_total, with their graphs. MSE, the perceptual
+        loss, KL and the shift losses are taken in float32 (at bf16 the
+        models' outputs are cast, as the JAX trainer casts them)."""
         cfg = self.cfg
         dev = images.device
         zero = torch.zeros((), device=dev)
         mean, logvar = self.encode(images)
         latents = gaussian_sample(mean, logvar, noise=draws["eps"].to(dev))
         recon = self.decode(latents)
-        mse = torch.mean((images - recon) ** 2)
-        p_loss = (perceptual.perceptual_loss(images, recon)
+        mse = torch.mean((images - recon.float()) ** 2)
+        p_loss = (perceptual.perceptual_loss(images, recon.float())
                   if cfg.perceptual_weight else zero)
-        kl = gaussian_kl(mean, logvar)
+        kl = gaussian_kl(mean.float(), logvar.float())
 
         shift_loss = zero
         if cfg.use_shift_loss:
@@ -146,15 +150,16 @@ class VAETrainer(Trainer):
             m2, lv2 = self.encode(t_x)
             f_t_x = gaussian_sample(m2, lv2,
                                     noise=draws["eps_shift"].to(dev))
-            enc_loss = mask_mse(f_t_x, t_f_x, mask)
+            enc_loss = mask_mse(f_t_x.float(), t_f_x.float(), mask)
             # decoder: D(T z) against T D(z); T z is the shifted latent
             # above (the same shift of the same detached latents)
             t_f_x2, mask2 = self.img_shifter.shift(recon.detach(), ti, tj)
             f_t_x2 = self.decode(t_f_x)
-            dec_loss = mask_mse(f_t_x2, t_f_x2, mask2)
+            dec_loss = mask_mse(f_t_x2.float(), t_f_x2.float(), mask2)
             shift_loss = enc_loss + dec_loss
 
-        disc_loss = -torch.mean(self.disc(recon)) if cfg.use_disc else zero
+        disc_loss = (-torch.mean(self.disc(recon).float()) if cfg.use_disc
+                     else zero)
         rec_total = mse + cfg.perceptual_weight * p_loss
         loss = rec_total + shift_loss + cfg.kl_weight * kl
         return loss, {"mse_loss": mse, "perceptual_loss": p_loss,
@@ -170,13 +175,14 @@ class VAETrainer(Trainer):
         mean, logvar = self.vae.encode(images)
         recon = self.vae.decode(gaussian_sample(
             mean, logvar, noise=draws["eps"].to(images.device)))
-        rec = torch.mean((images - recon) ** 2)
+        rec = torch.mean((images - recon.float()) ** 2)
         if self.cfg.perceptual_weight:
             rec = rec + self.cfg.perceptual_weight * \
-                perceptual.perceptual_loss(images, recon)
+                perceptual.perceptual_loss(images, recon.float())
         w = self.vae.decoder.conv_out.weight
         nll_g, = torch.autograd.grad(rec, w, retain_graph=True)
-        gan_g, = torch.autograd.grad(-torch.mean(self.disc(recon)), w)
+        gan_g, = torch.autograd.grad(-torch.mean(self.disc(recon).float()),
+                                     w)
         d_weight = (torch.linalg.vector_norm(nll_g)
                     / (torch.linalg.vector_norm(gan_g) + 1e-4))
         return d_weight.clamp(0.0, 1e4).detach() * self.cfg.disc_weight
@@ -288,7 +294,7 @@ class VAETrainer(Trainer):
         """mse, perceptual distance, PSNR and the last stage's mean
         features of the images and of their reconstruction, from one pass
         of the perceptual bank per image."""
-        rx = model(x)[0]
+        rx = model(x)[0].float()
         bank = perceptual._filters()
         is_vgg = perceptual._is_vgg(bank)
         a, b = ((perceptual._lpips_scale(x), perceptual._lpips_scale(rx))
@@ -313,7 +319,7 @@ class VAETrainer(Trainer):
         x = torch.as_tensor(images).permute(0, 3, 1, 2).to(self.device,
                                                           torch.float32)
         model = self.eval_model()
-        recon = model(x)[0]
+        recon = model(x)[0].float()
         out = {"val_mse": float(torch.mean((recon - x) ** 2)),
                "recon": recon.permute(0, 2, 3, 1).cpu().numpy()}
         vdir = self.base_cfg.valid_data_dir

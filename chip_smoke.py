@@ -61,7 +61,7 @@ Phases, each of which fails the run:
 10. the FFHQ interp path at full width (``configs/ldm/model_unet.json``,
     the AF-VAE at 256 px, random weights from seed 0): invert two
     latents, STORE both, interp-denoise 17 frames with ``--interp_steps``
-    (default 50) DDIM steps and decode them, counters set to 0 just before
+    (default 20) DDIM steps and decode them, counters set to 0 just before
     and read just after; K6, K3 and K5 must have launched and every output
     must be finite;
 11. the tiny SD image interpolation (64 px, 3 frames, 4 steps) on the card
@@ -85,7 +85,7 @@ Phases, each of which fails the run:
 15. a tiny ``SamplerService`` on the card and on the CPU with the same
     weights and seeds (``_draw`` latents): images compared;
 16. the full-width service (the FFHQ pipeline): 4 concurrent single-image
-    requests at ``--serve_steps`` DDIM steps (default 50), counters set to
+    requests at ``--serve_steps`` DDIM steps (default 20), counters set to
     0 just before and read just after; the requests must share passes
     (fewer batches than requests), every image must be finite and K5, K1
     and K3 must have launched; each request's latency printed;
@@ -94,7 +94,7 @@ Phases, each of which fails the run:
 18. the SR protocol at full width (``configs/ldm/model_unet.json``, the
     AF-VAE at 256 px, the I2SB scheduler of ``configs/sr``): degrade the
     synthetic input 4x, encode, ``shift_equivariance_eval`` with
-    ``--sr_steps`` (default 50) and 16 shifts, counters set to 0 just
+    ``--sr_steps`` (default 20) and 16 shifts, counters set to 0 just
     before and read just after; K5, K1 and K3 launched, all PSNRs finite;
 19. the tiny video editing of the CLI (64 px, 2 frames, 2 DDIM steps at
     strength 1) on the card and on the CPU with the same weights, noise
@@ -149,7 +149,7 @@ Phases, each of which fails the run:
 28. the StyleGAN-3 EQ metrics at full width, as
     ``scripts.eval_equivariance`` runs them (the FFHQ UNet and AF-VAE at
     256 px, random weights from seed 0): ``--eq_samples`` samples (default
-    4) of ``--eq_steps`` DDIM steps (default 20), each a STORE generation
+    4) of ``--eq_steps`` DDIM steps (default 10), each a STORE generation
     and two translated LOAD generations, counters set to 0 just before
     and read just after; EQ-T and EQ-T_frac finite, K5, K1 and K3
     launched;
@@ -172,7 +172,7 @@ Phases, each of which fails the run:
     level at the AF-VAE's shapes;
 31. ``scripts.eval_af_precision`` at full width (the FFHQ UNet and AF-VAE
     at 256 px, random weights from seed 0): ``--afp_steps`` DDIM steps
-    (default 50) and ``--afp_shifts`` shifts (default 8) at 'highest',
+    (default 20) and ``--afp_shifts`` shifts (default 4) at 'highest',
     'high' and 'default', each on a fresh pipeline with the counters set to
     0 just before and read just after: wall, peak memory, per-shift PSNRs
     and the dB deltas logged (random weights: not gated), PSNRs finite,
@@ -194,7 +194,12 @@ Phases, each of which fails the run:
     beside its plain version, its f32 kernel on the same values, the
     library call at bf16 (K3: scaled_dot_product_attention; K6: two of
     them and the blend) and its bound, a row of its own in the kernels
-    line;
+    line; and so the backward variants for bf16 training: K5b and K2 on
+    bf16 x and g at every level (K5b's seven shapes, K2's five, the
+    reduced levels up to 512 px) to K5's and K1's criteria at the
+    backward's atol, K4a and K4b on bf16 q, k, v and dO at their twelve
+    shapes (Lk = 77 and K/V expanded from one image among them) to K3's,
+    K4b's library call SDPA's backward at bf16;
 34. the tiny pipeline at bf16 on the card and on the CPU (4 steps, 4
     shifts): images within BF16_TINY_RATIO of the CPU's own bf16 - f32
     RMS error, PSNRs within BF16_TINY_DPSNR dB; then the FFHQ shift
@@ -209,13 +214,31 @@ Phases, each of which fails the run:
     the configs, K3's bf16 variant launched;
 35. the tiny FFHQ interp at bf16 on the card and on the CPU (3 frames, 4
     steps), as in 34; then the FFHQ interp of phase 10 on a bf16 pipeline
-    at ``--bf16_interp_steps`` (default 20), counters set to 0 just before
+    at ``--bf16_interp_steps`` (default 10), counters set to 0 just before
     and read just after: images finite, K5/bf16 and K1/bf16 as reckoned,
-    K3/bf16 and K6/bf16 launched.
+    K3/bf16 and K6/bf16 launched;
+36. one step of the tiny LDM (64 px), AF-VAE (128 px, with the
+    discriminator) and I2SB, SD text and normal-ControlNet trainers at
+    ``mixed_precision="bf16"`` on the card and on the CPU with the same
+    weights, images and draws, and at f32 on the CPU: the losses and the
+    trained gradients within BF16_TINY_RATIO of the CPU's own bf16 - f32
+    gap (over all tensors; each tensor within twice that), the bf16
+    backward kernels launched and no f32 one;
+37. the five trainers at bf16 and full width, beside their f32 runs of
+    phases 6, 8 and 26: the JAX package's flagship LDM run
+    (``configs/ldm/train_unet_ffhq.json`` at ``mixed_precision="bf16"``:
+    batch 16 at 256 px, gradient checkpointing, shift loss, CFA, EMA),
+    the AF-VAE trainer, and I2SB, SD text and the normal ControlNet as in
+    26, as many steps as their f32 runs, counters set to 0 just before
+    each and read just after: losses finite, the parameters moved as in
+    the f32 runs, the bf16 backward launches (K5b, K2, K4a, K4b) equal to
+    the count reckoned from the configs, no f32 backward kernel launched;
+    the median step and the peak memory logged beside the f32 run's, and
+    their ratios.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
 full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20, 22, 26, 28,
-29, 31, 32, 34 and 35), the last the device JSON. Exits non-zero without a
+29, 31, 32, 34, 35 and 37), the last the device JSON. Exits non-zero without a
 GPU or without the package beside it.
 """
 
@@ -876,12 +899,13 @@ def run_main_path(torch, steps):
     return ok and not missing, counts, res.psnrs
 
 
-def _tiny_trainer(device):
+def _tiny_trainer(device, mixed_precision=None):
     from afldm_tpu_torch import train as T
     from afldm_tpu_torch.scripts.shift_ldm_ffhq import load_configs
     ucfg, vcfg, scfg = load_configs(tiny=True)
     base = T.BaseTrainingConfig(resolution=64, train_batch_size=2, seed=0,
-                                gradient_checkpointing=True)
+                                gradient_checkpointing=True,
+                                mixed_precision=mixed_precision)
     cfg = T.LDMTrainingConfig(af_models=True, use_shift_loss=True,
                               use_cross_attn=True, use_ema=True)
     tr = T.create_trainer("ldm", base, cfg, device=device)
@@ -935,27 +959,33 @@ def check_tiny_training(torch):
     return ok
 
 
-def run_training(torch, n_steps):
+def run_training(torch, n_steps, mixed_precision=None, stats=None):
     """The full-width LDM trainer of configs/ldm/train_unet_ffhq.json as it
     stands (``profile_main_path.ffhq_trainer``: the VAE from
     configs/vae/model_afvae.json, since vae_path holds no checkpoint;
-    SyntheticDataset, since train_data_dir is absent; random weights)."""
+    SyntheticDataset, since train_data_dir is absent; random weights); at
+    ``mixed_precision`` "bf16" the JAX package's flagship LDM run, its
+    backward launches held to the count reckoned from the configs.
+    ``stats`` (a dict) gets the median step and the peak memory."""
     import numpy as np
     from afldm_tpu_torch import kernels
     from afldm_tpu_torch import train as T
     from afldm_tpu_torch.scripts.profile_main_path import ffhq_trainer
     t0 = time.perf_counter()
-    tr, ds = ffhq_trainer(device="cuda", seed=0)
+    tr, ds = ffhq_trainer(device="cuda", seed=0,
+                          mixed_precision=mixed_precision)
     base, cfg = tr.base_cfg, tr.cfg
     p0 = [p.detach().clone() for p in tr.unet.parameters()]
     batches = T.epoch_batches(ds, base.train_batch_size, seed=0)
-    log(f"training: full-width LDM trainer built in "
+    tag = "bf16 training" if mixed_precision == "bf16" else "training"
+    log(f"{tag}: full-width LDM trainer built in "
         f"{time.perf_counter() - t0:.1f} s (UNet "
         f"{sum(p.numel() for p in p0) / 1e6:.1f}M params, batch "
         f"{base.train_batch_size}, {base.resolution} px, gradient "
         f"checkpointing {base.gradient_checkpointing} "
         f"({base.remat_policy}), EMA {cfg.use_ema}, shift loss "
-        f"{cfg.use_shift_loss}, CFA {cfg.use_cross_attn})")
+        f"{cfg.use_shift_loss}, CFA {cfg.use_cross_attn}, mixed precision "
+        f"{base.mixed_precision})")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -966,27 +996,31 @@ def run_training(torch, n_steps):
         logs = tr.training_step(step, batch)  # floats: synchronises
         times.append(time.perf_counter() - t0)
         losses.append(logs)
-        log(f"training step {step}: {time.perf_counter() - t0:.3f} s "
+        log(f"{tag} step {step}: {time.perf_counter() - t0:.3f} s "
             f"{json.dumps(logs)} (lr of the next update {tr.opt.lr:.3g})")
     counts = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = times[1:] or times
     med = float(np.median(steady))
-    log(f"training: median step {med:.3f} s over steps 1..{n_steps - 1} "
+    log(f"{tag}: median step {med:.3f} s over steps 1..{n_steps - 1} "
         f"({base.train_batch_size / med:.2f} images/s), first step "
         f"{times[0]:.3f} s, peak device memory {peak:.2f} GiB")
-    log(f"training launches: {json.dumps(counts)}")
+    log(f"{tag} launches: {json.dumps(counts)}")
+    if stats is not None:
+        stats.update(median_s=med, peak_gib=peak)
     moved = sum(not torch.equal(a, p)
                 for a, p in zip(p0, tr.unet.parameters()))
     finite = all(np.isfinite(v) for d in losses for v in d.values())
-    log(f"training: {moved} of {len(p0)} parameter tensors moved; losses "
+    log(f"{tag}: {moved} of {len(p0)} parameter tensors moved; losses "
         f"finite: {finite}")
-    missing = [k for k in TRAINING_KERNELS if counts[k] == 0]
-    if missing:
-        log(f"training: FAIL, never launched: {missing}")
+    if mixed_precision == "bf16":
+        missing = _bf16_launches_as_reckoned(
+            tag, tr, "ldm", counts, n_steps, BF16_TRAINING_KERNELS)
+    else:
+        missing = _missing(tag, counts, TRAINING_KERNELS)
     ok = finite and moved == len(p0) and not missing
     if not ok:
-        log("training: FAIL")
+        log(f"{tag}: FAIL")
     return ok, counts
 
 
@@ -998,9 +1032,10 @@ TINY_VAE = dict(block_out_channels=[16, 16, 16], layers_per_block=1,
                 up_filtered_act=[True, True, True], up_rescale=[True, True])
 
 
-def _tiny_vae_trainer(device):
+def _tiny_vae_trainer(device, mixed_precision=None):
     from afldm_tpu_torch import train as T
-    base = T.BaseTrainingConfig(resolution=128, train_batch_size=2, seed=0)
+    base = T.BaseTrainingConfig(resolution=128, train_batch_size=2, seed=0,
+                                mixed_precision=mixed_precision)
     cfg = T.VAETrainingConfig(use_shift_loss=True, use_disc=True,
                               use_ema=True)
     tr = T.create_trainer("vae", base, cfg, device=device)
@@ -1058,27 +1093,32 @@ def check_tiny_vae_training(torch):
     return ok
 
 
-def run_vae_training(torch, n_steps):
+def run_vae_training(torch, n_steps, mixed_precision=None, stats=None):
     """The full-width AF-VAE trainer of configs/vae/train_afvae_imagenet.json
     as it stands (``profile_main_path.afvae_trainer``: SyntheticDataset,
-    since train_data_dir is absent; random weights)."""
+    since train_data_dir is absent; random weights), at ``mixed_precision``
+    as ``run_training`` takes it."""
     import numpy as np
     from afldm_tpu_torch import kernels
     from afldm_tpu_torch import train as T
     from afldm_tpu_torch.scripts.profile_main_path import afvae_trainer
     t0 = time.perf_counter()
-    tr, ds = afvae_trainer(device="cuda", seed=0)
+    tr, ds = afvae_trainer(device="cuda", seed=0,
+                           mixed_precision=mixed_precision)
     base, cfg = tr.base_cfg, tr.cfg
     p0 = [p.detach().clone() for p in tr.vae.parameters()]
     batches = T.epoch_batches(ds, base.train_batch_size, seed=0)
-    log(f"VAE training: full-width AF-VAE trainer built in "
+    tag = ("bf16 VAE training" if mixed_precision == "bf16"
+           else "VAE training")
+    log(f"{tag}: full-width AF-VAE trainer built in "
         f"{time.perf_counter() - t0:.1f} s (VAE "
         f"{sum(p.numel() for p in p0) / 1e6:.1f}M params, batch "
         f"{base.train_batch_size}, {base.resolution} px, gradient "
         f"accumulation {cfg.gradient_accumulation_steps}, gradient "
         f"checkpointing {base.gradient_checkpointing}, shift loss "
         f"{cfg.use_shift_loss}, GAN {cfg.use_disc}, EMA {cfg.use_ema}, "
-        f"lr {cfg.learning_rate} with {cfg.lr_warmup_steps} warmup updates)")
+        f"lr {cfg.learning_rate} with {cfg.lr_warmup_steps} warmup updates, "
+        f"mixed precision {base.mixed_precision})")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1094,27 +1134,31 @@ def run_vae_training(torch, n_steps):
             moved = sum(not torch.equal(a, p)
                         for a, p in zip(p0, tr.vae.parameters()))
             note = f"; {moved} of {len(p0)} tensors moved so far"
-        log(f"VAE training micro-step {step}: {times[-1]:.3f} s "
+        log(f"{tag} micro-step {step}: {times[-1]:.3f} s "
             f"{json.dumps(logs)}{note}")
     counts = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     med = float(np.median(times[1:] or times))
-    log(f"VAE training: median micro-step {med:.3f} s over micro-steps "
+    log(f"{tag}: median micro-step {med:.3f} s over micro-steps "
         f"1..{n_steps - 1} ({base.train_batch_size / med:.2f} images/s), "
         f"first {times[0]:.3f} s, peak device memory {peak:.2f} GiB")
-    log(f"VAE training launches: {json.dumps(counts)}")
+    log(f"{tag} launches: {json.dumps(counts)}")
+    if stats is not None:
+        stats.update(median_s=med, peak_gib=peak)
     moved = sum(not torch.equal(a, p)
                 for a, p in zip(p0, tr.vae.parameters()))
     finite = all(np.isfinite(v) for d in losses for v in d.values())
-    log(f"VAE training: {moved} of {len(p0)} parameter tensors moved after "
+    log(f"{tag}: {moved} of {len(p0)} parameter tensors moved after "
         f"{n_steps // cfg.gradient_accumulation_steps} updates; losses "
         f"finite: {finite}")
-    missing = [k for k in VAE_TRAINING_KERNELS if counts[k] == 0]
-    if missing:
-        log(f"VAE training: FAIL, never launched: {missing}")
+    if mixed_precision == "bf16":
+        missing = _bf16_launches_as_reckoned(
+            tag, tr, "vae", counts, n_steps, BF16_VAE_TRAINING_KERNELS)
+    else:
+        missing = _missing(tag, counts, VAE_TRAINING_KERNELS)
     ok = finite and moved == len(p0) and not missing
     if not ok:
-        log("VAE training: FAIL")
+        log(f"{tag}: FAIL")
     return ok, counts
 
 
@@ -1681,7 +1725,7 @@ TINY_CLIP = dict(hidden_size=16, intermediate_size=32, num_hidden_layers=2,
                  num_attention_heads=2)
 
 
-def _tiny_new_trainer(torch, name, device):
+def _tiny_new_trainer(torch, name, device, mixed_precision=None):
     """The tiny trainer ``name`` at 64 px, batch 2, weights from seed 0:
     I2SB on the tiny FFHQ UNet and AF-VAE of the protocol CLI (bridge
     noise on, CFA); the SD trainers on the tiny SD UNet and AF-VAE of the
@@ -1691,7 +1735,8 @@ def _tiny_new_trainer(torch, name, device):
                                                      TextEncoder)
     from afldm_tpu_torch.scripts import image_interpolation, shift_ldm_ffhq
     base = T.BaseTrainingConfig(resolution=64, train_batch_size=2, seed=0,
-                                prompt_dropout=0.5)
+                                prompt_dropout=0.5,
+                                mixed_precision=mixed_precision)
     if name == "i2sb":
         ucfg, vcfg, _ = shift_ldm_ffhq.load_configs(tiny=True)
         sched = json.loads((REPO / "configs" / "sr" /
@@ -1863,7 +1908,7 @@ def _sd_states(torch):
     return vcfg, vae.state_dict(), unet.state_dict()
 
 
-def _full_trainer(torch, name, sd):
+def _full_trainer(torch, name, sd, mixed_precision=None):
     """The full-width trainer ``name`` on the card with its dataset: I2SB
     as ``configs/sr/train_i2sb_imagenet.json`` stands
     (``profile_main_path.i2sb_trainer``); SD text and the normal ControlNet
@@ -1873,9 +1918,10 @@ def _full_trainer(torch, name, sd):
     from afldm_tpu_torch import train as T
     from afldm_tpu_torch.scripts.profile_main_path import i2sb_trainer
     if name == "i2sb":
-        return i2sb_trainer(device="cuda", seed=0)
+        return i2sb_trainer(device="cuda", seed=0,
+                            mixed_precision=mixed_precision)
     vcfg, vae_state, unet_state = sd
-    base = T.BaseTrainingConfig(seed=0)
+    base = T.BaseTrainingConfig(seed=0, mixed_precision=mixed_precision)
     cfg = (T.SDTextTrainingConfig() if name == "sd_text"
            else T.NormControlNetConfig())
     tr = T.create_trainer(name, base, cfg, device="cuda")
@@ -1886,18 +1932,25 @@ def _full_trainer(torch, name, sd):
     return tr, ds
 
 
-def run_new_trainer(torch, name, n_steps, sd=None):
+def run_new_trainer(torch, name, n_steps, sd=None, mixed_precision=None,
+                    stats=None):
     """``n_steps`` steps of the full-width trainer ``name``, the counters
     set to 0 just before and read just after: the median step over steps
     1.., the peak memory, the launches (those of K4b over 77 text tokens
     apart); every loss finite, every trained tensor that had a non-zero
     gradient moved (at least 80 % had one), the six training kernels
-    launched (and K4b at Lk = 77 in the SD trainers)."""
+    launched (and K4b at Lk = 77 in the SD trainers); at
+    ``mixed_precision`` "bf16" their bf16 variants, the backward ones as
+    reckoned, and no f32 backward kernel."""
     import numpy as np
     from afldm_tpu_torch import kernels
     from afldm_tpu_torch import train as T
     t0 = time.perf_counter()
-    tr, ds = _full_trainer(torch, name, sd)
+    tr, ds = _full_trainer(torch, name, sd, mixed_precision)
+    if mixed_precision == "bf16":
+        name_tag = f"bf16 {name}"
+    else:
+        name_tag = name
     base = tr.base_cfg
     trained = [p for m in _trainer_modules(tr).values()
                for p in m.parameters() if p.requires_grad]
@@ -1915,7 +1968,7 @@ def run_new_trainer(torch, name, n_steps, sd=None):
                for i, p in enumerate(trained)]
     sizes = {k: sum(p.numel() for p in m.parameters()) / 1e6
              for k, m in _trainer_modules(tr).items()}
-    log(f"{name} training: full-width trainer built in "
+    log(f"{name_tag} training: full-width trainer built in "
         f"{time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f}M params" for k, v in sizes.items())
         + f", {sum(p.numel() for p in trained) / 1e6:.1f}M trained, batch "
@@ -1934,7 +1987,7 @@ def run_new_trainer(torch, name, n_steps, sd=None):
             logs = tr.training_step(step, batch)  # floats: synchronises
             times.append(time.perf_counter() - t0)
             losses.append(logs)
-            log(f"{name} training step {step}: {times[-1]:.3f} s "
+            log(f"{name_tag} training step {step}: {times[-1]:.3f} s "
                 f"{json.dumps(logs)}")
     finally:
         cross = stop()
@@ -1947,22 +2000,29 @@ def run_new_trainer(torch, name, n_steps, sd=None):
     graded = [bool(t) for t in touched]
     stuck = sum(g and not m for g, m in zip(graded, moved))
     finite = all(np.isfinite(v) for d in losses for v in d.values())
-    log(f"{name} training: median step {med:.3f} s over steps "
+    log(f"{name_tag} training: median step {med:.3f} s over steps "
         f"1..{n_steps - 1} ({base.train_batch_size / med:.2f} images/s), "
         f"first step {times[0]:.3f} s, peak device memory {peak:.2f} GiB; "
         f"{sum(moved)} of {len(p0)} trained tensors moved, "
         f"{sum(graded)} had a non-zero gradient, {stuck} of those did not "
         f"move; losses finite: {finite}; K4b launches over 77 text tokens: "
         f"{cross}")
-    log(f"{name} training launches: {json.dumps(counts)}")
-    missing = _missing(f"{name} training", counts, TRAINING_KERNELS)
+    log(f"{name_tag} training launches: {json.dumps(counts)}")
+    if stats is not None:
+        stats.update(median_s=med, peak_gib=peak)
+    if mixed_precision == "bf16":
+        missing = _bf16_launches_as_reckoned(
+            f"{name_tag} training", tr, name, counts, n_steps,
+            BF16_TRAINING_KERNELS)
+    else:
+        missing = _missing(f"{name_tag} training", counts, TRAINING_KERNELS)
     ok = (finite and stuck == 0 and sum(graded) >= 0.8 * len(p0)
           and not missing)
     if name != "i2sb" and cross == 0:
-        log(f"{name} training: FAIL, no K4b launch over the text tokens")
+        log(f"{name_tag} training: FAIL, no K4b launch over the text tokens")
         ok = False
     if not ok:
-        log(f"{name} training: FAIL")
+        log(f"{name_tag} training: FAIL")
     return ok, counts
 
 
@@ -2273,7 +2333,23 @@ BF16_ROWS = (("filtered_act_plane/bf16", "filtered_act_plane", "highest"),
              ("filtered_act_banded:default/bf16", "filtered_act_banded",
               "default"),
              ("flash_fwd/bf16", "flash_fwd", None),
-             ("flash2_fwd/bf16", "flash2_fwd", None))
+             ("flash2_fwd/bf16", "flash2_fwd", None),
+             # the backward kernels for bf16 x, g and q, k, v, dO (bf16
+             # training)
+             ("filtered_act_plane_bwd/bf16", "filtered_act_plane_bwd",
+              "highest"),
+             ("filtered_act_plane_bwd:high/bf16", "filtered_act_plane_bwd",
+              "high"),
+             ("filtered_act_plane_bwd:default/bf16",
+              "filtered_act_plane_bwd", "default"),
+             ("filtered_act_banded_bwd/bf16", "filtered_act_banded_bwd",
+              "highest"),
+             ("filtered_act_banded_bwd:high/bf16", "filtered_act_banded_bwd",
+              "high"),
+             ("filtered_act_banded_bwd:default/bf16",
+              "filtered_act_banded_bwd", "default"),
+             ("flash_bwd_dq/bf16", "flash_bwd_dq", None),
+             ("flash_bwd_dkv/bf16", "flash_bwd_dkv", None))
 # the filtered activations at bf16 agree with their plain version (the
 # same f32 function between a bf16 load and a bf16 store) when no element
 # is more than one bf16 ulp off and at most this share of them differ:
@@ -2319,6 +2395,8 @@ def _bf16_case(torch, row, base, shape, dev, g):
     from afldm_tpu_torch.ops import attention as A
     from afldm_tpu_torch.ops import filtered_act as FA
     bf = torch.bfloat16
+    if base.endswith("_bwd") or base.startswith("flash_bwd"):
+        return _bf16_bwd_case(torch, row, base, shape, dev, g)
     if base.startswith("filtered_act"):
         level = dict((r, lv) for r, _, lv in BF16_ROWS)[row]
         x = torch.randn(shape, device=dev, generator=g).to(bf)
@@ -2364,6 +2442,69 @@ def _bf16_case(torch, row, base, shape, dev, g):
             lambda: A.flash2_fwd(*f32, alpha), library, (flops, nbytes))
 
 
+def _bf16_bwd_case(torch, row, base, shape, dev, g):
+    """``_bf16_case`` for the backward rows: K5b and K2 on bf16 x and g
+    (the reference: the plain version at 'highest' on the same values),
+    K4a and K4b on bf16 q, k, v, dO with the plain forward's out and lse
+    (the reference: the f32 plain on the same values; K4b's library call
+    autograd through SDPA at bf16, the forward excluded). K4b's results
+    are (dk, dv)."""
+    import torch.nn.functional as F
+    from afldm_tpu_torch.ops import attention as A
+    from afldm_tpu_torch.ops import filtered_act as FA
+    bf = torch.bfloat16
+    if base.startswith("filtered_act"):
+        level = dict((r, lv) for r, _, lv in BF16_ROWS)[row]
+        x, gr = (torch.randn(shape, device=dev, generator=g).to(bf)
+                 for _ in range(2))
+        xf, gf = x.float(), gr.float()
+        fn, plain = getattr(FA, base), getattr(FA, f"{base}_plain")
+        flops, _ = filtered_act_bwd_work(shape)
+        n, c, h, w = shape
+        # x, g and dx at 2 bytes, the six operators at 4
+        nbytes = 3 * 2 * n * c * h * w + 4 * (6 * h * h + 6 * w * w)
+        return (lambda: fn(x, gr, "silu"),
+                lambda: plain(x, gr, "silu", level),
+                lambda: plain(x, gr, "silu", "highest"),
+                lambda: fn(xf, gf, "silu"), None, (flops, nbytes))
+    n, heads, L, Lk, d, n_kv = _flash_dims(shape)
+    q, do = (torch.randn(n, heads, L, d, device=dev, generator=g).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn(n_kv, heads, Lk, d, device=dev, generator=g).to(bf)
+            .expand(n, -1, -1, -1) for _ in range(2))
+    out, lse = A._attention_plain(q, k, v)
+    delta = A._delta(do, out)
+    f32 = [t.float() for t in (q, k, v, do)]
+    scale = 1.0 / d ** 0.5
+    flops, _ = flash_bwd_work(base, shape)
+    rows = n * heads * L
+    # q, dO and the unique K/V rows at 2 bytes, lse and delta at 4; dq, or
+    # dk and dv dense per image, at 2
+    reads = 2 * (2 * rows * d + 2 * n_kv * heads * Lk * d) + 4 * 2 * rows
+    if base == "flash_bwd_dq":
+        return (lambda: A.flash_bwd_dq(q, k, v, do, lse, delta),
+                lambda: A._bwd_dq_plain(q, k, v, do, lse, delta, scale),
+                lambda: A._bwd_dq_plain(*f32, lse, delta, scale),
+                lambda: A.flash_bwd_dq(*f32, lse, delta), None,
+                (flops, reads + 2 * rows * d))
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+    return (lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: A._bwd_dkv_plain(q, k, v, do, lse, delta, scale),
+            lambda: A._bwd_dkv_plain(*f32, lse, delta, scale),
+            lambda: A.flash_bwd_dkv(*f32, lse, delta),
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                        retain_graph=True),
+            (flops, reads + 2 * 2 * n * heads * Lk * d))
+
+
+def _flat(torch, t):
+    """A result as one flat tensor (K4b's (dk, dv) concatenated)."""
+    if isinstance(t, tuple):
+        return torch.cat([x.flatten() for x in t])
+    return t
+
+
 def bf16_bound_ms(flops, nbytes, level):
     """The bound of a bf16-activation variant: its products' FLOPs at the
     f32 rate ('highest': f32 products), at the bf16 dense tensor rate times
@@ -2401,7 +2542,7 @@ def check_bf16_kernels(torch, report):
                 torch, row_name, base, shape, dev, g)
             try:
                 set_af_precision(level or "highest")
-                got, want = run(), plain()
+                got, want = _flat(torch, run()), _flat(torch, plain())
                 assert got.dtype == want.dtype == torch.bfloat16
                 ulps = bf16_ulps(torch, got, want, TOL[base][0])
                 max_ulps = float(ulps.max())
@@ -2411,7 +2552,7 @@ def check_bf16_kernels(torch, report):
                 if level is None:
                     _, e = torch.frexp(want.float().abs().max())
                     max_ulps = float(d.abs().max()) / 2.0 ** (int(e) - 8)
-                    gap = want.float() - plain32().float()
+                    gap = want.float() - _flat(torch, plain32()).float()
                     gap_rms = float(gap.double().pow(2).mean().sqrt())
                     rms = float(d.double().pow(2).mean().sqrt())
                     ratio = rms / gap_rms if gap_rms else float("inf")
@@ -2426,7 +2567,7 @@ def check_bf16_kernels(torch, report):
                     row["rms_ratio"] = max(row["rms_ratio"], ratio)
                     del gap
                 elif level == "default":
-                    own = want.float() - plain32().float()
+                    own = want.float() - _flat(torch, plain32()).float()
                     own_rms = float(own.double().pow(2).mean().sqrt())
                     own_max = float(own.abs().max())
                     rms = float(d.double().pow(2).mean().sqrt())
@@ -2478,40 +2619,34 @@ def check_bf16_kernels(torch, report):
     return ok
 
 
+def _launch_key(side, level, suffix=""):
+    """The ``kernels.LAUNCHES`` key of one bf16 filtered activation (its
+    forward, or with ``suffix`` '_bwd' its backward) on a ``side`` px map
+    at ``level``: K5 / K5b up to PLANE_MAX px, K1 / K2 above, the reduced
+    levels up to LEVEL_MAX px; None where H, W % 4 != 0 (the FFT chain)."""
+    from afldm_tpu_torch.ops import filtered_act as FA
+    if side % 4:
+        return None
+    route = "plane" if side <= FA.PLANE_MAX else "banded"
+    lv = "highest" if side > FA.LEVEL_MAX else level
+    return (f"filtered_act_{route}{suffix}"
+            + ("" if lv == "highest" else f":{lv}") + "/bf16")
+
+
 def reckon_filtered_launches(pipe, unet_forwards, decodes, level="highest"):
     """The filtered-activation launches that ``unet_forwards`` UNet
-    forwards and ``decodes`` VAE decodes make, from the configs: every
-    filtered activation of a 4D map with H, W % 4 == 0 is one launch of K5
-    (up to 64 px) or K1 (above), keyed as in ``kernels.LAUNCHES`` for a
-    bf16 x at ``level``."""
-    from afldm_tpu_torch.ops import filtered_act as FA
+    forwards and ``decodes`` VAE decodes make, from the configs
+    (``_unet_sites``, ``_vae_sites``), keyed by ``_launch_key``."""
     u, v = pipe.unet.config, pipe.vae.config
-    sizes = []  # (side, filtered activations) per forward or decode
-    if u.resolved_filtered_act():
-        n = len(u.block_out_channels)
-        side = [u.sample_size // 2 ** i for i in range(n)]
-        sizes += [(s, 2 * u.layers_per_block) for s in side]  # down
-        sizes += [(side[-1], 4)]  # mid: two resnets
-        sizes += [(s, 2 * (u.layers_per_block + 1)) for s in side]  # up
-    per_unet = list(sizes)
-    sizes = []
-    if v.alias_free:
-        z = u.sample_size
-        if v.mid_act:
-            sizes.append((z, 4))
-        for i, f in enumerate(v.up_filtered_act):
-            if f:
-                sizes.append((z * 2 ** i, 2 * (v.layers_per_block + 1)))
+    per_unet = [a for part in _unet_sites(u, u.sample_size, False).values()
+                for a in part[0]]
+    _, per_decode, _ = _vae_sites(v, u.sample_size * v.downsample_ratio)
     counts = {}
-    for runs, table in ((unet_forwards, per_unet), (decodes, sizes)):
+    for runs, table in ((unet_forwards, per_unet), (decodes, per_decode)):
         for side, n_acts in table:
-            if side % 4:
-                continue
-            name = ("filtered_act_plane" if side <= FA.PLANE_MAX
-                    else "filtered_act_banded")
-            lv = "highest" if side > FA.LEVEL_MAX else level
-            key = name + ("" if lv == "highest" else f":{lv}") + "/bf16"
-            counts[key] = counts.get(key, 0) + runs * n_acts
+            key = _launch_key(side, level)
+            if key:
+                counts[key] = counts.get(key, 0) + runs * n_acts
     return counts
 
 
@@ -2700,6 +2835,279 @@ def run_bf16_interp(torch, steps, n_frames=17):
     return ok, counts
 
 
+# -- bf16 training --------------------------------------------------------
+
+# the kernels each full-width bf16 training run must launch: the bf16
+# variants of the forward and backward kernels (the LDM, I2SB and SD
+# trainers; the AF-VAE's, whose attention is the D = 512 mid-block, has no
+# flash launch)
+BF16_TRAINING_KERNELS = ("filtered_act_plane/bf16", "flash_fwd/bf16",
+                         "filtered_act_plane_bwd/bf16", "flash_bwd_dq/bf16",
+                         "flash_bwd_dkv/bf16")
+BF16_VAE_TRAINING_KERNELS = ("filtered_act_plane/bf16",
+                             "filtered_act_banded/bf16",
+                             "filtered_act_plane_bwd/bf16",
+                             "filtered_act_banded_bwd/bf16")
+# the backward kernels: the f32 ones must not launch in a bf16 step, and
+# the bf16 ones launch as reckoned
+F32_BWD_KERNELS = tuple(f"{k}{lv}" for k in ("filtered_act_plane_bwd",
+                                             "filtered_act_banded_bwd")
+                        for lv in ("", ":high", ":default")) + (
+    "flash_bwd_dq", "flash_bwd_dkv")
+BF16_BWD_KEYS = ("filtered_act_plane_bwd", "filtered_act_banded_bwd",
+                 "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _unet_sites(u, side0, sd):
+    """{part: ([(side, filtered activations)], attention calls)} of one
+    forward of a UNet config ``u`` on a ``side0`` px latent, part in
+    'down', 'mid', 'up': two filtered activations a resnet (when the
+    config filters them), one attention call an FFHQ-family attention
+    layer, two (self and cross) an SD transformer layer."""
+    n, lpb = len(u.block_out_channels), u.layers_per_block
+    sides = [side0 // 2 ** i for i in range(n)]
+    filt = u.alias_free if sd else u.resolved_filtered_act()
+    per = 2 * getattr(u, "transformer_layers_per_block", 1) if sd else 1
+    prefix = "CrossAttn" if sd else "Attn"
+    down = ([(sides[i], 2 * lpb) for i in range(n)] if filt else [],
+            per * sum(lpb for t in u.down_block_types
+                      if t.startswith(prefix)))
+    mid = ([(sides[-1], 4)] if filt else [],
+           per * (1 if sd or u.add_attention else 0))
+    up = ([(sides[n - 1 - i], 2 * (lpb + 1)) for i in range(n)]
+          if filt else [],
+          per * sum(lpb + 1 for t in getattr(u, "up_block_types", ())
+                    if t.startswith(prefix)))
+    return {"down": down, "mid": mid, "up": up}
+
+
+def _vae_sites(v, res):
+    """[(side, filtered activations)] of one encode and of one decode of an
+    AF-VAE config ``v`` on ``res`` px images, and the flash attention calls
+    of each: its mid-block's single head, flash up to D = 256 (the tiny
+    VAE's 16), the plain version above (``model_afvae.json``'s 512)."""
+    n, lpb = len(v.block_out_channels), v.layers_per_block
+    z = res // 2 ** (n - 1)
+    enc = [(res // 2 ** i, 2 * lpb) for i in range(n)
+           if v.alias_free and v.down_filtered_act[i]]
+    dec = [(z * 2 ** i, 2 * (lpb + 1)) for i in range(n)
+           if v.alias_free and v.up_filtered_act[i]]
+    if v.alias_free and v.mid_act:
+        enc.append((z, 4))
+        dec.append((z, 4))
+    attn = int(v.mid_block_add_attention
+               and v.block_out_channels[-1] <= 256)
+    return enc, dec, attn
+
+
+def reckon_bwd_launches(tr, name):
+    """The bf16 backward launches one training micro-step of trainer
+    ``name`` makes, from its configs: K5b (up to 64 px) or K2 (above) once
+    for every filtered activation with H, W % 4 == 0, and K4a and K4b once
+    each for every flash attention, in every model pass that is
+    differentiated: the UNet's two passes (the prediction and the shifted
+    CFA pass) of the LDM, I2SB and SD text trainers; the ControlNet's two
+    and the UNet's up blocks in both (the ControlNet trainer trains only
+    those, and its residuals enter there); the AF-VAE's two encodes and two
+    decodes (with the shift loss; one each without). Recompute under
+    gradient checkpointing adds forward launches, not backward ones."""
+    level = tr.base_cfg.af_precision or "highest"
+    counts = {f"{k}{'' if level == 'highest' else f':{level}'}/bf16": 0
+              for k in BF16_BWD_KEYS}
+    counts.update({f"{k}/bf16": 0 for k in BF16_BWD_KEYS})
+
+    def add(sites, passes):
+        for side, n_acts in sites:
+            key = _launch_key(side, level, "_bwd")
+            if key:
+                counts[key] += passes * n_acts
+
+    res = tr.base_cfg.resolution
+    if name == "vae":
+        enc, dec, attn = _vae_sites(tr.vae_config, res)
+        passes = 2 if tr.cfg.use_shift_loss else 1
+        add(enc, passes)
+        add(dec, passes)
+        counts["flash_bwd_dq/bf16"] += 2 * passes * attn
+        counts["flash_bwd_dkv/bf16"] += 2 * passes * attn
+        return counts
+    side0 = res // tr.vae_config.downsample_ratio
+    sd = name in ("sd_text", "norm_controlnet")
+    sites = _unet_sites(tr.unet_config, side0, sd)
+    shifted = (tr.cfg.use_cfa if name == "i2sb"
+               else tr.cfg.use_shift_loss)
+    passes = 2 if shifted else 1
+    parts = [(sites[p], passes) for p in (("up",) if name ==
+                                          "norm_controlnet"
+                                          else ("down", "mid", "up"))]
+    if name == "norm_controlnet":
+        cn = _unet_sites(tr.controlnet.config, side0, True)
+        parts += [(cn["down"], passes), (cn["mid"], passes)]
+    for (acts, attn), n_passes in parts:
+        add(acts, n_passes)
+        counts["flash_bwd_dq/bf16"] += n_passes * attn
+        counts["flash_bwd_dkv/bf16"] += n_passes * attn
+    return counts
+
+
+def _bf16_launches_as_reckoned(tag, tr, name, counts, n_steps, needed):
+    """Logs the bf16 backward launches against ``reckon_bwd_launches`` over
+    ``n_steps`` micro-steps; returns what failed: a kernel of ``needed``
+    never launched, a backward count off the reckoning, or a launch of an
+    f32 backward kernel."""
+    per_step = reckon_bwd_launches(tr, name)
+    want = {k: n_steps * v for k, v in per_step.items()}
+    got = {k: counts[k] for k in want}
+    f32 = {k: counts[k] for k in F32_BWD_KERNELS if counts[k]}
+    log(f"{tag}: bf16 backward launches {json.dumps(got)}, reckoned "
+        f"{json.dumps(want)} ({n_steps} micro-steps); f32 backward "
+        f"launches {json.dumps(f32) if f32 else 'none'}")
+    failed = _missing(tag, counts, needed)
+    if got != want:
+        log(f"{tag}: FAIL, the bf16 backward launches are not as reckoned")
+        failed = failed + ["reckoning"]
+    if f32:
+        log(f"{tag}: FAIL, f32 backward kernels launched: {sorted(f32)}")
+        failed = failed + sorted(f32)
+    return failed
+
+
+# phase 36's floors of a loss's bf16 - f32 gap, as shares of the loss
+LOSS_FLOOR = 2.0 ** -8
+LOOSE_LOSS_FLOOR = 2.0 ** -6
+LOOSE_LOSS_KEYS = ("shift_loss", "d_weight", "disc_loss", "train_loss")
+
+
+def check_tiny_bf16_training(torch):
+    """Phase 36: one step of the tiny LDM (64 px), AF-VAE (128 px, the
+    banded pair) and I2SB, SD text and normal-ControlNet trainers (64 px)
+    at ``mixed_precision="bf16"`` from the same weights, images and draws
+    on the card (the bf16 kernels) and on the CPU (their plain versions),
+    and at f32 on the CPU: the losses and the gradients of the trained
+    modules held to the CPU's own bf16 - f32 gap. Each loss within
+    BF16_TINY_RATIO of its gap, the gap floored at a share of the loss:
+    LOSS_FLOOR (one bf16 ulp, 2^-8) for a plain mean (the MSEs, KL, the
+    perceptual loss), LOOSE_LOSS_FLOOR (four ulps, 2^-6) for the keys of
+    LOOSE_LOSS_KEYS. A loss is a mean of bf16 outputs whose errors may
+    cancel, so its bf16 - f32 gap can fall well below the difference of
+    two bf16 runs, most of all for a loss of a difference (the shift
+    losses) or a ratio of gradient norms (the GAN weight, and so the
+    total it multiplies into). On an H100 the tiny AF-VAE's d_weight sits
+    1.5 % and SD text's shift loss 1.0 % off the CPU's (3.97 and 2.67 of a
+    2^-8 floor, 0.99 and 0.67 of 2^-6) while their gradients agree at 1.10
+    and 0.99 of their gap; the gradients' RMS difference, over all the
+    trained tensors of a trainer, within BF16_TINY_RATIO of their RMS gap,
+    and each tensor's within 2 BF16_TINY_RATIO of its own (floored at
+    1e-2 of the largest tensor's gap: the attention's to_k biases have a
+    gradient of zero in exact arithmetic); the card must launch the bf16
+    backward kernels and no f32 one."""
+    import numpy as np
+    from afldm_tpu_torch import kernels
+    from afldm_tpu_torch import train as T
+    batches = {r: next(T.epoch_batches(T.SyntheticDataset(resolution=r,
+                                                          length=2), 2))
+               for r in (64, 128)}
+    for b in batches.values():
+        b["caption"] = np.array(["a red car", "a blue bird"])
+        b["normal"] = b["input"][:, ::-1].copy()
+    ok = True
+    for name in ("ldm", "vae", *NEW_TRAINERS):
+        res = {}
+        for dev, mp in (("cuda", "bf16"), ("cpu", "bf16"), ("cpu", None)):
+            if name == "ldm":
+                tr = _tiny_trainer(dev, mp)
+            elif name == "vae":
+                tr = _tiny_vae_trainer(dev, mp)
+            else:
+                tr = _tiny_new_trainer(torch, name, dev, mp)
+            batch = batches[128 if name == "vae" else 64]
+            if dev == "cuda":
+                kernels.reset_launch_counts()
+            if name == "vae":
+                x = torch.from_numpy(batch["input"]).permute(
+                    0, 3, 1, 2).contiguous().to(tr.device)
+                logs = tr.generator_backward(x, tr.draw(0, 2))
+                mods = {"vae": tr.vae}
+            else:
+                loss, logs = _trainer_loss(torch, tr, name, 0, batch)
+                loss.backward()
+                mods = _trainer_modules(tr)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = dict(kernels.LAUNCHES)
+            res[(dev, mp)] = (
+                {k: float(v) for k, v in logs.items()},
+                {f"{m}.{n}": p.grad.detach().float().cpu()
+                 for m, mod in mods.items() for n, p in mod.named_parameters()
+                 if p.grad is not None})
+        (lc, gc), (lb, gb), (lf, gf) = (res[k] for k in (
+            ("cuda", "bf16"), ("cpu", "bf16"), ("cpu", None)))
+        loss_ratios = {
+            k: abs(lc[k] - lb[k]) / max(
+                abs(lb[k] - lf[k]), 1e-12, abs(lb[k]) * (
+                    LOOSE_LOSS_FLOOR if k in LOOSE_LOSS_KEYS else LOSS_FLOOR))
+            for k in lb}
+        worst_key = max(loss_ratios, key=loss_ratios.get)
+        worst_loss = loss_ratios[worst_key]
+        d_all = np.sqrt(sum(float((gc[n] - gb[n]).double().pow(2).sum())
+                            for n in gb))
+        gap_all = np.sqrt(sum(float((gb[n] - gf[n]).double().pow(2).sum())
+                              for n in gb))
+        ratio_all = d_all / gap_all
+        floor = 1e-2 * max(_rms(gb[n] - gf[n]) for n in gb)
+        worst, worst_name = 0.0, None
+        for n in gb:
+            r = _rms(gc[n] - gb[n]) / max(_rms(gb[n] - gf[n]), floor)
+            if r > worst:
+                worst, worst_name = r, n
+        f32 = sorted(k for k in F32_BWD_KERNELS if launched[k])
+        bf = [k for k in launched if k.endswith("/bf16") and "_bwd" in k
+              and launched[k]]
+        good = (all(np.isfinite(v) for v in lc.values())
+                and set(gc) == set(gb) and worst_loss <= BF16_TINY_RATIO
+                and ratio_all <= BF16_TINY_RATIO
+                and worst <= 2 * BF16_TINY_RATIO and not f32 and bf)
+        log(f"tiny {name} training at bf16 (card vs CPU, one step): losses "
+            f"{json.dumps(lc)}; worst loss difference {worst_loss:.3f} of "
+            f"the CPU's own bf16 - f32 gap at {worst_key} (limit "
+            f"{BF16_TINY_RATIO}; CPU at bf16 {lb[worst_key]:.6g}, at f32 "
+            f"{lf[worst_key]:.6g}; each: "
+            + " ".join(f"{k} {v:.3f}" for k, v in loss_ratios.items())
+            + "); "
+            f"gradients' RMS difference {ratio_all:.3f} of their RMS gap "
+            f"(limit {BF16_TINY_RATIO}) over {len(gb)} tensors, worst "
+            f"tensor {worst:.3f} at {worst_name} (limit "
+            f"{2 * BF16_TINY_RATIO}); bf16 backward launches "
+            f"{json.dumps({k: launched[k] for k in bf})}, f32 backward "
+            f"launches {f32 or 'none'} {'ok' if good else 'FAIL'}")
+        ok &= bool(good)
+    return ok
+
+
+def log_bf16_ratios(stats):
+    """The bf16 runs' median step and peak memory against the f32 runs'
+    of the same trainers in this call."""
+    for name in stats.get("bf16", {}):
+        b, f = stats["bf16"][name], stats["f32"].get(name)
+        if not f:
+            continue
+        log(f"bf16/f32 {name} training: median step {b['median_s']:.3f} / "
+            f"{f['median_s']:.3f} s = {b['median_s'] / f['median_s']:.3f}, "
+            f"peak memory {b['peak_gib']:.2f} / {f['peak_gib']:.2f} GiB = "
+            f"{b['peak_gib'] / f['peak_gib']:.3f}")
+
+
+def _lap_timer():
+    """``lap(label)`` logs the wall time since the previous lap."""
+    last = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        log(f"phase time: {label} {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -2710,21 +3118,21 @@ def main(argv=None):
                     help="micro-steps of the full-width VAE training path "
                          "(default 8: 4 updates, the first ones far into "
                          "the lr warmup)")
-    ap.add_argument("--interp_steps", type=int, default=50,
+    ap.add_argument("--interp_steps", type=int, default=20,
                     help="DDIM steps of the full-width FFHQ interp path "
-                         "(default 50)")
+                         "(default 20)")
     ap.add_argument("--sd_frames", type=int, default=17,
                     help="frames of the full-width SD interpolation "
                          "(default 17)")
     ap.add_argument("--sd_steps", type=int, default=10,
                     help="DDIM steps of the full-width SD interpolation "
                          "(default 10)")
-    ap.add_argument("--serve_steps", type=int, default=50,
+    ap.add_argument("--serve_steps", type=int, default=20,
                     help="DDIM steps of each full-width service request "
-                         "(default 50)")
-    ap.add_argument("--sr_steps", type=int, default=50,
+                         "(default 20)")
+    ap.add_argument("--sr_steps", type=int, default=20,
                     help="I2SB steps of the full-width SR protocol "
-                         "(default 50)")
+                         "(default 20)")
     ap.add_argument("--video_frames", type=int, default=8,
                     help="frames of the full-width video editing (default "
                          "8, the CLI's)")
@@ -2739,21 +3147,21 @@ def main(argv=None):
                          "normal-ControlNet trainer (default 3)")
     ap.add_argument("--eq_samples", type=int, default=4,
                     help="samples of the full-width EQ metrics (default 4)")
-    ap.add_argument("--eq_steps", type=int, default=20,
-                    help="DDIM steps of each EQ generation (default 20, the "
-                         "CLI's)")
-    ap.add_argument("--afp_steps", type=int, default=50,
+    ap.add_argument("--eq_steps", type=int, default=10,
+                    help="DDIM steps of each EQ generation (default 10; the "
+                         "CLI's 20)")
+    ap.add_argument("--afp_steps", type=int, default=20,
                     help="DDIM steps of the full-width af_precision eval "
-                         "(default 50, the CLI's)")
-    ap.add_argument("--afp_shifts", type=int, default=8,
+                         "(default 20; the CLI's 50)")
+    ap.add_argument("--afp_shifts", type=int, default=4,
                     help="shifts of the full-width af_precision eval "
-                         "(default 8, the CLI's)")
+                         "(default 4; the CLI's 8)")
     ap.add_argument("--afp_vae_steps", type=int, default=4,
                     help="micro-steps of the AF-VAE trainer at each level "
                          "(default 4)")
-    ap.add_argument("--bf16_interp_steps", type=int, default=20,
+    ap.add_argument("--bf16_interp_steps", type=int, default=10,
                     help="DDIM steps of the full-width FFHQ interp on a "
-                         "bf16 pipeline (default 20)")
+                         "bf16 pipeline (default 10)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2797,19 +3205,26 @@ def main(argv=None):
     for row, base, _ in BF16_ROWS:  # the bf16-activation variants
         report[row] = dict(report[base], name=row, rms_ratio=0.0,
                            ulp_share=0.0, max_ulps=0, f32_ms=0.0)
+    lap = _lap_timer()
     ok = check_kernels(torch, report)
+    lap("kernel check (phase 1)")
     ok &= check_tiny_reference(torch)
     main_ok, counts, f32_psnrs = run_main_path(torch, args.steps)
     ok &= main_ok
     torch.cuda.empty_cache()
+    lap("tiny reference and the main path")
     ok &= check_tiny_training(torch)
-    train_ok, train_counts = run_training(torch, args.train_steps)
+    stats = {"f32": {}, "bf16": {}}
+    train_ok, train_counts = run_training(
+        torch, args.train_steps, stats=stats["f32"].setdefault("ldm", {}))
     ok &= train_ok
     torch.cuda.empty_cache()
     ok &= check_tiny_vae_training(torch)
-    vae_ok, vae_counts = run_vae_training(torch, args.vae_steps)
+    vae_ok, vae_counts = run_vae_training(
+        torch, args.vae_steps, stats=stats["f32"].setdefault("vae", {}))
     ok &= vae_ok
     torch.cuda.empty_cache()
+    lap("LDM and AF-VAE training")
     ok &= check_tiny_interp(torch)
     interp_ok, interp_counts = run_ffhq_interp(torch, args.interp_steps)
     ok &= interp_ok
@@ -2818,6 +3233,7 @@ def main(argv=None):
     sd_ok, sd_counts = run_sd_interp(torch, args.sd_frames, args.sd_steps)
     ok &= sd_ok
     torch.cuda.empty_cache()
+    lap("FFHQ and SD interpolation")
     sweep_ok, sweep_counts = run_sweep(torch)
     ok &= sweep_ok
     torch.cuda.empty_cache()
@@ -2841,6 +3257,7 @@ def main(argv=None):
                                                      args.normal_shifts)
     ok &= normal_ok
     torch.cuda.empty_cache()
+    lap("sweep, headline, service, SR, video editing, normals")
     ok &= check_tiny_new_trainers(torch)
     ok &= check_text_encoder(torch)
     ok &= check_sd_round_trip(torch)
@@ -2849,12 +3266,14 @@ def main(argv=None):
     for name in NEW_TRAINERS:
         if name != "i2sb" and sd_state is None:
             sd_state = _sd_states(torch)
-        run_ok, run_counts = run_new_trainer(torch, name, args.trainer_steps,
-                                             sd_state)
+        run_ok, run_counts = run_new_trainer(
+            torch, name, args.trainer_steps, sd_state,
+            stats=stats["f32"].setdefault(name, {}))
         ok &= run_ok
         new_counts.append(run_counts)
         torch.cuda.empty_cache()
     del sd_state
+    lap("the I2SB, SD text and ControlNet trainers")
     ok &= check_shift_ops(torch)
     eq_ok, eq_counts, eq_pipe = run_equivariance(torch, args.eq_samples,
                                                  args.eq_steps)
@@ -2863,8 +3282,10 @@ def main(argv=None):
     ok &= seq_ok
     del eq_pipe
     torch.cuda.empty_cache()
+    lap("shift ops, EQ metrics, sequential protocol")
     ok &= check_level_kernels(torch, report)
     time_resamplers(torch)
+    lap("level kernels and resamplers")
     afp_ok, afp_counts = run_af_precision_eval(torch, args.afp_steps,
                                                args.afp_shifts)
     ok &= afp_ok
@@ -2872,7 +3293,9 @@ def main(argv=None):
     vlev_ok, vlev_counts = run_vae_training_level(torch, args.afp_vae_steps)
     ok &= vlev_ok
     torch.cuda.empty_cache()
+    lap("af_precision eval, AF-VAE training at each level")
     ok &= check_bf16_kernels(torch, report)
+    lap("bf16 kernel check")
     ok &= check_tiny_bf16(torch, "protocol")
     bf_ok, bf_counts = run_bf16_protocol(torch, args.steps, f32_psnrs)
     ok &= bf_ok
@@ -2881,10 +3304,38 @@ def main(argv=None):
     bfi_ok, bfi_counts = run_bf16_interp(torch, args.bf16_interp_steps)
     ok &= bfi_ok
     torch.cuda.empty_cache()
+    lap("bf16 protocol and interp")
+    ok &= check_tiny_bf16_training(torch)
+    lap("tiny bf16 training")
+    bf16_train_counts = []
+    run_ok, run_counts = run_training(
+        torch, args.train_steps, "bf16",
+        stats["bf16"].setdefault("ldm", {}))
+    ok &= run_ok
+    bf16_train_counts.append(run_counts)
+    torch.cuda.empty_cache()
+    run_ok, run_counts = run_vae_training(
+        torch, args.vae_steps, "bf16", stats["bf16"].setdefault("vae", {}))
+    ok &= run_ok
+    bf16_train_counts.append(run_counts)
+    torch.cuda.empty_cache()
+    sd_state = None
+    for name in NEW_TRAINERS:
+        if name != "i2sb" and sd_state is None:
+            sd_state = _sd_states(torch)
+        run_ok, run_counts = run_new_trainer(
+            torch, name, args.trainer_steps, sd_state, "bf16",
+            stats["bf16"].setdefault(name, {}))
+        ok &= run_ok
+        bf16_train_counts.append(run_counts)
+        torch.cuda.empty_cache()
+    del sd_state
+    lap("bf16 training at full width")
+    log_bf16_ratios(stats)
     runs = (counts, train_counts, vae_counts, interp_counts, sd_counts,
             sweep_counts, head_counts, serve_counts, sr_counts, video_counts,
             normal_counts, *new_counts, eq_counts, seq_counts, *afp_counts,
-            *vlev_counts, *bf_counts, bfi_counts)
+            *vlev_counts, *bf_counts, bfi_counts, *bf16_train_counts)
     for k, row in report.items():
         row["launches"] = sum(c[k] for c in runs)
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

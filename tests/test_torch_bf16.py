@@ -609,8 +609,13 @@ def test_loaders_take_the_dtype(tmp_path):
     loaded = load_pipeline(str(tmp_path), device="cpu", allow_random=True,
                            dtype=BF)
     assert loaded.unet.dtype == BF
-    with pytest.raises(ValueError, match="float32 only"):
-        init_random_interp_pipeline(*cfgs, device="cpu", dtype=BF)
+    # the SD-family UNet computes in bf16 too (once refused)
+    from afldm_tpu_torch.scripts.image_interpolation import \
+        load_configs as sd_configs
+    interp = init_random_interp_pipeline(*sd_configs(tiny=True),
+                                         device="cpu", dtype=BF)
+    assert interp.unet.dtype == interp.vae.dtype == BF
+    assert all(p.dtype == torch.float32 for p in interp.unet.parameters())
 
 
 def test_bench_measures_bf16(monkeypatch):

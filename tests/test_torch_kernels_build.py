@@ -147,13 +147,14 @@ def test_kernel_check_needs_a_checkout_and_a_card(where, tmp_path,
 
 
 def _kernel_body(src, name):
-    """The text of ``__global__`` kernel ``name`` up to the next kernel,
-    struct or entry point, comments removed."""
+    """The text of ``__global__`` kernel (or function) ``name`` up to the
+    next kernel, struct, template or entry point, comments removed."""
     code = re.sub(r"//[^\n]*", "", src)
     start = code.index(f"{name}(")
     end = min(i for i in (code.find("__global__", start),
                           code.find('extern "C"', start),
-                          code.find("\nstruct ", start)) if i > 0)
+                          code.find("\nstruct ", start),
+                          code.find("\ntemplate ", start)) if i > 0)
     return code[start:end]
 
 
@@ -162,8 +163,9 @@ def test_plane_kernel_on_the_filtered_tile():
     (every operand staged in shared memory with 16-byte cp.async; K5b's
     act′ ⊙ product in the epilogue that reads C); block_gemm is gone from
     the file; K1 is four and K2 six launches of the tiled GEMM of
-    filtered_gemm.cuh (K1's chain in ``banded_f32``, which serves a float32
-    and a bfloat16 x), with no kernel of their own. None of these f32
+    filtered_gemm.cuh (K1's chain in ``banded_f32``, K2's in
+    ``banded_bwd_f32``, which serve a float32 and a bfloat16 x), with no
+    kernel of their own. None of these f32
     kernels uses tensor cores (no wmma, mma.sync, wgmma or TF32): the bf16
     variants of the reduced precision levels do, through filtered_mma.cuh
     alone (test_level_variants_on_the_mma_routine). bf16 appears in
@@ -185,7 +187,7 @@ def test_plane_kernel_on_the_filtered_tile():
     k1 = _kernel_body(src, "banded_f32")
     assert "<<<" not in k1
     assert k1.count("filtered_gemm<") == 4
-    k2 = _kernel_body(src, "filtered_act_banded_bwd_f32")
+    k2 = _kernel_body(src, "banded_bwd_f32")
     assert "<<<" not in k2
     assert k2.count("filtered_gemm<") == 6
     assert k2.count("MulActGrad{") == 1
@@ -219,7 +221,7 @@ def test_level_variants_on_the_mma_routine():
     assert k5b.count("MulActGradToPieces{") == 1
     k1 = _kernel_body(src, "banded_bf16")
     assert "<<<" not in k1 and k1.count("filtered_gemm_mma<") == 4
-    k2 = _kernel_body(src, "filtered_act_banded_bwd_bf16")
+    k2 = _kernel_body(src, "banded_bwd_bf16")
     assert "<<<" not in k2 and k2.count("filtered_gemm_mma<") == 6
     assert k2.count("MulActGrad{") == 1
     mma = re.sub(r"//[^\n]*", "", (kernels.CSRC / "filtered_mma.cuh")
@@ -411,3 +413,58 @@ def test_profile_groups_kernel_names(name, group):
     (K1, K2) with the port's kernels, not with cuBLAS's GEMMs."""
     from afldm_tpu_torch.scripts import profile_main_path
     assert profile_main_path.group_of(name) == group
+
+
+BF16_BWD_ENTRIES = {
+    "filtered_act": ("filtered_act_plane_bwd_f32_xbf16",
+                     "filtered_act_plane_bwd_bf16_xbf16",
+                     "filtered_act_banded_bwd_f32_xbf16",
+                     "filtered_act_banded_bwd_bf16_xbf16"),
+    "flash_bwd": ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}
+
+
+@pytest.mark.parametrize("source,name", [
+    (src, n) for src, names in BF16_BWD_ENTRIES.items() for n in names])
+def test_bf16_backward_entries_match_their_twins(source, name):
+    """The six backward entries of bf16 training: each in its source with
+    a ctypes signature equal to its float32 twin's (the same arguments, x,
+    g and dx or q, k, v, dO and the gradients bf16), and launch counters
+    for the bf16 variant beside the twin's."""
+    entries = _entry_points((kernels.CSRC / f"{source}.cu").read_text())
+    twin = (name.replace("_xbf16", "") if name.endswith("_xbf16")
+            else name.replace("_bf16", "_f32"))
+    assert name in entries and twin in entries
+    sigs = kernels._SIGNATURES[source]
+    assert sigs[name] == sigs[twin] and len(sigs[name]) == entries[name]
+    base = name.split("_f32")[0].split("_bf16")[0]
+    assert f"{base}/bf16" in kernels.LAUNCHES
+    if source == "filtered_act":
+        for level in ("high", "default"):
+            assert f"{base}:{level}/bf16" in kernels.LAUNCHES
+
+
+def test_flash_bwd_bf16_kernels_on_the_mma_tile_loop():
+    """K4a's and K4b's bf16 kernels run flash_tile.cuh's bf16 pieces: the
+    scores through mma_scores, ds and p rounded to bf16 A fragments
+    (ds_fragments, p_fragments, dst_fragments), the walked tiles through
+    ldmatrix.trans (mma_walked), dispatched through with_bwd_mma at every
+    padded head dim; no wgmma, no TF32, no atomics."""
+    tile = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_tile.cuh")
+                  .read_text())
+    for piece in ("struct BwdMmaCfg", "int with_bwd_mma(",
+                  "void mma_walked(", "void ds_fragments(",
+                  "void p_fragments(", "void dst_fragments(",
+                  "__floats2bfloat162_rn"):
+        assert piece in tile, piece
+    src = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_bwd.cu")
+                 .read_text())
+    dq = _kernel_body(src, "flash_bwd_dq_bf16_kernel")
+    dkv = _kernel_body(src, "flash_bwd_dkv_bf16_kernel")
+    assert dq.count("mma_scores<C>(") == 2 and "ds_fragments<C>(" in dq
+    assert dq.count("mma_walked<C>(") == 1
+    assert dkv.count("mma_scores<C>(") == 2
+    assert dkv.count("mma_walked<C>(") == 2
+    assert "p_fragments<C>(" in dkv and "dst_fragments<C>(" in dkv
+    assert src.count("with_bwd_mma<") == 2
+    for absent in ("wgmma", "tf32", "atomic"):
+        assert absent not in src.lower(), absent

@@ -1143,13 +1143,118 @@ def test_banded_bf16_variant_matches_plain(cuda, any_level, shape):
 
 
 @pytest.mark.cuda
-def test_bf16_filtered_backward_raises(cuda):
-    """No bf16 backward kernel: the autograd Functions raise on the card."""
-    for shape in ((1, 2, 8, 8), (1, 2, 96, 96)):
+@pytest.mark.parametrize("shape", [
+    (2, 16, 32, 32), (2, 64, 4, 4), (1, 8, 64, 64), (1, 4, 12, 20),
+    (3, 5, 8, 8), (1, 7, 4, 64), (1, 192, 32, 32)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_plane_bwd_bf16_variant_matches_plain(cuda, any_level, shape, act):
+    """K5b at bf16: bf16(vjp(f32(x), f32(g))), to the forward's criteria at
+    the backward's atol (1e-4)."""
+    x, g = (torch.randn(shape, device=cuda).to(BF) for _ in range(2))
+    got = _launches(_bf16_key("filtered_act_plane_bwd", any_level),
+                    lambda: TF.filtered_act_plane_bwd(x, g, act))
+    assert_bf16_close(
+        got, TF.filtered_act_plane_bwd_plain(x, g, act, any_level),
+        TF.filtered_act_plane_bwd_plain(x, g, act, "highest"), any_level,
+        atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 96, 96), (2, 3, 128, 128),
+                                   (1, 2, 80, 80), (1, 3, 32, 128),
+                                   (1, 1, 200, 104)])
+def test_banded_bwd_bf16_variant_matches_plain(cuda, any_level, shape):
+    x, g = (torch.randn(shape, device=cuda).to(BF) for _ in range(2))
+    got = _launches(_bf16_key("filtered_act_banded_bwd", any_level),
+                    lambda: TF.filtered_act_banded_bwd(x, g, "silu"))
+    assert_bf16_close(
+        got, TF.filtered_act_banded_bwd_plain(x, g, "silu", any_level),
+        TF.filtered_act_banded_bwd_plain(x, g, "silu", "highest"), any_level,
+        atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_filtered_backward_launches_its_kernel(cuda):
+    """Through the autograd Functions, a bf16 x and its cotangent (strided:
+    a transposed view) run the bf16 backward kernels and give a bf16
+    gradient."""
+    for shape, kind in (((1, 2, 8, 8), "plane"), ((1, 2, 96, 96),
+                                                 "banded")):
         x = torch.randn(shape, device=cuda).to(BF).requires_grad_()
         out = TF.filtered_act_fused(x, "silu")
-        with pytest.raises(TypeError, match="bfloat16 backward"):
-            out.sum().backward()
+        g = torch.randn(shape[::-1], device=cuda).to(BF).permute(3, 2, 1, 0)
+        _launches(f"filtered_act_{kind}_bwd/bf16",
+                  lambda: out.backward(g))
+        assert x.grad.dtype == BF
+        plain = getattr(TF, f"filtered_act_{kind}_bwd_plain")
+        assert_bf16_close(x.grad, plain(x.detach(), g, "silu"),
+                          plain(x.detach(), g, "silu"), "highest",
+                          atol=1e-4)
+
+
+def _attn_bwd_bf16_inputs(cuda, B, H, Lq, Lk, D, nkv):
+    q = torch.randn(B, H, Lq, D, device=cuda).to(BF)
+    k, v = (torch.randn(nkv, H, Lk, D, device=cuda).to(BF)
+            .expand(B, -1, -1, -1) for _ in range(2))
+    do = torch.randn(B, H, Lq, D, device=cuda).to(BF)
+    out, lse = TA._attention_plain(q, k, v)
+    return q, k, v, out, lse, do
+
+
+# the bf16 tile loop's head dims (DP 32 ... 256: D below, at and between
+# them), ragged lengths, 77 text tokens, K/V expanded from one image
+BF16_BWD_SHAPES = [  # (B, H, Lq, Lk, D, K/V batch)
+    (2, 8, 1024, 1024, 24, 1), (2, 2, 4, 4, 24, 2), (2, 3, 100, 77, 33, 1),
+    (1, 2, 64, 200, 8, 1), (2, 2, 130, 130, 80, 2), (1, 2, 256, 256, 40, 1),
+    (1, 1, 70, 64, 256, 1), (2, 2, 64, 64, 160, 2), (1, 8, 4096, 77, 40, 1),
+    (1, 2, 129, 65, 128, 1), (2, 2, 37, 50, 64, 2), (2, 2, 65, 129, 48, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_BWD_SHAPES)
+def test_flash_bwd_bf16_matches_plain(cuda, shape):
+    """K4a and K4b at bf16 against their plain versions (the JAX kernels'
+    roundings), to the forward's criteria: RMS within 0.1 of bf16's own
+    error, max within 4 ulps of the output's scale."""
+    q, k, v, out, lse, do = _attn_bwd_bf16_inputs(cuda, *shape)
+    delta = TA._delta(do, out)
+    dq = _launches("flash_bwd_dq/bf16",
+                   lambda: TA.flash_bwd_dq(q, k, v, do, lse, delta))
+    dk, dv = _launches("flash_bwd_dkv/bf16",
+                       lambda: TA.flash_bwd_dkv(q, k, v, do, lse, delta))
+    want = TA._attention_bwd_plain(q, k, v, out, lse, do)
+    want32 = TA._attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     out.float(), lse, do.float())
+    for got, ref, ref32 in zip((dq, dk, dv), want, want32):
+        assert got.shape == ref.shape
+        assert_attn_bf16_close(got, ref, ref32)
+
+
+@pytest.mark.cuda
+def test_bf16_attention_backward_launches_its_kernels(cuda):
+    """sdpa and sdpa2 at bf16 through autograd: K4a and K4b at bf16 (sdpa2:
+    once per K/V set), bf16 gradients, K/V expanded from one image summed
+    by autograd."""
+    q = torch.randn(3, 2, 64, 24, device=cuda).to(BF).requires_grad_()
+    kv = [torch.randn(1, 2, 64, 24, device=cuda).to(BF).requires_grad_()
+          for _ in range(4)]
+    for fn, n in ((lambda: TA.sdpa(q, kv[0].expand(3, -1, -1, -1),
+                                   kv[1].expand(3, -1, -1, -1)), 1),
+                  (lambda: TA.sdpa2(q, *(t.expand(3, -1, -1, -1)
+                                         for t in kv), 0.3), 2)):
+        out = fn()
+        before = {k: kernels.LAUNCHES[k]
+                  for k in ("flash_bwd_dq/bf16", "flash_bwd_dkv/bf16",
+                            "flash_bwd_dq", "flash_bwd_dkv")}
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["flash_bwd_dq/bf16"] == \
+            before["flash_bwd_dq/bf16"] + n
+        assert kernels.LAUNCHES["flash_bwd_dkv/bf16"] == \
+            before["flash_bwd_dkv/bf16"] + n
+        assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"]
+        assert q.grad.dtype == BF and kv[0].grad.shape == (1, 2, 64, 24)
+        assert all(torch.isfinite(t.grad.float()).all() for t in (q, kv[0]))
 
 
 def assert_attn_bf16_close(got, want, want32):
@@ -1190,13 +1295,3 @@ def test_flash2_bf16_matches_plain(cuda, n, h, L, d):
     assert_attn_bf16_close(got, TA.sdpa2_eager(q, *kv, alpha),
                            TA.sdpa2_eager(q.float(),
                                           *(t.float() for t in kv), alpha))
-
-
-@pytest.mark.cuda
-def test_bf16_attention_backward_raises(cuda):
-    q, k, v = (torch.randn(1, 2, 16, 24, device=cuda).to(BF)
-               .requires_grad_() for _ in range(3))
-    with pytest.raises(TypeError, match="bfloat16 backward"):
-        TA.sdpa(q, k, v).sum().backward()
-    with pytest.raises(TypeError, match="bfloat16 backward"):
-        TA.sdpa2(q, k, v, k, v, 0.5).sum().backward()

@@ -495,9 +495,22 @@ def test_unported_trainers_raise(name):
     ("mixed_precision", "bf16"), ("model_parallel", 2), ("fsdp", True),
     ("af_precision", "high")])
 def test_trainer_rejects_unported_options(field, value):
-    """Options the port does not have raise; ``af_precision`` 'high', once
-    refused too, now builds the trainer and sets the level."""
+    """Options the port does not have raise; ``af_precision`` 'high' and
+    ``mixed_precision`` 'bf16', once refused too, now build the trainer:
+    the level set, or the models computing in bfloat16 on float32
+    parameters."""
     base = PT.BaseTrainingConfig(**{field: value})
+    if field == "mixed_precision":
+        tr = PT.create_trainer("ldm", base, PT.LDMTrainingConfig(),
+                               device="cpu")
+        vae, unet = _port_configs()
+        tr.init_modules(vae_config=vae, unet_config=unet,
+                        scheduler_config=SCHED_CFG)
+        assert tr.weight_dtype == tr.unet.dtype == tr.vae.dtype \
+            == torch.bfloat16
+        assert all(p.dtype == torch.float32
+                   for m in (tr.unet, tr.vae) for p in m.parameters())
+        return
     if field == "af_precision":
         from afldm_tpu_torch.ops import ideal_lpf
         try:
