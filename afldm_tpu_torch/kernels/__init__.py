@@ -43,7 +43,8 @@ LAUNCHES.update({f"{k}:{level}": 0 for k in LEVEL_KERNELS
 BF16_KERNELS = tuple(f"{k}{level}" for k in (
     "filtered_act_plane", "filtered_act_banded", "filtered_act_plane_bwd",
     "filtered_act_banded_bwd") for level in ("", ":high", ":default")) + (
-    "flash_fwd", "flash2_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    "flash_fwd", "flash2_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+    "flash_probe_dots", "flash_probe_stream")
 LAUNCHES.update({f"{k}/bf16": 0 for k in BF16_KERNELS})
 
 _LIBS = {}
@@ -152,6 +153,11 @@ _SIGNATURES = {
                                  *[_L] * 9, _P],
         "flash_probe_stream_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    *[_L] * 9, _P],
+        # bfloat16 q, k, v and out: the same arguments
+        "flash_probe_dots_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  *[_L] * 9, _P],
+        "flash_probe_stream_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    *[_L] * 9, _P],
     },
 }
 

@@ -1,7 +1,7 @@
-// Attribution probes of the flash-attention forward (K3), f32: two kernels
-// with K3's grid, staging and tile loop whose arithmetic is cut down, so
-// that flash - dots_only is the online softmax's share of K3's time and
-// stream_only is the share of its loads.
+// Attribution probes of the flash-attention forward (K3), f32 and bf16: two
+// kernels with K3's grid, staging and tile loop whose arithmetic is cut
+// down, so that flash - dots_only is the online softmax's share of K3's
+// time and stream_only is the share of its loads.
 //
 // Replaces: scripts/bench_flash_sweep.py::dots_only_kernel and
 // ::stream_only_kernel (P1 and P2, launched through probe()).
@@ -26,6 +26,19 @@
 // staging alone and sums each staged tile's columns. The wrappers require
 // Lq and Lk to be multiples of 64, so no key is masked (Q rows past Lq in a
 // 128-row tile are computed on zeros and not stored).
+//
+// bf16 q, k, v (the _bf16 entries, the JAX bodies at bf16): K3/bf16's grid
+// and staging (MmaCfg: 64-row Q tiles of 4 warps, stage_rows_bf16).
+//   P1 flash_probe_dots_bf16: s = q·k_tileᵀ on the bf16 tensor cores into
+//      f32, rounded to bf16 as `s.astype(v_ref.dtype)` does, then acc +=
+//      s_bf16·v_tile in f32 and out rounded to bf16 once. It is
+//      mma_pv_pass with the identity for p: one walk over K and V, where
+//      K3/bf16 makes two (its statistics pass has no counterpart here). Its
+//      bound is the bf16 tensor-core rate, 4·Lq·Lk·D FLOPs per (b·h).
+//   P2 flash_probe_stream_bf16: each staged bf16 K and V tile's column sums
+//      in f32 (over its 64 rows, ascending), acc += q + colsum(k) +
+//      colsum(v) in f32 for each element, out rounded to bf16 once. Bound:
+//      the bytes, as for f32.
 
 #include "flash_tile.cuh"
 
@@ -33,11 +46,12 @@ namespace {
 
 using namespace afldm_flash;
 
+template <class T>
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* out;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
   int B2, Lq, Lk, D;
   long long qs1, qs2, qsl, ks1, ks2, ksl, vs1, vs2, vsl;
   int n_qtiles, vec;
@@ -111,7 +125,7 @@ struct Stream {
 };
 
 template <class C, template <class> class Body>
-__global__ void __launch_bounds__(C::kThreads) probe_kernel(Args a) {
+__global__ void __launch_bounds__(C::kThreads) probe_kernel(Args<float> a) {
   extern __shared__ __align__(16) float sm[];
   const Smem<C> S(sm);
   const int b = blockIdx.x / a.n_qtiles;
@@ -149,10 +163,133 @@ int dispatch(const float* q, const float* k, const float* v, float* out,
   return with_dp(D, [&](auto dp) {
     using C = FlashCfg<decltype(dp)::value>;
     const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
-    const Args a{q,   k,   v,   out, B2,  Lq,  Lk,       D,  qs1, qs2,
-                 qsl, ks1, ks2, ksl, vs1, vs2, vsl, n_qtiles, vec};
+    const Args<float> a{q,   k,   v,   out, B2,  Lq,  Lk,       D,  qs1,
+                        qs2, qsl, ks1, ks2, ksl, vs1, vs2, vsl, n_qtiles,
+                        vec};
     return launch_tiles<C>(probe_kernel<C, Body>, (long long)B1 * B2 * n_qtiles,
                            (cudaStream_t)stream, a);
+  });
+}
+
+using bf16 = __nv_bfloat16;
+
+// P1's bf16 body: mma_pv_pass with p = s (rounded to bf16 by the packing of
+// the A fragments). Keys past Lk need no mask: Lk % 64 == 0.
+struct DotsBf16 {
+  template <class C>
+  __device__ __forceinline__ static void run(const MmaSmem<C>& S,
+                                             const bf16* kb, const bf16* vb,
+                                             const Args<bf16>& a,
+                                             float (&o)[C::DT][4]) {
+    mma_pv_pass<C>(S.Qs, S.K0, S.Vs, kb, vb, a.ksl, a.vsl, a.Lk, a.D, a.vec,
+                   [](float sv, int, int) { return sv; }, o);
+  }
+};
+
+// P2's bf16 body: K_j in K0 and V_j in Vs, each tile's f32 column sums in
+// the otherwise unused K1 buffer (2·DP floats fit in its 64·LD bf16), added
+// to q for each of this thread's elements (mma_scores' accumulator layout,
+// as P1's and K3's o). K_{j+1} is in flight while V_j's sums are taken.
+struct StreamBf16 {
+  template <class C>
+  __device__ __forceinline__ static void colsum(const bf16* T, float* dst) {
+    for (int c = threadIdx.x; c < C::DP; c += C::kThreads) {
+      float sum = 0.0f;
+      for (int rr = 0; rr < kBK; ++rr)
+        sum += __bfloat162float(T[rr * C::LD + c]);
+      dst[c] = sum;
+    }
+  }
+  template <class C>
+  __device__ __forceinline__ static void run(const MmaSmem<C>& S,
+                                             const bf16* kb, const bf16* vb,
+                                             const Args<bf16>& a,
+                                             float (&o)[C::DT][4]) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t2 = 2 * (lane & 3);
+    float* Cs = reinterpret_cast<float*>(S.K1);
+#pragma unroll
+    for (int t = 0; t < C::DT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[t][e] = 0.0f;
+    stage_rows_bf16<C, kBK>(S.K0, kb, a.ksl, 0, a.Lk, a.D, a.vec);
+    cp_async_commit();
+    stage_rows_bf16<C, kBK>(S.Vs, vb, a.vsl, 0, a.Lk, a.D, a.vec);
+    cp_async_commit();
+    for (int k0 = 0; k0 < a.Lk; k0 += kBK) {
+      cp_async_wait<1>();  // all but V_j: K_j (and Q) have landed
+      __syncthreads();
+      colsum<C>(S.K0, Cs);
+      __syncthreads();     // K_j is no longer read
+      if (k0 + kBK < a.Lk)
+        stage_rows_bf16<C, kBK>(S.K0, kb, a.ksl, k0 + kBK, a.Lk, a.D, a.vec);
+      cp_async_commit();
+      cp_async_wait<1>();  // all but K_{j+1}: V_j has landed
+      __syncthreads();
+      colsum<C>(S.Vs, Cs + C::DP);
+      __syncthreads();     // V_j is no longer read; both sums are written
+      if (k0 + kBK < a.Lk)
+        stage_rows_bf16<C, kBK>(S.Vs, vb, a.vsl, k0 + kBK, a.Lk, a.D, a.vec);
+      cp_async_commit();
+#pragma unroll
+      for (int j = 0; j < C::DT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = 8 * j + t2 + e;
+            const float qv =
+                __bfloat162float(S.Qs[(16 * warp + g + 8 * h) * C::LD + d]);
+            o[j][2 * h + e] += qv + Cs[d] + Cs[C::DP + d];
+          }
+      // the next tile's sums overwrite Cs after the wait and sync at the top
+    }
+    cp_async_wait<0>();
+  }
+};
+
+template <class C, class Body>
+__global__ void __launch_bounds__(C::kThreads)
+    probe_bf16_kernel(Args<bf16> a) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  const MmaSmem<C> S(reinterpret_cast<bf16*>(smb));
+  const int b = blockIdx.x / a.n_qtiles;
+  const int q0 = (blockIdx.x - b * a.n_qtiles) * C::BQ;
+  const int b1 = b / a.B2, b2 = b - b1 * a.B2;
+  stage_rows_bf16<C, C::BQ>(S.Qs, a.q + b1 * a.qs1 + b2 * a.qs2, a.qsl, q0,
+                            a.Lq, a.D, a.vec);
+  cp_async_commit();
+  float o[C::DT][4];
+  Body::template run<C>(S, a.k + b1 * a.ks1 + b2 * a.ks2,
+                        a.v + b1 * a.vs1 + b2 * a.vs2, a, o);
+  bf16* ob = a.out + (long long)b * a.Lq * a.D;
+  for_out<C>(q0, a.Lq, a.D, [&](int row, int d, int e, int j) {
+    ob[(long long)row * a.D + d] = __float2bfloat16_rn(o[j][e]);
+  });
+}
+
+template <class Body>
+int dispatch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                  int B1, int B2, int Lq, int Lk, int D, long long qs1,
+                  long long qs2, long long qsl, long long ks1, long long ks2,
+                  long long ksl, long long vs1, long long vs2, long long vsl,
+                  void* stream) {
+  if (Lq % kBK != 0 || Lk % kBK != 0 || Lq == 0 || Lk == 0)
+    return (int)cudaErrorInvalidValue;
+  const int vec = vec_ok_bf16(q, qs1, qs2, qsl, D) &&
+                  vec_ok_bf16(k, ks1, ks2, ksl, D) &&
+                  vec_ok_bf16(v, vs1, vs2, vsl, D);
+  return with_dp_mma(D, [&](auto dp) {
+    using C = MmaCfg<decltype(dp)::value>;
+    static_assert(2 * C::DP * sizeof(float) <= kBK * C::LD * sizeof(bf16),
+                  "P2's column sums fit in the K1 buffer");
+    const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
+    const Args<bf16> a{q,   k,   v,   out, B2,  Lq,  Lk,       D,  qs1,
+                       qs2, qsl, ks1, ks2, ksl, vs1, vs2, vsl, n_qtiles,
+                       vec};
+    return launch_mma_tiles<C>(probe_bf16_kernel<C, Body>,
+                               (long long)B1 * B2 * n_qtiles,
+                               (cudaStream_t)stream, a);
   });
 }
 
@@ -182,4 +319,29 @@ extern "C" int flash_probe_stream_f32(const float* q, const float* k,
                                       long long vsl, void* stream) {
   return dispatch<Stream>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2, qsl, ks1,
                           ks2, ksl, vs1, vs2, vsl, stream);
+}
+
+// The bf16 probes: q, k, v and out bfloat16, the same arguments.
+extern "C" int flash_probe_dots_bf16(const bf16* q, const bf16* k,
+                                     const bf16* v, bf16* out, int B1, int B2,
+                                     int Lq, int Lk, int D, long long qs1,
+                                     long long qs2, long long qsl,
+                                     long long ks1, long long ks2,
+                                     long long ksl, long long vs1,
+                                     long long vs2, long long vsl,
+                                     void* stream) {
+  return dispatch_bf16<DotsBf16>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2,
+                                 qsl, ks1, ks2, ksl, vs1, vs2, vsl, stream);
+}
+
+extern "C" int flash_probe_stream_bf16(const bf16* q, const bf16* k,
+                                       const bf16* v, bf16* out, int B1,
+                                       int B2, int Lq, int Lk, int D,
+                                       long long qs1, long long qs2,
+                                       long long qsl, long long ks1,
+                                       long long ks2, long long ksl,
+                                       long long vs1, long long vs2,
+                                       long long vsl, void* stream) {
+  return dispatch_bf16<StreamBf16>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2,
+                                   qsl, ks1, ks2, ksl, vs1, vs2, vsl, stream);
 }

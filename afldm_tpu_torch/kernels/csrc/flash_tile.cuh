@@ -600,8 +600,9 @@ struct DkvBody {
 };
 
 // ---------------------------------------------------------------------------
-// The bf16 tile loop of K3 and K6 (flash_fwd_bf16, flash2_fwd_bf16): bf16
-// q, k, v on the tensor cores, the semantics of the JAX package's
+// The bf16 tile loop of K3 and K6 (flash_fwd_bf16, flash2_fwd_bf16; its P·V
+// pass, mma_pv_pass, is also P1's, flash_probe_dots_bf16): bf16 q, k, v on
+// the tensor cores, the semantics of the JAX package's
 // ``sdpa_xla`` at bf16 (the port's plain version): f32 scores, f32
 // softmax, the NORMALISED p rounded to bf16, P·V summed in f32, out
 // rounded to bf16, lse f32.
@@ -743,6 +744,74 @@ __device__ __forceinline__ void mma_scores(const __nv_bfloat16* Qs,
   }
 }
 
+// O = P·V summed over the K/V tiles, P = pf(s, key, h) of the scores S =
+// Q·K_jᵀ (s of row g + 8h, key the absolute key) rounded to bf16 as the A
+// fragments of P·V: one walk over K and V, K_{j+1} in flight during P·V,
+// V_{j+1} during the next scores. o comes back in the accumulator layout of
+// mma_scores (the warp's 16 rows × DP columns). Every thread calls it; K0
+// and Vs are free on entry, and Q, if staged and committed just before, has
+// landed by the first scores.
+template <class C, class PF>
+__device__ __forceinline__ void mma_pv_pass(
+    const __nv_bfloat16* Qs, __nv_bfloat16* K0, __nv_bfloat16* Vs,
+    const __nv_bfloat16* kb, const __nv_bfloat16* vb, long long ksl,
+    long long vsl, int Lk, int D, bool vec, PF pf, float (&o)[C::DT][4]) {
+  using afldm_filtered::ldsm_x4_t;
+  using afldm_filtered::mma_bf16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t2 = 2 * (lane & 3);
+  float s[C::NT][4];
+#pragma unroll
+  for (int t = 0; t < C::DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.0f;
+  stage_rows_bf16<C, kBK>(K0, kb, ksl, 0, Lk, D, vec);
+  cp_async_commit();
+  stage_rows_bf16<C, kBK>(Vs, vb, vsl, 0, Lk, D, vec);
+  cp_async_commit();
+  const __nv_bfloat16* vt =
+      Vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LD + 8 * (lane >> 4);
+  for (int k0 = 0; k0 < Lk; k0 += kBK) {
+    cp_async_wait<1>();  // all but V_j: K_j has landed
+    __syncthreads();
+    mma_scores<C>(Qs, K0, warp, lane, s);
+    unsigned pa[kBK / 16][4];  // P as the A fragments of four 16-key steps
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + t2 + e;
+          p[e] = pf(s[j][2 * h + e], key, h);
+        }
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(p[0], p[1]);
+        pa[j / 2][2 * (j & 1) + h] = *reinterpret_cast<const unsigned*>(&pb);
+      }
+    __syncthreads();  // K_j is no longer read
+    if (k0 + kBK < Lk) stage_rows_bf16<C, kBK>(K0, kb, ksl, k0 + kBK, Lk, D,
+                                               vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but K_{j+1}: V_j has landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < C::DT / 2; ++dp) {
+        unsigned b[4];
+        ldsm_x4_t(b, vt + 16 * kk * C::LD + 16 * dp);
+        mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
+      }
+    __syncthreads();  // V_j is no longer read
+    if (k0 + kBK < Lk) stage_rows_bf16<C, kBK>(Vs, vb, vsl, k0 + kBK, Lk, D,
+                                               vec);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
 // One attention of the staged Q tile over one K/V set, bf16: the row
 // statistics pass, then the P·V pass. Leaves o (the warp's 16 rows × DP
 // columns, in the accumulator layout of s), m and l (the row max and sum
@@ -755,8 +824,6 @@ __device__ __forceinline__ void mma_attend(
     __nv_bfloat16* Vs, const __nv_bfloat16* kb, const __nv_bfloat16* vb,
     long long ksl, long long vsl, int Lk, int D, bool vec, float scale,
     float (&o)[C::DT][4], float (&m)[2], float (&l)[2]) {
-  using afldm_filtered::ldsm_x4_t;
-  using afldm_filtered::mma_bf16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t2 = 2 * (lane & 3);
   float s[C::NT][4];
@@ -803,58 +870,12 @@ __device__ __forceinline__ void mma_attend(
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  // pass 2: p = exp(s − m) / l rounded to bf16, O += P·V; K_{j+1} in
-  // flight during P·V, V_{j+1} during the next scores
-#pragma unroll
-  for (int t = 0; t < C::DT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[t][e] = 0.0f;
-  stage_rows_bf16<C, kBK>(K0, kb, ksl, 0, Lk, D, vec);
-  cp_async_commit();
-  stage_rows_bf16<C, kBK>(Vs, vb, vsl, 0, Lk, D, vec);
-  cp_async_commit();
-  const __nv_bfloat16* vt =
-      Vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LD + 8 * (lane >> 4);
-  for (int k0 = 0; k0 < Lk; k0 += kBK) {
-    cp_async_wait<1>();  // all but V_j: K_j has landed
-    __syncthreads();
-    mma_scores<C>(Qs, K0, warp, lane, s);
-    unsigned pa[kBK / 16][4];  // P as the A fragments of four 16-key steps
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float p[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + 8 * j + t2 + e;
-          p[e] = key < Lk ? expf(s[j][2 * h + e] * scale - m[h]) / l[h]
-                          : 0.0f;
-        }
-        const __nv_bfloat162 pb = __floats2bfloat162_rn(p[0], p[1]);
-        pa[j / 2][2 * (j & 1) + h] = *reinterpret_cast<const unsigned*>(&pb);
-      }
-    __syncthreads();  // K_j is no longer read
-    if (k0 + kBK < Lk) stage_rows_bf16<C, kBK>(K0, kb, ksl, k0 + kBK, Lk, D,
-                                               vec);
-    cp_async_commit();
-    cp_async_wait<1>();  // all but K_{j+1}: V_j has landed
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < C::DT / 2; ++dp) {
-        unsigned b[4];
-        ldsm_x4_t(b, vt + 16 * kk * C::LD + 16 * dp);
-        mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
-      }
-    __syncthreads();  // V_j is no longer read
-    if (k0 + kBK < Lk) stage_rows_bf16<C, kBK>(Vs, vb, vsl, k0 + kBK, Lk, D,
-                                               vec);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
+  // pass 2: p = exp(s − m) / l rounded to bf16, O += P·V
+  mma_pv_pass<C>(Qs, K0, Vs, kb, vb, ksl, vsl, Lk, D, vec,
+                 [&](float sv, int key, int h) {
+                   return key < Lk ? expf(sv * scale - m[h]) / l[h] : 0.0f;
+                 },
+                 o);
 }
 
 // The shared-memory carve-up of a bf16 block.

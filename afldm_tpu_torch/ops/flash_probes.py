@@ -9,37 +9,56 @@ and ``::stream_only_kernel``), with K3's grid, staging and tile loop
   colsum(k_tile) + colsum(v_tile)``, so ``(Lk/64)·q + Σk + Σv``: the pure
   memory floor of K3's loads.
 
-q: (..., Lq, D), k/v: (..., Lk, D), float32, Lq and Lk multiples of 64,
-D <= 256. A CPU tensor goes to the plain version; a CUDA tensor launches
-the kernel or raises, and returns its empty output without a launch where
-there are no rows.
+q: (..., Lq, D), k/v: (..., Lk, D), float32 or bfloat16 (one dtype for
+all three), Lq and Lk multiples of 64, D <= 256. A CPU tensor goes to the
+plain version; a CUDA tensor launches the kernel or raises, and returns its
+empty output without a launch where there are no rows.
+
+bfloat16 (on the card ``flash_probe_dots_bf16`` and
+``flash_probe_stream_bf16``, counted as ``flash_probe_dots/bf16`` and
+``flash_probe_stream/bf16``): the JAX bodies at bf16. P1 sums q·kᵀ in f32,
+rounds it to bf16 (``s.astype(v_ref.dtype)``), sums s·v in f32 and rounds
+the output to bf16 once; P2 sums in f32 and rounds the output once.
 """
 
 import torch
 
 from .. import kernels
-from .attention import FLASH_MAX_D, _as_4d
+from .attention import FLASH_MAX_D, _as_4d, _kernel_dtype
 
 PROBE_TILE = 64  # the kernels' K/V tile in rows
 
 
-def q_tile(D: int) -> int:
-    """Rows of the flash kernels' Q tile at head dim D (``FlashCfg`` in
-    ``kernels/csrc/flash_tile.cuh``): 128, or 64 at D > 160 (DP = 256)."""
+def q_tile(D: int, dtype=torch.float32) -> int:
+    """Rows of the flash forward kernels' Q tile at head dim D and dtype
+    (``kernels/csrc/flash_tile.cuh``): at f32 (``FlashCfg``) 128, or 64 at
+    D > 160 (DP = 256); at bf16 (``MmaCfg``) 64."""
+    if dtype == torch.bfloat16:
+        return 64
     return 64 if D > 160 else 128
 
 
 def flash_probe_dots_plain(q, k, v):
-    """The plain version of ``flash_probe_dots``: (q·kᵀ)·v in f32."""
-    return torch.matmul(torch.matmul(q, k.transpose(-1, -2)), v)
+    """The plain version of ``flash_probe_dots``: (q·kᵀ)·v summed in f32,
+    the scores rounded to q's dtype before the second product and the
+    output rounded once (both no-ops at f32)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)).to(q.dtype)
+    return torch.matmul(s.float(), v.float()).to(q.dtype)
 
 
 def flash_probe_stream_plain(q, k, v, block_k: int = PROBE_TILE):
     """The plain version of ``flash_probe_stream`` at K/V tile ``block_k``:
-    ``(Lk/block_k)·q + Σk + Σv`` (sums over the rows)."""
+    for each tile ``acc += q + colsum(k_tile) + colsum(v_tile)`` in f32, the
+    kernels' order, so ``(Lk/block_k)·q + Σk + Σv`` (sums over the rows),
+    rounded once to q's dtype."""
     n_tiles = k.shape[-2] // block_k
-    return (n_tiles * q + k.sum(-2, keepdim=True)
-            + v.sum(-2, keepdim=True))
+    ck, cv = (t.float().unflatten(-2, (n_tiles, block_k)).sum(-2)
+              for t in (k, v))
+    qf = q.float()
+    acc = torch.zeros_like(qf)
+    for t in range(n_tiles):
+        acc += qf + ck[..., t:t + 1, :] + cv[..., t:t + 1, :]
+    return acc.to(q.dtype)
 
 
 def _check(name, q, k, v):
@@ -53,11 +72,10 @@ def _check(name, q, k, v):
             f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}: Lq and Lk must be multiples of {PROBE_TILE}, "
             f"D <= {FLASH_MAX_D}, k and v of one shape")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise TypeError(f"{name}: float32 only")
+    return _kernel_dtype((q, k, v), name)
 
 
-def _launch(name, q, k, v):
+def _launch(name, suffix, q, k, v):
     if not all(t.device == q.device and t.device.type == "cuda"
                for t in (q, k, v)):
         raise ValueError(f"{name}: q, k, v must lie on one CUDA device")
@@ -66,31 +84,31 @@ def _launch(name, q, k, v):
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in (q4, k4, v4))
     B1, B2, Lq, D = q4.shape
-    out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=torch.float32)
+    out = torch.empty((B1, B2, Lq, D), device=q.device, dtype=q.dtype)
     if out.numel() == 0:  # no rows: nothing to launch
         return out.reshape(lead + (Lq, D))
     strides = [s for t in (q4, k4, v4) for s in t.stride()[:3]]
-    err = getattr(kernels.library("flash_probe"), f"{name}_f32")(
+    err = getattr(kernels.library("flash_probe"), f"{name}_{suffix}")(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), B1, B2,
         Lq, k4.shape[2], D, *strides,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, name)
-    kernels.LAUNCHES[name] += 1
+    kernels.LAUNCHES[name if suffix == "f32" else f"{name}/bf16"] += 1
     return out.reshape(lead + (Lq, D))
 
 
 def flash_probe_dots(q, k, v):
     """P1: ``(q·kᵀ)·v`` through K3's tiles. K/V expanded from one image
     (stride 0) are read without a copy."""
-    _check("flash_probe_dots", q, k, v)
+    suffix = _check("flash_probe_dots", q, k, v)
     if q.device.type == "cpu":
         return flash_probe_dots_plain(q, k, v)
-    return _launch("flash_probe_dots", q, k, v)
+    return _launch("flash_probe_dots", suffix, q, k, v)
 
 
 def flash_probe_stream(q, k, v):
     """P2: ``(Lk/64)·q + Σk + Σv`` through K3's loads."""
-    _check("flash_probe_stream", q, k, v)
+    suffix = _check("flash_probe_stream", q, k, v)
     if q.device.type == "cpu":
         return flash_probe_stream_plain(q, k, v)
-    return _launch("flash_probe_stream", q, k, v)
+    return _launch("flash_probe_stream", suffix, q, k, v)

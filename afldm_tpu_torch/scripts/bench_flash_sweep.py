@@ -6,10 +6,14 @@ identity: the matmul-plus-memory floor) and P2 (``flash_probe_stream``,
 K3's loads with trivial work: the memory floor). ``1 - dots/flash`` is the
 online softmax's share of K3's time, ``stream/flash`` its loads' share.
 
-The kernels have one tile at a head dim (64 keys; 128 query rows, 64 at
-D > 160), so the sweep is one row per op at that tile; they are f32 only. Each time is the best of 3 runs of ``--iters``
-chained calls (each call's output is the next one's q), from CUDA events.
-Rows are printed as JSON lines and appended to ``--out``.
+The kernels have one tile at a head dim and dtype (64 keys; at f32 128
+query rows, 64 at D > 160; at bf16 64 query rows), so the sweep is one row
+per op at that tile. ``--dtype`` (bf16 by default, as in the JAX script)
+sets the dtype of q, k and v for all four kernels, and every row carries
+it; the probe row carries K3's own time at that dtype. Each time is the
+best of 3 runs of ``--iters`` chained calls (each call's output is the next
+one's q), from CUDA events. Rows are printed as JSON lines and appended to
+``--out``.
 
   python -m afldm_tpu_torch.scripts.bench_flash_sweep          # on the card
   python -m afldm_tpu_torch.scripts.bench_flash_sweep --device cpu \\
@@ -25,6 +29,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[2]
 OUT = REPO / "results" / "bench_flash_sweep_torch.jsonl"
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def parse_args(argv=None):
@@ -36,16 +41,17 @@ def parse_args(argv=None):
     p.add_argument("--tokens", type=int, default=4096)
     p.add_argument("--dim", type=int, default=80)
     p.add_argument("--iters", type=int, default=20)
-    p.add_argument("--dtype", default="f32", choices=["f32"],
-                   help="the kernels are f32")
+    p.add_argument("--dtype", default="bf16", choices=["f32", "bf16"],
+                   help="dtype of q, k and v (default bf16, the JAX "
+                        "script's)")
     p.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
     p.add_argument("--out", default=str(OUT))
     return p.parse_args(argv)
 
 
-def measure(f1, x0, xs, iters, device):
-    """Best of 3 mean times (ms) of ``iters`` chained calls
+def measure(f1, x0, xs, iters, device, repeats=3):
+    """Best of ``repeats`` mean times (ms) of ``iters`` chained calls
     ``c = f1(c, *xs)`` after one warm-up chain; CUDA events on the card,
     the host clock on the CPU."""
     def chain():
@@ -56,7 +62,7 @@ def measure(f1, x0, xs, iters, device):
 
     chain()
     best = float("inf")
-    for _ in range(3):
+    for _ in range(repeats):
         if device.type == "cuda":
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
@@ -85,9 +91,10 @@ def main(argv=None):
     set_af_precision("highest")
     H, L, D = args.heads, args.tokens, args.dim
     gen = torch.Generator().manual_seed(0)
+    dtype = DTYPES[args.dtype]
 
     def rand(B):
-        return torch.randn((B, H, L, D), generator=gen).to(device)
+        return torch.randn((B, H, L, D), generator=gen).to(device, dtype)
 
     rows = []
 
@@ -98,7 +105,7 @@ def main(argv=None):
     def timed(f1, x0, xs):
         return measure(f1, x0, xs, args.iters, device)
 
-    tile = dict(bq=q_tile(D), bk=PROBE_TILE, dtype=args.dtype)
+    tile = dict(bq=q_tile(D, dtype), bk=PROBE_TILE, dtype=args.dtype)
     q1, k1, v1 = rand(args.batch), rand(args.batch), rand(args.batch)
     flash_ms = timed(sdpa, q1, (k1, v1))
     record(kind="sweep", op="sdpa", **tile, shape=[args.batch, H, L, D],

@@ -234,12 +234,29 @@ Phases, each of which fails the run:
     the f32 runs, the bf16 backward launches (K5b, K2, K4a, K4b) equal to
     the count reckoned from the configs, no f32 backward kernel launched;
     the median step and the peak memory logged beside the f32 run's, and
-    their ratios.
+    their ratios;
+38. the attribution probes P1 and P2 at bf16 at their KERNELS shapes
+    against their plain bf16 versions on the card: the RMS of (kernel -
+    plain) at most BF16_FLASH_RATIO of the RMS of (plain - the f32 plain on
+    the same values), the largest difference in bf16 ulps logged; each
+    timed beside its plain version, its f32 kernel on the same values, the
+    library call (P1: two bf16 matmuls; P2: none) and its bound, a row of
+    its own in the kernels line; then the flash sweep at bf16
+    (``scripts.bench_flash_sweep --dtype bf16`` at its full shapes),
+    counters set to 0 just before and read just after: every row finite,
+    K3, K6, P1 and P2 launched in their bf16 variants;
+39. the bench scripts ``bench_attention``, ``bench_filtered_act``,
+    ``bench_sdpa2``, ``bench_flash_bwd_sweep``, ``bench_train``,
+    ``roofline_denoise``, ``bench_interp_denoise``, ``bench_pipelines``
+    and ``run_all_benchmarks`` through their ``main(argv)`` at a small
+    configuration (BENCH_SCRIPTS), counters set to 0 just before each and
+    read just after: every number each returns finite, the kernels it
+    times launched.
 
 The second-to-last line is the kernels JSON (``launches``: the sum over the
 full-width runs of phases 4, 6, 8, 10, 12, 13, 14, 16, 18, 20, 22, 26, 28,
-29, 31, 32, 34, 35 and 37), the last the device JSON. Exits non-zero without a
-GPU or without the package beside it.
+29, 31, 32, 34, 35, 37 and 38's sweep), the last the device JSON. Exits
+non-zero without a GPU or without the package beside it.
 """
 
 import argparse
@@ -1350,23 +1367,29 @@ def _missing(what, counts, needed):
     return missing
 
 
-def run_sweep(torch):
-    """The port's flash sweep at its default shapes: K3 at (8, 8, 4096,
-    80), K6 at (17, 8, 4096, 80), P1 and P2 at K3's shape."""
+def run_sweep(torch, dtype="f32"):
+    """The port's flash sweep at its default shapes and ``dtype``: K3 at
+    (8, 8, 4096, 80), K6 at (17, 8, 4096, 80), P1 and P2 at K3's shape;
+    at bf16 their bf16 variants."""
     import math
     from afldm_tpu_torch import kernels
     from afldm_tpu_torch.scripts import bench_flash_sweep
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rows = bench_flash_sweep.main(["--iters", str(SWEEP_ITERS)])
+    rows = bench_flash_sweep.main(["--iters", str(SWEEP_ITERS), "--dtype",
+                                   dtype])
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     finite = all(math.isfinite(v) for r in rows for v in r.values()
                  if isinstance(v, float))
-    log(f"flash sweep: {len(rows)} rows in {time.perf_counter() - t0:.1f} s "
-        f"wall, all finite: {finite}; launches {json.dumps(counts)}")
-    missing = _missing("flash sweep", counts, SWEEP_KERNELS)
+    what = "flash sweep" + ("" if dtype == "f32" else f" at {dtype}")
+    log(f"{what}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s "
+        f"wall, all finite: {finite}; rows {json.dumps(rows)}; launches "
+        f"{json.dumps(counts)}")
+    needed = (SWEEP_KERNELS if dtype == "f32"
+              else tuple(f"{k}/bf16" for k in SWEEP_KERNELS))
+    missing = _missing(what, counts, needed)
     return finite and len(rows) == 3 and not missing, counts
 
 
@@ -3097,6 +3120,169 @@ def log_bf16_ratios(stats):
             f"{b['peak_gib'] / f['peak_gib']:.3f}")
 
 
+# -- phases 38-39: P1 and P2 at bf16, and the bench scripts ----------------
+
+# the probes' bf16 rows: each takes its f32 row's KERNELS shapes
+PROBE_BF16_ROWS = ("flash_probe_dots/bf16", "flash_probe_stream/bf16")
+
+
+def check_bf16_probes(torch, report):
+    """Phase 38: P1 and P2 at bf16 at their KERNELS shapes against their
+    plain bf16 versions on the card: the RMS of (kernel - plain) at most
+    BF16_FLASH_RATIO of the RMS of (plain - the f32 plain on the same
+    values), K3/bf16's limit; the largest difference in bf16 ulps of the
+    element logged. Each timed beside its plain version, its f32 kernel on
+    the same values and, for P1, the library call (two bf16 matmuls, the
+    scores rounded to bf16 between them); fills the rows of ``report``."""
+    from afldm_tpu_torch.ops import flash_probes as P
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    bf = torch.bfloat16
+    ok = True
+    for row_name in PROBE_BF16_ROWS:
+        base = row_name.split("/")[0]
+        row = report[row_name]
+        split = {"operations": 0.0, "bytes": 0.0}
+        fn, plain = getattr(P, base), getattr(P, f"{base}_plain")
+        for shape in KERNELS[base]["shapes"]:
+            n, heads, L, Lk, d, n_kv = _flash_dims(shape)
+            q = torch.randn(n, heads, L, d, device=dev, generator=g).to(bf)
+            k, v = (torch.randn(n_kv, heads, Lk, d, device=dev,
+                                generator=g).to(bf).expand(n, -1, -1, -1)
+                    for _ in range(2))
+            f32 = [t.float() for t in (q, k, v)]
+            got, want = fn(q, k, v), plain(q, k, v)
+            assert got.dtype == want.dtype == bf
+            diff = got.float() - want.float()
+            gap = want.float() - plain(*f32)
+            rms, gap_rms = (float(t.double().pow(2).mean().sqrt())
+                            for t in (diff, gap))
+            ratio = rms / gap_rms if gap_rms else float("inf")
+            max_ulps = float(bf16_ulps(torch, got, want).max())
+            differ = float((got != want).double().mean())
+            err = float(diff.abs().max())
+            good = ratio <= BF16_FLASH_RATIO
+            del got, want, diff, gap
+            library = None
+            if base == "flash_probe_dots":
+                def library():  # the scores rounded to bf16 by the matmul
+                    return torch.matmul(torch.matmul(q, k.transpose(-1, -2)),
+                                        v)
+            t = time_ms(lambda: fn(q, k, v))
+            tp = time_ms(lambda: plain(q, k, v))
+            t32 = time_ms(lambda: fn(*f32))
+            tl = None if library is None else time_ms(library)
+            flops, _ = probe_work(base, shape)
+            # q, the unique K/V rows and out at 2 bytes
+            nbytes = 2 * (2 * n * heads * L * d + 2 * n_kv * heads * Lk * d)
+            b, by = bf16_bound_ms(flops, nbytes, None)
+            log(f"check {row_name} {shape}: RMS ratio {ratio:.4f} (limit "
+                f"{BF16_FLASH_RATIO}; RMS err {rms:.3e}, bf16's own RMS "
+                f"{gap_rms:.3e}), max {max_ulps:.3f} bf16 ulps of the "
+                f"element, share differing {differ:.2e}, max_abs_err "
+                f"{err:.3e} {'ok' if good else 'FAIL'}; kernel {t:.4f} ms, "
+                f"its f32 kernel {t32:.4f} ms, plain {tp:.4f} ms, library "
+                f"{'n/a' if tl is None else f'{tl:.4f} ms'}, bound "
+                f"{b:.4f} ms ({by}-bound, {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.3f} MB)")
+            ok &= bool(good)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["rms_ratio"] = max(row["rms_ratio"], ratio)
+            row["max_ulps"] = max(row["max_ulps"], max_ulps)
+            row["ulp_share"] = max(row["ulp_share"], differ)
+            row["ms"] += t
+            row["f32_ms"] += t32
+            row["plain_ms"] += tp
+            row["bound_ms"] += b
+            split[by] += b
+            if tl is not None:
+                row["library_ms"] = (row["library_ms"] or 0.0) + tl
+            del q, k, v, f32, library
+            torch.cuda.empty_cache()
+        row["bound_by"] = max(split, key=split.get)
+        log_sums(row_name, row, "its shapes")
+        log(f"sum {row_name}: its f32 kernel {row['f32_ms']:.4f} ms")
+    return ok
+
+
+def _numbers(obj):
+    """Every int or float inside a script's result (dicts, lists)."""
+    if isinstance(obj, dict):
+        return [x for v in obj.values() for x in _numbers(v)]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _numbers(v)]
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return [obj]
+    return []
+
+
+# phase 39: each bench script at a small configuration on the card, with
+# the kernels it exists to time. The JAX scripts' --tiny where they have
+# one (bench_interp_denoise, run_all_benchmarks), else few iterations (the
+# kernel and attention benches at their full shapes; the whole-model
+# benches at full width with a small batch, few steps or frames)
+BENCH_SCRIPTS = (
+    ("bench_attention", ["--iters", "3", "--grad"],
+     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    ("bench_filtered_act", ["--iters", "3", "--grad"],
+     ("filtered_act_plane", "filtered_act_banded", "filtered_act_plane_bwd",
+      "filtered_act_banded_bwd")),
+    ("bench_sdpa2", ["--iters", "3", "--dtype", "bf16"],
+     ("flash_fwd/bf16", "flash2_fwd/bf16")),
+    ("bench_flash_bwd_sweep", ["--iters", "3"],
+     ("flash_fwd/bf16", "flash_bwd_dq/bf16", "flash_bwd_dkv/bf16")),
+    ("bench_train", ["--batch", "2", "--steps", "1", "--no_shift_loss"],
+     ("filtered_act_plane", "filtered_act_banded", "flash_fwd",
+      "filtered_act_plane_bwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    ("roofline_denoise", ["--batch", "1", "--iters", "1", "--repeats", "1"],
+     ("filtered_act_plane/bf16", "filtered_act_plane:high/bf16",
+      "filtered_act_plane:default/bf16", "flash_fwd/bf16")),
+    ("bench_interp_denoise", ["--tiny", "--frames", "3", "--steps", "2",
+                              "--iters", "1"],
+     ("filtered_act_plane/bf16", "flash_fwd/bf16")),
+    ("bench_pipelines", ["--frames", "2", "--resolution", "256", "--steps",
+                         "2", "--interp_frames", "2"],
+     ("filtered_act_plane", "filtered_act_banded", "flash_fwd")),
+    ("run_all_benchmarks", ["--tiny", "--steps", "2", "--shift_steps", "2"],
+     ("filtered_act_plane", "flash_fwd")),
+)
+
+
+def run_bench_scripts(torch):
+    """Phase 39: each of BENCH_SCRIPTS through its ``main(argv)`` on the
+    card, its output under results/chip_smoke_scripts_torch/, counters set
+    to 0 just before and read just after: every number it returns finite
+    and the kernels it times launched. Returns (ok, [counts])."""
+    import importlib
+    import math
+    from afldm_tpu_torch import kernels
+    out_dir = REPO / "results" / "chip_smoke_scripts_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ok, all_counts = True, []
+    for name, argv, needed in BENCH_SCRIPTS:
+        mod = importlib.import_module(f"afldm_tpu_torch.scripts.{name}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = mod.main([*argv, "--out", str(out_dir / f"{name}.json")])
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        all_counts.append(counts)
+        nums = _numbers(result)
+        finite = bool(nums) and all(math.isfinite(x) for x in nums)
+        missing = _missing(f"script {name}", counts, needed)
+        launched = {k: v for k, v in counts.items() if v}
+        log(f"script {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f}"
+            f" s wall, {len(nums)} numbers, all finite: {finite}; result "
+            f"{json.dumps(result)}; launches {json.dumps(launched)}")
+        good = finite and not missing
+        if not good:
+            log(f"script {name}: FAIL")
+        ok &= good
+        torch.cuda.empty_cache()
+    return ok, all_counts
+
+
 def _lap_timer():
     """``lap(label)`` logs the wall time since the previous lap."""
     last = [time.perf_counter()]
@@ -3205,6 +3391,10 @@ def main(argv=None):
     for row, base, _ in BF16_ROWS:  # the bf16-activation variants
         report[row] = dict(report[base], name=row, rms_ratio=0.0,
                            ulp_share=0.0, max_ulps=0, f32_ms=0.0)
+    for row in PROBE_BF16_ROWS:  # the probes' bf16 variants
+        base = row.split("/")[0]
+        report[row] = dict(report[base], name=row, rms_ratio=0.0,
+                           ulp_share=0.0, max_ulps=0, f32_ms=0.0)
     lap = _lap_timer()
     ok = check_kernels(torch, report)
     lap("kernel check (phase 1)")
@@ -3234,7 +3424,7 @@ def main(argv=None):
     ok &= sd_ok
     torch.cuda.empty_cache()
     lap("FFHQ and SD interpolation")
-    sweep_ok, sweep_counts = run_sweep(torch)
+    sweep_ok, sweep_counts = run_sweep(torch, "f32")
     ok &= sweep_ok
     torch.cuda.empty_cache()
     head_ok, head_counts = run_headline(torch)
@@ -3332,10 +3522,19 @@ def main(argv=None):
     del sd_state
     lap("bf16 training at full width")
     log_bf16_ratios(stats)
+    ok &= check_bf16_probes(torch, report)
+    bf_sweep_ok, bf_sweep_counts = run_sweep(torch, "bf16")
+    ok &= bf_sweep_ok
+    torch.cuda.empty_cache()
+    lap("bf16 probes and the flash sweep at bf16")
+    scripts_ok, script_counts = run_bench_scripts(torch)
+    ok &= scripts_ok
+    lap("the bench scripts")
     runs = (counts, train_counts, vae_counts, interp_counts, sd_counts,
             sweep_counts, head_counts, serve_counts, sr_counts, video_counts,
             normal_counts, *new_counts, eq_counts, seq_counts, *afp_counts,
-            *vlev_counts, *bf_counts, bfi_counts, *bf16_train_counts)
+            *vlev_counts, *bf_counts, bfi_counts, *bf16_train_counts,
+            bf_sweep_counts)
     for k, row in report.items():
         row["launches"] = sum(c[k] for c in runs)
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

@@ -100,7 +100,9 @@ def test_backward_configures_every_padded_head_dim():
 
 def test_q_tile_matches_the_tile_loop():
     """``flash_probes.q_tile`` (the sweep's recorded Q tile) is the BQ of
-    each FlashCfg: (threads / column groups) row groups of 4 rows."""
+    each FlashCfg: (threads / column groups) row groups of 4 rows; at bf16
+    MmaCfg's 16 rows a warp."""
+    import torch
     from afldm_tpu_torch.ops.flash_probes import q_tile
     src = (kernels.CSRC / "flash_tile.cuh").read_text()
     cfgs = re.findall(
@@ -108,6 +110,11 @@ def test_q_tile_matches_the_tile_loop():
     assert len(cfgs) == 8
     for dp, threads, tc in cfgs:
         assert q_tile(int(dp)) == int(threads) // int(tc) * 4, dp
+    mma = src[src.index("struct MmaCfg {"):]
+    warps = int(re.search(r"kWarps = (\d+);", mma).group(1))
+    assert "BQ = 16 * kWarps;" in mma
+    for d in (8, 80, 256):
+        assert q_tile(d, torch.bfloat16) == 16 * warps
 
 
 @pytest.mark.parametrize("where", ["root", "elsewhere"])
@@ -284,7 +291,12 @@ def test_flash_bf16_kernels_on_the_mma_tile_loop():
     tile = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_tile.cuh")
                   .read_text())
     body = tile[tile.index("void mma_attend("):]
-    assert "ldsm_x4_t(" in body and body.count("mma_scores<C>(") == 2
+    body = body[:body.index("\n}\n")]
+    pv = tile[tile.index("void mma_pv_pass("):]
+    pv = pv[:pv.index("\n}\n")]
+    # the statistics pass, then the P·V pass (mma_pv_pass)
+    assert body.count("mma_scores<C>(") == 1 and "mma_pv_pass<C>(" in body
+    assert "ldsm_x4_t(" in pv and pv.count("mma_scores<C>(") == 1
     for name, n in (("flash_fwd", 1), ("flash2_fwd", 2)):
         src = re.sub(r"//[^\n]*", "", (kernels.CSRC / f"{name}.cu")
                      .read_text())
@@ -441,6 +453,31 @@ def test_bf16_backward_entries_match_their_twins(source, name):
     if source == "filtered_act":
         for level in ("high", "default"):
             assert f"{base}:{level}/bf16" in kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("name", ["flash_probe_dots_bf16",
+                                  "flash_probe_stream_bf16"])
+def test_bf16_probe_entries_match_their_twins(name):
+    """P1's and P2's bf16 entries: in flash_probe.cu with bf16 q, k, v and
+    out, a ctypes signature equal to the f32 twin's, a launch counter
+    beside the twin's, and the bf16 tile loop's staging (P1 also its P·V
+    pass); no library call inside."""
+    src = (kernels.CSRC / "flash_probe.cu").read_text()
+    entries = _entry_points(src)
+    twin = name.replace("_bf16", "_f32")
+    assert name in entries and twin in entries
+    sigs = kernels._SIGNATURES["flash_probe"]
+    assert sigs[name] == sigs[twin] and len(sigs[name]) == entries[name]
+    base = name[:-len("_bf16")]
+    assert base in kernels.LAUNCHES and f"{base}/bf16" in kernels.LAUNCHES
+    code = re.sub(r"//[^\n]*", "", src)
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', code).group(1)
+    assert [p.split("*")[0].split()[-1] for p in params.split(",")[:4]] == [
+        "bf16"] * 4
+    for piece in ("stage_rows_bf16", "launch_mma_tiles", "mma_pv_pass"):
+        assert piece in code, piece
+    for absent in ("cublas", "torch", "wgmma"):
+        assert absent not in code.lower(), absent
 
 
 def test_flash_bwd_bf16_kernels_on_the_mma_tile_loop():

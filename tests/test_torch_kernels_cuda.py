@@ -762,9 +762,9 @@ def _probe_inputs(device, B, H, Lq, Lk, D, kv_batch):
                                            ((1024, 1024), 2)])
 def test_flash_probe_kernels_match_plain(cuda, D, lens, kv_batch):
     """Each within a share of max |want|: P1 2e-5 (nothing normalises its
-    values, which grow as sqrt(Lk·D)); P2 1e-5 (it adds Lk/64 tiles into
-    one accumulator, where the plain version multiplies q once). K/V
-    expanded from one image when kv_batch is 1 (stride 0)."""
+    values, which grow as sqrt(Lk·D)); P2 1e-5 (it sums each tile's 64 rows
+    in another order than the plain version). K/V expanded from one image
+    when kv_batch is 1 (stride 0)."""
     from afldm_tpu_torch.ops import flash_probes as P
     q, k, v = _probe_inputs(cuda, 2, 3, *lens, D, kv_batch)
     for name, plain, rel in (("flash_probe_dots", P.flash_probe_dots_plain,
@@ -1281,6 +1281,53 @@ def test_flash_bf16_matches_plain(cuda, n, h, L, Lk, d, n_kv):
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
     assert_attn_bf16_close(out, want, TA._attention_plain(
         q.float(), k.float(), v.float())[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 24, 40, 80, 128, 160, 256])
+@pytest.mark.parametrize("lens,kv_batch", [((64, 64), 2), ((128, 256), 1),
+                                           ((1024, 1024), 2)])
+def test_flash_probe_bf16_kernels_match_plain(cuda, D, lens, kv_batch):
+    """P1 and P2 at bf16 against their plain bf16 versions: the RMS of the
+    difference at most 0.1 of bf16's own error (the plain bf16 version
+    against the plain version in f32 on the same values), K3/bf16's limit.
+    K/V expanded from one image when kv_batch is 1 (stride 0)."""
+    from afldm_tpu_torch.ops import flash_probes as P
+    q, k, v = (t.to(BF) for t in _probe_inputs(cuda, 2, 3, *lens, D,
+                                                 kv_batch))
+    for name in ("flash_probe_dots", "flash_probe_stream"):
+        plain = getattr(P, f"{name}_plain")
+        got = _launches(f"{name}/bf16", lambda: getattr(P, name)(q, k, v))
+        assert got.dtype == BF and got.shape == q.shape
+        want = plain(q, k, v)
+        gap = _rms(want.float() - plain(q.float(), k.float(), v.float()))
+        assert _rms(got.float() - want.float()) <= 0.1 * gap, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sliced", "misaligned", "expanded"])
+def test_flash_probes_bf16_scalar_and_strided_staging(cuda, kind):
+    """P1 and P2 at bf16 through the scalar copy and through stride 0, to
+    the criterion above."""
+    from afldm_tpu_torch.ops import flash_probes as P
+
+    def view():  # (2, 2, 128, 40) bf16 laid out as ``kind``
+        if kind == "sliced":  # row stride 43, not a multiple of 8
+            return torch.randn(2, 2, 128, 43, device=cuda).to(BF)[..., :40]
+        if kind == "expanded":
+            return (torch.randn(1, 2, 128, 40, device=cuda).to(BF)
+                    .expand(2, -1, -1, -1))
+        flat = torch.randn(2 * 2 * 128 * 40 + 1, device=cuda).to(BF)
+        t = flat[1:].view(2, 2, 128, 40)  # 2 bytes past 16
+        assert t.data_ptr() % 16 == 2
+        return t
+    q, k, v = (view() for _ in range(3))
+    for name in ("flash_probe_dots", "flash_probe_stream"):
+        plain = getattr(P, f"{name}_plain")
+        got = _launches(f"{name}/bf16", lambda: getattr(P, name)(q, k, v))
+        want = plain(q, k, v)
+        gap = _rms(want.float() - plain(q.float(), k.float(), v.float()))
+        assert _rms(got.float() - want.float()) <= 0.1 * gap, name
 
 
 @pytest.mark.cuda

@@ -10,7 +10,10 @@ the real ``pl.pallas_call`` in interpret mode, with the script's
 BlockSpecs at 64-row tiles (the port's tile).
 
 Tolerance: each probe within 2e-6 of max |want| (f32 sums in another
-order; P1's values grow as sqrt(L·D), nothing normalises them).
+order; P1's values grow as sqrt(L·D), nothing normalises them). At bf16
+the bodies run on bf16 inputs: P1 within 2⁻⁷·max |want| and P2 within
+2⁻⁸·max |want|; each differs from JAX only by the f32 summation order
+before one bf16 rounding, which P1 has twice (the scores and the output).
 """
 
 import importlib.util
@@ -74,7 +77,7 @@ def probe_bodies(tmp_path_factory):
 def _run_body(kernel, q, k, v):
     """The captured body over (B3, L, D) arrays in interpret mode, with the
     script's grid, BlockSpecs and scratch at 64-row Q and K tiles."""
-    B3 = q.shape[0]
+    B3, L, D = q.shape
     return pl.pallas_call(
         kernel,
         out_shape=jax.ShapeDtypeStruct((B3, L, D), q.dtype),
@@ -104,6 +107,41 @@ def test_plain_versions_match_jax_probe_bodies(probe_bodies, name, port):
     assert float(np.abs(got - want).max()) <= 2e-6 * scale
 
 
+@pytest.mark.parametrize("d", [8, 20])
+@pytest.mark.parametrize("name,port,rel", [
+    ("dots_only_kernel", P.flash_probe_dots, 2.0 ** -7),
+    ("stream_only_kernel", P.flash_probe_stream, 2.0 ** -8)])
+def test_bf16_plain_versions_match_jax_probe_bodies(probe_bodies, name, port,
+                                                     rel, d):
+    """The bodies on bf16 inputs, (L, D) = (128, 8) and a D that is not a
+    multiple of 8, against the port's plain bf16 versions."""
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, L, d)).astype(np.float32)
+               for _ in range(3))
+    want = _run_body(probe_bodies[name],
+                     *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    got = port(*(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got.float().numpy() - want).max()) <= rel * scale
+
+
+def test_dots_plain_rounds_scores_at_bf16():
+    """P1's plain version at bf16 rounds q·kᵀ to bf16 before the second
+    product: it equals the f32 product of the rounded scores, rounded."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, 8))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    s = (q.float() @ k.float().transpose(-1, -2)).to(torch.bfloat16)
+    want = (s.float() @ v.float()).to(torch.bfloat16)
+    assert torch.equal(P.flash_probe_dots_plain(q, k, v), want)
+    unrounded = (q.float() @ k.float().transpose(-1, -2) @ v.float())
+    assert not torch.equal(want, unrounded.to(torch.bfloat16))
+
+
 def test_stream_plain_counts_tiles():
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 256, 4))
@@ -130,9 +168,36 @@ def test_wrappers_route_cpu_to_plain(fn, plain):
     (63, 64, 8, torch.float32, ValueError),
     (64, 100, 8, torch.float32, ValueError),
     (64, 64, 257, torch.float32, ValueError),
-    (64, 64, 8, torch.float64, TypeError)])
+    (64, 64, 8, torch.float64, TypeError),
+    (64, 64, 8, torch.float16, TypeError)])
 def test_wrappers_reject_unsupported(fn, lq, lk, d, dtype, err):
     q = torch.zeros(1, 1, lq, d, dtype=dtype)
     k = torch.zeros(1, 1, lk, d, dtype=dtype)
     with pytest.raises(err):
         fn(q, k, k)
+
+
+@pytest.mark.parametrize("fn", [P.flash_probe_dots, P.flash_probe_stream])
+@pytest.mark.parametrize("dq,dkv", [(torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)])
+def test_wrappers_reject_mixed_dtypes(fn, dq, dkv):
+    q = torch.zeros(1, 1, 64, 8, dtype=dq)
+    k = torch.zeros(1, 1, 64, 8, dtype=dkv)
+    with pytest.raises(TypeError, match="one dtype"):
+        fn(q, k, k)
+
+
+@pytest.mark.parametrize("fn,plain", [
+    (P.flash_probe_dots, P.flash_probe_dots_plain),
+    (P.flash_probe_stream, P.flash_probe_stream_plain)])
+def test_wrappers_route_cpu_bf16_to_plain(fn, plain):
+    from afldm_tpu_torch import kernels
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, 64, 24))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    before = dict(kernels.LAUNCHES)
+    got = fn(q, k, v)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, plain(q, k, v), atol=0, rtol=0)
+    assert kernels.LAUNCHES == before  # no launch on the CPU
