@@ -23,11 +23,16 @@
 // then set 1 runs and each thread adds α·o1 to the same elements, which only
 // it reads and writes.
 //
-// bf16 q, k0, v0, k1, v1 (flash2_fwd_bf16): the semantics of the JAX
-// package's sdpa2_xla at bf16, the port's plain version: each set's
-// attention as K3's bf16 (flash_tile.cuh::mma_attend, out rounded to
-// bf16), then (1-α)·o0 + α·o1 in f32, rounded to bf16. Set 0's bf16 o0
-// goes to out, exact, and set 1's thread reads back its own elements.
+// bf16 q, k0, v0, k1, v1 (flash2_fwd_bf16): the function of _flash2_kernel
+// at bf16: for each set K3/bf16's online softmax (flash_tile.cuh's bf16
+// forward tile loop, p rounded to bf16 unnormalised, l from the f32 p),
+// then bf16((1 − α)·acc₀/l₀ + α·acc₁/l₁), blended in f32 and rounded once.
+// Bound: 8·Lq·Lk·D FLOP a head at the bf16 tensor rate, and two
+// exponentials a (query, key) pair on the SFU. The design: the Q tile is
+// staged once; each set is walked once (fwd_walk); set 0's (1 − α)·o₀
+// waits in f32 in shared memory (Fwd2Cfg's stash, each element written and
+// read back by the thread that owns it) while set 1 runs, so both states
+// meet in one store without doubling the accumulator registers.
 
 #include "flash_tile.cuh"
 
@@ -107,7 +112,11 @@ flash2_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                        int Lk, int D, Strides st, float scale, int n_qtiles,
                        int vec) {
   extern __shared__ __align__(16) unsigned char smb[];
-  const MmaSmem<C> S(reinterpret_cast<__nv_bfloat16*>(smb));
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smb);
+  __nv_bfloat16* ring = Qs + C::BQ * C::LD;
+  // (1 − α)·o₀, element (j, e) of thread x at [(4j + e)·T + x]
+  float* stash = reinterpret_cast<float*>(smb + C::stash_offset) +
+                 threadIdx.x;
   const int b = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x - b * n_qtiles) * C::BQ;
   const int b1 = b / B2, b2 = b - b1 * B2;
@@ -117,22 +126,29 @@ flash2_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   // staged once for both sets
-  stage_rows_bf16<C, C::BQ>(S.Qs, at_b(q, 0), s[2], q0, Lq, D, vec);
+  stage_rows_bf16<C, C::BQ>(Qs, at_b(q, 0), s[2], q0, Lq, D, vec);
   cp_async_commit();
   const float a = alpha[b];
-  float o[C::DT][4], m[2], l[2];
+  OnlineSoftmax<C> sm(scale);
+  float o[C::DT][4], inv[2], ls[2];
+  fwd_walk<C>(Qs, ring, at_b(k0, 1), at_b(v0, 2), s[5], s[8], Lk, D, vec,
+              sm, o);
+  sm.finish(inv, ls);
+#pragma unroll
+  for (int j = 0; j < C::DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      stash[(4 * j + e) * C::kThreads] = (1.0f - a) * (o[j][e] * inv[e >> 1]);
+  sm.reset();
+  fwd_walk<C>(Qs, ring, at_b(k1, 3), at_b(v1, 4), s[11], s[14], Lk, D, vec,
+              sm, o);
+  sm.finish(inv, ls);
   __nv_bfloat16* ob = out + (long long)b * Lq * D;
-  mma_attend<C>(S.Qs, S.K0, S.K1, S.Vs, at_b(k0, 1), at_b(v0, 2), s[5], s[8],
-                Lk, D, vec, scale, o, m, l);
-  for_out<C>(q0, Lq, D, [&](int row, int d, int e, int j) {
-    ob[(long long)row * D + d] = __float2bfloat16_rn(o[j][e]);
-  });
-  mma_attend<C>(S.Qs, S.K0, S.K1, S.Vs, at_b(k1, 3), at_b(v1, 4), s[11],
-                s[14], Lk, D, vec, scale, o, m, l);
-  for_out<C>(q0, Lq, D, [&](int row, int d, int e, int j) {
-    __nv_bfloat16* p = ob + (long long)row * D + d;
-    const float o1 = __bfloat162float(__float2bfloat16_rn(o[j][e]));
-    *p = __float2bfloat16_rn((1.0f - a) * __bfloat162float(*p) + a * o1);
+  for_out_fwd<C>(q0, Lq, D, [&](int row, int d, int h, int j) {
+    const float* w = stash + (4 * j + 2 * h) * C::kThreads;
+    store_pair_bf16(ob + (long long)row * D + d, d, D,
+                    w[0] + a * (o[j][2 * h] * inv[h]),
+                    w[C::kThreads] + a * (o[j][2 * h + 1] * inv[h]));
   });
 }
 
@@ -165,7 +181,7 @@ extern "C" int flash2_fwd_f32(
 }
 
 // The bf16 forward: q, k0, v0, k1, v1 and out bf16, alpha f32, the same
-// arguments.
+// arguments; the scale must be positive.
 extern "C" int flash2_fwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k0,
     const __nv_bfloat16* v0, const __nv_bfloat16* k1,
@@ -182,12 +198,16 @@ extern "C" int flash2_fwd_bf16(
   for (int i = 0; i < 5; ++i)
     vec &= vec_ok_bf16(ts[i], st.s[3 * i], st.s[3 * i + 1], st.s[3 * i + 2],
                        D);
+  if (!(scale > 0.0f)) return (int)cudaErrorInvalidValue;
   return with_dp_mma(D, [&](auto dp) {
-    using C = MmaCfg<decltype(dp)::value>;
-    const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
-    return launch_mma_tiles<C>(flash2_fwd_bf16_kernel<C>,
-                               (long long)B1 * B2 * n_qtiles,
-                               (cudaStream_t)stream, q, k0, v0, k1, v1, alpha,
-                               out, B2, Lq, Lk, D, st, scale, n_qtiles, vec);
+    return with_fwd_cfg<decltype(dp)::value>(Lk, [&](auto cfg) {
+      using C = Fwd2Cfg<decltype(cfg)>;
+      const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
+      return launch_mma_tiles<C>(flash2_fwd_bf16_kernel<C>,
+                                 (long long)B1 * B2 * n_qtiles,
+                                 (cudaStream_t)stream, q, k0, v0, k1, v1,
+                                 alpha, out, B2, Lq, Lk, D, st, scale,
+                                 n_qtiles, vec);
+    });
   });
 }

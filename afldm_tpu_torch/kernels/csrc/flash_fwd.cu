@@ -23,12 +23,19 @@
 // (stride 0, the CFA LOAD pass) is read without a copy. Tensor cores
 // (3×TF32 with an accuracy check) are later work for f32.
 //
-// bf16 q, k, v (flash_fwd_bf16): the same function on bf16 tensor cores,
-// the bf16 tile loop of flash_tile.cuh (mma_attend), out bf16 and lse f32.
-// Bound: at D = 24 (padded to 32) and L = 1024 a head does 6·L²·D =
-// 151 MFLOP (the statistics pass recomputes Q·Kᵀ) against 0.2 MB, so the
-// bf16 tensor-core rate; at the model's small D the padding and the
-// 16-row warp tiles' softmax work weigh as much as the products.
+// bf16 q, k, v (flash_fwd_bf16): the function of _flash_kernel at bf16,
+// an online softmax over BK-key tiles that rounds the unnormalised p =
+// exp(s − m_running) to bf16 for p·v, sums l from the unrounded f32 p and
+// divides once at the end; out bf16, lse f32 (flash_tile.cuh's bf16
+// forward tile loop, fwd_walk with OnlineSoftmax). Bound: 4·Lq·Lk·D FLOP a
+// head at the bf16 tensor rate (at D = 24, padded to 32, and L = 1024:
+// 101 MFLOP against 0.2 MB), and one exponential a score on the SFU, which
+// at the model's D of 24 and 40 is the tighter of the two. The design:
+// one walk over K/V through a two-stage cp.async ring, 128-key tiles (64
+// where all the keys fit in 64), 16 query rows a warp, P kept in registers
+// as the A fragments of each tile's P·V, which is summed from zero and
+// added to o in f32, exp2 with the scale folded into one FFMA, 1/l once in
+// the epilogue.
 
 #include "flash_tile.cuh"
 
@@ -85,28 +92,30 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       long long vs1, long long vs2, long long vsl,
                       float scale, int n_qtiles, int vec) {
   extern __shared__ __align__(16) unsigned char smb[];
-  const MmaSmem<C> S(reinterpret_cast<__nv_bfloat16*>(smb));
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smb);
   const int b = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x - b * n_qtiles) * C::BQ;
   const int b1 = b / B2, b2 = b - b1 * B2;
 
-  stage_rows_bf16<C, C::BQ>(S.Qs, q + b1 * qs1 + b2 * qs2, qsl, q0, Lq, D,
+  stage_rows_bf16<C, C::BQ>(Qs, q + b1 * qs1 + b2 * qs2, qsl, q0, Lq, D,
                             vec);
   cp_async_commit();
-  float o[C::DT][4], m[2], l[2];
-  mma_attend<C>(S.Qs, S.K0, S.K1, S.Vs, k + b1 * ks1 + b2 * ks2,
-                v + b1 * vs1 + b2 * vs2, ksl, vsl, Lk, D, vec, scale, o, m,
-                l);
+  OnlineSoftmax<C> sm(scale);
+  float o[C::DT][4];
+  fwd_walk<C>(Qs, Qs + C::BQ * C::LD, k + b1 * ks1 + b2 * ks2,
+              v + b1 * vs1 + b2 * vs2, ksl, vsl, Lk, D, vec, sm, o);
+  float inv[2], ls[2];
+  sm.finish(inv, ls);
   __nv_bfloat16* ob = out + (long long)b * Lq * D;
-  for_out<C>(q0, Lq, D, [&](int row, int d, int e, int j) {
-    ob[(long long)row * D + d] = __float2bfloat16_rn(o[j][e]);
+  for_out_fwd<C>(q0, Lq, D, [&](int row, int d, int h, int j) {
+    store_pair_bf16(ob + (long long)row * D + d, d, D, o[j][2 * h] * inv[h],
+                    o[j][2 * h + 1] * inv[h]);
   });
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2) + 8 * h;
-    if ((lane & 3) == 0 && row < Lq)
-      lse[(long long)b * Lq + row] = m[h] + logf(l[h]);
+    if ((lane & 3) == 0 && row < Lq) lse[(long long)b * Lq + row] = ls[h];
   }
 }
 
@@ -132,7 +141,8 @@ extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
   });
 }
 
-// The bf16 forward: q, k, v, out bf16, lse f32, the same arguments.
+// The bf16 forward: q, k, v, out bf16, lse f32, the same arguments; the
+// scale must be positive (the row max is taken over the raw scores).
 extern "C" int flash_fwd_bf16(const __nv_bfloat16* q,
                               const __nv_bfloat16* k,
                               const __nv_bfloat16* v, __nv_bfloat16* out,
@@ -144,13 +154,16 @@ extern "C" int flash_fwd_bf16(const __nv_bfloat16* q,
   const int vec = vec_ok_bf16(q, qs1, qs2, qsl, D) &&
                   vec_ok_bf16(k, ks1, ks2, ksl, D) &&
                   vec_ok_bf16(v, vs1, vs2, vsl, D);
+  if (!(scale > 0.0f)) return (int)cudaErrorInvalidValue;
   return with_dp_mma(D, [&](auto dp) {
-    using C = MmaCfg<decltype(dp)::value>;
-    const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
-    return launch_mma_tiles<C>(flash_fwd_bf16_kernel<C>,
-                               (long long)B1 * B2 * n_qtiles,
-                               (cudaStream_t)stream, q, k, v, out, lse, B2,
-                               Lq, Lk, D, qs1, qs2, qsl, ks1, ks2, ksl, vs1,
-                               vs2, vsl, scale, n_qtiles, vec);
+    return with_fwd_cfg<decltype(dp)::value>(Lk, [&](auto cfg) {
+      using C = decltype(cfg);
+      const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
+      return launch_mma_tiles<C>(flash_fwd_bf16_kernel<C>,
+                                 (long long)B1 * B2 * n_qtiles,
+                                 (cudaStream_t)stream, q, k, v, out, lse, B2,
+                                 Lq, Lk, D, qs1, qs2, qsl, ks1, ks2, ksl, vs1,
+                                 vs2, vsl, scale, n_qtiles, vec);
+    });
   });
 }

@@ -27,16 +27,17 @@
 // Lq and Lk to be multiples of 64, so no key is masked (Q rows past Lq in a
 // 128-row tile are computed on zeros and not stored).
 //
-// bf16 q, k, v (the _bf16 entries, the JAX bodies at bf16): K3/bf16's grid
-// and staging (MmaCfg: 64-row Q tiles of 4 warps, stage_rows_bf16).
+// bf16 q, k, v (the _bf16 entries, the JAX bodies at bf16).
 //   P1 flash_probe_dots_bf16: s = q·k_tileᵀ on the bf16 tensor cores into
 //      f32, rounded to bf16 as `s.astype(v_ref.dtype)` does, then acc +=
-//      s_bf16·v_tile in f32 and out rounded to bf16 once. It is
-//      mma_pv_pass with the identity for p: one walk over K and V, where
-//      K3/bf16 makes two (its statistics pass has no counterpart here). Its
-//      bound is the bf16 tensor-core rate, 4·Lq·Lk·D FLOPs per (b·h).
-//   P2 flash_probe_stream_bf16: each staged bf16 K and V tile's column sums
-//      in f32 (over its 64 rows, ascending), acc += q + colsum(k) +
+//      s_bf16·v_tile in f32 and out rounded to bf16 once. It is K3/bf16's
+//      tile loop (flash_tile.cuh's fwd_walk on FwdCfg: its grid, K/V ring
+//      and products) with the identity for p (IdentityP), so the sweep's
+//      1 − P1/K3 is the online softmax's share. Its bound is the bf16
+//      tensor-core rate, 4·Lq·Lk·D FLOPs per (b·h).
+//   P2 flash_probe_stream_bf16: MmaCfg's grid and staging (64-row Q tiles
+//      of 4 warps, stage_rows_bf16): each staged bf16 K and V tile's column
+//      sums in f32 (over its 64 rows, ascending), acc += q + colsum(k) +
 //      colsum(v) in f32 for each element, out rounded to bf16 once. Bound:
 //      the bytes, as for f32.
 
@@ -173,23 +174,10 @@ int dispatch(const float* q, const float* k, const float* v, float* out,
 
 using bf16 = __nv_bfloat16;
 
-// P1's bf16 body: mma_pv_pass with p = s (rounded to bf16 by the packing of
-// the A fragments). Keys past Lk need no mask: Lk % 64 == 0.
-struct DotsBf16 {
-  template <class C>
-  __device__ __forceinline__ static void run(const MmaSmem<C>& S,
-                                             const bf16* kb, const bf16* vb,
-                                             const Args<bf16>& a,
-                                             float (&o)[C::DT][4]) {
-    mma_pv_pass<C>(S.Qs, S.K0, S.Vs, kb, vb, a.ksl, a.vsl, a.Lk, a.D, a.vec,
-                   [](float sv, int, int) { return sv; }, o);
-  }
-};
-
 // P2's bf16 body: K_j in K0 and V_j in Vs, each tile's f32 column sums in
 // the otherwise unused K1 buffer (2·DP floats fit in its 64·LD bf16), added
-// to q for each of this thread's elements (mma_scores' accumulator layout,
-// as P1's and K3's o). K_{j+1} is in flight while V_j's sums are taken.
+// to q for each of this thread's elements (mma_scores' accumulator
+// layout). K_{j+1} is in flight while V_j's sums are taken.
 struct StreamBf16 {
   template <class C>
   __device__ __forceinline__ static void colsum(const bf16* T, float* dst) {
@@ -248,6 +236,30 @@ struct StreamBf16 {
   }
 };
 
+// P1's bf16 kernel: K3/bf16's walk with the identity for p.
+template <class C>
+__global__ void __launch_bounds__(C::kThreads)
+    probe_dots_bf16_kernel(Args<bf16> a) {
+  extern __shared__ __align__(16) unsigned char smb[];
+  bf16* Qs = reinterpret_cast<bf16*>(smb);
+  const int b = blockIdx.x / a.n_qtiles;
+  const int q0 = (blockIdx.x - b * a.n_qtiles) * C::BQ;
+  const int b1 = b / a.B2, b2 = b - b1 * a.B2;
+  stage_rows_bf16<C, C::BQ>(Qs, a.q + b1 * a.qs1 + b2 * a.qs2, a.qsl, q0,
+                            a.Lq, a.D, a.vec);
+  cp_async_commit();
+  IdentityP<C> id;
+  float o[C::DT][4];
+  fwd_walk<C>(Qs, Qs + C::BQ * C::LD, a.k + b1 * a.ks1 + b2 * a.ks2,
+              a.v + b1 * a.vs1 + b2 * a.vs2, a.ksl, a.vsl, a.Lk, a.D, a.vec,
+              id, o);
+  bf16* ob = a.out + (long long)b * a.Lq * a.D;
+  for_out_fwd<C>(q0, a.Lq, a.D, [&](int row, int d, int h, int j) {
+    store_pair_bf16(ob + (long long)row * a.D + d, d, a.D, o[j][2 * h],
+                    o[j][2 * h + 1]);
+  });
+}
+
 template <class C, class Body>
 __global__ void __launch_bounds__(C::kThreads)
     probe_bf16_kernel(Args<bf16> a) {
@@ -268,6 +280,8 @@ __global__ void __launch_bounds__(C::kThreads)
   });
 }
 
+// Launches P1 (Body void: probe_dots_bf16_kernel on FwdCfg) or P2
+// (StreamBf16 on MmaCfg).
 template <class Body>
 int dispatch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                   int B1, int B2, int Lq, int Lk, int D, long long qs1,
@@ -280,16 +294,28 @@ int dispatch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                   vec_ok_bf16(k, ks1, ks2, ksl, D) &&
                   vec_ok_bf16(v, vs1, vs2, vsl, D);
   return with_dp_mma(D, [&](auto dp) {
-    using C = MmaCfg<decltype(dp)::value>;
-    static_assert(2 * C::DP * sizeof(float) <= kBK * C::LD * sizeof(bf16),
-                  "P2's column sums fit in the K1 buffer");
-    const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
-    const Args<bf16> a{q,   k,   v,   out, B2,  Lq,  Lk,       D,  qs1,
-                       qs2, qsl, ks1, ks2, ksl, vs1, vs2, vsl, n_qtiles,
-                       vec};
-    return launch_mma_tiles<C>(probe_bf16_kernel<C, Body>,
-                               (long long)B1 * B2 * n_qtiles,
-                               (cudaStream_t)stream, a);
+    constexpr int DP = decltype(dp)::value;
+    if constexpr (std::is_void_v<Body>) {
+      using C = FwdCfg<DP>;
+      const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
+      const Args<bf16> a{q,   k,   v,   out, B2,  Lq,  Lk,       D,  qs1,
+                         qs2, qsl, ks1, ks2, ksl, vs1, vs2, vsl, n_qtiles,
+                         vec};
+      return launch_mma_tiles<C>(probe_dots_bf16_kernel<C>,
+                                 (long long)B1 * B2 * n_qtiles,
+                                 (cudaStream_t)stream, a);
+    } else {
+      using C = MmaCfg<DP>;
+      static_assert(2 * C::DP * sizeof(float) <= kBK * C::LD * sizeof(bf16),
+                    "P2's column sums fit in the K1 buffer");
+      const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
+      const Args<bf16> a{q,   k,   v,   out, B2,  Lq,  Lk,       D,  qs1,
+                         qs2, qsl, ks1, ks2, ksl, vs1, vs2, vsl, n_qtiles,
+                         vec};
+      return launch_mma_tiles<C>(probe_bf16_kernel<C, Body>,
+                                 (long long)B1 * B2 * n_qtiles,
+                                 (cudaStream_t)stream, a);
+    }
   });
 }
 
@@ -330,7 +356,7 @@ extern "C" int flash_probe_dots_bf16(const bf16* q, const bf16* k,
                                      long long ksl, long long vs1,
                                      long long vs2, long long vsl,
                                      void* stream) {
-  return dispatch_bf16<DotsBf16>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2,
+  return dispatch_bf16<void>(q, k, v, out, B1, B2, Lq, Lk, D, qs1, qs2,
                                  qsl, ks1, ks2, ksl, vs1, vs2, vsl, stream);
 }
 

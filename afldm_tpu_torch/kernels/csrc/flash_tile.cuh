@@ -600,30 +600,15 @@ struct DkvBody {
 };
 
 // ---------------------------------------------------------------------------
-// The bf16 tile loop of K3 and K6 (flash_fwd_bf16, flash2_fwd_bf16; its P·V
-// pass, mma_pv_pass, is also P1's, flash_probe_dots_bf16): bf16 q, k, v on
-// the tensor cores, the semantics of the JAX package's
-// ``sdpa_xla`` at bf16 (the port's plain version): f32 scores, f32
-// softmax, the NORMALISED p rounded to bf16, P·V summed in f32, out
-// rounded to bf16, lse f32.
+// The bf16 staging and products shared by the bf16 kernels: MmaCfg (the
+// grid of P2/bf16, flash_probe_stream_bf16), with_dp_mma, stage_rows_bf16
+// and mma_scores (also the bf16 backward's, below). The bf16 forward tile
+// loop of K3, K6 and P1 follows them.
 //
-// A warp owns 16 query rows (4 warps, a 64-row Q tile a block) and runs
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on fragments
-// loaded by ldmatrix (filtered_mma.cuh): Q as the A operand of S = Q·Kᵀ,
-// K rows as its B operand, V through ldmatrix.trans as the B operand of
-// O += P·V. The S accumulators of two neighbouring 8-key tiles are the A
-// fragment of P·V over those 16 keys, so P never leaves the registers.
-//
-// Why two passes over K: rounding p to bf16 rounds p = exp(s − m)/l, which
-// needs the row's final max m and sum l. An online softmax rounds
-// exp(s − m_running) before the row's last max and sum are known: each
-// rounding error is then scaled by a later correction, and on the CPU that
-// moved the output from sdpa_xla's by 1.3 times sdpa_xla's own bf16 − f32
-// error (as JAX's own flash kernel, which rounds unnormalised p, lies from
-// sdpa_xla; tests/test_torch_bf16.py). So a first pass walks the K tiles
-// for the row max and sum (the online rescaling, in f32), and a second
-// recomputes S, forms the normalised p and accumulates P·V: 6·Lq·Lk·D
-// FLOP in place of 4·Lq·Lk·D, on tensor cores.
+// A warp of MmaCfg owns 16 query rows (4 warps, a 64-row Q tile a block)
+// and runs mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on
+// fragments loaded by ldmatrix (filtered_mma.cuh): Q as the A operand of
+// S = Q·Kᵀ, K rows as its B operand.
 //
 // D is zero-padded to DP, a multiple of 16 (the path's 24 to 32, the SD
 // UNet's 40 to 48); rows are DP + 8 bf16 apart in shared memory, an odd
@@ -632,7 +617,6 @@ struct DkvBody {
 // where every row base is 16-byte aligned and D % 8 == 0, else a masked
 // scalar copy; keys past Lk score -inf, queries past Lq run on zero rows
 // and are not stored. K/V with a batch stride of 0 are read in place.
-// wgmma and TMA are later work.
 
 template <int DP_>
 struct MmaCfg {
@@ -644,7 +628,7 @@ struct MmaCfg {
   static constexpr int NT = kBK / 8;      // 8-key score tiles of a warp
   static constexpr int DT = DP / 8;       // 8-column output tiles of a warp
   static_assert(DP % 16 == 0, "mma k steps");
-  // Q, two K buffers (the statistics pass), V
+  // Q, P2's K tile, its column sums (the K1 buffer), V
   static constexpr size_t smem_bytes = (size_t)(BQ + 3 * kBK) * LD * 2;
 };
 
@@ -744,138 +728,302 @@ __device__ __forceinline__ void mma_scores(const __nv_bfloat16* Qs,
   }
 }
 
-// O = P·V summed over the K/V tiles, P = pf(s, key, h) of the scores S =
-// Q·K_jᵀ (s of row g + 8h, key the absolute key) rounded to bf16 as the A
-// fragments of P·V: one walk over K and V, K_{j+1} in flight during P·V,
-// V_{j+1} during the next scores. o comes back in the accumulator layout of
-// mma_scores (the warp's 16 rows × DP columns). Every thread calls it; K0
-// and Vs are free on entry, and Q, if staged and committed just before, has
-// landed by the first scores.
-template <class C, class PF>
-__device__ __forceinline__ void mma_pv_pass(
-    const __nv_bfloat16* Qs, __nv_bfloat16* K0, __nv_bfloat16* Vs,
-    const __nv_bfloat16* kb, const __nv_bfloat16* vb, long long ksl,
-    long long vsl, int Lk, int D, bool vec, PF pf, float (&o)[C::DT][4]) {
+// ---------------------------------------------------------------------------
+// The bf16 forward tile loop of K3 and K6 (flash_fwd_bf16, flash2_fwd_bf16)
+// and of P1 (flash_probe_dots_bf16, the identity for p). It computes what
+// the TPU kernels _flash_kernel and _flash2_kernel compute at bf16
+// (afldm_tpu/ops/attention.py): for each key tile of BK keys, in order,
+//   s = q·kᵀ summed in f32, times the scale;   m' = max(m, rowmax s);
+//   p = exp(s − m') in f32;                     c = exp(m − m');
+//   l = l·c + rowsum p (the unrounded p);       acc = acc·c + bf16(p)·v,
+// summed in f32; then out = bf16(acc / l) and lse = m + log l. K6 keeps
+// two such states and stores bf16((1 − α)·acc₀/l₀ + α·acc₁/l₁), rounded
+// once. Its plain versions are ops/attention.py::flash_fwd_plain and
+// flash2_fwd_plain at the same BK (flash_bf16_key_tile).
+//
+// Bound: 4·Lq·Lk·D FLOP a head at the bf16 tensor rate (989 TFLOP/s), and
+// one exponential a score on the SFU, 16 a clock an SM: at the model's D of
+// 24 and 40 the exponentials, not the products, set the ceiling.
+//
+// What the design does about it:
+// - One walk over K/V a set. A warp owns 16 query rows, 4 warps a block
+//   (a 64-row Q tile). S = Q·K_jᵀ runs on mma.sync m16n8k16 from ldmatrix
+//   (Q rows as A, K rows as B); the S accumulators of two neighbouring
+//   8-key tiles are the A fragment of P·V over those 16 keys, so P never
+//   leaves the registers, and V comes through ldmatrix.trans.
+// - Each tile's P·V is summed on the tensor cores from zero and then added
+//   as o = o·c + P·V in f32, as the TPU kernel adds its pv: fed through
+//   the tensor cores' accumulation, which truncates, the running o drifted
+//   to 0.10 of bf16's own error from the plain version at 4096 keys. 32
+//   rows a warp spilled with that sum beside the scores of 128 keys.
+// - exp2 with the scale folded in: the row max is taken over the raw
+//   scores (the scale is positive), and p = ex2(s·(scale·log₂e) −
+//   m·(scale·log₂e)), one FFMA and one ex2.approx a score, packed to bf16
+//   as it is made. o and l are rescaled once a tile and row; l stays split
+//   over a row's 4 lanes until the epilogue, which multiplies by 1/l once
+//   and forms lse = m·scale + log l.
+// - A K/V ring of kStages stages on 16-byte cp.async: the copy of tile
+//   j + 1 is issued right after tile j's one barrier and lands during tile
+//   j's products.
+// - BK from one table a DP (FwdCfg): 128 keys up to DP = 128, 64 at 160,
+//   32 at 256 (K6's f32 stash leaves no room for more there);
+//   ops/attention.py::flash_bf16_key_tile mirrors it. Where Lk fits in 64
+//   keys, 64-key tiles (with_fwd_cfg), one tile either way.
+// Staging, padding, masking and strides are those of stage_rows_bf16
+// above. wgmma and TMA are later work.
+
+template <int DP_, int BK_>
+struct FwdMma {
+  static constexpr int DP = DP_;
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int BQ = 16 * kWarps;   // Q tile rows
+  static constexpr int BK = BK_;           // keys a K/V tile
+  static constexpr int kStages = 2;        // the K/V ring
+  static constexpr int LD = DP + 8;        // padded row, in bf16
+  static constexpr int NT = BK / 8;        // 8-key score tiles
+  static constexpr int KS = BK / 16;       // 16-key steps of P·V
+  static constexpr int DT = DP / 8;        // 8-column output tiles
+  static_assert(DP % 16 == 0 && BK % 16 == 0, "mma k steps");
+  // a stage: K_j, then V_j
+  static constexpr size_t kv_elems = 2 * (size_t)BK * LD;
+  // Q, the ring
+  static constexpr size_t smem_bytes =
+      ((size_t)BQ * LD + kStages * kv_elems) * sizeof(__nv_bfloat16);
+  static_assert(smem_bytes <= kMaxSmemBytes, "bf16 forward smem");
+};
+
+template <int DP> struct FwdCfg;
+template <> struct FwdCfg<32> : FwdMma<32, 128> {};
+template <> struct FwdCfg<48> : FwdMma<48, 128> {};
+template <> struct FwdCfg<64> : FwdMma<64, 128> {};
+template <> struct FwdCfg<80> : FwdMma<80, 128> {};
+template <> struct FwdCfg<128> : FwdMma<128, 128> {};
+template <> struct FwdCfg<160> : FwdMma<160, 64> {};
+template <> struct FwdCfg<256> : FwdMma<256, 32> {};
+
+// f(C{}) for the bf16 forward's tiles at DP: FwdCfg<DP>, or 64-key tiles
+// where Lk fits in 64 keys. Both then walk one tile, so the function is the
+// same; the short sequences (L = 4) stage and multiply fewer zero rows: on
+// an H100 (kernel_check.py --graph) K3/bf16 at (16, 32, 4, 24) takes 0.0044
+// ms a call against 0.0072 on 128-key tiles, K6/bf16 at (17, 32, 4, 24)
+// 0.0089 against 0.0140.
+template <int DP, class F>
+int with_fwd_cfg(int Lk, F&& f) {
+  if constexpr (FwdCfg<DP>::BK > 64)
+    if (Lk <= 64) return f(FwdMma<DP, 64>{});
+  return f(FwdCfg<DP>{});
+}
+
+// K6's: K3's tiles and, after the ring, a stash of (1 − α)·o₀ in f32 for
+// each thread's output elements.
+template <class C>
+struct Fwd2Cfg : C {
+  static constexpr size_t stash_offset = C::smem_bytes;
+  static constexpr size_t smem_bytes =
+      C::smem_bytes + (size_t)C::BQ * C::DP * sizeof(float);
+  static_assert(smem_bytes <= kMaxSmemBytes, "bf16 two-KV forward smem");
+};
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (v0, v1) rounded to bf16, packed as one A-fragment register.
+__device__ __forceinline__ unsigned pack_bf16x2(float v0, float v1) {
+  const __nv_bfloat162 pb = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const unsigned*>(&pb);
+}
+
+// The A fragments of P·V over a tile: pa[kk][2·(j & 1) + h] holds keys
+// 8j + 2t, 8j + 2t + 1 of row g + 8h, j = 2kk or 2kk + 1.
+template <class C>
+using PFrag = unsigned[C::KS][4];
+
+// The online softmax of a warp's rows g and g + 8: m the raw row max, l
+// this lane's share of the row sum (the quad's 4 lanes hold the whole),
+// c = scale·log₂e.
+template <class C>
+struct OnlineSoftmax {
+  static constexpr bool kRescale = true;
+  float m[2], l[2];
+  float c, scale;
+
+  __device__ __forceinline__ explicit OnlineSoftmax(float sc)
+      : c(sc * 1.4426950408889634f), scale(sc) {
+    reset();
+  }
+  __device__ __forceinline__ void reset() {
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.0f;
+  }
+  // s: the raw scores of the tile from key k0; pa = bf16(p), p = exp2(s·c
+  // − m'·c), 0 past Lk; corr = exp2((m − m')·c), 0 on the first tile.
+  __device__ __forceinline__ void update(float (&s)[C::NT][4], int k0, int Lk,
+                                         int lane, float (&corr)[2],
+                                         PFrag<C>& pa) {
+    const int t2 = 2 * (lane & 3);
+    if (k0 + C::BK > Lk) {  // the ragged last tile
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + t2 + (e & 1) >= Lk) s[j][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float nm = -mx * c;  // finite: every tile holds a valid key
+      corr[h] = ex2_approx(fmaf(m[h], c, nm));
+      m[h] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j) {
+        const float p0 = ex2_approx(fmaf(s[j][2 * h], c, nm));
+        const float p1 = ex2_approx(fmaf(s[j][2 * h + 1], c, nm));
+        sum += p0;
+        sum += p1;
+        pa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(p0, p1);
+      }
+      l[h] = l[h] * corr[h] + sum;
+    }
+  }
+  // 1 / l and lse = m·scale + log l of rows g and g + 8; every lane calls it
+  __device__ __forceinline__ void finish(float (&inv)[2],
+                                         float (&lse)[2]) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      inv[h] = 1.0f / t;
+      lse[h] = m[h] * scale + logf(t);
+    }
+  }
+};
+
+// P1's p: the scores themselves, rounded to bf16 by the packing of the A
+// fragments, no rescaling. Keys past Lk score 0 on their zero rows.
+template <class C>
+struct IdentityP {
+  static constexpr bool kRescale = false;
+  __device__ __forceinline__ void update(float (&s)[C::NT][4], int, int, int,
+                                         float (&)[2], PFrag<C>& pa) {
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        pa[j >> 1][2 * (j & 1) + h] = pack_bf16x2(s[j][2 * h], s[j][2 * h + 1]);
+  }
+};
+
+// o = the body's P·V over one K/V set, walked once in BK-key tiles through
+// the kStages-stage ring: per tile S = Q·K_jᵀ, body.update (P from S,
+// packed as the A fragments, and the rescale c), then o = o·c + bf16(P)·V_j
+// (c = 1 where Body::kRescale is false). o is in mma_scores' accumulator
+// layout (the warp's 16 rows × DP columns). Every thread calls it; the Q
+// tile, if staged and committed just before, has landed by the first scores.
+// On return the ring is free.
+template <class C, class Body>
+__device__ __forceinline__ void fwd_walk(
+    const __nv_bfloat16* Qs, __nv_bfloat16* ring, const __nv_bfloat16* kb,
+    const __nv_bfloat16* vb, long long ksl, long long vsl, int Lk, int D,
+    bool vec, Body& body, float (&o)[C::DT][4]) {
   using afldm_filtered::ldsm_x4_t;
   using afldm_filtered::mma_bf16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t2 = 2 * (lane & 3);
-  float s[C::NT][4];
 #pragma unroll
   for (int t = 0; t < C::DT; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[t][e] = 0.0f;
-  stage_rows_bf16<C, kBK>(K0, kb, ksl, 0, Lk, D, vec);
-  cp_async_commit();
-  stage_rows_bf16<C, kBK>(Vs, vb, vsl, 0, Lk, D, vec);
-  cp_async_commit();
-  const __nv_bfloat16* vt =
-      Vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LD + 8 * (lane >> 4);
-  for (int k0 = 0; k0 < Lk; k0 += kBK) {
-    cp_async_wait<1>();  // all but V_j: K_j has landed
-    __syncthreads();
-    mma_scores<C>(Qs, K0, warp, lane, s);
-    unsigned pa[kBK / 16][4];  // P as the A fragments of four 16-key steps
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float p[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + 8 * j + t2 + e;
-          p[e] = pf(s[j][2 * h + e], key, h);
-        }
-        const __nv_bfloat162 pb = __floats2bfloat162_rn(p[0], p[1]);
-        pa[j / 2][2 * (j & 1) + h] = *reinterpret_cast<const unsigned*>(&pb);
-      }
-    __syncthreads();  // K_j is no longer read
-    if (k0 + kBK < Lk) stage_rows_bf16<C, kBK>(K0, kb, ksl, k0 + kBK, Lk, D,
-                                               vec);
+  const int n = (Lk + C::BK - 1) / C::BK;
+  auto stage = [&](int j) {  // tile j into its stage; an empty group past n
+    if (j < n) {
+      __nv_bfloat16* Ks = ring + (j % C::kStages) * C::kv_elems;
+      stage_rows_bf16<C, C::BK>(Ks, kb, ksl, j * C::BK, Lk, D, vec);
+      stage_rows_bf16<C, C::BK>(Ks + C::BK * C::LD, vb, vsl, j * C::BK, Lk,
+                                D, vec);
+    }
     cp_async_commit();
-    cp_async_wait<1>();  // all but K_{j+1}: V_j has landed
-    __syncthreads();
+  };
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
+  for (int j = 0; j < C::kStages - 1; ++j) stage(j);
+  const int vt = ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LD + 8 * (lane >> 4);
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<C::kStages - 2>();  // tile j (and Q) have landed
+    __syncthreads();  // for every thread; and tile j − 1's stage is free
+    stage(j + C::kStages - 1);
+    const __nv_bfloat16* Ks = ring + (j % C::kStages) * C::kv_elems;
+    const __nv_bfloat16* Vs = Ks + C::BK * C::LD + vt;
+    float s[C::NT][4];
+    mma_scores<C>(Qs, Ks, warp, lane, s);
+    float corr[2];
+    PFrag<C> pa;
+    body.update(s, j * C::BK, Lk, lane, corr, pa);
+    // the tile's P·V from zero, 16 output columns at a time, then o = o·c +
+    // P·V in f32
 #pragma unroll
-      for (int dp = 0; dp < C::DT / 2; ++dp) {
+    for (int dp = 0; dp < C::DT / 2; ++dp) {
+      float pv[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < C::KS; ++kk) {
         unsigned b[4];
-        ldsm_x4_t(b, vt + 16 * kk * C::LD + 16 * dp);
-        mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
+        ldsm_x4_t(b, Vs + 16 * kk * C::LD + 16 * dp);
+        mma_bf16(pv[0], pa[kk], b[0], b[1]);
+        mma_bf16(pv[1], pa[kk], b[2], b[3]);
       }
-    __syncthreads();  // V_j is no longer read
-    if (k0 + kBK < Lk) stage_rows_bf16<C, kBK>(Vs, vb, vsl, k0 + kBK, Lk, D,
-                                               vec);
-    cp_async_commit();
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& acc = o[2 * dp + u][e];
+          if constexpr (Body::kRescale)
+            acc = __fadd_rn(__fmul_rn(acc, corr[e >> 1]), pv[u][e]);
+          else
+            acc = __fadd_rn(acc, pv[u][e]);
+        }
+    }
   }
   cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
 }
 
-// One attention of the staged Q tile over one K/V set, bf16: the row
-// statistics pass, then the P·V pass. Leaves o (the warp's 16 rows × DP
-// columns, in the accumulator layout of s), m and l (the row max and sum
-// of rows g and g + 8, whole over the quad) in the caller's registers.
-// Every thread calls it; the Q tile, if staged and committed just before,
-// has landed by the first scores.
-template <class C>
-__device__ __forceinline__ void mma_attend(
-    const __nv_bfloat16* Qs, __nv_bfloat16* K0, __nv_bfloat16* K1,
-    __nv_bfloat16* Vs, const __nv_bfloat16* kb, const __nv_bfloat16* vb,
-    long long ksl, long long vsl, int Lk, int D, bool vec, float scale,
-    float (&o)[C::DT][4], float (&m)[2], float (&l)[2]) {
+// Calls f(row, d, h, j) for each pair of output elements (d, d + 1) a
+// thread holds, o[j][2h], o[j][2h + 1]: rows q0 + 16·warp + g + 8h below Lq
+// and columns d = 8j + 2t below D (d + 1 may be D).
+template <class C, class F>
+__device__ __forceinline__ void for_out_fwd(int q0, int Lq, int D, F f) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t2 = 2 * (lane & 3);
-  float s[C::NT][4];
-  // pass 1: the row max and sum, K tiles double-buffered
-  m[0] = m[1] = -INFINITY;
-  l[0] = l[1] = 0.0f;
-  stage_rows_bf16<C, kBK>(K0, kb, ksl, 0, Lk, D, vec);
-  cp_async_commit();
-  for (int k0 = 0, it = 0; k0 < Lk; k0 += kBK, ++it) {
-    __nv_bfloat16* cur = it & 1 ? K1 : K0;
-    if (k0 + kBK < Lk)
-      stage_rows_bf16<C, kBK>(it & 1 ? K0 : K1, kb, ksl, k0 + kBK, Lk, D,
-                              vec);
-    cp_async_commit();
-    cp_async_wait<1>();  // all but K_{j+1}: K_j (and Q) have landed
-    __syncthreads();
-    mma_scores<C>(Qs, cur, warp, lane, s);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + 8 * j + t2 + e;
-          float& v = s[j][2 * h + e];
-          v = key < Lk ? v * scale : -INFINITY;
-          mx = fmaxf(mx, v);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx);  // finite: a valid key
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < C::NT; ++j)
-        sum += expf(s[j][2 * h] - m_new) + expf(s[j][2 * h + 1] - m_new);
-      l[h] = l[h] * expf(m[h] - m_new) + sum;  // exp(-inf) = 0 at first
-      m[h] = m_new;
-    }
-    __syncthreads();  // cur is no longer read before it is restaged
-  }
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row >= Lq) continue;
+#pragma unroll
+    for (int j = 0; j < C::DT; ++j) {
+      const int d = 8 * j + t2;
+      if (d < D) f(row, d, h, j);
+    }
   }
-  // pass 2: p = exp(s − m) / l rounded to bf16, O += P·V
-  mma_pv_pass<C>(Qs, K0, Vs, kb, vb, ksl, vsl, Lk, D, vec,
-                 [&](float sv, int key, int h) {
-                   return key < Lk ? expf(sv * scale - m[h]) / l[h] : 0.0f;
-                 },
-                 o);
+}
+
+// Stores the pair (v0, v1) of row-major bf16 output columns d, d + 1 at p,
+// rounded to bf16; v1 only where d + 1 < D. One 4-byte store where D is
+// even (p is then 4-byte aligned).
+__device__ __forceinline__ void store_pair_bf16(__nv_bfloat16* p, int d,
+                                                int D, float v0, float v1) {
+  if ((D & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    p[0] = __float2bfloat16_rn(v0);
+    if (d + 1 < D) p[1] = __float2bfloat16_rn(v1);
+  }
 }
 
 // The shared-memory carve-up of a bf16 block.
@@ -993,7 +1141,7 @@ __device__ __forceinline__ void mma_walked(float (&acc)[C::DWT][4],
 }
 
 // The pair (v[j][2h], v[j][2h + 1]) rounded to bf16 as the A fragment word
-// of a 16-column step (mma_attend's packing of P).
+// of a 16-column step (fwd_walk's packing of P).
 __device__ __forceinline__ void pack_a(unsigned (&a)[kBK / 16][4], int j,
                                        int h, float v0, float v1) {
   const __nv_bfloat162 pb = __floats2bfloat162_rn(v0, v1);

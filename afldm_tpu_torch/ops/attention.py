@@ -11,10 +11,17 @@ JAX ``_sdpa_bwd``: p recomputed from the forward's logsumexp,
 ``delta = rowsum(dO * O)`` in plain torch, ``ds = p * (dp - delta) * scale``.
 
 bfloat16 q, k, v (on the card ``flash_fwd_bf16`` and ``flash2_fwd_bf16``,
-counted as ``flash_fwd/bf16`` and ``flash2_fwd/bf16``): f32 scores and
-softmax, the normalised p rounded to bf16, p @ v summed in f32 and rounded
-to bf16, lse f32: ``sdpa_xla`` at bf16. The two-KV blend takes the two bf16
-attentions and blends them in f32 (``sdpa2_xla``). The backward at bf16
+counted as ``flash_fwd/bf16`` and ``flash2_fwd/bf16``; on the CPU their
+plain versions ``flash_fwd_plain`` and ``flash2_fwd_plain``): the function
+of the TPU kernels ``_flash_kernel`` and ``_flash2_kernel`` at bf16, an
+online softmax over key tiles of ``flash_bf16_key_tile(D)`` keys that
+rounds the unnormalised p = exp(s - running max) to bf16 for p @ v, sums
+the row's l from the unrounded f32 p and divides once at the end; lse f32.
+The two-KV blend keeps both sets' f32 states and rounds
+(1 - a) * acc0 / l0 + a * acc1 / l1 once. ``sdpa_eager`` and
+``sdpa2_eager`` keep ``sdpa_xla``'s semantics (the normalised p rounded),
+for what the kernels never take: D > 256 and K/V sets of unequal shapes.
+The backward at bf16
 (``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``, counted as
 ``flash_bwd_dq/bf16`` and ``flash_bwd_dkv/bf16``) follows the JAX kernels
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` at bf16: s and dp
@@ -49,6 +56,75 @@ def _attention_plain(q, k, v, scale=None):
     # p @ v summed in at least f32 and rounded once to v's dtype
     acc = torch.promote_types(v.dtype, torch.float32)
     return torch.matmul(p.to(acc), v.to(acc)).to(v.dtype), lse
+
+
+# The bf16 forward kernels' key tile at each padded head dim
+# (``kernels/csrc/flash_tile.cuh::FwdCfg``): 128 keys up to DP = 128, 64 at
+# 160, 32 at 256.
+_BF16_KEY_TILES = {32: 128, 48: 128, 64: 128, 80: 128, 128: 128, 160: 64,
+                   256: 32}
+
+
+def flash_bf16_key_tile(D: int) -> int:
+    """BK of ``flash_fwd_bf16`` and ``flash2_fwd_bf16`` at head dim D (D
+    padded to the smallest instantiated multiple of 16 at least D)."""
+    if not 0 < D <= FLASH_MAX_D:
+        raise ValueError(f"no bf16 flash kernel at head dim {D}")
+    return _BF16_KEY_TILES[min(p for p in _BF16_KEY_TILES if p >= D)]
+
+
+def _online_state(q, k, v, scale, key_tile):
+    """(acc, m, l) of the online softmax over ``key_tile``-key tiles, in
+    order: s = q·kᵀ·scale in f32, m' = max(m, rowmax s), p = exp(s - m')
+    and c = exp(m - m') in f32, l = l·c + rowsum p, acc = acc·c +
+    p_(v's dtype)·v summed in f32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = torch.full(s.shape[:-1] + (1,), -math.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, device=q.device)
+    for j in range(0, s.shape[-1], key_tile):
+        st = s[..., j:j + key_tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        c = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * c + p.sum(-1, keepdim=True)
+        acc = acc * c + torch.matmul(p.to(v.dtype).float(),
+                                     v[..., j:j + key_tile, :].float())
+        m = m_new
+    return acc, m, l
+
+
+def flash_fwd_plain(q, k, v, scale=None, key_tile=None):
+    """The plain version of the bf16 flash forward (K3/bf16): the online
+    softmax of ``_online_state`` at ``key_tile`` (default: the kernel's,
+    ``flash_bf16_key_tile``), out = (acc / l) in q's dtype and lse = m +
+    log l (..., Lq, 1) f32, as the JAX ``_flash_kernel`` computes them."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if key_tile is None:
+        key_tile = flash_bf16_key_tile(q.shape[-1])
+    acc, m, l = _online_state(q, k, v, scale, key_tile)
+    return (acc / l).to(q.dtype), m + torch.log(l)
+
+
+def flash2_fwd_plain(q, k0, v0, k1, v1, alpha, scale=None, key_tile=None):
+    """The plain version of the bf16 two-KV flash forward (K6/bf16): one
+    online-softmax state a K/V set (``_online_state``), blended as
+    (1 - a)·acc0/l0 + a·acc1/l1 in f32 and rounded once to q's dtype, as
+    the JAX ``_flash2_kernel`` computes it."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if key_tile is None:
+        key_tile = flash_bf16_key_tile(q.shape[-1])
+    lead = q.shape[:-2]
+    a = _alpha_per_lead(alpha, lead, q.device).reshape(lead + (1, 1))
+    (acc0, _, l0), (acc1, _, l1) = (_online_state(q, k, v, scale, key_tile)
+                                    for k, v in ((k0, v0), (k1, v1)))
+    return ((1.0 - a) * (acc0 / l0) + a * (acc1 / l1)).to(q.dtype)
+
+
+def _all_bf16(ts):
+    return all(t.dtype == torch.bfloat16 for t in ts)
 
 
 def _kernel_dtype(ts, name) -> str:
@@ -127,15 +203,20 @@ def flash_fwd(q, k, v, scale=None):
     is a unit stride along D (a tensor without one is copied). A K/V batch
     expanded from 1 (``expand``, stride 0) is passed with batch stride 0 and
     never copied. Inputs with no rows (batch or Lq 0) return empty outputs
-    without a launch."""
-    if q.device.type == "cpu":
-        return _attention_plain(q, k, v, scale)
+    without a launch. On the CPU: ``flash_fwd_plain`` at bf16, the plain
+    softmax attention at f32. At bf16 the scale must be positive (the
+    kernel takes the row max over the raw scores)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        if _all_bf16((q, k, v)):
+            return flash_fwd_plain(q, k, v, scale)
+        return _attention_plain(q, k, v, scale)
     if not all(t.device == q.device and t.device.type == "cuda"
                for t in (q, k, v)):
         raise ValueError("flash_fwd: q, k, v must lie on one CUDA device")
     dt = _kernel_dtype((q, k, v), "flash_fwd")
+    _check_bf16_scale(dt, scale, "flash_fwd")
     lead = q.shape[:-2]
     q4, k4, v4 = (_as_4d(t) for t in (q, k, v))
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
@@ -160,6 +241,12 @@ def flash_fwd(q, k, v, scale=None):
     kernels.check(err, key)
     kernels.LAUNCHES[key] += 1
     return out.reshape(lead + (Lq, D)), lse.reshape(lead + (Lq, 1))
+
+
+def _check_bf16_scale(dt, scale, name):
+    if dt == "bf16" and not scale > 0:
+        raise ValueError(f"{name}: the bf16 kernel takes a positive scale, "
+                         f"got {scale}")
 
 
 def _bwd_launch_args(q, k, v, do, lse, delta, name):
@@ -308,17 +395,21 @@ def flash2_fwd(q, k0, v0, k1, v1, alpha, scale=None):
     are ``flash_fwd``'s: inputs read through their strides (a unit stride
     along D, else copied), K/V expanded from one image (stride 0) never
     copied. The four K/V tensors share one shape; all five are float32,
-    or all bfloat16 (out in q's dtype)."""
-    if q.device.type == "cpu":
-        return sdpa2_eager(q, k0, v0, k1, v1, alpha, scale)
+    or all bfloat16 (out in q's dtype). On the CPU: ``flash2_fwd_plain``
+    at bf16, ``sdpa2_eager`` at f32."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     kvs = (k0, v0, k1, v1)
+    if q.device.type == "cpu":
+        if _all_bf16((q, *kvs)):
+            return flash2_fwd_plain(q, k0, v0, k1, v1, alpha, scale)
+        return sdpa2_eager(q, k0, v0, k1, v1, alpha, scale)
     if not all(t.device == q.device and t.device.type == "cuda"
                for t in (q, *kvs)):
         raise ValueError("flash2_fwd: q, k0, v0, k1, v1 must lie on one "
                          "CUDA device")
     dt = _kernel_dtype((q, *kvs), "flash2_fwd")
+    _check_bf16_scale(dt, scale, "flash2_fwd")
     lead = q.shape[:-2]
     ts = [_as_4d(t) for t in (q, *kvs)]
     ts = [t if t.stride(-1) == 1 else t.contiguous() for t in ts]

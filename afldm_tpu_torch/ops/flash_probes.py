@@ -15,10 +15,11 @@ plain version; a CUDA tensor launches the kernel or raises, and returns its
 empty output without a launch where there are no rows.
 
 bfloat16 (on the card ``flash_probe_dots_bf16`` and
-``flash_probe_stream_bf16``, counted as ``flash_probe_dots/bf16`` and
 ``flash_probe_stream/bf16``): the JAX bodies at bf16. P1 sums q·kᵀ in f32,
 rounds it to bf16 (``s.astype(v_ref.dtype)``), sums s·v in f32 and rounds
-the output to bf16 once; P2 sums in f32 and rounds the output once.
+the output to bf16 once, on K3/bf16's tiles (``q_tile`` rows,
+``flash_bf16_key_tile`` keys); P2
+sums in f32 and rounds the output once, on 64-row tiles.
 """
 
 import torch
@@ -26,13 +27,14 @@ import torch
 from .. import kernels
 from .attention import FLASH_MAX_D, _as_4d, _kernel_dtype
 
-PROBE_TILE = 64  # the kernels' K/V tile in rows
+PROBE_TILE = 64  # P2's K/V tile in rows, and the f32 kernels'
 
 
 def q_tile(D: int, dtype=torch.float32) -> int:
     """Rows of the flash forward kernels' Q tile at head dim D and dtype
     (``kernels/csrc/flash_tile.cuh``): at f32 (``FlashCfg``) 128, or 64 at
-    D > 160 (DP = 256); at bf16 (``MmaCfg``) 64."""
+    D > 160 (DP = 256); at bf16 (``FwdCfg``: K3, K6 and P1; ``MmaCfg``: P2)
+    64."""
     if dtype == torch.bfloat16:
         return 64
     return 64 if D > 160 else 128

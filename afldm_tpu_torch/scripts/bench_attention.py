@@ -10,8 +10,9 @@ autograd through the plain version and through the library call).
 Each time is the best of 3 runs of ``--iters`` chained calls (the output
 is the next call's q; with ``--grad`` ``max(iters // 3, 5)`` chained steps,
 q's gradient the next q), from CUDA events on the card. The kernels have
-one tile a head dim (``flash_probes.q_tile`` query rows, 64-key tiles), so
-a ``--block_q`` or ``--block_k`` other than that tile is refused.
+one tile a head dim and dtype (``flash_probes.q_tile`` query rows; 64 keys
+at f32, ``flash_bf16_key_tile`` at bf16), so a ``--block_q`` or
+``--block_k`` other than that tile is refused.
 
 One JSON row a shape, printed and appended to ``--out``, with the JAX
 table's columns renamed: ``xla`` -> ``library_ms``, ``flash`` ->
@@ -55,7 +56,8 @@ def parse_args(argv=None):
     p.add_argument("--block_q", type=int, default=None,
                    help="must be the kernels' Q tile (flash_probes.q_tile)")
     p.add_argument("--block_k", type=int, default=None,
-                   help="must be the kernels' K/V tile, 64")
+                   help="must be the kernels' K/V tile (64 at f32, "
+                        "flash_bf16_key_tile at bf16)")
     p.add_argument("--grad", action="store_true")
     p.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
@@ -66,15 +68,18 @@ def parse_args(argv=None):
 def check_blocks(block_q, block_k, dtype):
     """Refuse block sizes the kernels do not have: one tile a head dim and
     dtype, the same at every shape of SHAPES."""
+    from ..ops.attention import flash_bf16_key_tile
     from ..ops.flash_probes import PROBE_TILE, q_tile
     tiles = {q_tile(s[-1], dtype) for s in SHAPES}
-    if block_k not in (None, PROBE_TILE) or (
-            block_q is not None and tiles != {block_q}):
+    keys = {flash_bf16_key_tile(s[-1]) if dtype == torch.bfloat16
+            else PROBE_TILE for s in SHAPES}
+    if ((block_k is not None and keys != {block_k})
+            or (block_q is not None and tiles != {block_q})):
         raise SystemExit(
             f"--block_q {block_q} --block_k {block_k}: the port's flash "
             f"kernels have one tile a head dim and dtype ({sorted(tiles)} "
-            f"query rows at these shapes, {PROBE_TILE} keys), chosen at "
-            "compile time; there is no block size to sweep")
+            f"query rows and {sorted(keys)} keys at these shapes), chosen "
+            "at compile time; there is no block size to sweep")
 
 
 def grad_step(attn):

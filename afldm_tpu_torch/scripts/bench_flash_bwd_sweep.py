@@ -7,10 +7,11 @@ best of 3).
 
 The JAX script sweeps (block_q, block_k) pairs, one row a pair, and a
 summary row naming the best pair. The port's kernels have one tile a head
-dim and dtype (``flash_probes.q_tile`` query rows, 64-key tiles; the
-backward's tiling is fixed by D as well), so there is nothing to sweep:
-one row a shape and dtype, with that tile as ``bq`` and ``bk``, and no
-summary row.
+dim and dtype (the forward's ``flash_probes.q_tile`` query rows, and 64
+keys at f32, ``flash_bf16_key_tile`` at bf16; the backward's tiling is
+fixed by D as well), so there
+is nothing to sweep: one row a shape and dtype, with the forward's tile as
+``bq`` and ``bk``, and no summary row.
 
 Each gradient step is q + 1e-6·(dq + dk + dv) of sum(out²) (every step
 depends on the one before), the forward step out = sdpa(q, k, v); times
@@ -52,6 +53,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     from ..ops import sdpa, set_af_precision
+    from ..ops.attention import flash_bf16_key_tile
     from ..ops.flash_probes import PROBE_TILE, q_tile
     from ..pipelines.loading import resolve_device
     from .bench import device_name
@@ -79,7 +81,8 @@ def main(argv=None):
 
     grad_ms = measure(grad_step, q0, (k0, v0), args.iters, device)
     fwd_ms = measure(fwd_step, q0, (k0, v0), args.iters, device)
-    row = dict(kind="bwd_sweep", bq=q_tile(D, dt), bk=PROBE_TILE,
+    bk = flash_bf16_key_tile(D) if dt == torch.bfloat16 else PROBE_TILE
+    row = dict(kind="bwd_sweep", bq=q_tile(D, dt), bk=bk,
                dtype=args.dtype, shape=[B, H, L, D], iters=args.iters,
                grad_ms=grad_ms, fwd_ms=fwd_ms, bwd_ms=grad_ms - fwd_ms,
                device=device_name(device))

@@ -6,10 +6,11 @@ identity: the matmul-plus-memory floor) and P2 (``flash_probe_stream``,
 K3's loads with trivial work: the memory floor). ``1 - dots/flash`` is the
 online softmax's share of K3's time, ``stream/flash`` its loads' share.
 
-The kernels have one tile at a head dim and dtype (64 keys; at f32 128
-query rows, 64 at D > 160; at bf16 64 query rows), so the sweep is one row
-per op at that tile. ``--dtype`` (bf16 by default, as in the JAX script)
-sets the dtype of q, k and v for all four kernels, and every row carries
+The kernels have one tile at a head dim and dtype (``flash_probes.q_tile``
+query rows: at f32 64 keys and 128 query rows, 64 at D > 160; at bf16 64
+query rows and, for K3, K6 and P1, ``flash_bf16_key_tile(D)`` keys, while
+P2 keeps 64), so the sweep is one row per op at K3's tile. ``--dtype``
+(bf16 by default, as in the JAX script) sets the dtype of q, k and v for all four kernels, and every row carries
 it; the probe row carries K3's own time at that dtype. Each time is the
 best of 3 runs of ``--iters`` chained calls (each call's output is the next
 one's q), from CUDA events. Rows are printed as JSON lines and appended to
@@ -82,6 +83,7 @@ def measure(f1, x0, xs, iters, device, repeats=3):
 @torch.inference_mode()
 def main(argv=None):
     from ..ops import sdpa, sdpa2, set_af_precision
+    from ..ops.attention import flash_bf16_key_tile
     from ..ops.flash_probes import (PROBE_TILE, flash_probe_dots,
                                     flash_probe_stream, q_tile)
     from ..pipelines.loading import resolve_device
@@ -105,7 +107,8 @@ def main(argv=None):
     def timed(f1, x0, xs):
         return measure(f1, x0, xs, args.iters, device)
 
-    tile = dict(bq=q_tile(D, dtype), bk=PROBE_TILE, dtype=args.dtype)
+    bk = flash_bf16_key_tile(D) if dtype == torch.bfloat16 else PROBE_TILE
+    tile = dict(bq=q_tile(D, dtype), bk=bk, dtype=args.dtype)
     q1, k1, v1 = rand(args.batch), rand(args.batch), rand(args.batch)
     flash_ms = timed(sdpa, q1, (k1, v1))
     record(kind="sweep", op="sdpa", **tile, shape=[args.batch, H, L, D],

@@ -14,6 +14,19 @@ kernels are timed at shapes added since; ``--banded_scratch_bytes`` sets
 the banded chains' scratch cap a chunk (``BANDED_SCRATCH_BYTES``: K1's and,
 since it runs the same chain, K2's).
 
+Two modes replace the checks, for comparing two checkouts in one call:
+``--spread n,h,Lq,Lk,D,n_kv [--seeds N]`` runs K3/bf16 at that shape (K/V
+expanded from n_kv images) on N seeded draws against the checkout's plain
+version (``flash_fwd_plain`` where the checkout has it, else the plain
+softmax attention) and prints the spread of the RMS ratio that
+``test_flash_bf16_matches_plain`` bounds; ``--digest`` prints a SHA-256 of
+the outputs of the f32 K3, K6, K4a and K4b and of K4a and K4b at bf16 at
+their KERNELS shapes on seeded inputs (the backward given the plain
+forward's out and lse), so that equal lines mean bit-identical outputs;
+``--graph`` times K3/bf16 and K6/bf16 at their KERNELS shapes by replaying
+a CUDA graph of the wrapper calls, so that a shape whose call is bound by
+the host's launch path (L = 4) is timed on the device alone.
+
 Prints chip_smoke's ``check ...`` line per shape and each kernel's sums
 over the shapes run, and exits non-zero if a kernel disagrees with its
 plain version. The filtered activation's kernels are also run in their
@@ -48,6 +61,15 @@ def main(argv=None):
     ap.add_argument("--banded_scratch_bytes", type=int, default=None,
                     help="the banded chains' scratch cap a chunk of "
                          "planes (default: ops/filtered_act.py's)")
+    ap.add_argument("--spread", default=None,
+                    help="n,h,Lq,Lk,D,n_kv: K3/bf16's RMS ratio over seeds")
+    ap.add_argument("--seeds", type=int, default=200)
+    ap.add_argument("--digest", action="store_true",
+                    help="SHA-256 of the f32 flash kernels' and the bf16 "
+                         "backward's outputs")
+    ap.add_argument("--graph", action="store_true",
+                    help="K3/bf16 and K6/bf16 device times from CUDA "
+                         "graph replays")
     args = ap.parse_args(argv)
     names = args.names
     root = Path.cwd()
@@ -61,6 +83,17 @@ def main(argv=None):
         return 1
     smoke = importlib.import_module("chip_smoke")
     kernels = importlib.import_module("afldm_tpu_torch.kernels")
+    if args.spread or args.digest or args.graph:
+        kernels.build_all()
+        attn = importlib.import_module("afldm_tpu_torch.ops.attention")
+        if args.spread:
+            spread(torch, attn, smoke,
+                   tuple(int(x) for x in args.spread.split(",")), args.seeds)
+        if args.digest:
+            digest(torch, attn, smoke)
+        if args.graph:
+            graph_times(torch, attn, smoke)
+        return 0
     importlib.import_module("afldm_tpu_torch.ops").set_af_precision("highest")
     if args.banded_scratch_bytes:
         fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
@@ -107,6 +140,128 @@ def main(argv=None):
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{row['bound_ms']:.4f} ms", flush=True)
     return 0 if ok else 1
+
+
+def spread(torch, attn, smoke, shape, seeds):
+    """K3/bf16 at ``shape`` against the checkout's plain version on
+    ``seeds`` draws: RMS(kernel - plain) / RMS(plain - the f32 plain), and
+    the largest difference in bf16 ulps of the output's scale."""
+    n, h, L, Lk, d, n_kv = shape
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    plain = getattr(attn, "flash_fwd_plain", attn._attention_plain)
+    ratios, ulps = [], []
+    for seed in range(seeds):
+        g = torch.Generator(dev).manual_seed(seed)
+        q = torch.randn(n, h, L, d, device=dev, generator=g).to(bf)
+        k, v = (torch.randn(n_kv, h, Lk, d, device=dev, generator=g).to(bf)
+                .expand(n, -1, -1, -1) for _ in range(2))
+        got = attn.flash_fwd(q, k, v)[0].float()
+        want = plain(q, k, v)[0].float()
+        want32 = attn._attention_plain(q.float(), k.float(), v.float())[0]
+        gap = float((want - want32).double().pow(2).mean().sqrt())
+        ratios.append(float((got - want).double().pow(2).mean().sqrt())
+                      / gap)
+        _, e = torch.frexp(want.abs().max())
+        ulps.append(float((got - want).abs().max()) / 2.0 ** (int(e) - 8))
+    ratios.sort()
+    over = sum(r > smoke.BF16_FLASH_RATIO for r in ratios)
+    print(f"kernel_check spread flash_fwd/bf16 {shape} over {seeds} seeds "
+          f"(plain {plain.__name__}): RMS ratio min {ratios[0]:.4f} median "
+          f"{ratios[len(ratios) // 2]:.4f} p90 "
+          f"{ratios[int(0.9 * len(ratios))]:.4f} max {ratios[-1]:.4f}, "
+          f"{over} above {smoke.BF16_FLASH_RATIO}; max ulps of the scale "
+          f"{max(ulps):.3f}", flush=True)
+
+
+def digest(torch, attn, smoke):
+    """One line a kernel, dtype and shape: the SHA-256 of its outputs on
+    inputs drawn from a seed of the kernel and shape."""
+    import hashlib
+    import zlib
+    dev = torch.device("cuda")
+    for name, dt in (("flash_fwd", torch.float32),
+                     ("flash2_fwd", torch.float32),
+                     ("flash_bwd_dq", torch.float32),
+                     ("flash_bwd_dkv", torch.float32),
+                     ("flash_bwd_dq", torch.bfloat16),
+                     ("flash_bwd_dkv", torch.bfloat16)):
+        for shape in smoke.KERNELS[name]["shapes"]:
+            n, h, L, Lk, d, n_kv = smoke._flash_dims(shape)
+            g = torch.Generator(dev).manual_seed(
+                zlib.crc32(repr((name, shape)).encode()))
+            q, do = (torch.randn(n, h, L, d, device=dev, generator=g).to(dt)
+                     for _ in range(2))
+            k, v, k1, v1 = (torch.randn(n_kv, h, Lk, d, device=dev,
+                                        generator=g).to(dt)
+                            .expand(n, -1, -1, -1) for _ in range(4))
+            if name == "flash_fwd":
+                outs = attn.flash_fwd(q, k, v)
+            elif name == "flash2_fwd":
+                alpha = torch.linspace(0, 1, n, device=dev)[:, None, None]
+                outs = (attn.flash2_fwd(q, k, v, k1, v1, alpha),)
+            else:
+                out, lse = attn._attention_plain(q, k, v)
+                delta = attn._delta(do, out)
+                outs = getattr(attn, name)(q, k, v, do, lse, delta)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+            torch.cuda.synchronize()
+            hsh = hashlib.sha256()
+            for o in outs:
+                hsh.update(o.contiguous().cpu().view(torch.uint8).numpy()
+                           .tobytes())
+            print(f"kernel_check digest {name} {str(dt)[6:]} {shape} "
+                  f"{hsh.hexdigest()}", flush=True)
+            del q, do, k, v, k1, v1, outs
+        torch.cuda.empty_cache()
+
+
+def graph_times(torch, attn, smoke, calls=10, replays=20):
+    """K3/bf16 and K6/bf16 at their KERNELS shapes: the device time of one
+    wrapper call, from ``replays`` replays of a CUDA graph that holds
+    ``calls`` calls (after two calls outside it), between CUDA events."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    total = {}
+    for name in ("flash_fwd", "flash2_fwd"):
+        for shape in smoke.KERNELS[name]["shapes"]:
+            n, h, L, Lk, d, n_kv = smoke._flash_dims(shape)
+            g = torch.Generator(dev).manual_seed(0)
+            q = torch.randn(n, h, L, d, device=dev, generator=g).to(bf)
+            kv = [torch.randn(n_kv, h, Lk, d, device=dev, generator=g)
+                  .to(bf).expand(n, -1, -1, -1) for _ in range(4)]
+            alpha = torch.linspace(0, 1, n, device=dev)[:, None, None]
+            if name == "flash_fwd":
+                def fn():
+                    return attn.flash_fwd(q, kv[0], kv[1])
+            else:
+                def fn():
+                    return attn.flash2_fwd(q, *kv, alpha)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(calls):
+                    fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(replays):
+                graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / (replays * calls)
+            total[name] = total.get(name, 0.0) + ms
+            print(f"kernel_check graph {name}/bf16 {shape}: {ms:.4f} ms a "
+                  "call", flush=True)
+            del graph, q, kv
+            torch.cuda.empty_cache()
+    for name, ms in total.items():
+        print(f"kernel_check graph sum {name}/bf16: {ms:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

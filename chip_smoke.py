@@ -188,9 +188,12 @@ Phases, each of which fails the run:
     (reduced levels up to 512 px), against their plain versions on the
     card: K5 and K1 no element more than one bf16 ulp of itself off
     beyond the f32 kernel's atol, at most 0.1 % of the elements
-    different; K3 and K6 the RMS of (kernel - plain) at most 0.1 of the
-    RMS of (plain - the f32 plain on the same values), no element more
-    than 4 bf16 ulps of the output's largest magnitude off; each timed
+    different; K3 and K6 (the TPU kernels' online softmax, their plain
+    versions ``flash_fwd_plain`` and ``flash2_fwd_plain`` at the kernels'
+    key tile) the RMS of (kernel - plain) at most 0.1 of the RMS of (plain
+    - the f32 plain on the same values), no element more than 4 bf16 ulps
+    of the output's largest magnitude off, K3's lse within 1e-5 (and
+    1e-5 of itself); each timed
     beside its plain version, its f32 kernel on the same values, the
     library call at bf16 (K3: scaled_dot_product_attention; K6: two of
     them and the blend) and its bound, a row of its own in the kernels
@@ -222,8 +225,11 @@ Phases, each of which fails the run:
     ``mixed_precision="bf16"`` on the card and on the CPU with the same
     weights, images and draws, and at f32 on the CPU: the losses and the
     trained gradients within BF16_TINY_RATIO of the CPU's own bf16 - f32
-    gap (over all tensors; each tensor within twice that), the bf16
-    backward kernels launched and no f32 one;
+    gap (over all tensors; each tensor within twice that), a loss's gap
+    floored at the spread of its CPU bf16 value over the CPU's thread
+    counts, the bf16 backward kernels launched and no f32 one
+    (``--control`` runs this phase alone with a fault planted, which it
+    must fail);
 37. the five trainers at bf16 and full width, beside their f32 runs of
     phases 6, 8 and 26: the JAX package's flagship LDM run
     (``configs/ldm/train_unet_ffhq.json`` at ``mixed_precision="bf16"``:
@@ -260,6 +266,7 @@ non-zero without a GPU or without the package beside it.
 """
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -2387,14 +2394,20 @@ BF16_ROWS = (("filtered_act_plane/bf16", "filtered_act_plane", "highest"),
 # max at most the level's own max (on an H100 up to 406 ulps of a
 # near-zero element, 0.09 % of them differing)
 BF16_ULP_SHARE = 1e-3
-# the flash kernels at bf16 agree with their plain version (``sdpa_xla``'s
-# semantics) when RMS(kernel - plain) is at most this share of RMS(plain -
-# the f32 plain on the same bf16 inputs), bf16's own error, and no element
-# is more than BF16_FLASH_ULPS bf16 ulps of the output's largest magnitude
-# off: an output is an average, and an element near zero carries the
-# absolute error of its row's rounded weights
+# the flash kernels at bf16 agree with their plain version (the online
+# softmax of the TPU kernels at the kernels' key tile, ``flash_fwd_plain``
+# and ``flash2_fwd_plain``) when RMS(kernel - plain) is at most this share
+# of RMS(plain - the f32 plain on the same bf16 inputs), bf16's own error,
+# and no element is more than BF16_FLASH_ULPS bf16 ulps of the output's
+# largest magnitude off: the tensor cores sum the products in another order
+# than the plain version, and ex2.approx is not torch.exp, so p and the
+# output land on the other side of a rounding edge now and then; an output
+# is an average, and an element near zero carries the absolute error of its
+# row's rounded weights. K3's lse within BF16_LSE_TOL (absolute, and as a
+# share of |lse|, as the card tests hold it)
 BF16_FLASH_RATIO = 0.1
 BF16_FLASH_ULPS = 4
+BF16_LSE_TOL = 1e-5
 
 
 def bf16_ulps(torch, a, b, atol=0.0):
@@ -2410,10 +2423,11 @@ def bf16_ulps(torch, a, b, atol=0.0):
 
 def _bf16_case(torch, row, base, shape, dev, g):
     """(kernel call, plain version, reference, f32 kernel, library call or
-    None, work (FLOPs, bytes at bf16)) of a bf16 row at ``shape``; the
-    reference is the plain version at 'highest' on the same bf16 x (the
-    filtered activations) or the f32 plain on the same values (the flash
-    kernels)."""
+    None, work (FLOPs, bytes at bf16), lse pair or None) of a bf16 row at
+    ``shape``; the reference is the plain version at 'highest' on the same
+    bf16 x (the filtered activations) or the f32 plain on the same values
+    (the flash kernels); the lse pair (K3) returns the kernel's and the
+    plain version's lse."""
     import torch.nn.functional as F
     from afldm_tpu_torch.ops import attention as A
     from afldm_tpu_torch.ops import filtered_act as FA
@@ -2432,7 +2446,7 @@ def _bf16_case(torch, row, base, shape, dev, g):
         nbytes = 2 * 2 * n * c * h * w + 4 * (4 * h * h + 4 * w * w)
         return (lambda: fn(x, "silu"), lambda: plain(x, "silu", level),
                 lambda: plain(x, "silu", "highest"), lambda: fn(xf, "silu"),
-                None, (flops, nbytes))
+                None, (flops, nbytes), None)
     n, heads, L, Lk, d, n_kv = _flash_dims(shape)
     q = torch.randn(n, heads, L, d, device=dev, generator=g).to(bf)
     kv = [torch.randn(n_kv, heads, Lk, d, device=dev, generator=g).to(bf)
@@ -2446,11 +2460,13 @@ def _bf16_case(torch, row, base, shape, dev, g):
         nbytes = (2 * (2 * n * heads * L * d + 2 * n_kv * heads * Lk * d)
                   + 4 * n * heads * L)
         return (lambda: A.flash_fwd(q, *kv)[0],
-                lambda: A._attention_plain(q, *kv)[0],
+                lambda: A.flash_fwd_plain(q, *kv)[0],
                 lambda: A._attention_plain(*f32)[0],
                 lambda: A.flash_fwd(*f32)[0],
                 lambda: F.scaled_dot_product_attention(q, *kv),
-                (flops, nbytes))
+                (flops, nbytes),
+                lambda: (A.flash_fwd(q, *kv)[1],
+                         A.flash_fwd_plain(q, *kv)[1]))
     alpha = torch.linspace(0, 1, n, device=dev)[:, None, None]
     a4 = alpha[:, None]
     nbytes = 2 * (2 * n * heads * L * d + 4 * n_kv * heads * L * d) + 4 * n
@@ -2460,9 +2476,10 @@ def _bf16_case(torch, row, base, shape, dev, g):
         o1 = F.scaled_dot_product_attention(q, kv[2], kv[3]).float()
         return ((1 - a4) * o0 + a4 * o1).to(bf)
     return (lambda: A.flash2_fwd(q, *kv, alpha),
-            lambda: A.sdpa2_eager(q, *kv, alpha),
+            lambda: A.flash2_fwd_plain(q, *kv, alpha),
             lambda: A.sdpa2_eager(*f32, alpha),
-            lambda: A.flash2_fwd(*f32, alpha), library, (flops, nbytes))
+            lambda: A.flash2_fwd(*f32, alpha), library, (flops, nbytes),
+            None)
 
 
 def _bf16_bwd_case(torch, row, base, shape, dev, g):
@@ -2489,7 +2506,7 @@ def _bf16_bwd_case(torch, row, base, shape, dev, g):
         return (lambda: fn(x, gr, "silu"),
                 lambda: plain(x, gr, "silu", level),
                 lambda: plain(x, gr, "silu", "highest"),
-                lambda: fn(xf, gf, "silu"), None, (flops, nbytes))
+                lambda: fn(xf, gf, "silu"), None, (flops, nbytes), None)
     n, heads, L, Lk, d, n_kv = _flash_dims(shape)
     q, do = (torch.randn(n, heads, L, d, device=dev, generator=g).to(bf)
              for _ in range(2))
@@ -2509,7 +2526,7 @@ def _bf16_bwd_case(torch, row, base, shape, dev, g):
                 lambda: A._bwd_dq_plain(q, k, v, do, lse, delta, scale),
                 lambda: A._bwd_dq_plain(*f32, lse, delta, scale),
                 lambda: A.flash_bwd_dq(*f32, lse, delta), None,
-                (flops, reads + 2 * rows * d))
+                (flops, reads + 2 * rows * d), None)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl)
     return (lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta),
@@ -2518,7 +2535,7 @@ def _bf16_bwd_case(torch, row, base, shape, dev, g):
             lambda: A.flash_bwd_dkv(*f32, lse, delta),
             lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
                                         retain_graph=True),
-            (flops, reads + 2 * 2 * n * heads * Lk * d))
+            (flops, reads + 2 * 2 * n * heads * Lk * d), None)
 
 
 def _flat(torch, t):
@@ -2561,8 +2578,8 @@ def check_bf16_kernels(torch, report):
                 log(f"check {row_name} {shape}: n/a, above {FA.LEVEL_MAX} "
                     "px the f32 products run at every level")
                 continue
-            run, plain, plain32, run32, library, work = _bf16_case(
-                torch, row_name, base, shape, dev, g)
+            run, plain, plain32, run32, library, work, lse_pair = \
+                _bf16_case(torch, row_name, base, shape, dev, g)
             try:
                 set_af_precision(level or "highest")
                 got, want = _flat(torch, run()), _flat(torch, plain())
@@ -2587,6 +2604,16 @@ def check_bf16_kernels(torch, report):
                                f"{max_ulps:.3f} ulps of the output's scale "
                                f"(limit {BF16_FLASH_ULPS}), share differing "
                                f"{differ:.2e}")
+                    if lse_pair is not None:
+                        lk, lp = lse_pair()
+                        excess = float(((lk - lp).abs() - BF16_LSE_TOL
+                                        * (1 + lp.abs())).max())
+                        good = good and excess <= 0
+                        verdict += (f", lse max |diff| "
+                                    f"{float((lk - lp).abs().max()):.3e} "
+                                    f"(limit {BF16_LSE_TOL} + "
+                                    f"{BF16_LSE_TOL}·|lse|)")
+                        del lk, lp
                     row["rms_ratio"] = max(row["rms_ratio"], ratio)
                     del gap
                 elif level == "default":
@@ -2634,7 +2661,7 @@ def check_bf16_kernels(torch, report):
             split[by] += b
             if tl is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + tl
-            del run, plain, plain32, run32, library
+            del run, plain, plain32, run32, library, lse_pair
             torch.cuda.empty_cache()
         row["bound_by"] = max(split, key=split.get)
         log_sums(row_name, row, "its shapes")
@@ -2999,6 +3026,9 @@ def _bf16_launches_as_reckoned(tag, tr, name, counts, n_steps, needed):
 LOSS_FLOOR = 2.0 ** -8
 LOOSE_LOSS_FLOOR = 2.0 ** -6
 LOOSE_LOSS_KEYS = ("shift_loss", "d_weight", "disc_loss", "train_loss")
+# the CPU's thread counts over which phase 36 reads its bf16 references'
+# own spread, besides the host's
+SPREAD_THREADS = (1, 2, 4)
 
 
 def check_tiny_bf16_training(torch):
@@ -3008,22 +3038,23 @@ def check_tiny_bf16_training(torch):
     on the card (the bf16 kernels) and on the CPU (their plain versions),
     and at f32 on the CPU: the losses and the gradients of the trained
     modules held to the CPU's own bf16 - f32 gap. Each loss within
-    BF16_TINY_RATIO of its gap, the gap floored at a share of the loss:
+    BF16_TINY_RATIO of its gap, the gap floored at a share of the loss,
     LOSS_FLOOR (one bf16 ulp, 2^-8) for a plain mean (the MSEs, KL, the
     perceptual loss), LOOSE_LOSS_FLOOR (four ulps, 2^-6) for the keys of
-    LOOSE_LOSS_KEYS. A loss is a mean of bf16 outputs whose errors may
+    LOOSE_LOSS_KEYS, and at the bf16 reference's own spread: the same CPU
+    step at bf16 on SPREAD_THREADS threads and the host's, whose sums run
+    in other orders. A loss is a mean of bf16 outputs whose errors may
     cancel, so its bf16 - f32 gap can fall well below the difference of
     two bf16 runs, most of all for a loss of a difference (the shift
-    losses) or a ratio of gradient norms (the GAN weight, and so the
-    total it multiplies into). On an H100 the tiny AF-VAE's d_weight sits
-    1.5 % and SD text's shift loss 1.0 % off the CPU's (3.97 and 2.67 of a
-    2^-8 floor, 0.99 and 0.67 of 2^-6) while their gradients agree at 1.10
-    and 0.99 of their gap; the gradients' RMS difference, over all the
-    trained tensors of a trainer, within BF16_TINY_RATIO of their RMS gap,
-    and each tensor's within 2 BF16_TINY_RATIO of its own (floored at
-    1e-2 of the largest tensor's gap: the attention's to_k biases have a
-    gradient of zero in exact arithmetic); the card must launch the bf16
-    backward kernels and no f32 one."""
+    losses) or a ratio of gradient norms (the GAN weight d_weight, and so
+    the total it multiplies into): the tiny AF-VAE's d_weight at bf16
+    moves by per cents with the CPU's thread count alone. The gradients' RMS
+    difference, over all the trained tensors of a trainer (at the host's
+    thread count), within BF16_TINY_RATIO of their RMS gap, and each
+    tensor's within 2 BF16_TINY_RATIO of its own (floored at 1e-2 of the
+    largest tensor's gap: the attention's to_k biases have a gradient of
+    zero in exact arithmetic); the card must launch the bf16 backward
+    kernels and no f32 one."""
     import numpy as np
     from afldm_tpu_torch import kernels
     from afldm_tpu_torch import train as T
@@ -3033,41 +3064,28 @@ def check_tiny_bf16_training(torch):
     for b in batches.values():
         b["caption"] = np.array(["a red car", "a blue bird"])
         b["normal"] = b["input"][:, ::-1].copy()
+    host = torch.get_num_threads()
+    runs = [("cuda", "bf16", host), ("cpu", "bf16", host),
+            ("cpu", None, host),
+            *(("cpu", "bf16", t) for t in SPREAD_THREADS if t != host)]
     ok = True
     for name in ("ldm", "vae", *NEW_TRAINERS):
         res = {}
-        for dev, mp in (("cuda", "bf16"), ("cpu", "bf16"), ("cpu", None)):
-            if name == "ldm":
-                tr = _tiny_trainer(dev, mp)
-            elif name == "vae":
-                tr = _tiny_vae_trainer(dev, mp)
-            else:
-                tr = _tiny_new_trainer(torch, name, dev, mp)
-            batch = batches[128 if name == "vae" else 64]
-            if dev == "cuda":
-                kernels.reset_launch_counts()
-            if name == "vae":
-                x = torch.from_numpy(batch["input"]).permute(
-                    0, 3, 1, 2).contiguous().to(tr.device)
-                logs = tr.generator_backward(x, tr.draw(0, 2))
-                mods = {"vae": tr.vae}
-            else:
-                loss, logs = _trainer_loss(torch, tr, name, 0, batch)
-                loss.backward()
-                mods = _trainer_modules(tr)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                launched = dict(kernels.LAUNCHES)
-            res[(dev, mp)] = (
-                {k: float(v) for k, v in logs.items()},
-                {f"{m}.{n}": p.grad.detach().float().cpu()
-                 for m, mod in mods.items() for n, p in mod.named_parameters()
-                 if p.grad is not None})
-        (lc, gc), (lb, gb), (lf, gf) = (res[k] for k in (
-            ("cuda", "bf16"), ("cpu", "bf16"), ("cpu", None)))
+        for dev, mp, threads in runs:
+            torch.set_num_threads(threads)
+            try:
+                res[(dev, mp, threads)] = _tiny_bf16_step(
+                    torch, kernels, name, dev, mp, batches)
+            finally:
+                torch.set_num_threads(host)
+        (lc, gc, launched), (lb, gb, _), (lf, gf, _) = (
+            res[r] for r in runs[:3])
+        refs = {r[2]: res[r][0] for r in runs if r[:2] == ("cpu", "bf16")}
+        spread = {k: max(r[k] for r in refs.values())
+                  - min(r[k] for r in refs.values()) for k in lb}
         loss_ratios = {
             k: abs(lc[k] - lb[k]) / max(
-                abs(lb[k] - lf[k]), 1e-12, abs(lb[k]) * (
+                abs(lb[k] - lf[k]), spread[k], 1e-12, abs(lb[k]) * (
                     LOOSE_LOSS_FLOOR if k in LOOSE_LOSS_KEYS else LOSS_FLOOR))
             for k in lb}
         worst_key = max(loss_ratios, key=loss_ratios.get)
@@ -3094,8 +3112,13 @@ def check_tiny_bf16_training(torch):
             f"{json.dumps(lc)}; worst loss difference {worst_loss:.3f} of "
             f"the CPU's own bf16 - f32 gap at {worst_key} (limit "
             f"{BF16_TINY_RATIO}; CPU at bf16 {lb[worst_key]:.6g}, at f32 "
-            f"{lf[worst_key]:.6g}; each: "
+            f"{lf[worst_key]:.6g}, at bf16 on "
+            + ", ".join(f"{t} threads {r[worst_key]:.6g}"
+                        for t, r in refs.items())
+            + "; each: "
             + " ".join(f"{k} {v:.3f}" for k, v in loss_ratios.items())
+            + "; the bf16 references' spread, each: "
+            + " ".join(f"{k} {v:.6g}" for k, v in spread.items())
             + "); "
             f"gradients' RMS difference {ratio_all:.3f} of their RMS gap "
             f"(limit {BF16_TINY_RATIO}) over {len(gb)} tensors, worst "
@@ -3105,6 +3128,73 @@ def check_tiny_bf16_training(torch):
             f"launches {f32 or 'none'} {'ok' if good else 'FAIL'}")
         ok &= bool(good)
     return ok
+
+
+# phase 36's controls: faults that it must fail
+CONTROLS = ("f32_attention", "dk")
+
+
+@contextlib.contextmanager
+def planted_fault(control):
+    """One of CONTROLS planted in the attention: 'f32_attention' computes
+    the CPU's bf16 forward attention in f32, its output rounded once to
+    bf16 (the card keeps K3/bf16); 'dk' scales the card's bf16 dk (K4b's)
+    by 1.25."""
+    from afldm_tpu_torch.ops import attention as A
+    fwd, dkv = A.flash_fwd, A.flash_bwd_dkv
+
+    def f32_fwd(q, k, v, scale=None):
+        if q.device.type == "cpu" and A._all_bf16((q, k, v)):
+            out, lse = A._attention_plain(q.float(), k.float(), v.float(),
+                                          scale)
+            return out.to(q.dtype), lse
+        return fwd(q, k, v, scale)
+
+    def bad_dkv(*args, **kwargs):
+        dk, dv = dkv(*args, **kwargs)
+        return (dk * 1.25 if dk.is_cuda else dk), dv
+
+    if control == "f32_attention":
+        A.flash_fwd = f32_fwd
+    else:
+        A.flash_bwd_dkv = bad_dkv
+    try:
+        yield
+    finally:
+        A.flash_fwd, A.flash_bwd_dkv = fwd, dkv
+
+
+def _tiny_bf16_step(torch, kernels, name, dev, mp, batches):
+    """Phase 36's step of the tiny trainer ``name`` on ``dev`` at ``mp``:
+    (its logged losses, the gradients of its trained modules on the CPU,
+    the card's launch counts of the step or None on the CPU)."""
+    if name == "ldm":
+        tr = _tiny_trainer(dev, mp)
+    elif name == "vae":
+        tr = _tiny_vae_trainer(dev, mp)
+    else:
+        tr = _tiny_new_trainer(torch, name, dev, mp)
+    batch = batches[128 if name == "vae" else 64]
+    if dev == "cuda":
+        kernels.reset_launch_counts()
+    if name == "vae":
+        x = torch.from_numpy(batch["input"]).permute(
+            0, 3, 1, 2).contiguous().to(tr.device)
+        logs = tr.generator_backward(x, tr.draw(0, 2))
+        mods = {"vae": tr.vae}
+    else:
+        loss, logs = _trainer_loss(torch, tr, name, 0, batch)
+        loss.backward()
+        mods = _trainer_modules(tr)
+    launched = None
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        launched = dict(kernels.LAUNCHES)
+    return ({k: float(v) for k, v in logs.items()},
+            {f"{m}.{n}": p.grad.detach().float().cpu()
+             for m, mod in mods.items() for n, p in mod.named_parameters()
+             if p.grad is not None},
+            launched)
 
 
 def log_bf16_ratios(stats):
@@ -3348,6 +3438,9 @@ def main(argv=None):
     ap.add_argument("--bf16_interp_steps", type=int, default=10,
                     help="DDIM steps of the full-width FFHQ interp on a "
                          "bf16 pipeline (default 10)")
+    ap.add_argument("--control", choices=CONTROLS, default=None,
+                    help="run phase 36 alone with this fault planted and "
+                         "exit 0 only if it fails (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3379,6 +3472,12 @@ def main(argv=None):
             log(f"  ptxas {name} {fn}: {line}")
 
     set_af_precision("highest")
+    if args.control:
+        with planted_fault(args.control):
+            caught = not check_tiny_bf16_training(torch)
+        log(f"phase 36 with the {args.control} fault planted: "
+            + ("failed, as it must" if caught else "PASSED: FAIL"))
+        return 0 if caught else 1
     report = {k: dict(name=k, route=v["route"], source=v["source"],
                       replaces=v["replaces"], launches=0, max_abs_err=0.0,
                       ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,

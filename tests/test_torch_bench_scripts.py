@@ -83,7 +83,7 @@ def test_bench_attention_takes_the_kernel_tile(monkeypatch, tmp_path):
     monkeypatch.setattr(bench_attention, "SHAPES", [(1, 1, 64, 64, 8)])
     rows = bench_attention.main(["--device", "cpu", "--iters", "1",
                                  "--dtype", "bfloat16", "--block_q", "64",
-                                 "--block_k", "64",
+                                 "--block_k", "128",
                                  "--out", str(tmp_path / "r.jsonl")])
     assert rows[0]["dtype"] == "bfloat16"
 
@@ -148,9 +148,9 @@ def test_bench_flash_bwd_sweep_rows(tmp_path):
             "64", "--dim", "8", "--iters", "1", "--out", str(out)]
     rows = [bench_flash_bwd_sweep.main(argv + ["--dtype", dt])
             for dt in ("bf16", "f32", "bf16")]
-    for row, tile in zip(rows, (64, 128, 64)):
+    for row, tile in zip(rows, ((64, 128), (128, 64), (64, 128))):
         assert set(row) == _keys(BWD_JAX, added=["device"])
-        assert (row["bq"], row["bk"]) == (tile, 64) and _finite(row)
+        assert (row["bq"], row["bk"]) == tile and _finite(row)
         assert row["bwd_ms"] == pytest.approx(row["grad_ms"] - row["fwd_ms"])
     # one row a dtype: a rerun replaces its dtype's row, keeps the other's
     saved = json.loads(out.read_text())

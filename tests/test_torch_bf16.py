@@ -15,20 +15,22 @@ What is held, and how tightly:
   element in 8192 at K5 'highest'; the f32 sums run in XLA's order there,
   and at a level as test_torch_precision.py holds them at f32). An
   element that cancels to near zero may carry ATOL besides.
-- ``sdpa``, ``sdpa2`` and ``flash_fwd``'s plain path at bf16 against
-  ``sdpa_xla``, ``sdpa2_xla`` and ``_flash_3d`` in interpret mode: RMS of
-  the difference at most ATTN_RATIO of JAX's own bf16 - f32 RMS gap, max
-  2 bf16 ulps of the output's largest magnitude; ``_flash_3d``'s lse
-  within 1e-5. Its out rounds p unnormalised
-  and lies 1.2-1.4 times that gap from ``sdpa_xla``: the port follows
-  ``sdpa_xla`` and is held to ``_flash_3d``'s out only within
-  FLASH3D_RATIO of the gap (``test_flash_tiling_explains_the_kernel``
-  measures why).
+- ``sdpa``, ``sdpa2`` and ``flash_fwd``'s plain path at bf16 against the
+  JAX flash kernels in interpret mode (``sdpa_flash``, ``sdpa2_flash``,
+  ``_flash_3d``) with the port's key tile as their ``block_k``: RMS of the
+  difference at most ATTN_RATIO of JAX's own bf16 - f32 RMS gap, max 2
+  bf16 ulps of the output's largest magnitude; ``_flash_3d``'s lse within
+  1e-5. Both compute the TPU kernels' online softmax, which rounds p
+  unnormalised; ``sdpa_xla`` (the normalised p rounded) lies 1.0-1.6 times
+  that gap from it (``test_flash_tiling_explains_the_kernel``), and the
+  online form is the closer of the two to float32.
 - ResnetBlock2D, Attention, the AF up/downsamplers, the tiny UNet, the
   tiny AF-VAE (encode, decode) and the tiny protocol (2 steps, 2 shifts)
   at ``dtype=bfloat16`` against Flax's ``dtype=jnp.bfloat16``, compiled
   without XLA's excess precision and with the filtered activations in its
-  Pallas kernels' semantics (``_kernel_semantics``): RMS of the difference
+  Pallas kernels' semantics (``_kernel_semantics``: the filtered
+  activations, and the attention through ``sdpa_flash`` and
+  ``sdpa2_flash`` at the port's key tile): RMS of the difference
   at most the fraction in MODEL_RATIO of JAX's own bf16 - f32 RMS gap on
   the same inputs, and the port's own error against JAX at f32 at most
   ACCURACY of that gap; the protocol's PSNRs within PSNR_ATOL of JAX's at
@@ -60,11 +62,9 @@ from test_torch_harness import (jax_apply, jax_init, load_port, nchw, nhwc,
 torch.set_num_threads(1)
 
 BF = torch.bfloat16
-# attention's plain paths against sdpa_xla / sdpa2_xla, as a share of
+# attention's plain paths against the JAX flash kernels, as a share of
 # JAX's own bf16 - f32 RMS gap
 ATTN_RATIO = 0.05
-# the port's flash_fwd (sdpa_xla's semantics) against _flash_3d's out
-FLASH3D_RATIO = 1.6
 # the models against Flax at bf16, as a share of Flax's own bf16 - f32
 # RMS gap on the same inputs
 # RMS on the same inputs (blocks: 0.142 measured for the resnet block, 0
@@ -251,14 +251,24 @@ def _attn_close(got, want, want32):
     return ratio
 
 
+def _block_k(D):
+    """The port's bf16 key tile at head dim D, as JAX's ``block_k``."""
+    return TA.flash_bf16_key_tile(D)
+
+
 @pytest.mark.parametrize("shape", [(2, 2, 256, 40), (1, 3, 64, 24),
                                    (2, 1, 16, 8)])
 def test_sdpa_at_bf16_matches_sdpa_xla(shape):
+    """``sdpa`` at bf16 against ``sdpa_flash`` at bf16 in interpret mode
+    with the port's key tile (once ``sdpa_xla``, whose normalised p the
+    port's K3 rounded before it took the TPU kernel's function)."""
     rng = np.random.default_rng(3)
     q, k, v = _qkv(rng, shape)
+    bk = _block_k(shape[-1])
     jb = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)]
-    want = _f32(JA.sdpa_xla(*jb))
-    want32 = _f32(JA.sdpa_xla(*(jnp.asarray(t) for t in (q, k, v))))
+    want = _f32(JA.sdpa_flash(*jb, None, 1024, bk))
+    want32 = _f32(JA.sdpa_flash(*(jnp.asarray(t) for t in (q, k, v)), None,
+                                1024, bk))
     tb = [torch.from_numpy(t).to(BF) for t in (q, k, v)]
     got = TA.sdpa(*tb)
     assert got.dtype == BF
@@ -269,14 +279,17 @@ def test_sdpa_at_bf16_matches_sdpa_xla(shape):
 
 
 def test_sdpa2_at_bf16_matches_sdpa2_xla():
+    """``sdpa2`` at bf16 against ``sdpa2_flash`` at bf16 in interpret mode
+    with the port's key tile (once ``sdpa2_xla``)."""
     rng = np.random.default_rng(4)
     q, k0, v0, k1, v1 = _qkv(rng, (3, 2, 64, 24), 5)
     alpha = np.float32([0.0, 0.3, 1.0])[:, None, None]
+    bk = _block_k(24)
     jb = [jnp.asarray(t, jnp.bfloat16) for t in (q, k0, v0, k1, v1)]
-    want = _f32(JA.sdpa2_xla(*jb, jnp.asarray(alpha)))
-    want32 = _f32(JA.sdpa2_xla(*(jnp.asarray(t) for t in (q, k0, v0, k1,
-                                                           v1)),
-                               jnp.asarray(alpha)))
+    want = _f32(JA.sdpa2_flash(*jb, jnp.asarray(alpha), None, 512, bk))
+    want32 = _f32(JA.sdpa2_flash(*(jnp.asarray(t) for t in (q, k0, v0, k1,
+                                                             v1)),
+                                 jnp.asarray(alpha), None, 512, bk))
     tb = [torch.from_numpy(t).to(BF) for t in (q, k0, v0, k1, v1)]
     got = TA.sdpa2(*tb, torch.from_numpy(alpha))
     assert got.dtype == BF
@@ -285,26 +298,28 @@ def test_sdpa2_at_bf16_matches_sdpa2_xla():
 
 
 def test_flash_fwd_plain_against_flash_3d():
-    """lse equal to JAX's flash kernel's within 1e-5; out within
-    FLASH3D_RATIO of JAX's own gap (JAX's kernel rounds p unnormalised)."""
+    """``flash_fwd``'s plain path at bf16 against ``_flash_3d`` at the
+    port's key tile over two tiles: lse within 1e-5, out within ATTN_RATIO
+    and 2 ulps (was within 1.6 of the gap, when the port rounded p
+    normalised)."""
     rng = np.random.default_rng(5)
     q, k, v = _qkv(rng, (4, 256, 40))
     jb = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)]
-    jout, jlse = JA._flash_3d(*jb, 1 / math.sqrt(40), 512, 1024)
-    want32 = _f32(JA.sdpa_xla(*(jnp.asarray(t) for t in (q, k, v))))
+    jout, jlse = JA._flash_3d(*jb, 1 / math.sqrt(40), 512, _block_k(40))
+    want32 = _f32(JA._flash_3d(*(jnp.asarray(t) for t in (q, k, v)),
+                               1 / math.sqrt(40), 512, _block_k(40))[0])
     out, lse = TA.flash_fwd(*(torch.from_numpy(t).to(BF) for t in (q, k, v)))
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-5,
                                rtol=1e-6)
-    gap = _rms(_f32(jout) - want32)
-    assert _rms(_t32(out) - _f32(jout)) <= FLASH3D_RATIO * gap
+    _attn_close(_t32(out), _f32(jout), want32)
 
 
-def _tiles_emulation(q, k, v, bk=64, normalised=False):
+def _tiles_emulation(q, k, v, bk=128, normalised=False):
     """bf16 attention over ``bk``-key tiles in float32 (torch, bf16-valued
     inputs): an online softmax that rounds exp(s - running max) to bf16
-    (``normalised`` False, as a one-pass flash kernel would), or two passes
-    that first take the row max and sum, then round exp(s - m) / l (the
-    card's K3)."""
+    (``normalised`` False, the TPU kernel's and the port's K3), or two
+    passes that first take the row max and sum, then round exp(s - m) / l
+    (``sdpa_xla``'s rounding, which the port's K3 took before)."""
     s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if normalised:
         m = s.amax(-1, keepdim=True)
@@ -326,22 +341,27 @@ def _tiles_emulation(q, k, v, bk=64, normalised=False):
 
 @pytest.mark.parametrize("L,D", [(1024, 24), (256, 40)])
 def test_flash_tiling_explains_the_kernel(L, D):
-    """Rounding p before the row's max and sum are known moves the output
-    from ``sdpa_xla`` at bf16 by more than bf16's own error (RMS ratio
-    1.3 measured at both shapes); rounding the normalised p after a
-    statistics pass, the card's K3, stays within ATTN_RATIO. Hence K3's
-    two passes and chip_smoke's 0.1 ratio for it."""
+    """The online softmax at the port's key tile is ``_flash_3d`` at that
+    ``block_k`` (within ATTN_RATIO); rounding p before the row's max and
+    sum are known moves the output from ``sdpa_xla`` at bf16 by more than
+    bf16's own error (RMS ratio 1.3 measured at both shapes), while the
+    normalised two-pass rounding stays within ATTN_RATIO of it; and the
+    online form lies nearer float32 than ``sdpa_xla`` does (0.95 and 0.91
+    of its gap measured), within ACCURACY."""
     rng = np.random.default_rng(6)
     q, k, v = _qkv(rng, (2, L, D))
     jb = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)]
     want = _f32(JA.sdpa_xla(*jb))
-    gap = _rms(want - _f32(JA.sdpa_xla(*(jnp.asarray(t) for t in (q, k,
-                                                                   v)))))
+    f32 = _f32(JA.sdpa_xla(*(jnp.asarray(t) for t in (q, k, v))))
+    gap = _rms(want - f32)
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
-    online = _tiles_emulation(tq, tk, tv).to(BF).float().numpy()
+    online = _tiles_emulation(tq, tk, tv, _block_k(D)).to(BF).float().numpy()
     two_pass = _tiles_emulation(tq, tk, tv, normalised=True).to(BF).float()
+    kernel = _f32(JA._flash_3d(*jb, 1 / math.sqrt(D), 1024, _block_k(D))[0])
+    _attn_close(online, kernel, f32)
     assert 1.0 < _rms(online - want) / gap < 1.6
     assert _rms(two_pass.numpy() - want) / gap <= ATTN_RATIO
+    assert _rms(online - f32) <= ACCURACY * gap
 
 
 # -- the models at bf16 --------------------------------------------------------
@@ -359,7 +379,7 @@ def _exact(fn):
     return lambda *args: jax.jit(fn).lower(*args).compile(_NO_EXCESS)(*args)
 
 
-def _kernel_semantics(orig):
+def _filtered_act_semantics(orig):
     """The JAX models' filtered activation as its Pallas kernels compute a
     bf16 x (float32 inside, rounded once; ``filtered_act_pallas`` at bf16
     equals it, ``test_filtered_act_plain_at_bf16_matches_pallas``), which
@@ -376,11 +396,57 @@ def _kernel_semantics(orig):
     return fused
 
 
+def _jax_key_tile(D, Lk):
+    """JAX's ``block_k`` for the port's bf16 key tile at (D, Lk): one block
+    up to the tile, else the tile, which ``_pick_block`` must take."""
+    bk = TA.flash_bf16_key_tile(D)
+    if Lk > bk and JA._pick_block(Lk, bk) != bk:
+        raise ValueError(f"the JAX flash kernel cannot tile Lk={Lk} in the "
+                         f"port's {bk}-key tiles")
+    return bk
+
+
+def _attention_semantics(sdpa_orig, sdpa2_orig):
+    """The JAX models' attention at bf16 as the TPU kernels compute it,
+    which the port's K3 and K6 follow: ``sdpa_flash`` and ``sdpa2_flash``
+    in interpret mode with the port's key tile as ``block_k`` (one Q block)
+    wherever the port's ``sdpa`` and ``sdpa2`` take their kernels (D <= 256;
+    for ``sdpa2`` K/V sets of one shape). Elsewhere, and at f32, the JAX
+    dispatch as it is (``sdpa_xla`` on the CPU)."""
+    def sdpa(q, k, v, scale=None):
+        if q.dtype == jnp.bfloat16 and q.shape[-1] <= TA.FLASH_MAX_D:
+            return JA.sdpa_flash(q, k, v, scale, q.shape[-2],
+                                 _jax_key_tile(q.shape[-1], k.shape[-2]))
+        return sdpa_orig(q, k, v, scale)
+
+    def sdpa2(q, k0, v0, k1, v1, alpha, scale=None):
+        if (q.dtype == jnp.bfloat16 and q.shape[-1] <= TA.FLASH_MAX_D
+                and k0.shape == k1.shape):
+            return JA.sdpa2_flash(q, k0, v0, k1, v1, alpha, scale,
+                                  q.shape[-2],
+                                  _jax_key_tile(q.shape[-1], k0.shape[-2]))
+        return sdpa2_orig(q, k0, v0, k1, v1, alpha, scale)
+    return sdpa, sdpa2
+
+
+def _kernel_semantics(setattr_=setattr):
+    """Sets the JAX models' filtered activation (``_filtered_act_semantics``)
+    and attention (``_attention_semantics``) to their Pallas kernels' bf16
+    semantics, through ``setattr_``: monkeypatch's in a test, the builtin
+    in a subprocess of its own."""
+    import afldm_tpu.models.attention_blocks as jblocks
+    import afldm_tpu.models.layers as jlayers
+    setattr_(jlayers, "filtered_act_fused",
+             _filtered_act_semantics(jlayers.filtered_act_fused))
+    sdpa, sdpa2 = _attention_semantics(jlayers.sdpa, jlayers.sdpa2)
+    setattr_(jlayers, "sdpa", sdpa)
+    setattr_(jlayers, "sdpa2", sdpa2)
+    setattr_(jblocks, "sdpa", sdpa)
+
+
 @pytest.fixture
 def kernel_semantics(monkeypatch):
-    import afldm_tpu.models.layers as jlayers
-    monkeypatch.setattr(jlayers, "filtered_act_fused",
-                        _kernel_semantics(jlayers.filtered_act_fused))
+    _kernel_semantics(monkeypatch.setattr)
 
 
 def _randomize(params, seed=1):
@@ -429,7 +495,7 @@ def test_resnet_block_at_bf16(kernel_semantics):
     assert all(q.dtype == torch.float32 for q in tm.parameters())
 
 
-def test_attention_at_bf16():
+def test_attention_at_bf16(kernel_semantics):
     rng = np.random.default_rng(8)
     x, ref = rand(rng, (3, 4, 4, 16)), rand(rng, (1, 4, 4, 16))
     jb, j32 = _pair(J.Attention, num_heads=2, groups=4)
@@ -525,10 +591,9 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 sys.path[:0] = [{tests!r}, {repo!r}]
-import afldm_tpu.models.layers as jlayers
 from test_torch_bf16 import _kernel_semantics, _tiny_jax
 from test_torch_harness import rand
-jlayers.filtered_act_fused = _kernel_semantics(jlayers.filtered_act_fused)
+_kernel_semantics()
 from afldm_tpu.pipelines import LDMPipeline, shift_equivariance_eval
 from afldm_tpu.schedulers import DDIMScheduler
 t = _tiny_jax()

@@ -12,15 +12,16 @@ What is held, and how tightly:
   magnitude. Both round ds (and p for dv) to bf16 before the second
   product and the gradients once; they differ by f32 sum orders, which
   flip a bf16 rounding now and then.
-- The whole bf16 VJP, ``sdpa`` through autograd, against JAX's flash VJP
-  (``_sdpa_bwd``: delta from the forward's out, then ``_flash_bwd_3d``)
-  given the forward the port computes (``sdpa_xla``'s out, ``_flash_3d``'s
-  lse): within ATTN_RATIO of JAX's own gap, as above. Against
-  ``jax.vjp`` of ``sdpa_flash`` itself (and ``sdpa2`` against
-  ``sdpa2_flash``) the forwards differ too: ``_flash_3d`` rounds p
-  unnormalised, the port's K3 after normalising (test_torch_bf16.py), and
-  that moves delta = rowsum(dO·O) and with it every ds; measured 0.80-1.00
-  of JAX's own gap, held to VJP_RATIO.
+- The whole bf16 VJP, ``sdpa`` through autograd, against ``jax.vjp`` of
+  ``sdpa_flash`` at the port's key tile (``flash_vjp``: JAX's flash
+  forward, the function the port's K3 computes, then ``_sdpa_bwd``: delta
+  from that forward's out, then ``_flash_bwd_3d``): within ATTN_RATIO of
+  JAX's own gap, as above (once ``sdpa_xla``'s forward with JAX's flash
+  VJP, when the port's K3 rounded p normalised). Against ``jax.vjp`` of
+  ``sdpa_flash`` at its default blocks (one 1024-key block; ``sdpa2``
+  against ``sdpa2_flash``) the forwards round p at other running maxima
+  where Lk exceeds the port's tile, which moves delta = rowsum(dO·O) and
+  with it every ds: held to VJP_RATIO.
 - K/V expanded from one image (the CFA LOAD batch): both packages form
   one bf16 dk and dv per leading index (the kernels write them dense) and
   sum them over the batch, in another order: the port's autograd in
@@ -58,16 +59,16 @@ from afldm_tpu.ops.pallas_kernels import filtered_act_pallas
 from afldm_tpu_torch.ops import attention as TA
 from afldm_tpu_torch.ops import filtered_act as TF
 from afldm_tpu_torch.ops import ideal_lpf as TL
-from test_torch_bf16 import (ATOL, ATTN_RATIO, _bf16, _f32, _rms,
-                             _scale_ulp, _t32, _ulps)
+from test_torch_bf16 import (ATOL, ATTN_RATIO, _bf16, _f32, _jax_key_tile,
+                             _rms, _scale_ulp, _t32, _ulps)
 from test_torch_harness import nchw, nhwc, rand
 
 torch.set_num_threads(1)
 
 BF = torch.bfloat16
-# the whole VJP against jax.vjp(sdpa_flash) at bf16, whose forward rounds
-# p unnormalised (test_torch_bf16.py), as a share of JAX's own bf16 - f32
-# gap (measured 0.80-1.00)
+# the whole VJP against jax.vjp(sdpa_flash) at bf16 and its default
+# blocks, whose key tile may differ from the port's, as a share of JAX's
+# own bf16 - f32 gap
 VJP_RATIO = 1.25
 
 
@@ -123,23 +124,11 @@ def test_flash_bwd_plain_at_bf16_matches_flash_bwd_3d(shape):
         _attn_close(_t32(got), _f32(w), _f32(w32))
 
 
-@jax.custom_vjp
-def _xla_forward_flash_vjp(q, k, v):
-    """``sdpa_xla`` forward (the port's K3 semantics) with JAX's flash VJP
-    (``_sdpa_bwd``) on its out and ``_flash_3d``'s lse."""
-    return JA.sdpa_xla(q, k, v)
-
-
-def _xla_forward_res(q, k, v):
-    out = JA.sdpa_xla(q, k, v)
-    Lq, D = q.shape[-2:]
-    q3, k3, v3 = (t.reshape((-1,) + t.shape[-2:]) for t in (q, k, v))
-    _, lse = JA._flash_3d(q3, k3, v3, 1.0 / np.sqrt(D), 1024, 1024)
-    return out, (q3, k3, v3, out.reshape(-1, Lq, D), lse, q.shape[:-2])
-
-
-_xla_forward_flash_vjp.defvjp(
-    _xla_forward_res, lambda res, g: JA._sdpa_bwd(None, 1024, 1024, res, g))
+def _port_tiled_flash(q, k, v):
+    """``sdpa_flash`` with the port's key tile as its ``block_k`` (one Q
+    block): the forward the port computes, and JAX's flash VJP on it."""
+    return JA.sdpa_flash(q, k, v, None, q.shape[-2],
+                         _jax_key_tile(q.shape[-1], k.shape[-2]))
 
 
 def _jax_vjp(q, k, v, do, nkv, attn=JA.sdpa_flash):
@@ -160,10 +149,10 @@ def _jax_vjp(q, k, v, do, nkv, attn=JA.sdpa_flash):
 @pytest.mark.parametrize("shape", BWD_SHAPES, ids=BWD_IDS)
 def test_sdpa_bf16_gradient_matches_jax_vjp(shape, ref):
     """sdpa at bf16 through autograd (the flash Function: the plain
-    forward, then K4a and K4b's plain versions) against JAX's flash VJP on
-    the port's forward (``flash_vjp``) and ``jax.vjp`` of ``sdpa_flash``
-    at bf16; K/V per leading index or expanded from one image (each
-    leading index's dk and dv summed by autograd)."""
+    forward, then K4a and K4b's plain versions) against ``jax.vjp`` of
+    ``sdpa_flash`` at bf16 at the port's key tile (``flash_vjp``) and at
+    its default blocks; K/V per leading index or expanded from one image
+    (each leading index's dk and dv summed by autograd)."""
     B, H, Lq, Lk, D, nkv = shape
     q, k, v, do = _qkv(shape, 1)
     if nkv == 1 and B > 1:  # one image's K/V for every leading index
@@ -172,8 +161,7 @@ def test_sdpa_bf16_gradient_matches_jax_vjp(shape, ref):
     jq, jk, jv, jdo = (shp(jnp.asarray(t), n) for t, n in
                        ((q, B), (k, k.shape[0] // H), (v, v.shape[0] // H),
                         (do, B)))
-    attn = (_xla_forward_flash_vjp if ref == "flash_vjp"
-            else JA.sdpa_flash)
+    attn = _port_tiled_flash if ref == "flash_vjp" else JA.sdpa_flash
     ratio = ATTN_RATIO if ref == "flash_vjp" else VJP_RATIO
     want = _jax_vjp(*(t.astype(jnp.bfloat16) for t in (jq, jk, jv, jdo)),
                     nkv, attn)

@@ -4,7 +4,7 @@ one step of each of the five trainers at ``mixed_precision="bf16"``
 against the JAX trainer given the same draws and the same start.
 
 The JAX side compiles without XLA's excess precision and with its
-filtered activations in the Pallas kernels' bf16 semantics
+filtered activations and attention in the Pallas kernels' bf16 semantics
 (test_torch_bf16.py's ``_exact`` and ``_kernel_semantics``; for a trainer
 its step function is lowered again with that option). Its draws are
 reproduced from ``fold_in(PRNGKey(seed), step)`` in the dtype the JAX
@@ -59,7 +59,6 @@ import optax
 import pytest
 import torch
 
-import afldm_tpu.models.layers as jlayers
 from afldm_tpu import models as J
 from afldm_tpu.train import (SyntheticDataset as JaxSynthetic,
                              create_trainer as jax_create_trainer,
@@ -458,8 +457,7 @@ def runs(batch, tmp_path_factory):
     specs = _specs()
     tmps = {name: tmp_path_factory.mktemp(name) for name in specs}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jlayers, "filtered_act_fused",
-                   _kernel_semantics(jlayers.filtered_act_fused))
+        _kernel_semantics(mp.setattr)
         with ThreadPoolExecutor(len(specs)) as ex:
             jax_runs = {name: ex.submit(_jax_step, spec, tmps[name], batch)
                         for name, spec in specs.items()}

@@ -98,10 +98,16 @@ def test_backward_configures_every_padded_head_dim():
         assert absent not in bwd.lower(), absent
 
 
+def _fwd_cfgs(src):
+    """{DP: BK} of the bf16 forward tile loop's table (FwdCfg)."""
+    return {int(dp): int(bk) for dp, bk in re.findall(
+        r"struct FwdCfg<(\d+)> : FwdMma<\1, (\d+)>", src)}
+
+
 def test_q_tile_matches_the_tile_loop():
     """``flash_probes.q_tile`` (the sweep's recorded Q tile) is the BQ of
     each FlashCfg: (threads / column groups) row groups of 4 rows; at bf16
-    MmaCfg's 16 rows a warp."""
+    FwdCfg's and MmaCfg's 16 rows a warp."""
     import torch
     from afldm_tpu_torch.ops.flash_probes import q_tile
     src = (kernels.CSRC / "flash_tile.cuh").read_text()
@@ -110,11 +116,25 @@ def test_q_tile_matches_the_tile_loop():
     assert len(cfgs) == 8
     for dp, threads, tc in cfgs:
         assert q_tile(int(dp)) == int(threads) // int(tc) * 4, dp
-    mma = src[src.index("struct MmaCfg {"):]
-    warps = int(re.search(r"kWarps = (\d+);", mma).group(1))
-    assert "BQ = 16 * kWarps;" in mma
-    for d in (8, 80, 256):
-        assert q_tile(d, torch.bfloat16) == 16 * warps
+    for cfg in ("struct FwdMma {", "struct MmaCfg {"):
+        body = src[src.index(cfg):]
+        warps = int(re.search(r"kWarps = (\d+);", body).group(1))
+        assert "BQ = 16 * kWarps;" in body
+        for d in (8, 80, 256):
+            assert q_tile(d, torch.bfloat16) == 16 * warps, (cfg, d)
+
+
+def test_bf16_key_tile_matches_the_tile_loop():
+    """``ops.attention.flash_bf16_key_tile`` (the plain versions' tile) is
+    FwdCfg's BK at every instantiated DP and every D padded to it, and the
+    table covers exactly the DPs ``with_dp_mma`` dispatches."""
+    from afldm_tpu_torch.ops.attention import flash_bf16_key_tile
+    src = (kernels.CSRC / "flash_tile.cuh").read_text()
+    table = _fwd_cfgs(src)
+    assert sorted(table) == _dispatched(src, "with_dp_mma")
+    for d in range(1, 257):
+        dp = min(p for p in table if p >= d)
+        assert flash_bf16_key_tile(d) == table[dp], d
 
 
 @pytest.mark.parametrize("where", ["root", "elsewhere"])
@@ -284,27 +304,57 @@ def test_every_bf16_variant_has_launch_counts():
 
 
 def test_flash_bf16_kernels_on_the_mma_tile_loop():
-    """K3's and K6's bf16 kernels run flash_tile.cuh's bf16 tile loop
-    (mma_attend: the statistics pass and the P·V pass on mma.sync bf16,
-    V through ldmatrix.trans), K6's twice over one staged Q tile, and
-    dispatch D through with_dp_mma; no wgmma, no TF32."""
+    """K3's and K6's bf16 kernels run flash_tile.cuh's bf16 forward tile
+    loop (fwd_walk: the scores and P·V on mma.sync bf16, V through
+    ldmatrix.trans, P from the score registers) with the online softmax,
+    K6's once a K/V set over one staged Q tile, P1's with the identity;
+    all dispatch D through with_dp_mma onto FwdCfg; no wgmma, no TF32."""
     tile = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_tile.cuh")
                   .read_text())
-    body = tile[tile.index("void mma_attend("):]
-    body = body[:body.index("\n}\n")]
-    pv = tile[tile.index("void mma_pv_pass("):]
-    pv = pv[:pv.index("\n}\n")]
-    # the statistics pass, then the P·V pass (mma_pv_pass)
-    assert body.count("mma_scores<C>(") == 1 and "mma_pv_pass<C>(" in body
-    assert "ldsm_x4_t(" in pv and pv.count("mma_scores<C>(") == 1
-    for name, n in (("flash_fwd", 1), ("flash2_fwd", 2)):
+    walk = _kernel_body(tile, "fwd_walk")
+    assert walk.count("mma_scores<C>(") == 1
+    assert "body.update(" in walk and "ldsm_x4_t(" in walk
+    assert "mma_attend" not in tile and "mma_pv_pass" not in tile
+    for name, n, body in (("flash_fwd", 1, "OnlineSoftmax<C>"),
+                          ("flash2_fwd", 2, "OnlineSoftmax<C>"),
+                          ("flash_probe", 1, "IdentityP<C>")):
         src = re.sub(r"//[^\n]*", "", (kernels.CSRC / f"{name}.cu")
                      .read_text())
-        k = _kernel_body(src, f"{name}_bf16_kernel")
-        assert k.count("mma_attend<C>(") == n, name
-        assert src.count("with_dp_mma(D,") == 1
+        kname = ("probe_dots_bf16_kernel" if name == "flash_probe"
+                 else f"{name}_bf16_kernel")
+        k = _kernel_body(src, kname)
+        assert k.count("fwd_walk<C>(") == n and body in k, name
+        assert ("FwdCfg<" if name == "flash_probe" else "with_fwd_cfg<") \
+            in src, name
         for absent in ("wgmma", "tf32"):
             assert absent not in src.lower(), absent
+    for name in ("flash_fwd", "flash2_fwd"):
+        src = re.sub(r"//[^\n]*", "", (kernels.CSRC / f"{name}.cu")
+                     .read_text())
+        assert src.count("with_dp_mma(D,") == 1
+
+
+def test_bf16_forward_walks_k_once():
+    """The bf16 forward's only staging of K and V is fwd_walk's ring: one
+    loop over the key tiles a set, each tile staged once (K_j and V_j in
+    one stage) and one barrier a tile; the online softmax takes its row
+    max, sum and rescale inside that loop (no statistics pass)."""
+    tile = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_tile.cuh")
+                  .read_text())
+    walk = _kernel_body(tile, "fwd_walk")
+    assert walk.count("for (int j = 0; j < n; ++j)") == 1
+    assert walk.count("stage_rows_bf16<C, C::BK>(") == 2  # K_j and V_j
+    assert walk.count("__syncthreads()") == 2  # a tile's, and the exit's
+    update = _kernel_body(tile[tile.index("struct OnlineSoftmax"):], "update")
+    assert "ex2_approx(fmaf(" in update and "expf(" not in update
+    for name in ("flash_fwd", "flash2_fwd", "flash_probe"):
+        src = re.sub(r"//[^\n]*", "", (kernels.CSRC / f"{name}.cu")
+                     .read_text())
+        k = _kernel_body(src, "probe_dots_bf16_kernel" if name ==
+                         "flash_probe" else f"{name}_bf16_kernel")
+        # Q is the kernel's only staging; K and V come through fwd_walk
+        assert k.count("stage_rows_bf16<") == 1 and "for (" not in \
+            k.split("fwd_walk<C>(")[0], name
 
 
 def test_every_level_variant_has_launch_counts():
@@ -460,8 +510,8 @@ def test_bf16_backward_entries_match_their_twins(source, name):
 def test_bf16_probe_entries_match_their_twins(name):
     """P1's and P2's bf16 entries: in flash_probe.cu with bf16 q, k, v and
     out, a ctypes signature equal to the f32 twin's, a launch counter
-    beside the twin's, and the bf16 tile loop's staging (P1 also its P·V
-    pass); no library call inside."""
+    beside the twin's, and the bf16 tile loop's staging (P1 also the bf16
+    forward's walk, fwd_walk); no library call inside."""
     src = (kernels.CSRC / "flash_probe.cu").read_text()
     entries = _entry_points(src)
     twin = name.replace("_bf16", "_f32")
@@ -474,7 +524,7 @@ def test_bf16_probe_entries_match_their_twins(name):
     params = re.search(rf'extern "C" int {name}\(([^)]*)\)', code).group(1)
     assert [p.split("*")[0].split()[-1] for p in params.split(",")[:4]] == [
         "bf16"] * 4
-    for piece in ("stage_rows_bf16", "launch_mma_tiles", "mma_pv_pass"):
+    for piece in ("stage_rows_bf16", "launch_mma_tiles", "fwd_walk<C>("):
         assert piece in code, piece
     for absent in ("cublas", "torch", "wgmma"):
         assert absent not in code.lower(), absent

@@ -16,6 +16,8 @@ that scale floored at 1e-4 of the largest gradient of all (the to_k biases'
 exact gradient is 0, so both devices compute rounding noise there).
 """
 
+import zlib
+
 import pytest
 import torch
 
@@ -1077,10 +1079,15 @@ def test_level_functions_keep_the_forward_level(cuda, shape):
 # H100); at 'default', where each f32
 # intermediate is cut to its bf16 hi piece, as its f32 twin is held
 # (assert_level_close on the bf16 outputs). Attention at bf16 agrees with its
-# plain version (sdpa_xla's semantics) when the RMS of their difference is
-# at most 0.1 of bf16's own error (plain at bf16 against the f32 plain on
-# the same values) and no element is more than 4 bf16 ulps of the output's
-# largest magnitude off.
+# plain version (the online softmax of flash_fwd_plain and flash2_fwd_plain;
+# the JAX kernels' roundings for the backward) when, over ATTN_DRAWS seeded
+# draws of a case, the 90th percentile of the RMS of their difference is at
+# most 0.1 of bf16's own error (plain at bf16 against the f32 plain on the
+# same values) and no element of any draw is more than 4 bf16 ulps of the
+# output's largest magnitude off. One draw at a time would not do: at
+# (1, 2, 64, 200, 8) a single flipped rounding of one of 1024 outputs lifts
+# K3/bf16's ratio past 0.1 on 7 of 200 draws on an H100 (p90 0.037), so one
+# fixed draw would only say whether it happened to land there.
 BF = torch.bfloat16
 
 
@@ -1192,11 +1199,21 @@ def test_bf16_filtered_backward_launches_its_kernel(cuda):
                           atol=1e-4)
 
 
-def _attn_bwd_bf16_inputs(cuda, B, H, Lq, Lk, D, nkv):
-    q = torch.randn(B, H, Lq, D, device=cuda).to(BF)
-    k, v = (torch.randn(nkv, H, Lk, D, device=cuda).to(BF)
+def _seeded(cuda, case):
+    """A generator on the card seeded from the case's parameters, so that a
+    ``-k`` subset draws what the whole run draws."""
+    return torch.Generator(cuda).manual_seed(zlib.crc32(repr(case).encode()))
+
+
+# seeded draws a bf16 attention case
+ATTN_DRAWS = 32
+
+
+def _attn_bwd_bf16_inputs(cuda, g, B, H, Lq, Lk, D, nkv):
+    q = torch.randn(B, H, Lq, D, device=cuda, generator=g).to(BF)
+    k, v = (torch.randn(nkv, H, Lk, D, device=cuda, generator=g).to(BF)
             .expand(B, -1, -1, -1) for _ in range(2))
-    do = torch.randn(B, H, Lq, D, device=cuda).to(BF)
+    do = torch.randn(B, H, Lq, D, device=cuda, generator=g).to(BF)
     out, lse = TA._attention_plain(q, k, v)
     return q, k, v, out, lse, do
 
@@ -1214,20 +1231,26 @@ BF16_BWD_SHAPES = [  # (B, H, Lq, Lk, D, K/V batch)
 @pytest.mark.parametrize("shape", BF16_BWD_SHAPES)
 def test_flash_bwd_bf16_matches_plain(cuda, shape):
     """K4a and K4b at bf16 against their plain versions (the JAX kernels'
-    roundings), to the forward's criteria: RMS within 0.1 of bf16's own
-    error, max within 4 ulps of the output's scale."""
-    q, k, v, out, lse, do = _attn_bwd_bf16_inputs(cuda, *shape)
-    delta = TA._delta(do, out)
-    dq = _launches("flash_bwd_dq/bf16",
-                   lambda: TA.flash_bwd_dq(q, k, v, do, lse, delta))
-    dk, dv = _launches("flash_bwd_dkv/bf16",
-                       lambda: TA.flash_bwd_dkv(q, k, v, do, lse, delta))
-    want = TA._attention_bwd_plain(q, k, v, out, lse, do)
-    want32 = TA._attention_bwd_plain(q.float(), k.float(), v.float(),
-                                     out.float(), lse, do.float())
-    for got, ref, ref32 in zip((dq, dk, dv), want, want32):
-        assert got.shape == ref.shape
-        assert_attn_bf16_close(got, ref, ref32)
+    roundings), to the forward's criteria over ATTN_DRAWS seeded draws:
+    the RMS ratio's p90 within 0.1 of bf16's own error, every max within 4
+    ulps of the output's scale; dq, dk and dv each."""
+    g = _seeded(cuda, shape)
+    draws = ([], [], [])
+    for _ in range(ATTN_DRAWS):
+        q, k, v, out, lse, do = _attn_bwd_bf16_inputs(cuda, g, *shape)
+        delta = TA._delta(do, out)
+        dq = _launches("flash_bwd_dq/bf16",
+                       lambda: TA.flash_bwd_dq(q, k, v, do, lse, delta))
+        dk, dv = _launches("flash_bwd_dkv/bf16",
+                           lambda: TA.flash_bwd_dkv(q, k, v, do, lse, delta))
+        want = TA._attention_bwd_plain(q, k, v, out, lse, do)
+        want32 = TA._attention_bwd_plain(q.float(), k.float(), v.float(),
+                                         out.float(), lse, do.float())
+        for d, got, ref, ref32 in zip(draws, (dq, dk, dv), want, want32):
+            assert got.shape == ref.shape
+            d.append((got, ref, ref32))
+    for d in draws:
+        assert_attn_bf16_close(d)
 
 
 @pytest.mark.cuda
@@ -1257,30 +1280,56 @@ def test_bf16_attention_backward_launches_its_kernels(cuda):
         assert all(torch.isfinite(t.grad.float()).all() for t in (q, kv[0]))
 
 
-def assert_attn_bf16_close(got, want, want32):
-    assert got.dtype == want.dtype == BF
-    d = (got.float() - want.float())
-    gap = _rms(want.float() - want32.float())
-    assert _rms(d) <= 0.1 * gap, (_rms(d), gap)
-    _, e = torch.frexp(want.float().abs().max())
-    assert float(d.abs().max()) <= 4 * 2.0 ** (int(e) - 8)
+def assert_attn_bf16_close(draws):
+    """``draws``: (kernel, plain, the f32 plain) of each draw of a case."""
+    ratios = []
+    for got, want, want32 in draws:
+        assert got.dtype == want.dtype == BF
+        d = (got.float() - want.float())
+        ratios.append(_rms(d) / _rms(want.float() - want32.float()))
+        _, e = torch.frexp(want.float().abs().max())
+        assert float(d.abs().max()) <= 4 * 2.0 ** (int(e) - 8)
+    p90 = float(torch.tensor(ratios).quantile(0.9))
+    assert p90 <= 0.1, (p90, max(ratios))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,L,Lk,d,n_kv", [
     (2, 8, 1024, 1024, 24, 1), (2, 2, 4, 4, 24, 2), (2, 3, 100, 77, 33, 1),
     (1, 2, 64, 200, 8, 1), (2, 2, 130, 130, 80, 2), (1, 2, 256, 256, 40, 1),
-    (1, 1, 70, 64, 256, 1), (2, 2, 64, 64, 160, 2)])
+    (1, 1, 70, 64, 256, 1), (2, 2, 64, 64, 160, 2),
+    # K/V expanded from one image (stride 0) over ragged key tiles; all 64
+    # keys in one 64-key tile (with_fwd_cfg)
+    (3, 2, 256, 200, 40, 1), (2, 2, 77, 300, 160, 1), (2, 2, 100, 64, 40, 1)])
 def test_flash_bf16_matches_plain(cuda, n, h, L, Lk, d, n_kv):
-    q = torch.randn(n, h, L, d, device=cuda).to(BF)
-    k, v = (torch.randn(n_kv, h, Lk, d, device=cuda).to(BF)
-            .expand(n, -1, -1, -1) for _ in range(2))
-    out, lse = _launches("flash_fwd/bf16", lambda: TA.flash_fwd(q, k, v))
-    want, want_lse = TA._attention_plain(q, k, v)
-    assert lse.dtype == torch.float32
-    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
-    assert_attn_bf16_close(out, want, TA._attention_plain(
-        q.float(), k.float(), v.float())[0])
+    """K3/bf16 against ``flash_fwd_plain`` (the online softmax at the
+    kernel's key tile) on ATTN_DRAWS seeded draws: out to the criteria
+    above, every lse within 1e-5."""
+    g = _seeded(cuda, (n, h, L, Lk, d, n_kv))
+    draws = []
+    for _ in range(ATTN_DRAWS):
+        q = torch.randn(n, h, L, d, device=cuda, generator=g).to(BF)
+        k, v = (torch.randn(n_kv, h, Lk, d, device=cuda, generator=g).to(BF)
+                .expand(n, -1, -1, -1) for _ in range(2))
+        out, lse = _launches("flash_fwd/bf16", lambda: TA.flash_fwd(q, k, v))
+        want, want_lse = TA.flash_fwd_plain(q, k, v)
+        assert lse.dtype == torch.float32
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+        draws.append((out, want, TA._attention_plain(
+            q.float(), k.float(), v.float())[0]))
+    assert_attn_bf16_close(draws)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernels_refuse_a_non_positive_scale(cuda):
+    """The bf16 kernels take the row max over the raw scores, which needs a
+    positive scale: the wrappers raise before a launch."""
+    q, k, v = (torch.randn(1, 2, 64, 24, device=cuda).to(BF)
+               for _ in range(3))
+    with pytest.raises(ValueError, match="positive scale"):
+        TA.flash_fwd(q, k, v, -0.2)
+    with pytest.raises(ValueError, match="positive scale"):
+        TA.flash2_fwd(q, k, v, k, v, 0.5, 0.0)
 
 
 @pytest.mark.cuda
@@ -1331,14 +1380,24 @@ def test_flash_probes_bf16_scalar_and_strided_staging(cuda, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,L,d", [(17, 8, 1024, 24), (3, 32, 4, 24),
-                                     (2, 2, 100, 40)])
-def test_flash2_bf16_matches_plain(cuda, n, h, L, d):
-    q = torch.randn(n, h, L, d, device=cuda).to(BF)
-    kv = [torch.randn(1, h, L, d, device=cuda).to(BF).expand(n, -1, -1, -1)
-          for _ in range(4)]
-    alpha = torch.linspace(0, 1, n, device=cuda)[:, None, None]
-    got = _launches("flash2_fwd/bf16", lambda: TA.flash2_fwd(q, *kv, alpha))
-    assert_attn_bf16_close(got, TA.sdpa2_eager(q, *kv, alpha),
-                           TA.sdpa2_eager(q.float(),
-                                          *(t.float() for t in kv), alpha))
+@pytest.mark.parametrize("alpha", ["per frame", 0.0, 0.3, 1.0])
+@pytest.mark.parametrize("n,h,L,d,n_kv", [
+    (17, 8, 1024, 24, 1), (3, 32, 4, 24, 1), (2, 2, 100, 40, 1),
+    (2, 2, 300, 160, 2), (3, 2, 200, 80, 3)])
+def test_flash2_bf16_matches_plain(cuda, n, h, L, d, n_kv, alpha):
+    """K6/bf16 against ``flash2_fwd_plain`` (two online states, one
+    rounding after the blend) on ATTN_DRAWS seeded draws, one alpha per
+    frame or a scalar; K/V expanded from one image (stride 0) where n_kv
+    is 1."""
+    g = _seeded(cuda, (n, h, L, d, n_kv, alpha))
+    a = (torch.linspace(0, 1, n, device=cuda)[:, None, None]
+         if alpha == "per frame" else alpha)
+    draws = []
+    for _ in range(ATTN_DRAWS):
+        q = torch.randn(n, h, L, d, device=cuda, generator=g).to(BF)
+        kv = [torch.randn(n_kv, h, L, d, device=cuda, generator=g).to(BF)
+              .expand(n, -1, -1, -1) for _ in range(4)]
+        got = _launches("flash2_fwd/bf16", lambda: TA.flash2_fwd(q, *kv, a))
+        draws.append((got, TA.flash2_fwd_plain(q, *kv, a),
+                      TA.sdpa2_eager(q.float(), *(t.float() for t in kv), a)))
+    assert_attn_bf16_close(draws)
