@@ -30,7 +30,9 @@ LAUNCHES = {"filtered_act_plane": 0, "filtered_act_banded": 0,
             "flash_fwd": 0, "filtered_act_plane_bwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "filtered_act_banded_bwd": 0,
             "flash2_fwd": 0, "flash_probe_dots": 0,
-            "flash_probe_stream": 0, "filtered_gemm": 0}
+            "flash_probe_stream": 0, "filtered_gemm": 0,
+            # the split bf16 K4b's reduction of its f32 partials
+            "flash_bwd_dkv_reduce": 0}
 # the bf16 tensor-core variants of the filtered activation's kernels, one
 # count per reduced precision level ("filtered_act_plane:high", ...)
 LEVEL_KERNELS = ("filtered_act_plane", "filtered_act_banded",
@@ -136,6 +138,12 @@ _SIGNATURES = {
                               _I, *[_L] * 12, _F, _P],
         "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, *[_L] * 12, _F, _P],
+        # the split dkv: q, k, v, dO, lse, delta, the f32 partials, B1, B2,
+        # Lq, Lk, D, the strides, scale, splits, stream
+        "flash_bwd_dkv_bf16_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, *[_L] * 12, _F, _I, _P],
+        # the partials, bf16 dk and dv, 2·B1·B2·Lk·D, splits, stream
+        "flash_bwd_dkv_reduce": [_P, _P, _L, _I, _P],
     },
     "flash2_fwd": {
         # q, k0, v0, k1, v1, alpha, out, B1, B2, Lq, Lk, D,

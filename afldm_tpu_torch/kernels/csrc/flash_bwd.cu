@@ -41,14 +41,21 @@
 //
 // bf16 q, k, v and dO (flash_bwd_dq_bf16, flash_bwd_dkv_bf16; the JAX
 // kernels' bf16 semantics, flash_tile.cuh's bf16 backward): the same two
-// kernels on bf16 tensor cores (mma.sync m16n8k16, fragments by ldmatrix,
-// K3/bf16's staging), ds and p rounded to bf16 in registers before they are
-// the A operand of dq += ds·K, dv += pᵀ·dO and dk += dsᵀ·Q, accumulators
-// f32, the gradients rounded to bf16 once at the store. What bounds them
-// there: the products at the tensor cores' bf16 rate (~990 TFLOP/s) make
-// the same 1024-token head a few µs of arithmetic, so at the path's small
-// heads the loads of the walked tiles and the exp of p weigh as much. wgmma
-// and TMA are later work.
+// kernels on bf16 tensor cores (mma.sync m16n8k16, fragments by ldmatrix),
+// ds and p rounded to bf16 in registers before they are the A operand of
+// dq += ds·K, dv += pᵀ·dO and dk += dsᵀ·Q, accumulators f32, the gradients
+// rounded to bf16 once at the store. What bounds them there: the products
+// at the tensor cores' bf16 rate (~990 TFLOP/s) make the same 1024-token
+// head a few µs of arithmetic, so at the path's small heads the exp of p on
+// the SFU weighs as much. The design (flash_tile.cuh): the fixed rows' A
+// fragments held in registers up to DP = 80, p by ex2.approx with the
+// scale folded into one FFMA (bwd_p_exp2), a kStages ring of BK-row walked tiles with one barrier a
+// tile, 16 walked rows at a time with P and dS in registers; and, where
+// B·H·⌈Lk/64⌉ blocks would leave SMs idle (the SD trainers' cross-attention
+// over 77 text tokens), dkv's query walk split over blocks
+// (flash_bwd_dkv_bf16_split) into f32 partials that dkv_reduce_kernel
+// (flash_bwd_dkv_reduce) sums in a fixed order, one rounding to bf16: no
+// atomics, the same bits on every call. wgmma and TMA are later work.
 
 #include "flash_tile.cuh"
 
@@ -145,10 +152,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dq for bf16 q, k, v and dO (K4a/bf16, flash_tile.cuh's bf16 backward):
-// a block's rows are a 64-row Q tile; it walks K and V in 64-key tiles,
-// double-buffered. Per tile: dp = dO·Vᵀ and s = Q·Kᵀ (mma_scores), p and ds
-// in f32 registers, ds rounded to bf16 as the A operand of dq += ds·K.
+// dq for bf16 q, k, v and dO (K4a/bf16, flash_tile.cuh's bf16 backward): a
+// block's fixed rows are a 64-row Q tile with its dO rows, their A
+// fragments held by FixedA; it walks K and V through bwd_walk's ring, 16
+// keys at a time: dp = dO·Vᵀ and s = Q·Kᵀ (chunk_scores), p and ds in f32
+// registers, ds rounded to bf16 as the A fragment of dq += ds·K.
 template <class C>
 __global__ void __launch_bounds__(C::kThreads)
 flash_bwd_dq_bf16_kernel(
@@ -160,30 +168,25 @@ flash_bwd_dq_bf16_kernel(
     long long ks1, long long ks2, long long ksl, long long vs1, long long vs2,
     long long vsl, long long os1, long long os2, long long osl, float scale,
     int n_qtiles, int vec) {
+  using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smb[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smb);
-  __nv_bfloat16* Os = Qs + C::BQ * C::LD;
-  __nv_bfloat16* Kb[2] = {Os + C::BQ * C::LD, Os + (C::BQ + kBK) * C::LD};
-  __nv_bfloat16* Vb[2] = {Kb[1] + kBK * C::LD, Kb[1] + 2 * kBK * C::LD};
+  bf16* Qs = reinterpret_cast<bf16*>(smb + C::fixed_offset);
+  bf16* Os = Qs + C::BQ * C::LD;
   const int b = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x - b * n_qtiles) * C::BQ;
   const int b1 = b / B2, b2 = b - b1 * B2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = warp / C::CS, cs = warp - rg * C::CS;
-  const int g = lane >> 2;
-  const __nv_bfloat16* kb = k + b1 * ks1 + b2 * ks2;
-  const __nv_bfloat16* vb = v + b1 * vs1 + b2 * vs2;
+  const bf16* kb = k + b1 * ks1 + b2 * ks2;
+  const bf16* vb = v + b1 * vs1 + b2 * vs2;
 
   stage_rows_bf16<C, C::BQ>(Qs, q + b1 * qs1 + b2 * qs2, qsl, q0, Lq, D, vec);
   stage_rows_bf16<C, C::BQ>(Os, dout + b1 * os1 + b2 * os2, osl, q0, Lq, D,
                             vec);
-  stage_rows_bf16<C, kBK>(Kb[0], kb, ksl, 0, Lk, D, vec);
-  stage_rows_bf16<C, kBK>(Vb[0], vb, vsl, 0, Lk, D, vec);
-  cp_async_commit();
-  float ls[2], dl[2];  // rows q0 + 16·rg + g + 8h
+  float ls[2], dl[2];  // lse and delta of rows q0 + 16·rg + g + 8h
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + 16 * rg + g + 8 * h;
+    const int row = q0 + 16 * rg + (lane >> 2) + 8 * h;
     ls[h] = row < Lq ? lse[(long long)b * Lq + row] : 0.0f;
     dl[h] = row < Lq ? delta[(long long)b * Lq + row] : 0.0f;
   }
@@ -192,32 +195,60 @@ flash_bwd_dq_bf16_kernel(
   for (int j = 0; j < C::DWT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  FixedA<C> qa(Qs, rg, lane), oa(Os, rg, lane);
+  const int sb = score_base<C>(lane), tt = trans_base<C>(cs, lane);
 
-  for (int k0 = 0, it = 0; k0 < Lk; k0 += kBK, ++it) {
-    const int cur = it & 1;
-    cp_async_wait<0>();  // tile j (and Q, dO) landed
-    __syncthreads();     // and tile j − 1's buffers are no longer read
-    if (k0 + kBK < Lk) {
-      stage_rows_bf16<C, kBK>(Kb[cur ^ 1], kb, ksl, k0 + kBK, Lk, D, vec);
-      stage_rows_bf16<C, kBK>(Vb[cur ^ 1], vb, vsl, k0 + kBK, Lk, D, vec);
-    }
-    cp_async_commit();
-    float dp[C::NT][4], s[C::NT][4];
-    mma_scores<C>(Os, Vb[cur], rg, lane, dp);
-    mma_scores<C>(Qs, Kb[cur], rg, lane, s);
-    unsigned da[kBK / 16][4];
-    ds_fragments<C>(da, s, dp, ls, dl, scale, k0, Lk, lane);
-    mma_walked<C>(acc, da, trans_base<C>(Kb[cur], cs, lane));
-  }
-  cp_async_wait<0>();
-  store_rows_bf16<C>(dq + (long long)b * Lq * D, acc, q0 + 16 * rg, Lq, D, cs,
-                     lane);
+  bwd_walk<C>(
+      smb + C::ring_offset, 0, (Lk + C::BK - 1) / C::BK,
+      [&](int t, unsigned char* st) {
+        bf16* Ks = reinterpret_cast<bf16*>(st);
+        stage_rows_bf16<C, C::BK>(Ks, kb, ksl, t * C::BK, Lk, D, vec);
+        stage_rows_bf16<C, C::BK>(Ks + C::BK * C::LD, vb, vsl, t * C::BK, Lk,
+                                  D, vec);
+      },
+      [&] {
+        qa.load();
+        oa.load();
+      },
+      [&](const unsigned char* st, int k0) {
+        const bf16* Ks = reinterpret_cast<const bf16*>(st);
+        const bf16* Vs = Ks + C::BK * C::LD;
+        const bool ragged = k0 + C::BK > Lk;
+#pragma unroll
+        for (int c = 0; c < C::BK / 16; ++c) {
+          if (k0 + 16 * c >= Lk) break;
+          float p[2][4], dp[2][4];
+          chunk_scores<C>(oa, Vs + 16 * c * C::LD + sb, dp);
+          chunk_scores<C>(qa, Ks + 16 * c * C::LD + sb, p);  // s
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[u][e] = bwd_p_exp2(p[u][e], scale, ls[e >> 1]);
+          if (ragged) zero_past(p, k0 + 16 * c, Lk, lane);
+          unsigned da[4];
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              da[2 * u + h] = pack_bf16x2(
+                  bwd_ds(p[u][2 * h], dp[u][2 * h], dl[h], scale),
+                  bwd_ds(p[u][2 * h + 1], dp[u][2 * h + 1], dl[h], scale));
+          chunk_walked<C>(acc, da, Ks + 16 * c * C::LD + tt);
+        }
+      });
+  store_rows<C>(dq + (long long)b * Lq * D, acc, q0 + 16 * rg, Lq, D, cs,
+                lane);
 }
 
-// dk and dv for bf16 q, k, v and dO (K4b/bf16): a block's rows are a
-// 64-row K/V tile; it walks Q and dO in 64-query tiles with their lse and
-// delta, double-buffered. Per tile: sᵀ = K·Qᵀ, pᵀ rounded to bf16 for dv +=
-// pᵀ·dO; dpᵀ = V·dOᵀ, dsᵀ rounded to bf16 for dk += dsᵀ·Q.
+// dk and dv for bf16 q, k, v and dO (K4b/bf16): a block's fixed rows are a
+// 64-row K/V tile, their A fragments held by FixedA; it walks Q and dO with
+// their lse and delta through bwd_walk's ring, 16 queries at a time: sᵀ =
+// K·Qᵀ and dpᵀ = V·dOᵀ (chunk_scores), pᵀ rounded to bf16 for dv += pᵀ·dO
+// and dsᵀ rounded to bf16 for dk += dsᵀ·Q. With ``splits`` > 1 the block
+// walks one of ``splits`` runs of ``per`` query tiles and writes f32
+// partials to ``ws`` (split s's dk at ws + 2s·n, its dv at ws + (2s + 1)·n,
+// n = B1·B2·Lk·D) for dkv_reduce_kernel; else bf16 dk and dv.
 template <class C>
 __global__ void __launch_bounds__(C::kThreads)
 flash_bwd_dkv_bf16_kernel(
@@ -228,61 +259,129 @@ flash_bwd_dkv_bf16_kernel(
     __nv_bfloat16* __restrict__ dv, int B2, int Lq, int Lk, int D,
     long long qs1, long long qs2, long long qsl, long long ks1, long long ks2,
     long long ksl, long long vs1, long long vs2, long long vsl, long long os1,
-    long long os2, long long osl, float scale, int n_ktiles, int vec) {
+    long long os2, long long osl, float scale, int n_ktiles, int vec,
+    float* __restrict__ ws, int splits, int per) {
+  using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smb[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smb);
-  __nv_bfloat16* Vs = Ks + C::BQ * C::LD;
-  __nv_bfloat16* Qb[2] = {Vs + C::BQ * C::LD, Vs + (C::BQ + kBK) * C::LD};
-  __nv_bfloat16* Ob[2] = {Qb[1] + kBK * C::LD, Qb[1] + 2 * kBK * C::LD};
-  float* xs = reinterpret_cast<float*>(Ob[1] + kBK * C::LD);  // 2 × (lse, δ)
-  const int b = blockIdx.x / n_ktiles;
-  const int k0 = (blockIdx.x - b * n_ktiles) * C::BQ;
+  bf16* Ks = reinterpret_cast<bf16*>(smb + C::fixed_offset);
+  bf16* Vs = Ks + C::BQ * C::LD;
+  const int bs = blockIdx.x / n_ktiles;
+  const int k0 = (blockIdx.x - bs * n_ktiles) * C::BQ;
+  const int b = bs / splits, split = bs - b * splits;
   const int b1 = b / B2, b2 = b - b1 * B2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = warp / C::CS, cs = warp - rg * C::CS;
-  const __nv_bfloat16* qb = q + b1 * qs1 + b2 * qs2;
-  const __nv_bfloat16* ob = dout + b1 * os1 + b2 * os2;
+  const bf16* qb = q + b1 * qs1 + b2 * qs2;
+  const bf16* ob = dout + b1 * os1 + b2 * os2;
   const float* lse_b = lse + (long long)b * Lq;
   const float* dl_b = delta + (long long)b * Lq;
-  auto stage_step = [&](int buf, int r0) {
-    stage_rows_bf16<C, kBK>(Qb[buf], qb, qsl, r0, Lq, D, vec);
-    stage_rows_bf16<C, kBK>(Ob[buf], ob, osl, r0, Lq, D, vec);
-    stage_vec<C>(xs + buf * 2 * kBK, lse_b, r0, Lq);
-    stage_vec<C>(xs + buf * 2 * kBK + kBK, dl_b, r0, Lq);
-  };
+  const int n_tiles = (Lq + C::BK - 1) / C::BK;
+  const int t0 = split * per;
+  const int t1 = t0 + per < n_tiles ? t0 + per : n_tiles;
 
   stage_rows_bf16<C, C::BQ>(Ks, k + b1 * ks1 + b2 * ks2, ksl, k0, Lk, D, vec);
   stage_rows_bf16<C, C::BQ>(Vs, v + b1 * vs1 + b2 * vs2, vsl, k0, Lk, D, vec);
-  stage_step(0, 0);
-  cp_async_commit();
   float dka[C::DWT][4], dva[C::DWT][4];
 #pragma unroll
   for (int j = 0; j < C::DWT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+  FixedA<C> ka(Ks, rg, lane), va(Vs, rg, lane);
+  const int sb = score_base<C>(lane), tt = trans_base<C>(cs, lane);
+  const int t2 = 2 * (lane & 3);
 
-  for (int q0 = 0, it = 0; q0 < Lq; q0 += kBK, ++it) {
-    const int cur = it & 1;
-    cp_async_wait<0>();  // step j (and K, V) landed
-    __syncthreads();     // and step j − 1's buffers are no longer read
-    if (q0 + kBK < Lq) stage_step(cur ^ 1, q0 + kBK);
-    cp_async_commit();
-    const float* xl = xs + cur * 2 * kBK;  // the tile's lse, then delta
-    float p[C::NT][4];
-    mma_scores<C>(Ks, Qb[cur], rg, lane, p);  // sᵀ, then pᵀ in place
-    unsigned pa[kBK / 16][4];
-    p_fragments<C>(pa, p, xl, scale, q0, Lq, lane);
-    mma_walked<C>(dva, pa, trans_base<C>(Ob[cur], cs, lane));
-    float dp[C::NT][4];
-    mma_scores<C>(Vs, Ob[cur], rg, lane, dp);  // dpᵀ
-    unsigned da[kBK / 16][4];
-    dst_fragments<C>(da, p, dp, xl + kBK, scale, lane);
-    mma_walked<C>(dka, da, trans_base<C>(Qb[cur], cs, lane));
-  }
-  cp_async_wait<0>();
+  bwd_walk<C>(
+      smb + C::ring_offset, t0, t1,
+      [&](int t, unsigned char* st) {
+        bf16* Qt = reinterpret_cast<bf16*>(st);
+        float* xs = reinterpret_cast<float*>(Qt + 2 * C::BK * C::LD);
+        stage_rows_bf16<C, C::BK>(Qt, qb, qsl, t * C::BK, Lq, D, vec);
+        stage_rows_bf16<C, C::BK>(Qt + C::BK * C::LD, ob, osl, t * C::BK, Lq,
+                                  D, vec);
+        stage_vec<C, C::BK>(xs, lse_b, t * C::BK, Lq);
+        stage_vec<C, C::BK>(xs + C::BK, dl_b, t * C::BK, Lq);
+      },
+      [&] {
+        ka.load();
+        va.load();
+      },
+      [&](const unsigned char* st, int q0) {
+        const bf16* Qt = reinterpret_cast<const bf16*>(st);
+        const bf16* Ot = Qt + C::BK * C::LD;
+        const float* xl = reinterpret_cast<const float*>(Ot + C::BK * C::LD);
+        const bool ragged = q0 + C::BK > Lq;
+#pragma unroll
+        for (int c = 0; c < C::BK / 16; ++c) {
+          if (q0 + 16 * c >= Lq) break;
+          float p[2][4], dp[2][4];
+          chunk_scores<C>(ka, Qt + 16 * c * C::LD + sb, p);   // sᵀ
+          chunk_scores<C>(va, Ot + 16 * c * C::LD + sb, dp);  // dpᵀ
+          float2 dl[2];  // delta of this lane's queries 16c + 8u + 2t + e
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int qi = 16 * c + 8 * u + t2;
+            const float2 l2 = *reinterpret_cast<const float2*>(xl + qi);
+            dl[u] = *reinterpret_cast<const float2*>(xl + C::BK + qi);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[u][e] = bwd_p_exp2(p[u][e], scale, e & 1 ? l2.y : l2.x);
+          }
+          if (ragged) zero_past(p, q0 + 16 * c, Lq, lane);
+          unsigned pa[4], da[4];
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              pa[2 * u + h] = pack_bf16x2(p[u][2 * h], p[u][2 * h + 1]);
+              da[2 * u + h] = pack_bf16x2(
+                  bwd_ds(p[u][2 * h], dp[u][2 * h], dl[u].x, scale),
+                  bwd_ds(p[u][2 * h + 1], dp[u][2 * h + 1], dl[u].y, scale));
+            }
+          chunk_walked<C>(dva, pa, Ot + 16 * c * C::LD + tt);
+          chunk_walked<C>(dka, da, Qt + 16 * c * C::LD + tt);
+        }
+      });
   const long long off = (long long)b * Lk * D;
-  store_rows_bf16<C>(dk + off, dka, k0 + 16 * rg, Lk, D, cs, lane);
-  store_rows_bf16<C>(dv + off, dva, k0 + 16 * rg, Lk, D, cs, lane);
+  if (splits == 1) {
+    store_rows<C>(dk + off, dka, k0 + 16 * rg, Lk, D, cs, lane);
+    store_rows<C>(dv + off, dva, k0 + 16 * rg, Lk, D, cs, lane);
+  } else {
+    const long long n = (long long)(gridDim.x / (n_ktiles * splits)) * Lk * D;
+    store_rows<C>(ws + 2 * split * n + off, dka, k0 + 16 * rg, Lk, D, cs,
+                  lane);
+    store_rows<C>(ws + (2 * split + 1) * n + off, dva, k0 + 16 * rg, Lk, D,
+                  cs, lane);
+  }
+}
+
+// out[i] = bf16(ws[i] + ws[n2 + i] + … + ws[(splits − 1)·n2 + i]) for i <
+// n2, summed in f32 in split order: the split dkv's partials (dk's, then
+// dv's, n2 = 2·B1·B2·Lk·D) into dk and dv. Four elements a thread, 16-byte
+// loads where n2 % 4 == 0 (vec). Bound: the bytes, (splits·4 + 2)·n2.
+__global__ void __launch_bounds__(256)
+dkv_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
+                  long long n2, int splits, int vec) {
+  const long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n2) return;
+  if (vec) {
+    float4 a = *reinterpret_cast<const float4*>(ws + i);
+    for (int s = 1; s < splits; ++s) {
+      const float4 t = *reinterpret_cast<const float4*>(ws + s * n2 + i);
+      a.x = __fadd_rn(a.x, t.x);
+      a.y = __fadd_rn(a.y, t.y);
+      a.z = __fadd_rn(a.z, t.z);
+      a.w = __fadd_rn(a.w, t.w);
+    }
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + i);
+    o[0] = __floats2bfloat162_rn(a.x, a.y);
+    o[1] = __floats2bfloat162_rn(a.z, a.w);
+    return;
+  }
+  for (long long e = i; e < i + 4 && e < n2; ++e) {
+    float a = ws[e];
+    for (int s = 1; s < splits; ++s) a = __fadd_rn(a, ws[s * n2 + e]);
+    out[e] = __float2bfloat16_rn(a);
+  }
 }
 
 int vec_all(const float* q, const float* k, const float* v, const float* dout,
@@ -368,7 +467,7 @@ extern "C" int flash_bwd_dq_bf16(
   const long long s[12] = {qs1, qs2, qsl, ks1, ks2, ksl,
                            vs1, vs2, vsl, os1, os2, osl};
   const int vec = vec_all_bf16(q, k, v, dout, s, D);
-  return with_bwd_mma<160, false>(D, [&](auto cfg) {
+  return with_bwd_mma<false>(D, [&](auto cfg) {
     using C = decltype(cfg);
     const int n_qtiles = (Lq + C::BQ - 1) / C::BQ;
     return launch_mma_tiles<C>(flash_bwd_dq_bf16_kernel<C>,
@@ -380,8 +479,37 @@ extern "C" int flash_bwd_dq_bf16(
   });
 }
 
-// dk and dv for bf16 q, k, v, dO, dk and dv (lse, delta f32):
-// flash_bwd_dkv_f32's arguments.
+namespace {
+
+// flash_bwd_dkv_bf16_kernel on B1·B2·⌈Lk/BQ⌉ blocks times ``splits``, each
+// split walking ⌈tiles / splits⌉ query tiles; ws: the f32 partials where
+// splits > 1. Refuses a split count other than dkv_splits' plan.
+int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                    const __nv_bfloat16* v, const __nv_bfloat16* dout,
+                    const float* lse, const float* delta, __nv_bfloat16* dk,
+                    __nv_bfloat16* dv, float* ws, int splits, int B1, int B2,
+                    int Lq, int Lk, int D, const long long* s, float scale,
+                    void* stream) {
+  const int vec = vec_all_bf16(q, k, v, dout, s, D);
+  return with_bwd_mma<true>(D, [&](auto cfg) {
+    using C = decltype(cfg);
+    if (splits > 1 && splits != dkv_splits<C>((long long)B1 * B2, Lq, Lk))
+      return (int)cudaErrorInvalidValue;
+    const int n_ktiles = (Lk + C::BQ - 1) / C::BQ;
+    const int tiles = (Lq + C::BK - 1) / C::BK;
+    const int per = (tiles + splits - 1) / splits;
+    return launch_mma_tiles<C>(
+        flash_bwd_dkv_bf16_kernel<C>, (long long)B1 * B2 * splits * n_ktiles,
+        (cudaStream_t)stream, q, k, v, dout, lse, delta, dk, dv, B2, Lq, Lk,
+        D, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10],
+        s[11], scale, n_ktiles, vec, ws, splits, per);
+  });
+}
+
+}  // namespace
+
+// dk and dv for bf16 q, k, v, dO, dk and dv (lse, delta f32), one block a
+// K/V tile walking every query: flash_bwd_dkv_f32's arguments.
 extern "C" int flash_bwd_dkv_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, const float* lse, const float* delta,
@@ -391,15 +519,41 @@ extern "C" int flash_bwd_dkv_bf16(
     long long os1, long long os2, long long osl, float scale, void* stream) {
   const long long s[12] = {qs1, qs2, qsl, ks1, ks2, ksl,
                            vs1, vs2, vsl, os1, os2, osl};
-  const int vec = vec_all_bf16(q, k, v, dout, s, D);
-  return with_bwd_mma<80, true>(D, [&](auto cfg) {
-    using C = decltype(cfg);
-    const int n_ktiles = (Lk + C::BQ - 1) / C::BQ;
-    return launch_mma_tiles<C>(flash_bwd_dkv_bf16_kernel<C>,
-                               (long long)B1 * B2 * n_ktiles,
-                               (cudaStream_t)stream, q, k, v, dout, lse,
-                               delta, dk, dv, B2, Lq, Lk, D, qs1, qs2, qsl,
-                               ks1, ks2, ksl, vs1, vs2, vsl, os1, os2, osl,
-                               scale, n_ktiles, vec);
-  });
+  return launch_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, nullptr, 1, B1,
+                         B2, Lq, Lk, D, s, scale, stream);
+}
+
+// The split dkv (flash_tile.cuh::dkv_splits > 1): ``splits`` blocks a K/V
+// tile, each walking its run of query tiles, their f32 partials of dk and
+// dv into ws, contiguous (splits, 2, B1, B2, Lk, D), for
+// flash_bwd_dkv_reduce. Arguments as flash_bwd_dkv_bf16's, with ws in place
+// of dk and dv and the split count after the scale; another count than the
+// plan's is refused.
+extern "C" int flash_bwd_dkv_bf16_split(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* dout, const float* lse, const float* delta,
+    float* ws, int B1, int B2, int Lq, int Lk, int D, long long qs1,
+    long long qs2, long long qsl, long long ks1, long long ks2, long long ksl,
+    long long vs1, long long vs2, long long vsl, long long os1, long long os2,
+    long long osl, float scale, int splits, void* stream) {
+  if (splits < 2) return (int)cudaErrorInvalidValue;
+  const long long s[12] = {qs1, qs2, qsl, ks1, ks2, ksl,
+                           vs1, vs2, vsl, os1, os2, osl};
+  return launch_dkv_bf16(q, k, v, dout, lse, delta, nullptr, nullptr, ws,
+                         splits, B1, B2, Lq, Lk, D, s, scale, stream);
+}
+
+// dk and dv (bf16, contiguous (2, B1, B2, Lk, D): out) from the split
+// dkv's partials ws (f32, contiguous (splits, 2, B1, B2, Lk, D)); n2 =
+// 2·B1·B2·Lk·D.
+extern "C" int flash_bwd_dkv_reduce(const float* ws, __nv_bfloat16* out,
+                                    long long n2, int splits, void* stream) {
+  if (splits < 1 || n2 < 0) return (int)cudaErrorInvalidValue;
+  if (n2 == 0) return 0;
+  const int vec = (n2 % 4 == 0 && ((uintptr_t)ws & 15) == 0 &&
+                   ((uintptr_t)out & 7) == 0);
+  const long long blocks = (n2 + 4 * 256 - 1) / (4 * 256);
+  dkv_reduce_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      ws, out, n2, splits, vec);
+  return (int)cudaGetLastError();
 }

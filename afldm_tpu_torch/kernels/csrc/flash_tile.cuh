@@ -434,12 +434,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(src_bytes));
 }
 
-// dst[0:kBK] = src[r0 : r0 + kBK], zero past L, by 4-byte cp.async copies
+// dst[0:N] = src[r0 : r0 + N], zero past L, by 4-byte cp.async copies
 // (a row of lse or delta: any base, no alignment needed).
-template <class C>
+template <class C, int N = kBK>
 __device__ __forceinline__ void stage_vec(float* dst, const float* src,
                                           int r0, int L) {
-  for (int i = threadIdx.x; i < kBK; i += C::kThreads) {
+  for (int i = threadIdx.x; i < N; i += C::kThreads) {
     const bool ok = r0 + i < L;
     cp_async4(dst + i, ok ? src + r0 + i : src, ok ? 4 : 0);
   }
@@ -602,7 +602,7 @@ struct DkvBody {
 // ---------------------------------------------------------------------------
 // The bf16 staging and products shared by the bf16 kernels: MmaCfg (the
 // grid of P2/bf16, flash_probe_stream_bf16), with_dp_mma, stage_rows_bf16
-// and mma_scores (also the bf16 backward's, below). The bf16 forward tile
+// (also the bf16 backward's, below) and mma_scores. The bf16 forward tile
 // loop of K3, K6 and P1 follows them.
 //
 // A warp of MmaCfg owns 16 query rows (4 warps, a 64-row Q tile a block)
@@ -1061,172 +1061,285 @@ __device__ __forceinline__ void for_out(int q0, int Lq, int D, F f) {
 // from bf16 products summed in f32, p = exp(s·scale − lse) and ds = p ⊙ (dp −
 // delta)·scale in f32, ds (and, for dv, p) rounded to bf16 before it is the
 // A operand of the second product of its pair, every accumulator f32, dq,
-// dk and dv rounded to bf16 once at the store. lse and delta stay f32.
+// dk and dv rounded to bf16 once at the store. lse and delta stay f32. The
+// plain versions are ops/attention.py::_bwd_dq_plain and _bwd_dkv_plain.
 //
-// A block's rows are a 64-row tile (Q for dq, K/V for dkv) in 4 row groups
-// of 16; the products run on mma.sync m16n8k16 from ldmatrix as in K3/bf16:
-// the scores (and dp) through mma_scores, whose accumulators of two
-// neighbouring 8-column tiles are the A fragment of the next product over
-// those 16 columns, and the walked tile (K for dq; dO and Q for dkv)
-// through ldmatrix.trans as its B operand. The second product's f32
-// accumulator of a row group is 16 × DP: at large DP, CS warps share a row
-// group, each computing the row group's scores (CS times over) and
-// accumulating DW = DP / CS of the columns, so that no thread holds more
-// than 64 accumulators of one product (dkv holds dk and dv).
+// Bound: dq 6·Lq·Lk·D and dkv 8·Lq·Lk·D FLOP a head at the bf16 tensor
+// rate, and one exponential a score on the SFU, 16 a clock an SM: at the
+// path's D of 24 and 40 the exponentials weigh as much as the products.
 //
-// Staging is K3/bf16's (stage_rows_bf16: 16-byte cp.async where every base
-// and stride allows, else the masked scalar copy; rows padded to LD = DP +
-// 8); the walked tiles are double-buffered, the next tile's copy in flight
-// while the current one is computed on. D is zero-padded to DP, a multiple
-// of 16 (24 to 32, 40 to 48); ragged lengths are masked (p = ds = 0 past Lk
-// or Lq) and rows past the length are not stored.
+// A block's fixed rows are a 64-row tile (Q and dO for dq; K and V for
+// dkv) in 4 row groups of 16; it walks the other side (K and V; Q, dO and
+// their lse and delta) in BK-row tiles. What the design does:
+// - The fixed rows' A fragments of a warp's two score products (FixedA)
+//   are read by ldmatrix once, after the prologue's copy lands, and held
+//   in registers for the whole walk up to DP = 80 (2 × DP/16 × 4
+//   registers: 24 at DP = 48). From DP = 128 they do not fit beside the
+//   accumulators and are read from shared memory at each use. Where they
+//   are held, the fixed tile lies in the ring's last stage, which is first
+//   written after every warp has its fragments.
+// - The walk goes 16 walked rows at a time: the two 16 × 16 score tiles of
+//   the pair (s and dp; sᵀ and dpᵀ), then p and ds from them in registers,
+//   packed to bf16 as the A fragment of the second products over those 16
+//   rows of depth. P and dS never touch shared memory, and 16 score
+//   registers are live.
+// - exp2 with the scale folded in (bwd_p_exp2): t = s·scale − lse by one
+//   FFMA, then ex2.approx of t·log₂e with the remainder of that product's
+//   rounding restored, four FMA-pipe operations and one ex2 a score (expf
+//   took ~20). On the ragged last tile p = 0 at the walked rows past Lk
+//   (dq) or Lq (dkv), and its 16-row chunks wholly past the end are
+//   skipped.
+// - A ring of kStages stages of BK walked rows on 16-byte cp.async
+//   (bwd_walk: cp_async_wait<kStages − 2>, one barrier a tile, the next
+//   copy issued right after it); BK from one table a DP (BwdTile: 128 rows
+//   up to DP = 80, 64 above), which ops/attention.py::
+//   flash_bwd_bf16_walk_tile mirrors.
+// - dkv splits its query walk over several blocks where B·H·⌈Lk/64⌉ blocks
+//   would not give each SM of the card one (dkv_splits, mirrored by
+//   ops/attention.py::flash_bwd_dkv_splits: the SD trainers' 77 text
+//   tokens). Each split writes f32 partials of dk and dv, which a second
+//   kernel (flash_bwd.cu's dkv_reduce_kernel) sums in split order and
+//   rounds to bf16 once. No atomics: every call gives the same bits.
+// The second products' f32 accumulators of a row group are 16 × DP: at
+// large DP, CS warps share a row group, each computing the row group's
+// scores (CS times over) and accumulating DW = DP / CS of the columns, so
+// that no thread holds more than 64 accumulators of one product (dkv holds
+// dk and dv). Staging is K3/bf16's (stage_rows_bf16, rows padded to LD = DP
+// + 8); D is zero-padded to DP, a multiple of 16 (24 to 32, 40 to 48), and
+// rows past their length are zero and never stored.
 
-template <int DP_, int CS_>
+// The walked tile's depth BK at DP, for both kernels
+// (ops/attention.py::flash_bwd_bf16_walk_tile mirrors it). On an H100
+// (kernel_check.py --graph, K4a/bf16 and K4b/bf16 at their chip_smoke.py
+// shapes), 128 rows in a ring of two stages beat 64 rows in three at DP 48
+// and 80 and match them at DP 32; three stages of 128 rows hold fewer
+// blocks an SM (dq at (2, 8, 4096, 40): 0.393 against 0.330 ms), so
+// kStages is 2.
+template <int BK_>
+struct BwdTileOf {
+  static constexpr int BK = BK_;
+};
+template <int DP> struct BwdTile;
+template <> struct BwdTile<32> : BwdTileOf<128> {};
+template <> struct BwdTile<48> : BwdTileOf<128> {};
+template <> struct BwdTile<64> : BwdTileOf<128> {};
+template <> struct BwdTile<80> : BwdTileOf<128> {};
+template <> struct BwdTile<128> : BwdTileOf<64> {};
+template <> struct BwdTile<160> : BwdTileOf<64> {};
+template <> struct BwdTile<256> : BwdTileOf<64> {};
+
+template <int DP_, int CS_, bool DKV_>
 struct BwdMmaCfg {
   static constexpr int DP = DP_;
   static constexpr int CS = CS_;          // warps sharing a row group
   static constexpr int kWarps = 4 * CS;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int BQ = 64;           // the block's row tile
+  static constexpr int BQ = 64;           // the block's fixed rows
+  static constexpr int BK = BwdTile<DP>::BK;  // walked rows a stage
+  static constexpr int kStages = 2;       // the ring (BwdTile)
   static constexpr int LD = DP + 8;       // padded row, in bf16
-  static constexpr int NT = kBK / 8;      // 8-column score tiles
+  static constexpr int KS = DP / 16;      // k steps of a score product
   static constexpr int DW = DP / CS;      // accumulator columns a warp
   static constexpr int DWT = DW / 8;      // its 8-column tiles
-  static_assert(DP % 16 == 0 && DW % 16 == 0, "mma k and n steps");
-  // the block's two row tiles, two buffers of two walked tiles, and two
-  // buffers of a walked tile's 64 lse and 64 delta values (dkv)
-  static constexpr size_t smem_bytes =
-      (size_t)(2 * BQ + 4 * kBK) * LD * 2 + 2 * 2 * kBK * sizeof(float);
+  static constexpr bool kRegA = DP <= 80;  // the fixed A fragments held
+  static_assert(DP % 16 == 0 && DW % 16 == 0 && BK % 16 == 0, "mma steps");
+  // a stage: two walked tiles (K and V; Q and dO) and, for dkv, the Q
+  // tile's BK lse and BK delta values
+  static constexpr size_t stage_bytes =
+      2 * (size_t)BK * LD * 2 + (DKV_ ? 2 * (size_t)BK * sizeof(float) : 0);
+  static constexpr size_t fixed_bytes = 2 * (size_t)BQ * LD * 2;
+  static_assert(fixed_bytes <= stage_bytes, "the fixed tile fits a stage");
+  // the fixed tile in the ring's last stage where its fragments are held,
+  // else before the ring
+  static constexpr size_t fixed_offset =
+      kRegA ? (kStages - 1) * stage_bytes : 0;
+  static constexpr size_t ring_offset = kRegA ? 0 : fixed_bytes;
+  static constexpr size_t smem_bytes = ring_offset + kStages * stage_bytes;
   static_assert(smem_bytes <= kMaxSmemBytes, "bf16 backward smem");
 };
 
-// f(BwdMmaCfg<DP, CS>) for the smallest multiple of 16 DP at least D, with
-// CS column slices a row group where DP > ``wide`` (4 above 160 where
-// ``split4``).
-template <int WIDE, bool SPLIT4, class F>
+// f(BwdMmaCfg<DP, CS, DKV>) for the smallest multiple of 16 DP at least D:
+// CS = 1 up to DP = 160 for dq and up to 80 for dkv (two accumulators),
+// else 2, and 4 at DP = 256 for dkv.
+template <bool DKV, class F>
 int with_bwd_mma(int D, F&& f) {
   return with_dp_mma(D, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
-    constexpr int CS = DP <= WIDE ? 1 : (SPLIT4 && DP > 160) ? 4 : 2;
-    return f(BwdMmaCfg<DP, CS>{});
+    constexpr int CS = DP <= (DKV ? 80 : 160) ? 1 : (DKV && DP > 160) ? 4 : 2;
+    return f(BwdMmaCfg<DP, CS, DKV>{});
   });
 }
 
-// The walked tile's B fragments (ldmatrix.trans) of a warp: row kk·16 + …
-// and the warp's column slice.
+constexpr int kSplitSMs = 132;  // the SMs of an H100 SXM
+
+// The blocks over which dkv splits its query walk (C: dkv's BwdMmaCfg):
+// one where the B·H·⌈Lk/BQ⌉ blocks give each SM one or the walk has fewer
+// than 4 tiles; else up to ⌈2·kSplitSMs / blocks⌉ splits of at least 2
+// tiles each, balanced so that none is empty.
+// ops/attention.py::flash_bwd_dkv_splits mirrors it.
 template <class C>
-__device__ __forceinline__ const __nv_bfloat16* trans_base(
-    const __nv_bfloat16* tile, int cs, int lane) {
-  return tile + ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LD + 8 * (lane >> 4) +
+inline int dkv_splits(long long bh, int Lq, int Lk) {
+  const long long blocks = bh * ((Lk + C::BQ - 1) / C::BQ);
+  const long long tiles = (Lq + C::BK - 1) / C::BK;
+  if (blocks >= kSplitSMs || tiles < 4) return 1;
+  const long long want = (2 * kSplitSMs + blocks - 1) / blocks;
+  const long long s = tiles / 2 < want ? tiles / 2 : want;
+  const long long per = (tiles + s - 1) / s;
+  return (int)((tiles + per - 1) / per);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// p = exp(s·scale − lse) of the bf16 backward, on ex2.approx with the scale
+// folded into one FFMA: t = s·scale − lse rounded once (as the plain
+// version's torch.exp argument is, up to its rounding of s·scale), h =
+// t·log₂e rounded, p = ex2.approx(h)·(1 + r) with r = t − h·ln 2, the
+// remainder that the rounding of h dropped (one FFMA, and one FFMA for p):
+// four FMA-pipe operations and one ex2 a score. Without r, p is off the
+// plain version's by several f32 ulps, and p, rounded to bf16 as dv's A
+// operand, lands on the other side of a rounding edge often enough to take
+// dv at (2, 8, 4096, 40) past the card tests' bound on the RMS ratio
+// (kernel_check.py --spread_bwd). s is finite; zero_past sets p = 0 where
+// the walked row lies past its length.
+__device__ __forceinline__ float bwd_p_exp2(float s, float scale, float lse) {
+  const float t = fmaf(s, scale, -lse);
+  const float h = t * kLog2e;
+  const float p = ex2_approx(h);
+  return fmaf(p, fmaf(-h, kLn2, t), p);
+}
+
+// A warp's A fragments of its 16 fixed rows for the score products, one k
+// step of 16 columns at a time: held in registers (C::kRegA; read by
+// ldmatrix once, in load) or read from the fixed tile at each use.
+template <class C>
+struct FixedA {
+  unsigned r[C::kRegA ? C::KS : 1][4];
+  const __nv_bfloat16* p;
+  __device__ __forceinline__ FixedA(const __nv_bfloat16* tile, int rg,
+                                    int lane)
+      : p(tile + (16 * rg + (lane & 15)) * C::LD + 8 * (lane >> 4)) {}
+  __device__ __forceinline__ void load() {
+    if constexpr (C::kRegA) {
+#pragma unroll
+      for (int kk = 0; kk < C::KS; ++kk)
+        afldm_filtered::ldsm_x4(r[kk], p + 16 * kk);
+    }
+  }
+  __device__ __forceinline__ void get(int kk, unsigned (&a)[4]) const {
+    if constexpr (C::kRegA) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = r[kk][e];
+    } else {
+      afldm_filtered::ldsm_x4(a, p + 16 * kk);
+    }
+  }
+};
+
+// A lane's ldmatrix offset into a walked tile: as the B operand of a score
+// product (its rows the score's columns), and transposed as the B operand
+// of a second product (its rows the depth, this warp's DW columns).
+template <class C>
+__device__ __forceinline__ int score_base(int lane) {
+  return ((lane & 7) + 8 * (lane >> 4)) * C::LD + 8 * ((lane >> 3) & 1);
+}
+template <class C>
+__device__ __forceinline__ int trans_base(int cs, int lane) {
+  return ((lane & 7) + 8 * ((lane >> 3) & 1)) * C::LD + 8 * (lane >> 4) +
          cs * C::DW;
 }
 
-// acc += A · T over the 64 walked rows of ``tb`` (trans_base): A the four
-// 16-column A fragments of a row group, T the walked tile's rows.
+// s = A·Tᵀ over a warp's 16 fixed rows and 16 walked rows (tb: the walked
+// tile at the chunk's first row plus score_base): s[u] holds walked rows 8u
+// + 2t, 8u + 2t + 1 of fixed rows g (e 0, 1) and g + 8 (e 2, 3), g =
+// lane/4, t = lane%4.
 template <class C>
-__device__ __forceinline__ void mma_walked(float (&acc)[C::DWT][4],
-                                           const unsigned (&a)[kBK / 16][4],
-                                           const __nv_bfloat16* tb) {
+__device__ __forceinline__ void chunk_scores(const FixedA<C>& fa,
+                                             const __nv_bfloat16* tb,
+                                             float (&s)[2][4]) {
+  using afldm_filtered::ldsm_x4;
+  using afldm_filtered::mma_bf16;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[u][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < C::KS; ++kk) {
+    unsigned a[4], b[4];
+    fa.get(kk, a);
+    ldsm_x4(b, tb + 16 * kk);
+    mma_bf16(s[0], a, b[0], b[1]);
+    mma_bf16(s[1], a, b[2], b[3]);
+  }
+}
+
+// acc += A·T over 16 walked rows of depth: A the bf16 A fragment of a row
+// group's 16 rows over them (pack_bf16x2 of chunk_scores' layout: word 2u +
+// h holds row g + 8h, walked rows 8u + 2t, 8u + 2t + 1), T those walked
+// rows at tt (the chunk's first row plus trans_base), this warp's columns.
+template <class C>
+__device__ __forceinline__ void chunk_walked(float (&acc)[C::DWT][4],
+                                             const unsigned (&a)[4],
+                                             const __nv_bfloat16* tt) {
   using afldm_filtered::ldsm_x4_t;
   using afldm_filtered::mma_bf16;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-    for (int dp = 0; dp < C::DWT / 2; ++dp) {
-      unsigned b[4];
-      ldsm_x4_t(b, tb + 16 * kk * C::LD + 16 * dp);
-      mma_bf16(acc[2 * dp], a[kk], b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a[kk], b[2], b[3]);
-    }
+  for (int dp = 0; dp < C::DWT / 2; ++dp) {
+    unsigned b[4];
+    ldsm_x4_t(b, tt + 16 * dp);
+    mma_bf16(acc[2 * dp], a, b[0], b[1]);
+    mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+  }
 }
 
-// The pair (v[j][2h], v[j][2h + 1]) rounded to bf16 as the A fragment word
-// of a 16-column step (fwd_walk's packing of P).
-__device__ __forceinline__ void pack_a(unsigned (&a)[kBK / 16][4], int j,
-                                       int h, float v0, float v1) {
-  const __nv_bfloat162 pb = __floats2bfloat162_rn(v0, v1);
-  a[j / 2][2 * (j & 1) + h] = *reinterpret_cast<const unsigned*>(&pb);
-}
-
-// dq's step (rows: a row group's 16 queries, columns: the tile's 64 keys
-// from k0): ds = p ⊙ (dp − δ)·scale, p = exp(s·scale − lse) and 0 past Lk,
-// rounded to bf16 as the A fragments of ds·K. ls, dl: the lse and delta of
-// rows g and g + 8.
-template <class C>
-__device__ __forceinline__ void ds_fragments(unsigned (&da)[kBK / 16][4],
-                                             const float (&s)[C::NT][4],
-                                             const float (&dp)[C::NT][4],
-                                             const float (&ls)[2],
-                                             const float (&dl)[2],
-                                             float scale, int k0, int Lk,
-                                             int lane) {
+// p = 0 at the walked rows r0 + 8u + 2t + (e & 1) at or past L.
+__device__ __forceinline__ void zero_past(float (&p)[2][4], int r0, int L,
+                                          int lane) {
   const int t2 = 2 * (lane & 3);
 #pragma unroll
-  for (int j = 0; j < C::NT; ++j)
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float d[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = bwd_p(s[j][2 * h + e], scale, ls[h],
-                              k0 + 8 * j + t2 + e < Lk);
-        d[e] = bwd_ds(p, dp[j][2 * h + e], dl[h], scale);
-      }
-      pack_a(da, j, h, d[0], d[1]);
-    }
+    for (int e = 0; e < 4; ++e)
+      if (r0 + 8 * u + t2 + (e & 1) >= L) p[u][e] = 0.0f;
 }
 
-// dkv's first step (rows: a row group's 16 keys, columns: the tile's 64
-// queries from q0): pᵀ = exp(sᵀ·scale − lse) in place over sᵀ, 0 past Lq,
-// and rounded to bf16 as the A fragments of pᵀ·dO. xl: the tile's 64 lse.
-template <class C>
-__device__ __forceinline__ void p_fragments(unsigned (&pa)[kBK / 16][4],
-                                            float (&p)[C::NT][4],
-                                            const float* xl, float scale,
-                                            int q0, int Lq, int lane) {
-  const int t2 = 2 * (lane & 3);
+// Walks tiles t0 .. t1 − 1 of BK walked rows through the ring of kStages
+// stages at ``ring``: stage(t, dst) issues tile t's copies into its stage
+// (the walk commits them). The fixed rows, staged by the caller just
+// before, land with the first tile; then every thread calls load_fixed
+// (the fragments FixedA holds), and body(stage, r0) runs on each tile in
+// order, tile i + kStages − 1 in flight meanwhile. Every thread calls it.
+template <class C, class Stage, class Load, class Body>
+__device__ __forceinline__ void bwd_walk(unsigned char* ring, int t0, int t1,
+                                         Stage&& stage, Load&& load_fixed,
+                                         Body&& body) {
+  auto issue = [&](int i) {  // the walk's tile i; an empty group past t1
+    if (t0 + i < t1) stage(t0 + i, ring + (i % C::kStages) * C::stage_bytes);
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qi = 8 * j + t2 + e;
-        p[j][2 * h + e] = bwd_p(p[j][2 * h + e], scale, xl[qi], q0 + qi < Lq);
-      }
-      pack_a(pa, j, h, p[j][2 * h], p[j][2 * h + 1]);
-    }
+  for (int i = 0; i < C::kStages - 1; ++i) issue(i);
+  cp_async_wait<C::kStages - 2>();  // the fixed rows and tile t0
+  __syncthreads();
+  load_fixed();
+  for (int i = 0; t0 + i < t1; ++i) {
+    cp_async_wait<C::kStages - 2>();  // tile t0 + i has landed
+    __syncthreads();  // for every thread; and the stage that the next copy
+                      // fills (the fixed tile's, at i = 0) is read no more
+    issue(i + C::kStages - 1);
+    body(ring + (i % C::kStages) * C::stage_bytes, (t0 + i) * C::BK);
+  }
+  cp_async_wait<0>();
 }
 
-// dkv's second step: dsᵀ = pᵀ ⊙ (dpᵀ − δ)·scale rounded to bf16 as the A
-// fragments of dsᵀ·Q. xd: the tile's 64 delta values.
-template <class C>
-__device__ __forceinline__ void dst_fragments(unsigned (&da)[kBK / 16][4],
-                                              const float (&p)[C::NT][4],
-                                              const float (&dp)[C::NT][4],
-                                              const float* xd, float scale,
-                                              int lane) {
-  const int t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float d[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        d[e] = bwd_ds(p[j][2 * h + e], dp[j][2 * h + e], xd[8 * j + t2 + e],
-                      scale);
-      pack_a(da, j, h, d[0], d[1]);
-    }
-}
-
-// Stores a warp's 16 rows × DW columns of acc, rounded to bf16, rows r0 +
-// g + 8h below L and columns below D, into the dense (·, D) rows of ``out``.
-template <class C>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* out,
-                                                const float (&acc)[C::DWT][4],
-                                                int r0, int L, int D, int cs,
-                                                int lane) {
+// Stores a warp's 16 rows × DW columns of acc (f32, or rounded to bf16),
+// rows r0 + g + 8h below L and columns below D, into the dense (·, D) rows
+// of ``out``.
+template <class C, class T>
+__device__ __forceinline__ void store_rows(T* out,
+                                           const float (&acc)[C::DWT][4],
+                                           int r0, int L, int D, int cs,
+                                           int lane) {
   const int g = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -1237,7 +1350,10 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* out,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int d = cs * C::DW + 8 * j + t2 + e;
-        if (d < D)
+        if (d >= D) continue;
+        if constexpr (std::is_same<T, float>::value)
+          out[(long long)row * D + d] = acc[j][2 * h + e];
+        else
           out[(long long)row * D + d] = __float2bfloat16_rn(acc[j][2 * h + e]);
       }
   }

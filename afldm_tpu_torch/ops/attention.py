@@ -29,7 +29,11 @@ from bf16 products summed in f32, p and ds in f32, ds (and p for dv)
 rounded to bf16 before the second product of each pair, accumulated in f32
 and rounded to bf16 once. lse and delta stay f32. A K/V batch expanded from
 one image gets bf16 dk and dv for each leading index, which autograd's
-expand backward sums (in f32, rounded to bf16 once).
+expand backward sums (in f32, rounded to bf16 once). Where
+``flash_bwd_dkv_splits`` > 1 (few K/V tiles, as over 77 text tokens) the
+bf16 dkv kernel splits its query walk over blocks into f32 partials, and
+``flash_bwd_dkv_reduce`` (its own kernel, counted as
+``flash_bwd_dkv_reduce``) sums them in split order and rounds once.
 """
 
 import math
@@ -71,6 +75,42 @@ def flash_bf16_key_tile(D: int) -> int:
     if not 0 < D <= FLASH_MAX_D:
         raise ValueError(f"no bf16 flash kernel at head dim {D}")
     return _BF16_KEY_TILES[min(p for p in _BF16_KEY_TILES if p >= D)]
+
+
+# The bf16 backward kernels' walked tile at each padded head dim
+# (``kernels/csrc/flash_tile.cuh::BwdTile``): 128 rows up to DP = 80, 64
+# above.
+_BF16_BWD_WALK_TILES = {32: 128, 48: 128, 64: 128, 80: 128, 128: 64,
+                        160: 64, 256: 64}
+# ``flash_tile.cuh``'s BwdMmaCfg::BQ (the fixed rows of a block) and
+# kSplitSMs (the SMs of an H100 SXM)
+_BWD_FIXED_ROWS = 64
+_SPLIT_SMS = 132
+
+
+def flash_bwd_bf16_walk_tile(D: int) -> int:
+    """BK of ``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16`` at head dim D
+    (D padded to the smallest instantiated multiple of 16 at least D): the
+    walked rows a stage of their ring."""
+    if not 0 < D <= FLASH_MAX_D:
+        raise ValueError(f"no bf16 flash kernel at head dim {D}")
+    return _BF16_BWD_WALK_TILES[min(p for p in _BF16_BWD_WALK_TILES
+                                    if p >= D)]
+
+
+def flash_bwd_dkv_splits(bh: int, Lq: int, Lk: int, D: int) -> int:
+    """The blocks over which the bf16 dkv kernel splits its query walk
+    (``flash_tile.cuh::dkv_splits``): one where the bh·⌈Lk/64⌉ blocks give
+    each SM one or the walk has fewer than 4 tiles; else up to
+    ⌈2·132 / blocks⌉ splits of at least 2 walked tiles each, balanced so
+    that none is empty."""
+    blocks = bh * -(-Lk // _BWD_FIXED_ROWS)
+    tiles = -(-Lq // flash_bwd_bf16_walk_tile(D))
+    if blocks >= _SPLIT_SMS or tiles < 4:
+        return 1
+    s = min(tiles // 2, -(-2 * _SPLIT_SMS // blocks))
+    per = -(-tiles // s)
+    return -(-tiles // per)
 
 
 def _online_state(q, k, v, scale, key_tile):
@@ -177,6 +217,38 @@ def _bwd_dkv_plain(q, k, v, do, lse, delta, scale):
     dv = torch.matmul(_rounded(p, do.dtype).transpose(-1, -2),
                       do.float()).to(v.dtype)
     return dk, dv
+
+
+def _dkv_reduce_plain(ws):
+    """The plain version of ``flash_bwd_dkv_reduce``: ws[0] + ws[1] + ...
+    in f32, in that order, rounded once to bf16."""
+    acc = ws[0]
+    for part in ws[1:]:
+        acc = acc + part
+    return acc.to(torch.bfloat16)
+
+
+def flash_bwd_dkv_reduce(ws):
+    """The split bf16 dkv's reduction: ``ws`` (splits, 2, ...) f32 partials
+    of dk and dv, contiguous; returns (2, ...) bf16, dk then dv, each the
+    sum of its partials in split order rounded once. On the CPU its plain
+    version."""
+    if ws.device.type == "cpu":
+        return _dkv_reduce_plain(ws)
+    if (ws.dtype != torch.float32 or ws.ndim < 2 or ws.shape[0] < 1
+            or not ws.is_contiguous()):
+        raise ValueError("flash_bwd_dkv_reduce: contiguous f32 (splits, 2, "
+                         f"...) partials only, got {ws.dtype} "
+                         f"{tuple(ws.shape)}")
+    out = torch.empty(ws.shape[1:], device=ws.device, dtype=torch.bfloat16)
+    if out.numel() == 0:
+        return out
+    err = kernels.library("flash_bwd").flash_bwd_dkv_reduce(
+        ws.data_ptr(), out.data_ptr(), out.numel(), ws.shape[0],
+        torch.cuda.current_stream(ws.device).cuda_stream)
+    kernels.check(err, "flash_bwd_dkv_reduce")
+    kernels.LAUNCHES["flash_bwd_dkv_reduce"] += 1
+    return out
 
 
 def _delta(do, out):
@@ -301,7 +373,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale=None):
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None):
     """(dk, dv) of the flash backward (K4b), dense per leading index: for a
     K/V batch expanded from 1 each image gets its own rows, and autograd's
-    expand backward sums them. Gradients in q's dtype."""
+    expand backward sums them. Gradients in q's dtype. At bf16, where
+    ``flash_bwd_dkv_splits`` > 1, the query walk is split over blocks into
+    f32 partials (one launch, counted as ``flash_bwd_dkv/bf16``) that
+    ``flash_bwd_dkv_reduce`` sums; dk and dv are then the two halves of
+    one (2, ...) tensor."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -313,12 +389,25 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale=None):
         dk, dv = (torch.zeros((B1, B2, Lk, D), device=q.device,
                               dtype=q.dtype) for _ in range(2))
         return dk.reshape(k.shape), dv.reshape(v.shape)
+    key = "flash_bwd_dkv" if dt == "f32" else "flash_bwd_dkv/bf16"
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    splits = (flash_bwd_dkv_splits(B1 * B2, Lq, Lk, D) if dt == "bf16"
+              else 1)
+    if splits > 1:  # f32 partials of each split, then their reduction
+        ws = torch.empty((splits, 2, B1, B2, Lk, D), device=q.device,
+                         dtype=torch.float32)
+        err = kernels.library("flash_bwd").flash_bwd_dkv_bf16_split(
+            *ptrs, ws.data_ptr(), *dims, *strides, float(scale), splits,
+            stream)
+        kernels.check(err, key)
+        kernels.LAUNCHES[key] += 1
+        g = flash_bwd_dkv_reduce(ws)
+        return g[0].reshape(k.shape), g[1].reshape(v.shape)
     dk, dv = (torch.empty((B1, B2, Lk, D), device=q.device, dtype=q.dtype)
               for _ in range(2))
-    key = "flash_bwd_dkv" if dt == "f32" else "flash_bwd_dkv/bf16"
     err = getattr(kernels.library("flash_bwd"), f"flash_bwd_dkv_{dt}")(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, *strides, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stream)
     kernels.check(err, key)
     kernels.LAUNCHES[key] += 1
     return dk.reshape(k.shape), dv.reshape(v.shape)

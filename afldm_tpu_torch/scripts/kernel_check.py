@@ -14,18 +14,21 @@ kernels are timed at shapes added since; ``--banded_scratch_bytes`` sets
 the banded chains' scratch cap a chunk (``BANDED_SCRATCH_BYTES``: K1's and,
 since it runs the same chain, K2's).
 
-Two modes replace the checks, for comparing two checkouts in one call:
+Other modes replace the checks, for comparing two checkouts in one call:
 ``--spread n,h,Lq,Lk,D,n_kv [--seeds N]`` runs K3/bf16 at that shape (K/V
 expanded from n_kv images) on N seeded draws against the checkout's plain
 version (``flash_fwd_plain`` where the checkout has it, else the plain
 softmax attention) and prints the spread of the RMS ratio that
-``test_flash_bf16_matches_plain`` bounds; ``--digest`` prints a SHA-256 of
-the outputs of the f32 K3, K6, K4a and K4b and of K4a and K4b at bf16 at
-their KERNELS shapes on seeded inputs (the backward given the plain
-forward's out and lse), so that equal lines mean bit-identical outputs;
-``--graph`` times K3/bf16 and K6/bf16 at their KERNELS shapes by replaying
-a CUDA graph of the wrapper calls, so that a shape whose call is bound by
-the host's launch path (L = 4) is timed on the device alone.
+``test_flash_bf16_matches_plain`` bounds; ``--spread_bwd`` does the same
+for K4a/bf16 and K4b/bf16 (dq, dk and dv apart, and with K4b's split
+turned off where the checkout splits); ``--digest`` prints a SHA-256 of
+the outputs of the f32 K3, K6, K4a and K4b and of K4a, K4b, K3, K6 and P1
+at bf16 at their KERNELS shapes on seeded inputs (the backward given the
+plain forward's out and lse), so that equal lines mean bit-identical
+outputs; ``--graph`` times K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16
+(those named, where kernels are named) at their KERNELS shapes by
+replaying a CUDA graph of the wrapper calls, so that a shape whose call
+is bound by the host's launch path (L = 4) is timed on the device alone.
 
 Prints chip_smoke's ``check ...`` line per shape and each kernel's sums
 over the shapes run, and exits non-zero if a kernel disagrees with its
@@ -36,7 +39,7 @@ checkout's chip_smoke has that phase); and the bf16-activation variants
 of K5, K1 (at every level), K3 and K6 as its phase 33 runs them, each
 beside its f32 kernel on the same values in float32 and, for K3 and K6,
 the library call at bf16 (where the checkout's chip_smoke has that
-phase).
+phase), and the split bf16 K4b's reduction (where it has that row).
 """
 
 import argparse
@@ -63,12 +66,15 @@ def main(argv=None):
                          "planes (default: ops/filtered_act.py's)")
     ap.add_argument("--spread", default=None,
                     help="n,h,Lq,Lk,D,n_kv: K3/bf16's RMS ratio over seeds")
+    ap.add_argument("--spread_bwd", default=None,
+                    help="n,h,Lq,Lk,D,n_kv: K4a/bf16's and K4b/bf16's RMS "
+                         "ratios over seeds")
     ap.add_argument("--seeds", type=int, default=200)
     ap.add_argument("--digest", action="store_true",
-                    help="SHA-256 of the f32 flash kernels' and the bf16 "
-                         "backward's outputs")
+                    help="SHA-256 of the flash kernels' outputs, f32 and "
+                         "bf16")
     ap.add_argument("--graph", action="store_true",
-                    help="K3/bf16 and K6/bf16 device times from CUDA "
+                    help="the bf16 flash kernels' device times from CUDA "
                          "graph replays")
     args = ap.parse_args(argv)
     names = args.names
@@ -83,16 +89,19 @@ def main(argv=None):
         return 1
     smoke = importlib.import_module("chip_smoke")
     kernels = importlib.import_module("afldm_tpu_torch.kernels")
-    if args.spread or args.digest or args.graph:
+    if args.spread or args.spread_bwd or args.digest or args.graph:
         kernels.build_all()
         attn = importlib.import_module("afldm_tpu_torch.ops.attention")
         if args.spread:
             spread(torch, attn, smoke,
                    tuple(int(x) for x in args.spread.split(",")), args.seeds)
+        if args.spread_bwd:
+            spread_bwd(torch, attn, smoke, tuple(
+                int(x) for x in args.spread_bwd.split(",")), args.seeds)
         if args.digest:
             digest(torch, attn, smoke)
         if args.graph:
-            graph_times(torch, attn, smoke)
+            graph_times(torch, attn, smoke, names)
         return 0
     importlib.import_module("afldm_tpu_torch.ops").set_af_precision("highest")
     if args.banded_scratch_bytes:
@@ -131,9 +140,18 @@ def main(argv=None):
                                  library_ms=None)
                        for row, _, _ in smoke.BF16_ROWS})
         ok &= smoke.check_bf16_kernels(torch, report)
+    if hasattr(smoke, "check_dkv_reduce") and "flash_bwd_dkv" in \
+            smoke.KERNELS:
+        report[smoke.REDUCE_ROW] = dict(max_abs_err=0.0, ms=0.0,
+                                        plain_ms=0.0, bound_ms=0.0,
+                                        library_ms=None)
+        ok &= smoke.check_dkv_reduce(torch, report)
     for k, row in report.items():  # an older chip_smoke logs no sums
         lib = row["library_ms"]
-        shapes = smoke.KERNELS[k.split(":")[0].split("/")[0]]["shapes"]
+        shapes = (smoke.reduce_shapes() if k == getattr(smoke, "REDUCE_ROW",
+                                                        None)
+                  else smoke.KERNELS[k.split(":")[0].split("/")[0]]
+                  ["shapes"])
         print(f"kernel_check sum {k} over {len(shapes)} "
               f"shapes: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library "
@@ -173,18 +191,70 @@ def spread(torch, attn, smoke, shape, seeds):
           f"{max(ulps):.3f}", flush=True)
 
 
+def spread_bwd(torch, attn, smoke, shape, seeds):
+    """K4a/bf16 and K4b/bf16 at ``shape`` against the checkout's plain
+    versions on ``seeds`` draws (``test_flash_bwd_bf16_matches_plain``'s
+    inputs and ratio: RMS(kernel - plain) / RMS(plain - the f32 plain), for
+    dq, dk and dv apart); where the checkout splits K4b's query walk, also
+    with the split turned off (``flash_bwd_dkv_splits`` = 1)."""
+    n, h, L, Lk, d, n_kv = shape
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    variants = {"kernel": None}
+    if getattr(attn, "flash_bwd_dkv_splits", lambda *a: 1)(n * h, L, Lk,
+                                                           d) > 1:
+        variants["unsplit"] = lambda *a: 1
+    for label, plan in variants.items():
+        planned = getattr(attn, "flash_bwd_dkv_splits", None)
+        if plan is not None:
+            attn.flash_bwd_dkv_splits = plan
+        ratios = ([], [], [])
+        try:
+            for seed in range(seeds):
+                g = torch.Generator(dev).manual_seed(seed)
+                q = torch.randn(n, h, L, d, device=dev, generator=g).to(bf)
+                k, v = (torch.randn(n_kv, h, Lk, d, device=dev, generator=g)
+                        .to(bf).expand(n, -1, -1, -1) for _ in range(2))
+                do = torch.randn(n, h, L, d, device=dev, generator=g).to(bf)
+                out, lse = attn._attention_plain(q, k, v)
+                delta = attn._delta(do, out)
+                got = (attn.flash_bwd_dq(q, k, v, do, lse, delta),
+                       *attn.flash_bwd_dkv(q, k, v, do, lse, delta))
+                want = attn._attention_bwd_plain(q, k, v, out, lse, do)
+                want32 = attn._attention_bwd_plain(
+                    q.float(), k.float(), v.float(), out.float(), lse,
+                    do.float())
+                for r, a, b, c in zip(ratios, got, want, want32):
+                    gap = (b.float() - c.float()).double().pow(2).mean()
+                    r.append(float((a.float() - b.float()).double().pow(2)
+                                   .mean().sqrt() / gap.sqrt()))
+        finally:
+            if plan is not None:
+                attn.flash_bwd_dkv_splits = planned
+        for name, r in zip(("dq", "dk", "dv"), ratios):
+            r.sort()
+            over = sum(x > smoke.BF16_FLASH_RATIO for x in r)
+            print(f"kernel_check spread_bwd {label} {name} {shape} over "
+                  f"{seeds} seeds: RMS ratio median {r[len(r) // 2]:.4f} p90 "
+                  f"{r[int(0.9 * len(r))]:.4f} max {r[-1]:.4f}, {over} above "
+                  f"{smoke.BF16_FLASH_RATIO}", flush=True)
+
+
 def digest(torch, attn, smoke):
     """One line a kernel, dtype and shape: the SHA-256 of its outputs on
     inputs drawn from a seed of the kernel and shape."""
     import hashlib
     import zlib
     dev = torch.device("cuda")
+    probes = importlib.import_module("afldm_tpu_torch.ops.flash_probes")
     for name, dt in (("flash_fwd", torch.float32),
                      ("flash2_fwd", torch.float32),
                      ("flash_bwd_dq", torch.float32),
                      ("flash_bwd_dkv", torch.float32),
                      ("flash_bwd_dq", torch.bfloat16),
-                     ("flash_bwd_dkv", torch.bfloat16)):
+                     ("flash_bwd_dkv", torch.bfloat16),
+                     ("flash_fwd", torch.bfloat16),
+                     ("flash2_fwd", torch.bfloat16),
+                     ("flash_probe_dots", torch.bfloat16)):
         for shape in smoke.KERNELS[name]["shapes"]:
             n, h, L, Lk, d, n_kv = smoke._flash_dims(shape)
             g = torch.Generator(dev).manual_seed(
@@ -196,6 +266,8 @@ def digest(torch, attn, smoke):
                             .expand(n, -1, -1, -1) for _ in range(4))
             if name == "flash_fwd":
                 outs = attn.flash_fwd(q, k, v)
+            elif name == "flash_probe_dots":
+                outs = (probes.flash_probe_dots(q, k, v),)
             elif name == "flash2_fwd":
                 alpha = torch.linspace(0, 1, n, device=dev)[:, None, None]
                 outs = (attn.flash2_fwd(q, k, v, k1, v1, alpha),)
@@ -215,13 +287,17 @@ def digest(torch, attn, smoke):
         torch.cuda.empty_cache()
 
 
-def graph_times(torch, attn, smoke, calls=10, replays=20):
-    """K3/bf16 and K6/bf16 at their KERNELS shapes: the device time of one
-    wrapper call, from ``replays`` replays of a CUDA graph that holds
-    ``calls`` calls (after two calls outside it), between CUDA events."""
+def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
+    """K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16 (with its reduction where
+    it splits) at their KERNELS shapes: the device time of one wrapper
+    call, from ``replays`` replays of a CUDA graph that holds ``calls``
+    calls (after two calls outside it), between CUDA events; only the
+    kernels of ``names`` where it names any."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     total = {}
-    for name in ("flash_fwd", "flash2_fwd"):
+    for name in ("flash_fwd", "flash2_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if names and name not in names:
+            continue
         for shape in smoke.KERNELS[name]["shapes"]:
             n, h, L, Lk, d, n_kv = smoke._flash_dims(shape)
             g = torch.Generator(dev).manual_seed(0)
@@ -229,12 +305,20 @@ def graph_times(torch, attn, smoke, calls=10, replays=20):
             kv = [torch.randn(n_kv, h, Lk, d, device=dev, generator=g)
                   .to(bf).expand(n, -1, -1, -1) for _ in range(4)]
             alpha = torch.linspace(0, 1, n, device=dev)[:, None, None]
+            do = torch.randn(n, h, L, d, device=dev, generator=g).to(bf)
             if name == "flash_fwd":
                 def fn():
                     return attn.flash_fwd(q, kv[0], kv[1])
-            else:
+            elif name == "flash2_fwd":
                 def fn():
                     return attn.flash2_fwd(q, *kv, alpha)
+            else:
+                out, lse = attn._attention_plain(q, kv[0], kv[1])
+                delta = attn._delta(do, out)
+                bwd = getattr(attn, name)
+
+                def fn():
+                    return bwd(q, kv[0], kv[1], do, lse, delta)
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -258,7 +342,7 @@ def graph_times(torch, attn, smoke, calls=10, replays=20):
             total[name] = total.get(name, 0.0) + ms
             print(f"kernel_check graph {name}/bf16 {shape}: {ms:.4f} ms a "
                   "call", flush=True)
-            del graph, q, kv
+            del graph, q, kv, do, fn
             torch.cuda.empty_cache()
     for name, ms in total.items():
         print(f"kernel_check graph sum {name}/bf16: {ms:.4f} ms", flush=True)

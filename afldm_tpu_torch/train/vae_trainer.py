@@ -168,10 +168,18 @@ class VAETrainer(Trainer):
 
     def adaptive_weight(self, images, draws):
         """|grad(rec_total)| / (|grad(disc_loss)| + 1e-4) at the decoder's
-        output conv weight, clipped to [0, 1e4], times ``disc_weight``; no
-        gradient flows through it. From a reconstruction pass of its own,
-        as the JAX step takes it, so that the loss's pass is differentiated
-        once (selective checkpointing allows no second backward)."""
+        output conv weight (``adaptive_norms``), clipped to [0, 1e4], times
+        ``disc_weight``; no gradient flows through it."""
+        nll, gan = self.adaptive_norms(images, draws)
+        d_weight = nll / (gan + 1e-4)
+        return d_weight.clamp(0.0, 1e4).detach() * self.cfg.disc_weight
+
+    def adaptive_norms(self, images, draws):
+        """(|grad(rec_total)|, |grad(disc_loss)|) at the decoder's output
+        conv weight, the two norms of ``adaptive_weight``'s ratio. From a
+        reconstruction pass of its own, as the JAX step takes it, so that
+        the loss's pass is differentiated once (selective checkpointing
+        allows no second backward)."""
         mean, logvar = self.vae.encode(images)
         recon = self.vae.decode(gaussian_sample(
             mean, logvar, noise=draws["eps"].to(images.device)))
@@ -183,9 +191,8 @@ class VAETrainer(Trainer):
         nll_g, = torch.autograd.grad(rec, w, retain_graph=True)
         gan_g, = torch.autograd.grad(-torch.mean(self.disc(recon).float()),
                                      w)
-        d_weight = (torch.linalg.vector_norm(nll_g)
-                    / (torch.linalg.vector_norm(gan_g) + 1e-4))
-        return d_weight.clamp(0.0, 1e4).detach() * self.cfg.disc_weight
+        return (torch.linalg.vector_norm(nll_g),
+                torch.linalg.vector_norm(gan_g))
 
     def generator_backward(self, images, draws) -> dict:
         """The generator's loss, with the adaptive GAN term when there is a

@@ -202,7 +202,11 @@ Phases, each of which fails the run:
     reduced levels up to 512 px) to K5's and K1's criteria at the
     backward's atol, K4a and K4b on bf16 q, k, v and dO at their twelve
     shapes (Lk = 77 and K/V expanded from one image among them) to K3's,
-    K4b's library call SDPA's backward at bf16;
+    K4b's library call SDPA's backward at bf16 (its time includes the
+    reduction where its query walk splits); and the split K4b's reduction
+    (``flash_bwd_dkv_reduce``) at the f32 partials of the shapes where it
+    splits, bit-identical to its plain version (the same f32 sums in the
+    same order), a row of its own;
 34. the tiny pipeline at bf16 on the card and on the CPU (4 steps, 4
     shifts): images within BF16_TINY_RATIO of the CPU's own bf16 - f32
     RMS error, PSNRs within BF16_TINY_DPSNR dB; then the FFHQ shift
@@ -227,9 +231,11 @@ Phases, each of which fails the run:
     trained gradients within BF16_TINY_RATIO of the CPU's own bf16 - f32
     gap (over all tensors; each tensor within twice that), a loss's gap
     floored at the spread of its CPU bf16 value over the CPU's thread
-    counts, the bf16 backward kernels launched and no f32 one
-    (``--control`` runs this phase alone with a fault planted, which it
-    must fail);
+    counts, the bf16 backward kernels launched and no f32 one; the
+    AF-VAE's two gradient norms that form its GAN weight ``d_weight``
+    (``adaptive_norms``) each held apart to the same criterion as a loss,
+    at its own floor NORM_FLOOR (``--control`` runs this phase alone with
+    a fault planted, which it must fail);
 37. the five trainers at bf16 and full width, beside their f32 runs of
     phases 6, 8 and 26: the JAX package's flagship LDM run
     (``configs/ldm/train_unet_ffhq.json`` at ``mixed_precision="bf16"``:
@@ -1971,7 +1977,8 @@ def run_new_trainer(torch, name, n_steps, sd=None, mixed_precision=None,
     gradient moved (at least 80 % had one), the six training kernels
     launched (and K4b at Lk = 77 in the SD trainers); at
     ``mixed_precision`` "bf16" their bf16 variants, the backward ones as
-    reckoned, and no f32 backward kernel."""
+    reckoned, no f32 backward kernel, and in the SD trainers the split
+    K4b's reduction (their cross-attention at 64 px splits)."""
     import numpy as np
     from afldm_tpu_torch import kernels
     from afldm_tpu_torch import train as T
@@ -2050,6 +2057,11 @@ def run_new_trainer(torch, name, n_steps, sd=None, mixed_precision=None,
           and not missing)
     if name != "i2sb" and cross == 0:
         log(f"{name_tag} training: FAIL, no K4b launch over the text tokens")
+        ok = False
+    if (mixed_precision == "bf16" and name != "i2sb"
+            and not counts[REDUCE_ROW]):
+        log(f"{name_tag} training: FAIL, the split K4b over the text tokens "
+            "never launched its reduction")
         ok = False
     if not ok:
         log(f"{name_tag} training: FAIL")
@@ -2669,6 +2681,59 @@ def check_bf16_kernels(torch, report):
     return ok
 
 
+# the split bf16 K4b's reduction of its f32 partials: a row of its own
+REDUCE_ROW = "flash_bwd_dkv_reduce"
+
+
+def reduce_shapes():
+    """(splits, 2, images, heads, Lk, D) of the partials of each
+    FLASH_BWD_SHAPES case whose bf16 K4b splits its query walk."""
+    from afldm_tpu_torch.ops import attention as A
+    out = []
+    for shape in FLASH_BWD_SHAPES:
+        n, heads, L, Lk, d, _ = _flash_dims(shape)
+        splits = A.flash_bwd_dkv_splits(n * heads, L, Lk, d)
+        if splits > 1:
+            out.append((splits, 2, n, heads, Lk, d))
+    return out
+
+
+def check_dkv_reduce(torch, report):
+    """Phase 33's row of ``flash_bwd_dkv_reduce`` at each reduce_shapes
+    partials, seeded: bit-identical to its plain version (the tolerance is
+    0: both sum the same f32 values in split order and round once), timed
+    beside it; bound the bytes (each partial read once, dk and dv written
+    once at bf16); no library call computes the rounded sum in one."""
+    from afldm_tpu_torch.ops import attention as A
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    row, ok = report[REDUCE_ROW], True
+    split = {"operations": 0.0, "bytes": 0.0}
+    for shape in reduce_shapes():
+        ws = torch.randn(shape, device=dev, generator=g)
+        got, want = A.flash_bwd_dkv_reduce(ws), A._dkv_reduce_plain(ws)
+        err = float((got.float() - want.float()).abs().max())
+        good = got.dtype == want.dtype and torch.equal(got, want)
+        t = time_ms(lambda: A.flash_bwd_dkv_reduce(ws))
+        tp = time_ms(lambda: A._dkv_reduce_plain(ws))
+        nbytes = 4 * ws.numel() + 2 * want.numel()
+        b, by = bound_ms(ws.numel() - want.numel(), nbytes)
+        log(f"check {REDUCE_ROW} {shape}: max_abs_err {err:.3e} (limit 0: "
+            f"bit-identical) {'ok' if good else 'FAIL'}; kernel {t:.4f} ms, "
+            f"plain {tp:.4f} ms, library n/a, bound {b:.4f} ms ({by}-bound, "
+            f"{nbytes / 1e6:.3f} MB)")
+        ok &= bool(good)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += t
+        row["plain_ms"] += tp
+        row["bound_ms"] += b
+        split[by] += b
+        del ws, got, want
+    row["bound_by"] = max(split, key=split.get)
+    log_sums(REDUCE_ROW, row, "its shapes")
+    return ok
+
+
 def _launch_key(side, level, suffix=""):
     """The ``kernels.LAUNCHES`` key of one bf16 filtered activation (its
     forward, or with ``suffix`` '_bwd' its backward) on a ``side`` px map
@@ -3026,6 +3091,9 @@ def _bf16_launches_as_reckoned(tag, tr, name, counts, n_steps, needed):
 LOSS_FLOOR = 2.0 ** -8
 LOOSE_LOSS_FLOOR = 2.0 ** -6
 LOOSE_LOSS_KEYS = ("shift_loss", "d_weight", "disc_loss", "train_loss")
+# phase 36's floor of the bf16 - f32 gap of each gradient norm that forms
+# the AF-VAE's d_weight, as a share of the norm (one bf16 ulp)
+NORM_FLOOR = 2.0 ** -8
 # the CPU's thread counts over which phase 36 reads its bf16 references'
 # own spread, besides the host's
 SPREAD_THREADS = (1, 2, 4)
@@ -3078,7 +3146,7 @@ def check_tiny_bf16_training(torch):
                     torch, kernels, name, dev, mp, batches)
             finally:
                 torch.set_num_threads(host)
-        (lc, gc, launched), (lb, gb, _), (lf, gf, _) = (
+        (lc, gc, launched, nc), (lb, gb, _, nb), (lf, gf, _, nf) = (
             res[r] for r in runs[:3])
         refs = {r[2]: res[r][0] for r in runs if r[:2] == ("cpu", "bf16")}
         spread = {k: max(r[k] for r in refs.values())
@@ -3088,6 +3156,15 @@ def check_tiny_bf16_training(torch):
                 abs(lb[k] - lf[k]), spread[k], 1e-12, abs(lb[k]) * (
                     LOOSE_LOSS_FLOOR if k in LOOSE_LOSS_KEYS else LOSS_FLOOR))
             for k in lb}
+        # the AF-VAE's d_weight norms, each held apart at its own floor
+        norm_refs = [res[r][3] for r in runs if r[:2] == ("cpu", "bf16")]
+        norm_ratios = {
+            k: abs(nc[k] - nb[k]) / max(
+                abs(nb[k] - nf[k]), max(r[k] for r in norm_refs)
+                - min(r[k] for r in norm_refs), 1e-12,
+                abs(nb[k]) * NORM_FLOOR)
+            for k in nb}
+        worst_norm = max(norm_ratios.values(), default=0.0)
         worst_key = max(loss_ratios, key=loss_ratios.get)
         worst_loss = loss_ratios[worst_key]
         d_all = np.sqrt(sum(float((gc[n] - gb[n]).double().pow(2).sum())
@@ -3107,7 +3184,8 @@ def check_tiny_bf16_training(torch):
         good = (all(np.isfinite(v) for v in lc.values())
                 and set(gc) == set(gb) and worst_loss <= BF16_TINY_RATIO
                 and ratio_all <= BF16_TINY_RATIO
-                and worst <= 2 * BF16_TINY_RATIO and not f32 and bf)
+                and worst <= 2 * BF16_TINY_RATIO and not f32 and bf
+                and worst_norm <= BF16_TINY_RATIO)
         log(f"tiny {name} training at bf16 (card vs CPU, one step): losses "
             f"{json.dumps(lc)}; worst loss difference {worst_loss:.3f} of "
             f"the CPU's own bf16 - f32 gap at {worst_key} (limit "
@@ -3120,7 +3198,13 @@ def check_tiny_bf16_training(torch):
             + "; the bf16 references' spread, each: "
             + " ".join(f"{k} {v:.6g}" for k, v in spread.items())
             + "); "
-            f"gradients' RMS difference {ratio_all:.3f} of their RMS gap "
+            + ("d_weight's gradient norms (card, CPU at bf16, at f32; "
+               "difference / gap, limit "
+               f"{BF16_TINY_RATIO}, floor {NORM_FLOOR} of the norm): "
+               + " ".join(f"{k} {nc[k]:.6g} {nb[k]:.6g} {nf[k]:.6g} "
+                          f"{norm_ratios[k]:.3f}" for k in nb) + "; "
+               if nb else "")
+            + f"gradients' RMS difference {ratio_all:.3f} of their RMS gap "
             f"(limit {BF16_TINY_RATIO}) over {len(gb)} tensors, worst "
             f"tensor {worst:.3f} at {worst_name} (limit "
             f"{2 * BF16_TINY_RATIO}); bf16 backward launches "
@@ -3167,7 +3251,9 @@ def planted_fault(control):
 def _tiny_bf16_step(torch, kernels, name, dev, mp, batches):
     """Phase 36's step of the tiny trainer ``name`` on ``dev`` at ``mp``:
     (its logged losses, the gradients of its trained modules on the CPU,
-    the card's launch counts of the step or None on the CPU)."""
+    the card's launch counts of the step or None on the CPU, and for the
+    AF-VAE the two gradient norms of its d_weight, ``adaptive_norms``, on
+    the step's draws; else {})."""
     if name == "ldm":
         tr = _tiny_trainer(dev, mp)
     elif name == "vae":
@@ -3180,9 +3266,13 @@ def _tiny_bf16_step(torch, kernels, name, dev, mp, batches):
     if name == "vae":
         x = torch.from_numpy(batch["input"]).permute(
             0, 3, 1, 2).contiguous().to(tr.device)
-        logs = tr.generator_backward(x, tr.draw(0, 2))
+        draws = tr.draw(0, 2)
+        norms = dict(zip(("rec_grad_norm", "gan_grad_norm"),
+                         (float(n) for n in tr.adaptive_norms(x, draws))))
+        logs = tr.generator_backward(x, draws)
         mods = {"vae": tr.vae}
     else:
+        norms = {}
         loss, logs = _trainer_loss(torch, tr, name, 0, batch)
         loss.backward()
         mods = _trainer_modules(tr)
@@ -3194,7 +3284,7 @@ def _tiny_bf16_step(torch, kernels, name, dev, mp, batches):
             {f"{m}.{n}": p.grad.detach().float().cpu()
              for m, mod in mods.items() for n, p in mod.named_parameters()
              if p.grad is not None},
-            launched)
+            launched, norms)
 
 
 def log_bf16_ratios(stats):
@@ -3494,6 +3584,7 @@ def main(argv=None):
         base = row.split("/")[0]
         report[row] = dict(report[base], name=row, rms_ratio=0.0,
                            ulp_share=0.0, max_ulps=0, f32_ms=0.0)
+    report[REDUCE_ROW] = dict(report["flash_bwd_dkv"], name=REDUCE_ROW)
     lap = _lap_timer()
     ok = check_kernels(torch, report)
     lap("kernel check (phase 1)")
@@ -3584,6 +3675,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     lap("af_precision eval, AF-VAE training at each level")
     ok &= check_bf16_kernels(torch, report)
+    ok &= check_dkv_reduce(torch, report)
     lap("bf16 kernel check")
     ok &= check_tiny_bf16(torch, "protocol")
     bf_ok, bf_counts = run_bf16_protocol(torch, args.steps, f32_psnrs)

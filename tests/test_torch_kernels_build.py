@@ -531,27 +531,152 @@ def test_bf16_probe_entries_match_their_twins(name):
 
 
 def test_flash_bwd_bf16_kernels_on_the_mma_tile_loop():
-    """K4a's and K4b's bf16 kernels run flash_tile.cuh's bf16 pieces: the
-    scores through mma_scores, ds and p rounded to bf16 A fragments
-    (ds_fragments, p_fragments, dst_fragments), the walked tiles through
-    ldmatrix.trans (mma_walked), dispatched through with_bwd_mma at every
-    padded head dim; no wgmma, no TF32, no atomics."""
+    """K4a's and K4b's bf16 kernels run flash_tile.cuh's bf16 backward:
+    the fixed rows' A fragments through FixedA, the walked tiles through
+    bwd_walk's ring, 16 walked rows at a time, both score tiles through
+    chunk_scores and the second products through chunk_walked
+    (ldmatrix.trans), p by bwd_p_exp2, dispatched through with_bwd_mma at
+    every padded head dim; no wgmma, no TF32, no atomics."""
     tile = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_tile.cuh")
                   .read_text())
-    for piece in ("struct BwdMmaCfg", "int with_bwd_mma(",
-                  "void mma_walked(", "void ds_fragments(",
-                  "void p_fragments(", "void dst_fragments(",
+    for piece in ("struct BwdMmaCfg", "int with_bwd_mma(", "struct FixedA",
+                  "void bwd_walk(", "void chunk_scores(",
+                  "void chunk_walked(", "inline int dkv_splits(",
                   "__floats2bfloat162_rn"):
         assert piece in tile, piece
     src = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_bwd.cu")
                  .read_text())
     dq = _kernel_body(src, "flash_bwd_dq_bf16_kernel")
     dkv = _kernel_body(src, "flash_bwd_dkv_bf16_kernel")
-    assert dq.count("mma_scores<C>(") == 2 and "ds_fragments<C>(" in dq
-    assert dq.count("mma_walked<C>(") == 1
-    assert dkv.count("mma_scores<C>(") == 2
-    assert dkv.count("mma_walked<C>(") == 2
-    assert "p_fragments<C>(" in dkv and "dst_fragments<C>(" in dkv
+    for k, walked in ((dq, 1), (dkv, 2)):
+        assert k.count("bwd_walk<C>(") == 1
+        assert k.count("chunk_scores<C>(") == 2
+        assert k.count("chunk_walked<C>(") == walked
+        assert "bwd_p_exp2(" in k and "FixedA<C>" in k
+        assert "mma_scores<C>(" not in k
     assert src.count("with_bwd_mma<") == 2
     for absent in ("wgmma", "tf32", "atomic"):
         assert absent not in src.lower(), absent
+
+
+def _bwd_tiles(src):
+    """{DP: BK} of the bf16 backward's table (BwdTile)."""
+    return {int(dp): int(bk) for dp, bk in re.findall(
+        r"struct BwdTile<(\d+)> : BwdTileOf<(\d+)>", src)}
+
+
+def test_bwd_walk_tile_matches_the_tile_loop():
+    """``ops.attention.flash_bwd_bf16_walk_tile`` is BwdTile's BK at every
+    instantiated DP and every D padded to it; the table covers exactly the
+    DPs ``with_dp_mma`` dispatches; 64 or 128 rows."""
+    from afldm_tpu_torch.ops.attention import flash_bwd_bf16_walk_tile
+    src = (kernels.CSRC / "flash_tile.cuh").read_text()
+    table = _bwd_tiles(src)
+    assert sorted(table) == _dispatched(src, "with_dp_mma")
+    for d in range(1, 257):
+        dp = min(p for p in table if p >= d)
+        assert flash_bwd_bf16_walk_tile(d) == table[dp], d
+    assert set(table.values()) <= {64, 128}
+    with pytest.raises(ValueError):
+        flash_bwd_bf16_walk_tile(257)
+
+
+def _cxx_dkv_splits(src):
+    """flash_tile.cuh's dkv_splits as a Python function of (bh, Lq, Lk, BQ,
+    BK), translated statement by statement from its source: integer
+    division, the ternary as a conditional expression."""
+    body = src[src.index("inline int dkv_splits("):]
+    body = re.sub(r"//[^\n]*", "", body[body.index("{") + 1:
+                                         body.index("\n}\n")])
+    lines = []
+    for stmt in (t.strip() for t in body.split(";") if t.strip()):
+        stmt = re.sub(r"\bconst long long\b|\(int\)", "", stmt)
+        stmt = stmt.replace("C::", "").replace("/", "//")
+        stmt = re.sub(r"(\w[^=?]*?) \? ([^:]+) : (.+)", r"(\2 if \1 else \3)",
+                      stmt)
+        stmt = re.sub(r"^if \((.*)\) return", r"if \1: return", stmt)
+        lines.append("    " + stmt.replace("||", "or").strip())
+    env = {}
+    exec("def f(bh, Lq, Lk, BQ, BK, kSplitSMs):\n" + "\n".join(lines), env)
+    return env["f"]
+
+
+def test_dkv_split_plan_matches_the_tile_loop():
+    """``ops.attention.flash_bwd_dkv_splits`` (the wrapper's workspace) is
+    flash_tile.cuh's dkv_splits, with BwdMmaCfg's 64 fixed rows, BwdTile's
+    walked tile and kSplitSMs, over B·H, Lq, Lk and D around its edges;
+    the SD trainers' cross-attention over 77 text tokens splits."""
+    from afldm_tpu_torch.ops import attention as A
+    src = (kernels.CSRC / "flash_tile.cuh").read_text()
+    cxx = _cxx_dkv_splits(src)
+    sms = int(re.search(r"constexpr int kSplitSMs = (\d+);", src).group(1))
+    cfg = src[src.index("struct BwdMmaCfg {"):]
+    bq = int(re.search(r"int BQ = (\d+);", cfg).group(1))
+    table = _bwd_tiles(src)
+    assert (A._SPLIT_SMS, A._BWD_FIXED_ROWS) == (sms, bq)
+    for d in (8, 24, 40, 64, 80, 100, 160, 256):
+        bk = table[min(p for p in table if p >= d)]
+        for bh in (1, 2, 8, 16, 33, 66, 131, 132, 512):
+            for lq in (1, 64, 129, 256, 511, 1000, 1024, 4096, 9000):
+                for lk in (4, 64, 77, 130, 1024):
+                    assert A.flash_bwd_dkv_splits(bh, lq, lk, d) == cxx(
+                        bh, lq, lk, bq, bk, sms), (bh, lq, lk, d)
+    assert A.flash_bwd_dkv_splits(8, 4096, 77, 40) == 16
+    assert A.flash_bwd_dkv_splits(16 * 8, 1024, 1024, 24) == 1
+
+
+def test_bf16_backward_has_no_expf():
+    """The bf16 backward's p is ex2.approx with the scale folded into one
+    FFMA (bwd_p_exp2): no expf in its kernels or in the bf16 backward's
+    part of flash_tile.cuh; the f32 kernels keep bwd_p's expf."""
+    tile = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_tile.cuh")
+                  .read_text())
+    bf16_part = tile[tile.index("struct BwdTileOf"):]
+    assert "expf(" not in bf16_part
+    p2 = _kernel_body(tile, "bwd_p_exp2")
+    assert "fmaf(s, scale, -lse)" in p2 and "ex2_approx(" in p2
+    assert "expf(" in _kernel_body(tile, "bwd_p")
+    src = re.sub(r"//[^\n]*", "", (kernels.CSRC / "flash_bwd.cu")
+                 .read_text())
+    for name in ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"):
+        assert "expf(" not in _kernel_body(src, name), name
+
+
+def test_dkv_reduce_entry_has_argtypes():
+    """The split K4b's reduction: an entry in flash_bwd.cu with ctypes
+    argtypes of its own arity (the partials and dk/dv as pointers, the
+    element count 64-bit, the split count an int), beside the split
+    entry's; a launch counter of its own."""
+    entries = _entry_points((kernels.CSRC / "flash_bwd.cu").read_text())
+    sigs = kernels._SIGNATURES["flash_bwd"]
+    for name in ("flash_bwd_dkv_reduce", "flash_bwd_dkv_bf16_split"):
+        assert name in entries and len(sigs[name]) == entries[name], name
+    import ctypes
+    assert sigs["flash_bwd_dkv_reduce"] == [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    twin = sigs["flash_bwd_dkv_bf16"]
+    split = sigs["flash_bwd_dkv_bf16_split"]
+    # dk and dv give way to the partials; the split count after the scale
+    assert split == twin[:6] + twin[7:-1] + [ctypes.c_int, ctypes.c_void_p]
+    assert "flash_bwd_dkv_reduce" in kernels.LAUNCHES
+
+
+def test_dkv_reduce_plain_sums_in_split_order():
+    """On the CPU ``flash_bwd_dkv_reduce`` is its plain version: the f32
+    partials summed in split order and rounded once to bf16 (bit for bit
+    the sequential sum), (2, ...) from (splits, 2, ...)."""
+    import numpy as np
+    import torch
+    from afldm_tpu_torch.ops import attention as A
+    rng = np.random.default_rng(0)
+    ws = torch.from_numpy(rng.standard_normal((5, 2, 1, 3, 77, 40))
+                          .astype(np.float32))
+    got = A.flash_bwd_dkv_reduce(ws)
+    acc = ws[0].numpy().copy()
+    for s in range(1, 5):
+        acc = (acc + ws[s].numpy()).astype(np.float32)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 1, 3, 77, 40)
+    assert torch.equal(got, torch.from_numpy(acc).to(torch.bfloat16))
+    assert torch.equal(A.flash_bwd_dkv_reduce(ws[:1]), ws[0].to(
+        torch.bfloat16))

@@ -14,6 +14,9 @@ over up to 1024 queries); one tiny training step, card against CPU: the
 loss to 1e-4 relative and each gradient to 1e-3 of its tensor's largest,
 that scale floored at 1e-4 of the largest gradient of all (the to_k biases'
 exact gradient is 0, so both devices compute rounding noise there).
+Every random input is drawn from a generator on the card seeded by the
+case's parameters (``_seeded``), so that a run, or a ``-k`` subset of it,
+draws the same values each time.
 """
 
 import zlib
@@ -56,7 +59,8 @@ def _launches(name, fn):
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu", "mish",
                                  "leaky_relu", "tanh", "linear"])
 def test_plane_kernel_matches_plain(cuda, shape, act):
-    x = torch.randn(shape, device=cuda)
+    gen = _seeded(cuda, (shape, act))
+    x = torch.randn(shape, device=cuda, generator=gen)
     got = _launches("filtered_act_plane",
                     lambda: TF.filtered_act_plane(x, act))
     torch.testing.assert_close(got, TF.filtered_act_plain(x, act),
@@ -67,7 +71,8 @@ def test_plane_kernel_matches_plain(cuda, shape, act):
 def test_plane_kernel_channel_slice(cuda):
     """A non-contiguous input (a slice of the channels) runs the kernel on
     its contiguous copy."""
-    x = torch.randn(2, 24, 16, 16, device=cuda)[:, 5:17]
+    gen = _seeded(cuda, "plane_kernel_channel_slice")
+    x = torch.randn(2, 24, 16, 16, device=cuda, generator=gen)[:, 5:17]
     assert not x.is_contiguous()
     got = _launches("filtered_act_plane",
                     lambda: TF.filtered_act_plane(x, "silu"))
@@ -79,7 +84,9 @@ def test_plane_kernel_channel_slice(cuda):
 def test_plane_kernel_unaligned_base(cuda):
     """A contiguous view 4 bytes past an allocation's start: the wrapper
     copies it so that the kernel's 16-byte copies stay aligned."""
-    x = torch.randn(1 + 3 * 32 * 32, device=cuda)[1:].view(1, 3, 32, 32)
+    gen = _seeded(cuda, "plane_kernel_unaligned_base")
+    x = torch.randn(1 + 3 * 32 * 32, device=cuda,
+                    generator=gen)[1:].view(1, 3, 32, 32)
     assert x.is_contiguous() and x.data_ptr() % 16
     got = _launches("filtered_act_plane",
                     lambda: TF.filtered_act_plane(x, "silu"))
@@ -91,7 +98,8 @@ def test_plane_kernel_unaligned_base(cuda):
 @pytest.mark.parametrize("shape", [(1, 4, 128, 128), (1, 2, 96, 128),
                                    (1, 1, 256, 256), (1, 1, 200, 104)])
 def test_banded_kernel_matches_plain(cuda, shape):
-    x = torch.randn(shape, device=cuda)
+    gen = _seeded(cuda, shape)
+    x = torch.randn(shape, device=cuda, generator=gen)
     got = _launches("filtered_act_banded",
                     lambda: TF.filtered_act_banded(x, "silu"))
     torch.testing.assert_close(got, TF.filtered_act_plain(x, "silu"),
@@ -106,12 +114,13 @@ def test_banded_kernel_crosses_chunks(cuda, monkeypatch, side, planes,
     """K1 over several chunks of planes: five planes of 128 px in chunks of
     two, and 12 planes of 1024 px at the module's cap (10 planes' scratch
     a chunk)."""
+    gen = _seeded(cuda, (side, planes, cap_planes))
     if cap_planes is not None:
         monkeypatch.setattr(TF, "BANDED_SCRATCH_BYTES",
                             TF.banded_scratch_bytes(side, side, cap_planes))
     assert len(TF.banded_plan(side, side, planes,
                               TF.BANDED_SCRATCH_BYTES)) > 1
-    x = torch.randn(1, planes, side, side, device=cuda)
+    x = torch.randn(1, planes, side, side, device=cuda, generator=gen)
     got = _launches("filtered_act_banded",
                     lambda: TF.filtered_act_banded(x, "gelu"))
     torch.testing.assert_close(got, TF.filtered_act_plain(x, "gelu"),
@@ -132,11 +141,14 @@ def test_gemm_kernel_matches_matmul(cuda, shape, a_kmajor, shared_a, small):
     """K1's tiled GEMM alone against torch.matmul, A row-major or k-major,
     per batch or expanded from one matrix (batch stride 0), in either block
     tile, at edges that are not multiples of the tile."""
+    gen = _seeded(cuda, (shape, a_kmajor, shared_a, small))
     batch, M, N, K = shape
     a_shape = (K, M) if a_kmajor else (M, K)
-    a = (torch.randn(1, *a_shape, device=cuda).expand(batch, -1, -1)
-         if shared_a else torch.randn(batch, *a_shape, device=cuda))
-    b = torch.randn(batch, K, N, device=cuda)
+    a = (torch.randn(1, *a_shape, device=cuda,
+                     generator=gen).expand(batch, -1, -1)
+         if shared_a else torch.randn(batch, *a_shape, device=cuda,
+                                      generator=gen))
+    b = torch.randn(batch, K, N, device=cuda, generator=gen)
     got = _launches("filtered_gemm", lambda: TF.filtered_gemm(
         a, b, a_kmajor=a_kmajor, small=small))
     torch.testing.assert_close(got, TF.filtered_gemm_plain(a, b, None,
@@ -149,8 +161,9 @@ def test_gemm_kernel_matches_matmul(cuda, shape, a_kmajor, shared_a, small):
                                  "leaky_relu", "tanh", "linear"])
 def test_gemm_kernel_activation_epilogue(cuda, act):
     """Every activation in the GEMM's epilogue, against act(torch.matmul)."""
-    a = torch.randn(2, 68, 36, device=cuda)
-    b = torch.randn(2, 36, 140, device=cuda)
+    gen = _seeded(cuda, act)
+    a = torch.randn(2, 68, 36, device=cuda, generator=gen)
+    b = torch.randn(2, 36, 140, device=cuda, generator=gen)
     got = _launches("filtered_gemm", lambda: TF.filtered_gemm(a, b, act))
     torch.testing.assert_close(got, TF.filtered_gemm_plain(a, b, act),
                                atol=3e-5, rtol=1e-4)
@@ -167,11 +180,12 @@ def test_gemm_kernel_reads_c_in_its_epilogue(cuda, act, a_kmajor, small):
     either block tile, edges ragged against it; relu and leaky_relu
     meet old values of exactly 0 (their slope there is 1); grad_at itself
     is left as it is."""
+    gen = _seeded(cuda, (act, a_kmajor, small))
     batch, M, N, K = 2, 132, 196, 36
     a = torch.randn((batch, K, M) if a_kmajor else (batch, M, K),
-                    device=cuda)
-    b = torch.randn(batch, K, N, device=cuda)
-    c = torch.randn(batch, M, N, device=cuda)
+                    device=cuda, generator=gen)
+    b = torch.randn(batch, K, N, device=cuda, generator=gen)
+    c = torch.randn(batch, M, N, device=cuda, generator=gen)
     c[:, ::7] = 0.0
     c0 = c.clone()
     got = _launches("filtered_gemm", lambda: TF.filtered_gemm(
@@ -196,8 +210,9 @@ def test_gemm_refuses_operands_it_cannot_read(cuda, case):
     whose batch or K disagree, that lie off a 16-byte boundary, whose row
     stride is not a multiple of 4, or that are not float32: the kernel
     would read past them or fault on its 16-byte copies."""
-    a = torch.randn(3, 68, 36, device=cuda)
-    b = torch.randn(3, 36, 140, device=cuda)
+    gen = _seeded(cuda, case)
+    a = torch.randn(3, 68, 36, device=cuda, generator=gen)
+    b = torch.randn(3, 36, 140, device=cuda, generator=gen)
     if case == "batch":
         a = a[:1]
     elif case == "K":
@@ -207,9 +222,9 @@ def test_gemm_refuses_operands_it_cannot_read(cuda, case):
     elif case == "b_offset":
         b = _misaligned(b)
     elif case == "a_stride":
-        a = torch.randn(3, 68, 38, device=cuda)[..., :36]
+        a = torch.randn(3, 68, 38, device=cuda, generator=gen)[..., :36]
     elif case == "b_stride":
-        b = torch.randn(3, 36, 142, device=cuda)[..., :140]
+        b = torch.randn(3, 36, 142, device=cuda, generator=gen)[..., :140]
     else:
         b = b.double()
     before = dict(kernels.LAUNCHES)
@@ -224,10 +239,11 @@ def test_wrappers_at_zero_planes_and_rows(cuda):
     """Every kernel wrapper given 0 planes (batch or channels 0) or 0 query
     rows returns its empty output, shaped as on the CPU, and launches
     nothing."""
+    gen = _seeded(cuda, "wrappers_at_zero_planes_and_rows")
     before = dict(kernels.LAUNCHES)
     for shape in [(0, 4, 32, 32), (2, 0, 32, 32), (0, 4, 128, 128),
                   (2, 0, 96, 128)]:
-        x = torch.randn(shape, device=cuda)
+        x = torch.randn(shape, device=cuda, generator=gen)
         banded = shape[-1] > TF.PLANE_MAX
         fwd = TF.filtered_act_banded if banded else TF.filtered_act_plane
         bwd = (TF.filtered_act_banded_bwd if banded
@@ -235,16 +251,17 @@ def test_wrappers_at_zero_planes_and_rows(cuda):
         assert fwd(x, "silu").shape == shape
         assert bwd(x, x, "silu").shape == shape
         assert TF.filtered_act_fused(x, "silu").shape == shape
-    a, b = torch.randn(0, 8, 12, device=cuda), torch.randn(0, 12, 16,
-                                                           device=cuda)
+    a = torch.randn(0, 8, 12, device=cuda, generator=gen)
+    b = torch.randn(0, 12, 16, device=cuda, generator=gen)
     assert TF.filtered_gemm(a, b).shape == (0, 8, 16)
     for B, Lq, Lk in [(0, 64, 64), (2, 0, 64)]:
-        q = torch.randn(B, 2, Lq, 24, device=cuda)
-        k, v = (torch.randn(B, 2, Lk, 24, device=cuda) for _ in range(2))
+        q = torch.randn(B, 2, Lq, 24, device=cuda, generator=gen)
+        k, v = (torch.randn(B, 2, Lk, 24, device=cuda,
+                            generator=gen) for _ in range(2))
         out, lse = TA.flash_fwd(q, k, v)
         assert out.shape == q.shape and lse.shape == (B, 2, Lq, 1)
         assert TA.flash2_fwd(q, k, v, k, v, 0.5).shape == q.shape
-        do = torch.randn_like(q)
+        do = torch.randn(q.shape, device=q.device, generator=gen)
         delta = TA._delta(do, out)
         assert TA.flash_bwd_dq(q, k, v, do, lse, delta).shape == q.shape
         dk, dv = TA.flash_bwd_dkv(q, k, v, do, lse, delta)
@@ -258,20 +275,24 @@ def test_wrappers_at_zero_planes_and_rows(cuda):
 
 @pytest.mark.cuda
 def test_dispatcher_picks_kernels(cuda):
-    x = torch.randn(1, 2, 8, 8, device=cuda)
+    gen = _seeded(cuda, "dispatcher_picks_kernels")
+    x = torch.randn(1, 2, 8, 8, device=cuda, generator=gen)
     before = dict(kernels.LAUNCHES)
     TF.filtered_act_fused(x, "silu")
-    TF.filtered_act_fused(torch.randn(1, 1, 128, 128, device=cuda), "silu")
-    TF.filtered_act_fused(torch.randn(1, 2, 2, 2, device=cuda), "silu")
+    TF.filtered_act_fused(torch.randn(1, 1, 128, 128, device=cuda,
+                                      generator=gen), "silu")
+    TF.filtered_act_fused(torch.randn(1, 2, 2, 2, device=cuda,
+                                      generator=gen), "silu")
     assert kernels.LAUNCHES["filtered_act_plane"] == \
         before["filtered_act_plane"] + 1
     assert kernels.LAUNCHES["filtered_act_banded"] == \
         before["filtered_act_banded"] + 1
-    TF.filtered_act_fused(torch.randn(1, 1, 80, 80, device=cuda), "silu")
+    TF.filtered_act_fused(torch.randn(1, 1, 80, 80, device=cuda,
+                                      generator=gen), "silu")
     assert kernels.LAUNCHES["filtered_act_banded"] == \
         before["filtered_act_banded"] + 2
     # a plane 4848 px wide: the forward's GEMM chain takes it
-    wide = torch.randn(1, 1, 4, 4848, device=cuda)
+    wide = torch.randn(1, 1, 4, 4848, device=cuda, generator=gen)
     torch.testing.assert_close(TF.filtered_act_fused(wide, "silu"),
                                TF.filtered_act_plain(wide, "silu"),
                                atol=3e-5, rtol=1e-4)
@@ -287,8 +308,9 @@ def test_wide_planes_take_a_gradient(cuda, shape):
     """Planes as wide as 4848 px and as large as 1024 px run forward (K1)
     and backward (K2) through the dispatcher where they need a gradient,
     one launch of each wrapper, and the gradient is the plain version's."""
-    x = torch.randn(shape, device=cuda, requires_grad=True)
-    g = torch.randn(shape, device=cuda)
+    gen = _seeded(cuda, shape)
+    x = torch.randn(shape, device=cuda, requires_grad=True, generator=gen)
+    g = torch.randn(shape, device=cuda, generator=gen)
     y = _launches("filtered_act_banded",
                   lambda: TF.filtered_act_fused(x, "silu"))
     _launches("filtered_act_banded_bwd", lambda: y.backward(g))
@@ -303,10 +325,11 @@ def test_wide_planes_take_a_gradient(cuda, shape):
     (1, 4, 16, 16, 40), (1, 1, 130, 70, 8), (1, 2, 65, 129, 100),
     (1, 1, 64, 64, 256)])
 def test_flash_kernel_matches_plain(cuda, shape):
+    gen = _seeded(cuda, shape)
     B, H, Lq, Lk, D = shape
-    q = torch.randn(B, H, Lq, D, device=cuda)
-    k = torch.randn(B, H, Lk, D, device=cuda)
-    v = torch.randn(B, H, Lk, D, device=cuda)
+    q = torch.randn(B, H, Lq, D, device=cuda, generator=gen)
+    k = torch.randn(B, H, Lk, D, device=cuda, generator=gen)
+    v = torch.randn(B, H, Lk, D, device=cuda, generator=gen)
     out, lse = _launches("flash_fwd", lambda: TA.flash_fwd(q, k, v))
     ref, ref_lse = TA._attention_plain(q, k, v)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-4)
@@ -321,9 +344,11 @@ def test_flash_kernel_matches_plain(cuda, shape):
 def test_flash_kernel_sd_head_dims(cuda, shape):
     """K3 at the SD UNet's head dims: self-attention at 64, 32 and 16 px
     and cross-attention over 77 text tokens."""
+    gen = _seeded(cuda, shape)
     B, H, Lq, Lk, D, nkv = shape
-    q = torch.randn(B, H, Lq, D, device=cuda)
-    k, v = (torch.randn(nkv, H, Lk, D, device=cuda).expand(B, -1, -1, -1)
+    q = torch.randn(B, H, Lq, D, device=cuda, generator=gen)
+    k, v = (torch.randn(nkv, H, Lk, D, device=cuda,
+                        generator=gen).expand(B, -1, -1, -1)
             for _ in range(2))
     out, lse = _launches("flash_fwd", lambda: TA.flash_fwd(q, k, v))
     ref, ref_lse = TA._attention_plain(q, k, v)
@@ -331,9 +356,10 @@ def test_flash_kernel_sd_head_dims(cuda, shape):
     torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-4)
 
 
-def _flash2_inputs(cuda, B, H, Lq, Lk, D, kv_batch):
-    q = torch.randn(B, H, Lq, D, device=cuda)
-    kvs = [torch.randn(kv_batch, H, Lk, D, device=cuda).expand(B, -1, -1, -1)
+def _flash2_inputs(cuda, gen, B, H, Lq, Lk, D, kv_batch):
+    q = torch.randn(B, H, Lq, D, device=cuda, generator=gen)
+    kvs = [torch.randn(kv_batch, H, Lk, D, device=cuda,
+                       generator=gen).expand(B, -1, -1, -1)
            for _ in range(4)]
     return q, kvs
 
@@ -345,8 +371,9 @@ def _flash2_inputs(cuda, B, H, Lq, Lk, D, kv_batch):
 def test_flash2_kernel_matches_plain(cuda, D, lens, kv_batch):
     """K6 with one alpha per frame, ragged Lq/Lk, K/V per frame or
     expanded from one image (stride 0)."""
+    gen = _seeded(cuda, (D, lens, kv_batch))
     (Lq, Lk), B, H = lens, 3, 2
-    q, kvs = _flash2_inputs(cuda, B, H, Lq, Lk, D, kv_batch)
+    q, kvs = _flash2_inputs(cuda, gen, B, H, Lq, Lk, D, kv_batch)
     alpha = torch.tensor([0.0, 0.3, 1.0], device=cuda)[:, None, None]
     got = _launches("flash2_fwd", lambda: TA.flash2_fwd(q, *kvs, alpha))
     want = TA.sdpa2_eager(q, *kvs, alpha)
@@ -357,7 +384,8 @@ def test_flash2_kernel_matches_plain(cuda, D, lens, kv_batch):
 @pytest.mark.parametrize("alpha", [0.25, (0.1, 0.9)])
 def test_flash2_scalar_alpha_and_3d(cuda, alpha):
     """A scalar alpha, a (N,) alpha broadcast over heads, and 3D inputs."""
-    q, kvs = _flash2_inputs(cuda, 2, 4, 64, 48, 24, 1)
+    gen = _seeded(cuda, alpha)
+    q, kvs = _flash2_inputs(cuda, gen, 2, 4, 64, 48, 24, 1)
     got = _launches("flash2_fwd", lambda: TA.flash2_fwd(q, *kvs, alpha))
     torch.testing.assert_close(got, TA.sdpa2_eager(q, *kvs, alpha),
                                atol=2e-5, rtol=1e-4)
@@ -372,11 +400,14 @@ def test_sdpa2_function_backward_uses_flash_kernels(cuda):
     """The dispatcher's forward is K6, its backward the two-pass VJP
     through K3 recompute and the K4 pair; gradients (alpha's too) match
     autograd through the plain version."""
-    q0 = torch.randn(3, 2, 64, 24, device=cuda, requires_grad=True)
-    kv0 = [torch.randn(1, 2, 64, 24, device=cuda, requires_grad=True)
+    gen = _seeded(cuda, "sdpa2_function_backward_uses_flash_kernels")
+    q0 = torch.randn(3, 2, 64, 24, device=cuda, requires_grad=True,
+                     generator=gen)
+    kv0 = [torch.randn(1, 2, 64, 24, device=cuda, requires_grad=True,
+                       generator=gen)
            for _ in range(4)]
     a0 = torch.tensor([0.2, 0.5, 0.8], device=cuda, requires_grad=True)
-    g = torch.randn(3, 2, 64, 24, device=cuda)
+    g = torch.randn(3, 2, 64, 24, device=cuda, generator=gen)
 
     def run(fn):
         out = fn(q0, *(t.expand(3, -1, -1, -1) for t in kv0), a0)
@@ -397,9 +428,12 @@ def test_sdpa2_function_backward_uses_flash_kernels(cuda):
 def test_flash_kernel_expanded_and_strided_kv(cuda):
     """K/V expanded from one image (stride 0) and q as a transposed view:
     read through strides, no copies."""
-    q = torch.randn(4, 64, 2, 24, device=cuda).transpose(1, 2)
-    k = torch.randn(1, 2, 64, 24, device=cuda).expand(4, -1, -1, -1)
-    v = torch.randn(1, 2, 64, 24, device=cuda).expand(4, -1, -1, -1)
+    gen = _seeded(cuda, "flash_kernel_expanded_and_strided_kv")
+    q = torch.randn(4, 64, 2, 24, device=cuda, generator=gen).transpose(1, 2)
+    k = torch.randn(1, 2, 64, 24, device=cuda,
+                    generator=gen).expand(4, -1, -1, -1)
+    v = torch.randn(1, 2, 64, 24, device=cuda,
+                    generator=gen).expand(4, -1, -1, -1)
     out = _launches("flash_fwd", lambda: TA.sdpa(q, k, v))
     ref = TA.sdpa_eager(q, k.contiguous(), v.contiguous())
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-4)
@@ -413,8 +447,9 @@ def test_flash_kernel_expanded_and_strided_kv(cuda):
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu", "mish",
                                  "leaky_relu", "tanh"])
 def test_plane_bwd_kernel_matches_plain(cuda, shape, act):
-    x = torch.randn(shape, device=cuda)
-    g = torch.randn(shape, device=cuda)
+    gen = _seeded(cuda, (shape, act))
+    x = torch.randn(shape, device=cuda, generator=gen)
+    g = torch.randn(shape, device=cuda, generator=gen)
     got = _launches("filtered_act_plane_bwd",
                     lambda: TF.filtered_act_plane_bwd(x, g, act))
     torch.testing.assert_close(
@@ -443,8 +478,9 @@ def test_plane_bwd_entry_takes_every_plan(cuda, shape, threads):
     choice the rows allow, through the C entry at both thread counts: each
     gives the plain version's dx; a choice the rows refuse, and P = 0,
     return cudaErrorInvalidValue (1) without a launch."""
-    x = torch.randn(shape, device=cuda)
-    g = torch.randn(shape, device=cuda)
+    gen = _seeded(cuda, (shape, threads))
+    x = torch.randn(shape, device=cuda, generator=gen)
+    g = torch.randn(shape, device=cuda, generator=gen)
     want = TF.filtered_act_plane_bwd_plain(x, g, "gelu")
     H, W = shape[-2:]
     nplanes = shape[0] * shape[1]
@@ -472,9 +508,10 @@ def test_plane_bwd_kernel_misaligned_and_strided(cuda):
     """x and g off a 16-byte boundary, and g a non-contiguous view (as
     autograd may hand it), are copied to what the kernel's 16-byte copies
     read; dx is the plain version's."""
+    gen = _seeded(cuda, "plane_bwd_kernel_misaligned_and_strided")
     shape = (2, 6, 32, 32)
-    x = _misaligned(torch.randn(shape, device=cuda))
-    g = torch.randn(2, 6, 32, 32, device=cuda).transpose(-1, -2)
+    x = _misaligned(torch.randn(shape, device=cuda, generator=gen))
+    g = torch.randn(2, 6, 32, 32, device=cuda, generator=gen).transpose(-1, -2)
     assert x.data_ptr() % 16 and not g.is_contiguous()
     got = _launches("filtered_act_plane_bwd",
                     lambda: TF.filtered_act_plane_bwd(x, g, "silu"))
@@ -487,15 +524,18 @@ def test_plane_bwd_kernel_misaligned_and_strided(cuda):
 def test_plane_function_backward_launches_kernel(cuda):
     """autograd through the dispatcher reaches the plane backward kernel at
     plane sizes and the banded one (K2) above 64 px."""
-    x = torch.randn(2, 8, 16, 16, device=cuda, requires_grad=True)
-    g = torch.randn(2, 8, 16, 16, device=cuda)
+    gen = _seeded(cuda, "plane_function_backward_launches_kernel")
+    x = torch.randn(2, 8, 16, 16, device=cuda, requires_grad=True,
+                    generator=gen)
+    g = torch.randn(2, 8, 16, 16, device=cuda, generator=gen)
     y = TF.filtered_act_fused(x, "silu")
     _launches("filtered_act_plane_bwd", lambda: y.backward(g))
     torch.testing.assert_close(
         x.grad, TF.filtered_act_plane_bwd_plain(x.detach(), g, "silu"),
         atol=1e-4, rtol=1e-4)
-    xb = torch.randn(1, 2, 128, 128, device=cuda, requires_grad=True)
-    gb = torch.randn(1, 2, 128, 128, device=cuda)
+    xb = torch.randn(1, 2, 128, 128, device=cuda, requires_grad=True,
+                     generator=gen)
+    gb = torch.randn(1, 2, 128, 128, device=cuda, generator=gen)
     yb = TF.filtered_act_fused(xb, "silu")
     _launches("filtered_act_banded_bwd", lambda: yb.backward(gb))
     torch.testing.assert_close(
@@ -513,8 +553,9 @@ def test_banded_bwd_kernel_matches_plain(cuda, shape, act):
     """K2's six GEMM launches at square and mixed planes, sides that are
     and are not multiples of the 64 and 128 px block tiles, in one chunk,
     for every activation's derivative in the epilogue that reads C."""
-    x = torch.randn(shape, device=cuda)
-    g = torch.randn(shape, device=cuda)
+    gen = _seeded(cuda, (shape, act))
+    x = torch.randn(shape, device=cuda, generator=gen)
+    g = torch.randn(shape, device=cuda, generator=gen)
     got = _launches("filtered_act_banded_bwd",
                     lambda: TF.filtered_act_banded_bwd(x, g, act))
     torch.testing.assert_close(
@@ -532,13 +573,14 @@ def test_banded_bwd_kernel_crosses_chunks(cuda, monkeypatch, side, planes,
     two, seven of 80 px in chunks of three, and 12 planes of 1024 px at
     the module's cap (10 planes' scratch a chunk); one scratch buffer,
     reused chunk after chunk."""
+    gen = _seeded(cuda, (side, planes, cap_planes))
     if cap_planes is not None:
         monkeypatch.setattr(TF, "BANDED_SCRATCH_BYTES",
                             TF.banded_scratch_bytes(side, side, cap_planes))
     assert len(TF.banded_plan(side, side, planes, TF.BANDED_SCRATCH_BYTES,
                               TF.banded_bwd_products)) > 1
-    x = torch.randn(1, planes, side, side, device=cuda)
-    g = torch.randn(1, planes, side, side, device=cuda)
+    x = torch.randn(1, planes, side, side, device=cuda, generator=gen)
+    g = torch.randn(1, planes, side, side, device=cuda, generator=gen)
     got = _launches("filtered_act_banded_bwd",
                     lambda: TF.filtered_act_banded_bwd(x, g, "gelu"))
     torch.testing.assert_close(
@@ -551,9 +593,11 @@ def test_banded_bwd_kernel_misaligned_and_strided(cuda):
     """x and g off a 16-byte boundary, and g a non-contiguous view (as
     autograd may hand it), are copied to what the GEMM's 16-byte reads
     take; dx is the plain version's."""
+    gen = _seeded(cuda, "banded_bwd_kernel_misaligned_and_strided")
     shape = (1, 3, 96, 128)
-    x = _misaligned(torch.randn(shape, device=cuda))
-    g = torch.randn(1, 3, 128, 96, device=cuda).transpose(-1, -2)
+    x = _misaligned(torch.randn(shape, device=cuda, generator=gen))
+    g = torch.randn(1, 3, 128, 96, device=cuda,
+                    generator=gen).transpose(-1, -2)
     assert x.data_ptr() % 16 and not g.is_contiguous()
     got = _launches("filtered_act_banded_bwd",
                     lambda: TF.filtered_act_banded_bwd(x, g, "silu"))
@@ -562,12 +606,12 @@ def test_banded_bwd_kernel_misaligned_and_strided(cuda):
         rtol=1e-4)
 
 
-def _attn_inputs(cuda, B, H, Lq, Lk, D, kv_batch):
-    q = torch.randn(B, H, Lq, D, device=cuda)
-    k, v = (torch.randn(kv_batch, H, Lk, D, device=cuda)
+def _attn_inputs(cuda, gen, B, H, Lq, Lk, D, kv_batch):
+    q = torch.randn(B, H, Lq, D, device=cuda, generator=gen)
+    k, v = (torch.randn(kv_batch, H, Lk, D, device=cuda, generator=gen)
             .expand(B, -1, -1, -1) for _ in range(2))
     out, lse = TA.flash_fwd(q, k, v)
-    do = torch.randn(B, H, Lq, D, device=cuda)
+    do = torch.randn(B, H, Lq, D, device=cuda, generator=gen)
     return q, k, v, out, lse, do
 
 
@@ -586,8 +630,9 @@ TILE_LENS = [(1, 1), (37, 77), (127, 129), (129, 4095), (4095, 37)]
 def test_flash_bwd_kernels_match_plain(cuda, shape):
     """K4a and K4b at every BwdCfg (each DP, with D below, at and between
     them), ragged Lq and Lk, K/V per image and expanded from one."""
+    gen = _seeded(cuda, shape)
     B, H, Lq, Lk, D, nkv = shape
-    q, k, v, out, lse, do = _attn_inputs(cuda, B, H, Lq, Lk, D, nkv)
+    q, k, v, out, lse, do = _attn_inputs(cuda, gen, B, H, Lq, Lk, D, nkv)
     delta = TA._delta(do, out)
     dq = _launches("flash_bwd_dq",
                    lambda: TA.flash_bwd_dq(q, k, v, do, lse, delta))
@@ -606,8 +651,9 @@ def test_flash_bwd_at_the_sd_cross_attention(cuda, shape):
     """K4a and K4b at the SD trainers' cross-attention over 77 text tokens
     (a second K/V tile of 13 valid rows): dk and dv of the padded rows are
     neither written nor summed, dq's sum over Lk masks the tail."""
+    gen = _seeded(cuda, shape)
     B, H, Lq, Lk, D, nkv = shape
-    q, k, v, out, lse, do = _attn_inputs(cuda, B, H, Lq, Lk, D, nkv)
+    q, k, v, out, lse, do = _attn_inputs(cuda, gen, B, H, Lq, Lk, D, nkv)
     delta = TA._delta(do, out)
     dq = _launches("flash_bwd_dq",
                    lambda: TA.flash_bwd_dq(q, k, v, do, lse, delta))
@@ -624,12 +670,13 @@ def test_flash_bwd_at_the_sd_cross_attention(cuda, shape):
 def test_plane_bwd_at_the_sd_unet(cuda, shape):
     """K5b at the SD UNet's 64 px and 8 px levels at batch 1: its launch
     plan finds a plan there, and the kernel matches its plain version."""
+    gen = _seeded(cuda, shape)
     _, c, h, w = shape
     plan = TF.plane_bwd_plan(h, w, c)
     assert plan.planes_per_block >= 1 and plan.smem_bytes <= \
         TF.SMEM_MAX_BYTES
-    x = torch.randn(shape, device=cuda)
-    g = torch.randn(shape, device=cuda)
+    x = torch.randn(shape, device=cuda, generator=gen)
+    g = torch.randn(shape, device=cuda, generator=gen)
     got = _launches("filtered_act_plane_bwd",
                     lambda: TF.filtered_act_plane_bwd(x, g, "silu"))
     torch.testing.assert_close(
@@ -642,10 +689,14 @@ def test_flash_function_expanded_kv_and_strided_do(cuda):
     """Through autograd: q a transposed view, K/V expanded from one image
     (stride 0) whose gradients sum over the batch, dO strided (it arrives
     through the head transpose)."""
-    q0 = torch.randn(4, 64, 2, 24, device=cuda, requires_grad=True)
-    k0 = torch.randn(1, 2, 64, 24, device=cuda, requires_grad=True)
-    v0 = torch.randn(1, 2, 64, 24, device=cuda, requires_grad=True)
-    g = torch.randn(4, 64, 2, 24, device=cuda)
+    gen = _seeded(cuda, "flash_function_expanded_kv_and_strided_do")
+    q0 = torch.randn(4, 64, 2, 24, device=cuda, requires_grad=True,
+                     generator=gen)
+    k0 = torch.randn(1, 2, 64, 24, device=cuda, requires_grad=True,
+                     generator=gen)
+    v0 = torch.randn(1, 2, 64, 24, device=cuda, requires_grad=True,
+                     generator=gen)
+    g = torch.randn(4, 64, 2, 24, device=cuda, generator=gen)
 
     def run(fn):
         out = fn(q0.transpose(1, 2), k0.expand(4, -1, -1, -1),
@@ -751,9 +802,9 @@ def test_tiny_vae_step_on_card_matches_cpu(cuda, policy):
 
 # -- the flash attribution probes (P1, P2) ---------------------------------------
 
-def _probe_inputs(device, B, H, Lq, Lk, D, kv_batch):
-    q = torch.randn(B, H, Lq, D, device=device)
-    k, v = (torch.randn(kv_batch, H, Lk, D, device=device)
+def _probe_inputs(device, gen, B, H, Lq, Lk, D, kv_batch):
+    q = torch.randn(B, H, Lq, D, device=device, generator=gen)
+    k, v = (torch.randn(kv_batch, H, Lk, D, device=device, generator=gen)
             .expand(B, -1, -1, -1) for _ in range(2))
     return q, k, v
 
@@ -767,8 +818,9 @@ def test_flash_probe_kernels_match_plain(cuda, D, lens, kv_batch):
     values, which grow as sqrt(Lk·D)); P2 1e-5 (it sums each tile's 64 rows
     in another order than the plain version). K/V expanded from one image
     when kv_batch is 1 (stride 0)."""
+    gen = _seeded(cuda, (D, lens, kv_batch))
     from afldm_tpu_torch.ops import flash_probes as P
-    q, k, v = _probe_inputs(cuda, 2, 3, *lens, D, kv_batch)
+    q, k, v = _probe_inputs(cuda, gen, 2, 3, *lens, D, kv_batch)
     for name, plain, rel in (("flash_probe_dots", P.flash_probe_dots_plain,
                               2e-5),
                              ("flash_probe_stream",
@@ -782,8 +834,9 @@ def test_flash_probe_kernels_match_plain(cuda, D, lens, kv_batch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lens", [(63, 64), (64, 100), (1, 64)])
 def test_flash_probe_kernels_need_multiples_of_64(cuda, lens):
+    gen = _seeded(cuda, lens)
     from afldm_tpu_torch.ops import flash_probes as P
-    q, k, v = _probe_inputs(cuda, 1, 1, *lens, 16, 1)
+    q, k, v = _probe_inputs(cuda, gen, 1, 1, *lens, 16, 1)
     for fn in (P.flash_probe_dots, P.flash_probe_stream):
         with pytest.raises(ValueError, match="multiples of 64"):
             fn(q, k, v)
@@ -801,8 +854,9 @@ def test_banded_kernels_widened_window(cuda, shape):
     """K1 and K2 at the sizes between and beyond the old 96-512 px window:
     68-92 px, mixed 32x128, and planes above 512 px (one or two planes a
     chunk, their GEMM grids many waves deep)."""
-    x = torch.randn(shape, device=cuda)
-    g = torch.randn(shape, device=cuda)
+    gen = _seeded(cuda, shape)
+    x = torch.randn(shape, device=cuda, generator=gen)
+    g = torch.randn(shape, device=cuda, generator=gen)
     got = _launches("filtered_act_banded",
                     lambda: TF.filtered_act_fused(x, "silu"))
     torch.testing.assert_close(got, TF.filtered_act_plain(x, "silu"),
@@ -823,9 +877,11 @@ def test_banded_kernels_widened_window(cuda, shape):
 def test_flash_tile_loop_dims_and_ragged_lengths(cuda, D, lens):
     """K3 (out and the lse that K4 reads) and K6 at every padded head dim
     (DP 24 ... 256, D below, at and between them) and ragged Lq/Lk."""
+    gen = _seeded(cuda, (D, lens))
     Lq, Lk = lens
-    q = torch.randn(2, 2, Lq, D, device=cuda)
-    k, v, k1, v1 = (torch.randn(2, 2, Lk, D, device=cuda) for _ in range(4))
+    q = torch.randn(2, 2, Lq, D, device=cuda, generator=gen)
+    k, v, k1, v1 = (torch.randn(2, 2, Lk, D, device=cuda,
+                                generator=gen) for _ in range(4))
     out, lse = _launches("flash_fwd", lambda: TA.flash_fwd(q, k, v))
     ref, ref_lse = TA._attention_plain(q, k, v)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=1e-4)
@@ -837,21 +893,23 @@ def test_flash_tile_loop_dims_and_ragged_lengths(cuda, D, lens):
                                atol=2e-5, rtol=1e-4)
 
 
-def _views(cuda, B, H, L, D, kind):
+def _views(cuda, gen, B, H, L, D, kind):
     """(B, H, L, D) inputs laid out as ``kind``: contiguous; a transposed
     view (row stride H·D); a slice of a wider tensor (row stride D + 3,
     not a multiple of 4 floats: the scalar copy); expanded from one image
     (batch stride 0); a base 4 bytes past a 16-byte boundary (the scalar
     copy)."""
     if kind == "contiguous":
-        return torch.randn(B, H, L, D, device=cuda)
+        return torch.randn(B, H, L, D, device=cuda, generator=gen)
     if kind == "transposed":
-        return torch.randn(B, L, H, D, device=cuda).transpose(1, 2)
+        return torch.randn(B, L, H, D, device=cuda,
+                           generator=gen).transpose(1, 2)
     if kind == "sliced":
-        return torch.randn(B, H, L, D + 3, device=cuda)[..., :D]
+        return torch.randn(B, H, L, D + 3, device=cuda, generator=gen)[..., :D]
     if kind == "expanded":
-        return torch.randn(1, H, L, D, device=cuda).expand(B, -1, -1, -1)
-    flat = torch.randn(B * H * L * D + 1, device=cuda)
+        return torch.randn(1, H, L, D, device=cuda,
+                           generator=gen).expand(B, -1, -1, -1)
+    flat = torch.randn(B * H * L * D + 1, device=cuda, generator=gen)
     t = flat[1:].view(B, H, L, D)
     assert t.data_ptr() % 16 == 4
     return t
@@ -870,9 +928,10 @@ def test_flash_tile_loop_strides_and_alignment(cuda, D, q_kind, kv_kind):
     """Strided and stride-0 q, k, v are read through their strides without
     a copy, and an unaligned base or row stride takes the masked scalar
     copy in place of cp.async: both give the plain version's values."""
+    gen = _seeded(cuda, (D, q_kind, kv_kind))
     B, H, L = 3, 2, 130
-    q = _views(cuda, B, H, L, D, q_kind)
-    k, v, k1, v1 = (_views(cuda, B, H, L, D, kv_kind) for _ in range(4))
+    q = _views(cuda, gen, B, H, L, D, q_kind)
+    k, v, k1, v1 = (_views(cuda, gen, B, H, L, D, kv_kind) for _ in range(4))
     assert all(t.stride(-1) == 1 for t in (q, k, v))
     out, lse = _launches("flash_fwd", lambda: TA.flash_fwd(q, k, v))
     ref, ref_lse = TA._attention_plain(q, k, v)
@@ -900,10 +959,11 @@ def test_flash_bwd_strides_and_alignment(cuda, D, q_kind, do_kind, kv_kind):
     strides; an unaligned base or row stride in any of them takes the
     masked scalar copy in place of cp.async: both give the plain version's
     gradients."""
+    gen = _seeded(cuda, (D, q_kind, do_kind, kv_kind))
     B, H, L = 3, 2, 130
-    q = _views(cuda, B, H, L, D, q_kind)
-    do = _views(cuda, B, H, L, D, do_kind)
-    k, v = (_views(cuda, B, H, L, D, kv_kind) for _ in range(2))
+    q = _views(cuda, gen, B, H, L, D, q_kind)
+    do = _views(cuda, gen, B, H, L, D, do_kind)
+    k, v = (_views(cuda, gen, B, H, L, D, kv_kind) for _ in range(2))
     assert all(t.stride(-1) == 1 for t in (q, do, k, v))
     out, lse = TA.flash_fwd(q, k, v)
     delta = TA._delta(do, out)
@@ -920,8 +980,9 @@ def test_flash_bwd_strides_and_alignment(cuda, D, q_kind, do_kind, kv_kind):
 @pytest.mark.parametrize("kind", ["sliced", "misaligned", "expanded"])
 def test_flash_probes_scalar_and_strided_staging(cuda, kind):
     """P1 and P2 through the scalar copy and through stride 0."""
+    gen = _seeded(cuda, kind)
     from afldm_tpu_torch.ops import flash_probes as P
-    q, k, v = (_views(cuda, 2, 2, 128, 40, kind) for _ in range(3))
+    q, k, v = (_views(cuda, gen, 2, 2, 128, 40, kind) for _ in range(3))
     for name, plain, rel in (("flash_probe_dots", P.flash_probe_dots_plain,
                               2e-5),
                              ("flash_probe_stream",
@@ -970,7 +1031,8 @@ def level(request):
     (3, 5, 8, 8), (1, 7, 4, 64), (1, 192, 32, 32)])
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
 def test_plane_level_variant_matches_plain(cuda, level, shape, act):
-    x = torch.randn(shape, device=cuda)
+    gen = _seeded(cuda, (level, shape, act))
+    x = torch.randn(shape, device=cuda, generator=gen)
     got = _launches(f"filtered_act_plane:{level}",
                     lambda: TF.filtered_act_plane(x, act))
     assert_level_close(got, TF.filtered_act_plane_plain(x, act, level),
@@ -983,7 +1045,8 @@ def test_plane_level_variant_matches_plain(cuda, level, shape, act):
     (3, 5, 8, 8), (1, 7, 4, 64)])
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
 def test_plane_bwd_level_variant_matches_plain(cuda, level, shape, act):
-    x, g = (torch.randn(shape, device=cuda) for _ in range(2))
+    gen = _seeded(cuda, (level, shape, act))
+    x, g = (torch.randn(shape, device=cuda, generator=gen) for _ in range(2))
     got = _launches(f"filtered_act_plane_bwd:{level}",
                     lambda: TF.filtered_act_plane_bwd(x, g, act))
     assert_level_close(got, TF.filtered_act_plane_bwd_plain(x, g, act, level),
@@ -995,7 +1058,8 @@ def test_plane_bwd_level_variant_matches_plain(cuda, level, shape, act):
                                    (1, 2, 80, 80), (1, 3, 32, 128),
                                    (1, 1, 200, 104)])
 def test_banded_level_variants_match_plain(cuda, level, shape):
-    x, g = (torch.randn(shape, device=cuda) for _ in range(2))
+    gen = _seeded(cuda, (level, shape))
+    x, g = (torch.randn(shape, device=cuda, generator=gen) for _ in range(2))
     got = _launches(f"filtered_act_banded:{level}",
                     lambda: TF.filtered_act_banded(x, "silu"))
     assert_level_close(got, TF.filtered_act_banded_plain(x, "silu", level),
@@ -1011,7 +1075,8 @@ def test_banded_level_variants_match_plain(cuda, level, shape):
 def test_banded_level_applies_up_to_512_px(cuda, level):
     """Above LEVEL_MAX the f32 chain runs at every level, as the JAX
     package filters exactly (spectrally) there."""
-    x = torch.randn(1, 1, 1024, 1024, device=cuda)
+    gen = _seeded(cuda, level)
+    x = torch.randn(1, 1, 1024, 1024, device=cuda, generator=gen)
     got = _launches("filtered_act_banded",
                     lambda: TF.filtered_act_banded(x, "silu"))
     torch.testing.assert_close(
@@ -1025,11 +1090,12 @@ def test_banded_level_applies_up_to_512_px(cuda, level):
 @pytest.mark.parametrize("small", [False, True])
 def test_gemm_level_variant_matches_plain(cuda, level, shape, a_kmajor,
                                           small):
+    gen = _seeded(cuda, (level, shape, a_kmajor, small))
     batch, M, N, K = shape
     a = torch.randn((batch, K, M) if a_kmajor else (batch, M, K),
-                    device=cuda)
-    b = torch.randn(batch, K, N, device=cuda)
-    pre = torch.randn(batch, M, N, device=cuda)
+                    device=cuda, generator=gen)
+    b = torch.randn(batch, K, N, device=cuda, generator=gen)
+    pre = torch.randn(batch, M, N, device=cuda, generator=gen)
     got = _launches(f"filtered_gemm:{level}",
                     lambda: TF.filtered_gemm(a, b, "silu", a_kmajor, small))
     assert_level_close(
@@ -1048,9 +1114,10 @@ def test_gemm_level_variant_matches_plain(cuda, level, shape, a_kmajor,
 def test_level_functions_keep_the_forward_level(cuda, shape):
     """The autograd Functions run the backward at the forward's level even
     when the level changes in between."""
+    gen = _seeded(cuda, shape)
     from afldm_tpu_torch.ops import set_af_precision
     kind = "plane" if shape[-1] <= TF.PLANE_MAX else "banded"
-    x = torch.randn(shape, device=cuda, requires_grad=True)
+    x = torch.randn(shape, device=cuda, requires_grad=True, generator=gen)
     try:
         set_af_precision("high")
         out = TF.filtered_act_fused(x, "silu")
@@ -1127,7 +1194,8 @@ def _bf16_key(name, level):
     (3, 5, 8, 8), (1, 7, 4, 64), (1, 192, 32, 32), (16, 96, 16, 16)])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_plane_bf16_variant_matches_plain(cuda, any_level, shape, act):
-    x = torch.randn(shape, device=cuda).to(BF)
+    gen = _seeded(cuda, (any_level, shape, act))
+    x = torch.randn(shape, device=cuda, generator=gen).to(BF)
     got = _launches(_bf16_key("filtered_act_plane", any_level),
                     lambda: TF.filtered_act_plane(x, act))
     assert_bf16_close(got, TF.filtered_act_plane_plain(x, act, any_level),
@@ -1140,7 +1208,8 @@ def test_plane_bf16_variant_matches_plain(cuda, any_level, shape, act):
                                    (1, 2, 80, 80), (1, 3, 32, 128),
                                    (1, 1, 200, 104)])
 def test_banded_bf16_variant_matches_plain(cuda, any_level, shape):
-    x = torch.randn(shape, device=cuda).to(BF)
+    gen = _seeded(cuda, (any_level, shape))
+    x = torch.randn(shape, device=cuda, generator=gen).to(BF)
     got = _launches(_bf16_key("filtered_act_banded", any_level),
                     lambda: TF.filtered_act_banded(x, "silu"))
     assert_bf16_close(got, TF.filtered_act_banded_plain(x, "silu",
@@ -1157,7 +1226,9 @@ def test_banded_bf16_variant_matches_plain(cuda, any_level, shape):
 def test_plane_bwd_bf16_variant_matches_plain(cuda, any_level, shape, act):
     """K5b at bf16: bf16(vjp(f32(x), f32(g))), to the forward's criteria at
     the backward's atol (1e-4)."""
-    x, g = (torch.randn(shape, device=cuda).to(BF) for _ in range(2))
+    gen = _seeded(cuda, (any_level, shape, act))
+    x, g = (torch.randn(shape, device=cuda,
+                        generator=gen).to(BF) for _ in range(2))
     got = _launches(_bf16_key("filtered_act_plane_bwd", any_level),
                     lambda: TF.filtered_act_plane_bwd(x, g, act))
     assert_bf16_close(
@@ -1171,7 +1242,9 @@ def test_plane_bwd_bf16_variant_matches_plain(cuda, any_level, shape, act):
                                    (1, 2, 80, 80), (1, 3, 32, 128),
                                    (1, 1, 200, 104)])
 def test_banded_bwd_bf16_variant_matches_plain(cuda, any_level, shape):
-    x, g = (torch.randn(shape, device=cuda).to(BF) for _ in range(2))
+    gen = _seeded(cuda, (any_level, shape))
+    x, g = (torch.randn(shape, device=cuda,
+                        generator=gen).to(BF) for _ in range(2))
     got = _launches(_bf16_key("filtered_act_banded_bwd", any_level),
                     lambda: TF.filtered_act_banded_bwd(x, g, "silu"))
     assert_bf16_close(
@@ -1185,11 +1258,14 @@ def test_bf16_filtered_backward_launches_its_kernel(cuda):
     """Through the autograd Functions, a bf16 x and its cotangent (strided:
     a transposed view) run the bf16 backward kernels and give a bf16
     gradient."""
+    gen = _seeded(cuda, "bf16_filtered_backward_launches_its_kernel")
     for shape, kind in (((1, 2, 8, 8), "plane"), ((1, 2, 96, 96),
                                                  "banded")):
-        x = torch.randn(shape, device=cuda).to(BF).requires_grad_()
+        x = torch.randn(shape, device=cuda,
+                        generator=gen).to(BF).requires_grad_()
         out = TF.filtered_act_fused(x, "silu")
-        g = torch.randn(shape[::-1], device=cuda).to(BF).permute(3, 2, 1, 0)
+        g = torch.randn(shape[::-1], device=cuda,
+                        generator=gen).to(BF).permute(3, 2, 1, 0)
         _launches(f"filtered_act_{kind}_bwd/bf16",
                   lambda: out.backward(g))
         assert x.grad.dtype == BF
@@ -1224,7 +1300,12 @@ BF16_BWD_SHAPES = [  # (B, H, Lq, Lk, D, K/V batch)
     (2, 8, 1024, 1024, 24, 1), (2, 2, 4, 4, 24, 2), (2, 3, 100, 77, 33, 1),
     (1, 2, 64, 200, 8, 1), (2, 2, 130, 130, 80, 2), (1, 2, 256, 256, 40, 1),
     (1, 1, 70, 64, 256, 1), (2, 2, 64, 64, 160, 2), (1, 8, 4096, 77, 40, 1),
-    (1, 2, 129, 65, 128, 1), (2, 2, 37, 50, 64, 2), (2, 2, 65, 129, 48, 1)]
+    (1, 2, 129, 65, 128, 1), (2, 2, 37, 50, 64, 2), (2, 2, 65, 129, 48, 1),
+    # dkv's query walk split over 4 blocks (ragged Lq, two heads: at one
+    # head dk and dv have 3080 elements, and the parent kernel's own p90
+    # reads 0.098-0.100 there), and the 128-row walked tiles with Lq and Lk
+    # not multiples of 128
+    (1, 2, 1000, 77, 40, 1), (2, 2, 300, 300, 40, 1)]
 
 
 @pytest.mark.cuda
@@ -1254,12 +1335,61 @@ def test_flash_bwd_bf16_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 8, 4096, 77, 40, 1),
+                                   (1, 2, 1000, 77, 40, 1),
+                                   (2, 2, 300, 300, 40, 1)])
+def test_flash_bwd_bf16_is_deterministic(cuda, shape):
+    """Two calls of K4a and K4b at bf16 on the same inputs give the same
+    bits (no atomics; a split query walk's partials summed in split order):
+    one launch of each a call, and of the split K4b's reduction exactly
+    where ``flash_bwd_dkv_splits`` splits (the first two shapes)."""
+    B, H, Lq, Lk, D, _ = shape
+    gen = _seeded(cuda, shape)
+    q, k, v, out, lse, do = _attn_bwd_bf16_inputs(cuda, gen, *shape)
+    delta = TA._delta(do, out)
+    splits = TA.flash_bwd_dkv_splits(B * H, Lq, Lk, D)
+    assert (splits > 1) == (Lk == 77)
+    calls = []
+    for _ in range(2):
+        before = kernels.LAUNCHES["flash_bwd_dkv_reduce"]
+        dq = _launches("flash_bwd_dq/bf16",
+                       lambda: TA.flash_bwd_dq(q, k, v, do, lse, delta))
+        dk, dv = _launches("flash_bwd_dkv/bf16",
+                           lambda: TA.flash_bwd_dkv(q, k, v, do, lse, delta))
+        assert kernels.LAUNCHES["flash_bwd_dkv_reduce"] == before + (
+            splits > 1)
+        assert dk.shape == k.shape and dv.shape == v.shape
+        calls.append((dq, dk, dv))
+    for a, b in zip(*calls):
+        assert a.dtype == BF and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dkv_reduce_matches_plain(cuda):
+    """The split K4b's reduction against its plain version, bit for bit
+    (the same f32 sums in split order, one rounding): partials whose
+    element count is a multiple of 4 (16-byte loads) and one that is not
+    (the scalar path), one split and 16."""
+    gen = _seeded(cuda, "flash_bwd_dkv_reduce")
+    for shape in [(16, 2, 1, 8, 77, 40), (3, 2, 1, 1, 77, 33),
+                  (1, 2, 2, 3, 5, 7)]:
+        ws = torch.randn(shape, device=cuda, generator=gen)
+        got = _launches("flash_bwd_dkv_reduce",
+                        lambda: TA.flash_bwd_dkv_reduce(ws))
+        assert got.dtype == BF and got.shape == shape[1:]
+        assert torch.equal(got, TA._dkv_reduce_plain(ws))
+
+
+@pytest.mark.cuda
 def test_bf16_attention_backward_launches_its_kernels(cuda):
     """sdpa and sdpa2 at bf16 through autograd: K4a and K4b at bf16 (sdpa2:
     once per K/V set), bf16 gradients, K/V expanded from one image summed
     by autograd."""
-    q = torch.randn(3, 2, 64, 24, device=cuda).to(BF).requires_grad_()
-    kv = [torch.randn(1, 2, 64, 24, device=cuda).to(BF).requires_grad_()
+    gen = _seeded(cuda, "bf16_attention_backward_launches_its_kernels")
+    q = torch.randn(3, 2, 64, 24, device=cuda,
+                    generator=gen).to(BF).requires_grad_()
+    kv = [torch.randn(1, 2, 64, 24, device=cuda,
+                      generator=gen).to(BF).requires_grad_()
           for _ in range(4)]
     for fn, n in ((lambda: TA.sdpa(q, kv[0].expand(3, -1, -1, -1),
                                    kv[1].expand(3, -1, -1, -1)), 1),
@@ -1324,7 +1454,8 @@ def test_flash_bf16_matches_plain(cuda, n, h, L, Lk, d, n_kv):
 def test_flash_bf16_kernels_refuse_a_non_positive_scale(cuda):
     """The bf16 kernels take the row max over the raw scores, which needs a
     positive scale: the wrappers raise before a launch."""
-    q, k, v = (torch.randn(1, 2, 64, 24, device=cuda).to(BF)
+    gen = _seeded(cuda, "flash_bf16_kernels_refuse_a_non_positive_scale")
+    q, k, v = (torch.randn(1, 2, 64, 24, device=cuda, generator=gen).to(BF)
                for _ in range(3))
     with pytest.raises(ValueError, match="positive scale"):
         TA.flash_fwd(q, k, v, -0.2)
@@ -1341,8 +1472,9 @@ def test_flash_probe_bf16_kernels_match_plain(cuda, D, lens, kv_batch):
     difference at most 0.1 of bf16's own error (the plain bf16 version
     against the plain version in f32 on the same values), K3/bf16's limit.
     K/V expanded from one image when kv_batch is 1 (stride 0)."""
+    gen = _seeded(cuda, (D, lens, kv_batch))
     from afldm_tpu_torch.ops import flash_probes as P
-    q, k, v = (t.to(BF) for t in _probe_inputs(cuda, 2, 3, *lens, D,
+    q, k, v = (t.to(BF) for t in _probe_inputs(cuda, gen, 2, 3, *lens, D,
                                                  kv_batch))
     for name in ("flash_probe_dots", "flash_probe_stream"):
         plain = getattr(P, f"{name}_plain")
@@ -1358,15 +1490,19 @@ def test_flash_probe_bf16_kernels_match_plain(cuda, D, lens, kv_batch):
 def test_flash_probes_bf16_scalar_and_strided_staging(cuda, kind):
     """P1 and P2 at bf16 through the scalar copy and through stride 0, to
     the criterion above."""
+    gen = _seeded(cuda, kind)
     from afldm_tpu_torch.ops import flash_probes as P
 
     def view():  # (2, 2, 128, 40) bf16 laid out as ``kind``
         if kind == "sliced":  # row stride 43, not a multiple of 8
-            return torch.randn(2, 2, 128, 43, device=cuda).to(BF)[..., :40]
+            return torch.randn(2, 2, 128, 43, device=cuda,
+                               generator=gen).to(BF)[..., :40]
         if kind == "expanded":
-            return (torch.randn(1, 2, 128, 40, device=cuda).to(BF)
+            return (torch.randn(1, 2, 128, 40, device=cuda,
+                                generator=gen).to(BF)
                     .expand(2, -1, -1, -1))
-        flat = torch.randn(2 * 2 * 128 * 40 + 1, device=cuda).to(BF)
+        flat = torch.randn(2 * 2 * 128 * 40 + 1, device=cuda,
+                           generator=gen).to(BF)
         t = flat[1:].view(2, 2, 128, 40)  # 2 bytes past 16
         assert t.data_ptr() % 16 == 2
         return t
