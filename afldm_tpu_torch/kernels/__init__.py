@@ -77,8 +77,8 @@ _SIGNATURES = {
         "filtered_act_banded_bwd_f32": [*[_P] * 10, _I, _I, _I, _I, _I, _P],
         # the reduced levels' bf16 variants, ``passes`` 3 or 1 before act:
         # x, out, the split blobs of U_hᵀ, U_wᵀ, D_wᵀ, D_hᵀ, nplanes, H, W,
-        # planes_per_block, passes, act, stream
-        "filtered_act_plane_bf16": [*[_P] * 6, _I, _I, _I, _I, _I, _I, _P],
+        # planes an iteration, grid, passes, act, stream
+        "filtered_act_plane_bf16": [*[_P] * 6, *[_I] * 7, _P],
         # x, g, dx, the split blobs of U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h,
         # nplanes, H, W, planes_per_block, passes, act, stream
         "filtered_act_plane_bwd_bf16": [*[_P] * 9, _I, _I, _I, _I, _I, _I,
@@ -97,8 +97,7 @@ _SIGNATURES = {
         # reduced levels' products (``_f32``, ``_bf16``): the same arguments
         "filtered_act_plane_f32_xbf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _I, _I, _P],
-        "filtered_act_plane_bf16_xbf16": [*[_P] * 6, _I, _I, _I, _I, _I, _I,
-                                          _P],
+        "filtered_act_plane_bf16_xbf16": [*[_P] * 6, *[_I] * 7, _P],
         "filtered_act_banded_f32_xbf16": [*[_P] * 7, _I, _I, _I, _I, _I,
                                           _P],
         "filtered_act_banded_bf16_xbf16": [*[_P] * 7, _I, _I, _I, _I, _I,

@@ -111,13 +111,22 @@
 // tensor cores, each in its TPU kernel's product order, which at these
 // levels decides which intermediates are split:
 //   * K5 (filtered_act_plane_bf16), _forward's order: U_h then U_w up, D_w
-//     then D_h down, the order of the f32 kernel above. Every operand is a
-//     split buffer in shared memory, hi and lo pieces: the operators split
-//     once on the host (blobs already padded to the kernel's layout,
-//     MmaPlaneLayout), x split as it is staged, and each product's f32
-//     result split from the registers straight into the next product's
-//     operand, so no f32 intermediate is stored. P planes a block of 256
-//     threads, from ops/filtered_act.py::plane_mma_plan.
+//     then D_h down, the order of the f32 kernel above. Every operand is
+//     split into bf16 pieces (hi and lo at 'high', hi alone at 'default'):
+//     the operators once on the host (blobs already padded to the kernel's
+//     layout, MmaPlaneLayout), x as it is staged, and each product's f32
+//     result from the registers. Persistent blocks (at most the blocks an
+//     SM holds × the SMs) stage the operators once and keep them (staged
+//     for each plane they would be 143 KB read from L2 for a 64 px plane
+//     whose x and out are 32 KB), the next group of planes' x in flight by
+//     cp.async during the current group's products; t = U_h·x row-major,
+//     and the middle pair hi = act(t·U_wᵀ), t₂ = hi·D_wᵀ fused per 16-row
+//     strip of the 2H side, hi never leaving the registers
+//     (filtered_mma.cuh::middle_pair), t₂ over t, so no 2W × 2H buffer
+//     takes shared memory. At 'default' the block is half the size, two
+//     an SM. Each element's sums are taken in the order of a 16×16 tile
+//     walk (filtered_mma.cuh::warp_tile). P planes an iteration and the
+//     grid come from ops/filtered_act.py::plane_mma_plan.
 //   * K5b (filtered_act_plane_bwd_bf16), _bwd_rule's order: pre and the
 //     cotangent D_hᵀ·g·D_w H side first, dx W side first, as the f32
 //     kernel. The pre-activation is needed only as act′(pre): its product
@@ -254,6 +263,24 @@ struct Activation {
   int act;
   __device__ __forceinline__ float operator()(float v) const {
     return apply_act(v, act);
+  }
+  // v[i] = act(v[i]) for N values, the act chosen once for all of them
+  // (K5's middle pair): each case is apply_act's own arithmetic
+  template <int N>
+  __device__ __forceinline__ void map(float (&v)[N]) const {
+    const auto each = [&](int a) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = apply_act(v[i], a);
+    };
+    switch (act) {
+      case SILU: each(SILU); break;
+      case GELU: each(GELU); break;
+      case RELU: each(RELU); break;
+      case MISH: each(MISH); break;
+      case LEAKY_RELU: each(LEAKY_RELU); break;
+      case TANH: each(TANH); break;
+      default: break;
+    }
   }
 };
 // act′(C's old value) ⊙ the product: K5b's mᵀ and K2's m, over the
@@ -434,26 +461,48 @@ filtered_act_plane_bwd_kernel(const T* __restrict__ x,
 
 // -- the reduced precision levels on bf16 tensor cores ---------------------
 
-// Shared memory of a K5 (bwd false) or K5b (bwd true) bf16 block, in bf16
-// elements: two operator buffers, each the largest operator's split blob;
-// then for each of the P planes a big buffer (K5: hiᵀ, x staged in it;
-// K5b: mᵀ, x and g staged in it) and a small one (tᵀ and then t; K5b: tᵀ
-// and then s), and K5b's uᵀ.
-struct MmaPlaneLayout {
+// Shared memory of a K5b bf16 block, in bf16 elements: two operator
+// buffers, each the largest operator's split blob; then for each of the P
+// planes a big buffer (mᵀ, x and g staged in it), a small one (tᵀ and then
+// s) and uᵀ.
+struct MmaPlaneBwdLayout {
   int op, big, small, small2;
-  __host__ __device__ MmaPlaneLayout(int H, int W, bool bwd) {
+  __host__ __device__ MmaPlaneBwdLayout(int H, int W) {
     using afldm_filtered::mma_buf;
     const int a = mma_buf(H, 2 * H), b = mma_buf(W, 2 * W);
     const int c = mma_buf(2 * W, W), d = mma_buf(2 * H, H);
     op = imax(imax(a, b), imax(c, d));
-    const int x = mma_buf(H, W);
-    big = imax(mma_buf(2 * W, 2 * H), bwd ? 2 * x : x);
+    big = imax(mma_buf(2 * W, 2 * H), 2 * mma_buf(H, W));
     small = imax(mma_buf(W, 2 * H), mma_buf(2 * H, W));
-    small2 = bwd ? mma_buf(W, 2 * H) : 0;
+    small2 = mma_buf(W, 2 * H);
   }
   __host__ __device__ static int imax(int a, int b) { return a > b ? a : b; }
   __host__ __device__ size_t bytes(int ppb) const {
     return 2 * (2 * (size_t)op + (size_t)ppb * (big + small + small2));
+  }
+};
+
+// Shared memory of a K5 bf16 block, in bf16 elements: the pieces of the
+// four operators, resident for the block's whole walk; then for each of
+// the P planes of an iteration x's pieces and t's (t₂ written over t), and
+// the next iteration's P planes of x as they arrive (T, ``x_bytes`` an
+// element). Each operand holds hi and lo pieces at 3 passes, hi alone at
+// 1. No 2W × 2H buffer: hi lives in registers (middle_pair).
+struct MmaPlaneLayout {
+  int uh, uw, dw, dh, x, t, raw;
+  __host__ __device__ MmaPlaneLayout(int H, int W, int passes, int x_bytes) {
+    using afldm_filtered::mma_piece;
+    const int pieces = passes == 3 ? 2 : 1;
+    uh = pieces * mma_piece(H, 2 * H);
+    uw = pieces * mma_piece(W, 2 * W);
+    dw = pieces * mma_piece(2 * W, W);
+    dh = pieces * mma_piece(2 * H, H);
+    x = pieces * mma_piece(H, W);
+    t = pieces * mma_piece(2 * H, W);
+    raw = H * W * x_bytes / 2;
+  }
+  __host__ __device__ size_t bytes(int planes) const {
+    return 2 * ((size_t)uh + uw + dw + dh + (size_t)planes * (x + t + raw));
   }
 };
 
@@ -526,67 +575,105 @@ struct MulActGradToPieces {
   }
 };
 
-// out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ at PASSES bf16 passes a product,
-// P planes a block of 256 threads, in _forward's order (tᵀ, hiᵀ, t, out as
-// the f32 kernel). Operators: the split blobs of U_hᵀ (H×2H), U_wᵀ (W×2W),
-// D_wᵀ (2W×W), D_hᵀ (2H×H), each (hi, lo) × pad16(rows) × mma_ld(cols).
-template <int PASSES, class T>
-__global__ void __launch_bounds__(256)
+// The planes [p0, p0 + P) of x (T) in flight to ``raw`` by 16-byte
+// cp.async (a bf16 plane copied as it is, widened when it is split); the
+// caller commits the group.
+template <class T>
+__device__ __forceinline__ void stage_planes(T* raw, const T* x,
+                                             long long p0, int P,
+                                             long long HW) {
+  afldm_filtered::stage(reinterpret_cast<float*>(raw),
+                        reinterpret_cast<const float*>(x + p0 * HW),
+                        (int)(P * HW * (long long)sizeof(T) / 16));
+}
+
+// out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ at PASSES bf16 passes a product, a
+// persistent block walking groups of ``ppi`` planes
+// (blockIdx.x, + gridDim.x, ...), in _forward's order:
+//   t   = U_h · x            (2H × W)   strip_product
+//   hi  = act(t · U_wᵀ)      (2H × 2W)  middle_pair, in registers
+//   t₂  = hi · D_wᵀ          (2H × W)   middle_pair, over t
+//   out = D_h · t₂           (H × W)    strip_product, to device memory
+// NW = pad16(W) / 16. The operators' pieces are staged once and stay; the
+// next group's x arrives by cp.async while the current group's products
+// run. Operators: the split blobs of U_hᵀ (H×2H), U_wᵀ (W×2W), D_wᵀ
+// (2W×W), D_hᵀ (2H×H), each (hi, lo) × pad16(rows) × mma_ld(cols), of
+// which 1 pass stages the hi half. 1 pass runs two blocks of 256 threads
+// an SM (registers held to 128 a thread). 3 passes run one block an SM,
+// as many threads as the strips' registers allow (ptxas: no spill): 256
+// where W > 32 (up to 255 registers a thread; at 64 px the block also
+// fills shared memory), 384 where W > 16 (168), else 512 (128).
+constexpr int mma_plane_threads(int passes, int nw) {
+  return passes == 1 || nw > 2 ? 256 : nw == 2 ? 384 : 512;
+}
+template <int PASSES, int NW, class T>
+__global__ void __launch_bounds__(mma_plane_threads(PASSES, NW),
+                                  PASSES == 1 ? 2 : 1)
 filtered_act_plane_mma_kernel(const T* __restrict__ x, T* __restrict__ out,
                               const __nv_bfloat16* __restrict__ uhT,
                               const __nv_bfloat16* __restrict__ uwT,
                               const __nv_bfloat16* __restrict__ dwT,
                               const __nv_bfloat16* __restrict__ dhT,
-                              int nplanes, int H, int W, int ppb, int act) {
+                              int nplanes, int H, int W, int ppi, int act) {
   using namespace afldm_filtered;
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  const int HW = H * W;
-  const long long p0 = (long long)blockIdx.x * ppb;
-  const int P = (int)min((long long)ppb, nplanes - p0);
-  const MmaPlaneLayout lay(H, W, false);
-  __nv_bfloat16* op0 = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* op1 = op0 + lay.op;
-  __nv_bfloat16* big = op1 + lay.op;            // P × hiᵀ; x staged first
-  __nv_bfloat16* small = big + ppb * lay.big;   // P × tᵀ, then P × t
-  stage_blob(op0, uhT, mma_buf(H, 2 * H));
+  const long long HW = (long long)H * W;
+  const long long groups = (nplanes + ppi - 1) / ppi;
+  const MmaPlaneLayout lay(H, W, PASSES, sizeof(T));
+  __nv_bfloat16* uh = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* uw = uh + lay.uh;
+  __nv_bfloat16* dw = uw + lay.uw;
+  __nv_bfloat16* dh = dw + lay.dw;
+  __nv_bfloat16* xs = dh + lay.dh;   // ppi × x's pieces
+  __nv_bfloat16* ts = xs + ppi * lay.x;  // ppi × t's, then t₂'s
+  T* raw = reinterpret_cast<T*>(ts + ppi * lay.t);  // ppi × x, arriving
+  const Piece xp = piece(xs, H, W, lay.x), tp = piece(ts, 2 * H, W, lay.t);
+  stage_blob(uh, uhT, lay.uh);
+  stage_blob(uw, uwT, lay.uw);
+  stage_blob(dw, dwT, lay.dw);
+  stage_blob(dh, dhT, lay.dh);
+  long long g = blockIdx.x;
+  if (g < groups)
+    stage_planes(raw, x, g * ppi, (int)min((long long)ppi, nplanes - g * ppi),
+                 HW);
   cp_async_commit();
-  stage_blob(op1, uwT, mma_buf(W, 2 * W));
-  cp_async_commit();
-  stage_split(x + p0 * HW, HW, P, H, W, piece(big, H, W, lay.big));
-  cp_async_wait<1>();
-  __syncthreads();
-  // tᵀ = xᵀ · U_hᵀ                          (W × 2H)
-  mma_product<PASSES>(piece(big, H, W, lay.big), piece(op0, H, 2 * H, 0), P,
-                      pad16(W), pad16(2 * H), pad16(H),
-                      ToPieces<Identity>{piece(small, W, 2 * H, lay.small),
-                                         Identity{}});
-  __syncthreads();
-  stage_blob(op0, dwT, mma_buf(2 * W, W));  // in flight during the next
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  // hiᵀ = act(U_w · tᵀ)                     (2W × 2H); over the staged x
-  mma_product<PASSES>(piece(op1, W, 2 * W, 0), piece(small, W, 2 * H, lay.small),
-                      P, pad16(2 * W), pad16(2 * H), pad16(W),
-                      ToPieces<Activation>{piece(big, 2 * W, 2 * H, lay.big),
-                                           Activation{act}});
-  __syncthreads();
-  stage_blob(op1, dhT, mma_buf(2 * H, H));
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  // t = hi · D_wᵀ                           (2H × W); over tᵀ
-  mma_product<PASSES>(piece(big, 2 * W, 2 * H, lay.big),
-                      piece(op0, 2 * W, W, 0), P, pad16(2 * H), pad16(W),
-                      pad16(2 * W),
-                      ToPieces<Identity>{piece(small, 2 * H, W, lay.small),
-                                         Identity{}});
-  cp_async_wait<0>();
-  __syncthreads();
-  // out = D_h · t                           (H × W), to device memory
-  mma_product<PASSES>(piece(op1, 2 * H, H, 0), piece(small, 2 * H, W, lay.small),
-                      P, pad16(H), pad16(W), pad16(2 * H),
-                      ToPlanes<T>{out + p0 * HW, H, W, HW});
+  for (; g < groups; g += gridDim.x) {
+    const long long p0 = g * ppi;
+    const int P = (int)min((long long)ppi, nplanes - p0);
+    cp_async_wait<0>();
+    __syncthreads();  // x arrived; the last group's products are done
+    split_planes<PASSES>(raw, P, H, W, xp);
+    __syncthreads();
+    const long long next = g + gridDim.x;
+    if (next < groups)  // in flight during this group's products
+      stage_planes(raw, x, next * ppi,
+                   (int)min((long long)ppi, nplanes - next * ppi), HW);
+    cp_async_commit();
+    // t = U_h · x                             (2H × W)
+    strip_product<PASSES, true, NW>(
+        piece(uh, H, 2 * H, 0), xp, P, pad16(2 * H), pad16(H),
+        [&](int p, int r0, int c0, const auto& acc, int lane) {
+          store_strip<PASSES>(tp, p, r0, c0, acc, lane);
+        });
+    __syncthreads();
+    // t₂ = act(t · U_wᵀ) · D_wᵀ              (2H × W); over t
+    // t's fragments held across the chunks but where the 16 registers
+    // they take spill (ptxas): 1 pass 64 px wide, 3 passes 32 px wide
+    middle_pair<PASSES, NW, PASSES == 3 ? NW != 2 : NW != 4>(
+        piece(uw, W, 2 * W, 0), piece(dw, 2 * W, W, 0), tp, P, pad16(2 * H),
+        pad16(2 * W), Activation{act});
+    __syncthreads();
+    // out = D_h · t₂                          (H × W), to device memory
+    T* o = out + p0 * HW;
+    strip_product<PASSES, false, NW>(
+        piece(dh, 2 * H, H, 0), tp, P, pad16(H), pad16(2 * H),
+        [&](int p, int r0, int c0, const auto& acc, int lane) {
+          constexpr int NB = sizeof(acc) / sizeof(acc[0]);
+#pragma unroll
+          for (int n = 0; n < NB; ++n)
+            ToPlanes<T>{o, H, W, HW}(p, r0, c0 + 16 * n, acc[n], lane);
+        });
+  }
 }
 
 // dx = U_hᵀ · [act′(U_h · x · U_wᵀ) ⊙ (D_hᵀ · g · D_w)] · U_w at PASSES
@@ -611,7 +698,7 @@ filtered_act_plane_bwd_mma_kernel(const T* __restrict__ x,
   const int HW = H * W;
   const long long p0 = (long long)blockIdx.x * ppb;
   const int P = (int)min((long long)ppb, nplanes - p0);
-  const MmaPlaneLayout lay(H, W, true);
+  const MmaPlaneBwdLayout lay(H, W);
   __nv_bfloat16* op0 = reinterpret_cast<__nv_bfloat16*>(mma_smem);
   __nv_bfloat16* op1 = op0 + lay.op;
   __nv_bfloat16* big = op1 + lay.op;             // P × mᵀ; x, g staged first
@@ -717,19 +804,37 @@ int plane_f32(const T* x, T* out, const float* uhT, const float* uwT,
                        dwT, dhT, nplanes, H, W, ppb, tiles, act);
 }
 
-// K5 at a reduced level (``passes`` bf16 passes a product); x and out of T.
+// K5 at a reduced level (``passes`` bf16 passes a product): ``grid``
+// persistent blocks walking groups of ``ppi`` planes; x and out of T.
 template <class T>
 int plane_bf16(const T* x, T* out, const __nv_bfloat16* uhT,
                const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
-               const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppb,
-               int passes, int act, void* stream) {
-  if (H % 4 || W % 4 || ppb < 1 || (passes != 1 && passes != 3))
+               const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppi,
+               int grid, int passes, int act, void* stream) {
+  using afldm_filtered::kStripBlocks;
+  if (H % 4 || W % 4 || W > 16 * kStripBlocks || ppi < 1 || grid < 1 ||
+      (passes != 1 && passes != 3))
     return (int)cudaErrorInvalidValue;
-  auto kernel = passes == 3 ? &filtered_act_plane_mma_kernel<3, T>
-                            : &filtered_act_plane_mma_kernel<1, T>;
-  return launch_planes(kernel, 256, MmaPlaneLayout(H, W, false).bytes(ppb),
-                       nplanes, ppb, (cudaStream_t)stream, x, out, uhT, uwT,
-                       dwT, dhT, nplanes, H, W, ppb, act);
+  // by passes and pad16(W) / 16
+  void (*const kernels[2][kStripBlocks])(
+      const T*, T*, const __nv_bfloat16*, const __nv_bfloat16*,
+      const __nv_bfloat16*, const __nv_bfloat16*, int, int, int, int, int) = {
+      {&filtered_act_plane_mma_kernel<1, 1, T>,
+       &filtered_act_plane_mma_kernel<1, 2, T>,
+       &filtered_act_plane_mma_kernel<1, 3, T>,
+       &filtered_act_plane_mma_kernel<1, 4, T>},
+      {&filtered_act_plane_mma_kernel<3, 1, T>,
+       &filtered_act_plane_mma_kernel<3, 2, T>,
+       &filtered_act_plane_mma_kernel<3, 3, T>,
+       &filtered_act_plane_mma_kernel<3, 4, T>}};
+  auto kernel = kernels[passes == 3][(W + 15) / 16 - 1];
+  const size_t smem = MmaPlaneLayout(H, W, passes, sizeof(T)).bytes(ppi);
+  const int err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, mma_plane_threads(passes, (W + 15) / 16), smem,
+           (cudaStream_t)stream>>>(x, out, uhT, uwT, dwT, dhT, nplanes, H, W,
+                                   ppi, act);
+  return (int)cudaGetLastError();
 }
 
 // K1 (f32 products) on one chunk of P planes, four launches of the tiled
@@ -844,7 +949,7 @@ int plane_bwd_bf16(const T* x, const T* g, T* dx, const __nv_bfloat16* uhT,
     return (int)cudaErrorInvalidValue;
   auto kernel = passes == 3 ? &filtered_act_plane_bwd_mma_kernel<3, T>
                             : &filtered_act_plane_bwd_mma_kernel<1, T>;
-  return launch_planes(kernel, 256, MmaPlaneLayout(H, W, true).bytes(ppb),
+  return launch_planes(kernel, 256, MmaPlaneBwdLayout(H, W).bytes(ppb),
                        nplanes, ppb, (cudaStream_t)stream, x, g, dx, uhT, dh,
                        uwT, dw, uw, uh, nplanes, H, W, ppb, act);
 }
@@ -1080,25 +1185,26 @@ extern "C" int filtered_gemm_f32(const float* A, long long lda,
 // -- the reduced precision levels' entries: ``passes`` 3 ("high") or 1
 // ("default") bf16 passes a product ----------------------------------------
 
-// K5 at a reduced level: P planes a block of 256 threads; the operators'
-// split blobs of U_hᵀ, U_wᵀ, D_wᵀ, D_hᵀ.
+// K5 at a reduced level: ``grid`` persistent blocks (mma_plane_threads),
+// each walking groups of ``ppi`` planes; the operators' split blobs of U_hᵀ,
+// U_wᵀ, D_wᵀ, D_hᵀ.
 extern "C" int filtered_act_plane_bf16(
     const float* x, float* out, const __nv_bfloat16* uhT,
     const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
-    const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppb, int passes,
-    int act, void* stream) {
-  return plane_bf16(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, passes,
-                    act, stream);
+    const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppi, int grid,
+    int passes, int act, void* stream) {
+  return plane_bf16(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppi, grid,
+                    passes, act, stream);
 }
 
 // K5 at a reduced level for a bf16 x: the same arguments, x and out bf16.
 extern "C" int filtered_act_plane_bf16_xbf16(
     const __nv_bfloat16* x, __nv_bfloat16* out, const __nv_bfloat16* uhT,
     const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
-    const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppb, int passes,
-    int act, void* stream) {
-  return plane_bf16(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppb, passes,
-                    act, stream);
+    const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppi, int grid,
+    int passes, int act, void* stream) {
+  return plane_bf16(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppi, grid,
+                    passes, act, stream);
 }
 
 // K5b at a reduced level; the split blobs of U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h.

@@ -25,11 +25,17 @@
 // nothing, and every activation maps 0 to 0, so padded rows and columns of
 // a result stay zero for the product that reads it.
 //
-// What bounds it: the products, 1 or 3 bf16 tensor-core passes each, and
-// at small planes the zero padding to 16 and the shared-memory traffic of
-// the fragments. This first version takes one 16×16 output tile a warp at
-// a time, keeps each f32 result in registers until it is split into the
-// next product's operand, and uses neither wgmma nor TMA (later work).
+// What bounds it: the products, 1 or 3 bf16 tensor-core passes each (at
+// 3 passes also the f32 TwoSum after every 16-deep step, ~7 FP32
+// instructions an element a step against 3 mma), and at small planes the
+// zero padding to 16 and the shared-memory traffic of the fragments. K5b
+// takes one 16×16 output tile a warp at a time (warp_tile, mma_product,
+// mma_product2). K5 walks strips (strip_product, middle_pair): a warp owns
+// a 16-row strip of a result and up to 4 16-column blocks of it,
+// so each A fragment feeds every block of the strip, and its middle pair
+// keeps the 2x intermediate in registers between its two products. Each
+// f32 result stays in registers until it is split into the next product's
+// operand. Neither uses wgmma nor TMA (later work).
 
 #pragma once
 
@@ -43,9 +49,13 @@ namespace afldm_filtered {
 __host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
 // the row stride, in bf16, of a piece of n columns
 __host__ __device__ __forceinline__ int mma_ld(int n) { return pad16(n) + 8; }
+// bf16 elements of one piece (hi or lo) of rows × cols
+__host__ __device__ __forceinline__ int mma_piece(int rows, int cols) {
+  return pad16(rows) * mma_ld(cols);
+}
 // bf16 elements of a split buffer (hi then lo) of rows × cols
 __host__ __device__ __forceinline__ int mma_buf(int rows, int cols) {
-  return 2 * pad16(rows) * mma_ld(cols);
+  return 2 * mma_piece(rows, cols);
 }
 
 // A split operand of P planes in shared memory: plane p's hi piece at
@@ -247,6 +257,257 @@ __device__ __forceinline__ void mma_product2(const Piece& Y1, const Piece& X1,
     warp_tile<PASSES>(a1, Y1, X1, p, r0, c0, Kp, lane);
     warp_tile<PASSES>(a2, Y2, X2, p, r0, c0, Kp, lane);
     out(p, r0, c0, a1, a2, lane);
+  }
+}
+
+// -- K5's strips (filtered_act.cu::filtered_act_plane_mma_kernel) ---------
+//
+// Each routine below computes every element with the sums warp_tile takes:
+// 16-deep steps in ascending order, each step's ah·bh from zero added by
+// TwoSum at 3 passes, the small passes in an accumulator of their own added
+// once at the end, and the two small passes of an element in warp_tile's
+// order for the same pair of operands. So K5's results are the ones of a
+// 16×16 tile walk, bit for bit, whatever the strip's shape. The counts of
+// 16-column blocks are template arguments (K5 is built for each pad16(W) /
+// 16 of 1 to kStripBlocks): with no branch between a strip's blocks, the
+// compiler issues their loads and mma back to back, which hides their
+// latency with the 8 to 16 warps an SM holds.
+
+// the 16-column blocks of a K5 result at most (W <= 64)
+constexpr int kStripBlocks = 4;
+
+// One 16-deep step of a strip: acc[n] (+ small[n]) += A · B[n] for n < NB,
+// A's fragments given (al read at 3 passes only), B[n] the k-major piece
+// at b + 16·n (its lo piece ``blo`` elements after it). kLoAFirst takes
+// the small passes as al·bh then ah·bl: warp_tile's order (ah·bl, al·bh)
+// for the product computed with A and B swapped, which K5 computed before
+// as the transposed result.
+template <int PASSES, bool kLoAFirst, int NB>
+__device__ __forceinline__ void strip_step(float (&acc)[NB][2][4],
+                                           float (&small)[NB][2][4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4],
+                                           const __nv_bfloat16* b, int blo) {
+  unsigned bh[NB][4];
+  float step[NB][2][4] = {};
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    ldsm_x4_t(bh[n], b + 16 * n);
+    mma_bf16(step[n][0], ah, bh[n][0], bh[n][1]);
+    mma_bf16(step[n][1], ah, bh[n][2], bh[n][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (PASSES == 3)
+          add_two_sum(acc[n][j][e], step[n][j][e], small[n][j][e]);
+        else
+          acc[n][j][e] += step[n][j][e];
+      }
+  if constexpr (PASSES == 3) {
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      unsigned bl[4];
+      ldsm_x4_t(bl, b + blo + 16 * n);
+      if constexpr (kLoAFirst) {
+        mma_bf16(small[n][0], al, bh[n][0], bh[n][1]);
+        mma_bf16(small[n][1], al, bh[n][2], bh[n][3]);
+        mma_bf16(small[n][0], ah, bl[0], bl[1]);
+        mma_bf16(small[n][1], ah, bl[2], bl[3]);
+      } else {
+        mma_bf16(small[n][0], ah, bl[0], bl[1]);
+        mma_bf16(small[n][1], ah, bl[2], bl[3]);
+        mma_bf16(small[n][0], al, bh[n][0], bh[n][1]);
+        mma_bf16(small[n][1], al, bh[n][2], bh[n][3]);
+      }
+    }
+  }
+}
+
+// acc += small over a strip's blocks (3 passes): the small passes added once
+template <int NB>
+__device__ __forceinline__ void add_small(float (&acc)[NB][2][4],
+                                          const float (&small)[NB][2][4]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][j][e] += small[n][j][e];
+}
+
+// A strip's NB blocks at (r0, c0) of plane p split into the pieces of d:
+// hi, and lo at 3 passes (1 pass stores hi alone).
+template <int PASSES, int NB>
+__device__ __forceinline__ void store_strip(const Piece& d, int p, int r0,
+                                            int c0,
+                                            const float (&acc)[NB][2][4],
+                                            int lane) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+    for_pairs(r0, c0 + 16 * n, acc[n], lane,
+              [&](int r, int c, float v0, float v1) {
+                unsigned h, l;
+                split2(v0, v1, h, l);
+                __nv_bfloat16* q = d.hi + p * d.ps + r * d.ld + c;
+                *reinterpret_cast<unsigned*>(q) = h;
+                if constexpr (PASSES == 3)
+                  *reinterpret_cast<unsigned*>(q + d.lo) = l;
+              });
+}
+
+// strip_product's items of one 16-row strip and NB 16-column blocks (of
+// NW a strip), handed to out(p, r0, c0, acc, lane).
+template <int PASSES, bool kLoAFirst, int NW, int NB, class Out>
+__device__ __forceinline__ void strip_items(const Piece& A, const Piece& B,
+                                            int P, int Mp, int Kp, Out out) {
+  constexpr int cw = NW / NB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5, rs = Mp >> 4;
+  for (int it = warp; it < P * rs * cw; it += warps) {
+    const int s = it / cw, p = s / rs;
+    const int r0 = 16 * (s - p * rs), c0 = 16 * NB * (it - s * cw);
+    const __nv_bfloat16* ap = A.hi +
+                              ((lane & 7) + 8 * (lane >> 4)) * A.ld + r0 +
+                              8 * ((lane >> 3) & 1);
+    const __nv_bfloat16* bp = B.hi + p * B.ps +
+                              ((lane & 7) + 8 * ((lane >> 3) & 1)) * B.ld +
+                              c0 + 8 * (lane >> 4);
+    float acc[NB][2][4] = {}, small[NB][2][4] = {};
+    for (int k0 = 0; k0 < Kp; k0 += 16) {
+      unsigned ah[4], al[4];
+      ldsm_x4_t(ah, ap + k0 * A.ld);
+      if constexpr (PASSES == 3) ldsm_x4_t(al, ap + A.lo + k0 * A.ld);
+      strip_step<PASSES, kLoAFirst>(acc, small, ah, al, bp + k0 * B.ld,
+                                    B.lo);
+    }
+    if constexpr (PASSES == 3) add_small(acc, small);
+    out(p, r0, c0, acc, lane);
+  }
+}
+
+// C[p] = A · B[p] for p < P over Mp × 16·NW (Mp a multiple of 16), depth
+// Kp: A the operator, k-major (row k holds its k-th column), shared by
+// the planes; B[p] k-major. A warp takes one 16-row strip and ``per``
+// 16-column blocks at a time: every block of the strip, or the next
+// smaller divisor of NW while that leaves warps idle; it reads each
+// step's A fragment once for all of them, and hands them to out(p, r0,
+// c0, acc, lane) (acc: float[per][2][4]).
+template <int PASSES, bool kLoAFirst, int NW, class Out>
+__device__ __forceinline__ void strip_product(const Piece& A, const Piece& B,
+                                              int P, int Mp, int Kp,
+                                              Out out) {
+  const int strips = P * (Mp >> 4), warps = blockDim.x >> 5;
+  if (NW == 1 || strips >= warps) {
+    strip_items<PASSES, kLoAFirst, NW, NW>(A, B, P, Mp, Kp, out);
+    return;
+  }
+  if constexpr (NW == 4) {
+    if (2 * strips >= warps) {
+      strip_items<PASSES, kLoAFirst, NW, 2>(A, B, P, Mp, Kp, out);
+      return;
+    }
+  }
+  strip_items<PASSES, kLoAFirst, NW, 1>(A, B, P, Mp, Kp, out);
+}
+
+// K5's middle pair over P planes of t (2H × 16·NW, row-major pieces; Hp2
+// = pad16(2H), W2p = pad16(2W)), a warp a 16-row strip of the 2H side at a
+// time:
+//   hi = act(t · U_wᵀ)    (2H × 2W)  16 columns (a chunk) at a time
+//   t₂ = hi · D_wᵀ        (2H × W)   each chunk one 16-deep step
+// The strip's t fragments are read once and held (kHoldT; else read again
+// for each chunk, where held they would not fit the block's registers);
+// each chunk of hi is two m16n8 accumulators, which are the m16n8k16 A
+// fragment of t₂'s step over that chunk once act.map has taken the
+// activation of its 8 values and they are split, so hi never leaves the
+// registers. t₂ is written over the strip of t it was made from, which no
+// other warp reads. U_wᵀ (W × 2W) and D_wᵀ (2W × W) are k-major.
+template <int PASSES, int NW, bool kHoldT, class Act>
+__device__ __forceinline__ void middle_pair(const Piece& Uw, const Piece& Dw,
+                                            const Piece& t, int P, int Hp2,
+                                            int W2p, Act act) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5, rs = Hp2 >> 4;
+  const int bro = (lane & 7) + 8 * ((lane >> 3) & 1), bco = 8 * (lane >> 4);
+  for (int s = warp; s < P * rs; s += warps) {
+    const int p = s / rs, i0 = 16 * (s - p * rs);
+    // t's A fragments (row-major: ldmatrix without .trans)
+    const __nv_bfloat16* tp = t.hi + p * t.ps + (i0 + bro) * t.ld + bco;
+    unsigned th[NW][4], tl[NW][4];
+    const auto load_t = [&] {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        ldsm_x4(th[k], tp + 16 * k);
+        if constexpr (PASSES == 3) ldsm_x4(tl[k], tp + t.lo + 16 * k);
+      }
+    };
+    if constexpr (kHoldT) load_t();
+    const __nv_bfloat16* up = Uw.hi + bro * Uw.ld + bco;
+    const __nv_bfloat16* dp = Dw.hi + bro * Dw.ld + bco;
+    float acc[NW][2][4] = {}, small[NW][2][4] = {};
+    const auto chunk = [&](int j0) {
+      if constexpr (!kHoldT) load_t();
+      float h[1][2][4] = {}, hs[1][2][4] = {};
+#pragma unroll
+      for (int k = 0; k < NW; ++k)
+        strip_step<PASSES, true>(h, hs, th[k], tl[k],
+                                 up + 16 * k * Uw.ld + j0, Uw.lo);
+      if constexpr (PASSES == 3) add_small(h, hs);
+      // value 2r, 2r + 1 go to register r of the A fragment: rows g (r
+      // even) or g + 8, columns 2t, 2t + 1 of the chunk's first (r < 2) or
+      // second 8
+      float v[8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        v[2 * r] = h[0][r >> 1][2 * (r & 1)];
+        v[2 * r + 1] = h[0][r >> 1][2 * (r & 1) + 1];
+      }
+      act.map(v);
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split2(v[2 * r], v[2 * r + 1], ah[r], al[r]);
+      strip_step<PASSES, false>(acc, small, ah, al, dp + j0 * Dw.ld, Dw.lo);
+    };
+    if constexpr (PASSES == 3) {
+      // two chunks in flight: the next chunk's hi product (its small
+      // passes a chain of 2·NW dependent mma) overlaps this one's t₂ step
+#pragma unroll 2
+      for (int j0 = 0; j0 < W2p; j0 += 16) chunk(j0);
+      add_small(acc, small);
+    } else {
+      for (int j0 = 0; j0 < W2p; j0 += 16) chunk(j0);
+    }
+    __syncwarp();
+    store_strip<PASSES>(t, p, i0, 0, acc, lane);
+  }
+}
+
+// P row-major planes of rows × cols of T in shared memory (planes
+// rows·cols apart) split into the pieces of dst, zero-padded to pad16(rows)
+// × pad16(cols); hi alone at 1 pass (a bf16 plane's lo pieces are zero).
+template <int PASSES, class T>
+__device__ __forceinline__ void split_planes(const T* src, int P, int rows,
+                                             int cols, const Piece& dst) {
+  const int rp = pad16(rows), c4 = pad16(cols) / 4;
+  for (int i = threadIdx.x; i < P * rp * c4; i += blockDim.x) {
+    const int p = i / (rp * c4), q = i - p * rp * c4;
+    const int r = q / c4, c = 4 * (q - r * c4);
+    const float4 v = r < rows && c < cols
+                         ? load4(src + (p * rows + r) * cols + c)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __nv_bfloat16* h = dst.hi + p * dst.ps + r * dst.ld + c;
+    if constexpr (PASSES == 3) {
+      store_split4(h, h + dst.lo, v);
+    } else {
+      uint2 hh, ll;
+      split2(v.x, v.y, hh.x, ll.x);
+      split2(v.z, v.w, hh.y, ll.y);
+      *reinterpret_cast<uint2*>(h) = hh;
+    }
   }
 }
 

@@ -262,7 +262,9 @@ def _contiguous16(x: torch.Tensor) -> torch.Tensor:
 # an SM, 1 KB of it reserved for each block)
 K5_THREADS = (256, 512)
 NUM_SMS = 132
-SMEM_TWO_BLOCKS_BYTES = 233472 // 2 - 1024
+SMEM_SM_BYTES = 233472
+SMEM_BLOCK_RESERVED = 1024
+SMEM_TWO_BLOCKS_BYTES = SMEM_SM_BYTES // 2 - SMEM_BLOCK_RESERVED
 # the micro-tiles (rows, columns), by the kernel's bit for a product
 # (filtered_tile.cuh::product)
 K5_TILES = ((8, 4), (4, 4))
@@ -413,9 +415,18 @@ def plane_bwd_plan(H: int, W: int, nplanes: int) -> PlanePlan:
 
 # -- the plane kernels' bf16 variants (the reduced levels) -----------------
 
-# threads a block of the bf16 plane kernels: 8 warps, each taking one
-# 16×16 result tile at a time
+# threads a block of K5b's bf16 variant: 8 warps of mma.sync
 MMA_THREADS = 256
+# K5's bf16 blocks an SM at most, by the registers its launch bounds allow
+# (filtered_act.cu::mma_plane_threads: at 'high' one block takes the
+# register file; at 'default' two of 256 threads, 128 registers a thread)
+K5_MMA_BLOCKS = {"high": 1, "default": 2}
+# what an iteration of a K5 bf16 block costs beside its products (its
+# barriers, x's split and the group's copies), in 16-deep steps of one
+# 16 × 16 tile, and the time of an SM's iteration with two blocks on it
+# against one alone
+K5_MMA_ITER = 8.0
+K5_MMA_TWO_BLOCKS = 1.2
 
 
 def _pad16(n: int) -> int:  # filtered_mma.cuh::pad16
@@ -428,41 +439,55 @@ def mma_ld(n: int) -> int:
     return _pad16(n) + 8
 
 
+def mma_piece(rows: int, cols: int) -> int:
+    """bf16 elements of one piece, hi or lo, of rows × cols
+    (filtered_mma.cuh::mma_piece)."""
+    return _pad16(rows) * mma_ld(cols)
+
+
 def mma_buf(rows: int, cols: int) -> int:
     """bf16 elements of a split buffer, hi and lo pieces of rows × cols
     (filtered_mma.cuh::mma_buf)."""
-    return 2 * _pad16(rows) * mma_ld(cols)
+    return 2 * mma_piece(rows, cols)
 
 
-def plane_mma_smem_bytes(H: int, W: int, ppb: int, bwd: bool = False) -> int:
-    """Shared memory of a bf16 plane block (filtered_act.cu::
-    MmaPlaneLayout): two operator buffers of the largest operator's split
-    blob, and per plane a big buffer (hiᵀ, or K5b's mᵀ; x, and K5b's g,
-    staged in it), a small one (tᵀ then t, or K5b's tᵀ then s) and K5b's
-    uᵀ."""
+def plane_mma_smem_bytes(H: int, W: int, planes: int, level: str = "high",
+                         x_bytes: int = 4) -> int:
+    """Shared memory of a K5 bf16 block (filtered_act.cu::MmaPlaneLayout):
+    the four operators' pieces, resident, and per plane of an iteration
+    x's pieces, t's (t₂ over it) and x as it arrives (``x_bytes`` an
+    element). Each operand holds hi and lo pieces at 'high', hi alone at
+    'default'."""
+    pieces = 2 if level == "high" else 1
+    ops = (mma_piece(H, 2 * H) + mma_piece(W, 2 * W) + mma_piece(2 * W, W)
+           + mma_piece(2 * H, H))
+    per = mma_piece(H, W) + mma_piece(2 * H, W)
+    return 2 * pieces * (ops + planes * per) + planes * H * W * x_bytes
+
+
+def plane_mma_bwd_smem_bytes(H: int, W: int, ppb: int) -> int:
+    """Shared memory of a K5b bf16 block (filtered_act.cu::
+    MmaPlaneBwdLayout): two operator buffers of the largest operator's
+    split blob, and per plane mᵀ (x and g staged in it), a buffer for tᵀ
+    then s, and uᵀ."""
     op = max(mma_buf(H, 2 * H), mma_buf(W, 2 * W), mma_buf(2 * W, W),
              mma_buf(2 * H, H))
-    x = mma_buf(H, W)
-    big = max(mma_buf(2 * W, 2 * H), 2 * x if bwd else x)
+    big = max(mma_buf(2 * W, 2 * H), 2 * mma_buf(H, W))
     small = max(mma_buf(W, 2 * H), mma_buf(2 * H, W))
-    small2 = mma_buf(W, 2 * H) if bwd else 0
-    return 2 * (2 * op + ppb * (big + small + small2))
+    return 2 * (2 * op + ppb * (big + small + mma_buf(W, 2 * H)))
 
 
-def plane_mma_products(H: int, W: int, bwd: bool = False) -> tuple:
-    """(rows, columns, depth) of a bf16 plane kernel's products: K5's four
-    (tᵀ, hiᵀ, t, out) or K5b's six (tᵀ, uᵀ, the fused pre-activation and
-    cotangent over one tile as two, s, dx)."""
-    if not bwd:
-        return plane_products(H, W)
+def plane_mma_products(H: int, W: int) -> tuple:
+    """(rows, columns, depth) of K5b's bf16 products: tᵀ, uᵀ, the fused
+    pre-activation and cotangent over one tile as two, s, dx."""
     return ((W, 2 * H, H), (W, 2 * H, H), (2 * W, 2 * H, W),
             (2 * W, 2 * H, W), (2 * H, W, 2 * W), (H, W, 2 * H))
 
 
 def _mma_cost(products: tuple, smem: int, nplanes: int, ppb: int):
-    """``_plane_cost``'s model for the bf16 blocks: waves of blocks times a
-    block's rounds of 16×16 warp tiles over its 8 warps, each round
-    weighted by its product's padded depth; None over SMEM_MAX_BYTES."""
+    """K5b's model: waves of blocks times a block's rounds of 16×16 warp
+    tiles over its 8 warps, each round weighted by its product's padded
+    depth; None over SMEM_MAX_BYTES."""
     if smem > SMEM_MAX_BYTES:
         return None
     per_sm = 2 if smem <= SMEM_TWO_BLOCKS_BYTES else 1
@@ -475,27 +500,108 @@ def _mma_cost(products: tuple, smem: int, nplanes: int, ppb: int):
 
 
 @functools.lru_cache(maxsize=None)
-def plane_mma_plan(H: int, W: int, nplanes: int,
-                   bwd: bool = False) -> PlanePlan:
-    """The launch plan of K5's (K5b's where ``bwd``) bf16 variant: P
-    planes a block minimising ``_mma_cost`` (on a tie the smaller P), with
-    P at most the plane count, the block within SMEM_MAX_BYTES and the grid
-    at least one wave where the planes allow it, as ``plane_plan`` picks
-    P; 256 threads and no micro-tiles (``tiles`` empty). Not yet fitted to
-    timings on the card. 0 planes get the one-plane plan."""
+def plane_mma_bwd_plan(H: int, W: int, nplanes: int) -> PlanePlan:
+    """The launch plan of K5b's bf16 variant: P planes a block minimising
+    ``_mma_cost`` (on a tie the smaller P), with P at most the plane
+    count, the block within SMEM_MAX_BYTES and the grid at least one wave
+    where the planes allow it, as ``plane_plan`` picks P; 256 threads and
+    no micro-tiles (``tiles`` empty). 0 planes get the one-plane plan."""
     n = max(nplanes, 1)
     grid = max(1, -(-n // (NUM_SMS - 1)) - 1)
     best = None
     for ppb in range(1, min(grid, n) + 1):
-        cost = _mma_cost(plane_mma_products(H, W, bwd),
-                         plane_mma_smem_bytes(H, W, ppb, bwd), n, ppb)
+        cost = _mma_cost(plane_mma_products(H, W),
+                         plane_mma_bwd_smem_bytes(H, W, ppb), n, ppb)
         if cost is None:
             break
         if best is None or cost < best[0]:
             best = (cost, ppb)
     ppb = best[1]
     return PlanePlan(ppb, (), MMA_THREADS,
-                     plane_mma_smem_bytes(H, W, ppb, bwd))
+                     plane_mma_bwd_smem_bytes(H, W, ppb))
+
+
+def k5_mma_threads(level: str, W: int) -> int:
+    """Threads a block of K5's bf16 variant (filtered_act.cu::
+    mma_plane_threads): 256 at 'default' (two blocks an SM, 128 registers
+    a thread); at 'high' one block an SM of 512 threads up to 16 px wide,
+    384 up to 32, else 256."""
+    if level == "default" or _pad16(W) > 32:
+        return 256
+    return 384 if _pad16(W) > 16 else 512
+
+
+class MmaPlan(NamedTuple):
+    """How K5's bf16 variant is launched: ``grid`` persistent blocks of
+    ``k5_mma_threads``, ``per_sm`` of them an SM, each walking groups of
+    ``planes`` planes (an iteration) with ``smem_bytes`` of shared
+    memory."""
+    planes: int
+    grid: int
+    per_sm: int
+    smem_bytes: int
+
+
+def _strip_rounds(strips: int, blocks: int, depth: int, warps: int) -> int:
+    """A K5 strip product's rounds over the block's ``warps``, in 16-deep
+    steps of a 16 × 16 tile (filtered_mma.cuh::strip_product: a warp
+    item is a 16-row strip and ``per`` 16-column blocks, all of the
+    strip's or the next smaller divisor of their count while that leaves
+    warps idle)."""
+    per = next((d for d in range(blocks, 0, -1) if blocks % d == 0
+                and strips * (blocks // d) >= warps), 1)
+    return -(-strips * (blocks // per) // warps) * per * depth
+
+
+def plane_mma_rounds(H: int, W: int, planes: int, level: str) -> int:
+    """A K5 bf16 iteration's products over ``planes`` planes at
+    ``level``, in rounds of the block's warps (16-deep steps of a 16 × 16
+    tile): t = U_h·x and out = D_h·t₂ by strips, and the middle pair a
+    16-row strip of the 2H side a warp, each of its 2W / 16 chunks one hi
+    tile over W and one step of t₂'s blocks."""
+    warps = k5_mma_threads(level, W) // 32
+    h2, h, w, w2 = (_pad16(n) // 16 for n in (2 * H, H, W, 2 * W))
+    return (_strip_rounds(planes * h2, w, h, warps)
+            + _strip_rounds(planes * h, w, h2, warps)
+            + -(-planes * h2 // warps) * w2 * 2 * w)
+
+
+def _mma_per_sm(smem: int, level: str) -> int:
+    """K5's bf16 blocks an SM: by shared memory, within K5_MMA_BLOCKS."""
+    return min(K5_MMA_BLOCKS[level],
+               SMEM_SM_BYTES // (smem + SMEM_BLOCK_RESERVED))
+
+
+@functools.lru_cache(maxsize=None)
+def plane_mma_plan(H: int, W: int, nplanes: int, level: str = "high",
+                   x_bytes: int = 4) -> MmaPlan:
+    """The launch plan of K5's bf16 variant at ``level`` for an x of
+    ``x_bytes`` an element. P planes an iteration minimise the modelled
+    time, ceil(groups / (NUM_SMS · per_sm)) iterations of
+    (``plane_mma_rounds`` + K5_MMA_ITER), weighted by
+    K5_MMA_TWO_BLOCKS at two blocks an SM (on a tie the smaller P), with
+    the block within SMEM_MAX_BYTES; the grid is the groups, at most
+    per_sm · NUM_SMS blocks. The model and its two constants were fitted
+    to timings of every P and 1 or 2 blocks an SM at K5's chip_smoke
+    shapes on an H100 (``scripts/plane_sweep.py --level high|default``;
+    PERF.md §6): its pick was the quickest or within 1 % of it at each.
+    0 planes get the one-plane plan."""
+    n = max(nplanes, 1)
+    best = None
+    for planes in range(1, n + 1):
+        smem = plane_mma_smem_bytes(H, W, planes, level, x_bytes)
+        if smem > SMEM_MAX_BYTES:
+            break
+        per_sm = _mma_per_sm(smem, level)
+        groups = -(-n // planes)
+        cost = (-(-groups // (NUM_SMS * per_sm))
+                * (plane_mma_rounds(H, W, planes, level) + K5_MMA_ITER)
+                * (K5_MMA_TWO_BLOCKS if per_sm == 2 else 1.0))
+        if best is None or cost < best[0]:
+            best = (cost, planes, per_sm, smem)
+    _, planes, per_sm, smem = best
+    return MmaPlan(planes, min(-(-n // planes), per_sm * NUM_SMS), per_sm,
+                   smem)
 
 
 def _mma_blob(op: np.ndarray) -> torch.Tensor:
@@ -545,13 +651,13 @@ def _plane_forward_mma(x: torch.Tensor, act: str, level: str):
     nplanes = x.shape[0] * x.shape[1]
     if nplanes == 0:
         return out
-    plan = plane_mma_plan(H, W, nplanes)
+    plan = plane_mma_plan(H, W, nplanes, level, x.element_size())
     suffix, key = _variant("filtered_act_plane", level, x.dtype)
     err = getattr(kernels.library("filtered_act"),
                   f"filtered_act_plane{suffix}")(
         x.data_ptr(), out.data_ptr(),
         *(o.data_ptr() for o in _mma_blobs(H, W, x.device, False)), nplanes,
-        H, W, plan.planes_per_block, LEVEL_PASSES[level], ACT_CODES[act],
+        H, W, plan.planes, plan.grid, LEVEL_PASSES[level], ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, key)
     kernels.LAUNCHES[key] += 1
@@ -623,7 +729,7 @@ def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
     entry = getattr(kernels.library("filtered_act"),
                     f"filtered_act_plane_bwd{suffix}")
     if level != "highest":
-        plan = plane_mma_plan(H, W, nplanes, bwd=True)
+        plan = plane_mma_bwd_plan(H, W, nplanes)
         err = entry(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
                     *(o.data_ptr() for o in _mma_blobs(H, W, x.device,
                                                        True)),

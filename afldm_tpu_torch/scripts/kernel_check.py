@@ -25,10 +25,14 @@ turned off where the checkout splits); ``--digest`` prints a SHA-256 of
 the outputs of the f32 K3, K6, K4a and K4b and of K4a, K4b, K3, K6 and P1
 at bf16 at their KERNELS shapes on seeded inputs (the backward given the
 plain forward's out and lse), so that equal lines mean bit-identical
-outputs; ``--graph`` times K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16
-(those named, where kernels are named) at their KERNELS shapes by
-replaying a CUDA graph of the wrapper calls, so that a shape whose call
-is bound by the host's launch path (L = 4) is timed on the device alone.
+outputs, and of the filtered activation's plane kernels K5 and K5b at
+the reduced levels ('high', 'default'), f32 and bf16 x, at theirs;
+``--graph`` times K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16 and K5's level
+variants, f32 and bf16 x (those named, where kernels are named:
+``filtered_act_plane`` names K5's) at their KERNELS shapes by replaying
+a CUDA graph of the wrapper calls, so that a shape whose call is bound
+by the host's launch path (L = 4, a 4 px plane) is timed on the device
+alone.
 
 Prints chip_smoke's ``check ...`` line per shape and each kernel's sums
 over the shapes run, and exits non-zero if a kernel disagrees with its
@@ -44,6 +48,7 @@ phase), and the split bf16 K4b's reduction (where it has that row).
 
 import argparse
 import importlib
+import itertools
 import importlib.util
 import sys
 from pathlib import Path
@@ -72,10 +77,10 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, default=200)
     ap.add_argument("--digest", action="store_true",
                     help="SHA-256 of the flash kernels' outputs, f32 and "
-                         "bf16")
+                         "bf16, and of K5's and K5b's level variants")
     ap.add_argument("--graph", action="store_true",
-                    help="the bf16 flash kernels' device times from CUDA "
-                         "graph replays")
+                    help="the bf16 flash kernels' and K5's level variants' "
+                         "device times from CUDA graph replays")
     args = ap.parse_args(argv)
     names = args.names
     root = Path.cwd()
@@ -285,14 +290,63 @@ def digest(torch, attn, smoke):
                   f"{hsh.hexdigest()}", flush=True)
             del q, do, k, v, k1, v1, outs
         torch.cuda.empty_cache()
+    fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
+    ops = importlib.import_module("afldm_tpu_torch.ops")
+    for name, level, dt in itertools.product(
+            ("filtered_act_plane", "filtered_act_plane_bwd"),
+            ("high", "default"), (torch.float32, torch.bfloat16)):
+        for shape in smoke.KERNELS[name]["shapes"]:
+            g = torch.Generator(dev).manual_seed(
+                zlib.crc32(repr((name, level, shape)).encode()))
+            x, gr = (torch.randn(shape, device=dev, generator=g).to(dt)
+                     for _ in range(2))
+            try:
+                ops.set_af_precision(level)
+                out = (fa.filtered_act_plane_bwd(x, gr, "silu")
+                       if name.endswith("_bwd")
+                       else fa.filtered_act_plane(x, "silu"))
+                torch.cuda.synchronize()
+            finally:
+                ops.set_af_precision("highest")
+            hsh = hashlib.sha256(out.contiguous().cpu().view(torch.uint8)
+                                 .numpy().tobytes())
+            print(f"kernel_check digest {name}:{level} {str(dt)[6:]} "
+                  f"{shape} {hsh.hexdigest()}", flush=True)
+            del x, gr, out
+        torch.cuda.empty_cache()
+
+
+def _graph_ms(torch, fn, calls, replays):
+    """The device time of one call of ``fn``, from ``replays`` replays of
+    a CUDA graph that holds ``calls`` calls (after two calls outside it),
+    between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
     """K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16 (with its reduction where
-    it splits) at their KERNELS shapes: the device time of one wrapper
-    call, from ``replays`` replays of a CUDA graph that holds ``calls``
-    calls (after two calls outside it), between CUDA events; only the
-    kernels of ``names`` where it names any."""
+    it splits), and K5's level variants on an f32 and a bf16 x, at their
+    KERNELS shapes: the device time of one wrapper call (``_graph_ms``);
+    only the kernels of ``names`` where it names any."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     total = {}
     for name in ("flash_fwd", "flash2_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -319,33 +373,36 @@ def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
 
                 def fn():
                     return bwd(q, kv[0], kv[1], do, lse, delta)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                fn()
-                fn()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(calls):
-                    fn()
-            graph.replay()
-            torch.cuda.synchronize()
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            for _ in range(replays):
-                graph.replay()
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / (replays * calls)
-            total[name] = total.get(name, 0.0) + ms
+            ms = _graph_ms(torch, fn, calls, replays)
+            total[f"{name}/bf16"] = total.get(f"{name}/bf16", 0.0) + ms
             print(f"kernel_check graph {name}/bf16 {shape}: {ms:.4f} ms a "
                   "call", flush=True)
-            del graph, q, kv, do, fn
+            del q, kv, do, fn
             torch.cuda.empty_cache()
+    if not names or "filtered_act_plane" in names:
+        fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
+        ops = importlib.import_module("afldm_tpu_torch.ops")
+        for level, dt in itertools.product(("high", "default"),
+                                           (torch.float32, bf)):
+            label = f"filtered_act_plane:{level}" + (
+                "/bf16" if dt == bf else "")
+            for shape in smoke.KERNELS["filtered_act_plane"]["shapes"]:
+                g = torch.Generator(dev).manual_seed(0)
+                x = torch.randn(shape, device=dev, generator=g).to(dt)
+                try:
+                    ops.set_af_precision(level)
+                    ms = _graph_ms(
+                        torch, lambda: fa.filtered_act_plane(x, "silu"),
+                        calls, replays)
+                finally:
+                    ops.set_af_precision("highest")
+                total[label] = total.get(label, 0.0) + ms
+                print(f"kernel_check graph {label} {shape}: {ms:.4f} ms a "
+                      "call", flush=True)
+                del x
+                torch.cuda.empty_cache()
     for name, ms in total.items():
-        print(f"kernel_check graph sum {name}/bf16: {ms:.4f} ms", flush=True)
+        print(f"kernel_check graph sum {name}: {ms:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,11 @@ video editing (phase 20, ``video_edit``), the normal estimation (phase
 normal-ControlNet trainers, the text encoder and the SD pipeline round
 trip (phases 23-25, ``tiny_trainers``) and those three trainers at full
 width (phase 26: ``i2sb_train``, ``sd_text_train``, ``norm_train``),
-and the serving protocol and the FFHQ interp on a bf16 pipeline (phases
-34 and 35: ``bf16_protocol``, ``bf16_interp``), with their wall times, peak device memory and launch counts, without the
-other phases. Run it as a file from the root of the
+the precision check and the AF-VAE trainer at each ``af_precision``
+level (phases 31 and 32: ``af_precision``, ``af_vae``), and the serving
+protocol and the FFHQ interp on a bf16 pipeline (phases 34 and 35:
+``bf16_protocol``, ``bf16_interp``), with their wall times, peak device
+memory and launch counts, without the other phases. Run it as a file from the root of the
 checkout to measure, so that two commits' end-to-end times can be taken in
 turns within one call on one card:
 
@@ -29,7 +31,7 @@ from pathlib import Path
 
 PHASES = ("main_path", "vae_train", "sd_interp", "video_edit", "normal",
           "tiny_trainers", "i2sb_train", "sd_text_train", "norm_train",
-          "bf16_protocol", "bf16_interp")
+          "af_precision", "af_vae", "bf16_protocol", "bf16_interp")
 # the full-width trainer of each trainer phase
 TRAINER_PHASES = {"i2sb_train": "i2sb", "sd_text_train": "sd_text",
                   "norm_train": "norm_controlnet"}
@@ -66,6 +68,9 @@ def main(argv=None):
     ap.add_argument("--normal_shifts", type=int, default=16)
     ap.add_argument("--trainer_steps", type=int, default=3)
     ap.add_argument("--bf16_interp_steps", type=int, default=20)
+    ap.add_argument("--afp_steps", type=int, default=20)
+    ap.add_argument("--afp_shifts", type=int, default=4)
+    ap.add_argument("--afp_vae_steps", type=int, default=4)
     ap.add_argument("--repeat", type=int, default=1,
                     help="runs of each phase in this process; the first "
                          "includes the cold start (default 1)")
@@ -97,6 +102,11 @@ def main(argv=None):
             import numpy as np  # its PSNR deltas are against zeros here
             good, _ = smoke.run_bf16_protocol(torch, args.steps,
                                               np.zeros(16))
+        elif phase == "af_precision":
+            good, _ = smoke.run_af_precision_eval(torch, args.afp_steps,
+                                                  args.afp_shifts)
+        elif phase == "af_vae":
+            good, _ = smoke.run_vae_training_level(torch, args.afp_vae_steps)
         elif phase == "bf16_interp":
             good, _ = smoke.run_bf16_interp(torch, args.bf16_interp_steps)
         elif phase == "vae_train":

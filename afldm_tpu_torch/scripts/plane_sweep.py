@@ -2,9 +2,15 @@
 its backward (K5b, ``filtered_act_plane_bwd``) at every block size,
 planes-per-block P and micro-tile choice against the launch plan's pick:
 the data ``ops/filtered_act.py::plane_plan`` and ``plane_bwd_plan`` are
-fitted to. Run from the root of a checkout on a machine with a card:
+fitted to. With ``--level high|default``, K5's bf16 variant at that level
+instead: its persistent blocks at every P planes an iteration and one or
+two blocks an SM (where shared memory holds two), against
+``plane_mma_plan``'s pick, each launch held to the plain version at the
+level (chip_smoke's phase 30 criterion). Run from the root of a checkout
+on a machine with a card:
 
-    python afldm_tpu_torch/scripts/plane_sweep.py [--bwd] [--out sweep.jsonl]
+    python afldm_tpu_torch/scripts/plane_sweep.py [--bwd | --level high]
+        [--out sweep.jsonl]
 
 Shapes: the kernel's ``chip_smoke.KERNELS[...]["shapes"]``. P runs over
 powers of two and their halfway points up to the plane count, plus the
@@ -37,6 +43,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bwd", action="store_true",
                     help="sweep the backward kernel (K5b)")
+    ap.add_argument("--level", choices=("high", "default"), default=None,
+                    help="sweep K5's bf16 variant at this level")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="JSON lines, one a launch")
     args = ap.parse_args(argv)
@@ -53,6 +61,8 @@ def main(argv=None):
     kernels = importlib.import_module("afldm_tpu_torch.kernels")
     FA = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
     lib = kernels.library("filtered_act")
+    if args.level:
+        return level_sweep(torch, smoke, kernels, FA, lib, args)
     if args.bwd:
         name, fn = "filtered_act_plane_bwd", lib.filtered_act_plane_bwd_f32
         plan_of, products, smem_of = (FA.plane_bwd_plan, FA.plane_bwd_products,
@@ -123,6 +133,78 @@ def main(argv=None):
               f"quickest within one wave {best_grid}: "
               f"{times[best_grid]:.4f} ms; quickest {best}: "
               f"{times[best]:.4f} ms", flush=True)
+    if out_file:
+        out_file.close()
+    return 0 if ok else 1
+
+
+def level_sweep(torch, smoke, kernels, FA, lib, args):
+    """K5's bf16 variant at ``args.level`` over P planes an iteration and
+    1 or 2 blocks an SM at each K5 shape, against ``plane_mma_plan``."""
+    level, dev = args.level, torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    out_file = open(args.out, "w") if args.out else None
+    ok = True
+    for shape in smoke.KERNELS["filtered_act_plane"]["shapes"]:
+        n, c, H, W = shape
+        nplanes = n * c
+        x = torch.randn(shape, device=dev, generator=g)
+        out = torch.empty_like(x)
+        want = FA.filtered_act_plane_plain(x, "silu", level)
+        exact = FA.filtered_act_plane_plain(x, "silu", "highest")
+        own = want - exact
+        own_rms = float(own.double().pow(2).mean().sqrt())
+        own_max = float(own.abs().max())
+        del own, exact
+        ptrs = [x.data_ptr(), out.data_ptr(),
+                *(o.data_ptr() for o in FA._mma_blobs(H, W, dev, False))]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        plan = FA.plane_mma_plan(H, W, nplanes, level)
+        times = {}
+        for planes in _candidates(nplanes, plan.planes,
+                                  max(1, nplanes // FA.NUM_SMS)):
+            smem = FA.plane_mma_smem_bytes(H, W, planes, level)
+            if smem > FA.SMEM_MAX_BYTES:
+                continue
+            groups = -(-nplanes // planes)
+            held = FA.SMEM_SM_BYTES // (smem + FA.SMEM_BLOCK_RESERVED)
+            for per_sm in range(1, min(held, 2) + 1):
+                grid = min(groups, per_sm * FA.NUM_SMS)
+
+                def run():
+                    return lib.filtered_act_plane_bf16(
+                        *ptrs, nplanes, H, W, planes, grid,
+                        FA.LEVEL_PASSES[level], FA.ACT_CODES["silu"],
+                        stream)
+                kernels.check(run(), "plane_sweep")
+                torch.cuda.synchronize()
+                d = out - want
+                ratio = float(d.double().pow(2).mean().sqrt()) / own_rms
+                if ratio > smoke.LEVEL_RMS_RATIO or \
+                        float(d.abs().max()) > own_max:
+                    print(f"plane_sweep filtered_act_plane:{level} {shape}: "
+                          f"WRONG at P {planes}, grid {grid} (RMS ratio "
+                          f"{ratio:.4f})", flush=True)
+                    ok = False
+                    continue
+                ms = smoke.time_ms(run, reps=args.reps)
+                times[(planes, per_sm)] = ms
+                if out_file:
+                    out_file.write(json.dumps(dict(
+                        kernel=f"filtered_act_plane:{level}", shape=shape,
+                        P=planes, per_sm=per_sm, grid=grid, smem=smem,
+                        rounds=FA.plane_mma_rounds(H, W, planes, level),
+                        ms=ms)) + "\n")
+        mine = times[(plan.planes, plan.per_sm)]
+        best = min(times, key=times.get)
+        print(f"plane_sweep filtered_act_plane:{level} {shape}: plan P "
+              f"{plan.planes}, {plan.per_sm} an SM, grid {plan.grid}: "
+              f"{mine:.4f} ms; quickest (P, an SM) {best}: "
+              f"{times[best]:.4f} ms; all: " + ", ".join(
+                  f"{k[0]}/{k[1]} {v:.4f}" for k, v in sorted(times.items())),
+              flush=True)
+        del x, out, want
+        torch.cuda.empty_cache()
     if out_file:
         out_file.close()
     return 0 if ok else 1

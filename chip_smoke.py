@@ -166,7 +166,10 @@ Phases, each of which fails the run:
     error (plain at the level against plain at 'highest'), max |kernel -
     plain| at most the level's own max error; each timed beside its
     plain version and its bound (1 or 3 passes at the bf16 dense tensor
-    peak, or the bytes), a row of its own in the kernels line; and the
+    peak, or the bytes), K5:high also beside its TwoSum floor
+    (``twosum_floor_ms``), each shape's launch plan logged (K5's
+    persistent grid, blocks an SM, planes an iteration and shared bytes),
+    a row of its own in the kernels line; and the
     plain resamplers (``upsample_rfft`` / ``downsample_rfft``, whose
     products split with ``torch.matmul`` at a reduced level) timed at each
     level at the AF-VAE's shapes;
@@ -724,6 +727,20 @@ def level_bound_ms(flops, nbytes, level):
                                        else "bytes")
 
 
+def twosum_floor_ms(shape):
+    """K5:high's TwoSum floor at ``shape``: the TwoSum after every 16-deep
+    step of its four products (filtered_mma.cuh::add_two_sum, 7 FP32
+    instructions an element a step, over the products as the kernel pads
+    them to 16), at the FP32 instruction rate (PEAK_F32_FLOPS / 2: an FMA
+    is two FLOPs)."""
+    n, c, h, w = shape
+    p16 = [-(-s // 16) * 16 for s in (h, w, 2 * h, 2 * w)]
+    h16, w16, h2, w2 = p16
+    steps = (h2 * w16 * h16 + h2 * w2 * w16 + h2 * w16 * w2
+             + h16 * w16 * h2) // 16
+    return 1e3 * 7 * steps * n * c / (PEAK_F32_FLOPS / 2)
+
+
 def _level_case(torch, name, shape, dev, g):
     """(kernel call, plain version at a level, work) of a level row."""
     from afldm_tpu_torch.ops import filtered_act as FA
@@ -739,14 +756,19 @@ def _level_case(torch, name, shape, dev, g):
             filtered_act_work(shape))
 
 
-def level_launch_plan(name, shape):
-    """The bf16 variant's launch plan at ``shape`` as a log suffix: the
-    plane kernels' planes a block and shared bytes, the banded chains'
-    chunks and each GEMM's block tile."""
+def level_launch_plan(name, shape, level="high"):
+    """The bf16 variant's launch plan at ``shape`` and ``level`` (an f32
+    x) as a log suffix: K5's persistent grid, blocks an SM, planes an
+    iteration and shared bytes; K5b's planes a block and shared bytes;
+    the banded chains' chunks and each GEMM's block tile."""
     from afldm_tpu_torch.ops import filtered_act as FA
     n, c, h, w = shape
-    if name.startswith("filtered_act_plane"):
-        plan = FA.plane_mma_plan(h, w, n * c, name.endswith("_bwd"))
+    if name == "filtered_act_plane":
+        plan = FA.plane_mma_plan(h, w, n * c, level)
+        return (f"; plan grid {plan.grid} ({plan.per_sm} an SM), P "
+                f"{plan.planes} an iteration, smem {plan.smem_bytes} B")
+    if name == "filtered_act_plane_bwd":
+        plan = FA.plane_mma_bwd_plan(h, w, n * c)
         return (f"; plan P {plan.planes_per_block}, {plan.threads} threads, "
                 f"smem {plan.smem_bytes} B")
     products = (FA.banded_mma_bwd_products if name.endswith("_bwd")
@@ -831,6 +853,9 @@ def check_level_kernels(torch, report, names=LEVEL_KERNELS):
                 finally:
                     set_af_precision("highest")
                 b, by = level_bound_ms(*work, level)
+                floor = (f", TwoSum floor {twosum_floor_ms(shape):.4f} ms"
+                         if (name, level) == ("filtered_act_plane", "high")
+                         else "")
                 log(f"check {name}:{level} {shape}: RMS ratio {ratio:.4f} "
                     f"(limit {LEVEL_RMS_RATIO}; RMS err {err_rms:.3e}, "
                     f"level's own RMS {own_rms:.3e}), max_abs_err {err:.3e} "
@@ -838,8 +863,8 @@ def check_level_kernels(torch, report, names=LEVEL_KERNELS):
                     f"{'ok' if good else 'FAIL'}; kernel {t:.4f} ms, plain "
                     f"{tp:.4f} ms, bound {b:.4f} ms ({by}-bound, "
                     f"{LEVEL_PASSES[level]} x {work[0] / 1e9:.3f} GFLOP, "
-                    f"{work[1] / 1e6:.3f} MB)"
-                    f"{level_launch_plan(name, shape)}")
+                    f"{work[1] / 1e6:.3f} MB){floor}"
+                    f"{level_launch_plan(name, shape, level)}")
                 ok &= bool(good)
                 row["max_abs_err"] = max(row["max_abs_err"], err)
                 row["rms_ratio"] = max(row["rms_ratio"], ratio)

@@ -233,15 +233,34 @@ def test_plane_kernel_on_the_filtered_tile():
 
 
 def test_level_variants_on_the_mma_routine():
-    """The reduced levels' variants: K5's four products and K5b's four,
-    two of them fused (pre-activation and cotangent over one tile), run
-    through filtered_mma.cuh's warp tile (ldmatrix fragments, mma.sync
-    m16n8k16 bf16, 1 or 3 passes); K1 is four and K2 six launches of the
+    """The reduced levels' variants run on filtered_mma.cuh (ldmatrix
+    fragments, mma.sync m16n8k16 bf16, 1 or 3 passes). K5 is a persistent
+    walk: the operators staged once, the next group's x in flight by
+    cp.async, t = U_h·x and out = D_h·t₂ by strips, and the middle pair
+    fused (hi = act(t·U_wᵀ) in registers, t₂ = hi·D_wᵀ), so its layout
+    (MmaPlaneLayout) holds no 2W × 2H buffer. K5b's four products, two of
+    them fused (pre-activation and cotangent over one tile), run through
+    the warp tile on its own layout; K1 is four and K2 six launches of the
     GEMM's bf16 variant; no TF32 and no wgmma anywhere."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
     assert '#include "filtered_mma.cuh"' in src
     k5 = _kernel_body(src, "filtered_act_plane_mma_kernel")
-    assert k5.count("mma_product<") == 4 and "stage_split(" in k5
+    assert k5.count("strip_product<") == 2 and k5.count("middle_pair<") == 1
+    assert "mma_product" not in k5 and "split_planes<" in k5
+    assert k5.count("stage_blob(") == 4 and "for (; g < groups" in k5
+    assert "gridDim.x" in k5 and "stage_planes(" in k5
+    code = re.sub(r"//[^\n]*", "", src)
+    layout = code[code.index("struct MmaPlaneLayout {"):]
+    layout = layout[:layout.index("};")]
+    assert "2 * W, 2 * H" not in layout and "2 * H, 2 * W" not in layout
+    assert "MmaPlaneLayout" not in _kernel_body(
+        src, "filtered_act_plane_bwd_mma_kernel")
+    mma_h = re.sub(r"//[^\n]*", "", (kernels.CSRC / "filtered_mma.cuh")
+                   .read_text())
+    pair = mma_h[mma_h.index("void middle_pair("):]
+    pair = pair[:pair.index("\n}\n")]
+    assert pair.count("strip_step<") == 2 and "act.map(v)" in pair
+    assert "ldsm_x4(th[k]" in pair and "store_strip<" in pair
     k5b = _kernel_body(src, "filtered_act_plane_bwd_mma_kernel")
     assert k5b.count("mma_product<") == 4
     assert k5b.count("mma_product2<") == 1

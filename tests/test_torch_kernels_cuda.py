@@ -1039,6 +1039,73 @@ def test_plane_level_variant_matches_plain(cuda, level, shape, act):
                        TF.filtered_act_plane_plain(x, act, "highest"))
 
 
+def _walk_planes(level, side, case):
+    """Plane counts of side × side planes for K5's persistent walk at
+    ``level``: one plane; one short of and one past the largest grid (the
+    blocks an SM × the SMs: every block one group, or one block two); and
+    several planes an iteration, each block walking several groups, the
+    last one ragged."""
+    full = TF.plane_mma_plan(side, side, 1 << 20, level)
+    grid = full.per_sm * TF.NUM_SMS
+    return {"one": 1, "grid-1": grid - 1, "grid+1": grid + 1,
+            "several": 3 * full.planes * grid + 5}[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side, case", [
+    (64, "one"), (64, "grid-1"), (64, "grid+1"), (32, "several"),
+    (8, "several"), (4, "several")])
+def test_plane_level_persistent_walk(cuda, level, side, case):
+    """K5's bf16 variant walks its planes in persistent blocks (the
+    operators staged once, the next group's x in flight): every plane
+    count gives the plain version at the level."""
+    n = _walk_planes(level, side, case)
+    plan = TF.plane_mma_plan(side, side, n, level)
+    groups = -(-n // plan.planes)
+    assert plan.grid == min(groups, plan.per_sm * TF.NUM_SMS)
+    assert (groups > plan.grid) == (case in ("grid+1", "several"))
+    assert (plan.planes > 1) == (case == "several")
+    gen = _seeded(cuda, (level, side, case))
+    x = torch.randn((1, n, side, side), device=cuda, generator=gen)
+    got = _launches(f"filtered_act_plane:{level}",
+                    lambda: TF.filtered_act_plane(x, "silu"))
+    assert_level_close(got, TF.filtered_act_plane_plain(x, "silu", level),
+                       TF.filtered_act_plane_plain(x, "silu", "highest"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 8, 64, 64), (2, 64, 4, 4)])
+def test_plane_level_bf16_x_rounds_the_f32_walk(cuda, level, shape):
+    """K5's bf16 variant on a bf16 x (raw bf16 planes in flight, widened
+    as they are split; lo pieces zero) is the f32 x variant on the widened
+    x, rounded once to bf16, bit for bit; that one is held to the plain
+    version at the level."""
+    gen = _seeded(cuda, (level, shape, "bf16_x"))
+    x = torch.randn(shape, device=cuda, generator=gen).to(BF)
+    got = _launches(f"filtered_act_plane:{level}/bf16",
+                    lambda: TF.filtered_act_plane(x, "silu"))
+    wide = _launches(f"filtered_act_plane:{level}",
+                     lambda: TF.filtered_act_plane(x.float(), "silu"))
+    assert got.dtype == BF and torch.equal(got, wide.to(BF))
+    assert_level_close(wide,
+                       TF.filtered_act_plane_plain(x.float(), "silu", level),
+                       TF.filtered_act_plane_plain(x.float(), "silu",
+                                                   "highest"))
+
+
+@pytest.mark.cuda
+def test_plane_level_channel_slice(cuda, level):
+    """A slice of the channels runs K5's bf16 variant on its contiguous
+    copy."""
+    gen = _seeded(cuda, (level, "plane_level_channel_slice"))
+    x = torch.randn(2, 24, 16, 16, device=cuda, generator=gen)[:, 5:17]
+    assert not x.is_contiguous()
+    got = _launches(f"filtered_act_plane:{level}",
+                    lambda: TF.filtered_act_plane(x, "silu"))
+    assert_level_close(got, TF.filtered_act_plane_plain(x, "silu", level),
+                       TF.filtered_act_plane_plain(x, "silu", "highest"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
     (2, 16, 32, 32), (2, 64, 4, 4), (1, 8, 64, 64), (1, 4, 12, 20),
