@@ -17,12 +17,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("filtered_act", "flash_fwd", "flash_bwd", "flash2_fwd",
-           "flash_probe")
+SOURCES = ("filtered_act", "filtered_banded_mma", "flash_fwd", "flash_bwd",
+           "flash2_fwd", "flash_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,6 +51,9 @@ BF16_KERNELS = tuple(f"{k}{level}" for k in (
 LAUNCHES.update({f"{k}/bf16": 0 for k in BF16_KERNELS})
 
 _LIBS = {}
+# wall seconds of each source's nvcc in this process's last build_all (the
+# builds run in parallel, so they overlap)
+BUILD_SECONDS = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,9 +87,6 @@ _SIGNATURES = {
         # nplanes, H, W, planes_per_block, passes, act, stream
         "filtered_act_plane_bwd_bf16": [*[_P] * 9, _I, _I, _I, _I, _I, _I,
                                         _P],
-        # x, out, scratch, uhT, uwT, dhT, dwT, nplanes (of the chunk), H, W,
-        # tile codes, passes, act, stream
-        "filtered_act_banded_bf16": [*[_P] * 7, _I, _I, _I, _I, _I, _I, _P],
         # x, g, dx, scratch, uhT, uwT, dh, dw, uh, uw, nplanes (of the
         # chunk), H, W, tile codes, passes, act, stream
         "filtered_act_banded_bwd_bf16": [*[_P] * 10, _I, _I, _I, _I, _I, _I,
@@ -100,8 +101,6 @@ _SIGNATURES = {
         "filtered_act_plane_bf16_xbf16": [*[_P] * 6, *[_I] * 7, _P],
         "filtered_act_banded_f32_xbf16": [*[_P] * 7, _I, _I, _I, _I, _I,
                                           _P],
-        "filtered_act_banded_bf16_xbf16": [*[_P] * 7, _I, _I, _I, _I, _I,
-                                           _I, _P],
         # bfloat16 x, g and dx beside the backward kernels: the same
         # arguments
         "filtered_act_plane_bwd_f32_xbf16": [*[_P] * 9, _I, _I, _I, _I, _I,
@@ -112,6 +111,14 @@ _SIGNATURES = {
                                               _P],
         "filtered_act_banded_bwd_bf16_xbf16": [*[_P] * 10, _I, _I, _I, _I,
                                                _I, _I, _P],
+    },
+    "filtered_banded_mma": {
+        # K1 at a reduced level: x, out, scratch (hi's bf16 pieces), the
+        # split blobs of U_hᵀ, U_wᵀ, D_hᵀ, D_wᵀ, nplanes (of the chunk), H,
+        # W, the down launch's strip rows, passes, act, stream
+        "filtered_act_banded_bf16": [*[_P] * 7, *[_I] * 6, _P],
+        # bfloat16 x and out: the same arguments
+        "filtered_act_banded_bf16_xbf16": [*[_P] * 7, *[_I] * 6, _P],
     },
     "flash_fwd": {
         # q, k, v, out, lse, B1, B2, Lq, Lk, D,
@@ -192,12 +199,14 @@ def _target(name: str) -> Path:
 
 def build_all() -> dict:
     """Compile every source not built yet, one ``nvcc`` per source, all
-    started together. Returns {name: path of the .so}. Raises with the
-    compiler's output when a build fails."""
+    started together, each one's wall seconds kept in BUILD_SECONDS.
+    Returns {name: path of the .so}. Raises with the compiler's output when
+    a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     missing = [n for n in SOURCES if not _target(n).exists()]
     nvcc = _nvcc() if missing else None
     procs = {}
+    start = time.perf_counter()
     for name in missing:
         so = _target(name)
         log = open(BUILD_DIR / f"{name}.log", "w")
@@ -206,13 +215,20 @@ def build_all() -> dict:
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT), log, so)
     failed = []
-    for name, (proc, log, so) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            failed.append(name)
-        else:
-            os.replace(str(so) + ".tmp", so)
+    while procs:
+        for name, (proc, log, so) in list(procs.items()):
+            rc = proc.poll()
+            if rc is None:
+                continue
+            BUILD_SECONDS[name] = time.perf_counter() - start
+            del procs[name]
+            log.close()
+            if rc != 0:
+                failed.append(name)
+            else:
+                os.replace(str(so) + ".tmp", so)
+        if procs:
+            time.sleep(0.05)
     if failed:
         logs = "\n".join((BUILD_DIR / f"{n}.log").read_text() for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")

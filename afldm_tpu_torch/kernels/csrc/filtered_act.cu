@@ -133,12 +133,12 @@
 //     and the cotangent's second product have one shape, so one warp
 //     computes both over the same tile (mma_product2) and splits act′(pre)
 //     ⊙ cotangent into mᵀ from registers; pre is never stored.
-//   * K1 (filtered_act_banded_bf16) and K2 (filtered_act_banded_bwd_bf16),
-//     _forward_spatial's and _bwd_spatial's order: H side first in every
-//     filter pair (the f32 chains take W first), as four and six launches
-//     of the GEMM's bf16 variant (filtered_gemm.cuh), which splits the f32
-//     scratch intermediates as it loads them. The act and act′ ⊙ epilogues
-//     stay f32.
+//   * K2 (filtered_act_banded_bwd_bf16), _bwd_spatial's order: H side
+//     first in every filter pair (the f32 chain takes W first), as six
+//     launches of the GEMM's bf16 variant (filtered_gemm.cuh), which splits
+//     the f32 scratch intermediates as it loads them. The act′ ⊙ epilogue
+//     stays f32. K1's level variants (filtered_act_banded_bf16) are two
+//     fused launches of their own source, filtered_banded_mma.cu.
 // Making them faster (wgmma, TMA) is later work.
 //
 // bfloat16 activations (the ``_xbf16`` entries): the forward kernels K5 and
@@ -149,8 +149,8 @@
 // plain loads and stores in place of the f32 kernel's cp.async, which
 // cannot convert; at the reduced levels stage_split splits the widened
 // values, whose lo pieces are zero) and its last product rounds each sum
-// to bf16 in the epilogue; in K1 the chain's first GEMM reads x as bf16
-// and its last writes out as bf16, the scratch intermediates staying f32.
+// to bf16 in the epilogue; in K1 the chain's first product reads x as bf16
+// and its last writes out as bf16, the scratch intermediates unchanged.
 // Device memory sees half the bytes of x and out; the products are the
 // same. The backward kernels K5b and K2 take a bf16 x and g and write a
 // bf16 dx the same way at every level (the JAX _bwd_rule and _bwd_spatial
@@ -166,61 +166,17 @@
 
 #include <type_traits>
 
+#include "filtered_epi.cuh"
 #include "filtered_gemm.cuh"
 #include "filtered_mma.cuh"
 #include "filtered_tile.cuh"
 
 namespace {
 
-enum Act { SILU = 0, GELU = 1, RELU = 2, MISH = 3, LEAKY_RELU = 4, TANH = 5,
-           LINEAR = 6, NONE = -1 };
-
-__device__ __forceinline__ float apply_act(float v, int act) {
-  switch (act) {
-    case SILU: return v / (1.0f + expf(-v));
-    case GELU: {  // tanh approximation, as in the JAX package
-      const float c = 0.7978845608028654f;
-      return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
-    }
-    case RELU: return fmaxf(v, 0.0f);
-    case MISH: {
-      float sp = v > 20.0f ? v : log1pf(expf(v));
-      return v * tanhf(sp);
-    }
-    case LEAKY_RELU: return v >= 0.0f ? v : 0.2f * v;
-    case TANH: return tanhf(v);
-    default: return v;
-  }
-}
-
-// act′(v), the derivatives of pallas_kernels.py::_act_and_grad: relu′(0) = 1
-// and leaky_relu′(0) = 1 (x >= 0), gelu in its tanh approximation.
-__device__ __forceinline__ float act_grad(float v, int act) {
-  switch (act) {
-    case SILU: {
-      const float s = 1.0f / (1.0f + expf(-v));
-      return s * (1.0f + v * (1.0f - s));
-    }
-    case GELU: {
-      const float c = 0.7978845608028654f;
-      const float t = tanhf(c * (v + 0.044715f * v * v * v));
-      const float du = c * (1.0f + 3.0f * 0.044715f * v * v);
-      return 0.5f * (1.0f + t) + 0.5f * v * (1.0f - t * t) * du;
-    }
-    case RELU: return v >= 0.0f ? 1.0f : 0.0f;
-    case MISH: {
-      const float sp = v > 20.0f ? v : log1pf(expf(v));
-      const float t = tanhf(sp);
-      return t + v * (1.0f - t * t) / (1.0f + expf(-v));
-    }
-    case LEAKY_RELU: return v >= 0.0f ? 1.0f : 0.2f;
-    case TANH: {
-      const float t = tanhf(v);
-      return 1.0f - t * t;
-    }
-    default: return 1.0f;
-  }
-}
+using afldm_filtered::act_grad;
+using afldm_filtered::Activation;
+using afldm_filtered::Identity;
+using afldm_filtered::MulActGrad;
 
 // Shared memory of a K5 block, in floats: two operator buffers, each the
 // largest operator (2·max(H, W)²), then for each of the P planes the 2W×2H
@@ -249,47 +205,6 @@ struct PlaneBwdLayout : PlaneLayout {
       : PlaneLayout(H, W), g(H * W) {}
   __host__ __device__ size_t floats(int ppb) const {
     return PlaneLayout::floats(ppb) + (size_t)ppb * g;
-  }
-};
-
-// The epilogues of filtered_tile.cuh's products and of the tiled GEMM
-// (filtered_gemm.cuh), which reads C first where kReadsC.
-struct Identity {
-  static constexpr bool kReadsC = false;
-  __device__ __forceinline__ float operator()(float v) const { return v; }
-};
-struct Activation {
-  static constexpr bool kReadsC = false;
-  int act;
-  __device__ __forceinline__ float operator()(float v) const {
-    return apply_act(v, act);
-  }
-  // v[i] = act(v[i]) for N values, the act chosen once for all of them
-  // (K5's middle pair): each case is apply_act's own arithmetic
-  template <int N>
-  __device__ __forceinline__ void map(float (&v)[N]) const {
-    const auto each = [&](int a) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) v[i] = apply_act(v[i], a);
-    };
-    switch (act) {
-      case SILU: each(SILU); break;
-      case GELU: each(GELU); break;
-      case RELU: each(RELU); break;
-      case MISH: each(MISH); break;
-      case LEAKY_RELU: each(LEAKY_RELU); break;
-      case TANH: each(TANH); break;
-      default: break;
-    }
-  }
-};
-// act′(C's old value) ⊙ the product: K5b's mᵀ and K2's m, over the
-// pre-activation
-struct MulActGrad {
-  static constexpr bool kReadsC = true;
-  int act;
-  __device__ __forceinline__ float operator()(float v, float old) const {
-    return act_grad(old, act) * v;
   }
 };
 
@@ -876,49 +791,6 @@ int banded_f32(const T* x, T* out, float* scratch, const float* uwT,
       nplanes, Identity{}, s);
 }
 
-// K1 at a reduced level, _forward_spatial's order, as four launches of the
-// GEMM's bf16 variant; x and out of T (the first GEMM's B, the last GEMM's
-// C).
-template <class T>
-int banded_bf16(const T* x, T* out, float* scratch, const float* uhT,
-                const float* uwT, const float* dhT, const float* dwT,
-                int nplanes, int H, int W, int tiles, int passes, int act,
-                void* stream) {
-  using afldm_filtered::GemmArgs;
-  using afldm_filtered::GemmArgsT;
-  using afldm_filtered::filtered_gemm_mma;
-  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long P = nplanes, HW = (long long)H * W;
-  float* t = scratch;                // P × (2H × W), then lo: P × (H × 2W)
-  float* hi = scratch + 2 * HW * P;  // P × (2H × 2W)
-  // t[p] = U_h · x[p], U_h from its k-major form U_hᵀ
-  int err = filtered_gemm_mma<true>(
-      tiles & 1, passes,
-      GemmArgsT<float, T, float>{uhT, 2 * H, 0, x, W, HW, t, W, 2 * HW,
-                                 2 * H, W, H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // hi = act(t · U_wᵀ), t viewed as (P·2H) × W
-  err = filtered_gemm_mma<false>(
-      (tiles >> 1) & 1, passes, GemmArgs{t, W, 0, uwT, 2 * W, 0, hi, 2 * W,
-                                         0, (int)(P * 2 * H), 2 * W, W},
-      1, Activation{act}, s);
-  if (err) return err;
-  // lo[p] = D_h · hi[p], D_h from its k-major form D_hᵀ; over t
-  err = filtered_gemm_mma<true>(
-      (tiles >> 2) & 1, passes, GemmArgs{dhT, H, 0, hi, 2 * W, 4 * HW, t,
-                                         2 * W, 2 * HW, H, 2 * W, 2 * H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // out = lo · D_wᵀ, lo viewed as (P·H) × 2W
-  return filtered_gemm_mma<false>(
-      (tiles >> 3) & 1, passes,
-      GemmArgsT<float, float, T>{t, 2 * W, 0, dwT, W, 0, out, W, 0,
-                                 (int)(P * H), W, 2 * W},
-      1, Identity{}, s);
-}
-
 // K5b (f32 products) on P planes a block of ``threads``; x, g and dx of T.
 template <class T>
 int plane_bwd_f32(const T* x, const T* g, T* dx, const float* uhT,
@@ -1228,29 +1100,6 @@ extern "C" int filtered_act_plane_bwd_bf16_xbf16(
     int W, int ppb, int passes, int act, void* stream) {
   return plane_bwd_bf16(x, g, dx, uhT, dh, uwT, dw, uw, uh, nplanes, H, W,
                         ppb, passes, act, stream);
-}
-
-// K1 at a reduced level, _forward_spatial's order, as four launches of the
-// GEMM's bf16 variant; scratch as the f32 chain's: t and then lo (2·H·W a
-// plane), then hi (4·H·W). Operators, row-major as stored: uhT = U_hᵀ
-// (H×2H), uwT = U_wᵀ (W×2W), dhT = D_hᵀ (2H×H), dwT = D_wᵀ (2W×W).
-extern "C" int filtered_act_banded_bf16(const float* x, float* out,
-                                        float* scratch, const float* uhT,
-                                        const float* uwT, const float* dhT,
-                                        const float* dwT, int nplanes, int H,
-                                        int W, int tiles, int passes, int act,
-                                        void* stream) {
-  return banded_bf16(x, out, scratch, uhT, uwT, dhT, dwT, nplanes, H, W,
-                     tiles, passes, act, stream);
-}
-
-// K1 at a reduced level for a bf16 x: the same arguments, x and out bf16.
-extern "C" int filtered_act_banded_bf16_xbf16(
-    const __nv_bfloat16* x, __nv_bfloat16* out, float* scratch,
-    const float* uhT, const float* uwT, const float* dhT, const float* dwT,
-    int nplanes, int H, int W, int tiles, int passes, int act, void* stream) {
-  return banded_bf16(x, out, scratch, uhT, uwT, dhT, dwT, nplanes, H, W,
-                     tiles, passes, act, stream);
 }
 
 // K2 at a reduced level, _bwd_spatial's order, as six launches of the

@@ -33,7 +33,10 @@ what is split: K5 and K5b as the f32 kernels, K1 and K2 H side first in
 every filter pair (``filtered_act_plane_plain``,
 ``filtered_act_banded_plain``, ``filtered_act_plane_bwd_plain``,
 ``filtered_act_banded_bwd_plain`` at a level are their plain versions,
-with each product's sum exactly rounded).
+with each product's sum exactly rounded). K1's variant is two fused
+launches a chunk (``kernels/csrc/filtered_banded_mma.cu``: t and lo on
+chip, hi's split pieces the only scratch), chunked by
+``banded_mma_plan``.
 The level applies to planes up to LEVEL_MAX px a side, where the JAX
 package runs the circulant products; above it both packages filter
 exactly (the JAX package spectrally) and the f32 kernels run. The autograd
@@ -793,14 +796,6 @@ def banded_bwd_products(H: int, W: int, planes: int) -> tuple:
             (planes * 2 * H, W, 2 * W, 1), (H, W, 2 * H, planes))
 
 
-def banded_mma_products(H: int, W: int, planes: int) -> tuple:
-    """(M, N, K, batch) of K1's bf16 chain (``_forward_spatial``'s order)
-    for a chunk: t = U_h·x, hi = act(t·U_wᵀ), lo = D_h·hi and
-    out = lo·D_wᵀ."""
-    return ((2 * H, W, H, planes), (planes * 2 * H, 2 * W, W, 1),
-            (H, 2 * W, 2 * H, planes), (planes * H, W, 2 * W, 1))
-
-
 def banded_mma_bwd_products(H: int, W: int, planes: int) -> tuple:
     """(M, N, K, batch) of K2's bf16 chain (``_bwd_spatial``'s order) for a
     chunk: t = U_h·x, pre = t·U_wᵀ, v = D_hᵀ·g, m = act′(pre) ⊙ (v·D_w),
@@ -836,33 +831,105 @@ class BandedChunk(NamedTuple):
         return sum(GEMM_TILES.index(t) << i for i, t in enumerate(self.tiles))
 
 
+def _chunk_planes(nplanes: int, per: int) -> list:
+    """(start, planes) of as few chunks of at most ``per`` planes as cover
+    ``nplanes`` in order, their plane counts within one of each other."""
+    n = -(-nplanes // per)
+    base, extra = divmod(nplanes, n)
+    starts = np.cumsum([0] + [base + (i < extra) for i in range(n)])
+    return [(int(a), int(b - a)) for a, b in zip(starts[:-1], starts[1:])]
+
+
 @functools.lru_cache(maxsize=None)
 def banded_plan(H: int, W: int, nplanes: int, cap: int,
                 products=banded_products) -> tuple:
-    """A banded chain's chunks (``BandedChunk``), in order, covering every
+    """A GEMM chain's chunks (``BandedChunk``), in order, covering every
     plane once: as few chunks as keep each chunk's scratch within ``cap``
     bytes (at least one plane a chunk, whatever its size), their plane
     counts within one of each other. Each of the chain's ``products``
-    (``banded_products``: the forward's; ``banded_bwd_products``: the
-    backward's; ``banded_mma_products``, ``banded_mma_bwd_products``: their
-    bf16 chains', the same chunks and tile rule) takes the 128×128 tile
-    unless that gives a grid short of a wave of NUM_SMS blocks, then the
-    64×64 tile. No chunks for 0 planes."""
+    (``banded_products``: K1's f32 chain; ``banded_bwd_products``: K2's;
+    ``banded_mma_bwd_products``: K2's bf16 chain, the same chunks and tile
+    rule) takes the 128×128 tile unless that gives a grid short of a wave
+    of NUM_SMS blocks, then the 64×64 tile. No chunks for 0 planes. K1's
+    level chain has a plan of its own, ``banded_mma_plan``."""
     if nplanes == 0:
         return ()
     per = max(1, cap // banded_scratch_bytes(H, W, 1))
-    n = -(-nplanes // per)
-    base, extra = divmod(nplanes, n)
-    chunks, start = [], 0
-    for i in range(n):
-        planes = base + (i < extra)
-        tiles = tuple(
+    return tuple(
+        BandedChunk(start, planes, tuple(
             GEMM_TILES[0] if gemm_blocks(M, N, b, GEMM_TILES[0]) >= NUM_SMS
             else GEMM_TILES[1]
-            for M, N, _, b in products(H, W, planes))
-        chunks.append(BandedChunk(start, planes, tiles))
-        start += planes
-    return tuple(chunks)
+            for M, N, _, b in products(H, W, planes)))
+        for start, planes in _chunk_planes(nplanes, per))
+
+
+# -- K1's level chain: two fused launches (filtered_banded_mma.cu) ---------
+
+# the strip rows a block of its up launch (products 1 and 2, on the 2H
+# side), and of its down launch (products 3 and 4, on the H side): 64 where
+# that block fits shared memory, else 32
+K1_UP_ROWS = 64
+K1_DOWN_ROWS = (64, 32)
+# the columns a block's result takes at a time, and each launch's slab ring
+# (filtered_banded_mma.cu::UpCfg, DownCfg): (depth, stages)
+K1_COLS = 128
+K1_UP_RING, K1_DOWN_RING = (16, 4), (32, 3)
+# a chunk's hi pieces (the scratch) stay under this, or hold one plane
+BANDED_HI_BYTES = 256 * 2 ** 20
+
+
+def _level_pieces(level: str) -> int:
+    """bf16 pieces of a split operand at ``level``: hi and lo at 'high',
+    hi alone at 'default'."""
+    return 2 if level == "high" else 1
+
+
+def banded_mma_smem_bytes(W: int, level: str, rows: int, down: bool,
+                          x_bytes: int = 4) -> int:
+    """Shared memory of a block of K1's up (or ``down``) launch at
+    ``level`` with strips of ``rows`` rows (filtered_banded_mma.cu::
+    Cfg::smem): the strip's pieces (t's, W wide; lo's, 2W wide) and the
+    launch's ring of slabs, each a k-major A slab (``rows`` wide), a B slab
+    (K1_COLS wide) and, in the up launch, x's raw slab (``x_bytes`` an
+    element)."""
+    pieces = _level_pieces(level)
+    depth, stages = K1_DOWN_RING if down else K1_UP_RING
+    stage = 2 * pieces * depth * ((rows + 8) + (K1_COLS + 8))
+    if not down:
+        stage += depth * K1_COLS * x_bytes
+    return 2 * pieces * rows * mma_ld(2 * W if down else W) + stages * stage
+
+
+def banded_mma_down_rows(W: int, level: str) -> int:
+    """The down launch's strip rows: the first of K1_DOWN_ROWS whose block
+    fits SMEM_MAX_BYTES (32 at 'high' once 2W passes 512 px)."""
+    return next(r for r in K1_DOWN_ROWS
+                if banded_mma_smem_bytes(W, level, r, True) <= SMEM_MAX_BYTES)
+
+
+def banded_mma_scratch_bytes(H: int, W: int, planes: int,
+                             level: str) -> int:
+    """K1's level chain's scratch for a chunk: hi's bf16 pieces, 4·H·W
+    elements a plane and piece (8·H·W bytes at 'default', 16·H·W at
+    'high'); t and lo stay on chip."""
+    return 2 * 4 * H * W * planes * _level_pieces(level)
+
+
+@functools.lru_cache(maxsize=None)
+def banded_mma_plan(H: int, W: int, nplanes: int, level: str,
+                    cap: int) -> tuple:
+    """K1's level chain's chunks (``BandedChunk``), in order, covering
+    every plane once: as few chunks as keep each chunk's hi pieces within
+    ``cap`` bytes (``banded_mma_scratch_bytes``; at least one plane a
+    chunk), their plane counts within one of each other; ``tiles`` holds
+    the strip rows of its two launches (K1_UP_ROWS, and
+    ``banded_mma_down_rows``). No chunks for 0 planes."""
+    if nplanes == 0:
+        return ()
+    per = max(1, cap // banded_mma_scratch_bytes(H, W, 1, level))
+    rows = (K1_UP_ROWS, banded_mma_down_rows(W, level))
+    return tuple(BandedChunk(start, planes, rows)
+                 for start, planes in _chunk_planes(nplanes, per))
 
 
 def _banded_ops(H: int, W: int, device) -> tuple:
@@ -883,10 +950,9 @@ def _banded_bwd_ops(H: int, W: int, device) -> tuple:
 
 
 def _banded_mma_ops(H: int, W: int, device) -> tuple:
-    """(U_hᵀ, U_wᵀ, D_hᵀ, D_wᵀ): K1's bf16 chain's operators, the H-side
-    ones in the k-major forms its batched products read."""
-    _, uwT, _, dwT = _kernel_ops(H, W, device)
-    dhT, _, _, uhT = _kernel_bwd_ops(H, W, device)
+    """(U_hᵀ, U_wᵀ, D_hᵀ, D_wᵀ): the split blobs of K1's level chain's
+    operators, K5's (``_mma_blobs``) in the order of its products."""
+    uhT, uwT, dwT, dhT = _mma_blobs(H, W, device, False)
     return uhT, uwT, dhT, dwT
 
 
@@ -929,14 +995,14 @@ def _banded_bwd_entry(x, g, dx, scratch, ops, chunk, act):
 
 def _banded_mma_entry(x, out, scratch, ops, chunk, act, level):
     """One chunk through ``filtered_act_banded_bf16`` (its ``_xbf16`` twin
-    for a bfloat16 x) at ``level``: K1's four bf16 GEMM launches on the
-    current stream."""
+    for a bfloat16 x) at ``level``: K1's up and down launches on the
+    current stream, hi's pieces in the bf16 scratch."""
     H, W = x.shape[-2:]
     suffix, _ = _variant("filtered_act_banded", level, x.dtype)
-    err = getattr(kernels.library("filtered_act"),
+    err = getattr(kernels.library("filtered_banded_mma"),
                   f"filtered_act_banded{suffix}")(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
+        *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tiles[1],
         LEVEL_PASSES[level], ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, f"filtered_act_banded:{level}")
@@ -957,13 +1023,28 @@ def _banded_mma_bwd_entry(x, g, dx, scratch, ops, chunk, act, level):
     kernels.check(err, f"filtered_act_banded_bwd:{level}")
 
 
-# the banded chains' products and operators: (forward, backward) by
-# whether the level is reduced
-_BANDED_CHAINS = {
-    False: ((banded_products, _banded_ops),
-            (banded_bwd_products, _banded_bwd_ops)),
-    True: ((banded_mma_products, _banded_mma_ops),
-           (banded_mma_bwd_products, _banded_mma_bwd_ops))}
+# the GEMM chains' products and operators, by (reduced level, backward)
+_GEMM_CHAINS = {(False, False): (banded_products, _banded_ops),
+                (False, True): (banded_bwd_products, _banded_bwd_ops),
+                (True, True): (banded_mma_bwd_products, _banded_mma_bwd_ops)}
+
+
+def _banded_setup(H: int, W: int, nplanes: int, level: str,
+                  bwd: bool) -> tuple:
+    """(chunks, operators, scratch numel, scratch dtype) of a banded chain
+    at ``level``: K1's level chain's (``banded_mma_plan``, its split blobs,
+    hi's bf16 pieces) or a GEMM chain's (``banded_plan``, f32 operators,
+    f32 intermediates)."""
+    if level != "highest" and not bwd:
+        plan = banded_mma_plan(H, W, nplanes, level, BANDED_HI_BYTES)
+        size = banded_mma_scratch_bytes(
+            H, W, max((c.planes for c in plan), default=0), level) // 2
+        return plan, _banded_mma_ops, size, torch.bfloat16
+    products, ops = _GEMM_CHAINS[level != "highest", bwd]
+    plan = banded_plan(H, W, nplanes, BANDED_SCRATCH_BYTES, products)
+    size = banded_scratch_bytes(
+        H, W, max((c.planes for c in plan), default=0)) // 4
+    return plan, ops, size, torch.float32
 
 
 def _banded_chain(x: torch.Tensor, act: str, entry,
@@ -971,22 +1052,20 @@ def _banded_chain(x: torch.Tensor, act: str, entry,
                   level: str = "highest") -> torch.Tensor:
     """x (NCHW, contiguous) through the banded forward's chunks or, given
     the cotangent g (x's shape, contiguous), the backward's, at ``level``,
-    with one scratch buffer for the largest chunk. Each chunk goes through
-    ``entry`` (on the card ``_banded_entry``, ``_banded_bwd_entry`` or at a
-    reduced level their bf16 entries) as entry(x, out, scratch, ops, chunk,
-    act), or entry(x, g, dx, ...), on its (P, H, W) planes."""
+    with one scratch buffer for the largest chunk (``_banded_setup``). Each
+    chunk goes through ``entry`` (on the card ``_banded_entry``,
+    ``_banded_bwd_entry`` or at a reduced level their bf16 entries) as
+    entry(x, out, scratch, ops, chunk, act), or entry(x, g, dx, ...), on
+    its (P, H, W) planes."""
     H, W = x.shape[-2:]
     out = torch.empty_like(x)
     ins = [t.view(-1, H, W) for t in (x, g) if t is not None]
-    products, ops = _BANDED_CHAINS[level != "highest"][g is not None]
-    plan = banded_plan(H, W, ins[0].shape[0], BANDED_SCRATCH_BYTES,
-                       products)
+    plan, ops, size, dtype = _banded_setup(H, W, ins[0].shape[0], level,
+                                           g is not None)
     if not plan:
         return out
     ops = ops(H, W, x.device)
-    scratch = torch.empty(
-        banded_scratch_bytes(H, W, max(c.planes for c in plan)) // 4,
-        device=x.device, dtype=torch.float32)
+    scratch = torch.empty(size, device=x.device, dtype=dtype)
     outs = out.view(-1, H, W)
     for c in plan:
         rows = slice(c.start, c.start + c.planes)

@@ -11,8 +11,10 @@ two commits' kernels can be timed in turns within one call on one card:
 ``--shapes_from <path of a chip_smoke.py>`` times the named kernels at that
 file's shapes instead of the checkout's own, so that an older checkout's
 kernels are timed at shapes added since; ``--banded_scratch_bytes`` sets
-the banded chains' scratch cap a chunk (``BANDED_SCRATCH_BYTES``: K1's and,
-since it runs the same chain, K2's).
+the banded GEMM chains' scratch cap a chunk (``BANDED_SCRATCH_BYTES``: the
+f32 K1's and K2's at every level), ``--banded_hi_bytes`` the cap of K1's
+level chain's hi pieces a chunk (``BANDED_HI_BYTES``, where the checkout
+has it).
 
 Other modes replace the checks, for comparing two checkouts in one call:
 ``--spread n,h,Lq,Lk,D,n_kv [--seeds N]`` runs K3/bf16 at that shape (K/V
@@ -25,11 +27,12 @@ turned off where the checkout splits); ``--digest`` prints a SHA-256 of
 the outputs of the f32 K3, K6, K4a and K4b and of K4a, K4b, K3, K6 and P1
 at bf16 at their KERNELS shapes on seeded inputs (the backward given the
 plain forward's out and lse), so that equal lines mean bit-identical
-outputs, and of the filtered activation's plane kernels K5 and K5b at
-the reduced levels ('high', 'default'), f32 and bf16 x, at theirs;
-``--graph`` times K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16 and K5's level
-variants, f32 and bf16 x (those named, where kernels are named:
-``filtered_act_plane`` names K5's) at their KERNELS shapes by replaying
+outputs, and of the filtered activation's kernels K5, K5b, K1 and K2 at
+the reduced levels ('high', 'default'), f32 and bf16 x, at theirs (K1's
+and K2's up to LEVEL_MAX); ``--graph`` times K3/bf16, K6/bf16, K4a/bf16
+and K4b/bf16 and the level variants of K5, K1 and K2, f32 and bf16 x
+(those named, where kernels are named: ``filtered_act_plane`` names
+K5's, ``filtered_act_banded`` K1's) at their KERNELS shapes by replaying
 a CUDA graph of the wrapper calls, so that a shape whose call is bound
 by the host's launch path (L = 4, a 4 px plane) is timed on the device
 alone.
@@ -69,6 +72,9 @@ def main(argv=None):
     ap.add_argument("--banded_scratch_bytes", type=int, default=None,
                     help="the banded chains' scratch cap a chunk of "
                          "planes (default: ops/filtered_act.py's)")
+    ap.add_argument("--banded_hi_bytes", type=int, default=None,
+                    help="K1's level chain's cap of hi pieces a chunk "
+                         "(default: ops/filtered_act.py's)")
     ap.add_argument("--spread", default=None,
                     help="n,h,Lq,Lk,D,n_kv: K3/bf16's RMS ratio over seeds")
     ap.add_argument("--spread_bwd", default=None,
@@ -77,10 +83,12 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, default=200)
     ap.add_argument("--digest", action="store_true",
                     help="SHA-256 of the flash kernels' outputs, f32 and "
-                         "bf16, and of K5's and K5b's level variants")
+                         "bf16, and of K5's, K5b's, K1's and K2's level "
+                         "variants")
     ap.add_argument("--graph", action="store_true",
-                    help="the bf16 flash kernels' and K5's level variants' "
-                         "device times from CUDA graph replays")
+                    help="the bf16 flash kernels' and K5's, K1's and K2's "
+                         "level variants' device times from CUDA graph "
+                         "replays")
     args = ap.parse_args(argv)
     names = args.names
     root = Path.cwd()
@@ -94,6 +102,11 @@ def main(argv=None):
         return 1
     smoke = importlib.import_module("chip_smoke")
     kernels = importlib.import_module("afldm_tpu_torch.kernels")
+    fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
+    if args.banded_scratch_bytes:
+        fa.BANDED_SCRATCH_BYTES = args.banded_scratch_bytes
+    if args.banded_hi_bytes:
+        fa.BANDED_HI_BYTES = args.banded_hi_bytes
     if args.spread or args.spread_bwd or args.digest or args.graph:
         kernels.build_all()
         attn = importlib.import_module("afldm_tpu_torch.ops.attention")
@@ -104,14 +117,11 @@ def main(argv=None):
             spread_bwd(torch, attn, smoke, tuple(
                 int(x) for x in args.spread_bwd.split(",")), args.seeds)
         if args.digest:
-            digest(torch, attn, smoke)
+            digest(torch, attn, smoke, names)
         if args.graph:
             graph_times(torch, attn, smoke, names)
         return 0
     importlib.import_module("afldm_tpu_torch.ops").set_af_precision("highest")
-    if args.banded_scratch_bytes:
-        fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
-        fa.BANDED_SCRATCH_BYTES = args.banded_scratch_bytes
     kernels.build_all()
     unknown = set(names) - set(smoke.KERNELS)
     if unknown:
@@ -244,9 +254,10 @@ def spread_bwd(torch, attn, smoke, shape, seeds):
                   f"{smoke.BF16_FLASH_RATIO}", flush=True)
 
 
-def digest(torch, attn, smoke):
+def digest(torch, attn, smoke, names=()):
     """One line a kernel, dtype and shape: the SHA-256 of its outputs on
-    inputs drawn from a seed of the kernel and shape."""
+    inputs drawn from a seed of the kernel and shape; only the kernels of
+    ``names`` where it names any."""
     import hashlib
     import zlib
     dev = torch.device("cuda")
@@ -260,6 +271,8 @@ def digest(torch, attn, smoke):
                      ("flash_fwd", torch.bfloat16),
                      ("flash2_fwd", torch.bfloat16),
                      ("flash_probe_dots", torch.bfloat16)):
+        if names and name not in names:
+            continue
         for shape in smoke.KERNELS[name]["shapes"]:
             n, h, L, Lk, d, n_kv = smoke._flash_dims(shape)
             g = torch.Generator(dev).manual_seed(
@@ -293,18 +306,23 @@ def digest(torch, attn, smoke):
     fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
     ops = importlib.import_module("afldm_tpu_torch.ops")
     for name, level, dt in itertools.product(
-            ("filtered_act_plane", "filtered_act_plane_bwd"),
+            ("filtered_act_plane", "filtered_act_plane_bwd",
+             "filtered_act_banded", "filtered_act_banded_bwd"),
             ("high", "default"), (torch.float32, torch.bfloat16)):
+        if names and name not in names:
+            continue
         for shape in smoke.KERNELS[name]["shapes"]:
+            if max(shape[-2:]) > fa.LEVEL_MAX:
+                continue
             g = torch.Generator(dev).manual_seed(
                 zlib.crc32(repr((name, level, shape)).encode()))
             x, gr = (torch.randn(shape, device=dev, generator=g).to(dt)
                      for _ in range(2))
             try:
                 ops.set_af_precision(level)
-                out = (fa.filtered_act_plane_bwd(x, gr, "silu")
-                       if name.endswith("_bwd")
-                       else fa.filtered_act_plane(x, "silu"))
+                fn = getattr(fa, name)
+                out = (fn(x, gr, "silu") if name.endswith("_bwd")
+                       else fn(x, "silu"))
                 torch.cuda.synchronize()
             finally:
                 ops.set_af_precision("highest")
@@ -344,9 +362,10 @@ def _graph_ms(torch, fn, calls, replays):
 
 def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
     """K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16 (with its reduction where
-    it splits), and K5's level variants on an f32 and a bf16 x, at their
-    KERNELS shapes: the device time of one wrapper call (``_graph_ms``);
-    only the kernels of ``names`` where it names any."""
+    it splits), and the level variants of K5, K1 and K2 on an f32 and a
+    bf16 x (K1's and K2's up to LEVEL_MAX), at their KERNELS shapes: the
+    device time of one wrapper call (``_graph_ms``); only the kernels of
+    ``names`` where it names any."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     total = {}
     for name in ("flash_fwd", "flash2_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -379,28 +398,37 @@ def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
                   "call", flush=True)
             del q, kv, do, fn
             torch.cuda.empty_cache()
-    if not names or "filtered_act_plane" in names:
-        fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
-        ops = importlib.import_module("afldm_tpu_torch.ops")
-        for level, dt in itertools.product(("high", "default"),
-                                           (torch.float32, bf)):
-            label = f"filtered_act_plane:{level}" + (
-                "/bf16" if dt == bf else "")
-            for shape in smoke.KERNELS["filtered_act_plane"]["shapes"]:
-                g = torch.Generator(dev).manual_seed(0)
-                x = torch.randn(shape, device=dev, generator=g).to(dt)
-                try:
-                    ops.set_af_precision(level)
-                    ms = _graph_ms(
-                        torch, lambda: fa.filtered_act_plane(x, "silu"),
-                        calls, replays)
-                finally:
-                    ops.set_af_precision("highest")
-                total[label] = total.get(label, 0.0) + ms
-                print(f"kernel_check graph {label} {shape}: {ms:.4f} ms a "
-                      "call", flush=True)
-                del x
-                torch.cuda.empty_cache()
+    fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
+    ops = importlib.import_module("afldm_tpu_torch.ops")
+    for name, level, dt in itertools.product(
+            ("filtered_act_plane", "filtered_act_banded",
+             "filtered_act_banded_bwd"), ("high", "default"),
+            (torch.float32, bf)):
+        if names and name not in names:
+            continue
+        label = f"{name}:{level}" + ("/bf16" if dt == bf else "")
+        fn = getattr(fa, name)
+        for shape in smoke.KERNELS[name]["shapes"]:
+            if max(shape[-2:]) > fa.LEVEL_MAX:
+                continue
+            g = torch.Generator(dev).manual_seed(0)
+            x, gr = (torch.randn(shape, device=dev, generator=g).to(dt)
+                     for _ in range(2))
+            try:
+                ops.set_af_precision(level)
+                # the banded calls take milliseconds: fewer of them
+                few = name != "filtered_act_plane"
+                ms = _graph_ms(
+                    torch, (lambda: fn(x, gr, "silu")) if name.endswith(
+                        "_bwd") else (lambda: fn(x, "silu")),
+                    2 if few else calls, 5 if few else replays)
+            finally:
+                ops.set_af_precision("highest")
+            total[label] = total.get(label, 0.0) + ms
+            print(f"kernel_check graph {label} {shape}: {ms:.4f} ms a "
+                  "call", flush=True)
+            del x, gr
+            torch.cuda.empty_cache()
     for name, ms in total.items():
         print(f"kernel_check graph sum {name}: {ms:.4f} ms", flush=True)
 

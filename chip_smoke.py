@@ -716,6 +716,10 @@ LEVEL_KERNELS = ("filtered_act_plane", "filtered_act_banded",
 # bounded loosely and the RMS tightly
 LEVEL_RMS_RATIO = 0.25
 LEVEL_PASSES = {"high": 3, "default": 1}
+# the level variants that live in a source of their own (K1's two fused
+# launches); the others are entries of their f32 kernel's source
+LEVEL_SOURCES = {
+    "filtered_act_banded": "afldm_tpu_torch/kernels/csrc/filtered_banded_mma.cu"}
 
 
 def level_bound_ms(flops, nbytes, level):
@@ -727,17 +731,22 @@ def level_bound_ms(flops, nbytes, level):
                                        else "bytes")
 
 
-def twosum_floor_ms(shape):
-    """K5:high's TwoSum floor at ``shape``: the TwoSum after every 16-deep
-    step of its four products (filtered_mma.cuh::add_two_sum, 7 FP32
-    instructions an element a step, over the products as the kernel pads
-    them to 16), at the FP32 instruction rate (PEAK_F32_FLOPS / 2: an FMA
-    is two FLOPs)."""
+def twosum_floor_ms(shape, name="filtered_act_plane"):
+    """The TwoSum floor of K5:high (``name`` filtered_act_plane) or
+    K1:high (filtered_act_banded) at ``shape``: the TwoSum after every
+    16-deep step of its four products (filtered_mma.cuh::add_two_sum, 7
+    FP32 instructions an element a step, over the products as the kernel
+    pads them to 16), at the FP32 instruction rate (PEAK_F32_FLOPS / 2: an
+    FMA is two FLOPs). Both chains take t = U_h·x (2H × W, depth H) and
+    hi = t·U_wᵀ (2H × 2W, depth W); K5 then t₂ = hi·D_wᵀ (2H × W, depth
+    2W) and D_h·t₂ (depth 2H), K1 lo = D_h·hi (H × 2W, depth 2H) and
+    lo·D_wᵀ (depth 2W)."""
     n, c, h, w = shape
     p16 = [-(-s // 16) * 16 for s in (h, w, 2 * h, 2 * w)]
     h16, w16, h2, w2 = p16
-    steps = (h2 * w16 * h16 + h2 * w2 * w16 + h2 * w16 * w2
-             + h16 * w16 * h2) // 16
+    down = (h2 * w16 * w2 + h16 * w16 * h2 if name == "filtered_act_plane"
+            else h16 * w2 * h2 + h16 * w16 * w2)
+    steps = (h2 * w16 * h16 + h2 * w2 * w16 + down) // 16
     return 1e3 * 7 * steps * n * c / (PEAK_F32_FLOPS / 2)
 
 
@@ -760,7 +769,9 @@ def level_launch_plan(name, shape, level="high"):
     """The bf16 variant's launch plan at ``shape`` and ``level`` (an f32
     x) as a log suffix: K5's persistent grid, blocks an SM, planes an
     iteration and shared bytes; K5b's planes a block and shared bytes;
-    the banded chains' chunks and each GEMM's block tile."""
+    K1's chunks, planes a chunk, the strip rows of its up and down launches
+    (their blocks and shared bytes) and the hi pieces' scratch bytes; K2's
+    chunks and each GEMM's block tile."""
     from afldm_tpu_torch.ops import filtered_act as FA
     n, c, h, w = shape
     if name == "filtered_act_plane":
@@ -771,9 +782,19 @@ def level_launch_plan(name, shape, level="high"):
         plan = FA.plane_mma_bwd_plan(h, w, n * c)
         return (f"; plan P {plan.planes_per_block}, {plan.threads} threads, "
                 f"smem {plan.smem_bytes} B")
-    products = (FA.banded_mma_bwd_products if name.endswith("_bwd")
-                else FA.banded_mma_products)
-    plan = FA.banded_plan(h, w, n * c, FA.BANDED_SCRATCH_BYTES, products)
+    if name == "filtered_act_banded":
+        plan = FA.banded_mma_plan(h, w, n * c, level, FA.BANDED_HI_BYTES)
+        up, down = plan[0].tiles
+        per = max(ch.planes for ch in plan)
+        return (f"; plan {len(plan)} chunks of <= {per} planes, up "
+                f"{-(-2 * h // up)} strips of {up} rows a plane "
+                f"({FA.banded_mma_smem_bytes(w, level, up, False)} B), down "
+                f"{-(-h // down)} of {down} "
+                f"({FA.banded_mma_smem_bytes(w, level, down, True)} B), hi "
+                f"scratch {FA.banded_mma_scratch_bytes(h, w, per, level)} B "
+                f"(cap {FA.BANDED_HI_BYTES} B)")
+    plan = FA.banded_plan(h, w, n * c, FA.BANDED_SCRATCH_BYTES,
+                          FA.banded_mma_bwd_products)
     tiles = "; ".join(
         f"{ch.planes} planes: " + " ".join(str(t) for t in ch.tiles)
         for ch in {ch.planes: ch for ch in plan}.values())
@@ -853,8 +874,10 @@ def check_level_kernels(torch, report, names=LEVEL_KERNELS):
                 finally:
                     set_af_precision("highest")
                 b, by = level_bound_ms(*work, level)
-                floor = (f", TwoSum floor {twosum_floor_ms(shape):.4f} ms"
-                         if (name, level) == ("filtered_act_plane", "high")
+                floor = (f", TwoSum floor "
+                         f"{twosum_floor_ms(shape, name):.4f} ms"
+                         if level == "high" and name in (
+                             "filtered_act_plane", "filtered_act_banded")
                          else "")
                 log(f"check {name}:{level} {shape}: RMS ratio {ratio:.4f} "
                     f"(limit {LEVEL_RMS_RATIO}; RMS err {err_rms:.3e}, "
@@ -3581,7 +3604,9 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     kernels.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{n} {t:.1f} s" for n, t in
+                    kernels.BUILD_SECONDS.items()) + ")")
     for name in kernels.SOURCES:
         for fn, line in ptxas_lines(kernels.build_log(name)):
             log(f"  ptxas {name} {fn}: {line}")
@@ -3601,10 +3626,13 @@ def main(argv=None):
     for k in LEVEL_KERNELS:  # the bf16 variants: rows of their own
         for level in LEVELS:
             report[f"{k}:{level}"] = dict(
-                report[k], name=f"{k}:{level}", rms_ratio=0.0)
-    for row, base, _ in BF16_ROWS:  # the bf16-activation variants
+                report[k], name=f"{k}:{level}", rms_ratio=0.0,
+                source=LEVEL_SOURCES.get(k, report[k]["source"]))
+    for row, base, level in BF16_ROWS:  # the bf16-activation variants
+        src = report[base]["source"] if level == "highest" else \
+            LEVEL_SOURCES.get(base, report[base]["source"])
         report[row] = dict(report[base], name=row, rms_ratio=0.0,
-                           ulp_share=0.0, max_ulps=0, f32_ms=0.0)
+                           ulp_share=0.0, max_ulps=0, f32_ms=0.0, source=src)
     for row in PROBE_BF16_ROWS:  # the probes' bf16 variants
         base = row.split("/")[0]
         report[row] = dict(report[base], name=row, rms_ratio=0.0,

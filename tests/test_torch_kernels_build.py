@@ -240,8 +240,13 @@ def test_level_variants_on_the_mma_routine():
     fused (hi = act(t·U_wᵀ) in registers, t₂ = hi·D_wᵀ), so its layout
     (MmaPlaneLayout) holds no 2W × 2H buffer. K5b's four products, two of
     them fused (pre-activation and cotangent over one tile), run through
-    the warp tile on its own layout; K1 is four and K2 six launches of the
-    GEMM's bf16 variant; no TF32 and no wgmma anywhere."""
+    the warp tile on its own layout; K2 is six launches of the GEMM's bf16
+    variant. K1 is two launches of its own source, filtered_banded_mma.cu:
+    the up kernel's two products (t = U_h·x split into shared memory, then
+    hi = act(t·U_wᵀ) to the scratch as bf16 pieces) and the down kernel's
+    two (lo = D_h·hi into shared memory, then out = lo·D_wᵀ), the
+    operators and hi by cp.async, so no t and no lo reach device memory
+    and the GEMM is not used; no TF32 and no wgmma anywhere."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
     assert '#include "filtered_mma.cuh"' in src
     k5 = _kernel_body(src, "filtered_act_plane_mma_kernel")
@@ -265,8 +270,35 @@ def test_level_variants_on_the_mma_routine():
     assert k5b.count("mma_product<") == 4
     assert k5b.count("mma_product2<") == 1
     assert k5b.count("MulActGradToPieces{") == 1
-    k1 = _kernel_body(src, "banded_bf16")
-    assert "<<<" not in k1 and k1.count("filtered_gemm_mma<") == 4
+    assert "banded_bf16(" not in re.sub(r"//[^\n]*", "", src)
+    k1_src = (kernels.CSRC / "filtered_banded_mma.cu").read_text()
+    k1_code = re.sub(r"//[^\n]*", "", k1_src)
+    assert '#include "filtered_mma.cuh"' in k1_src
+    assert "filtered_gemm" not in k1_code and "float* scratch" not in k1_code
+    level = _kernel_body(k1_src, "banded_level")
+    assert level.count("<<<") == 1 and level.count("down<PASSES,") == 2
+    assert _kernel_body(k1_src, "down").count("<<<") == 1
+    assert k1_code.count("<<<") == 2 and k1_code.count("__global__") == 2
+    up = _kernel_body(k1_src, "banded_up_kernel")
+    down = _kernel_body(k1_src, "banded_down_kernel")
+    # each launch: a product with A's k-major slabs (the up launch's x
+    # split one slab ahead), then one with A from its strip
+    assert up.count("k_loop<C, PASSES, true, true>(") == 1
+    assert down.count("k_loop<C, PASSES, true, false>(") == 1
+    for k in (up, down):
+        assert k.count("k_loop<C, PASSES, false, false>(") == 1
+        assert k.count("slab_async<") >= 2
+    assert "raw_async<C::kThreads, T," in up
+    assert "split_raw<C::kThreads, PASSES, T," in up
+    # t and lo go only into the shared strip; hi and out to device memory,
+    # through a tile in the ring
+    for k in (up, down):
+        assert k.count("store_pair<PASSES>(strip") == 1
+    assert up.count("store_pair<PASSES>(tile") == 1 and "act.map(v)" in up
+    assert "hp + pc * lo" in up and "op + (long long)row * W" in down
+    assert "store2(q" in down
+    assert "add_two_sum(" in k1_code and "cp.async.cg.shared.global" in \
+        k1_code
     k2 = _kernel_body(src, "banded_bwd_bf16")
     assert "<<<" not in k2 and k2.count("filtered_gemm_mma<") == 6
     assert k2.count("MulActGrad{") == 1
@@ -280,7 +312,7 @@ def test_level_variants_on_the_mma_routine():
     assert "mma_bf16(" in gemm[gemm.index("filtered_gemm_mma_kernel"):]
     code = re.sub(r"//[^\n]*", "", src)
     for absent in ("tf32", "wgmma"):
-        assert absent not in (mma + gemm + code).lower(), absent
+        assert absent not in (mma + gemm + code + k1_code).lower(), absent
 
 
 def _entry_points(src):
@@ -311,6 +343,8 @@ def test_every_bf16_variant_has_launch_counts():
     for k in kernels.BF16_KERNELS:
         assert k in kernels.LAUNCHES and f"{k}/bf16" in kernels.LAUNCHES
     entries = {**_entry_points((kernels.CSRC / "filtered_act.cu")
+                               .read_text()),
+               **_entry_points((kernels.CSRC / "filtered_banded_mma.cu")
                                .read_text()),
                **_entry_points((kernels.CSRC / "flash_fwd.cu").read_text()),
                **_entry_points((kernels.CSRC / "flash2_fwd.cu").read_text())}
@@ -427,6 +461,39 @@ def test_chip_smoke_logs_launch_plans():
         f"; plan P 1, tiles {' '.join(f'{r}x{c}' for r, c in plan.tiles)}, "
         f"{plan.threads} threads, smem {TF.plane_bwd_smem_bytes(64, 64, 1)} B")
     assert len(plan.tiles) == 6
+
+
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_chip_smoke_logs_k1_level_plan_and_floor(level):
+    """Phase 30's K1 lines: the fused chain's plan (chunks, planes a
+    chunk, each launch's strips and shared bytes, the hi pieces' scratch
+    and its cap) at each KERNELS shape up to LEVEL_MAX, and K1:high's
+    TwoSum floor, counted over its own four products: K5's for a square
+    plane, apart from it for a mixed one (K1 decimates H first)."""
+    smoke = _chip_smoke()
+    for shape in smoke.KERNELS["filtered_act_banded"]["shapes"]:
+        n, c, h, w = shape
+        if max(h, w) > TF.LEVEL_MAX:
+            continue
+        plan = TF.banded_mma_plan(h, w, n * c, level, TF.BANDED_HI_BYTES)
+        per = max(ch.planes for ch in plan)
+        line = smoke.level_launch_plan("filtered_act_banded", shape, level)
+        assert line.startswith(f"; plan {len(plan)} chunks of <= {per} ")
+        assert f"hi scratch {TF.banded_mma_scratch_bytes(h, w, per, level)}" \
+            in line and f"(cap {TF.BANDED_HI_BYTES} B)" in line
+        assert f"up {-(-2 * h // 64)} strips of 64 rows" in line
+    assert smoke.level_launch_plan(
+        "filtered_act_banded_bwd", (4, 128, 128, 128), level).startswith(
+            "; plan 1 chunks, tiles (")
+    square = (2, 3, 96, 96)
+    assert smoke.twosum_floor_ms(square, "filtered_act_banded") == \
+        smoke.twosum_floor_ms(square)
+    mixed = (1, 64, 32, 128)
+    assert smoke.twosum_floor_ms(mixed, "filtered_act_banded") != \
+        smoke.twosum_floor_ms(mixed)
+    floor = sum(smoke.twosum_floor_ms(s, "filtered_act_banded")
+                for s in smoke.KERNELS["filtered_act_banded"]["shapes"][:5])
+    assert 5.4 < floor < 5.5
 
 
 def test_chip_smoke_names_each_kernels_registers():

@@ -1139,6 +1139,84 @@ def test_banded_level_variants_match_plain(cuda, level, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 3, 32, 128), (1, 1, 200, 104), (1, 1, 128, 32),
+    # the down launch in 32-row strips at 'high' (its lo strip 1024 wide)
+    (1, 1, 512, 512),
+    # 2H and H not multiples of the strips (64), plane counts that fill
+    # no wave of blocks
+    (1, 7, 68, 92), (1, 133, 80, 80), (1, 1, 100, 100)])
+def test_banded_level_fused_chain(cuda, level, shape):
+    """K1's level chain, two launches a chunk (t and lo on chip, hi's
+    split pieces in the scratch), against the plain version at the
+    level."""
+    gen = _seeded(cuda, (level, shape, "fused"))
+    x = torch.randn(shape, device=cuda, generator=gen)
+    got = _launches(f"filtered_act_banded:{level}",
+                    lambda: TF.filtered_act_banded(x, "silu"))
+    assert_level_close(got, TF.filtered_act_banded_plain(x, "silu", level),
+                       TF.filtered_act_banded_plain(x, "silu", "highest"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side, planes, cap_planes", [
+    (96, 5, 2), (128, 9, 4), (200, 3, 1)])
+def test_banded_level_crosses_chunks(cuda, monkeypatch, level, side, planes,
+                                     cap_planes):
+    """Under a cap of a few planes' hi pieces K1's level chain runs several
+    chunks on one scratch: each plane's result is the one-chunk run's, bit
+    for bit, and the plain version's at the level."""
+    gen = _seeded(cuda, (level, side, planes, "chunks"))
+    x = torch.randn(1, planes, side, side, device=cuda, generator=gen)
+    whole = _launches(f"filtered_act_banded:{level}",
+                      lambda: TF.filtered_act_banded(x, "silu"))
+    monkeypatch.setattr(TF, "BANDED_HI_BYTES",
+                        TF.banded_mma_scratch_bytes(side, side, cap_planes,
+                                                    level))
+    assert len(TF.banded_mma_plan(side, side, planes, level,
+                                  TF.BANDED_HI_BYTES)) > 1
+    got = _launches(f"filtered_act_banded:{level}",
+                    lambda: TF.filtered_act_banded(x, "silu"))
+    assert torch.equal(got, whole)
+    assert_level_close(got, TF.filtered_act_banded_plain(x, "silu", level),
+                       TF.filtered_act_banded_plain(x, "silu", "highest"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 96, 96), (1, 3, 32, 128),
+                                   (1, 1, 200, 104)])
+def test_banded_level_bf16_x_rounds_the_f32_chain(cuda, level, shape):
+    """K1's level chain on a bf16 x (staged raw by 8-byte copies, widened
+    as it is split; lo pieces zero) is the f32 x chain on the widened x,
+    rounded once to bf16, bit for bit; that one is held to the plain
+    version at the level."""
+    gen = _seeded(cuda, (level, shape, "bf16_x"))
+    x = torch.randn(shape, device=cuda, generator=gen).to(BF)
+    got = _launches(f"filtered_act_banded:{level}/bf16",
+                    lambda: TF.filtered_act_banded(x, "silu"))
+    wide = _launches(f"filtered_act_banded:{level}",
+                     lambda: TF.filtered_act_banded(x.float(), "silu"))
+    assert got.dtype == BF and torch.equal(got, wide.to(BF))
+    assert_level_close(wide,
+                       TF.filtered_act_banded_plain(x.float(), "silu", level),
+                       TF.filtered_act_banded_plain(x.float(), "silu",
+                                                    "highest"))
+
+
+@pytest.mark.cuda
+def test_banded_level_channel_slice(cuda, level):
+    """A slice of the channels runs K1's level chain on its contiguous
+    copy."""
+    gen = _seeded(cuda, (level, "banded_level_channel_slice"))
+    x = torch.randn(2, 24, 96, 96, device=cuda, generator=gen)[:, 5:17]
+    assert not x.is_contiguous()
+    got = _launches(f"filtered_act_banded:{level}",
+                    lambda: TF.filtered_act_banded(x, "silu"))
+    assert_level_close(got, TF.filtered_act_banded_plain(x, "silu", level),
+                       TF.filtered_act_banded_plain(x, "silu", "highest"))
+
+
+@pytest.mark.cuda
 def test_banded_level_applies_up_to_512_px(cuda, level):
     """Above LEVEL_MAX the f32 chain runs at every level, as the JAX
     package filters exactly (spectrally) there."""
