@@ -87,10 +87,6 @@ _SIGNATURES = {
         # nplanes, H, W, planes_per_block, passes, act, stream
         "filtered_act_plane_bwd_bf16": [*[_P] * 9, _I, _I, _I, _I, _I, _I,
                                         _P],
-        # x, g, dx, scratch, uhT, uwT, dh, dw, uh, uw, nplanes (of the
-        # chunk), H, W, tile codes, passes, act, stream
-        "filtered_act_banded_bwd_bf16": [*[_P] * 10, _I, _I, _I, _I, _I, _I,
-                                         _P],
         # as filtered_gemm_f32, with passes after small
         "filtered_gemm_bf16": [_P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P],
@@ -109,8 +105,6 @@ _SIGNATURES = {
                                               _I, _P],
         "filtered_act_banded_bwd_f32_xbf16": [*[_P] * 10, _I, _I, _I, _I, _I,
                                               _P],
-        "filtered_act_banded_bwd_bf16_xbf16": [*[_P] * 10, _I, _I, _I, _I,
-                                               _I, _I, _P],
     },
     "filtered_banded_mma": {
         # K1 at a reduced level: x, out, scratch (hi's bf16 pieces), the
@@ -119,6 +113,13 @@ _SIGNATURES = {
         "filtered_act_banded_bf16": [*[_P] * 7, *[_I] * 6, _P],
         # bfloat16 x and out: the same arguments
         "filtered_act_banded_bf16_xbf16": [*[_P] * 7, *[_I] * 6, _P],
+        # K2 at a reduced level: x, g, dx, scratch (m's bf16 pieces), the
+        # split blobs of U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h, nplanes (of the
+        # chunk), H, W, the up and the down launch's strip rows, passes,
+        # act, stream
+        "filtered_act_banded_bwd_bf16": [*[_P] * 10, *[_I] * 7, _P],
+        # bfloat16 x, g and dx: the same arguments
+        "filtered_act_banded_bwd_bf16_xbf16": [*[_P] * 10, *[_I] * 7, _P],
     },
     "flash_fwd": {
         # q, k, v, out, lse, B1, B2, Lq, Lk, D,

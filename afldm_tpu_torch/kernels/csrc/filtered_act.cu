@@ -133,12 +133,13 @@
 //     and the cotangent's second product have one shape, so one warp
 //     computes both over the same tile (mma_product2) and splits act′(pre)
 //     ⊙ cotangent into mᵀ from registers; pre is never stored.
-//   * K2 (filtered_act_banded_bwd_bf16), _bwd_spatial's order: H side
-//     first in every filter pair (the f32 chain takes W first), as six
-//     launches of the GEMM's bf16 variant (filtered_gemm.cuh), which splits
-//     the f32 scratch intermediates as it loads them. The act′ ⊙ epilogue
-//     stays f32. K1's level variants (filtered_act_banded_bf16) are two
-//     fused launches of their own source, filtered_banded_mma.cu.
+//   * K1's and K2's level variants (filtered_act_banded_bf16 and
+//     filtered_act_banded_bwd_bf16, _forward_spatial's and _bwd_spatial's
+//     order: H side first in every filter pair, where the f32 chains take
+//     W first) are two fused launches a chunk each, in their own source,
+//     filtered_banded_mma.cu. The GEMM's bf16 variant (filtered_gemm.cuh,
+//     filtered_gemm_bf16 below) stays as their products' yardstick: its
+//     chain gives their results bit for bit.
 // Making them faster (wgmma, TMA) is later work.
 //
 // bfloat16 activations (the ``_xbf16`` entries): the forward kernels K5 and
@@ -156,9 +157,10 @@
 // bf16 dx the same way at every level (the JAX _bwd_rule and _bwd_spatial
 // cast x and g to f32 inside and write x's dtype): dx = bf16(vjp(f32(x),
 // f32(g))). K5b widens x and g as it stages them (stage_split at the
-// reduced levels) and rounds dx in its last product's epilogue; K2's first
-// and third GEMMs read x and g as bf16 and its last writes dx as bf16, the
-// scratch intermediates f32.
+// reduced levels) and rounds dx in its last product's epilogue; the f32
+// K2's first and third GEMMs read x and g as bf16 and its last writes dx
+// as bf16, the scratch intermediates f32 (K1's and K2's level variants
+// stage x and g raw: filtered_banded_mma.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -882,63 +884,6 @@ int banded_bwd_f32(const T* x, const T* g, T* dx, float* scratch,
       nplanes, Identity{}, s);
 }
 
-// K2 at a reduced level, _bwd_spatial's order, as six launches of the
-// GEMM's bf16 variant; x and g of T (the first and third GEMMs' B), dx of
-// T (the last GEMM's C).
-template <class T>
-int banded_bwd_bf16(const T* x, const T* g, T* dx, float* scratch,
-                    const float* uhT, const float* uwT, const float* dh,
-                    const float* dw, const float* uh, const float* uw,
-                    int nplanes, int H, int W, int tiles, int passes, int act,
-                    void* stream) {
-  using afldm_filtered::GemmArgs;
-  using afldm_filtered::GemmArgsT;
-  using afldm_filtered::filtered_gemm_mma;
-  if (H % 4 || W % 4 || nplanes < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long P = nplanes, HW = (long long)H * W;
-  float* t = scratch;                 // P × (2H × W): t, then v; then s
-  float* pre = scratch + 2 * HW * P;  // P × (2H × 2W): pre, then m
-  // t[p] = U_h · x[p]
-  int err = filtered_gemm_mma<true>(
-      tiles & 1, passes,
-      GemmArgsT<float, T, float>{uhT, 2 * H, 0, x, W, HW, t, W, 2 * HW,
-                                 2 * H, W, H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // pre = t · U_wᵀ, t viewed as (P·2H) × W
-  err = filtered_gemm_mma<false>(
-      (tiles >> 1) & 1, passes, GemmArgs{t, W, 0, uwT, 2 * W, 0, pre, 2 * W,
-                                         0, (int)(P * 2 * H), 2 * W, W},
-      1, Identity{}, s);
-  if (err) return err;
-  // v[p] = D_hᵀ · g[p], D_hᵀ from its k-major form D_h; over t
-  err = filtered_gemm_mma<true>(
-      (tiles >> 2) & 1, passes,
-      GemmArgsT<float, T, float>{dh, 2 * H, 0, g, W, HW, t, W, 2 * HW,
-                                 2 * H, W, H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // m = act′(pre) ⊙ (v · D_w), v viewed as (P·2H) × W; in place over pre
-  err = filtered_gemm_mma<false>(
-      (tiles >> 3) & 1, passes, GemmArgs{t, W, 0, dw, 2 * W, 0, pre, 2 * W,
-                                         0, (int)(P * 2 * H), 2 * W, W},
-      1, MulActGrad{act}, s);
-  if (err) return err;
-  // s[p] = U_hᵀ · m[p], U_hᵀ from its k-major form U_h; over v
-  err = filtered_gemm_mma<true>(
-      (tiles >> 4) & 1, passes, GemmArgs{uh, H, 0, pre, 2 * W, 4 * HW, t,
-                                         2 * W, 2 * HW, H, 2 * W, 2 * H},
-      nplanes, Identity{}, s);
-  if (err) return err;
-  // dx = s · U_w, s viewed as (P·H) × 2W
-  return filtered_gemm_mma<false>(
-      (tiles >> 5) & 1, passes,
-      GemmArgsT<float, float, T>{t, 2 * W, 0, uw, W, 0, dx, W, 0,
-                                 (int)(P * H), W, 2 * W},
-      1, Identity{}, s);
-}
-
 }  // namespace
 
 extern "C" int filtered_act_plane_f32(const float* x, float* out,
@@ -1100,31 +1045,6 @@ extern "C" int filtered_act_plane_bwd_bf16_xbf16(
     int W, int ppb, int passes, int act, void* stream) {
   return plane_bwd_bf16(x, g, dx, uhT, dh, uwT, dw, uw, uh, nplanes, H, W,
                         ppb, passes, act, stream);
-}
-
-// K2 at a reduced level, _bwd_spatial's order, as six launches of the
-// GEMM's bf16 variant; scratch as the f32 chain's: t, then v, then s
-// (2·H·W a plane), then pre and m over it (4·H·W). Operators, row-major as
-// stored: uhT = U_hᵀ (H×2H), uwT = U_wᵀ (W×2W), dh = D_h (H×2H), dw = D_w
-// (W×2W), uh = U_h (2H×H), uw = U_w (2W×W).
-extern "C" int filtered_act_banded_bwd_bf16(
-    const float* x, const float* g, float* dx, float* scratch,
-    const float* uhT, const float* uwT, const float* dh, const float* dw,
-    const float* uh, const float* uw, int nplanes, int H, int W, int tiles,
-    int passes, int act, void* stream) {
-  return banded_bwd_bf16(x, g, dx, scratch, uhT, uwT, dh, dw, uh, uw,
-                         nplanes, H, W, tiles, passes, act, stream);
-}
-
-// K2 at a reduced level for a bf16 x and g: the same arguments, x, g and dx
-// bf16 (scratch f32).
-extern "C" int filtered_act_banded_bwd_bf16_xbf16(
-    const __nv_bfloat16* x, const __nv_bfloat16* g, __nv_bfloat16* dx,
-    float* scratch, const float* uhT, const float* uwT, const float* dh,
-    const float* dw, const float* uh, const float* uw, int nplanes, int H,
-    int W, int tiles, int passes, int act, void* stream) {
-  return banded_bwd_bf16(x, g, dx, scratch, uhT, uwT, dh, dw, uh, uw,
-                         nplanes, H, W, tiles, passes, act, stream);
 }
 
 // One launch of the GEMM's bf16 variant alone (its card tests' entry): as

@@ -1,5 +1,5 @@
-// K1's reduced precision levels ("high": 3 bf16 passes a product,
-// "default": 1) for Hopper: the banded filtered activation
+// K1's and K2's reduced precision levels ("high": 3 bf16 passes a
+// product, "default": 1) for Hopper: the banded filtered activation
 //
 //   out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ      for every (n, c) plane
 //
@@ -10,51 +10,69 @@
 //   lo = D_h · hi       (H × 2W)    depth 2H
 //   out = lo · D_wᵀ     (H × W)     depth 2W
 //
-// Replaces the reduced levels of afldm_tpu/ops/pallas_kernels.py::
-// _forward_spatial (its _mm and _precise_dot): every product a·b runs as
-// ah·bh + ah·bl + al·bh ('high') or ah·bh ('default') on bf16 tensor cores
-// (filtered_mma.cuh), each f32 result split again before the product that
-// reads it.
+// and its VJP for the cotangent g, in _bwd_spatial's order, H side first
+// in every filter pair:
 //
-// Two launches a chunk of planes, where the GEMM chain before them took
-// four through an f32 scratch:
-//   * up (products 1 and 2): a block owns a 64-row strip of the 2H side of
-//     one plane. It computes t's strip, U_h's rows of the strip times x,
-//     kBN columns at a time, and splits it from the registers into bf16
-//     pieces that stay in shared memory; then hi's strip, act(t · U_wᵀ),
-//     which leaves the block as split bf16 pieces in the scratch (hi and lo
-//     at 'high', hi alone at 'default'): the values the next product splits
-//     them into, so device memory sees 2 or 4 bytes an element of hi and no
-//     byte of t.
-//   * down (products 3 and 4): a block owns a strip of 64 (or, where the
-//     2W side is too wide for shared memory, 32) rows of the H side of one
-//     plane. It computes lo's strip, D_h's rows times hi with hi's pieces
-//     streamed in, into bf16 pieces in shared memory, then out's strip,
-//     lo · D_wᵀ, to device memory (f32, or bf16 rounded once).
+//   t  = U_h · x,  v = D_hᵀ · g              (2H × W)    depth H
+//   m  = act′(t · U_wᵀ) ⊙ (v · D_w)           (2H × 2W)   depth W
+//   s  = U_hᵀ · m                            (H × 2W)    depth 2H
+//   dx = s · U_w                             (H × W)     depth 2W
+//
+// Replaces the reduced levels of afldm_tpu/ops/pallas_kernels.py::
+// _forward_spatial and _bwd_spatial (their _mm and _precise_dot): every
+// product a·b runs as ah·bh + ah·bl + al·bh ('high') or ah·bh ('default')
+// on bf16 tensor cores (filtered_mma.cuh), each f32 result split again
+// before the product that reads it.
+//
+// Two launches a chunk of planes, where the GEMM chains before them took
+// four (K1) and six (K2) through an f32 scratch:
+//   * up (K1's products 1 and 2): a block owns a 64-row strip of the 2H
+//     side of one plane. It computes t's strip, U_h's rows of the strip
+//     times x, kBN columns at a time, and splits it from the registers into
+//     bf16 pieces that stay in shared memory; then hi's strip,
+//     act(t · U_wᵀ), which leaves the block as split bf16 pieces in the
+//     scratch (hi and lo at 'high', hi alone at 'default'): the values the
+//     next product splits them into, so device memory sees 2 or 4 bytes an
+//     element of hi and no byte of t.
+//   * the backward's up (K2's products 1 to 4): the same for a strip of 64
+//     (or, where t's and v's strips are too wide for shared memory, 32)
+//     rows with two strips in shared memory, t's and v's (D_hᵀ's rows times
+//     g); then, kBN columns at a time, pre = t · U_wᵀ, whose sums give way
+//     to act′(pre) in the registers, and ds = v · D_w, and m = act′(pre) ⊙
+//     ds leaves as split bf16 pieces in the scratch: no byte of t, v or pre
+//     reaches device memory.
+//   * down (K1's products 3 and 4, K2's 5 and 6): a block owns a strip of
+//     64 (or, where the 2W side is too wide for shared memory, 32) rows of
+//     the H side of one plane. It computes lo's strip, D_h's rows times hi
+//     (K2: s's, U_hᵀ's rows times m) with the pieces streamed in, into bf16
+//     pieces in shared memory, then out's strip, lo · D_wᵀ (K2: dx = s ·
+//     U_w), to device memory (f32, or bf16 rounded once).
 // Blocks run plane by plane (blockIdx.x = plane · strips + strip), so the
-// strips of one plane, which all read that plane's x or hi, run together
-// and their re-reads hit L2.
+// strips of one plane, which all read that plane's x (and g) or hi (m),
+// run together and their re-reads hit L2.
 //
 // Staging: the operators arrive as split blobs built once on the host
-// (ops/filtered_act.py::_mma_blobs, zero-padded pieces), hi's pieces as the
-// up launch wrote them; both come in by 16-byte cp.async into a ring of
-// slabs, with no register split. x comes in raw the same way (8-byte
-// copies for a bf16 x) and is split from shared memory into its pieces one
-// slab ahead of its products. A piece of hi or out leaves through the ring,
-// free once its products are done, in 16-byte (a bf16 out: 8-byte) rows.
+// (ops/filtered_act.py::_mma_blobs, zero-padded pieces), hi's or m's
+// pieces as the up launch wrote them; both come in by 16-byte cp.async
+// into a ring of slabs, with no register split. x and g come in raw the
+// same way (8-byte copies for bf16) and are split from shared memory into
+// their pieces one slab ahead of their products. A piece of hi, m or out
+// leaves through the ring, free once its products are done, in 16-byte (a
+// bf16 out: 8-byte) rows.
 //
 // Every output element's sum is the one filtered_gemm.cuh's
-// filtered_gemm_mma_kernel forms, so both launches give the GEMM chain's
+// filtered_gemm_mma_kernel forms, so both launches give the GEMM chains'
 // results bit for bit: mma.sync m16n8k16 over 16-deep steps in ascending k,
 // each step's ah·bh from zero added into the accumulator (by TwoSum at 3
 // passes), the small passes ah·bl then al·bh into their own accumulator,
 // added once at the end; the fragments are the GEMM's (ldmatrix .trans for
-// a k-major A slab and for B, plain for A's row-major strip), and act is
-// the GEMM's epilogue on that f32 sum.
+// a k-major A slab and for B, plain for A's row-major strip), and act (K2:
+// act′(pre) times the sum, MulActGrad) is the GEMM's epilogue on that f32
+// sum.
 //
 // What bounds it (PERF.md §6): at 'default' shared memory, each warp's
-// ldmatrix fragments of its 32 × 32 piece and the slabs' copies, and hi's
-// epilogue (the act, an expf and a division an element); at 'high' the
+// ldmatrix fragments of its 32 × 32 piece and the slabs' copies, and the
+// epilogues (act, act′: an expf and a division an element); at 'high' the
 // issue of the TwoSum after every 16-deep step (~7 FP32 instructions an
 // element a step against 3 mma) by one block an SM. Neither wgmma nor TMA
 // (later work).
@@ -103,9 +121,10 @@ struct Cfg {
   static constexpr int B_STAGE = kPieces * B_PIECE;
   static constexpr int RAW = BK * kBN * XB / 2;  // in bf16 elements
   static constexpr int STAGE = A_STAGE + B_STAGE + RAW;
-  // shared bytes: the strip's pieces (rows of ``ld`` bf16) and the ring
-  static constexpr size_t smem(int ld) {
-    return 2 * ((size_t)kPieces * BM * ld + (size_t)STAGES * STAGE);
+  // shared bytes: ``strips`` strips' pieces (rows of ``ld`` bf16) and the
+  // ring
+  static constexpr size_t smem(int ld, int strips = 1) {
+    return 2 * ((size_t)strips * kPieces * BM * ld + (size_t)STAGES * STAGE);
   }
 };
 
@@ -573,6 +592,122 @@ banded_down_kernel(const bf16* __restrict__ hs, T* __restrict__ out,
   }
 }
 
+// The backward up launch's tile: K1's up launch's ring, in strips of BM
+// (64 or 32) rows, 8 warps of (BM / 2) × 32 pieces; at 'default' two
+// blocks an SM. (At 'high' 16 warps of 16 × 32, K1's up launch's, spill:
+// the sums, their small parts and act′(pre) held at once pass the 128
+// registers a thread of 16 warps.)
+template <int PASSES, int BM, class T>
+using BwdUpCfg = Cfg<PASSES, BM, 16, 4, sizeof(T), 2, PASSES == 3 ? 1 : 2>;
+
+// K2's products 1 to 4 for one BM-row strip of the 2H side of one plane:
+// m[p][m0 …] = act′(U_h[m0 …, :] · x[p] · U_wᵀ) ⊙ (D_hᵀ[m0 …, :] · g[p] ·
+// D_w) into the scratch's pieces (plane p's hi piece at ms + p·4HW, rows 2W
+// apart, its lo piece ``lo`` after it). uh, dh, uw, dw: the split blobs of
+// U_hᵀ and D_h (H × 2H), U_wᵀ and D_w (W × 2W).
+template <int PASSES, int BM, class T>
+__global__ void __launch_bounds__(BwdUpCfg<PASSES, BM, T>::kThreads,
+                                  BwdUpCfg<PASSES, BM, T>::kMinBlocks)
+banded_bwd_up_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                     bf16* __restrict__ ms, const bf16* __restrict__ uh,
+                     const bf16* __restrict__ dh, const bf16* __restrict__ uw,
+                     const bf16* __restrict__ dw, int H, int W, long long lo,
+                     afldm_filtered::MulActGrad grad) {
+  using C = BwdUpCfg<PASSES, BM, T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = mma_ld(W), wp = pad16(W);
+  const int piece = BM * ld;
+  bf16* const ts = reinterpret_cast<bf16*>(smem_raw);  // t's strip, v's
+  bf16* ring = ts + 2 * C::kPieces * piece;
+  const int strips = (2 * H + BM - 1) / BM;
+  const int p = blockIdx.x / strips, m0 = (blockIdx.x - p * strips) * BM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 2) * C::WM, wn = (warp & 3) * C::WN;
+  bf16* mp = ms + (long long)p * 4 * H * W;
+  // the blobs' rows and pieces apart
+  const int ld_h = mma_ld(2 * H), lo_h = pad16(H) * ld_h;
+  const int ld_w = mma_ld(2 * W), lo_w = pad16(W) * ld_w;
+  Acc<C, PASSES> acc;
+
+  // t's strip = U_h's rows · x, then v's = D_hᵀ's rows · g, kBN columns a
+  // piece, into their strips
+  for (int i = 0; i < 2; ++i) {
+    const bf16* a = i ? dh : uh;
+    const T* src = (i ? g : x) + (long long)p * H * W;
+    bf16* strip = ts + i * C::kPieces * piece;
+    for (int n0 = 0; n0 < W; n0 += kBN) {
+      const auto issue = [&](bf16* s, int kt) {
+        slab_async<C::kThreads, C::kPieces, C::kBK, BM, C::LDA, C::A_PIECE>(
+            s, a, ld_h, lo_h, C::kBK * kt, H, m0, 2 * H);
+        raw_async<C::kThreads, T, C::kBK>(s + C::A_STAGE + C::B_STAGE, src,
+                                          W, C::kBK * kt, H, n0);
+      };
+      const auto prep = [&](bf16* s) {
+        split_raw<C::kThreads, PASSES, T, C::kBK, C::LDB, C::B_PIECE>(
+            s + C::A_STAGE, s + C::A_STAGE + C::B_STAGE);
+      };
+      k_loop<C, PASSES, true, true>(acc, ring, pad16(H) / 16, issue, prep,
+                                    SlabA{});
+      acc.each_pair(wm, wn, lane, [&](int r, int c, float v0, float v1) {
+        if (n0 + c < wp)
+          store_pair<PASSES>(strip + r * ld + n0 + c, piece, v0, v1);
+      });
+    }
+  }
+
+  // one product of a strip (t's or v's) and an operator's kBN columns
+  // from n0 (U_wᵀ's or D_w's), depth W
+  const auto across = [&](const bf16* strip, const bf16* b, int n0) {
+    const auto issue = [&](bf16* s, int kt) {
+      slab_async<C::kThreads, C::kPieces, C::kBK, kBN, C::LDB, C::B_PIECE>(
+          s + C::A_STAGE, b, ld_w, lo_w, C::kBK * kt, W, n0, 2 * W);
+    };
+    const auto frag_a = [&](unsigned (&fa)[C::MT][4], int step, int pc,
+                            int wm_, int ln) {
+      frag_a_rows<C>(fa, strip + pc * piece, ld, 16 * step, wm_, ln);
+    };
+    k_loop<C, PASSES, false, false>(acc, ring, wp / 16, issue, NoPrep{},
+                                    frag_a);
+  };
+
+  // m's strip = act′(t · U_wᵀ) ⊙ (v · D_w), kBN columns a piece, to the
+  // scratch through the ring, free once the piece's products are done, so
+  // that the pieces leave in 16-byte rows
+  bf16* const tile = ring;
+  constexpr int TLD = kBN + 8, TP = BM * TLD;
+  static_assert(C::kPieces * TP <= C::kStages * C::STAGE, "tile in ring");
+  constexpr int NV = Acc<C, PASSES>::kValues;
+  for (int n0 = 0; n0 < 2 * W; n0 += kBN) {
+    // pre's sums give way to act′(pre) (the case chosen once for the
+    // warp's values), then ds's accumulators take their registers
+    float ag[NV];
+    across(ts, uw, n0);
+    acc.sums(ag);
+    grad.grads(ag);
+    across(ts + C::kPieces * piece, dw, n0);
+    float m[NV];
+    acc.sums(m);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) m[k] = ag[k] * m[k];
+    __syncthreads();  // the last slab's readers are done with the ring
+    Acc<C, PASSES>::each_pair(m, wm, wn, lane,
+                              [&](int r, int c, float v0, float v1) {
+      store_pair<PASSES>(tile + r * TLD + c, TP, v0, v1);
+    });
+    __syncthreads();
+    for (int i = tid; i < C::kPieces * BM * (kBN / 8); i += C::kThreads) {
+      constexpr int TILE = BM * (kBN / 8);
+      const int pc = i / TILE, q = i - pc * TILE;
+      const int r = q / (kBN / 8), c = 8 * (q - r * (kBN / 8));
+      const int row = m0 + r, col = n0 + c;
+      if (row < 2 * H && col < 2 * W)
+        *reinterpret_cast<uint4*>(mp + pc * lo + (long long)row * 2 * W +
+                                  col) =
+            *reinterpret_cast<const uint4*>(tile + pc * TP + r * TLD + c);
+    }
+  }
+}
+
 // Shared bytes of the up launch and of the down launch at ``down_rows``
 template <int PASSES, class T>
 size_t up_smem(int W) {
@@ -600,8 +735,7 @@ int down(const bf16* hs, T* out, const bf16* dhT, const bf16* dwT,
   const long long blocks = (long long)nplanes * ((H + BM - 1) / BM);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, DownCfg<PASSES, BM>::kThreads, smem, s>>>(
-      hs, out, dhT, dwT, H, W,
-                                                   lo);
+      hs, out, dhT, dwT, H, W, lo);
   return (int)cudaGetLastError();
 }
 
@@ -620,13 +754,69 @@ int banded_level(const T* x, T* out, bf16* hs, const bf16* uhT,
   // hi's pieces: every plane's hi piece, then every plane's lo piece
   const long long lo = (long long)nplanes * 4 * H * W;
   up<<<(unsigned)blocks, UpCfg<PASSES, T>::kThreads, smem, s>>>(
-      x, hs, uhT, uwT, H, W, lo,
-                                               afldm_filtered::Activation{act});
+      x, hs, uhT, uwT, H, W, lo, afldm_filtered::Activation{act});
   err = (int)cudaGetLastError();
   if (err) return err;
   if (down_rows == 64)
     return down<PASSES, 64>(hs, out, dhT, dwT, nplanes, H, W, lo, s);
   return down<PASSES, 32>(hs, out, dhT, dwT, nplanes, H, W, lo, s);
+}
+
+// The backward up launch at ``BM``-row strips; m's pieces ``lo`` apart
+template <int PASSES, int BM, class T>
+int bwd_up(const T* x, const T* g, bf16* ms, const bf16* uhT, const bf16* dh,
+           const bf16* uwT, const bf16* dw, int nplanes, int H, int W,
+           long long lo, int act, cudaStream_t s) {
+  const auto kernel = banded_bwd_up_kernel<PASSES, BM, T>;
+  const size_t smem = BwdUpCfg<PASSES, BM, T>::smem(mma_ld(W), 2);
+  const int err = set_smem((const void*)kernel, smem);
+  if (err) return err;
+  const long long blocks = (long long)nplanes * ((2 * H + BM - 1) / BM);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, BwdUpCfg<PASSES, BM, T>::kThreads, smem, s>>>(
+      x, g, ms, uhT, dh, uwT, dw, H, W, lo, afldm_filtered::MulActGrad{act});
+  return (int)cudaGetLastError();
+}
+
+// K2's chunk: the backward up launch, then products 5 and 6 as K1's down
+// launch with U_h's blob (the k-major form of U_hᵀ) in D_hᵀ's place and
+// U_w's in D_wᵀ's
+template <int PASSES, class T>
+int banded_bwd_level(const T* x, const T* g, T* dx, bf16* ms,
+                     const bf16* uhT, const bf16* dh, const bf16* uwT,
+                     const bf16* dw, const bf16* uw, const bf16* uh,
+                     int nplanes, int H, int W, int up_rows, int down_rows,
+                     int act, cudaStream_t s) {
+  // m's pieces: every plane's hi piece, then every plane's lo piece
+  const long long lo = (long long)nplanes * 4 * H * W;
+  const int err =
+      up_rows == 64
+          ? bwd_up<PASSES, 64>(x, g, ms, uhT, dh, uwT, dw, nplanes, H, W, lo,
+                               act, s)
+          : bwd_up<PASSES, 32>(x, g, ms, uhT, dh, uwT, dw, nplanes, H, W, lo,
+                               act, s);
+  if (err) return err;
+  if (down_rows == 64)
+    return down<PASSES, 64>(ms, dx, uh, uw, nplanes, H, W, lo, s);
+  return down<PASSES, 32>(ms, dx, uh, uw, nplanes, H, W, lo, s);
+}
+
+template <class T>
+int banded_bwd_mma(const T* x, const T* g, T* dx, bf16* ms, const bf16* uhT,
+                   const bf16* dh, const bf16* uwT, const bf16* dw,
+                   const bf16* uw, const bf16* uh, int nplanes, int H, int W,
+                   int up_rows, int down_rows, int passes, int act,
+                   void* stream) {
+  if (H % 4 || W % 4 || H < 4 || W < 4 || nplanes < 1 ||
+      (up_rows != 64 && up_rows != 32) ||
+      (down_rows != 64 && down_rows != 32) || (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (passes == 3)
+    return banded_bwd_level<3>(x, g, dx, ms, uhT, dh, uwT, dw, uw, uh,
+                               nplanes, H, W, up_rows, down_rows, act, s);
+  return banded_bwd_level<1>(x, g, dx, ms, uhT, dh, uwT, dw, uw, uh, nplanes,
+                             H, W, up_rows, down_rows, act, s);
 }
 
 template <class T>
@@ -671,4 +861,31 @@ extern "C" int filtered_act_banded_bf16_xbf16(
     int W, int down_rows, int passes, int act, void* stream) {
   return banded_mma(x, out, scratch, uhT, uwT, dhT, dwT, nplanes, H, W,
                     down_rows, passes, act, stream);
+}
+
+// K2 at a reduced level on one chunk of ``nplanes`` planes: the backward
+// up and the down launch on ``stream``. scratch: m's bf16 pieces, 4·H·W a
+// plane and piece (every plane's hi piece, then at 'high' every plane's lo
+// piece). Operators: the split blobs of uhT = U_hᵀ (H×2H), dh = D_h
+// (H×2H), uwT = U_wᵀ (W×2W), dw = D_w (W×2W), uw = U_w (2W×W), uh = U_h
+// (2H×H). up_rows, down_rows: the launches' strips, 64 or 32 rows; passes:
+// 3 ('high') or 1 ('default').
+extern "C" int filtered_act_banded_bwd_bf16(
+    const float* x, const float* g, float* dx, bf16* scratch, const bf16* uhT,
+    const bf16* dh, const bf16* uwT, const bf16* dw, const bf16* uw,
+    const bf16* uh, int nplanes, int H, int W, int up_rows, int down_rows,
+    int passes, int act, void* stream) {
+  return banded_bwd_mma(x, g, dx, scratch, uhT, dh, uwT, dw, uw, uh, nplanes,
+                        H, W, up_rows, down_rows, passes, act, stream);
+}
+
+// K2 at a reduced level for a bf16 x and g: the same arguments, x, g and dx
+// bf16.
+extern "C" int filtered_act_banded_bwd_bf16_xbf16(
+    const bf16* x, const bf16* g, bf16* dx, bf16* scratch, const bf16* uhT,
+    const bf16* dh, const bf16* uwT, const bf16* dw, const bf16* uw,
+    const bf16* uh, int nplanes, int H, int W, int up_rows, int down_rows,
+    int passes, int act, void* stream) {
+  return banded_bwd_mma(x, g, dx, scratch, uhT, dh, uwT, dw, uw, uh, nplanes,
+                        H, W, up_rows, down_rows, passes, act, stream);
 }

@@ -1,6 +1,6 @@
 // The filtered activation's activations and the epilogues of its products,
 // shared by the plane kernels and the banded chains (filtered_act.cu) and
-// K1's fused level chain (filtered_banded_mma.cu).
+// K1's and K2's fused level chains (filtered_banded_mma.cu).
 
 #pragma once
 
@@ -97,6 +97,25 @@ struct MulActGrad {
   int act;
   __device__ __forceinline__ float operator()(float v, float old) const {
     return act_grad(old, act) * v;
+  }
+  // v[i] = act′(v[i]) for N values, the act chosen once for all of them
+  // (K2's fused level chain, which multiplies the cotangent's product in
+  // afterwards): each case is act_grad's own arithmetic
+  template <int N>
+  __device__ __forceinline__ void grads(float (&v)[N]) const {
+    const auto each = [&](int a) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = act_grad(v[i], a);
+    };
+    switch (act) {
+      case SILU: each(SILU); break;
+      case GELU: each(GELU); break;
+      case RELU: each(RELU); break;
+      case MISH: each(MISH); break;
+      case LEAKY_RELU: each(LEAKY_RELU); break;
+      case TANH: each(TANH); break;
+      default: each(NONE); break;
+    }
   }
 };
 

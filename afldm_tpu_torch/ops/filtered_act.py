@@ -796,15 +796,6 @@ def banded_bwd_products(H: int, W: int, planes: int) -> tuple:
             (planes * 2 * H, W, 2 * W, 1), (H, W, 2 * H, planes))
 
 
-def banded_mma_bwd_products(H: int, W: int, planes: int) -> tuple:
-    """(M, N, K, batch) of K2's bf16 chain (``_bwd_spatial``'s order) for a
-    chunk: t = U_h·x, pre = t·U_wᵀ, v = D_hᵀ·g, m = act′(pre) ⊙ (v·D_w),
-    s = U_hᵀ·m and dx = s·U_w."""
-    return ((2 * H, W, H, planes), (planes * 2 * H, 2 * W, W, 1),
-            (2 * H, W, H, planes), (planes * 2 * H, 2 * W, W, 1),
-            (H, 2 * W, 2 * H, planes), (planes * H, W, 2 * W, 1))
-
-
 def banded_scratch_bytes(H: int, W: int, planes: int) -> int:
     """Either chain's scratch for a chunk: 2·H·W floats a plane (the
     forward's t and then lo; the backward's t, v and then s) and 4·H·W
@@ -847,11 +838,10 @@ def banded_plan(H: int, W: int, nplanes: int, cap: int,
     plane once: as few chunks as keep each chunk's scratch within ``cap``
     bytes (at least one plane a chunk, whatever its size), their plane
     counts within one of each other. Each of the chain's ``products``
-    (``banded_products``: K1's f32 chain; ``banded_bwd_products``: K2's;
-    ``banded_mma_bwd_products``: K2's bf16 chain, the same chunks and tile
-    rule) takes the 128×128 tile unless that gives a grid short of a wave
-    of NUM_SMS blocks, then the 64×64 tile. No chunks for 0 planes. K1's
-    level chain has a plan of its own, ``banded_mma_plan``."""
+    (``banded_products``: K1's f32 chain; ``banded_bwd_products``: K2's)
+    takes the 128×128 tile unless that gives a grid short of a wave of
+    NUM_SMS blocks, then the 64×64 tile. No chunks for 0 planes. K1's and
+    K2's level chains have a plan of their own, ``banded_mma_plan``."""
     if nplanes == 0:
         return ()
     per = max(1, cap // banded_scratch_bytes(H, W, 1))
@@ -863,18 +853,21 @@ def banded_plan(H: int, W: int, nplanes: int, cap: int,
         for start, planes in _chunk_planes(nplanes, per))
 
 
-# -- K1's level chain: two fused launches (filtered_banded_mma.cu) ---------
+# -- K1's and K2's level chains: two fused launches (filtered_banded_mma.cu)
 
-# the strip rows a block of its up launch (products 1 and 2, on the 2H
-# side), and of its down launch (products 3 and 4, on the H side): 64 where
-# that block fits shared memory, else 32
+# the strip rows a block of K1's up launch (products 1 and 2, on the 2H
+# side), of K2's (products 1 to 4, on the 2H side, t's and v's strips in
+# shared memory) and of their down launch (K1's products 3 and 4, K2's 5
+# and 6, on the H side): 64 where that block fits shared memory, else 32
 K1_UP_ROWS = 64
+K2_UP_ROWS = (64, 32)
 K1_DOWN_ROWS = (64, 32)
 # the columns a block's result takes at a time, and each launch's slab ring
 # (filtered_banded_mma.cu::UpCfg, DownCfg): (depth, stages)
 K1_COLS = 128
 K1_UP_RING, K1_DOWN_RING = (16, 4), (32, 3)
-# a chunk's hi pieces (the scratch) stay under this, or hold one plane
+# a chunk's hi pieces (K1's scratch; K2's: m's) stay under this, or hold
+# one plane
 BANDED_HI_BYTES = 256 * 2 ** 20
 
 
@@ -885,19 +878,20 @@ def _level_pieces(level: str) -> int:
 
 
 def banded_mma_smem_bytes(W: int, level: str, rows: int, down: bool,
-                          x_bytes: int = 4) -> int:
-    """Shared memory of a block of K1's up (or ``down``) launch at
+                          x_bytes: int = 4, strips: int = 1) -> int:
+    """Shared memory of a block of K1's or K2's up (or ``down``) launch at
     ``level`` with strips of ``rows`` rows (filtered_banded_mma.cu::
-    Cfg::smem): the strip's pieces (t's, W wide; lo's, 2W wide) and the
-    launch's ring of slabs, each a k-major A slab (``rows`` wide), a B slab
-    (K1_COLS wide) and, in the up launch, x's raw slab (``x_bytes`` an
-    element)."""
+    Cfg::smem): ``strips`` strips' pieces (t's, and in K2's up launch v's,
+    W wide; lo's or s's, 2W wide) and the launch's ring of slabs, each a
+    k-major A slab (``rows`` wide), a B slab (K1_COLS wide) and, in an up
+    launch, x's (g's) raw slab (``x_bytes`` an element)."""
     pieces = _level_pieces(level)
     depth, stages = K1_DOWN_RING if down else K1_UP_RING
     stage = 2 * pieces * depth * ((rows + 8) + (K1_COLS + 8))
     if not down:
         stage += depth * K1_COLS * x_bytes
-    return 2 * pieces * rows * mma_ld(2 * W if down else W) + stages * stage
+    return (2 * strips * pieces * rows * mma_ld(2 * W if down else W)
+            + stages * stage)
 
 
 def banded_mma_down_rows(W: int, level: str) -> int:
@@ -907,27 +901,40 @@ def banded_mma_down_rows(W: int, level: str) -> int:
                 if banded_mma_smem_bytes(W, level, r, True) <= SMEM_MAX_BYTES)
 
 
+def banded_mma_up_rows(W: int, level: str, bwd: bool = False) -> int:
+    """The up launch's strip rows: K1_UP_ROWS for K1; for K2 the first of
+    K2_UP_ROWS whose block, t's and v's strips and the ring, fits
+    SMEM_MAX_BYTES (32 at 'high' once W passes 272 px)."""
+    if not bwd:
+        return K1_UP_ROWS
+    return next(r for r in K2_UP_ROWS
+                if banded_mma_smem_bytes(W, level, r, False, strips=2)
+                <= SMEM_MAX_BYTES)
+
+
 def banded_mma_scratch_bytes(H: int, W: int, planes: int,
                              level: str) -> int:
-    """K1's level chain's scratch for a chunk: hi's bf16 pieces, 4·H·W
-    elements a plane and piece (8·H·W bytes at 'default', 16·H·W at
-    'high'); t and lo stay on chip."""
+    """K1's or K2's level chain's scratch for a chunk: hi's (K2: m's) bf16
+    pieces, 4·H·W elements a plane and piece (8·H·W bytes at 'default',
+    16·H·W at 'high'); t and lo (K2: t, v, pre and s) stay on chip."""
     return 2 * 4 * H * W * planes * _level_pieces(level)
 
 
 @functools.lru_cache(maxsize=None)
-def banded_mma_plan(H: int, W: int, nplanes: int, level: str,
-                    cap: int) -> tuple:
-    """K1's level chain's chunks (``BandedChunk``), in order, covering
-    every plane once: as few chunks as keep each chunk's hi pieces within
-    ``cap`` bytes (``banded_mma_scratch_bytes``; at least one plane a
-    chunk), their plane counts within one of each other; ``tiles`` holds
-    the strip rows of its two launches (K1_UP_ROWS, and
-    ``banded_mma_down_rows``). No chunks for 0 planes."""
+def banded_mma_plan(H: int, W: int, nplanes: int, level: str, cap: int,
+                    bwd: bool = False) -> tuple:
+    """K1's (``bwd``: K2's) level chain's chunks (``BandedChunk``), in
+    order, covering every plane once: as few chunks as keep each chunk's
+    hi (K2: m) pieces within ``cap`` bytes (``banded_mma_scratch_bytes``;
+    at least one plane a chunk), their plane counts within one of each
+    other; ``tiles`` holds the strip rows of its two launches
+    (``banded_mma_up_rows`` and ``banded_mma_down_rows``). No chunks for 0
+    planes."""
     if nplanes == 0:
         return ()
     per = max(1, cap // banded_mma_scratch_bytes(H, W, 1, level))
-    rows = (K1_UP_ROWS, banded_mma_down_rows(W, level))
+    rows = (banded_mma_up_rows(W, level, bwd),
+            banded_mma_down_rows(W, level))
     return tuple(BandedChunk(start, planes, rows)
                  for start, planes in _chunk_planes(nplanes, per))
 
@@ -957,12 +964,10 @@ def _banded_mma_ops(H: int, W: int, device) -> tuple:
 
 
 def _banded_mma_bwd_ops(H: int, W: int, device) -> tuple:
-    """(U_hᵀ, U_wᵀ, D_h, D_w, U_h, U_w): K2's bf16 chain's operators in the
-    order of its products, the H-side ones (U_h, D_hᵀ, U_hᵀ) in the k-major
-    forms its batched products read."""
-    uh, uwT, dh, _ = _kernel_ops(H, W, device)
-    _, dw, uw, uhT = _kernel_bwd_ops(H, W, device)
-    return uhT, uwT, dh, dw, uh, uw
+    """(U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h): the split blobs of K2's level
+    chain's operators, K5b's (``_mma_blobs``), each in the k-major form its
+    product reads, in the order its C entry takes them."""
+    return _mma_blobs(H, W, device, True)
 
 
 def _banded_entry(x, out, scratch, ops, chunk, act):
@@ -1010,37 +1015,38 @@ def _banded_mma_entry(x, out, scratch, ops, chunk, act, level):
 
 def _banded_mma_bwd_entry(x, g, dx, scratch, ops, chunk, act, level):
     """One chunk through ``filtered_act_banded_bwd_bf16`` (its ``_xbf16``
-    twin for bfloat16 x and g) at ``level``: K2's six bf16 GEMM launches on
-    the current stream."""
+    twin for bfloat16 x and g) at ``level``: K2's up and down launches on
+    the current stream, m's pieces in the bf16 scratch."""
     H, W = x.shape[-2:]
     suffix, _ = _variant("filtered_act_banded_bwd", level, x.dtype)
-    err = getattr(kernels.library("filtered_act"),
+    err = getattr(kernels.library("filtered_banded_mma"),
                   f"filtered_act_banded_bwd{suffix}")(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
-        *(o.data_ptr() for o in ops), chunk.planes, H, W, chunk.tile_codes,
+        *(o.data_ptr() for o in ops), chunk.planes, H, W, *chunk.tiles,
         LEVEL_PASSES[level], ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(err, f"filtered_act_banded_bwd:{level}")
 
 
-# the GEMM chains' products and operators, by (reduced level, backward)
-_GEMM_CHAINS = {(False, False): (banded_products, _banded_ops),
-                (False, True): (banded_bwd_products, _banded_bwd_ops),
-                (True, True): (banded_mma_bwd_products, _banded_mma_bwd_ops)}
+# the f32 GEMM chains' products and operators, by backward
+_GEMM_CHAINS = {False: (banded_products, _banded_ops),
+                True: (banded_bwd_products, _banded_bwd_ops)}
 
 
 def _banded_setup(H: int, W: int, nplanes: int, level: str,
                   bwd: bool) -> tuple:
     """(chunks, operators, scratch numel, scratch dtype) of a banded chain
-    at ``level``: K1's level chain's (``banded_mma_plan``, its split blobs,
-    hi's bf16 pieces) or a GEMM chain's (``banded_plan``, f32 operators,
-    f32 intermediates)."""
-    if level != "highest" and not bwd:
-        plan = banded_mma_plan(H, W, nplanes, level, BANDED_HI_BYTES)
+    at ``level``: at a reduced level K1's or K2's level chain's
+    (``banded_mma_plan``, its split blobs, hi's or m's bf16 pieces), at
+    'highest' the f32 GEMM chain's (``banded_plan``, f32 operators, f32
+    intermediates)."""
+    if level != "highest":
+        plan = banded_mma_plan(H, W, nplanes, level, BANDED_HI_BYTES, bwd)
         size = banded_mma_scratch_bytes(
             H, W, max((c.planes for c in plan), default=0), level) // 2
-        return plan, _banded_mma_ops, size, torch.bfloat16
-    products, ops = _GEMM_CHAINS[level != "highest", bwd]
+        return (plan, _banded_mma_bwd_ops if bwd else _banded_mma_ops, size,
+                torch.bfloat16)
+    products, ops = _GEMM_CHAINS[bwd]
     plan = banded_plan(H, W, nplanes, BANDED_SCRATCH_BYTES, products)
     size = banded_scratch_bytes(
         H, W, max((c.planes for c in plan), default=0)) // 4
@@ -1188,7 +1194,8 @@ def filtered_act_banded_bwd(x: torch.Tensor, g: torch.Tensor,
                             level: str = None) -> torch.Tensor:
     """The VJP of ``filtered_act_banded`` at x for the cotangent g (K2), at
     ``level`` (default: the current one; 'highest' above LEVEL_MAX): on the
-    card the backward chain's six GEMM launches a chunk of planes."""
+    card a chunk of planes takes the f32 chain's six GEMM launches at
+    'highest', the level chain's two fused launches at a reduced level."""
     level = _level_at(*x.shape[-2:], level)
     if x.device.type == "cpu":
         return filtered_act_banded_bwd_plain(x, g, act, level)

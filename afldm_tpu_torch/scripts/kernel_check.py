@@ -13,8 +13,8 @@ file's shapes instead of the checkout's own, so that an older checkout's
 kernels are timed at shapes added since; ``--banded_scratch_bytes`` sets
 the banded GEMM chains' scratch cap a chunk (``BANDED_SCRATCH_BYTES``: the
 f32 K1's and K2's at every level), ``--banded_hi_bytes`` the cap of K1's
-level chain's hi pieces a chunk (``BANDED_HI_BYTES``, where the checkout
-has it).
+level chain's hi pieces (K2's: m's) a chunk (``BANDED_HI_BYTES``, where
+the checkout has it).
 
 Other modes replace the checks, for comparing two checkouts in one call:
 ``--spread n,h,Lq,Lk,D,n_kv [--seeds N]`` runs K3/bf16 at that shape (K/V
@@ -32,10 +32,12 @@ the reduced levels ('high', 'default'), f32 and bf16 x, at theirs (K1's
 and K2's up to LEVEL_MAX); ``--graph`` times K3/bf16, K6/bf16, K4a/bf16
 and K4b/bf16 and the level variants of K5, K1 and K2, f32 and bf16 x
 (those named, where kernels are named: ``filtered_act_plane`` names
-K5's, ``filtered_act_banded`` K1's) at their KERNELS shapes by replaying
-a CUDA graph of the wrapper calls, so that a shape whose call is bound
-by the host's launch path (L = 4, a 4 px plane) is timed on the device
-alone.
+K5's, ``filtered_act_banded`` K1's, ``filtered_act_banded_bwd`` K2's) at
+their KERNELS shapes by replaying a CUDA graph of the wrapper calls, so
+that a shape whose call is bound by the host's launch path (L = 4, a 4
+px plane) is timed on the device alone, and beside each level variant's
+time the device time a call of each CUDA kernel it launches
+(``torch.profiler``), so that a chain's launches are timed apart.
 
 Prints chip_smoke's ``check ...`` line per shape and each kernel's sums
 over the shapes run, and exits non-zero if a kernel disagrees with its
@@ -73,7 +75,8 @@ def main(argv=None):
                     help="the banded chains' scratch cap a chunk of "
                          "planes (default: ops/filtered_act.py's)")
     ap.add_argument("--banded_hi_bytes", type=int, default=None,
-                    help="K1's level chain's cap of hi pieces a chunk "
+                    help="K1's (K2's) level chain's cap of hi (m) pieces "
+                         "a chunk "
                          "(default: ops/filtered_act.py's)")
     ap.add_argument("--spread", default=None,
                     help="n,h,Lq,Lk,D,n_kv: K3/bf16's RMS ratio over seeds")
@@ -360,12 +363,28 @@ def _graph_ms(torch, fn, calls, replays):
     return start.elapsed_time(end) / (replays * calls)
 
 
+def _split_ms(torch, fn, calls=3):
+    """{CUDA kernel name: device ms a call of ``fn``} under
+    ``torch.profiler``, over ``calls`` calls after one outside it."""
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
     """K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16 (with its reduction where
     it splits), and the level variants of K5, K1 and K2 on an f32 and a
     bf16 x (K1's and K2's up to LEVEL_MAX), at their KERNELS shapes: the
-    device time of one wrapper call (``_graph_ms``); only the kernels of
-    ``names`` where it names any."""
+    device time of one wrapper call (``_graph_ms``; for the level variants
+    also each kernel's, ``_split_ms``); only the kernels of ``names`` where
+    it names any."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     total = {}
     for name in ("flash_fwd", "flash2_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -418,15 +437,19 @@ def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
                 ops.set_af_precision(level)
                 # the banded calls take milliseconds: fewer of them
                 few = name != "filtered_act_plane"
-                ms = _graph_ms(
-                    torch, (lambda: fn(x, gr, "silu")) if name.endswith(
-                        "_bwd") else (lambda: fn(x, "silu")),
-                    2 if few else calls, 5 if few else replays)
+                call = ((lambda: fn(x, gr, "silu")) if name.endswith("_bwd")
+                        else (lambda: fn(x, "silu")))
+                ms = _graph_ms(torch, call, 2 if few else calls,
+                               5 if few else replays)
+                parts = _split_ms(torch, call)
             finally:
                 ops.set_af_precision("highest")
             total[label] = total.get(label, 0.0) + ms
             print(f"kernel_check graph {label} {shape}: {ms:.4f} ms a "
                   "call", flush=True)
+            for kernel, part in sorted(parts.items(), key=lambda kv: -kv[1]):
+                print(f"kernel_check graph split {label} {shape}: "
+                      f"{part:.4f} ms a call {kernel[:120]}", flush=True)
             del x, gr
             torch.cuda.empty_cache()
     for name, ms in total.items():

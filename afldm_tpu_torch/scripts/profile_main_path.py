@@ -169,7 +169,10 @@ def _interp_run(args):
 # f32 convolutions as FFT tiles (r2c, a complex GEMM, c2r), which land in
 # "FFT and complex GEMM" with torch.fft's own kernels
 # (the banded chains K1 and K2 run as filtered_gemm_kernel launches)
-PORT_KERNELS = ("filtered_act", "filtered_gemm", "flash_", "flash2_")
+# (K1's and K2's level chains: banded_up_kernel, banded_bwd_up_kernel,
+# banded_down_kernel)
+PORT_KERNELS = ("filtered_act", "filtered_gemm", "banded_", "flash_",
+                "flash2_")
 GROUPS = (("port kernels", PORT_KERNELS),
           ("FFT and complex GEMM", ("fft", "cf32")),
           ("convolution", ("conv", "cudnn", "implicit", "winograd", "wgrad",

@@ -5,8 +5,10 @@ C entry's four GEMMs, against JAX's ``filtered_act_pallas(z, act,
 "spatial")``, which runs ``_forward_spatial`` in interpret mode; the same
 for K1's reduced precision levels, whose two C entries
 (``filtered_banded_mma.cu``: the up and down strip walks, hi's bf16 pieces
-in the scratch) have a stand-in of their own; and the filtered activation
-at 0 planes against JAX. The CUDA kernels themselves are held against
+in the scratch) have a stand-in of their own, and for K2's (the backward
+up and down strip walks, m's bf16 pieces in the scratch), against
+``jax.vjp`` of the same kernel (``_bwd_spatial``); and the filtered
+activation at 0 planes against JAX. The CUDA kernels themselves are held against
 their plain versions in ``test_torch_kernels_cuda.py``.
 
 Tolerance: atol 3e-5 / rtol 1e-4, the one the JAX package holds its own
@@ -17,7 +19,7 @@ exactly and round once, only the strips differ), and against JAX at
 0.25 of the level's own error, max within its max). XLA's CPU dot ignores
 'default' outside Pallas and inside it in interpret mode alike, so there
 the reference is that file's numpy emulation of JAX's chain
-(``np_forward``).
+(``np_forward``, ``np_backward``).
 """
 
 import functools
@@ -34,7 +36,8 @@ from afldm_tpu_torch import kernels
 from afldm_tpu_torch.ops import filtered_act as TF
 from afldm_tpu_torch.ops.ideal_lpf import _ACTS, _pieces, level_matmul
 from test_torch_harness import nchw, nhwc, rand
-from test_torch_precision import assert_level_close, np_forward
+from test_torch_precision import (_jax_at, assert_level_close, np_backward,
+                                  np_forward)
 
 torch.set_num_threads(1)
 
@@ -90,6 +93,49 @@ def _banded_mma_entry_plain(x, out, scratch, ops, chunk, act, level):
             rows = slice(m0, m0 + down_rows)
             lo = mm(tuple(d[:, rows].T for d in dh), his)
             out[p, rows] = mm(_pieces(lo, level), dw).to(out.dtype)
+
+
+def _banded_mma_bwd_entry_plain(x, g, dx, scratch, ops, chunk, act, level):
+    """``TF._banded_mma_bwd_entry``'s two launches in torch: the backward
+    up launch's strips of the 2H side (t = U_h·x, v = D_hᵀ·g, m =
+    act′(t·U_wᵀ) ⊙ (v·D_w)) and the down launch's strips of the H side
+    (s = U_hᵀ·m, dx = s·U_w), the operators' pieces read from their split
+    blobs in the k-major forms the C entries read (U_h from U_hᵀ's, D_hᵀ
+    from D_h's, U_hᵀ from U_h's) and m's pieces written to and read back
+    from the bf16 scratch in the C entries' layout (every plane's hi
+    piece, then at 'high' every plane's lo piece, 4·H·W elements each);
+    each product at the level with its sum exactly rounded, as the plain
+    version."""
+    uhT, dh, uwT, dw, uw, uh = ops
+    P, (H, W) = chunk.planes, x.shape[-2:]
+    up_rows, down_rows = chunk.tiles
+    n = 2 if level == "high" else 1
+    ms = scratch[:n * 4 * H * W * P].view(n, P, 2 * H, 2 * W)
+
+    def blob(b, rows, cols):  # a blob's pieces without their padding
+        return tuple(b[i, :rows, :cols].float() for i in range(n))
+
+    def mm(a, b):  # a, b: pieces
+        return level_matmul(a[0], b[0], level, a, b, exact_sums=True)
+
+    uhT, dh = blob(uhT, H, 2 * H), blob(dh, H, 2 * H)
+    uwT, dw = blob(uwT, W, 2 * W), blob(dw, W, 2 * W)
+    uw, uh = blob(uw, 2 * W, W), blob(uh, 2 * H, H)
+    for p in range(P):
+        xp, gp = _pieces(x[p].float(), level), _pieces(g[p].float(), level)
+        for m0 in range(0, 2 * H, up_rows):
+            rows = slice(m0, m0 + up_rows)
+            t = mm(tuple(u[:, rows].T for u in uhT), xp)
+            v = mm(tuple(d[:, rows].T for d in dh), gp)
+            m = TF.act_grad(mm(_pieces(t, level), uwT), act) * mm(
+                _pieces(v, level), dw)
+            for i, piece in enumerate(_pieces(m, level)):
+                ms[i, p, rows] = piece.to(torch.bfloat16)
+        mps = tuple(ms[i, p].float() for i in range(n))
+        for m0 in range(0, H, down_rows):
+            rows = slice(m0, m0 + down_rows)
+            s = mm(tuple(u[:, rows].T for u in uh), mps)
+            dx[p, rows] = mm(_pieces(s, level), uw).to(dx.dtype)
 
 
 PLAN_SIDES = [(68, 92), (80, 80), (32, 128), (128, 128), (256, 256),
@@ -213,19 +259,22 @@ LEVEL_SIDES = [(68, 92), (80, 80), (32, 128), (128, 32), (128, 128),
 @pytest.mark.parametrize("level", ["high", "default"])
 @pytest.mark.parametrize("nplanes", [1, 5, 12288])
 @pytest.mark.parametrize("cap", [1, 2 ** 20, 256 * 2 ** 20])
-def test_banded_mma_plan(hw, level, nplanes, cap):
-    """K1's level chain: its chunks cover every plane once, in order, as
-    few as keep each chunk's hi pieces (8·H·W bytes a plane and piece:
-    hi and lo at 'high', hi at 'default') under the cap, within one plane
-    of each other; the up launch takes 64-row strips, the down launch 64
-    unless that block's shared memory (its lo strip 2W wide, and the
-    ring) passes the card's 227 KB, then 32 (which always fits up to
-    LEVEL_MAX); no chunks for 0 planes."""
+@pytest.mark.parametrize("bwd", [False, True])
+def test_banded_mma_plan(hw, level, nplanes, cap, bwd):
+    """K1's (``bwd``: K2's) level chain: its chunks cover every plane
+    once, in order, as few as keep each chunk's hi (K2: m) pieces (8·H·W
+    bytes a plane and piece: hi and lo at 'high', hi at 'default') under
+    the cap, within one plane of each other; K1's up launch takes 64-row
+    strips, K2's 64 unless its block (t's and v's strips, W wide, and the
+    ring) passes the card's 227 KB, then 32; the down launch 64 unless
+    that block's shared memory (its lo or s strip 2W wide, and the ring)
+    passes it, then 32 (which always fits up to LEVEL_MAX); no chunks for
+    0 planes."""
     H, W = hw
     one = TF.banded_mma_scratch_bytes(H, W, 1, level)
     assert one == 8 * H * W * (2 if level == "high" else 1)
     assert one < TF.banded_scratch_bytes(H, W, 1)
-    plan = TF.banded_mma_plan(H, W, nplanes, level, cap)
+    plan = TF.banded_mma_plan(H, W, nplanes, level, cap, bwd)
     assert [c.start for c in plan] == \
         list(np.cumsum([0] + [c.planes for c in plan])[:-1])
     assert sum(c.planes for c in plan) == nplanes
@@ -234,23 +283,35 @@ def test_banded_mma_plan(hw, level, nplanes, cap):
     for c in plan:
         assert c.planes * one <= cap or c.planes == 1
         up, down = c.tiles
-        assert up == TF.K1_UP_ROWS == 64
-        assert TF.banded_mma_smem_bytes(W, level, up, False) <= \
-            TF.SMEM_MAX_BYTES
+        strips = 2 if bwd else 1
+        assert TF.banded_mma_smem_bytes(W, level, up, False,
+                                        strips=strips) <= TF.SMEM_MAX_BYTES
+        if bwd:
+            big = TF.banded_mma_smem_bytes(W, level, 64, False, strips=2)
+            assert up == (64 if big <= TF.SMEM_MAX_BYTES else 32)
+        else:
+            assert up == TF.K1_UP_ROWS == 64
         assert TF.banded_mma_smem_bytes(W, level, down, True) <= \
             TF.SMEM_MAX_BYTES
         big = TF.banded_mma_smem_bytes(W, level, 64, True)
         assert down == (64 if big <= TF.SMEM_MAX_BYTES else 32)
-    assert TF.banded_mma_plan(H, W, 0, level, cap) == ()
+    assert TF.banded_mma_plan(H, W, 0, level, cap, bwd) == ()
 
 
 def test_banded_mma_strips_at_the_widest_plane():
     """At 512 px the down launch's lo strip (2W = 1024 wide) takes 32 rows
-    at 'high' and 64 at 'default'; every smaller side takes 64."""
+    at 'high' and 64 at 'default'; every smaller side takes 64. K2's up
+    launch holds two strips W wide: at 'high' 64 rows up to 272 px, 32
+    above; at 'default' 64 up to 512 px."""
     assert TF.banded_mma_down_rows(512, "high") == 32
     assert TF.banded_mma_down_rows(512, "default") == 64
     for w in (68, 96, 128, 200, 256):
         assert TF.banded_mma_down_rows(w, "high") == 64
+    for w, high in ((80, 64), (128, 64), (256, 64), (272, 64), (276, 32),
+                    (400, 32), (512, 32)):
+        assert TF.banded_mma_up_rows(w, "high", bwd=True) == high
+        assert TF.banded_mma_up_rows(w, "default", bwd=True) == 64
+        assert TF.banded_mma_up_rows(w, "high") == 64
 
 
 @pytest.mark.parametrize("hw", [(80, 80), (68, 92), (32, 128), (128, 32)])
@@ -321,6 +382,79 @@ def test_banded_level_scratch_holds_hi_pieces(level):
         assert torch.equal(pieces[i], piece.to(torch.bfloat16))
     torch.testing.assert_close(
         out, TF.filtered_act_banded_plain(x[None], "silu", level)[0],
+        atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("hw", [(80, 80), (68, 92), (32, 128), (128, 32)])
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_banded_level_bwd_chain_matches_pallas_spatial(rng, monkeypatch, hw,
+                                                       level):
+    """K2's level chain: five planes in chunks of two (a cap of two
+    planes' m pieces), through the chain's loop with a plain stand-in of
+    its two C entries, against the port's plain version at the level, and
+    against ``jax.vjp`` of the spatial Pallas kernel (``_bwd_spatial``) at
+    'high' in interpret mode (at 'default' the numpy emulation of its
+    chain); nothing launches."""
+    H, W = hw
+    monkeypatch.setattr(TF, "BANDED_HI_BYTES",
+                        TF.banded_mma_scratch_bytes(H, W, 2, level))
+    plan = TF.banded_mma_plan(H, W, 5, level, TF.BANDED_HI_BYTES, True)
+    assert [c.planes for c in plan] == [2, 2, 1]
+    x, g = rand(rng, (1, H, W, 5)), rand(rng, (1, H, W, 5))
+    before = dict(kernels.LAUNCHES)
+    got = nhwc(TF._banded_chain(
+        nchw(x).contiguous(), "silu",
+        functools.partial(_banded_mma_bwd_entry_plain, level=level),
+        nchw(g).contiguous(), level))
+    assert kernels.LAUNCHES == before
+    np.testing.assert_allclose(
+        got, nhwc(TF.filtered_act_banded_bwd_plain(nchw(x), nchw(g), "silu",
+                                                   level)),
+        atol=1e-6, rtol=1e-6)
+    _, exact = _jax_at("highest", x, g, "spatial")
+    if level == "high":
+        _, want = _jax_at("high", x, g, "spatial")
+    else:
+        want = np.transpose(np_backward(np.transpose(x, (0, 3, 1, 2)),
+                                        np.transpose(g, (0, 3, 1, 2)),
+                                        "default", "k2"), (0, 2, 3, 1))
+    assert_level_close(got, want, exact,
+                       max_err=float(np.abs(want - exact).max()))
+
+
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_banded_level_bwd_scratch_holds_m_pieces(level):
+    """K2's level stand-in writes only the chunk's m pieces into the bf16
+    scratch (4·H·W elements a plane and piece; the rest stays), each the
+    split of act′(t·U_wᵀ) ⊙ (v·D_w); t, v, pre and s take no scratch."""
+    H, W, P = 8, 12, 2
+    n = 2 if level == "high" else 1
+    gen = torch.Generator().manual_seed(0)
+    x, g = (torch.randn(P, H, W, generator=gen) for _ in range(2))
+    size = TF.banded_mma_scratch_bytes(H, W, P + 1, level) // 2
+    scratch = torch.full((size,), float("nan"), dtype=torch.bfloat16)
+    dx = torch.empty_like(x)
+    chunk = TF.BandedChunk(0, P, (64, 64))
+    _banded_mma_bwd_entry_plain(x, g, dx, scratch,
+                                TF._banded_mma_bwd_ops(H, W, "cpu"), chunk,
+                                "gelu", level)
+    used = n * 4 * H * W * P
+    assert torch.isfinite(scratch[:used].float()).all()
+    assert torch.isnan(scratch[used:].float()).all()
+    uh, uw = (torch.from_numpy(TF._upsample_op(s, 2)) for s in (H, W))
+    dh, dw = (torch.from_numpy(TF._downsample_op(2 * s, 2)) for s in (H, W))
+
+    def mm(a, b):
+        return level_matmul(a, b, level, exact_sums=True)
+
+    m = TF.act_grad(mm(mm(uh, x), uw.T), "gelu") * mm(
+        mm(dh.T, g), dw)
+    pieces = scratch[:used].view(n, P, 2 * H, 2 * W)
+    for i, piece in enumerate(_pieces(m, level)):
+        assert torch.equal(pieces[i], piece.to(torch.bfloat16))
+    torch.testing.assert_close(
+        dx, TF.filtered_act_banded_bwd_plain(x[None], g[None], "gelu",
+                                             level)[0],
         atol=1e-6, rtol=1e-6)
 
 

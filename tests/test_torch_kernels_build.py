@@ -240,13 +240,17 @@ def test_level_variants_on_the_mma_routine():
     fused (hi = act(t·U_wᵀ) in registers, t₂ = hi·D_wᵀ), so its layout
     (MmaPlaneLayout) holds no 2W × 2H buffer. K5b's four products, two of
     them fused (pre-activation and cotangent over one tile), run through
-    the warp tile on its own layout; K2 is six launches of the GEMM's bf16
-    variant. K1 is two launches of its own source, filtered_banded_mma.cu:
-    the up kernel's two products (t = U_h·x split into shared memory, then
-    hi = act(t·U_wᵀ) to the scratch as bf16 pieces) and the down kernel's
-    two (lo = D_h·hi into shared memory, then out = lo·D_wᵀ), the
-    operators and hi by cp.async, so no t and no lo reach device memory
-    and the GEMM is not used; no TF32 and no wgmma anywhere."""
+    the warp tile on its own layout. K1 is two launches of its own source,
+    filtered_banded_mma.cu: the up kernel's two products (t = U_h·x split
+    into shared memory, then hi = act(t·U_wᵀ) to the scratch as bf16
+    pieces) and the down kernel's two (lo = D_h·hi into shared memory, then
+    out = lo·D_wᵀ), the operators and hi by cp.async, so no t and no lo
+    reach device memory and the GEMM is not used. K2 is two launches of the
+    same source: the backward up kernel's four products (t = U_h·x and v =
+    D_hᵀ·g split into shared strips, then act′(t·U_wᵀ) ⊙ (v·D_w) to the
+    scratch as m's bf16 pieces) and K1's down kernel on m (s = U_hᵀ·m into
+    shared memory, then dx = s·U_w), so no t, v, pre or s reach device
+    memory and no f32 scratch is used; no TF32 and no wgmma anywhere."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
     assert '#include "filtered_mma.cuh"' in src
     k5 = _kernel_body(src, "filtered_act_plane_mma_kernel")
@@ -278,7 +282,7 @@ def test_level_variants_on_the_mma_routine():
     level = _kernel_body(k1_src, "banded_level")
     assert level.count("<<<") == 1 and level.count("down<PASSES,") == 2
     assert _kernel_body(k1_src, "down").count("<<<") == 1
-    assert k1_code.count("<<<") == 2 and k1_code.count("__global__") == 2
+    assert k1_code.count("<<<") == 3 and k1_code.count("__global__") == 3
     up = _kernel_body(k1_src, "banded_up_kernel")
     down = _kernel_body(k1_src, "banded_down_kernel")
     # each launch: a product with A's k-major slabs (the up launch's x
@@ -299,9 +303,32 @@ def test_level_variants_on_the_mma_routine():
     assert "store2(q" in down
     assert "add_two_sum(" in k1_code and "cp.async.cg.shared.global" in \
         k1_code
-    k2 = _kernel_body(src, "banded_bwd_bf16")
-    assert "<<<" not in k2 and k2.count("filtered_gemm_mma<") == 6
-    assert k2.count("MulActGrad{") == 1
+    # K2: two launches a chunk, the backward up launch and K1's down
+    # launch on U_h's and U_w's blobs, and no six-GEMM chain left
+    assert "banded_bwd_bf16(" not in re.sub(r"//[^\n]*", "", src)
+    bwd_level = _kernel_body(k1_src, "banded_bwd_level")
+    assert "<<<" not in bwd_level
+    assert bwd_level.count("bwd_up<PASSES,") == 2
+    assert bwd_level.count("down<PASSES,") == 2
+    assert "(ms, dx, uh, uw," in bwd_level
+    bwd_launch = _kernel_body(k1_src, "bwd_up")
+    assert bwd_launch.count("<<<") == 1 and "MulActGrad{act}" in bwd_launch
+    k2 = _kernel_body(k1_src, "banded_bwd_up_kernel")
+    # t's and v's strips: one product with A's k-major slabs, x and g split
+    # one slab ahead; then pre and ds, each with A from its strip
+    assert k2.count("k_loop<C, PASSES, true, true>(") == 1
+    assert k2.count("k_loop<C, PASSES, false, false>(") == 1
+    assert k2.count("across(ts") == 2
+    assert "raw_async<C::kThreads, T," in k2
+    assert "split_raw<C::kThreads, PASSES, T," in k2
+    # t and v go only into the shared strips; m to device memory, through a
+    # tile in the ring, once, as act′(pre) (in place of pre's sums) times ds
+    assert k2.count("store_pair<PASSES>(strip") == 1
+    assert k2.count("store_pair<PASSES>(tile") == 1
+    assert k2.count("mp + pc * lo") == 1 and "grad.grads(ag)" in k2
+    assert "m[k] = ag[k] * m[k]" in k2
+    for absent in ("float*", "filtered_gemm", "store2(", "op + "):
+        assert absent not in k2, absent
     mma = re.sub(r"//[^\n]*", "", (kernels.CSRC / "filtered_mma.cuh")
                  .read_text())
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
@@ -411,11 +438,18 @@ def test_bf16_forward_walks_k_once():
 
 
 def test_every_level_variant_has_launch_counts():
-    """One counter per kernel and reduced level, beside the f32 kernel's."""
+    """One counter per kernel and reduced level, beside the f32 kernel's,
+    and an entry of its own for each in the sources: K5's, K5b's and the
+    GEMM's in filtered_act.cu, K1's and K2's in filtered_banded_mma.cu."""
+    entries = {src: _entry_points((kernels.CSRC / f"{src}.cu").read_text())
+               for src in ("filtered_act", "filtered_banded_mma")}
     for k in kernels.LEVEL_KERNELS:
         assert k in kernels.LAUNCHES
         for level in ("high", "default"):
             assert f"{k}:{level}" in kernels.LAUNCHES
+        src = ("filtered_banded_mma" if k.startswith("filtered_act_banded")
+               else "filtered_act")
+        assert f"{k}_bf16" in entries[src], k
 
 
 def test_filtered_tile_edit_rebuilds_filtered_act(tmp_path, monkeypatch):
@@ -484,7 +518,7 @@ def test_chip_smoke_logs_k1_level_plan_and_floor(level):
         assert f"up {-(-2 * h // 64)} strips of 64 rows" in line
     assert smoke.level_launch_plan(
         "filtered_act_banded_bwd", (4, 128, 128, 128), level).startswith(
-            "; plan 1 chunks, tiles (")
+            "; plan 1 chunks of <= 512 planes, up 4 strips of 64 rows")
     square = (2, 3, 96, 96)
     assert smoke.twosum_floor_ms(square, "filtered_act_banded") == \
         smoke.twosum_floor_ms(square)
@@ -494,6 +528,42 @@ def test_chip_smoke_logs_k1_level_plan_and_floor(level):
     floor = sum(smoke.twosum_floor_ms(s, "filtered_act_banded")
                 for s in smoke.KERNELS["filtered_act_banded"]["shapes"][:5])
     assert 5.4 < floor < 5.5
+
+
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_chip_smoke_logs_k2_level_plan_and_floor(level):
+    """Phase 30's K2 lines: the fused chain's plan (chunks, planes a
+    chunk, the up launch's strips of the 2H side and the down launch's of
+    the H side with each block's shared bytes, the m pieces' scratch and
+    its cap) at each KERNELS shape up to LEVEL_MAX, and K2:high's TwoSum
+    floor over its six products, 18·S³ multiply-adds a square plane, which
+    is 1.5 times K1:high's 12·S³."""
+    smoke = _chip_smoke()
+    for shape in smoke.KERNELS["filtered_act_banded_bwd"]["shapes"]:
+        n, c, h, w = shape
+        if max(h, w) > TF.LEVEL_MAX:
+            continue
+        plan = TF.banded_mma_plan(h, w, n * c, level, TF.BANDED_HI_BYTES,
+                                  True)
+        per = max(ch.planes for ch in plan)
+        up, down = plan[0].tiles
+        line = smoke.level_launch_plan("filtered_act_banded_bwd", shape,
+                                       level)
+        assert line.startswith(f"; plan {len(plan)} chunks of <= {per} ")
+        assert f"up {-(-2 * h // up)} strips of {up} rows a plane (" \
+            f"{TF.banded_mma_smem_bytes(w, level, up, False, strips=2)} B)" \
+            in line
+        assert f"down {-(-h // down)} of {down} (" \
+            f"{TF.banded_mma_smem_bytes(w, level, down, True)} B)" in line
+        assert f"m scratch {TF.banded_mma_scratch_bytes(h, w, per, level)}" \
+            in line and f"(cap {TF.BANDED_HI_BYTES} B)" in line
+    for shape in ((2, 3, 96, 96), (1, 2, 128, 128)):
+        k1 = smoke.twosum_floor_ms(shape, "filtered_act_banded")
+        k2 = smoke.twosum_floor_ms(shape, "filtered_act_banded_bwd")
+        assert abs(k2 / k1 - 1.5) < 1e-12
+    mixed = (1, 64, 32, 128)
+    assert smoke.twosum_floor_ms(mixed, "filtered_act_banded_bwd") != \
+        1.5 * smoke.twosum_floor_ms(mixed, "filtered_act_banded")
 
 
 def test_chip_smoke_names_each_kernels_registers():
@@ -550,6 +620,10 @@ def test_filtered_act_bounds_count_the_cheaper_order(hw):
      "const*, float const*, float const*, float const*, int, int, int, int, "
      "int, int)", "port kernels"),
     ("void flash_fwd_kernel<64>(FlashArgs)", "port kernels"),
+    ("void (anonymous namespace)::banded_bwd_up_kernel<3, 64, float>(float "
+     "const*, float const*, __nv_bfloat16*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, int, "
+     "int, long long, afldm_filtered::MulActGrad)", "port kernels"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_nt_n_tilesize64x64x8_stage3",
      "GEMM"),
     ("sm80_xmma_gemm_cf32cf32_f32f32_cf32_nt_n_tilesize32x64x8",
@@ -566,8 +640,8 @@ def test_profile_groups_kernel_names(name, group):
 BF16_BWD_ENTRIES = {
     "filtered_act": ("filtered_act_plane_bwd_f32_xbf16",
                      "filtered_act_plane_bwd_bf16_xbf16",
-                     "filtered_act_banded_bwd_f32_xbf16",
-                     "filtered_act_banded_bwd_bf16_xbf16"),
+                     "filtered_act_banded_bwd_f32_xbf16"),
+    "filtered_banded_mma": ("filtered_act_banded_bwd_bf16_xbf16",),
     "flash_bwd": ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}
 
 
@@ -586,7 +660,7 @@ def test_bf16_backward_entries_match_their_twins(source, name):
     assert sigs[name] == sigs[twin] and len(sigs[name]) == entries[name]
     base = name.split("_f32")[0].split("_bf16")[0]
     assert f"{base}/bf16" in kernels.LAUNCHES
-    if source == "filtered_act":
+    if source != "flash_bwd":
         for level in ("high", "default"):
             assert f"{base}:{level}/bf16" in kernels.LAUNCHES
 

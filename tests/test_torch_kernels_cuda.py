@@ -1230,6 +1230,112 @@ def test_banded_level_applies_up_to_512_px(cuda, level):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 3, 32, 128), (1, 1, 200, 104), (1, 1, 128, 32),
+    # the up launch in 32-row strips at 'high' (t's and v's strips 512
+    # wide), the down launch too (its s strip 1024 wide)
+    (1, 1, 512, 512),
+    # 2H and H not multiples of the strips (64), plane counts that fill
+    # no wave of blocks
+    (1, 7, 68, 92), (1, 133, 80, 80), (1, 1, 100, 100)])
+def test_banded_level_bwd_fused_chain(cuda, level, shape):
+    """K2's level chain, two launches a chunk (t, v, pre and s on chip,
+    m's split pieces in the scratch), against the plain version at the
+    level."""
+    gen = _seeded(cuda, (level, shape, "bwd_fused"))
+    x, g = (torch.randn(shape, device=cuda, generator=gen) for _ in range(2))
+    got = _launches(f"filtered_act_banded_bwd:{level}",
+                    lambda: TF.filtered_act_banded_bwd(x, g, "silu"))
+    assert_level_close(
+        got, TF.filtered_act_banded_bwd_plain(x, g, "silu", level),
+        TF.filtered_act_banded_bwd_plain(x, g, "silu", "highest"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side, planes, cap_planes", [
+    (96, 5, 2), (128, 9, 4), (200, 3, 1)])
+def test_banded_level_bwd_crosses_chunks(cuda, monkeypatch, level, side,
+                                         planes, cap_planes):
+    """Under a cap of a few planes' m pieces K2's level chain runs several
+    chunks on one scratch: each plane's result is the one-chunk run's, bit
+    for bit, and the plain version's at the level."""
+    gen = _seeded(cuda, (level, side, planes, "bwd_chunks"))
+    x, g = (torch.randn(1, planes, side, side, device=cuda, generator=gen)
+            for _ in range(2))
+    whole = _launches(f"filtered_act_banded_bwd:{level}",
+                      lambda: TF.filtered_act_banded_bwd(x, g, "gelu"))
+    monkeypatch.setattr(TF, "BANDED_HI_BYTES",
+                        TF.banded_mma_scratch_bytes(side, side, cap_planes,
+                                                    level))
+    assert len(TF.banded_mma_plan(side, side, planes, level,
+                                  TF.BANDED_HI_BYTES, True)) > 1
+    got = _launches(f"filtered_act_banded_bwd:{level}",
+                    lambda: TF.filtered_act_banded_bwd(x, g, "gelu"))
+    assert torch.equal(got, whole)
+    assert_level_close(
+        got, TF.filtered_act_banded_bwd_plain(x, g, "gelu", level),
+        TF.filtered_act_banded_bwd_plain(x, g, "gelu", "highest"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 96, 96), (1, 3, 32, 128),
+                                   (1, 1, 200, 104), (1, 1, 512, 512)])
+def test_banded_level_bwd_bf16_rounds_the_f32_chain(cuda, level, shape):
+    """K2's level chain on a bf16 x and g (staged raw by 8-byte copies,
+    widened as they are split; lo pieces zero) is the f32 chain on the
+    widened inputs, dx rounded once to bf16, bit for bit."""
+    gen = _seeded(cuda, (level, shape, "bwd_bf16"))
+    x, g = (torch.randn(shape, device=cuda, generator=gen).to(BF)
+            for _ in range(2))
+    got = _launches(f"filtered_act_banded_bwd:{level}/bf16",
+                    lambda: TF.filtered_act_banded_bwd(x, g, "silu"))
+    wide = _launches(f"filtered_act_banded_bwd:{level}",
+                     lambda: TF.filtered_act_banded_bwd(x.float(), g.float(),
+                                                        "silu"))
+    assert got.dtype == BF and torch.equal(got, wide.to(BF))
+
+
+def _six_gemm_chain(x, g, act, level):
+    """K2 at ``level`` as the six launches of the GEMM's bf16 variant that
+    it replaced, in _bwd_spatial's order: t = U_h·x, pre = t·U_wᵀ, v =
+    D_hᵀ·g, m = act′(pre) ⊙ (v·D_w) (the epilogue that reads C), s =
+    U_hᵀ·m, dx = s·U_w; f32 intermediates, U_h, D_hᵀ and U_hᵀ from their
+    k-major forms."""
+    N, C, H, W = x.shape
+    P = N * C
+    uh, uwT, dh, _ = TF._kernel_ops(H, W, x.device)
+    _, dw, uw, uhT = TF._kernel_bwd_ops(H, W, x.device)
+
+    def gemm(a, b, kmajor=False, **kw):
+        return TF.filtered_gemm(a, b, a_kmajor=kmajor, level=level, **kw)
+
+    t = gemm(uhT[None].expand(P, -1, -1), x.reshape(P, H, W), True)
+    pre = gemm(t.view(1, P * 2 * H, W), uwT[None])
+    v = gemm(dh[None].expand(P, -1, -1), g.reshape(P, H, W), True)
+    m = gemm(v.view(1, P * 2 * H, W), dw[None], act=act, grad_at=pre)
+    s = gemm(uh[None].expand(P, -1, -1), m.view(P, 2 * H, 2 * W), True)
+    return gemm(s.view(1, P * H, 2 * W), uw[None]).view(N, C, H, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 80, 80), (1, 3, 32, 128),
+                                   (1, 7, 68, 92), (1, 1, 200, 104),
+                                   (1, 1, 512, 512)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_banded_level_bwd_is_the_six_gemm_chain(cuda, level, shape, act):
+    """The two fused launches sum every element as the six launches of
+    ``filtered_gemm``'s bf16 variant they replaced (16-deep steps in
+    ascending k, TwoSum at 'high', the small passes ah·bl then al·bh;
+    each intermediate split as that chain splits it on load): dx equal
+    bit for bit."""
+    gen = _seeded(cuda, (level, shape, act, "six_gemm"))
+    x, g = (torch.randn(shape, device=cuda, generator=gen) for _ in range(2))
+    got = _launches(f"filtered_act_banded_bwd:{level}",
+                    lambda: TF.filtered_act_banded_bwd(x, g, act))
+    assert torch.equal(got, _six_gemm_chain(x, g, act, level))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", GEMM_SHAPES)
 @pytest.mark.parametrize("a_kmajor", [False, True])
 @pytest.mark.parametrize("small", [False, True])
