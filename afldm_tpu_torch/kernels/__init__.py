@@ -22,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("filtered_act", "filtered_banded_mma", "flash_fwd", "flash_bwd",
-           "flash2_fwd", "flash_probe")
+SOURCES = ("filtered_act", "filtered_plane_mma", "filtered_banded_mma",
+           "flash_fwd", "flash_bwd", "flash2_fwd", "flash_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -79,32 +79,36 @@ _SIGNATURES = {
         # x, g, dx, scratch, uwT, uhT, dw, dh, uw, uh, nplanes (of the
         # chunk), H, W, tile codes, act, stream
         "filtered_act_banded_bwd_f32": [*[_P] * 10, _I, _I, _I, _I, _I, _P],
-        # the reduced levels' bf16 variants, ``passes`` 3 or 1 before act:
-        # x, out, the split blobs of U_hᵀ, U_wᵀ, D_wᵀ, D_hᵀ, nplanes, H, W,
-        # planes an iteration, grid, passes, act, stream
-        "filtered_act_plane_bf16": [*[_P] * 6, *[_I] * 7, _P],
-        # x, g, dx, the split blobs of U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h,
-        # nplanes, H, W, planes_per_block, passes, act, stream
-        "filtered_act_plane_bwd_bf16": [*[_P] * 9, _I, _I, _I, _I, _I, _I,
-                                        _P],
-        # as filtered_gemm_f32, with passes after small
+        # the GEMM's bf16 variant: as filtered_gemm_f32, with passes after
+        # small
         "filtered_gemm_bf16": [_P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P],
-        # bfloat16 x and out (``_xbf16``) beside the f32 kernel and the
-        # reduced levels' products (``_f32``, ``_bf16``): the same arguments
+        # bfloat16 x and out (``_xbf16``) beside the f32 kernels: the same
+        # arguments
         "filtered_act_plane_f32_xbf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _I, _I, _P],
-        "filtered_act_plane_bf16_xbf16": [*[_P] * 6, *[_I] * 7, _P],
         "filtered_act_banded_f32_xbf16": [*[_P] * 7, _I, _I, _I, _I, _I,
                                           _P],
         # bfloat16 x, g and dx beside the backward kernels: the same
         # arguments
         "filtered_act_plane_bwd_f32_xbf16": [*[_P] * 9, _I, _I, _I, _I, _I,
                                              _I, _I, _P],
-        "filtered_act_plane_bwd_bf16_xbf16": [*[_P] * 9, _I, _I, _I, _I, _I,
-                                              _I, _P],
         "filtered_act_banded_bwd_f32_xbf16": [*[_P] * 10, _I, _I, _I, _I, _I,
                                               _P],
+    },
+    "filtered_plane_mma": {
+        # K5 at a reduced level, ``passes`` 3 or 1 before act: x, out, the
+        # split blobs of U_hᵀ, U_wᵀ, D_wᵀ, D_hᵀ, nplanes, H, W, planes an
+        # iteration, grid, passes, act, stream
+        "filtered_act_plane_bf16": [*[_P] * 6, *[_I] * 7, _P],
+        # K5b at a reduced level: x, g, dx, the split blobs of U_hᵀ, D_h,
+        # U_wᵀ, D_w, U_w, U_h, nplanes, H, W, planes an iteration, grid,
+        # resident (1: the operators staged once; 0: before each phase),
+        # passes, act, stream
+        "filtered_act_plane_bwd_bf16": [*[_P] * 9, *[_I] * 8, _P],
+        # bfloat16 x and out (K5), x, g and dx (K5b): the same arguments
+        "filtered_act_plane_bf16_xbf16": [*[_P] * 6, *[_I] * 7, _P],
+        "filtered_act_plane_bwd_bf16_xbf16": [*[_P] * 9, *[_I] * 8, _P],
     },
     "filtered_banded_mma": {
         # K1 at a reduced level: x, out, scratch (hi's bf16 pieces), the

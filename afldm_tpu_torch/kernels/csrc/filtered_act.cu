@@ -108,59 +108,31 @@
 //
 // The reduced precision levels ("high": 3 bf16 passes a product,
 // "default": 1; filtered_mma.cuh) run the same four functions on bf16
-// tensor cores, each in its TPU kernel's product order, which at these
-// levels decides which intermediates are split:
-//   * K5 (filtered_act_plane_bf16), _forward's order: U_h then U_w up, D_w
-//     then D_h down, the order of the f32 kernel above. Every operand is
-//     split into bf16 pieces (hi and lo at 'high', hi alone at 'default'):
-//     the operators once on the host (blobs already padded to the kernel's
-//     layout, MmaPlaneLayout), x as it is staged, and each product's f32
-//     result from the registers. Persistent blocks (at most the blocks an
-//     SM holds × the SMs) stage the operators once and keep them (staged
-//     for each plane they would be 143 KB read from L2 for a 64 px plane
-//     whose x and out are 32 KB), the next group of planes' x in flight by
-//     cp.async during the current group's products; t = U_h·x row-major,
-//     and the middle pair hi = act(t·U_wᵀ), t₂ = hi·D_wᵀ fused per 16-row
-//     strip of the 2H side, hi never leaving the registers
-//     (filtered_mma.cuh::middle_pair), t₂ over t, so no 2W × 2H buffer
-//     takes shared memory. At 'default' the block is half the size, two
-//     an SM. Each element's sums are taken in the order of a 16×16 tile
-//     walk (filtered_mma.cuh::warp_tile). P planes an iteration and the
-//     grid come from ops/filtered_act.py::plane_mma_plan.
-//   * K5b (filtered_act_plane_bwd_bf16), _bwd_rule's order: pre and the
-//     cotangent D_hᵀ·g·D_w H side first, dx W side first, as the f32
-//     kernel. The pre-activation is needed only as act′(pre): its product
-//     and the cotangent's second product have one shape, so one warp
-//     computes both over the same tile (mma_product2) and splits act′(pre)
-//     ⊙ cotangent into mᵀ from registers; pre is never stored.
-//   * K1's and K2's level variants (filtered_act_banded_bf16 and
-//     filtered_act_banded_bwd_bf16, _forward_spatial's and _bwd_spatial's
-//     order: H side first in every filter pair, where the f32 chains take
-//     W first) are two fused launches a chunk each, in their own source,
-//     filtered_banded_mma.cu. The GEMM's bf16 variant (filtered_gemm.cuh,
-//     filtered_gemm_bf16 below) stays as their products' yardstick: its
-//     chain gives their results bit for bit.
-// Making them faster (wgmma, TMA) is later work.
+// tensor cores, each in its TPU kernel's product order, in sources of
+// their own: K5's and K5b's (filtered_act_plane_bf16,
+// filtered_act_plane_bwd_bf16) as persistent walks of strips in
+// filtered_plane_mma.cu, K1's and K2's (filtered_act_banded_bf16,
+// filtered_act_banded_bwd_bf16) as two fused launches a chunk in
+// filtered_banded_mma.cu. The GEMM's bf16 variant (filtered_gemm.cuh,
+// filtered_gemm_bf16 below) stays as their products' yardstick: its chain
+// gives K1's and K2's results bit for bit.
 //
 // bfloat16 activations (the ``_xbf16`` entries): the forward kernels K5 and
-// K1 at every level take a bf16 x and write a bf16 out, which is what the
-// TPU kernels do for a bf16 x (cast to f32 inside, the products at the
-// level, the result cast to x's dtype): out = bf16(f(f32(x))). Only the
-// edges change. K5 widens x as it stages it (8-byte loads of 4 elements,
-// plain loads and stores in place of the f32 kernel's cp.async, which
-// cannot convert; at the reduced levels stage_split splits the widened
-// values, whose lo pieces are zero) and its last product rounds each sum
-// to bf16 in the epilogue; in K1 the chain's first product reads x as bf16
-// and its last writes out as bf16, the scratch intermediates unchanged.
-// Device memory sees half the bytes of x and out; the products are the
-// same. The backward kernels K5b and K2 take a bf16 x and g and write a
-// bf16 dx the same way at every level (the JAX _bwd_rule and _bwd_spatial
-// cast x and g to f32 inside and write x's dtype): dx = bf16(vjp(f32(x),
-// f32(g))). K5b widens x and g as it stages them (stage_split at the
-// reduced levels) and rounds dx in its last product's epilogue; the f32
-// K2's first and third GEMMs read x and g as bf16 and its last writes dx
-// as bf16, the scratch intermediates f32 (K1's and K2's level variants
-// stage x and g raw: filtered_banded_mma.cu).
+// K1 take a bf16 x and write a bf16 out, which is what the TPU kernels do
+// for a bf16 x (cast to f32 inside, the products, the result cast to x's
+// dtype): out = bf16(f(f32(x))). Only the edges change. K5 widens x as it
+// stages it (8-byte loads of 4 elements, plain loads and stores in place
+// of the f32 kernel's cp.async, which cannot convert) and its last product
+// rounds each sum to bf16 in the epilogue; in K1 the chain's first product
+// reads x as bf16 and its last writes out as bf16, the scratch
+// intermediates unchanged. Device memory sees half the bytes of x and out;
+// the products are the same. The backward kernels K5b and K2 take a bf16 x
+// and g and write a bf16 dx the same way (the JAX _bwd_rule and
+// _bwd_spatial cast x and g to f32 inside and write x's dtype): dx =
+// bf16(vjp(f32(x), f32(g))). K5b widens x and g as it stages them and
+// rounds dx in its last product's epilogue; K2's first and third GEMMs
+// read x and g as bf16 and its last writes dx as bf16, the scratch
+// intermediates f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,7 +147,6 @@
 
 namespace {
 
-using afldm_filtered::act_grad;
 using afldm_filtered::Activation;
 using afldm_filtered::Identity;
 using afldm_filtered::MulActGrad;
@@ -376,302 +347,6 @@ filtered_act_plane_bwd_kernel(const T* __restrict__ x,
           W, HW, P, H, W, 2 * H, Identity{});
 }
 
-// -- the reduced precision levels on bf16 tensor cores ---------------------
-
-// Shared memory of a K5b bf16 block, in bf16 elements: two operator
-// buffers, each the largest operator's split blob; then for each of the P
-// planes a big buffer (mᵀ, x and g staged in it), a small one (tᵀ and then
-// s) and uᵀ.
-struct MmaPlaneBwdLayout {
-  int op, big, small, small2;
-  __host__ __device__ MmaPlaneBwdLayout(int H, int W) {
-    using afldm_filtered::mma_buf;
-    const int a = mma_buf(H, 2 * H), b = mma_buf(W, 2 * W);
-    const int c = mma_buf(2 * W, W), d = mma_buf(2 * H, H);
-    op = imax(imax(a, b), imax(c, d));
-    big = imax(mma_buf(2 * W, 2 * H), 2 * mma_buf(H, W));
-    small = imax(mma_buf(W, 2 * H), mma_buf(2 * H, W));
-    small2 = mma_buf(W, 2 * H);
-  }
-  __host__ __device__ static int imax(int a, int b) { return a > b ? a : b; }
-  __host__ __device__ size_t bytes(int ppb) const {
-    return 2 * (2 * (size_t)op + (size_t)ppb * (big + small + small2));
-  }
-};
-
-// Shared memory of a K5 bf16 block, in bf16 elements: the pieces of the
-// four operators, resident for the block's whole walk; then for each of
-// the P planes of an iteration x's pieces and t's (t₂ written over t), and
-// the next iteration's P planes of x as they arrive (T, ``x_bytes`` an
-// element). Each operand holds hi and lo pieces at 3 passes, hi alone at
-// 1. No 2W × 2H buffer: hi lives in registers (middle_pair).
-struct MmaPlaneLayout {
-  int uh, uw, dw, dh, x, t, raw;
-  __host__ __device__ MmaPlaneLayout(int H, int W, int passes, int x_bytes) {
-    using afldm_filtered::mma_piece;
-    const int pieces = passes == 3 ? 2 : 1;
-    uh = pieces * mma_piece(H, 2 * H);
-    uw = pieces * mma_piece(W, 2 * W);
-    dw = pieces * mma_piece(2 * W, W);
-    dh = pieces * mma_piece(2 * H, H);
-    x = pieces * mma_piece(H, W);
-    t = pieces * mma_piece(2 * H, W);
-    raw = H * W * x_bytes / 2;
-  }
-  __host__ __device__ size_t bytes(int planes) const {
-    return 2 * ((size_t)uh + uw + dw + dh + (size_t)planes * (x + t + raw));
-  }
-};
-
-// cp.async of an operator's split blob (n bf16, a multiple of 8)
-__device__ __forceinline__ void stage_blob(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int n) {
-  afldm_filtered::stage(reinterpret_cast<float*>(dst),
-                        reinterpret_cast<const float*>(src), n / 8);
-}
-
-// A product's result, epi applied, split into the pieces of the next
-// product's operand (every row and column of the padded tile: the padding
-// computes to zero).
-template <class Epi>
-struct ToPieces {
-  afldm_filtered::Piece d;
-  Epi epi;
-  __device__ __forceinline__ void operator()(int p, int r0, int c0,
-                                             const float (&acc)[2][4],
-                                             int lane) const {
-    afldm_filtered::for_pairs(
-        r0, c0, acc, lane, [&](int r, int c, float v0, float v1) {
-          unsigned h, l;
-          afldm_filtered::split2(epi(v0), epi(v1), h, l);
-          __nv_bfloat16* q = d.hi + p * d.ps + r * d.ld + c;
-          *reinterpret_cast<unsigned*>(q) = h;
-          *reinterpret_cast<unsigned*>(q + d.lo) = l;
-        });
-  }
-};
-
-// A product's result to device memory: rows < R and columns < C of P
-// row-major R × C planes ``ps`` elements apart, f32 or bf16 (rounded to
-// nearest even).
-template <class T>
-struct ToPlanes {
-  T* out;
-  int R, C;
-  long long ps;
-  __device__ __forceinline__ void operator()(int p, int r0, int c0,
-                                             const float (&acc)[2][4],
-                                             int lane) const {
-    afldm_filtered::for_pairs(
-        r0, c0, acc, lane, [&](int r, int c, float v0, float v1) {
-          if (r >= R || c >= C) return;
-          if constexpr (std::is_same<T, float>::value)
-            *reinterpret_cast<float2*>(out + p * ps + (long long)r * C + c) =
-                make_float2(v0, v1);
-          else
-            afldm_filtered::store2(out + p * ps + (long long)r * C + c, v0,
-                                   v1);
-        });
-  }
-};
-
-// act′(pre) ⊙ the cotangent, split into mᵀ's pieces: K5b's fused product
-struct MulActGradToPieces {
-  afldm_filtered::Piece d;
-  int act;
-  __device__ __forceinline__ void operator()(int p, int r0, int c0,
-                                             const float (&pre)[2][4],
-                                             const float (&v)[2][4],
-                                             int lane) const {
-    float m[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) m[j][e] = act_grad(pre[j][e], act) * v[j][e];
-    ToPieces<Identity>{d, Identity{}}(p, r0, c0, m, lane);
-  }
-};
-
-// The planes [p0, p0 + P) of x (T) in flight to ``raw`` by 16-byte
-// cp.async (a bf16 plane copied as it is, widened when it is split); the
-// caller commits the group.
-template <class T>
-__device__ __forceinline__ void stage_planes(T* raw, const T* x,
-                                             long long p0, int P,
-                                             long long HW) {
-  afldm_filtered::stage(reinterpret_cast<float*>(raw),
-                        reinterpret_cast<const float*>(x + p0 * HW),
-                        (int)(P * HW * (long long)sizeof(T) / 16));
-}
-
-// out = D_h · act(U_h · x · U_wᵀ) · D_wᵀ at PASSES bf16 passes a product, a
-// persistent block walking groups of ``ppi`` planes
-// (blockIdx.x, + gridDim.x, ...), in _forward's order:
-//   t   = U_h · x            (2H × W)   strip_product
-//   hi  = act(t · U_wᵀ)      (2H × 2W)  middle_pair, in registers
-//   t₂  = hi · D_wᵀ          (2H × W)   middle_pair, over t
-//   out = D_h · t₂           (H × W)    strip_product, to device memory
-// NW = pad16(W) / 16. The operators' pieces are staged once and stay; the
-// next group's x arrives by cp.async while the current group's products
-// run. Operators: the split blobs of U_hᵀ (H×2H), U_wᵀ (W×2W), D_wᵀ
-// (2W×W), D_hᵀ (2H×H), each (hi, lo) × pad16(rows) × mma_ld(cols), of
-// which 1 pass stages the hi half. 1 pass runs two blocks of 256 threads
-// an SM (registers held to 128 a thread). 3 passes run one block an SM,
-// as many threads as the strips' registers allow (ptxas: no spill): 256
-// where W > 32 (up to 255 registers a thread; at 64 px the block also
-// fills shared memory), 384 where W > 16 (168), else 512 (128).
-constexpr int mma_plane_threads(int passes, int nw) {
-  return passes == 1 || nw > 2 ? 256 : nw == 2 ? 384 : 512;
-}
-template <int PASSES, int NW, class T>
-__global__ void __launch_bounds__(mma_plane_threads(PASSES, NW),
-                                  PASSES == 1 ? 2 : 1)
-filtered_act_plane_mma_kernel(const T* __restrict__ x, T* __restrict__ out,
-                              const __nv_bfloat16* __restrict__ uhT,
-                              const __nv_bfloat16* __restrict__ uwT,
-                              const __nv_bfloat16* __restrict__ dwT,
-                              const __nv_bfloat16* __restrict__ dhT,
-                              int nplanes, int H, int W, int ppi, int act) {
-  using namespace afldm_filtered;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  const long long HW = (long long)H * W;
-  const long long groups = (nplanes + ppi - 1) / ppi;
-  const MmaPlaneLayout lay(H, W, PASSES, sizeof(T));
-  __nv_bfloat16* uh = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* uw = uh + lay.uh;
-  __nv_bfloat16* dw = uw + lay.uw;
-  __nv_bfloat16* dh = dw + lay.dw;
-  __nv_bfloat16* xs = dh + lay.dh;   // ppi × x's pieces
-  __nv_bfloat16* ts = xs + ppi * lay.x;  // ppi × t's, then t₂'s
-  T* raw = reinterpret_cast<T*>(ts + ppi * lay.t);  // ppi × x, arriving
-  const Piece xp = piece(xs, H, W, lay.x), tp = piece(ts, 2 * H, W, lay.t);
-  stage_blob(uh, uhT, lay.uh);
-  stage_blob(uw, uwT, lay.uw);
-  stage_blob(dw, dwT, lay.dw);
-  stage_blob(dh, dhT, lay.dh);
-  long long g = blockIdx.x;
-  if (g < groups)
-    stage_planes(raw, x, g * ppi, (int)min((long long)ppi, nplanes - g * ppi),
-                 HW);
-  cp_async_commit();
-  for (; g < groups; g += gridDim.x) {
-    const long long p0 = g * ppi;
-    const int P = (int)min((long long)ppi, nplanes - p0);
-    cp_async_wait<0>();
-    __syncthreads();  // x arrived; the last group's products are done
-    split_planes<PASSES>(raw, P, H, W, xp);
-    __syncthreads();
-    const long long next = g + gridDim.x;
-    if (next < groups)  // in flight during this group's products
-      stage_planes(raw, x, next * ppi,
-                   (int)min((long long)ppi, nplanes - next * ppi), HW);
-    cp_async_commit();
-    // t = U_h · x                             (2H × W)
-    strip_product<PASSES, true, NW>(
-        piece(uh, H, 2 * H, 0), xp, P, pad16(2 * H), pad16(H),
-        [&](int p, int r0, int c0, const auto& acc, int lane) {
-          store_strip<PASSES>(tp, p, r0, c0, acc, lane);
-        });
-    __syncthreads();
-    // t₂ = act(t · U_wᵀ) · D_wᵀ              (2H × W); over t
-    // t's fragments held across the chunks but where the 16 registers
-    // they take spill (ptxas): 1 pass 64 px wide, 3 passes 32 px wide
-    middle_pair<PASSES, NW, PASSES == 3 ? NW != 2 : NW != 4>(
-        piece(uw, W, 2 * W, 0), piece(dw, 2 * W, W, 0), tp, P, pad16(2 * H),
-        pad16(2 * W), Activation{act});
-    __syncthreads();
-    // out = D_h · t₂                          (H × W), to device memory
-    T* o = out + p0 * HW;
-    strip_product<PASSES, false, NW>(
-        piece(dh, 2 * H, H, 0), tp, P, pad16(H), pad16(2 * H),
-        [&](int p, int r0, int c0, const auto& acc, int lane) {
-          constexpr int NB = sizeof(acc) / sizeof(acc[0]);
-#pragma unroll
-          for (int n = 0; n < NB; ++n)
-            ToPlanes<T>{o, H, W, HW}(p, r0, c0 + 16 * n, acc[n], lane);
-        });
-  }
-}
-
-// dx = U_hᵀ · [act′(U_h · x · U_wᵀ) ⊙ (D_hᵀ · g · D_w)] · U_w at PASSES
-// bf16 passes a product, P planes a block of 256 threads, in _bwd_rule's
-// order. Operators: the split blobs of U_hᵀ (H×2H), D_h (H×2H), U_wᵀ
-// (W×2W), D_w (W×2W), U_w (2W×W), U_h (2H×H).
-template <int PASSES, class T>
-__global__ void __launch_bounds__(256)
-filtered_act_plane_bwd_mma_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ g,
-                                  T* __restrict__ dx,
-                                  const __nv_bfloat16* __restrict__ uhT,
-                                  const __nv_bfloat16* __restrict__ dh,
-                                  const __nv_bfloat16* __restrict__ uwT,
-                                  const __nv_bfloat16* __restrict__ dw,
-                                  const __nv_bfloat16* __restrict__ uw,
-                                  const __nv_bfloat16* __restrict__ uh,
-                                  int nplanes, int H, int W, int ppb,
-                                  int act) {
-  using namespace afldm_filtered;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  const int HW = H * W;
-  const long long p0 = (long long)blockIdx.x * ppb;
-  const int P = (int)min((long long)ppb, nplanes - p0);
-  const MmaPlaneBwdLayout lay(H, W);
-  __nv_bfloat16* op0 = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* op1 = op0 + lay.op;
-  __nv_bfloat16* big = op1 + lay.op;             // P × mᵀ; x, g staged first
-  __nv_bfloat16* small = big + ppb * lay.big;    // P × tᵀ, then s
-  __nv_bfloat16* small2 = small + ppb * lay.small;  // P × uᵀ
-  __nv_bfloat16* gs = big + mma_buf(H, W);
-  stage_blob(op0, uhT, mma_buf(H, 2 * H));
-  stage_blob(op1, dh, mma_buf(H, 2 * H));
-  cp_async_commit();
-  stage_split(x + p0 * HW, HW, P, H, W, piece(big, H, W, lay.big));
-  stage_split(g + p0 * HW, HW, P, H, W, piece(gs, H, W, lay.big));
-  cp_async_wait<0>();
-  __syncthreads();
-  // tᵀ = xᵀ · U_hᵀ = (U_h · x)ᵀ             (W × 2H)
-  mma_product<PASSES>(piece(big, H, W, lay.big), piece(op0, H, 2 * H, 0), P,
-                      pad16(W), pad16(2 * H), pad16(H),
-                      ToPieces<Identity>{piece(small, W, 2 * H, lay.small),
-                                         Identity{}});
-  // uᵀ = gᵀ · D_h = (D_hᵀ · g)ᵀ             (W × 2H)
-  mma_product<PASSES>(piece(gs, H, W, lay.big), piece(op1, H, 2 * H, 0), P,
-                      pad16(W), pad16(2 * H), pad16(H),
-                      ToPieces<Identity>{piece(small2, W, 2 * H, lay.small2),
-                                         Identity{}});
-  __syncthreads();
-  stage_blob(op0, uwT, mma_buf(W, 2 * W));
-  stage_blob(op1, dw, mma_buf(W, 2 * W));
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // mᵀ = act′(U_w · tᵀ) ⊙ (D_wᵀ · uᵀ)       (2W × 2H); over x and g
-  mma_product2<PASSES>(piece(op0, W, 2 * W, 0),
-                       piece(small, W, 2 * H, lay.small),
-                       piece(op1, W, 2 * W, 0),
-                       piece(small2, W, 2 * H, lay.small2), P, pad16(2 * W),
-                       pad16(2 * H), pad16(W),
-                       MulActGradToPieces{piece(big, 2 * W, 2 * H, lay.big),
-                                          act});
-  __syncthreads();
-  stage_blob(op0, uw, mma_buf(2 * W, W));
-  stage_blob(op1, uh, mma_buf(2 * H, H));
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // s = m · U_w = (mᵀ)ᵀ · U_w               (2H × W); over tᵀ
-  mma_product<PASSES>(piece(big, 2 * W, 2 * H, lay.big),
-                      piece(op0, 2 * W, W, 0), P, pad16(2 * H), pad16(W),
-                      pad16(2 * W),
-                      ToPieces<Identity>{piece(small, 2 * H, W, lay.small),
-                                         Identity{}});
-  __syncthreads();
-  // dx = U_hᵀ · s = (U_h)ᵀ · s              (H × W), to device memory
-  mma_product<PASSES>(piece(op1, 2 * H, H, 0), piece(small, 2 * H, W, lay.small),
-                      P, pad16(H), pad16(W), pad16(2 * H),
-                      ToPlanes<T>{dx + p0 * HW, H, W, HW});
-}
-
 int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -719,39 +394,6 @@ int plane_f32(const T* x, T* out, const float* uhT, const float* uwT,
                        threads, PlaneLayout(H, W).floats(ppb) * sizeof(float),
                        nplanes, ppb, (cudaStream_t)stream, x, out, uhT, uwT,
                        dwT, dhT, nplanes, H, W, ppb, tiles, act);
-}
-
-// K5 at a reduced level (``passes`` bf16 passes a product): ``grid``
-// persistent blocks walking groups of ``ppi`` planes; x and out of T.
-template <class T>
-int plane_bf16(const T* x, T* out, const __nv_bfloat16* uhT,
-               const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
-               const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppi,
-               int grid, int passes, int act, void* stream) {
-  using afldm_filtered::kStripBlocks;
-  if (H % 4 || W % 4 || W > 16 * kStripBlocks || ppi < 1 || grid < 1 ||
-      (passes != 1 && passes != 3))
-    return (int)cudaErrorInvalidValue;
-  // by passes and pad16(W) / 16
-  void (*const kernels[2][kStripBlocks])(
-      const T*, T*, const __nv_bfloat16*, const __nv_bfloat16*,
-      const __nv_bfloat16*, const __nv_bfloat16*, int, int, int, int, int) = {
-      {&filtered_act_plane_mma_kernel<1, 1, T>,
-       &filtered_act_plane_mma_kernel<1, 2, T>,
-       &filtered_act_plane_mma_kernel<1, 3, T>,
-       &filtered_act_plane_mma_kernel<1, 4, T>},
-      {&filtered_act_plane_mma_kernel<3, 1, T>,
-       &filtered_act_plane_mma_kernel<3, 2, T>,
-       &filtered_act_plane_mma_kernel<3, 3, T>,
-       &filtered_act_plane_mma_kernel<3, 4, T>}};
-  auto kernel = kernels[passes == 3][(W + 15) / 16 - 1];
-  const size_t smem = MmaPlaneLayout(H, W, passes, sizeof(T)).bytes(ppi);
-  const int err = set_smem((const void*)kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, mma_plane_threads(passes, (W + 15) / 16), smem,
-           (cudaStream_t)stream>>>(x, out, uhT, uwT, dwT, dhT, nplanes, H, W,
-                                   ppi, act);
-  return (int)cudaGetLastError();
 }
 
 // K1 (f32 products) on one chunk of P planes, four launches of the tiled
@@ -809,23 +451,6 @@ int plane_bwd_f32(const T* x, const T* g, T* dx, const float* uhT,
       threads, PlaneBwdLayout(H, W).floats(ppb) * sizeof(float), nplanes,
       ppb, (cudaStream_t)stream, x, g, dx, uhT, uwT, dh, dw, uw, uh, nplanes,
       H, W, ppb, tiles, act);
-}
-
-// K5b at a reduced level (``passes`` bf16 passes a product); x, g and dx of
-// T.
-template <class T>
-int plane_bwd_bf16(const T* x, const T* g, T* dx, const __nv_bfloat16* uhT,
-                   const __nv_bfloat16* dh, const __nv_bfloat16* uwT,
-                   const __nv_bfloat16* dw, const __nv_bfloat16* uw,
-                   const __nv_bfloat16* uh, int nplanes, int H, int W,
-                   int ppb, int passes, int act, void* stream) {
-  if (H % 4 || W % 4 || ppb < 1 || (passes != 1 && passes != 3))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = passes == 3 ? &filtered_act_plane_bwd_mma_kernel<3, T>
-                            : &filtered_act_plane_bwd_mma_kernel<1, T>;
-  return launch_planes(kernel, 256, MmaPlaneBwdLayout(H, W).bytes(ppb),
-                       nplanes, ppb, (cudaStream_t)stream, x, g, dx, uhT, dh,
-                       uwT, dw, uw, uh, nplanes, H, W, ppb, act);
 }
 
 // K2 (f32 products) on one chunk of P planes, six launches of the tiled
@@ -997,54 +622,6 @@ extern "C" int filtered_gemm_f32(const float* A, long long lda,
   if (a_kmajor)
     return filtered_gemm<true>(small, g, batch, Activation{act}, s);
   return filtered_gemm<false>(small, g, batch, Activation{act}, s);
-}
-
-// -- the reduced precision levels' entries: ``passes`` 3 ("high") or 1
-// ("default") bf16 passes a product ----------------------------------------
-
-// K5 at a reduced level: ``grid`` persistent blocks (mma_plane_threads),
-// each walking groups of ``ppi`` planes; the operators' split blobs of U_hᵀ,
-// U_wᵀ, D_wᵀ, D_hᵀ.
-extern "C" int filtered_act_plane_bf16(
-    const float* x, float* out, const __nv_bfloat16* uhT,
-    const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
-    const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppi, int grid,
-    int passes, int act, void* stream) {
-  return plane_bf16(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppi, grid,
-                    passes, act, stream);
-}
-
-// K5 at a reduced level for a bf16 x: the same arguments, x and out bf16.
-extern "C" int filtered_act_plane_bf16_xbf16(
-    const __nv_bfloat16* x, __nv_bfloat16* out, const __nv_bfloat16* uhT,
-    const __nv_bfloat16* uwT, const __nv_bfloat16* dwT,
-    const __nv_bfloat16* dhT, int nplanes, int H, int W, int ppi, int grid,
-    int passes, int act, void* stream) {
-  return plane_bf16(x, out, uhT, uwT, dwT, dhT, nplanes, H, W, ppi, grid,
-                    passes, act, stream);
-}
-
-// K5b at a reduced level; the split blobs of U_hᵀ, D_h, U_wᵀ, D_w, U_w, U_h.
-extern "C" int filtered_act_plane_bwd_bf16(
-    const float* x, const float* g, float* dx, const __nv_bfloat16* uhT,
-    const __nv_bfloat16* dh, const __nv_bfloat16* uwT,
-    const __nv_bfloat16* dw, const __nv_bfloat16* uw,
-    const __nv_bfloat16* uh, int nplanes, int H, int W, int ppb, int passes,
-    int act, void* stream) {
-  return plane_bwd_bf16(x, g, dx, uhT, dh, uwT, dw, uw, uh, nplanes, H, W,
-                        ppb, passes, act, stream);
-}
-
-// K5b at a reduced level for a bf16 x and g: the same arguments, x, g and
-// dx bf16.
-extern "C" int filtered_act_plane_bwd_bf16_xbf16(
-    const __nv_bfloat16* x, const __nv_bfloat16* g, __nv_bfloat16* dx,
-    const __nv_bfloat16* uhT, const __nv_bfloat16* dh,
-    const __nv_bfloat16* uwT, const __nv_bfloat16* dw,
-    const __nv_bfloat16* uw, const __nv_bfloat16* uh, int nplanes, int H,
-    int W, int ppb, int passes, int act, void* stream) {
-  return plane_bwd_bf16(x, g, dx, uhT, dh, uwT, dw, uw, uh, nplanes, H, W,
-                        ppb, passes, act, stream);
 }
 
 // One launch of the GEMM's bf16 variant alone (its card tests' entry): as

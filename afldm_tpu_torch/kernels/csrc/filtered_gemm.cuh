@@ -351,7 +351,7 @@ filtered_gemm_mma_kernel(GemmArgsT<TA, TB, TC> g, Epi epi) {
   };
   // ah·bh in acc, each 16-deep step from zero added in f32 (by TwoSum at 3
   // passes); the small passes and those additions' errors in an
-  // accumulator of their own (filtered_mma.cuh::warp_tile)
+  // accumulator of their own (filtered_mma.cuh::strip_step)
   float acc[MT][NT][4], small[PASSES == 3 ? MT : 1][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)

@@ -1,7 +1,8 @@
 // The bf16 tensor-core product of the filtered activation's reduced
 // precision levels ("high", "default"), shared by the plane kernels (K5,
-// K5b: filtered_act.cu) and the banded chains' tiled GEMM (K1, K2:
-// filtered_gemm.cuh).
+// K5b: filtered_plane_mma.cu), K1's and K2's fused launches
+// (filtered_banded_mma.cu) and the banded chains' tiled GEMM
+// (filtered_gemm.cuh).
 //
 // Replaces the reduced levels of afldm_tpu/ops/pallas_kernels.py::
 // _precise_dot: every product a·b of those kernels runs as
@@ -28,14 +29,13 @@
 // What bounds it: the products, 1 or 3 bf16 tensor-core passes each (at
 // 3 passes also the f32 TwoSum after every 16-deep step, ~7 FP32
 // instructions an element a step against 3 mma), and at small planes the
-// zero padding to 16 and the shared-memory traffic of the fragments. K5b
-// takes one 16×16 output tile a warp at a time (warp_tile, mma_product,
-// mma_product2). K5 walks strips (strip_product, middle_pair): a warp owns
-// a 16-row strip of a result and up to 4 16-column blocks of it,
-// so each A fragment feeds every block of the strip, and its middle pair
-// keeps the 2x intermediate in registers between its two products. Each
-// f32 result stays in registers until it is split into the next product's
-// operand. Neither uses wgmma nor TMA (later work).
+// zero padding to 16 and the shared-memory traffic of the fragments. The
+// plane kernels walk strips (strip_product, middle_pair, middle_pair_bwd):
+// a warp owns a 16-row strip of a result and up to 4 16-column blocks of
+// it, so each A fragment feeds every block of the strip, and the middle
+// pairs keep the 2x intermediate in registers between their products.
+// Each f32 result stays in registers until it is split into the next
+// product's operand. None uses wgmma nor TMA (later work).
 
 #pragma once
 
@@ -52,10 +52,6 @@ __host__ __device__ __forceinline__ int mma_ld(int n) { return pad16(n) + 8; }
 // bf16 elements of one piece (hi or lo) of rows × cols
 __host__ __device__ __forceinline__ int mma_piece(int rows, int cols) {
   return pad16(rows) * mma_ld(cols);
-}
-// bf16 elements of a split buffer (hi then lo) of rows × cols
-__host__ __device__ __forceinline__ int mma_buf(int rows, int cols) {
-  return 2 * mma_piece(rows, cols);
 }
 
 // A split operand of P planes in shared memory: plane p's hi piece at
@@ -132,27 +128,6 @@ __device__ __forceinline__ void store_split4(__nv_bfloat16* hi,
   *reinterpret_cast<uint2*>(lo) = l;
 }
 
-// Stages P row-major f32 or bf16 planes of rows × cols (16-byte aligned,
-// cols % 4 == 0, planes ``src_ps`` elements apart) into split pieces
-// zero-padded to pad16(rows) × pad16(cols). Plain loads: the split needs
-// the values in registers (a bf16 plane's lo pieces are zero).
-template <class T>
-__device__ __forceinline__ void stage_split(const T* __restrict__ src,
-                                            long long src_ps, int P, int rows,
-                                            int cols, Piece dst) {
-  const int rp = pad16(rows), c4 = pad16(cols) / 4;
-  for (int i = threadIdx.x; i < P * rp * c4; i += blockDim.x) {
-    const int p = i / (rp * c4), q = i - p * rp * c4;
-    const int r = q / c4, c = 4 * (q - r * c4);
-    const float4 v =
-        r < rows && c < cols
-            ? load4(src + p * src_ps + (long long)r * cols + c)
-            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    __nv_bfloat16* h = dst.hi + p * dst.ps + r * dst.ld + c;
-    store_split4(h, h + dst.lo, v);
-  }
-}
-
 // Calls f(row, col, v0, v1) for the two-column pairs of a warp's 16×16
 // result tile at (r0, c0) held as two m16n8 accumulators.
 template <class F>
@@ -167,111 +142,20 @@ __device__ __forceinline__ void for_pairs(int r0, int c0,
       f(r0 + g + 8 * h, c0 + 8 * j + t2, acc[j][2 * h], acc[j][2 * h + 1]);
 }
 
-// acc = Yᵀ · X over a warp's 16×16 tile at (r0, c0) of plane p, depth Kp
-// (a multiple of 16): Y is Kp × R k-major, X Kp × C k-major, both split.
-// PASSES 3: ah·bh + (ah·bl + al·bh); 1: ah·bh. Each 16-deep step of ah·bh
-// starts from zero and is added to acc in f32 (at 3 passes by TwoSum, its
-// rounding error kept with the small passes, which sum in an accumulator of
-// their own, added once at the end): every f32 result is split again, and
-// at 'high' a last-bit change of it can move its bf16 lo piece by one lo
-// ulp, so the sums are kept close to the exactly rounded one (an
-// accumulator carried through the tensor core's own sums drifted by more
-// than a bit, PERF.md).
-template <int PASSES>
-__device__ __forceinline__ void warp_tile(float (&acc)[2][4], const Piece& Y,
-                                          const Piece& X, int p, int r0,
-                                          int c0, int Kp, int lane) {
-  const __nv_bfloat16* yh =
-      Y.hi + p * Y.ps + ((lane & 7) + 8 * (lane >> 4)) * Y.ld + r0 +
-      8 * ((lane >> 3) & 1);
-  const __nv_bfloat16* xh =
-      X.hi + p * X.ps + ((lane & 7) + 8 * ((lane >> 3) & 1)) * X.ld + c0 +
-      8 * (lane >> 4);
-  float small[2][4] = {};
-  for (int k0 = 0; k0 < Kp; k0 += 16) {
-    unsigned ah[4], bh[4];
-    ldsm_x4_t(ah, yh + k0 * Y.ld);
-    ldsm_x4_t(bh, xh + k0 * X.ld);
-    float step[2][4] = {};
-    mma_bf16(step[0], ah, bh[0], bh[1]);
-    mma_bf16(step[1], ah, bh[2], bh[3]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if constexpr (PASSES == 3)
-          add_two_sum(acc[j][e], step[j][e], small[j][e]);
-        else
-          acc[j][e] += step[j][e];
-      }
-    if constexpr (PASSES == 3) {
-      unsigned al[4], bl[4];
-      ldsm_x4_t(bl, xh + X.lo + k0 * X.ld);
-      mma_bf16(small[0], ah, bl[0], bl[1]);
-      mma_bf16(small[1], ah, bl[2], bl[3]);
-      ldsm_x4_t(al, yh + Y.lo + k0 * Y.ld);
-      mma_bf16(small[0], al, bh[0], bh[1]);
-      mma_bf16(small[1], al, bh[2], bh[3]);
-    }
-  }
-  if constexpr (PASSES == 3) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
-  }
-}
-
-// C[p] = Y[p]ᵀ · X[p] for p < P over Rp × Cp (multiples of 16), depth Kp;
-// the warps of the block take the P planes' 16×16 tiles in turn and hand
-// each to out(p, r0, c0, acc, lane).
-template <int PASSES, class Out>
-__device__ __forceinline__ void mma_product(const Piece& Y, const Piece& X,
-                                            int P, int Rp, int Cp, int Kp,
-                                            Out out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nc = Cp >> 4, tiles = (Rp >> 4) * nc;
-  for (int t = warp; t < P * tiles; t += blockDim.x >> 5) {
-    const int p = t / tiles, q = t - p * tiles;
-    const int r0 = 16 * (q / nc), c0 = 16 * (q - (q / nc) * nc);
-    float acc[2][4] = {};
-    warp_tile<PASSES>(acc, Y, X, p, r0, c0, Kp, lane);
-    out(p, r0, c0, acc, lane);
-  }
-}
-
-// Two products of one shape over the same tiles, handed together to
-// out(p, r0, c0, acc1, acc2, lane): K5b's pre-activation and cotangent,
-// whose only use is act′(pre) ⊙ cotangent, so pre never needs storing.
-template <int PASSES, class Out>
-__device__ __forceinline__ void mma_product2(const Piece& Y1, const Piece& X1,
-                                             const Piece& Y2, const Piece& X2,
-                                             int P, int Rp, int Cp, int Kp,
-                                             Out out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nc = Cp >> 4, tiles = (Rp >> 4) * nc;
-  for (int t = warp; t < P * tiles; t += blockDim.x >> 5) {
-    const int p = t / tiles, q = t - p * tiles;
-    const int r0 = 16 * (q / nc), c0 = 16 * (q - (q / nc) * nc);
-    float a1[2][4] = {}, a2[2][4] = {};
-    warp_tile<PASSES>(a1, Y1, X1, p, r0, c0, Kp, lane);
-    warp_tile<PASSES>(a2, Y2, X2, p, r0, c0, Kp, lane);
-    out(p, r0, c0, a1, a2, lane);
-  }
-}
-
-// -- K5's strips (filtered_act.cu::filtered_act_plane_mma_kernel) ---------
+// -- the plane kernels' strips (filtered_plane_mma.cu) --------------------
 //
-// Each routine below computes every element with the sums warp_tile takes:
-// 16-deep steps in ascending order, each step's ah·bh from zero added by
-// TwoSum at 3 passes, the small passes in an accumulator of their own added
-// once at the end, and the two small passes of an element in warp_tile's
-// order for the same pair of operands. So K5's results are the ones of a
-// 16×16 tile walk, bit for bit, whatever the strip's shape. The counts of
-// 16-column blocks are template arguments (K5 is built for each pad16(W) /
-// 16 of 1 to kStripBlocks): with no branch between a strip's blocks, the
-// compiler issues their loads and mma back to back, which hides their
-// latency with the 8 to 16 warps an SM holds.
+// Each routine below computes every element with the sums of a 16×16 tile
+// walk (the plane kernels' first bf16 form): 16-deep steps in ascending
+// order, each step's ah·bh from zero added by TwoSum at 3 passes, the
+// small passes ah·bl then al·bh in an accumulator of their own added once
+// at the end. Where a product is computed with A and B swapped against
+// that walk (its transposed result), the small passes are swapped too
+// (kLoAFirst), so every element's sum is the walk's, bit for bit, whatever
+// the strip's shape. The counts of 16-column blocks are template arguments
+// (the plane kernels are built for each pad16(W) / 16 of 1 to
+// kStripBlocks): with no branch between a strip's blocks, the compiler
+// issues their loads and mma back to back, which hides their latency with
+// the 8 to 16 warps an SM holds.
 
 // the 16-column blocks of a K5 result at most (W <= 64)
 constexpr int kStripBlocks = 4;
@@ -279,9 +163,8 @@ constexpr int kStripBlocks = 4;
 // One 16-deep step of a strip: acc[n] (+ small[n]) += A · B[n] for n < NB,
 // A's fragments given (al read at 3 passes only), B[n] the k-major piece
 // at b + 16·n (its lo piece ``blo`` elements after it). kLoAFirst takes
-// the small passes as al·bh then ah·bl: warp_tile's order (ah·bl, al·bh)
-// for the product computed with A and B swapped, which K5 computed before
-// as the transposed result.
+// the small passes as al·bh then ah·bl: the walk's order (ah·bl, al·bh)
+// for the product computed with A and B swapped.
 template <int PASSES, bool kLoAFirst, int NB>
 __device__ __forceinline__ void strip_step(float (&acc)[NB][2][4],
                                            float (&small)[NB][2][4],
@@ -481,6 +364,96 @@ __device__ __forceinline__ void middle_pair(const Piece& Uw, const Piece& Dw,
     } else {
       for (int j0 = 0; j0 < W2p; j0 += 16) chunk(j0);
     }
+    __syncwarp();
+    store_strip<PASSES>(t, p, i0, 0, acc, lane);
+  }
+}
+
+// K5b's backward middle pair over P planes of t and v (2H × 16·NW each,
+// row-major pieces; Hp2 = pad16(2H), W2p = pad16(2W)), a warp a 16-row
+// strip of the 2H side at a time:
+//   pre = t · U_wᵀ,  ds = v · D_w      (2H × 2W)  16 columns (a chunk) at
+//                                                 a time, over the same rows
+//   s  += (act′(pre) ⊙ ds) · U_w       (2H × W)   each chunk one 16-deep step
+// middle_pair with two products in its first half: each chunk's pre and
+// ds are two m16n8 accumulator pairs, act′(pre) ⊙ ds is taken in
+// registers (grad.grads: the act's case once for the warp's 8 values), and
+// the product, split, is the A fragment of s's step over that chunk, so
+// neither pre nor m leaves the registers. The strip's t and v fragments are
+// read once and held (kHold; else read again for each chunk, where held
+// they would not fit the block's registers). s is written over the strip
+// of t it was made from, which no other warp reads. U_wᵀ and D_w (W × 2W)
+// and U_w (2W × W) are k-major.
+template <int PASSES, int NW, bool kHold, class Grad>
+__device__ __forceinline__ void middle_pair_bwd(const Piece& UwT,
+                                                const Piece& Dw,
+                                                const Piece& Uw, const Piece& t,
+                                                const Piece& v, int P,
+                                                int Hp2, int W2p, Grad grad) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5, rs = Hp2 >> 4;
+  const int bro = (lane & 7) + 8 * ((lane >> 3) & 1), bco = 8 * (lane >> 4);
+  for (int s = warp; s < P * rs; s += warps) {
+    const int p = s / rs, i0 = 16 * (s - p * rs);
+    // t's and v's A fragments (row-major: ldmatrix without .trans)
+    const __nv_bfloat16* tp = t.hi + p * t.ps + (i0 + bro) * t.ld + bco;
+    const __nv_bfloat16* vp = v.hi + p * v.ps + (i0 + bro) * v.ld + bco;
+    unsigned th[NW][4], tl[NW][4], vh[NW][4], vl[NW][4];
+    // the k-th 16 columns of the strip's t (or v) fragments
+    const auto load = [&](unsigned (&rh)[4], unsigned (&rl)[4],
+                          const __nv_bfloat16* q, int lo, int k) {
+      ldsm_x4(rh, q + 16 * k);
+      if constexpr (PASSES == 3) ldsm_x4(rl, q + lo + 16 * k);
+    };
+    if constexpr (kHold) {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        load(th[k], tl[k], tp, t.lo, k);
+        load(vh[k], vl[k], vp, v.lo, k);
+      }
+    }
+    const __nv_bfloat16* up = UwT.hi + bro * UwT.ld + bco;
+    const __nv_bfloat16* dp = Dw.hi + bro * Dw.ld + bco;
+    const __nv_bfloat16* sp = Uw.hi + bro * Uw.ld + bco;
+    float acc[NW][2][4] = {}, small[NW][2][4] = {};
+    const auto chunk = [&](int j0) {
+      float h[1][2][4] = {}, hs[1][2][4] = {};
+      float d[1][2][4] = {}, ds[1][2][4] = {};
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        if constexpr (!kHold) load(th[k], tl[k], tp, t.lo, k);
+        strip_step<PASSES, true>(h, hs, th[k], tl[k],
+                                 up + 16 * k * UwT.ld + j0, UwT.lo);
+      }
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        if constexpr (!kHold) load(vh[k], vl[k], vp, v.lo, k);
+        strip_step<PASSES, true>(d, ds, vh[k], vl[k],
+                                 dp + 16 * k * Dw.ld + j0, Dw.lo);
+      }
+      if constexpr (PASSES == 3) {
+        add_small(h, hs);
+        add_small(d, ds);
+      }
+      // value 2r, 2r + 1 go to register r of the A fragment (middle_pair)
+      float m[8], dv[8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        m[2 * r] = h[0][r >> 1][2 * (r & 1)];
+        m[2 * r + 1] = h[0][r >> 1][2 * (r & 1) + 1];
+        dv[2 * r] = d[0][r >> 1][2 * (r & 1)];
+        dv[2 * r + 1] = d[0][r >> 1][2 * (r & 1) + 1];
+      }
+      grad.grads(m);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) m[e] = m[e] * dv[e];
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split2(m[2 * r], m[2 * r + 1], ah[r], al[r]);
+      strip_step<PASSES, false>(acc, small, ah, al, sp + j0 * Uw.ld, Uw.lo);
+    };
+    for (int j0 = 0; j0 < W2p; j0 += 16) chunk(j0);
+    if constexpr (PASSES == 3) add_small(acc, small);
     __syncwarp();
     store_strip<PASSES>(t, p, i0, 0, acc, lane);
   }

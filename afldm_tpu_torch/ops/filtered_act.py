@@ -33,10 +33,12 @@ what is split: K5 and K5b as the f32 kernels, K1 and K2 H side first in
 every filter pair (``filtered_act_plane_plain``,
 ``filtered_act_banded_plain``, ``filtered_act_plane_bwd_plain``,
 ``filtered_act_banded_bwd_plain`` at a level are their plain versions,
-with each product's sum exactly rounded). K1's variant is two fused
-launches a chunk (``kernels/csrc/filtered_banded_mma.cu``: t and lo on
-chip, hi's split pieces the only scratch), chunked by
-``banded_mma_plan``.
+with each product's sum exactly rounded). K5's and K5b's variants are
+persistent walks of groups of planes (``kernels/csrc/filtered_plane_mma.cu``:
+the 2x intermediates in registers), planned by ``plane_mma_plan`` and
+``plane_mma_bwd_plan``; K1's and K2's are two fused launches a chunk
+(``kernels/csrc/filtered_banded_mma.cu``: hi's or m's split pieces the
+only scratch), chunked by ``banded_mma_plan``.
 The level applies to planes up to LEVEL_MAX px a side, where the JAX
 package runs the circulant products; above it both packages filter
 exactly (the JAX package spectrally) and the f32 kernels run. The autograd
@@ -418,17 +420,17 @@ def plane_bwd_plan(H: int, W: int, nplanes: int) -> PlanePlan:
 
 # -- the plane kernels' bf16 variants (the reduced levels) -----------------
 
-# threads a block of K5b's bf16 variant: 8 warps of mma.sync
-MMA_THREADS = 256
-# K5's bf16 blocks an SM at most, by the registers its launch bounds allow
-# (filtered_act.cu::mma_plane_threads: at 'high' one block takes the
-# register file; at 'default' two of 256 threads, 128 registers a thread)
+# K5's and K5b's bf16 blocks an SM at most, by the registers their launch
+# bounds allow (filtered_plane_mma.cu::mma_plane_threads: at 'high' one
+# block takes the register file; at 'default' two of 256 threads, 128
+# registers a thread)
 K5_MMA_BLOCKS = {"high": 1, "default": 2}
-# what an iteration of a K5 bf16 block costs beside its products (its
-# barriers, x's split and the group's copies), in 16-deep steps of one
-# 16 × 16 tile, and the time of an SM's iteration with two blocks on it
-# against one alone
+# what an iteration of a K5 or K5b bf16 block costs beside its products
+# (its barriers, the split of x (and g) and the group's copies), in 16-deep
+# steps of one 16 × 16 tile, what K5b's phased operator copies add to it,
+# and the time of an SM's iteration with two blocks on it against one alone
 K5_MMA_ITER = 8.0
+K5B_MMA_PHASED = 24.0
 K5_MMA_TWO_BLOCKS = 1.2
 
 
@@ -448,15 +450,11 @@ def mma_piece(rows: int, cols: int) -> int:
     return _pad16(rows) * mma_ld(cols)
 
 
-def mma_buf(rows: int, cols: int) -> int:
-    """bf16 elements of a split buffer, hi and lo pieces of rows × cols
-    (filtered_mma.cuh::mma_buf)."""
-    return 2 * mma_piece(rows, cols)
-
-
+@functools.lru_cache(maxsize=None)
 def plane_mma_smem_bytes(H: int, W: int, planes: int, level: str = "high",
                          x_bytes: int = 4) -> int:
-    """Shared memory of a K5 bf16 block (filtered_act.cu::MmaPlaneLayout):
+    """Shared memory of a K5 bf16 block (filtered_plane_mma.cu::
+    MmaPlaneLayout):
     the four operators' pieces, resident, and per plane of an iteration
     x's pieces, t's (t₂ over it) and x as it arrives (``x_bytes`` an
     element). Each operand holds hi and lo pieces at 'high', hi alone at
@@ -468,67 +466,11 @@ def plane_mma_smem_bytes(H: int, W: int, planes: int, level: str = "high",
     return 2 * pieces * (ops + planes * per) + planes * H * W * x_bytes
 
 
-def plane_mma_bwd_smem_bytes(H: int, W: int, ppb: int) -> int:
-    """Shared memory of a K5b bf16 block (filtered_act.cu::
-    MmaPlaneBwdLayout): two operator buffers of the largest operator's
-    split blob, and per plane mᵀ (x and g staged in it), a buffer for tᵀ
-    then s, and uᵀ."""
-    op = max(mma_buf(H, 2 * H), mma_buf(W, 2 * W), mma_buf(2 * W, W),
-             mma_buf(2 * H, H))
-    big = max(mma_buf(2 * W, 2 * H), 2 * mma_buf(H, W))
-    small = max(mma_buf(W, 2 * H), mma_buf(2 * H, W))
-    return 2 * (2 * op + ppb * (big + small + mma_buf(W, 2 * H)))
-
-
-def plane_mma_products(H: int, W: int) -> tuple:
-    """(rows, columns, depth) of K5b's bf16 products: tᵀ, uᵀ, the fused
-    pre-activation and cotangent over one tile as two, s, dx."""
-    return ((W, 2 * H, H), (W, 2 * H, H), (2 * W, 2 * H, W),
-            (2 * W, 2 * H, W), (2 * H, W, 2 * W), (H, W, 2 * H))
-
-
-def _mma_cost(products: tuple, smem: int, nplanes: int, ppb: int):
-    """K5b's model: waves of blocks times a block's rounds of 16×16 warp
-    tiles over its 8 warps, each round weighted by its product's padded
-    depth; None over SMEM_MAX_BYTES."""
-    if smem > SMEM_MAX_BYTES:
-        return None
-    per_sm = 2 if smem <= SMEM_TWO_BLOCKS_BYTES else 1
-    waves = -(-(-(-nplanes // ppb)) // (NUM_SMS * per_sm))
-    warps = MMA_THREADS // 32
-    rounds = sum(_pad16(k) // 16
-                 * -(-ppb * (_pad16(r) // 16) * (_pad16(c) // 16) // warps)
-                 for r, c, k in products)
-    return waves * rounds * (K5_TWO_BLOCKS if per_sm == 2 else 1.0)
-
-
-@functools.lru_cache(maxsize=None)
-def plane_mma_bwd_plan(H: int, W: int, nplanes: int) -> PlanePlan:
-    """The launch plan of K5b's bf16 variant: P planes a block minimising
-    ``_mma_cost`` (on a tie the smaller P), with P at most the plane
-    count, the block within SMEM_MAX_BYTES and the grid at least one wave
-    where the planes allow it, as ``plane_plan`` picks P; 256 threads and
-    no micro-tiles (``tiles`` empty). 0 planes get the one-plane plan."""
-    n = max(nplanes, 1)
-    grid = max(1, -(-n // (NUM_SMS - 1)) - 1)
-    best = None
-    for ppb in range(1, min(grid, n) + 1):
-        cost = _mma_cost(plane_mma_products(H, W),
-                         plane_mma_bwd_smem_bytes(H, W, ppb), n, ppb)
-        if cost is None:
-            break
-        if best is None or cost < best[0]:
-            best = (cost, ppb)
-    ppb = best[1]
-    return PlanePlan(ppb, (), MMA_THREADS,
-                     plane_mma_bwd_smem_bytes(H, W, ppb))
-
-
 def k5_mma_threads(level: str, W: int) -> int:
-    """Threads a block of K5's bf16 variant (filtered_act.cu::
-    mma_plane_threads): 256 at 'default' (two blocks an SM, 128 registers
-    a thread); at 'high' one block an SM of 512 threads up to 16 px wide,
-    384 up to 32, else 256."""
+    """Threads a block of K5's and K5b's bf16 variants
+    (filtered_plane_mma.cu::mma_plane_threads): 256 at 'default' (two
+    blocks an SM, 128 registers a thread); at 'high' one block an SM of
+    512 threads up to 16 px wide, 384 up to 32, else 256."""
     if level == "default" or _pad16(W) > 32:
         return 256
     return 384 if _pad16(W) > 16 else 512
@@ -556,6 +498,7 @@ def _strip_rounds(strips: int, blocks: int, depth: int, warps: int) -> int:
     return -(-strips * (blocks // per) // warps) * per * depth
 
 
+@functools.lru_cache(maxsize=None)
 def plane_mma_rounds(H: int, W: int, planes: int, level: str) -> int:
     """A K5 bf16 iteration's products over ``planes`` planes at
     ``level``, in rounds of the block's warps (16-deep steps of a 16 × 16
@@ -575,36 +518,114 @@ def _mma_per_sm(smem: int, level: str) -> int:
                SMEM_SM_BYTES // (smem + SMEM_BLOCK_RESERVED))
 
 
+def _mma_plan(nplanes: int, level: str, smem_of, rounds_of, extra: dict):
+    """(planes, grid, per_sm, smem, mode) of a plane kernel's bf16 variant
+    at ``level``: for each mode of ``extra`` (its extra rounds an
+    iteration) in order, P planes an iteration from 1 while
+    ``smem_of(P, mode)`` fits SMEM_MAX_BYTES, minimising ceil(groups /
+    (NUM_SMS · per_sm)) iterations of (``rounds_of(P)`` + K5_MMA_ITER +
+    the extra), weighted by K5_MMA_TWO_BLOCKS at two blocks an SM (on a
+    tie the earlier mode, then the smaller P); the grid is the groups, at
+    most per_sm · NUM_SMS blocks. 0 planes get the one-plane plan."""
+    n = max(nplanes, 1)
+    best = None
+    for mode, rounds in extra.items():
+        for planes in range(1, n + 1):
+            smem = smem_of(planes, mode)
+            if smem > SMEM_MAX_BYTES:
+                break
+            per_sm = _mma_per_sm(smem, level)
+            groups = -(-n // planes)
+            cost = (-(-groups // (NUM_SMS * per_sm))
+                    * (rounds_of(planes) + K5_MMA_ITER + rounds)
+                    * (K5_MMA_TWO_BLOCKS if per_sm == 2 else 1.0))
+            if best is None or cost < best[0]:
+                best = (cost, planes, per_sm, smem, mode)
+    _, planes, per_sm, smem, mode = best
+    return (planes, min(-(-n // planes), per_sm * NUM_SMS), per_sm, smem,
+            mode)
+
+
 @functools.lru_cache(maxsize=None)
 def plane_mma_plan(H: int, W: int, nplanes: int, level: str = "high",
                    x_bytes: int = 4) -> MmaPlan:
     """The launch plan of K5's bf16 variant at ``level`` for an x of
-    ``x_bytes`` an element. P planes an iteration minimise the modelled
-    time, ceil(groups / (NUM_SMS · per_sm)) iterations of
-    (``plane_mma_rounds`` + K5_MMA_ITER), weighted by
-    K5_MMA_TWO_BLOCKS at two blocks an SM (on a tie the smaller P), with
-    the block within SMEM_MAX_BYTES; the grid is the groups, at most
-    per_sm · NUM_SMS blocks. The model and its two constants were fitted
-    to timings of every P and 1 or 2 blocks an SM at K5's chip_smoke
-    shapes on an H100 (``scripts/plane_sweep.py --level high|default``;
-    PERF.md §6): its pick was the quickest or within 1 % of it at each.
-    0 planes get the one-plane plan."""
-    n = max(nplanes, 1)
-    best = None
-    for planes in range(1, n + 1):
-        smem = plane_mma_smem_bytes(H, W, planes, level, x_bytes)
-        if smem > SMEM_MAX_BYTES:
-            break
-        per_sm = _mma_per_sm(smem, level)
-        groups = -(-n // planes)
-        cost = (-(-groups // (NUM_SMS * per_sm))
-                * (plane_mma_rounds(H, W, planes, level) + K5_MMA_ITER)
-                * (K5_MMA_TWO_BLOCKS if per_sm == 2 else 1.0))
-        if best is None or cost < best[0]:
-            best = (cost, planes, per_sm, smem)
-    _, planes, per_sm, smem = best
-    return MmaPlan(planes, min(-(-n // planes), per_sm * NUM_SMS), per_sm,
-                   smem)
+    ``x_bytes`` an element: ``_mma_plan`` over ``plane_mma_rounds``. The
+    model and its two constants were fitted to timings of every P and 1
+    or 2 blocks an SM at K5's chip_smoke shapes on an H100
+    (``scripts/plane_sweep.py --level high|default``; PERF.md §6): its
+    pick was the quickest or within 1 % of it at each."""
+    return MmaPlan(*_mma_plan(
+        nplanes, level,
+        lambda planes, _: plane_mma_smem_bytes(H, W, planes, level, x_bytes),
+        lambda planes: plane_mma_rounds(H, W, planes, level), {None: 0.0})[
+            :4])
+
+
+class MmaBwdPlan(NamedTuple):
+    """How K5b's bf16 variant is launched: as ``MmaPlan``, and whether the
+    six operators are ``resident`` (staged once a block) or staged before
+    each phase of an iteration."""
+    planes: int
+    grid: int
+    per_sm: int
+    smem_bytes: int
+    resident: bool
+
+
+@functools.lru_cache(maxsize=None)
+def plane_mma_bwd_smem_bytes(H: int, W: int, planes: int,
+                             level: str = "high", x_bytes: int = 4,
+                             resident: bool = True) -> int:
+    """Shared memory of a K5b bf16 block (filtered_plane_mma.cu::
+    MmaPlaneBwdLayout): per plane of an iteration x's and g's pieces, t's
+    (s over it) and v's; resident, the six operators' pieces and the next
+    iteration's x and g as they arrive (``x_bytes`` an element); phased,
+    one operator region for the largest phase: U_hᵀ and D_h, U_wᵀ, D_w
+    and U_w, or U_h with the next iteration's x and g. Each operand holds
+    hi and lo pieces at 'high', hi alone at 'default'."""
+    k = 2 if level == "high" else 1
+    uh2, uw2 = k * mma_piece(H, 2 * H), k * mma_piece(W, 2 * W)
+    uw, uh = k * mma_piece(2 * W, W), k * mma_piece(2 * H, H)
+    raw = H * W * x_bytes  # x and g, in bf16 elements
+    per = 2 * k * (mma_piece(H, W) + mma_piece(2 * H, W))
+    if resident:
+        return 2 * (2 * uh2 + 2 * uw2 + uw + uh + planes * (per + raw))
+    return 2 * (max(2 * uh2, 2 * uw2 + uw, uh + planes * raw)
+                + planes * per)
+
+
+@functools.lru_cache(maxsize=None)
+def plane_mma_bwd_rounds(H: int, W: int, planes: int, level: str) -> int:
+    """A K5b bf16 iteration's products over ``planes`` planes at
+    ``level``, in rounds of the block's warps: t = U_h·x, v = D_hᵀ·g and
+    dx = U_hᵀ·s by strips, and the middle pair a 16-row strip of the 2H
+    side a warp, each of its 2W / 16 chunks a pre and a ds tile over W and
+    one step of s's blocks."""
+    warps = k5_mma_threads(level, W) // 32
+    h2, h, w, w2 = (_pad16(n) // 16 for n in (2 * H, H, W, 2 * W))
+    return (2 * _strip_rounds(planes * h2, w, h, warps)
+            + _strip_rounds(planes * h, w, h2, warps)
+            + -(-planes * h2 // warps) * w2 * 3 * w)
+
+
+@functools.lru_cache(maxsize=None)
+def plane_mma_bwd_plan(H: int, W: int, nplanes: int, level: str = "high",
+                       x_bytes: int = 4) -> MmaBwdPlan:
+    """The launch plan of K5b's bf16 variant at ``level`` for x and g of
+    ``x_bytes`` an element: ``_mma_plan`` over ``plane_mma_bwd_rounds``,
+    the operators resident or, K5B_MMA_PHASED rounds more an iteration,
+    phased. K5's two constants and K5B_MMA_PHASED were set against
+    timings of every P, resident and phased, at 1 or 2 blocks an SM at
+    K5b's chip_smoke shapes on an H100 at both levels
+    (``scripts/plane_sweep.py --bwd --level high|default``; PERF.md §6):
+    the pick was the quickest or within 2 % of it at each."""
+    return MmaBwdPlan(*_mma_plan(
+        nplanes, level,
+        lambda planes, resident: plane_mma_bwd_smem_bytes(
+            H, W, planes, level, x_bytes, resident),
+        lambda planes: plane_mma_bwd_rounds(H, W, planes, level),
+        {True: 0.0, False: K5B_MMA_PHASED}))
 
 
 def _mma_blob(op: np.ndarray) -> torch.Tensor:
@@ -656,7 +677,7 @@ def _plane_forward_mma(x: torch.Tensor, act: str, level: str):
         return out
     plan = plane_mma_plan(H, W, nplanes, level, x.element_size())
     suffix, key = _variant("filtered_act_plane", level, x.dtype)
-    err = getattr(kernels.library("filtered_act"),
+    err = getattr(kernels.library("filtered_plane_mma"),
                   f"filtered_act_plane{suffix}")(
         x.data_ptr(), out.data_ptr(),
         *(o.data_ptr() for o in _mma_blobs(H, W, x.device, False)), nplanes,
@@ -729,17 +750,18 @@ def filtered_act_plane_bwd(x: torch.Tensor, g: torch.Tensor,
     H, W = x.shape[-2:]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     suffix, key = _variant("filtered_act_plane_bwd", level, x.dtype)
-    entry = getattr(kernels.library("filtered_act"),
-                    f"filtered_act_plane_bwd{suffix}")
     if level != "highest":
-        plan = plane_mma_bwd_plan(H, W, nplanes)
-        err = entry(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                    *(o.data_ptr() for o in _mma_blobs(H, W, x.device,
-                                                       True)),
-                    nplanes, H, W, plan.planes_per_block,
-                    LEVEL_PASSES[level], ACT_CODES[act], stream)
+        plan = plane_mma_bwd_plan(H, W, nplanes, level, x.element_size())
+        err = getattr(kernels.library("filtered_plane_mma"),
+                      f"filtered_act_plane_bwd{suffix}")(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            *(o.data_ptr() for o in _mma_blobs(H, W, x.device, True)),
+            nplanes, H, W, plan.planes, plan.grid, int(plan.resident),
+            LEVEL_PASSES[level], ACT_CODES[act], stream)
     else:
         plan = plane_bwd_plan(H, W, nplanes)
+        entry = getattr(kernels.library("filtered_act"),
+                        f"filtered_act_plane_bwd{suffix}")
         err = entry(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
                     *(o.data_ptr() for o in _plane_bwd_ops(H, W, x.device)),
                     nplanes, H, W, plan.planes_per_block, plan.tile_codes,

@@ -30,9 +30,10 @@ plain forward's out and lse), so that equal lines mean bit-identical
 outputs, and of the filtered activation's kernels K5, K5b, K1 and K2 at
 the reduced levels ('high', 'default'), f32 and bf16 x, at theirs (K1's
 and K2's up to LEVEL_MAX); ``--graph`` times K3/bf16, K6/bf16, K4a/bf16
-and K4b/bf16 and the level variants of K5, K1 and K2, f32 and bf16 x
-(those named, where kernels are named: ``filtered_act_plane`` names
-K5's, ``filtered_act_banded`` K1's, ``filtered_act_banded_bwd`` K2's) at
+and K4b/bf16 and the level variants of K5, K5b, K1 and K2, f32 and bf16 x,
+K5b's f32 kernel beside them (those named, where kernels are named:
+``filtered_act_plane`` names K5's, ``filtered_act_plane_bwd`` K5b's,
+``filtered_act_banded`` K1's, ``filtered_act_banded_bwd`` K2's) at
 their KERNELS shapes by replaying a CUDA graph of the wrapper calls, so
 that a shape whose call is bound by the host's launch path (L = 4, a 4
 px plane) is timed on the device alone, and beside each level variant's
@@ -89,8 +90,8 @@ def main(argv=None):
                          "bf16, and of K5's, K5b's, K1's and K2's level "
                          "variants")
     ap.add_argument("--graph", action="store_true",
-                    help="the bf16 flash kernels' and K5's, K1's and K2's "
-                         "level variants' device times from CUDA graph "
+                    help="the bf16 flash kernels' and K5's, K5b's, K1's and "
+                         "K2's level variants' device times from CUDA graph "
                          "replays")
     args = ap.parse_args(argv)
     names = args.names
@@ -380,8 +381,8 @@ def _split_ms(torch, fn, calls=3):
 
 def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
     """K3/bf16, K6/bf16, K4a/bf16 and K4b/bf16 (with its reduction where
-    it splits), and the level variants of K5, K1 and K2 on an f32 and a
-    bf16 x (K1's and K2's up to LEVEL_MAX), at their KERNELS shapes: the
+    it splits), and the level variants of K5, K5b, K1 and K2 (K5b's f32
+    kernel beside them) on an f32 and a bf16 x (K1's and K2's up to LEVEL_MAX), at their KERNELS shapes: the
     device time of one wrapper call (``_graph_ms``; for the level variants
     also each kernel's, ``_split_ms``); only the kernels of ``names`` where
     it names any."""
@@ -420,12 +421,15 @@ def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
     fa = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
     ops = importlib.import_module("afldm_tpu_torch.ops")
     for name, level, dt in itertools.product(
-            ("filtered_act_plane", "filtered_act_banded",
-             "filtered_act_banded_bwd"), ("high", "default"),
-            (torch.float32, bf)):
-        if names and name not in names:
+            ("filtered_act_plane", "filtered_act_plane_bwd",
+             "filtered_act_banded", "filtered_act_banded_bwd"),
+            ("highest", "high", "default"), (torch.float32, bf)):
+        # K5b alone also at 'highest': its f32 kernel on the same values
+        if (names and name not in names) or (
+                level == "highest" and name != "filtered_act_plane_bwd"):
             continue
-        label = f"{name}:{level}" + ("/bf16" if dt == bf else "")
+        label = (name if level == "highest" else f"{name}:{level}") + (
+            "/bf16" if dt == bf else "")
         fn = getattr(fa, name)
         for shape in smoke.KERNELS[name]["shapes"]:
             if max(shape[-2:]) > fa.LEVEL_MAX:
@@ -436,7 +440,7 @@ def graph_times(torch, attn, smoke, names=(), calls=10, replays=20):
             try:
                 ops.set_af_precision(level)
                 # the banded calls take milliseconds: fewer of them
-                few = name != "filtered_act_plane"
+                few = name.startswith("filtered_act_banded")
                 call = ((lambda: fn(x, gr, "silu")) if name.endswith("_bwd")
                         else (lambda: fn(x, "silu")))
                 ms = _graph_ms(torch, call, 2 if few else calls,

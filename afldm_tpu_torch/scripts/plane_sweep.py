@@ -6,10 +6,12 @@ fitted to. With ``--level high|default``, K5's bf16 variant at that level
 instead: its persistent blocks at every P planes an iteration and one or
 two blocks an SM (where shared memory holds two), against
 ``plane_mma_plan``'s pick, each launch held to the plain version at the
-level (chip_smoke's phase 30 criterion). Run from the root of a checkout
-on a machine with a card:
+level (chip_smoke's phase 30 criterion); with ``--bwd`` too, K5b's bf16
+variant the same way, its operators resident and phased at every P that
+fits, against ``plane_mma_bwd_plan``'s pick. Run from the root of a
+checkout on a machine with a card:
 
-    python afldm_tpu_torch/scripts/plane_sweep.py [--bwd | --level high]
+    python afldm_tpu_torch/scripts/plane_sweep.py [--bwd] [--level high]
         [--out sweep.jsonl]
 
 Shapes: the kernel's ``chip_smoke.KERNELS[...]["shapes"]``. P runs over
@@ -44,7 +46,8 @@ def main(argv=None):
     ap.add_argument("--bwd", action="store_true",
                     help="sweep the backward kernel (K5b)")
     ap.add_argument("--level", choices=("high", "default"), default=None,
-                    help="sweep K5's bf16 variant at this level")
+                    help="sweep K5's (with --bwd: K5b's) bf16 variant at "
+                         "this level")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="JSON lines, one a launch")
     args = ap.parse_args(argv)
@@ -60,9 +63,10 @@ def main(argv=None):
     smoke = importlib.import_module("chip_smoke")
     kernels = importlib.import_module("afldm_tpu_torch.kernels")
     FA = importlib.import_module("afldm_tpu_torch.ops.filtered_act")
-    lib = kernels.library("filtered_act")
     if args.level:
-        return level_sweep(torch, smoke, kernels, FA, lib, args)
+        return level_sweep(torch, smoke, kernels, FA,
+                           kernels.library("filtered_plane_mma"), args)
+    lib = kernels.library("filtered_act")
     if args.bwd:
         name, fn = "filtered_act_plane_bwd", lib.filtered_act_plane_bwd_f32
         plan_of, products, smem_of = (FA.plane_bwd_plan, FA.plane_bwd_products,
@@ -139,71 +143,87 @@ def main(argv=None):
 
 
 def level_sweep(torch, smoke, kernels, FA, lib, args):
-    """K5's bf16 variant at ``args.level`` over P planes an iteration and
-    1 or 2 blocks an SM at each K5 shape, against ``plane_mma_plan``."""
+    """K5's (``args.bwd``: K5b's) bf16 variant at ``args.level`` over P
+    planes an iteration and 1 or 2 blocks an SM (K5b: with its operators
+    resident and phased) at each shape of its KERNELS row, against
+    ``plane_mma_plan`` (``plane_mma_bwd_plan``)."""
     level, dev = args.level, torch.device("cuda")
+    name = "filtered_act_plane_bwd" if args.bwd else "filtered_act_plane"
     g = torch.Generator(dev).manual_seed(0)
     out_file = open(args.out, "w") if args.out else None
     ok = True
-    for shape in smoke.KERNELS["filtered_act_plane"]["shapes"]:
+    for shape in smoke.KERNELS[name]["shapes"]:
         n, c, H, W = shape
         nplanes = n * c
         x = torch.randn(shape, device=dev, generator=g)
         out = torch.empty_like(x)
-        want = FA.filtered_act_plane_plain(x, "silu", level)
-        exact = FA.filtered_act_plane_plain(x, "silu", "highest")
-        own = want - exact
+        ins = (x,)
+        if args.bwd:
+            gr = torch.randn(shape, device=dev, generator=g)
+            ins = (x, gr)
+        plain = getattr(FA, f"{name}_plain")
+        want = plain(*ins, "silu", level)
+        own = want - plain(*ins, "silu", "highest")
         own_rms = float(own.double().pow(2).mean().sqrt())
         own_max = float(own.abs().max())
-        del own, exact
-        ptrs = [x.data_ptr(), out.data_ptr(),
-                *(o.data_ptr() for o in FA._mma_blobs(H, W, dev, False))]
+        del own
+        ptrs = [*(t.data_ptr() for t in ins), out.data_ptr(),
+                *(o.data_ptr() for o in FA._mma_blobs(H, W, dev, args.bwd))]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        plan = FA.plane_mma_plan(H, W, nplanes, level)
+        if args.bwd:
+            plan = FA.plane_mma_bwd_plan(H, W, nplanes, level)
+            mine = (plan.planes, plan.per_sm, plan.resident)
+        else:
+            plan = FA.plane_mma_plan(H, W, nplanes, level)
+            mine = (plan.planes, plan.per_sm, True)
         times = {}
-        for planes in _candidates(nplanes, plan.planes,
-                                  max(1, nplanes // FA.NUM_SMS)):
-            smem = FA.plane_mma_smem_bytes(H, W, planes, level)
+        for resident, planes in itertools.product(
+                (True, False) if args.bwd else (True,),
+                _candidates(nplanes, plan.planes,
+                            max(1, nplanes // FA.NUM_SMS))):
+            smem = (FA.plane_mma_bwd_smem_bytes(H, W, planes, level, 4,
+                                                resident) if args.bwd
+                    else FA.plane_mma_smem_bytes(H, W, planes, level))
             if smem > FA.SMEM_MAX_BYTES:
                 continue
             groups = -(-nplanes // planes)
             held = FA.SMEM_SM_BYTES // (smem + FA.SMEM_BLOCK_RESERVED)
-            for per_sm in range(1, min(held, 2) + 1):
+            for per_sm in range(1, min(held, FA.K5_MMA_BLOCKS[level]) + 1):
                 grid = min(groups, per_sm * FA.NUM_SMS)
+                tail = ((int(resident),) if args.bwd else ()) + (
+                    FA.LEVEL_PASSES[level], FA.ACT_CODES["silu"], stream)
 
                 def run():
-                    return lib.filtered_act_plane_bf16(
-                        *ptrs, nplanes, H, W, planes, grid,
-                        FA.LEVEL_PASSES[level], FA.ACT_CODES["silu"],
-                        stream)
+                    return getattr(lib, f"{name}_bf16")(
+                        *ptrs, nplanes, H, W, planes, grid, *tail)
                 kernels.check(run(), "plane_sweep")
                 torch.cuda.synchronize()
                 d = out - want
                 ratio = float(d.double().pow(2).mean().sqrt()) / own_rms
                 if ratio > smoke.LEVEL_RMS_RATIO or \
                         float(d.abs().max()) > own_max:
-                    print(f"plane_sweep filtered_act_plane:{level} {shape}: "
-                          f"WRONG at P {planes}, grid {grid} (RMS ratio "
-                          f"{ratio:.4f})", flush=True)
+                    print(f"plane_sweep {name}:{level} {shape}: WRONG at P "
+                          f"{planes}, grid {grid}, resident {resident} (RMS "
+                          f"ratio {ratio:.4f})", flush=True)
                     ok = False
                     continue
                 ms = smoke.time_ms(run, reps=args.reps)
-                times[(planes, per_sm)] = ms
+                times[(planes, per_sm, resident)] = ms
                 if out_file:
+                    rounds = (FA.plane_mma_bwd_rounds if args.bwd
+                              else FA.plane_mma_rounds)(H, W, planes, level)
                     out_file.write(json.dumps(dict(
-                        kernel=f"filtered_act_plane:{level}", shape=shape,
-                        P=planes, per_sm=per_sm, grid=grid, smem=smem,
-                        rounds=FA.plane_mma_rounds(H, W, planes, level),
-                        ms=ms)) + "\n")
-        mine = times[(plan.planes, plan.per_sm)]
+                        kernel=f"{name}:{level}", shape=shape, P=planes,
+                        per_sm=per_sm, grid=grid, resident=resident,
+                        smem=smem, rounds=rounds, ms=ms)) + "\n")
         best = min(times, key=times.get)
-        print(f"plane_sweep filtered_act_plane:{level} {shape}: plan P "
-              f"{plan.planes}, {plan.per_sm} an SM, grid {plan.grid}: "
-              f"{mine:.4f} ms; quickest (P, an SM) {best}: "
-              f"{times[best]:.4f} ms; all: " + ", ".join(
-                  f"{k[0]}/{k[1]} {v:.4f}" for k, v in sorted(times.items())),
-              flush=True)
-        del x, out, want
+        print(f"plane_sweep {name}:{level} {shape}: plan P {mine[0]}, "
+              f"{mine[1]} an SM, {'resident' if mine[2] else 'phased'}, "
+              f"grid {plan.grid}: {times[mine]:.4f} ms; quickest (P, an "
+              f"SM, resident) {best}: {times[best]:.4f} ms; all: "
+              + ", ".join(f"{k[0]}/{k[1]}/{'rp'[not k[2]]} {v:.4f}"
+                          for k, v in sorted(times.items())), flush=True)
+        del x, out, want, ins
         torch.cuda.empty_cache()
     if out_file:
         out_file.close()

@@ -166,8 +166,9 @@ Phases, each of which fails the run:
     error (plain at the level against plain at 'highest'), max |kernel -
     plain| at most the level's own max error; each timed beside its
     plain version and its bound (1 or 3 passes at the bf16 dense tensor
-    peak, or the bytes), K5:high also beside its TwoSum floor
-    (``twosum_floor_ms``), each shape's launch plan logged (K5's
+    peak, or the bytes), each variant at 'high' also beside its TwoSum
+    floor (``twosum_floor_ms``) and K5b:default beside its byte floor
+    (``byte_floor_ms``), each shape's launch plan logged (K5's and K5b's
     persistent grid, blocks an SM, planes an iteration and shared bytes),
     a row of its own in the kernels line; and the
     plain resamplers (``upsample_rfft`` / ``downsample_rfft``, whose
@@ -716,9 +717,12 @@ LEVEL_KERNELS = ("filtered_act_plane", "filtered_act_banded",
 # bounded loosely and the RMS tightly
 LEVEL_RMS_RATIO = 0.25
 LEVEL_PASSES = {"high": 3, "default": 1}
-# the level variants that live in a source of their own (K1's and K2's two
-# fused launches); the others are entries of their f32 kernel's source
+# the sources of the level variants: K5's and K5b's persistent walks, K1's
+# and K2's two fused launches (their f32 kernels are filtered_act.cu's)
 LEVEL_SOURCES = {
+    "filtered_act_plane": "afldm_tpu_torch/kernels/csrc/filtered_plane_mma.cu",
+    "filtered_act_plane_bwd":
+        "afldm_tpu_torch/kernels/csrc/filtered_plane_mma.cu",
     "filtered_act_banded": "afldm_tpu_torch/kernels/csrc/filtered_banded_mma.cu",
     "filtered_act_banded_bwd":
         "afldm_tpu_torch/kernels/csrc/filtered_banded_mma.cu"}
@@ -734,26 +738,36 @@ def level_bound_ms(flops, nbytes, level):
 
 
 def twosum_floor_ms(shape, name="filtered_act_plane"):
-    """The TwoSum floor of K5:high (``name`` filtered_act_plane), K1:high
-    (filtered_act_banded) or K2:high (filtered_act_banded_bwd) at
-    ``shape``: the TwoSum after every 16-deep step of its products
-    (filtered_mma.cuh::add_two_sum, 7 FP32 instructions an element a step,
-    over the products as the kernel pads them to 16), at the FP32
-    instruction rate (PEAK_F32_FLOPS / 2: an FMA is two FLOPs). Each chain
-    takes t = U_h·x (2H × W, depth H) and hi = t·U_wᵀ (2H × 2W, depth W)
-    (K2 also v = D_hᵀ·g and ds = v·D_w, of the same shapes); K5 then t₂ =
-    hi·D_wᵀ (2H × W, depth 2W) and D_h·t₂ (depth 2H), K1 lo = D_h·hi (H ×
-    2W, depth 2H) and lo·D_wᵀ (depth 2W), K2 s = U_hᵀ·m and dx = s·U_w of
-    K1's shapes."""
+    """The TwoSum floor of K5:high (``name`` filtered_act_plane), K5b:high
+    (filtered_act_plane_bwd), K1:high (filtered_act_banded) or K2:high
+    (filtered_act_banded_bwd) at ``shape``: the TwoSum after every 16-deep
+    step of its products (filtered_mma.cuh::add_two_sum, 7 FP32
+    instructions an element a step, over the products as the kernel pads
+    them to 16), at the FP32 instruction rate (PEAK_F32_FLOPS / 2: an FMA
+    is two FLOPs). Each chain takes t = U_h·x (2H × W, depth H) and hi =
+    t·U_wᵀ (2H × 2W, depth W) (K5b and K2 also v = D_hᵀ·g and ds = v·D_w,
+    of the same shapes); K5 then t₂ = hi·D_wᵀ (2H × W, depth 2W) and
+    D_h·t₂ (depth 2H), K5b s = m·U_w and dx = U_hᵀ·s of K5's shapes, K1
+    lo = D_h·hi (H × 2W, depth 2H) and lo·D_wᵀ (depth 2W), K2 s = U_hᵀ·m
+    and dx = s·U_w of K1's shapes."""
     n, c, h, w = shape
     p16 = [-(-s // 16) * 16 for s in (h, w, 2 * h, 2 * w)]
     h16, w16, h2, w2 = p16
-    down = (h2 * w16 * w2 + h16 * w16 * h2 if name == "filtered_act_plane"
+    plane = name in ("filtered_act_plane", "filtered_act_plane_bwd")
+    down = (h2 * w16 * w2 + h16 * w16 * h2 if plane
             else h16 * w2 * h2 + h16 * w16 * w2)
     up = (h2 * w16 * h16 + h2 * w2 * w16) * (
-        2 if name == "filtered_act_banded_bwd" else 1)
+        2 if name.endswith("_bwd") else 1)
     steps = (up + down) // 16
     return 1e3 * 7 * steps * n * c / (PEAK_F32_FLOPS / 2)
+
+
+def byte_floor_ms(shape):
+    """The byte floor of K5b:default at ``shape``: x and g read and dx
+    written once, f32, over the card's memory rate (the operators, read
+    once a block from L2, left out)."""
+    n, c, h, w = shape
+    return 1e3 * 12 * n * c * h * w / PEAK_BYTES
 
 
 def _level_case(torch, name, shape, dev, g):
@@ -774,7 +788,8 @@ def _level_case(torch, name, shape, dev, g):
 def level_launch_plan(name, shape, level="high"):
     """The bf16 variant's launch plan at ``shape`` and ``level`` (an f32
     x) as a log suffix: K5's persistent grid, blocks an SM, planes an
-    iteration and shared bytes; K5b's planes a block and shared bytes;
+    iteration and shared bytes; K5b's the same and whether its operators
+    are resident or staged a phase at a time;
     K1's and K2's chunks, planes a chunk, the strip rows of their up and
     down launches (their blocks and shared bytes) and the hi (K2: m)
     pieces' scratch bytes."""
@@ -785,9 +800,11 @@ def level_launch_plan(name, shape, level="high"):
         return (f"; plan grid {plan.grid} ({plan.per_sm} an SM), P "
                 f"{plan.planes} an iteration, smem {plan.smem_bytes} B")
     if name == "filtered_act_plane_bwd":
-        plan = FA.plane_mma_bwd_plan(h, w, n * c)
-        return (f"; plan P {plan.planes_per_block}, {plan.threads} threads, "
-                f"smem {plan.smem_bytes} B")
+        plan = FA.plane_mma_bwd_plan(h, w, n * c, level)
+        return (f"; plan grid {plan.grid} ({plan.per_sm} an SM), P "
+                f"{plan.planes} an iteration, operators "
+                f"{'resident' if plan.resident else 'phased'}, smem "
+                f"{plan.smem_bytes} B")
     bwd = name == "filtered_act_banded_bwd"
     plan = FA.banded_mma_plan(h, w, n * c, level, FA.BANDED_HI_BYTES, bwd)
     up, down = plan[0].tiles
@@ -878,10 +895,9 @@ def check_level_kernels(torch, report, names=LEVEL_KERNELS):
                 b, by = level_bound_ms(*work, level)
                 floor = (f", TwoSum floor "
                          f"{twosum_floor_ms(shape, name):.4f} ms"
-                         if level == "high" and name in (
-                             "filtered_act_plane", "filtered_act_banded",
-                             "filtered_act_banded_bwd")
-                         else "")
+                         if level == "high" else
+                         f", byte floor {byte_floor_ms(shape):.4f} ms"
+                         if name == "filtered_act_plane_bwd" else "")
                 log(f"check {name}:{level} {shape}: RMS ratio {ratio:.4f} "
                     f"(limit {LEVEL_RMS_RATIO}; RMS err {err_rms:.3e}, "
                     f"level's own RMS {own_rms:.3e}), max_abs_err {err:.3e} "

@@ -4,6 +4,7 @@ an edited header rebuilds every kernel; and the flash kernels, forward and
 backward, share one tile loop (``flash_tile.cuh``) instead of carrying
 copies of it."""
 
+import functools
 import importlib
 import importlib.util
 import re
@@ -234,13 +235,19 @@ def test_plane_kernel_on_the_filtered_tile():
 
 def test_level_variants_on_the_mma_routine():
     """The reduced levels' variants run on filtered_mma.cuh (ldmatrix
-    fragments, mma.sync m16n8k16 bf16, 1 or 3 passes). K5 is a persistent
-    walk: the operators staged once, the next group's x in flight by
-    cp.async, t = U_h·x and out = D_h·t₂ by strips, and the middle pair
-    fused (hi = act(t·U_wᵀ) in registers, t₂ = hi·D_wᵀ), so its layout
-    (MmaPlaneLayout) holds no 2W × 2H buffer. K5b's four products, two of
-    them fused (pre-activation and cotangent over one tile), run through
-    the warp tile on its own layout. K1 is two launches of its own source,
+    fragments, mma.sync m16n8k16 bf16, 1 or 3 passes). K5 and K5b are
+    persistent walks in their own source, filtered_plane_mma.cu. K5: the
+    operators staged once, the next group's x in flight by cp.async, t =
+    U_h·x and out = D_h·t₂ by strips, and the middle pair fused (hi =
+    act(t·U_wᵀ) in registers, t₂ = hi·D_wᵀ), so its layout
+    (MmaPlaneLayout) holds no 2W × 2H buffer. K5b: the next group's x and
+    g in flight by cp.async, the operators staged once (resident) or a
+    phase at a time; t = U_h·x and v = D_hᵀ·g by strips into shared
+    memory, the backward middle pair (pre = t·U_wᵀ and ds = v·D_w, m =
+    act′(pre) ⊙ ds in registers as the A fragment of s = m·U_w, s over t)
+    and dx = U_hᵀ·s by strips, so its layout (MmaPlaneBwdLayout) holds no
+    2W × 2H buffer either; no 16×16 warp-tile walk is left. K1 is two
+    launches of its own source,
     filtered_banded_mma.cu: the up kernel's two products (t = U_h·x split
     into shared memory, then hi = act(t·U_wᵀ) to the scratch as bf16
     pieces) and the down kernel's two (lo = D_h·hi into shared memory, then
@@ -252,29 +259,51 @@ def test_level_variants_on_the_mma_routine():
     shared memory, then dx = s·U_w), so no t, v, pre or s reach device
     memory and no f32 scratch is used; no TF32 and no wgmma anywhere."""
     src = (kernels.CSRC / "filtered_act.cu").read_text()
-    assert '#include "filtered_mma.cuh"' in src
-    k5 = _kernel_body(src, "filtered_act_plane_mma_kernel")
+    plane_src = (kernels.CSRC / "filtered_plane_mma.cu").read_text()
+    assert '#include "filtered_mma.cuh"' in plane_src
+    k5 = _kernel_body(plane_src, "filtered_act_plane_mma_kernel")
     assert k5.count("strip_product<") == 2 and k5.count("middle_pair<") == 1
     assert "mma_product" not in k5 and "split_planes<" in k5
     assert k5.count("stage_blob(") == 4 and "for (; g < groups" in k5
     assert "gridDim.x" in k5 and "stage_planes(" in k5
-    code = re.sub(r"//[^\n]*", "", src)
-    layout = code[code.index("struct MmaPlaneLayout {"):]
-    layout = layout[:layout.index("};")]
-    assert "2 * W, 2 * H" not in layout and "2 * H, 2 * W" not in layout
-    assert "MmaPlaneLayout" not in _kernel_body(
-        src, "filtered_act_plane_bwd_mma_kernel")
+    plane_code = re.sub(r"//[^\n]*", "", plane_src)
+    for struct in ("MmaPlaneLayout", "MmaPlaneBwdLayout"):
+        layout = plane_code[plane_code.index(f"struct {struct} {{"):]
+        layout = layout[:layout.index("};")]
+        assert "2 * W, 2 * H" not in layout and "2 * H, 2 * W" not in layout
+        assert "passes" in layout and "x_bytes" in layout
     mma_h = re.sub(r"//[^\n]*", "", (kernels.CSRC / "filtered_mma.cuh")
                    .read_text())
     pair = mma_h[mma_h.index("void middle_pair("):]
     pair = pair[:pair.index("\n}\n")]
     assert pair.count("strip_step<") == 2 and "act.map(v)" in pair
     assert "ldsm_x4(th[k]" in pair and "store_strip<" in pair
-    k5b = _kernel_body(src, "filtered_act_plane_bwd_mma_kernel")
-    assert k5b.count("mma_product<") == 4
-    assert k5b.count("mma_product2<") == 1
-    assert k5b.count("MulActGradToPieces{") == 1
-    assert "banded_bf16(" not in re.sub(r"//[^\n]*", "", src)
+    # K5b's middle pair: pre and ds over the strip's t and v fragments, m =
+    # act′(pre) ⊙ ds in registers, split into the A fragment of s's step,
+    # s stored once over t
+    pair = mma_h[mma_h.index("void middle_pair_bwd("):]
+    pair = pair[:pair.index("\n}\n")]
+    assert pair.count("strip_step<") == 3 and "grad.grads(m)" in pair
+    assert "m[e] = m[e] * dv[e]" in pair and "split2(m[2 * r]" in pair
+    assert pair.count("store_strip<") == 1 and "store_strip<PASSES>(t," in pair
+    for absent in ("warp_tile", "mma_product", "stage_split", "mma_buf"):
+        assert absent not in mma_h, absent
+    k5b = _kernel_body(plane_src, "filtered_act_plane_bwd_mma_kernel")
+    assert k5b.count("strip_product<") == 3
+    assert k5b.count("middle_pair_bwd<") == 1 and "MulActGrad{act}" in k5b
+    assert k5b.count("split_planes<") == 2
+    assert "for (; (long long)q * ppi < nplanes; q += gridDim.x)" in k5b
+    assert "gridDim.x" in k5b and k5b.count("stage_planes(") == 2
+    # the six operators staged once (resident) or a phase at a time
+    assert k5b.count("stage_blob(") == 12
+    assert k5b.count("store_strip<PASSES>(") == 2
+    assert "ToPlanes<T>{o, H, W, HW}" in k5b
+    code = re.sub(r"//[^\n]*", "", src)
+    for gone in ("filtered_act_plane_mma_kernel",
+                 "filtered_act_plane_bwd_mma_kernel", "MmaPlaneLayout",
+                 "MmaPlaneBwdLayout", "plane_bf16(", "plane_bwd_bf16(",
+                 "banded_bf16("):
+        assert gone not in code, gone
     k1_src = (kernels.CSRC / "filtered_banded_mma.cu").read_text()
     k1_code = re.sub(r"//[^\n]*", "", k1_src)
     assert '#include "filtered_mma.cuh"' in k1_src
@@ -337,9 +366,9 @@ def test_level_variants_on_the_mma_routine():
     gemm = re.sub(r"//[^\n]*", "", (kernels.CSRC / "filtered_gemm.cuh")
                   .read_text())
     assert "mma_bf16(" in gemm[gemm.index("filtered_gemm_mma_kernel"):]
-    code = re.sub(r"//[^\n]*", "", src)
     for absent in ("tf32", "wgmma"):
-        assert absent not in (mma + gemm + code + k1_code).lower(), absent
+        assert absent not in (mma + gemm + code + plane_code
+                              + k1_code).lower(), absent
 
 
 def _entry_points(src):
@@ -370,6 +399,8 @@ def test_every_bf16_variant_has_launch_counts():
     for k in kernels.BF16_KERNELS:
         assert k in kernels.LAUNCHES and f"{k}/bf16" in kernels.LAUNCHES
     entries = {**_entry_points((kernels.CSRC / "filtered_act.cu")
+                               .read_text()),
+               **_entry_points((kernels.CSRC / "filtered_plane_mma.cu")
                                .read_text()),
                **_entry_points((kernels.CSRC / "filtered_banded_mma.cu")
                                .read_text()),
@@ -439,15 +470,18 @@ def test_bf16_forward_walks_k_once():
 
 def test_every_level_variant_has_launch_counts():
     """One counter per kernel and reduced level, beside the f32 kernel's,
-    and an entry of its own for each in the sources: K5's, K5b's and the
-    GEMM's in filtered_act.cu, K1's and K2's in filtered_banded_mma.cu."""
+    and an entry of its own for each in the sources: K5's and K5b's in
+    filtered_plane_mma.cu, K1's and K2's in filtered_banded_mma.cu, the
+    GEMM's in filtered_act.cu."""
     entries = {src: _entry_points((kernels.CSRC / f"{src}.cu").read_text())
-               for src in ("filtered_act", "filtered_banded_mma")}
+               for src in ("filtered_act", "filtered_plane_mma",
+                           "filtered_banded_mma")}
     for k in kernels.LEVEL_KERNELS:
         assert k in kernels.LAUNCHES
         for level in ("high", "default"):
             assert f"{k}:{level}" in kernels.LAUNCHES
         src = ("filtered_banded_mma" if k.startswith("filtered_act_banded")
+               else "filtered_plane_mma" if k.startswith("filtered_act_plane")
                else "filtered_act")
         assert f"{k}_bf16" in entries[src], k
 
@@ -464,7 +498,9 @@ def test_filtered_tile_edit_rebuilds_filtered_act(tmp_path, monkeypatch):
     assert kernels._target("filtered_act") != before
 
 
+@functools.lru_cache(maxsize=None)
 def _chip_smoke():
+    """chip_smoke.py, loaded once a process (its users only read it)."""
     path = kernels.CSRC.parents[2] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("_chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
@@ -566,6 +602,33 @@ def test_chip_smoke_logs_k2_level_plan_and_floor(level):
         1.5 * smoke.twosum_floor_ms(mixed, "filtered_act_banded")
 
 
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_chip_smoke_logs_k5b_level_plan_and_floor(level):
+    """Phase 30's K5b lines: the persistent walk's plan (grid, blocks an
+    SM, planes an iteration, resident or phased operators, shared bytes)
+    at each KERNELS shape, K5b:high's TwoSum floor over its six products,
+    18·S³ multiply-adds a square plane, 1.5 times K5:high's 12·S³, and
+    K5b:default's byte floor, x and g read and dx written once."""
+    smoke = _chip_smoke()
+    for shape in smoke.KERNELS["filtered_act_plane_bwd"]["shapes"]:
+        n, c, h, w = shape
+        plan = TF.plane_mma_bwd_plan(h, w, n * c, level)
+        assert smoke.level_launch_plan("filtered_act_plane_bwd", shape,
+                                       level) == (
+            f"; plan grid {plan.grid} ({plan.per_sm} an SM), P "
+            f"{plan.planes} an iteration, operators "
+            f"{'resident' if plan.resident else 'phased'}, smem "
+            f"{plan.smem_bytes} B")
+    for shape in ((4, 512, 64, 64), (16, 192, 32, 32), (1, 3, 48, 48)):
+        k5 = smoke.twosum_floor_ms(shape)
+        k5b = smoke.twosum_floor_ms(shape, "filtered_act_plane_bwd")
+        assert abs(k5b / k5 - 1.5) < 1e-12
+    assert smoke.byte_floor_ms((4, 512, 64, 64)) == \
+        1e3 * 12 * 4 * 512 * 64 * 64 / smoke.PEAK_BYTES
+    assert smoke.LEVEL_SOURCES["filtered_act_plane_bwd"].endswith(
+        "kernels/csrc/filtered_plane_mma.cu")
+
+
 def test_chip_smoke_names_each_kernels_registers():
     """Each register or spill line of a build log goes with the kernel
     whose entry function ptxas compiled last."""
@@ -639,8 +702,8 @@ def test_profile_groups_kernel_names(name, group):
 
 BF16_BWD_ENTRIES = {
     "filtered_act": ("filtered_act_plane_bwd_f32_xbf16",
-                     "filtered_act_plane_bwd_bf16_xbf16",
                      "filtered_act_banded_bwd_f32_xbf16"),
+    "filtered_plane_mma": ("filtered_act_plane_bwd_bf16_xbf16",),
     "filtered_banded_mma": ("filtered_act_banded_bwd_bf16_xbf16",),
     "flash_bwd": ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}
 

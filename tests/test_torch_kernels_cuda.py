@@ -19,8 +19,10 @@ case's parameters (``_seeded``), so that a run, or a ``-k`` subset of it,
 draws the same values each time.
 """
 
+import hashlib
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -1118,6 +1120,164 @@ def test_plane_bwd_level_variant_matches_plain(cuda, level, shape, act):
                     lambda: TF.filtered_act_plane_bwd(x, g, act))
     assert_level_close(got, TF.filtered_act_plane_bwd_plain(x, g, act, level),
                        TF.filtered_act_plane_bwd_plain(x, g, act, "highest"))
+
+
+def _bwd_walk_planes(level, side, case):
+    """Plane counts of side × side planes for K5b's persistent walk at
+    ``level`` (``_walk_planes``' cases): one plane; one short of and one
+    past the largest grid; several planes an iteration, each block walking
+    several groups, the last one ragged."""
+    full = TF.plane_mma_bwd_plan(side, side, 1 << 20, level)
+    grid = full.per_sm * TF.NUM_SMS
+    return {"one": 1, "grid-1": grid - 1, "grid+1": grid + 1,
+            "several": 3 * full.planes * grid + 5}[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side, case", [
+    (64, "one"), (64, "grid-1"), (64, "grid+1"), (32, "several"),
+    (8, "several"), (4, "several")])
+def test_plane_bwd_level_persistent_walk(cuda, level, side, case):
+    """K5b's bf16 variant walks its planes in persistent blocks (the next
+    group's x and g in flight, the operators resident or phased): fewer
+    groups than the largest grid, one more, and a plane count that is not a
+    multiple of P give the plain version at the level."""
+    n = _bwd_walk_planes(level, side, case)
+    plan = TF.plane_mma_bwd_plan(side, side, n, level)
+    groups = -(-n // plan.planes)
+    assert plan.grid == min(groups, plan.per_sm * TF.NUM_SMS)
+    assert (groups > plan.grid) == (case in ("grid+1", "several"))
+    assert (n % plan.planes != 0) == (case == "several")
+    gen = _seeded(cuda, (level, side, case, "bwd"))
+    x, g = (torch.randn((1, n, side, side), device=cuda, generator=gen)
+            for _ in range(2))
+    got = _launches(f"filtered_act_plane_bwd:{level}",
+                    lambda: TF.filtered_act_plane_bwd(x, g, "silu"))
+    assert_level_close(got, TF.filtered_act_plane_bwd_plain(x, g, "silu",
+                                                            level),
+                       TF.filtered_act_plane_bwd_plain(x, g, "silu",
+                                                       "highest"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plane_bwd_level_zero_planes(cuda, level, dtype):
+    """0 planes: an empty dx and no launch."""
+    x = torch.empty((0, 4, 64, 64), device=cuda, dtype=dtype)
+    key = f"filtered_act_plane_bwd:{level}" + (
+        "/bf16" if dtype == torch.bfloat16 else "")
+    before = kernels.LAUNCHES[key]
+    dx = TF.filtered_act_plane_bwd(x, x, "silu")
+    assert dx.shape == x.shape and kernels.LAUNCHES[key] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 64, 64), (1, 6, 20, 12)])
+def test_plane_bwd_level_takes_a_strided_cotangent(cuda, level, shape):
+    """Through autograd the cotangent of K5's level variant arrives
+    strided (here transposed); K5b's level variant takes its contiguous
+    copy and gives the plain version at the level."""
+    gen = _seeded(cuda, (level, shape, "strided"))
+    x = torch.randn(shape, device=cuda, generator=gen).requires_grad_()
+    w = torch.randn(shape[:2] + shape[:1:-1], device=cuda, generator=gen)
+    y = TF.filtered_act_plane(x, "silu")
+    g = w.transpose(2, 3)
+    assert not g.is_contiguous()
+    before = kernels.LAUNCHES[f"filtered_act_plane_bwd:{level}"]
+    (y.transpose(2, 3) * w).sum().backward()
+    assert kernels.LAUNCHES[f"filtered_act_plane_bwd:{level}"] == before + 1
+    x0 = x.detach()
+    assert_level_close(x.grad, TF.filtered_act_plane_bwd_plain(
+        x0, g, "silu", level), TF.filtered_act_plane_bwd_plain(
+            x0, g, "silu", "highest"))
+
+
+# K5b's level variants' outputs on inputs drawn with numpy from a seed of
+# the case (torch's CUDA generator plays no part): the SHA-256 of dx's
+# bytes, recorded on an H100 from K5b's first bf16 form (a 16×16 tile walk
+# of five products through shared memory), which the persistent walk gives
+# bit for bit. Shapes: 64 px (phased operators), 32, 8 and 4 px (resident),
+# mixed sides.
+K5B_LEVEL_SHAPES = ((2, 8, 64, 64), (1, 40, 32, 32), (1, 300, 4, 4),
+                    (2, 5, 8, 8), (1, 7, 4, 64), (1, 4, 12, 20))
+K5B_LEVEL_DIGESTS = {
+    ('high', 'float32', (2, 8, 64, 64)):
+        'b863d7f53e92410a5d30c8476322ff1c1a7110acff137a376ebf3722b8c4b862',
+    ('high', 'float32', (1, 40, 32, 32)):
+        'bf5464aa8e42d7a04f5d65e11db0853e232bc3cf8b49cb6bbefe046762dca9e4',
+    ('high', 'float32', (1, 300, 4, 4)):
+        '2e6f06d0286f13ab7f996ebea98d117c820d198231f739c8fa2e4753ea516675',
+    ('high', 'float32', (2, 5, 8, 8)):
+        '4c2d761713ad63ccc4733e34ca7eac1a53ff5163e9b1e073611738c387c25e03',
+    ('high', 'float32', (1, 7, 4, 64)):
+        '83d1184ff2465fa728b3ee7697a4b4f1435a6e1fc22cdb9878c3c1e3c14956ac',
+    ('high', 'float32', (1, 4, 12, 20)):
+        '2b444542ac62c5c696016634d8c45b344168b309c0f4b0c00c9ff2b36351f6db',
+    ('high', 'bfloat16', (2, 8, 64, 64)):
+        'c2ae41ef0f7815665ab54dd227efa1ddf7288a608b8577206fb475fdecfe2945',
+    ('high', 'bfloat16', (1, 40, 32, 32)):
+        'f2d5490d5523444e5366bcad121040bdeee30937040d0b7c3b3941e7e4cd239b',
+    ('high', 'bfloat16', (1, 300, 4, 4)):
+        'c29f3fc4c90c336811df40e21b52718921926e2bd91523369c75bf799515c3a7',
+    ('high', 'bfloat16', (2, 5, 8, 8)):
+        '51dc970142ebcf8efb2a81afcdb2c68cf5f0b8660839bb59ede6cd09491712f9',
+    ('high', 'bfloat16', (1, 7, 4, 64)):
+        '784ba3db837b07fb2789014acb65e4c6df64f9b0fc888abc718e9882713b3cec',
+    ('high', 'bfloat16', (1, 4, 12, 20)):
+        'aa5a57d64a0c4f3770c36be29ec8281c9c6f1c012ef2ba0e9def7eab67d3a688',
+    ('default', 'float32', (2, 8, 64, 64)):
+        '79efbcafdf3147373906d8ba7436e894cf843b473aff41172dcda0a152696c18',
+    ('default', 'float32', (1, 40, 32, 32)):
+        '509f67a20a13b37e55f64b8d67c603bfd90c14e1cafe95ad2efdedea551da1b9',
+    ('default', 'float32', (1, 300, 4, 4)):
+        '4964906169f2c0c0698d0e53bff2d7c41b4d0f9f274b3c2c3a286ca5e30cdc9b',
+    ('default', 'float32', (2, 5, 8, 8)):
+        '5ed375897ba13c5bd02230b784ae4e01690cba8e40b15002b0a114a156042bb8',
+    ('default', 'float32', (1, 7, 4, 64)):
+        '2bfffce17964cc859bb326ef9eff18ba40f5af04b99d435d7150739d5150c453',
+    ('default', 'float32', (1, 4, 12, 20)):
+        '84e9c669d7342eb2b762a776bd3dc6a29bae1b07f35c42f5ba89c618648e7386',
+    ('default', 'bfloat16', (2, 8, 64, 64)):
+        '8b28bf99dd93ebb68fb7e5ecfc35ca4ebd7d3789e71d1c59545653bbbc531f6e',
+    ('default', 'bfloat16', (1, 40, 32, 32)):
+        '3d29f4c206115001aa1388e1e4dc5716af471571253ae083c659049c4b5c24c3',
+    ('default', 'bfloat16', (1, 300, 4, 4)):
+        '2f9b9d9672239cafe72d4399679031da852802928829264fe613d4a80e051390',
+    ('default', 'bfloat16', (2, 5, 8, 8)):
+        'b6ee081adf3abb33d55ab291b8b9642239b22c287de22139f2db59a664fedd16',
+    ('default', 'bfloat16', (1, 7, 4, 64)):
+        '68ed2be149695b2e3b987fed6f1da669ba09f6b2a4ce983f6da28548274c47c2',
+    ('default', 'bfloat16', (1, 4, 12, 20)):
+        '1164328b96fddc5d22b1e707bc7a9cf11eb9cd901e9e4638b2494d3b4cb6ff06',
+}
+
+
+def k5b_level_digest(level, dtype, shape, device):
+    """The SHA-256 of K5b's dx at ``level`` for a ``dtype`` ("float32" or
+    "bfloat16") x and g drawn with numpy from a seed of the case."""
+    from afldm_tpu_torch.ops import set_af_precision
+    rng = np.random.default_rng(zlib.crc32(repr(("k5b", level, dtype,
+                                                 shape)).encode()))
+    x, g = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(device).to(getattr(torch, dtype)) for _ in range(2))
+    set_af_precision(level)
+    try:
+        dx = TF.filtered_act_plane_bwd(x, g, "silu")
+        torch.cuda.synchronize()
+    finally:
+        set_af_precision("highest")
+    return hashlib.sha256(dx.cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K5B_LEVEL_SHAPES)
+def test_plane_bwd_level_outputs_are_recorded(cuda, level, dtype, shape):
+    """K5b at a level gives the recorded bits: a change of its sums' order
+    cannot pass unseen."""
+    assert k5b_level_digest(level, dtype, shape, cuda) == \
+        K5B_LEVEL_DIGESTS[(level, dtype, shape)]
 
 
 @pytest.mark.cuda

@@ -357,37 +357,31 @@ def test_shift_cli_takes_the_level(level, capsys):
 @pytest.mark.parametrize("nplanes", [1, 7, 192, 24576])
 def test_plane_mma_plan_fits_every_plane_size(bwd, nplanes):
     """Every H, W % 4 == 0 up to 64 px gets a plan within the block's
-    shared memory. K5b (``plane_mma_bwd_plan``, filtered_act.cu::
-    MmaPlaneBwdLayout): 1 <= P <= the planes and a grid of a wave where
-    the planes allow it. K5 at both levels and both x dtypes
-    (``plane_mma_plan``, MmaPlaneLayout): 1 <= P an iteration <= the
-    planes, a persistent grid of at most the blocks an SM holds (by
+    shared memory, at both levels and both x dtypes: 1 <= P an iteration
+    <= the planes, a persistent grid of at most the blocks an SM holds (by
     shared memory and the level's registers) × the SMs, and never more
-    blocks than groups."""
-    for H in range(4, TF.PLANE_MAX + 1, 4):
-        for W in (4, 12, 20, 32, 64):
+    blocks than groups. K5 (``plane_mma_plan``, filtered_plane_mma.cu::
+    MmaPlaneLayout) at five widths; K5b (``plane_mma_bwd_plan``,
+    MmaPlaneBwdLayout) at every width, its shared bytes the layout's count
+    for the plan's operators, resident or phased."""
+    widths = range(4, TF.PLANE_MAX + 1, 4) if bwd else (4, 12, 20, 32, 64)
+    for H, W in itertools.product(range(4, TF.PLANE_MAX + 1, 4), widths):
+        for lev, x_bytes in itertools.product(("high", "default"), (4, 2)):
             if bwd:
-                plan = TF.plane_mma_bwd_plan(H, W, nplanes)
-                assert 1 <= plan.planes_per_block <= nplanes
-                assert plan.smem_bytes == TF.plane_mma_bwd_smem_bytes(
-                    H, W, plan.planes_per_block)
-                assert plan.smem_bytes <= TF.SMEM_MAX_BYTES
-                assert plan.threads == TF.MMA_THREADS and plan.tiles == ()
-                blocks = -(-nplanes // plan.planes_per_block)
-                assert blocks >= min(nplanes, TF.NUM_SMS - 1)
-                continue
-            for lev, x_bytes in itertools.product(("high", "default"),
-                                                  (4, 2)):
+                plan = TF.plane_mma_bwd_plan(H, W, nplanes, lev, x_bytes)
+                smem = TF.plane_mma_bwd_smem_bytes(
+                    H, W, plan.planes, lev, x_bytes, plan.resident)
+            else:
                 plan = TF.plane_mma_plan(H, W, nplanes, lev, x_bytes)
-                assert 1 <= plan.planes <= nplanes
-                assert plan.smem_bytes == TF.plane_mma_smem_bytes(
-                    H, W, plan.planes, lev, x_bytes)
-                assert plan.smem_bytes <= TF.SMEM_MAX_BYTES
-                held = TF.SMEM_SM_BYTES // (plan.smem_bytes
-                                            + TF.SMEM_BLOCK_RESERVED)
-                assert plan.per_sm == min(held, TF.K5_MMA_BLOCKS[lev]) >= 1
-                groups = -(-nplanes // plan.planes)
-                assert plan.grid == min(groups, plan.per_sm * TF.NUM_SMS)
+                smem = TF.plane_mma_smem_bytes(H, W, plan.planes, lev,
+                                               x_bytes)
+            assert 1 <= plan.planes <= nplanes
+            assert plan.smem_bytes == smem <= TF.SMEM_MAX_BYTES
+            held = TF.SMEM_SM_BYTES // (plan.smem_bytes
+                                        + TF.SMEM_BLOCK_RESERVED)
+            assert plan.per_sm == min(held, TF.K5_MMA_BLOCKS[lev]) >= 1
+            groups = -(-nplanes // plan.planes)
+            assert plan.grid == min(groups, plan.per_sm * TF.NUM_SMS)
 
 
 @pytest.mark.parametrize("H, W", [(64, 64), (32, 32), (4, 4), (12, 20),
@@ -413,6 +407,43 @@ def test_plane_mma_default_layout_holds_hi_pieces_only(H, W):
         assert (high, default) == (215040, 115712)
         assert default <= TF.SMEM_TWO_BLOCKS_BYTES
         assert TF.plane_mma_plan(H, W, 8192, "default").per_sm == 2
+
+
+@pytest.mark.parametrize("H, W", [(64, 64), (32, 32), (4, 4), (12, 20),
+                                  (4, 64), (64, 4)])
+def test_plane_mma_bwd_default_layout_holds_hi_pieces_only(H, W):
+    """K5b's block at 'default' holds one bf16 piece of every operand (the
+    first half of each ``_mma_blobs`` blob, x's, g's, t's and v's) where
+    'high' holds two, beside the same raw x and g: the resident block's
+    pieces halve, and so does a phased block's operator region. At 64 px
+    the phased 'default' block runs two an SM (an f32 x: 108,544 bytes,
+    'high' 217,088), where the six operators' 106,496 bytes of hi pieces
+    alone leave no room for a second resident block."""
+    raw = 2 * H * W * 4
+    high, default = (TF.plane_mma_bwd_smem_bytes(H, W, 1, lev)
+                     for lev in ("high", "default"))
+    ops = (2 * TF.mma_piece(H, 2 * H) + 2 * TF.mma_piece(W, 2 * W)
+           + TF.mma_piece(2 * W, W) + TF.mma_piece(2 * H, H))
+    pieces = ops + 2 * TF.mma_piece(H, W) + 2 * TF.mma_piece(2 * H, W)
+    assert default - raw == 2 * pieces
+    assert high - raw == 2 * (default - raw)
+    blobs = TF._mma_blobs(H, W, "cpu", True)
+    assert sum(b[0].numel() for b in blobs) == ops
+    high, default = (TF.plane_mma_bwd_smem_bytes(H, W, 1, lev,
+                                                 resident=False)
+                     for lev in ("high", "default"))
+    planes = 2 * (TF.mma_piece(H, W) + TF.mma_piece(2 * H, W))
+    for k, got in ((2, high), (1, default)):  # pieces an operand
+        assert got == 2 * (k * planes + max(
+            2 * k * TF.mma_piece(H, 2 * H),
+            k * (2 * TF.mma_piece(W, 2 * W) + TF.mma_piece(2 * W, W)),
+            k * TF.mma_piece(2 * H, H) + raw // 2))
+    if (H, W) == (64, 64):
+        assert (high, default) == (217088, 108544)
+        assert 2 * ops == 106496
+        assert default <= TF.SMEM_TWO_BLOCKS_BYTES
+        assert TF.plane_mma_bwd_plan(H, W, 8192, "default").per_sm == 2
+        assert not TF.plane_mma_bwd_plan(H, W, 8192, "high").resident
 
 
 def test_mma_blob_is_the_padded_split():
